@@ -1,16 +1,23 @@
-"""XQ-GAN tokenizer, inference round trip (counterpart of
+"""XQ-GAN tokenizer, inference (counterpart of
 ``imagefolder_tpu/models/tokenizer.py``).
 
-encoder -> quant_conv (1x1) -> single-scale VQ -> post_quant_conv (1x1) ->
-decoder, with DINOv2 ViT encoder and decoder. NHWC images in [-1, 1] and
-token-major latents at the public functions, as in the JAX package.
-``quant_conv`` and ``post_quant_conv`` are 1x1 convs in the upstream state
-dict and are applied as channel-last linear maps in fp32.
+encoder -> quant_conv (1x1) -> P quantizer branches -> post_quant_conv (1x1)
+-> decoder, with DINOv2 ViT encoder and decoder. A single ``v_patch_nums``
+entry builds the single-scale VQ (the round trip); more build the
+multi-scale residual VQ that VAR's tokenizers use, with the VAR interface
+(``img_to_idxBl``, ``idxBl_to_var_input``, ``get_next_autoregressive_input``,
+``embed_branch``, ``soft_embed_branch``, ``fhat_to_img``). ``product_quant``
+> 1 splits the latents into P branches, each with its own quantizer
+(``quantizes.{i}`` in the upstream state dict; ``quantize`` when P = 1).
+NHWC images in [-1, 1] and token-major latents at the public functions, as
+in the JAX package. ``quant_conv`` and ``post_quant_conv`` are 1x1 convs in
+the upstream state dict and are applied as channel-last linear maps in fp32.
 
 Outside the ported slice (raise ``NotImplementedError``): cnn encoders and
-decoders, multi-scale and LFQ quantizers, product quantization, the semantic
-and detail teachers, LoRA, RoPE, non-linear ToPixel heads, and latent grids
-other than the patch grid.
+decoders, LFQ/BSQ quantizers, the semantic and detail teachers (they feed
+only training losses; run a published config with ``semantic_guide="none"``
+at inference, as ``bench.py`` does), LoRA, RoPE, learned latent pos embeds
+and non-linear ToPixel heads.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagefolder_tpu_torch.models.vit import LatentDecoder, LatentEncoder
-from imagefolder_tpu_torch.ops.quantize import SingleVQ
+from imagefolder_tpu_torch.ops.quantize import MultiScaleVQ, SingleVQ
 from imagefolder_tpu_torch.utils.init import linear_kaiming_uniform_
 
 __all__ = ["ModelArgs", "VQModel", "check_slice"]
@@ -99,9 +106,7 @@ def check_slice(cfg: ModelArgs):
     """Raise NotImplementedError for a configuration outside the port."""
     unported = {
         "cnn encoder/decoder": cfg.enc_type != "dinov2" or cfg.dec_type != "dinov2",
-        "multi-scale quantizer": len(cfg.v_patch_nums) != 1,
         "LFQ quantizer": cfg.lfq,
-        "product quantization": cfg.product_quant != 1,
         "semantic/detail teachers": (cfg.semantic_guide != "none"
                                      or cfg.detail_guide != "none"),
         "abs_pos_embed=False": not cfg.abs_pos_embed,
@@ -129,7 +134,12 @@ class Conv1x1(nn.Module):
 
 
 class VQModel(nn.Module):
-    def __init__(self, config: ModelArgs, *, generator: Optional[torch.Generator] = None):
+    """Parameters are drawn on the CPU from ``generator`` (so that every
+    device gets the same weights) and then moved to ``device``, the card
+    unless the caller asks for the CPU."""
+
+    def __init__(self, config: ModelArgs, *, generator: Optional[torch.Generator] = None,
+                 device: torch.device | str = "cuda"):
         super().__init__()
         check_slice(config)
         cfg = self.config = config
@@ -144,14 +154,28 @@ class VQModel(nn.Module):
             cfg.decoder_model, cfg.image_size, 16, cfg.num_latent_tokens,
             cfg.abs_pos_embed, cfg.to_pixel, cfg.dec_tuning_method,
             dtype=dt, generator=generator)
-        self.post_quant_conv = Conv1x1(cfg.codebook_embed_dim, self.decoder.embed_dim,
-                                       generator)
-        self.quantize = SingleVQ(cfg.codebook_size, cfg.codebook_embed_dim,
-                                 cfg.codebook_l2_norm, generator=generator)
+        self.post_quant_conv = Conv1x1(cfg.codebook_embed_dim * cfg.product_quant,
+                                       self.decoder.embed_dim, generator)
+        quantizers = [self._make_quantizer(generator) for _ in range(cfg.product_quant)]
+        if cfg.product_quant > 1:
+            self.quantizes = nn.ModuleList(quantizers)
+        else:
+            self.quantize = quantizers[0]
+        self.to(device)
+
+    def _make_quantizer(self, generator):
+        cfg = self.config
+        if len(cfg.v_patch_nums) == 1:
+            return SingleVQ(cfg.codebook_size, cfg.codebook_embed_dim,
+                            cfg.codebook_l2_norm, generator=generator)
+        # the JAX package builds the multi-scale VQ with a cosine search always
+        return MultiScaleVQ(cfg.codebook_size, cfg.codebook_embed_dim,
+                            tuple(cfg.v_patch_nums), using_znorm=True,
+                            share_quant_resi=cfg.share_quant_resi, generator=generator)
 
     @property
     def quantizers(self):
-        return (self.quantize,)
+        return tuple(self.quantizes) if self.config.product_quant > 1 else (self.quantize,)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC image -> pre-quant latent grids (B, P, g, g, C_codebook), fp32."""
@@ -172,23 +196,57 @@ class VQModel(nn.Module):
                 for i, qz in enumerate(self.quantizers)]
 
     def img_to_reconstructed_img(self, x: torch.Tensor, last_one: bool = True):
-        """Greedy encode + decode, clamped to [-1, 1]."""
+        """Greedy encode + decode, clamped to [-1, 1]; with ``last_one=False``
+        one image per scale."""
         per_scale = [torch.cat(fs, dim=-1) for fs in zip(*self._branch_fhats(x))]
         if last_one:
             return self.fhat_to_img(per_scale[-1])
         return [self.fhat_to_img(f) for f in per_scale]
 
     def img_to_idxBl(self, x: torch.Tensor, v_patch_nums=None) -> List[List[torch.Tensor]]:
-        """Per-branch, per-scale token indices."""
+        """Per-branch, per-scale token indices [P][S] of (B, pn*pn)."""
         h_P = self.encode(x)
         return [qz.f_to_idxBl_or_fhat(h_P[:, i], False, v_patch_nums)
                 for i, qz in enumerate(self.quantizers)]
+
+    def idxBl_to_var_input(self, gt_idx_Bl_P: Sequence[Sequence[torch.Tensor]],
+                           prog_si: int = -1) -> Optional[torch.Tensor]:
+        """Per-branch teacher-forcing inputs concatenated on channels,
+        (B, L - first_l, P*C); None for ``prog_si == 0`` (sos only)."""
+        if prog_si == 0:
+            return None
+        return torch.cat([qz.idxBl_to_var_input(gt_idx_Bl_P[i], prog_si)
+                          for i, qz in enumerate(self.quantizers)], dim=-1)
+
+    def get_next_autoregressive_input(self, si: int, sn: int, f_hat: torch.Tensor,
+                                      h_BHWC: torch.Tensor):
+        """One VAR decode stage, branch by branch on channel chunks of
+        C_codebook. Returns (f_hat, next token map), both (B, ., ., P*C)."""
+        c = self.config.codebook_embed_dim
+        f_outs, n_outs = [], []
+        for i, qz in enumerate(self.quantizers):
+            fo, no = qz.get_next_autoregressive_input(
+                si, sn, f_hat[..., i * c:(i + 1) * c], h_BHWC[..., i * c:(i + 1) * c])
+            f_outs.append(fo)
+            n_outs.append(no)
+        return torch.cat(f_outs, dim=-1), torch.cat(n_outs, dim=-1)
 
     def fhat_to_img(self, f_hat: torch.Tensor) -> torch.Tensor:
         return self.decode(f_hat).clamp(-1.0, 1.0)
 
     def embed_branch(self, i: int, idx: torch.Tensor, si: Optional[int] = None):
+        """Codes of branch i -> their embeddings (``si`` matters to LFQ only)."""
         return self.quantizers[i].embed(idx)
+
+    def soft_embed_branch(self, i: int, probs: torch.Tensor) -> torch.Tensor:
+        """``more_smooth`` mixture embedding: a (B, l, V) code distribution
+        times branch i's codebook (L2-normalised for a normed single-scale
+        VQ) instead of a hard lookup."""
+        qz = self.quantizers[i]
+        cb = qz.embedding.weight.float()
+        if getattr(qz, "codebook_norm", False):
+            cb = cb / (torch.linalg.vector_norm(cb, dim=-1, keepdim=True) + 1e-12)
+        return probs.float() @ cb
 
     def encode_to_tokens(self, x: torch.Tensor) -> torch.Tensor:
         """Image -> flat (B, P*g*g) final-scale indices."""

@@ -1,10 +1,11 @@
 """DINOv2-style ViT encoder/decoder with learned latent tokens
 (counterpart of ``imagefolder_tpu/models/vit.py``).
 
-Ported: the LayerScale ``Block`` on its sublayer path, ``ViTBackbone`` at its
-native grid, the ``linear`` ``ToPixel`` head, and ``LatentEncoder`` /
-``LatentDecoder`` with absolute position embeddings. Module and parameter
-names follow the upstream torch layout that
+Ported: the LayerScale ``Block`` on its sublayer path, ``ViTBackbone`` with
+its pos embed resampled to any square latent grid (``bicubic_aa``, as timm),
+the ``linear`` ``ToPixel`` head, and ``LatentEncoder`` (product
+quantization included) / ``LatentDecoder`` with absolute position
+embeddings. Module and parameter names follow the upstream torch layout that
 ``imagefolder_tpu/utils/convert_torch.py::export_vqmodel`` writes, so its
 state dicts load with ``strict=True``. Public functions keep the JAX
 package's NHWC / token-major layouts.
@@ -24,12 +25,8 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from imagefolder_tpu_torch.ops.cuda.block import attn_sublayer, mlp_sublayer
-from imagefolder_tpu_torch.utils.init import (
-    lecun_normal_,
-    linear_kaiming_uniform_,
-    normal_,
-    trunc_normal_,
-)
+from imagefolder_tpu_torch.ops.resize import resize
+from imagefolder_tpu_torch.utils.init import lecun_normal_, linear, normal_, trunc_normal_
 
 __all__ = ["ViTBackbone", "LatentEncoder", "LatentDecoder", "ToPixel",
            "VIT_PRESETS"]
@@ -44,15 +41,6 @@ VIT_PRESETS = {
         embed_dim=768, depth=12, num_heads=12, init_values=None, pre_norm=True
     ),
 }
-
-
-def _linear(din: int, dout: int, generator: Optional[torch.Generator]) -> nn.Linear:
-    """nn.Linear with the flax Dense init the JAX package uses: torch-default
-    kaiming-uniform weight, zero bias."""
-    lin = skip_init(nn.Linear, din, dout)
-    linear_kaiming_uniform_(lin.weight, din, generator)
-    nn.init.zeros_(lin.bias)
-    return lin
 
 
 class LayerNorm(nn.LayerNorm):
@@ -78,8 +66,8 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.qkv = _linear(dim, 3 * dim, generator)
-        self.proj = _linear(dim, dim, generator)
+        self.qkv = linear(dim, 3 * dim, generator)
+        self.proj = linear(dim, dim, generator)
 
 
 class Mlp(nn.Module):
@@ -88,8 +76,8 @@ class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.fc1 = _linear(dim, hidden, generator)
-        self.fc2 = _linear(hidden, dim, generator)
+        self.fc1 = linear(dim, hidden, generator)
+        self.fc2 = linear(hidden, dim, generator)
 
 
 class Block(nn.Module):
@@ -177,14 +165,26 @@ class ViTBackbone(nn.Module):
         proj = self.patch_embed.proj
         return F.linear(x, proj.weight.to(self.dtype).flatten(1)) + proj.bias.to(self.dtype)
 
-    def pos_embed_tokens(self, x: torch.Tensor, keep_cls: bool = True) -> torch.Tensor:
-        """Prepend the cls token and add the pos embed at the native grid. fp32."""
-        if x.shape[1] != self.num_patches:
-            raise NotImplementedError(
-                f"{x.shape[1]} tokens on a {self.grid}x{self.grid} grid: resampling "
-                "the pos embed to another grid (ops/resize.py) is not ported")
+    def resampled_pos_embed(self, grid_hw: tuple[int, int]) -> torch.Tensor:
+        """timm resample_abs_pos_embed parity: the patch part of the pos embed
+        resized to ``grid_hw`` with antialiased bicubic, the cls entry kept
+        as it is. (1, 1 + h*w, D) fp32."""
+        pe = self.pos_embed.float()
+        g = self.grid
+        if tuple(grid_hw) == (g, g):
+            return pe
+        patch = resize(pe[:, 1:].reshape(1, g, g, -1), grid_hw, "bicubic_aa")
+        return torch.cat([pe[:, :1], patch.reshape(1, grid_hw[0] * grid_hw[1], -1)], dim=1)
+
+    def pos_embed_tokens(self, x: torch.Tensor, grid_hw: Optional[tuple[int, int]] = None,
+                         keep_cls: bool = True) -> torch.Tensor:
+        """Prepend the cls token and add the pos embed, resampled to
+        ``grid_hw`` when given (else the native grid). fp32."""
+        pe = self.pos_embed.float() if grid_hw is None else self.resampled_pos_embed(grid_hw)
+        if x.shape[1] + 1 != pe.shape[1]:
+            raise ValueError(f"{x.shape[1]} tokens for a pos embed of {pe.shape[1] - 1}")
         cls = self.cls_token.float().expand(x.shape[0], 1, -1)
-        x = torch.cat([cls, x.float()], dim=1) + self.pos_embed.float()
+        x = torch.cat([cls, x.float()], dim=1) + pe
         return x if keep_cls else x[:, 1:]
 
     def run_blocks(self, x: torch.Tensor,
@@ -209,13 +209,10 @@ def _backbone_kwargs(model_name: str, img_size: int, patch_size: int,
                 pre_norm=preset.get("pre_norm", False), dtype=dtype)
 
 
-def _check_latent_grid(num_latent_tokens: int, img_size: int, patch_size: int) -> int:
+def _latent_grid(num_latent_tokens: int) -> int:
     g = math.isqrt(num_latent_tokens)
-    if g * g != num_latent_tokens or g != img_size // patch_size:
-        raise NotImplementedError(
-            f"{num_latent_tokens} latent tokens on a {img_size // patch_size}^2 patch "
-            "grid: a latent grid other than the patch grid needs ops/resize.py, "
-            "which is not ported")
+    if g * g != num_latent_tokens:
+        raise ValueError(f"{num_latent_tokens} latent tokens do not make a square grid")
     return g
 
 
@@ -226,7 +223,10 @@ def _check_tuning(tuning_method: str):
 
 class LatentEncoder(nn.Module):
     """ViT over [cls, patches, latent tokens]; returns the trailing latent
-    tokens (B, nl, D) in the activation dtype. ``use_attn_mask`` adds the
+    tokens (B, nl, D) in the activation dtype. ``num_latent_tokens`` is the
+    total over the ``product_quant`` branches: each branch's latents get the
+    pos embed resampled to their own square grid and a level embedding of
+    their own (ids 1..P; 0 for cls and patches). ``use_attn_mask`` adds the
     shared -inf bias that keeps prefix and image tokens from attending to the
     latents."""
 
@@ -237,13 +237,14 @@ class LatentEncoder(nn.Module):
                  use_attn_mask: bool = False, dtype: torch.dtype = torch.float32, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if product_quant != 1:
-            raise NotImplementedError("product_quant > 1 is not ported")
         if not abs_pos_embed:
             raise NotImplementedError("abs_pos_embed=False is not ported")
         _check_tuning(tuning_method)
-        _check_latent_grid(num_latent_tokens, img_size, patch_size)
+        if num_latent_tokens % product_quant:
+            raise ValueError(f"{num_latent_tokens} latents over {product_quant} branches")
+        self.branch_grid = _latent_grid(num_latent_tokens // product_quant)
         self.num_latent_tokens = num_latent_tokens
+        self.product_quant = product_quant
         self.use_attn_mask = use_attn_mask
         self.model = ViTBackbone(**_backbone_kwargs(model_name, img_size, patch_size, dtype),
                                  generator=generator)
@@ -256,11 +257,14 @@ class LatentEncoder(nn.Module):
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         m = self.model
         nl = self.num_latent_tokens
-        x = m.pos_embed_tokens(m.patchify(img))  # (B, 1+N, D) fp32
-        z = self.latent_tokens.float().expand(img.shape[0], -1, -1)
-        x = torch.cat([x, m.pos_embed_tokens(z, keep_cls=False)], dim=1)
+        g = self.branch_grid
         lvl = self.lvl_embed.weight.float()
-        x = torch.cat([x[:, :-nl] + lvl[0], x[:, -nl:] + lvl[1]], dim=1)
+        x = m.pos_embed_tokens(m.patchify(img)) + lvl[0]  # (B, 1+N, D) fp32
+        z = self.latent_tokens.float().expand(img.shape[0], -1, -1)
+        pieces = [x]
+        for i, zi in enumerate(z.chunk(self.product_quant, dim=1)):
+            pieces.append(m.pos_embed_tokens(zi, grid_hw=(g, g), keep_cls=False) + lvl[i + 1])
+        x = torch.cat(pieces, dim=1)
         mask = None
         if self.use_attn_mask:
             total = x.shape[1]
@@ -282,7 +286,7 @@ class ToPixel(nn.Module):
         if mode != "linear":
             raise NotImplementedError(f"to_pixel mode {mode!r} is not ported")
         self.img_size, self.patch_size, self.channels = img_size, patch_size, channels
-        self.model = _linear(embed_dim, channels * patch_size * patch_size, generator)
+        self.model = linear(embed_dim, channels * patch_size * patch_size, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, L, D)
         p = self.patch_size
@@ -307,7 +311,7 @@ class LatentDecoder(nn.Module):
         if not abs_pos_embed:
             raise NotImplementedError("abs_pos_embed=False is not ported")
         _check_tuning(tuning_method)
-        _check_latent_grid(num_latent_tokens, img_size, patch_size)
+        self.grid = _latent_grid(num_latent_tokens)
         self.num_latent_tokens = num_latent_tokens
         self.model = ViTBackbone(**_backbone_kwargs(model_name, img_size, patch_size, dtype),
                                  patch_embed=False, generator=generator)
@@ -323,7 +327,7 @@ class LatentDecoder(nn.Module):
         x = self.mask_token.float().expand(z.shape[0], m.num_patches, -1)
         x = m.pos_embed_tokens(x)  # (B, 1+N, D)
         # reference quirk: cls is prepended to the latent stream and kept
-        z = m.pos_embed_tokens(z.float(), keep_cls=True)
+        z = m.pos_embed_tokens(z.float(), grid_hw=(self.grid, self.grid), keep_cls=True)
         lvl = self.lvl_embed.weight.float()
         x = torch.cat([x + lvl[0], z + lvl[1]], dim=1)
         x = m.run_blocks(x)[:, 1:m.num_patches + 1]  # image-position outputs

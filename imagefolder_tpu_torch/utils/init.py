@@ -10,8 +10,10 @@ import math
 from typing import Optional
 
 import torch
+from torch import nn
+from torch.nn.utils import skip_init
 
-__all__ = ["linear_kaiming_uniform_", "lecun_normal_", "normal_",
+__all__ = ["linear", "linear_kaiming_uniform_", "lecun_normal_", "normal_",
            "trunc_normal_", "uniform_"]
 
 
@@ -48,3 +50,14 @@ def lecun_normal_(t: torch.Tensor, fan_in: int,
     # std of a unit normal truncated at +-2, as jax.nn.initializers.variance_scaling
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     return trunc_normal_(t, std, generator)
+
+
+def linear(din: int, dout: int, generator: Optional[torch.Generator] = None,
+           bias: bool = True) -> nn.Linear:
+    """nn.Linear with the flax Dense init the JAX package uses: torch-default
+    kaiming-uniform weight, zero bias."""
+    lin = skip_init(nn.Linear, din, dout, bias=bias)
+    linear_kaiming_uniform_(lin.weight, din, generator)
+    if bias:
+        nn.init.zeros_(lin.bias)
+    return lin

@@ -58,7 +58,7 @@ def _build(**kw):
     jm = JaxVQModel(_margs(JaxArgs, **kw))
     params = jm.init(jax.random.PRNGKey(0), jnp.asarray(img), train=False)["params"]
     params = _excite_layerscale(jax.tree_util.tree_map(np.asarray, params), rng)
-    pm = PtVQModel(_margs(PtArgs, **kw))
+    pm = PtVQModel(_margs(PtArgs, **kw), device="cpu")
     pm.load_state_dict(vqmodel_state_dict_from_flax(params, _margs(PtArgs, **kw)),
                        strict=True)
     return jm, params, pm.eval(), img
@@ -125,7 +125,7 @@ def test_unported_backbone_options_raise():
         pt_vit.ViTBackbone(embed_dim=64, depth=1, num_heads=2, pre_norm=True)
     with pytest.raises(NotImplementedError):
         pt_vit.Block(64, 2, init_values=None)
-    with pytest.raises(NotImplementedError):  # latent grid 8x8 != patch grid 4x4
-        pt_vit.LatentEncoder(TINY, IMG, 16, num_latent_tokens=64)
+    with pytest.raises(NotImplementedError):  # learned latent pos embeds
+        pt_vit.LatentEncoder(TINY, IMG, 16, num_latent_tokens=64, abs_pos_embed=False)
     with pytest.raises(NotImplementedError):
         pt_vit.LatentDecoder(TINY, IMG, 16, num_latent_tokens=16, to_pixel="conv")
