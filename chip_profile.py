@@ -4,12 +4,17 @@
 
 Builds MSVR10P2-4096 + VAR-d16 in bf16 at B=64 from seeded random weights
 (the configuration ``chip_smoke.py`` times), and for each of ``var_sample``
-(cfg 1.5, top-k 900, top-p 0.96), ``img_to_idxBl`` and ``VAR.forward``
-runs one warm-up call, then two calls under ``torch.profiler``. Prints, per
-path and per call: the host wall time (ending in a synchronize), the device
-busy time (the sum of the CUDA kernels' times; one stream, so they never
-overlap), the idle share, and the device time by kind of kernel, then the
-ten largest kernels by name.
+(cfg 1.5, top-k 900, top-p 0.96), ``img_to_idxBl``, ``VAR.forward``,
+``VARTrainer.train_step`` and ``VARTrainer.eval_step`` (``VARTrainConfig()``
+defaults) runs one warm-up call, then two calls under ``torch.profiler``.
+Prints, per path and per call: the host wall time (ending in a
+synchronize), the device busy time (the sum of the CUDA kernels' times; one
+stream, so they never overlap), the idle share, and the device time by kind
+of kernel, then the ten largest kernels by name. The train step is then
+profiled once more cut into its phases (encode, forward and loss, backward,
+optimizer), with a synchronize after each, and each kernel's time is put to
+the phase whose host range holds its start: that split tells the backward's
+GEMMs and elementwise passes from the forward's.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import sys
 import time
 
 import torch
-from torch.profiler import DeviceType, ProfilerActivity, profile
+from torch.profiler import DeviceType, ProfilerActivity, profile, record_function
 
 from chip_smoke import BATCH, SEED, VAR_DEPTH, msvr_margs
 from imagefolder_tpu_torch.models import build_vae_var
@@ -29,6 +34,7 @@ from imagefolder_tpu_torch.train import var_train
 CALLS = 2
 # kernel name pattern -> kind, first match wins
 KINDS = [
+    (r"attn_bwd", "#6 BNHD attention backward kernel"),
     (r"attn_bnhd", "#3 BNHD attention kernel"),
     (r"attn_qkv", "#1 packed-qkv attention kernel"),
     (r"codebook_argmin", "#9 codebook kernel"),
@@ -40,6 +46,7 @@ KINDS = [
     (r"copy_|direct_copy|CatArrayBatched|cat_", "copies, casts and concatenations"),
     (r"reduce_kernel|Reduce", "reductions (norms, max, argmax)"),
     (r"elementwise|vectorized|unrolled", "other elementwise (add, mul, exp, where, ...)"),
+    (r"multi_tensor_apply", "optimizer (multi-tensor AdamW, clip)"),
     (r"index|gather|scatter|embedding", "gathers and scatters"),
 ]
 
@@ -51,6 +58,18 @@ def kind(name: str) -> str:
     return "other"
 
 
+def _is_kernel(e) -> bool:
+    """A kernel's device time, not a user annotation: record_function
+    ranges (ours, and torch.optim's ``Optimizer.step#...``) also appear on
+    the device's timeline, spanning the kernels they hold."""
+    return (e.device_type == DeviceType.CUDA and e.device_time_total > 0
+            and not getattr(e, "is_user_annotation", False))
+
+
+def _device_kernels(prof):
+    return [e for e in prof.key_averages() if _is_kernel(e)]
+
+
 def profile_path(name: str, fn):
     fn()
     torch.cuda.synchronize()
@@ -60,8 +79,7 @@ def profile_path(name: str, fn):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / CALLS * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    kernels = _device_kernels(prof)
     busy = sum(e.device_time_total for e in kernels) / CALLS / 1e3
     if busy <= 0:
         raise AssertionError(f"[{name}] the profiler saw no device time")
@@ -78,6 +96,44 @@ def profile_path(name: str, fn):
     for e in top:
         print(f"[{name}]     {e.device_time_total / CALLS / 1e3:9.3f} ms x{e.count // CALLS:<5d} "
               f"{e.key[:110]}")
+
+
+def profile_phases(name: str, phases):
+    """``phases``: (label, fn) run in order per call, each in a profiler
+    range ending in a synchronize; every kernel goes to the range that holds
+    its start (host and device events share the profiler's clock)."""
+    def run():
+        for label, fn in phases:
+            with record_function(f"phase:{label}"):
+                fn()
+                torch.cuda.synchronize()
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(CALLS):
+            run()
+    events = prof.events()
+    ranges = [(e.time_range.start, e.time_range.end, e.name[6:]) for e in events
+              if e.name.startswith("phase:") and e.device_type == DeviceType.CPU]
+    by_phase = {label: collections.Counter() for label, _ in phases}
+    lost = 0.0
+    for e in events:
+        if not _is_kernel(e):
+            continue
+        ms = e.device_time_total / CALLS / 1e3
+        owner = next((lab for a, b, lab in ranges if a <= e.time_range.start < b), None)
+        if owner is None:
+            lost += ms
+        else:
+            by_phase[owner][kind(e.name)] += ms
+    total = sum(sum(c.values()) for c in by_phase.values())
+    print(f"[{name}] per call, device time by phase: {total:.3f} ms put to a phase, "
+          f"{lost:.3f} ms outside every phase")
+    for label, c in by_phase.items():
+        ms = sum(c.values())
+        print(f"[{name}]   {label}: {ms:.3f} ms ({ms / max(total, 1e-9) * 100:.1f}%)")
+        for k, v in c.most_common(6):
+            print(f"[{name}]       {v:9.3f} ms  {k}")
 
 
 def main() -> int:
@@ -101,6 +157,24 @@ def main() -> int:
         profile_path("img_to_idxBl", lambda: vae.img_to_idxBl(x))
         x_in = vae.idxBl_to_var_input(vae.img_to_idxBl(x))
         profile_path("VAR.forward", lambda: var(labels, x_in))
+
+    tr = var_train.VARTrainer(vae, var, var_train.VARTrainConfig(), generator=gen)
+    profile_path("train_step", lambda: tr.train_step(x, labels))
+    profile_path("eval_step", lambda: tr.eval_step(x, labels))
+    step = {}
+
+    def encode():
+        step["gt"], step["x_in"] = tr._codes(x)
+
+    def forward():
+        tr.opt.zero_grad()
+        var.train()
+        logits = var(labels, step["x_in"], train=True, generator=gen)
+        step["loss"] = tr._ce_and_acc(logits, step["gt"])[0]
+
+    profile_phases("train_step", [("encode", encode), ("forward and loss", forward),
+                                  ("backward", lambda: step.pop("loss").backward()),
+                                  ("optimizer", tr.opt.step)])
     return 0
 
 

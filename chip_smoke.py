@@ -9,23 +9,30 @@ exit; no failure is caught):
      all started together, into the gitignored ``imagefolder_tpu_torch/_build/``)
      and load the library;
   3. kernels: each hand-written kernel against its plain PyTorch version on
-     the card: packed-qkv attention (#1) at the ViT shapes, BNHD attention
-     (#3) at every VAR sampling stage, the teacher-forcing shape and edge
-     cases, and the codebook search (#9) at every scale of the multi-scale
-     encode;
+     the card: packed-qkv attention (#1) at the ViT shapes (and its refusal
+     of a tensor that needs a gradient), BNHD attention (#3) at every VAR
+     sampling stage, the teacher-forcing shape and edge cases, its backward
+     (#6) at the training shape with and without dbias, without a bias, at
+     L = 680, ragged, on strided views and in fp32, and the codebook search
+     (#9) at every scale of the multi-scale encode;
   4. models, card against CPU in fp32 from one seed: the VQ-4096 ViT-B
      tokenizer at B=2, and the MSVR10P2-4096 tokenizer with VAR-d16
      (``img_to_idxBl`` codes per scale, ``VAR.forward`` logits, greedy
-     ``var_sample`` tokens and images); a code or token may differ only at
-     a near-tie, and the card then goes on from the CPU's choice;
+     ``var_sample`` tokens and images; then one ``VARTrainer`` step's loss,
+     every parameter's gradient, the gradient norm and the updated
+     parameters, with the same training masks on both sides); a code or
+     token may differ only at a near-tie, and the card then goes on from the
+     CPU's choice;
   5. main paths at B=64 in bf16, timed with CUDA events (a warm-up call, then
      median, min and max), each with every launch counter set to 0 just
      before its timed calls and read just after: the VQ-4096 round trip,
-     ``var_sample`` (cfg 1.5, top-k 900, top-p 0.96), ``img_to_idxBl`` and
-     the teacher-forcing ``VAR.forward``;
+     ``var_sample`` (cfg 1.5, top-k 900, top-p 0.96), ``img_to_idxBl``, the
+     teacher-forcing ``VAR.forward``, and ``VARTrainer.train_step`` and
+     ``eval_step``;
   6. times: each kernel, its plain version (order plain, kernel, kernel,
-     plain) and one PyTorch library call computing the same function, at the
-     main paths' largest shapes, beside the card's bound for that work.
+     plain) and one PyTorch library call computing the same function (for
+     #6, the backward of ``scaled_dot_product_attention``), at the main
+     paths' largest shapes, beside the card's bound for that work.
 Then one JSON line of kernel records and, last, the device JSON line.
 
 Imports nothing of JAX: the card's machine has none. JAX parity lives in the
@@ -55,6 +62,7 @@ from imagefolder_tpu_torch.ops.cuda import _build
 from imagefolder_tpu_torch.ops.cuda import attention as attn
 from imagefolder_tpu_torch.ops.cuda import codebook
 from imagefolder_tpu_torch.train import var_train
+from imagefolder_tpu_torch.train.var_train import VARTrainConfig, VARTrainer
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -79,6 +87,7 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 COUNTERS = {
     "attention_qkv_fwd": (attn, "LAUNCHES"),
     "fused_attention_fwd": (attn, "FUSED_LAUNCHES"),
+    "fused_attention_bwd": (attn, "FUSED_BWD_LAUNCHES"),
     "codebook_argmin": (codebook, "LAUNCHES"),
 }
 
@@ -215,6 +224,13 @@ def kernels_qkv(dev) -> float:
         _check(f"[kernels] #1 {name}", err, TOL[dtype])
         if dtype == bf16 and bias is None and b == BATCH:
             main_err = max(main_err, err)
+    qkv = torch.randn((2, 37, 3 * HD * HEADS), device=dev, requires_grad=True)
+    try:
+        attn.attention_qkv(qkv, HEADS)
+    except NotImplementedError as e:
+        print(f"[kernels] #1 refuses a qkv that needs a gradient: {e}")
+    else:
+        raise AssertionError("[kernels] #1 returned an output without a gradient")
     return main_err
 
 
@@ -278,6 +294,67 @@ def kernels_bnhd(dev) -> float:
         _check(f"[kernels] #3 {name}", err, tol)
         if main:
             main_err = max(main_err, err)
+    return main_err
+
+
+def kernels_bnhd_bwd(dev) -> float:
+    """#6 against its plain version: for each of dq, dk, dv (and dbias), the
+    max abs error over the max abs of the plain result. dbias sums ds over
+    B*H heads with fp32 atomics in an order that changes from run to run;
+    its terms are the same fp32 values as the plain version's, so it is held
+    to the same bound. Returns the largest error at the training shape."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    tf_bias = build_attn_bias(PNS).to(dev)
+    ltot = tf_bias.shape[-1]
+    pns16 = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16)  # the default pyramid, L = 680
+    cases = []  # (name, q, k, v, bias, dbias, scale, main)
+    for need_db in (False, True):
+        cases.append((f"training shape, dbias {'on' if need_db else 'off'}",
+                      *_bnhd(gen, BATCH, ltot, ltot, VAR_HEADS, bf16, dev), tf_bias, need_db,
+                      1.0, True))
+    cases.append(("training shape, no bias", *_bnhd(gen, BATCH, ltot, ltot, VAR_HEADS, bf16,
+                                                   dev), None, False, 1.0, True))
+    cases.append(("L=680", *_bnhd(gen, 4, 680, 680, VAR_HEADS, bf16, dev),
+                  build_attn_bias(pns16).to(dev), True, 1.0, False))
+    for n in (1, 37, 130):
+        cases.append((f"ragged L={n}", *_bnhd(gen, 3, n, n, 4, bf16, dev, l2=False), None,
+                      False, None, False))
+        cases.append((f"ragged L={n}, bias", *_bnhd(gen, 3, n, n, 4, bf16, dev),
+                      encoder_mask(n, n // 3, dev), True, 1.0, False))
+    qkv = torch.randn((4, 30, 3, VAR_HEADS, HD), generator=gen, device=dev).bfloat16()
+    cases.append(("strided qkv views", *qkv.unbind(2), build_attn_bias((1, 2, 3, 4)).to(dev),
+                  True, 0.25 / math.sqrt(HD), False))
+    cases.append(("training shape fp32", *_bnhd(gen, 2, ltot, ltot, VAR_HEADS, f32, dev),
+                  tf_bias, True, 1.0, False))
+    cases.append(("ragged L=37 fp32", *_bnhd(gen, 3, 37, 37, 4, f32, dev, l2=False), None,
+                  False, None, False))
+    cases.append(("L=130 fp32, bias", *_bnhd(gen, 3, 130, 130, 4, f32, dev),
+                  encoder_mask(130, 43, dev), True, 1.0, False))
+    main_err = 0.0
+    for name, q, k, v, bias, need_db, scale, main in cases:
+        g = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        got = attn.fused_attention_bwd(q, k, v, bias, g, scale, need_dbias=need_db)
+        want = attn.fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias=need_db)
+        torch.cuda.synchronize()
+        tol = TOL[q.dtype]
+        errs = {}
+        for what, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+            if (a is None) != (w is None):
+                raise AssertionError(f"[kernels] #6 {name}: {what} is {a} against {w}")
+            if w is None:
+                continue
+            if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(w).all())):
+                raise AssertionError(f"[kernels] #6 {name}: non-finite {what}")
+            errs[what] = _max_err(a, w) / max(w.detach().abs().max().item(), 1e-30)
+        shown = ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        print(f"[kernels] #6 {name:28s} q {tuple(q.shape)} {str(q.dtype)[6:]:8s} "
+              f"bias={'none' if bias is None else tuple(bias.shape)}: error over max |plain| "
+              f"{shown} (tol {tol:g})")
+        for what, e in errs.items():
+            _check(f"[kernels] #6 {name} {what}", e, tol)
+        if main:
+            main_err = max(main_err, *errs.values())
     return main_err
 
 
@@ -479,6 +556,58 @@ def phase_model_var(dev):
           f"at a flip {picks.max_gap:.3e} (<= {LOGIT_NEAR_TIE:g})")
     for k, v in errs.items():
         _check(f"[model] {k}", v, MODEL_TOL)
+    return (vae_cpu, var_cpu), (vae_card, var_card)
+
+
+def phase_model_train(dev, cpu_models, card_models):
+    """One VARTrainer step of MSVR10P2-4096 + VAR-d16 in fp32 at B=2, card
+    against CPU from the same weights (those of ``phase_model_var``): the
+    loss, every parameter's gradient (max abs error over that gradient's max
+    abs), the gradient norm and the updated parameters. The training masks
+    are drawn once on the CPU and passed to both sides, with one class drop,
+    token drops and one sample's drop path set so that each is exercised;
+    the codes go in lockstep as in ``phase_model_var``."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    tcfg = VARTrainConfig()
+    tr_cpu, tr_card = VARTrainer(*cpu_models, tcfg), VARTrainer(*card_models, tcfg)
+    var_cpu, var_card = cpu_models[1], card_models[1]
+    px = cpu_models[0].config.image_size
+    x = torch.rand((2, px, px, 3), generator=gen) * 2 - 1
+    label = torch.tensor([207, 980])
+    masks = var_cpu.draw_masks(2, p_drop_factor=1.0, generator=gen)
+    masks["class_drop"] = torch.tensor([False, True])
+    masks["token_keep"][0, :40] = False
+    masks["drop_path"][VAR_DEPTH - 1] = (torch.tensor([0.0, 1.0]), torch.tensor([1.0, 0.0]))
+    masks_card = {k: v.to(dev) if torch.is_tensor(v) else
+                  [None if t is None else tuple(m.to(dev) for m in t) for t in v]
+                  for k, v in masks.items()}
+    codes = Lockstep(quantize, "_codebook_lookup", _code_gap, NEAR_TIE)
+    loss_cpu = codes.on_cpu(lambda: tr_cpu.loss_and_backward(x, label, masks=masks))[0]
+    loss_card = codes.on_card(lambda: tr_card.loss_and_backward(
+        x.to(dev), label.to(dev), masks=masks_card))[0]
+    grad_errs = {}
+    for (name, p_cpu), p_card in zip(var_cpu.named_parameters(), var_card.parameters()):
+        if p_cpu.grad is None or p_card.grad is None:
+            raise AssertionError(f"[model] {name}: no gradient (cpu {p_cpu.grad is not None}, "
+                                 f"card {p_card.grad is not None})")
+        grad_errs[name] = _max_err(p_card.grad, p_cpu.grad) / max(
+            p_cpu.grad.abs().max().item(), 1e-30)
+    worst = max(grad_errs, key=grad_errs.get)
+    gn_cpu, gn_card = tr_cpu.opt.step(), tr_card.opt.step()
+    torch.cuda.synchronize()
+    step_err = max(_max_err(a, b) for a, b in zip(var_cpu.parameters(), var_card.parameters()))
+    errs = {"loss": abs(loss_card.item() - loss_cpu.item()) / abs(loss_cpu.item()),
+            "grad_norm": abs(gn_card.item() - gn_cpu.item()) / gn_cpu.item(),
+            f"gradient of {worst}": grad_errs[worst]}
+    shown = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    print(f"[model] VARTrainer step fp32 B=2 card vs CPU (relative): {shown} (tol {MODEL_TOL:g}; "
+          f"{len(grad_errs)} parameter gradients, median error "
+          f"{statistics.median(grad_errs.values()):.3e}); loss {loss_cpu.item():.6f}, grad norm "
+          f"{gn_cpu.item():.6f}; updated parameters max abs diff {step_err:.3e}; codes "
+          f"{codes.compared - codes.flips}/{codes.compared} equal")
+    for k, v in errs.items():
+        _check(f"[model] {k}", v, MODEL_TOL)
+    _check("[model] updated parameters", step_err, MODEL_TOL)
 
 
 def time_calls(path: str, fn, iters: int, per_call: dict, dev) -> dict:
@@ -594,6 +723,51 @@ def main_var_paths(dev) -> dict:
     return out
 
 
+def main_train_paths(dev) -> dict:
+    """VARTrainer.train_step and eval_step of MSVR10P2-4096 + VAR-d16 in bf16
+    at B=64, ``VARTrainConfig()`` defaults, the training masks drawn from a
+    seeded generator on the card."""
+    margs = msvr_margs("bfloat16")
+    vae, var = build_vae_var(margs, VAR_DEPTH, dtype_str="bfloat16",
+                             generator=torch.Generator().manual_seed(SEED), device=dev)
+    tr = VARTrainer(vae, var, VARTrainConfig(),
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    n_enc = len(vae.encoder.model.blocks)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    px = margs.image_size
+    x = torch.rand((BATCH, px, px, 3), generator=gen, device=dev) * 2 - 1
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    encode = {"codebook_argmin": margs.product_quant * len(PNS), "attention_qkv_fwd": n_enc}
+    out = {}
+    before = [p.detach().clone() for p in var.parameters()]
+    out["train_step"] = r = time_calls(
+        "train_step", lambda: tr.train_step(x, labels), 10,
+        {**encode, "fused_attention_fwd": VAR_DEPTH, "fused_attention_bwd": VAR_DEPTH}, dev)
+    m = {k: v.item() for k, v in r["out"].items()}
+    # every parameter with a gradient moves; empty_emb has none while token
+    # dropout is off (p_drop_factor 0), and is in the no-decay group
+    trained = [p.grad is not None for p in var.parameters()]
+    changed = [not torch.equal(a, b) for a, b in zip(before, var.parameters())]
+    if not (all(math.isfinite(v) for v in m.values()) and changed == trained):
+        raise AssertionError(f"[main] train_step metrics {m}, {sum(changed)} parameters "
+                             f"changed, {sum(trained)} have a gradient")
+    _report("VARTrainer.train_step (VARTrainConfig())", r, BATCH,
+            ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+            + f"; {sum(changed)}/{len(before)} parameter tensors changed over 11 steps, "
+            "each one that has a gradient")
+    del before
+    out["eval_step"] = r = time_calls(
+        "eval_step", lambda: tr.eval_step(x, labels), 10,
+        {**encode, "fused_attention_fwd": VAR_DEPTH}, dev)
+    ev = r["out"]
+    if sorted(ev) != ["L_mean", "L_tail", "acc_mean", "acc_tail"] or not all(
+            tuple(t.shape) == (BATCH,) and bool(torch.isfinite(t).all()) for t in ev.values()):
+        raise AssertionError("[main] eval_step outputs malformed")
+    _report("VARTrainer.eval_step", r, BATCH,
+            ", ".join(f"{k} mean {t.mean().item():.4f}" for k, t in ev.items()))
+    return out
+
+
 def _time_ms(fn, reps: int = 20) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     fn()
@@ -612,7 +786,7 @@ def _time_kernel(name: str, kernel, plain, library, nbytes: float, ops: float,
     then the library call; beside the bound for the same work."""
     with torch.inference_mode():
         p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
-        lib = _time_ms(library)
+    lib = _time_ms(library)  # outside inference mode: a library backward needs autograd
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
     b_ms, by = bound_ms(nbytes, ops, dtype)
     print(f"[times] {name} {shape}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
@@ -657,6 +831,22 @@ def phase_times(dev) -> dict:
             f"q {tuple(q.shape)} k {tuple(k.shape)}")
         out.setdefault("fused_attention_fwd", rec)
 
+    # 6: the training shape, block-causal bias, no dbias (as the train step)
+    bias = build_attn_bias(PNS).to(dev)
+    q, k, v = _bnhd(gen, BATCH, ltot, ltot, VAR_HEADS, bf16, dev)
+    g = torch.randn(q.shape, generator=gen, device=dev).to(bf16)
+    lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias.to(bf16), scale=1.0)
+    lib_g = g.transpose(1, 2)
+    pairs = int(torch.isfinite(bias).sum())
+    out["fused_attention_bwd"] = _time_kernel(
+        "#6 fused_attention backward, training shape",
+        lambda: attn.fused_attention_bwd(q, k, v, bias, g, 1.0, need_dbias=False),
+        lambda: attn.fused_attention_bwd_reference(q, k, v, bias, g, 1.0, need_dbias=False),
+        lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_g, retain_graph=True),
+        7 * q.numel() * 2 + bias.numel() * 4, 5 * 2 * BATCH * VAR_HEADS * pairs * HD, bf16,
+        f"q, k, v, g {tuple(q.shape)}")
+
     # 9: the last scale of a B=64 encode
     n, vsz, c = BATCH * PNS[-1] ** 2, 4096, 32
     x = _l2n(torch.randn((n, c), generator=gen, device=dev))
@@ -675,6 +865,8 @@ KERNELS = {
                           "imagefolder_tpu/ops/pallas/attention.py:93"),
     "fused_attention_fwd": ("imagefolder_tpu_torch/csrc/attention_bnhd.cu",
                             "imagefolder_tpu/ops/pallas/attention.py:374"),
+    "fused_attention_bwd": ("imagefolder_tpu_torch/csrc/attention_bnhd_bwd.cu",
+                            "imagefolder_tpu/ops/pallas/attention.py:708"),
     "codebook_argmin": ("imagefolder_tpu_torch/csrc/codebook_argmin.cu",
                         "imagefolder_tpu/ops/pallas/codebook.py:62"),
 }
@@ -692,10 +884,12 @@ def main() -> int:
     phase_device()
     phase_build()
     errs = {"attention_qkv_fwd": kernels_qkv(dev), "fused_attention_fwd": kernels_bnhd(dev),
+            "fused_attention_bwd": kernels_bnhd_bwd(dev),
             "codebook_argmin": kernels_codebook(dev)}
     phase_model_vq(dev)
-    phase_model_var(dev)
-    paths = {"round trip": main_round_trip(dev), **main_var_paths(dev)}
+    phase_model_train(dev, *phase_model_var(dev))
+    paths = {"round trip": main_round_trip(dev), **main_var_paths(dev),
+             **main_train_paths(dev)}
     times = phase_times(dev)
     records = []
     for name, (source, replaces) in KERNELS.items():

@@ -60,37 +60,6 @@ struct Strides {
   int64_t qb, ql, qh, kb, kl, kh, vb, vl, vh, bb, bh, bq;
 };
 
-// s = scale * q k^T (+ bias) for one warp's 16 rows x 64 keys of the tile
-// at k0; columns >= lk are -inf.
-template <bool kBias>
-__device__ __forceinline__ void tile_scores(float (&s)[kRows / 8][4],
-                                            const uint32_t (&qf)[kHd / 16][4],
-                                            bf16 (*sk)[kLd], const float* bias,
-                                            int64_t bq, int row_lo, int row_hi,
-                                            int k0, int lq, int lk, float scale) {
-  const int lane = threadIdx.x & 31;
-  const int t4 = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < kRows / 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kHd / 32; ++kk) {
-      uint32_t kf[4];
-      ldmatrix_x4(kf, &sk[nt * 8 + (lane & 7)][kk * 32 + (lane >> 3) * 8]);
-      mma_16816(s[nt], qf[2 * kk], kf[0], kf[1]);
-      mma_16816(s[nt], qf[2 * kk + 1], kf[2], kf[3]);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = e < 2 ? row_lo : row_hi;
-      const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-      float v = s[nt][e] * scale;
-      if (kBias && row < lq && col < lk) v += bias[row * bq + col];
-      s[nt][e] = col < lk ? v : kNegInf;
-    }
-  }
-}
-
 template <bool kVec, bool kBias>
 __global__ void __launch_bounds__(kWarps * 32)
     attn_bnhd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -116,9 +85,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   load_tile<kVec>(sq, qp, q0, lq, st.ql);
   __syncthreads();
   uint32_t qf[kHd / 16][4];  // A fragments, one per 16-wide k step
-#pragma unroll
-  for (int ks = 0; ks < kHd / 16; ++ks)
-    ldmatrix_x4(qf[ks], &sq[warp * 16 + (lane & 15)][ks * 16 + (lane >> 4) * 8]);
+  load_a(qf, sq);
 
   const int row_lo = q0 + warp * 16 + g;
   const int row_hi = row_lo + 8;

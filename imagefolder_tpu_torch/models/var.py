@@ -20,19 +20,28 @@ arrays are immutable). The port preallocates one (B, L, H, hd) cache per
 block (``VAR.init_caches``) and writes each stage into it in place;
 attention reads the filled prefix as a strided view, with no copy.
 
-Training (dropout, token dropout, drop path, class dropout) is not ported.
+Training: ``forward(..., train=True)`` adds class dropout, MLM-style token
+dropout and per-block drop path (var.py:186-193, 289-316), with every random
+draw taken from an explicit ``torch.Generator`` (``VAR.draw_masks``) before
+the blocks run, so that ``remat`` (activation checkpointing per block)
+recomputes with the same masks. The two packages' generators differ, so a
+test passes the masks themselves (``masks=``). Dropout and attention dropout
+(``drop_rate``, ``attn_drop_rate``) are 0 in every configuration and, as in
+the JAX package, not applied.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
+from torch.utils.checkpoint import checkpoint
 
 from imagefolder_tpu_torch.ops.cuda.attention import fused_attention
 from imagefolder_tpu_torch.ops.cuda.block import dense
@@ -180,15 +189,17 @@ class FFN(nn.Module):
 
 class AdaLNSelfAttn(nn.Module):
     """basic_var.py:140-171: AdaLN-modulated attention and FFN around an
-    fp32 residual stream; returns the activation dtype."""
+    fp32 residual stream; returns the activation dtype. ``drop_path`` is the
+    block's drop-path rate in training."""
 
     def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  shared_aln: bool = False, attn_l2_norm: bool = False,
-                 norm_eps: float = 1e-6, dtype: torch.dtype = torch.float32, *,
-                 generator: Optional[torch.Generator] = None):
+                 norm_eps: float = 1e-6, dtype: torch.dtype = torch.float32,
+                 drop_path: float = 0.0, *, generator: Optional[torch.Generator] = None):
         super().__init__()
         c = embed_dim
         self.embed_dim, self.shared_aln, self.norm_eps, self.dtype = c, shared_aln, norm_eps, dtype
+        self.drop_path = drop_path
         self.attn = VARSelfAttention(c, num_heads, attn_l2_norm, dtype, generator=generator)
         self.ffn = FFN(c, round(c * mlp_ratio), generator=generator)
         if shared_aln:
@@ -197,11 +208,21 @@ class AdaLNSelfAttn(nn.Module):
         else:
             self.ada_lin = nn.Sequential(nn.SiLU(), linear(c, 6 * c, generator))
 
+    def _drop_path(self, y: torch.Tensor, keep_B: Optional[torch.Tensor]) -> torch.Tensor:
+        """y * mask / keep with a per-sample 0/1 mask, as the JAX package's
+        ``_drop_path`` applies it."""
+        if keep_B is None:
+            return y
+        return y * keep_B.to(y.dtype)[:, None, None] / (1.0 - self.drop_path)
+
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 attn_bias: Optional[torch.Tensor] = None,
-                cache: Optional[KVCache] = None) -> torch.Tensor:
+                cache: Optional[KVCache] = None,
+                keep_attn: Optional[torch.Tensor] = None,
+                keep_ffn: Optional[torch.Tensor] = None) -> torch.Tensor:
         """cond: (B, 1, 6, C) shared modulation when ``shared_aln``, else the
-        (B, C) class condition."""
+        (B, C) class condition. keep_attn, keep_ffn: the (B,) drop-path masks
+        of the two sublayers in training, None otherwise."""
         if self.shared_aln:
             gss = (self.ada_gss + cond).float()
         else:
@@ -210,9 +231,9 @@ class AdaLNSelfAttn(nn.Module):
         dt = self.dtype
         xf = x.float()
         h = _ln(xf, self.norm_eps) * (s1 + 1.0) + sh1
-        x = xf + self.attn(h.to(dt), attn_bias, cache).float() * g1
+        x = xf + self._drop_path(self.attn(h.to(dt), attn_bias, cache).float() * g1, keep_attn)
         h = _ln(x, self.norm_eps) * (s2 + 1.0) + sh2
-        x = x + self.ffn(h.to(dt)).float() * g2
+        x = x + self._drop_path(self.ffn(h.to(dt)).float() * g2, keep_ffn)
         return x.to(dt)
 
 
@@ -251,10 +272,11 @@ class VAR(nn.Module):
         trunc_normal_(self.lvl_embed.weight, init_std, generator)
         if cfg.shared_aln:
             self.shared_ada_lin = nn.Sequential(nn.SiLU(), linear(c, 6 * c, generator))
+        dpr = np.linspace(0, cfg.drop_path_rate, cfg.depth)  # the JAX package's rates
         self.blocks = nn.ModuleList(
             AdaLNSelfAttn(c, cfg.num_heads, cfg.mlp_ratio, cfg.shared_aln, cfg.attn_l2_norm,
-                          cfg.norm_eps, cfg.dtype, generator=generator)
-            for _ in range(cfg.depth))
+                          cfg.norm_eps, cfg.dtype, float(dpr[i]), generator=generator)
+            for i in range(cfg.depth))
         self.head_nm = AdaLNBeforeHead(c, cfg.norm_eps, generator=generator)
         self.head = linear(c, cfg.vocab_size, generator)
         if cfg.p_drop > 0:  # the learned empty token of MLM-style training
@@ -279,16 +301,60 @@ class VAR(nn.Module):
         h = self.head_nm(x, cond_BD)
         return F.linear(h, self.head.weight, self.head.bias)  # fp32
 
+    def draw_masks(self, batch: int, prog_si: int = -1, p_drop_factor: float = 0.0,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, object]:
+        """Every random draw of one training forward, from ``generator`` (on
+        the model's device):
+        - ``class_drop`` (B,) bool: u < cond_drop_rate; the label becomes
+          ``num_classes`` (absent when the rate is 0);
+        - ``token_keep`` (B, ed - first_l) bool: u >= p with p ~ U(0, p_drop *
+          p_drop_factor) once per batch; a dropped position takes
+          ``empty_emb`` (absent when p_drop * p_drop_factor is 0, where
+          every position is kept);
+        - ``drop_path``: per block, None where its rate is 0, else the (B,)
+          float 0/1 keep masks of its attention and FFN sublayers, each a
+          Bernoulli draw of keep = 1 - rate."""
+        cfg = self.config
+        dev = self.pos_1LC.device
+        ed = cfg.begin_ends[prog_si][1] if prog_si >= 0 else cfg.L
+        masks: Dict[str, object] = {}
+        if cfg.cond_drop_rate > 0:
+            masks["class_drop"] = torch.rand(batch, generator=generator,
+                                             device=dev) < cfg.cond_drop_rate
+        budget = cfg.p_drop * p_drop_factor
+        if budget > 0:
+            p = torch.rand((), generator=generator, device=dev) * budget
+            masks["token_keep"] = torch.rand((batch, ed - cfg.first_l), generator=generator,
+                                             device=dev) >= p
+        masks["drop_path"] = [
+            None if blk.drop_path <= 0 else tuple(
+                torch.bernoulli(torch.full((batch,), 1.0 - blk.drop_path, device=dev),
+                                generator=generator) for _ in range(2))
+            for blk in self.blocks]
+        return masks
+
     def forward(self, label_B: torch.Tensor, x_BLCv_wo_first_l: Optional[torch.Tensor],
-                prog_si: int = -1) -> torch.Tensor:
+                prog_si: int = -1, *, train: bool = False, p_drop_factor: float = 0.0,
+                generator: Optional[torch.Generator] = None,
+                masks: Optional[Dict[str, object]] = None) -> torch.Tensor:
         """Teacher-forcing forward (var.py:235-292) -> fp32 logits (B, L, vocab).
 
         ``prog_si >= 0`` is progressive training's truncation: the sequence
         ends at ``begin_ends[prog_si][1]``, and the input covers that much
-        (``idxBl_to_var_input(..., prog_si)``; None at stage 0, SOS only)."""
+        (``idxBl_to_var_input(..., prog_si)``; None at stage 0, SOS only).
+
+        ``train=True`` applies class dropout, token dropout and drop path
+        with the masks of ``draw_masks(..., p_drop_factor, generator)``, or
+        with ``masks`` as that method returns them (a test hook)."""
         cfg = self.config
         ed = cfg.begin_ends[prog_si][1] if prog_si >= 0 else cfg.L
         b = label_B.shape[0]
+        if train and masks is None:
+            masks = self.draw_masks(b, prog_si, p_drop_factor, generator)
+        if not train:
+            masks = {}
+        if "class_drop" in masks:
+            label_B = torch.where(masks["class_drop"], cfg.num_classes, label_B)
         cond_BD = self.class_emb(label_B)
         x = cond_BD[:, None].expand(b, cfg.first_l, cfg.embed_dim) + self.pos_start
         if prog_si != 0:
@@ -297,12 +363,20 @@ class VAR(nn.Module):
             raise ValueError(
                 f"teacher-forcing input covers {x.shape[1]} positions but prog stage "
                 f"{prog_si} expects {ed}: truncate it with idxBl_to_var_input(..., prog_si)")
+        if "token_keep" in masks:
+            keep = F.pad(masks["token_keep"], (cfg.first_l, 0), value=True)
+            x = torch.where(keep[..., None], x, self.empty_emb.weight[None])
         x = (x + self.lvl_embed.weight[self.lvl_1L[:ed]][None]
              + self.pos_1LC[:, :ed]).to(cfg.dtype)
         cond = self._cond(cond_BD)
         bias = self.attn_bias[:, :, :ed, :ed]
-        for blk in self.blocks:
-            x = blk(x, cond, attn_bias=bias)
+        keeps = masks.get("drop_path") or [None] * cfg.depth
+        for blk, keep in zip(self.blocks, keeps):
+            args = (x, cond, bias, None, *(keep or (None, None)))
+            if train and cfg.remat:
+                x = checkpoint(blk, *args, use_reentrant=False)
+            else:
+                x = blk(*args)
         return self._head(x, cond_BD)
 
     def init_caches(self, batch: int) -> List[KVCache]:

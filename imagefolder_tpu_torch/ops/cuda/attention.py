@@ -2,10 +2,15 @@
 
 - ``attention_qkv``: attention on the packed qkv projection output of a ViT
   block (TPU kernel ``_attention_qkv_fwd_impl``), kernel
-  ``csrc/attention_qkv.cu``, launches counted in ``LAUNCHES``;
+  ``csrc/attention_qkv.cu``, launches counted in ``LAUNCHES``. Forward only:
+  its backward (TPU kernel ``_attention_qkv_bwd_impl``) is not ported, so on
+  a CUDA tensor that needs a gradient it raises;
 - ``fused_attention``: attention on (B, L, H, hd) views with Lq <= Lk and an
   optional bias, as VAR calls it (TPU kernel ``fused_attention``), kernel
-  ``csrc/attention_bnhd.cu``, launches counted in ``FUSED_LAUNCHES``.
+  ``csrc/attention_bnhd.cu``, launches counted in ``FUSED_LAUNCHES``. It is
+  differentiable: its backward for Lq == Lk with no bias or a shared bias
+  (TPU kernel ``_fused_attention_bwd_impl``) is ``csrc/attention_bnhd_bwd.cu``,
+  launches counted in ``FUSED_BWD_LAUNCHES``.
 
 Each dispatches on the tensor's device only: a CPU tensor goes to its
 ``*_reference``, the plain PyTorch version; a CUDA tensor launches the
@@ -24,12 +29,15 @@ import torch
 from imagefolder_tpu_torch.ops.cuda import _build
 
 __all__ = ["attention_qkv", "attention_qkv_reference", "fused_attention",
-           "fused_attention_reference", "LAUNCHES", "FUSED_LAUNCHES"]
+           "fused_attention_reference", "fused_attention_bwd",
+           "fused_attention_bwd_reference", "LAUNCHES", "FUSED_LAUNCHES",
+           "FUSED_BWD_LAUNCHES"]
 
 # kernel launches since the counter was last reset (a caller sets it to 0):
-# attention_qkv's and fused_attention's
+# attention_qkv's, fused_attention's forward and its backward
 LAUNCHES = 0
 FUSED_LAUNCHES = 0
+FUSED_BWD_LAUNCHES = 0
 
 _HEAD_DIM = 64  # the kernel's compiled head width (every DINOv2 preset)
 
@@ -123,6 +131,11 @@ def attention_qkv(qkv: torch.Tensor, heads: int,
         return attention_qkv_reference(qkv, heads, bias, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"attention_qkv runs on cpu or cuda, not {qkv.device}")
+    if torch.is_grad_enabled() and (qkv.requires_grad
+                                    or (bias is not None and bias.requires_grad)):
+        raise NotImplementedError(
+            "attention_qkv has no gradient on the card: its backward (TPU kernel #2, "
+            "_attention_qkv_bwd_impl) is not ported; run it under torch.no_grad()")
     return _attention_qkv_cuda(qkv, heads, bias, scale)
 
 
@@ -176,30 +189,36 @@ def _strides(t: torch.Tensor, dims) -> ctypes.Array:
     return (ctypes.c_int64 * 3)(*(t.stride(d) if t.shape[d] != 1 else 0 for d in dims))
 
 
-def _fused_attention_cuda(q, k, v, bias, scale):
-    global FUSED_LAUNCHES
-    _check_bnhd(q, k, v, bias)
-    b, lq, h, hd = q.shape
-    lk = k.shape[1]
-    if scale is None:
-        scale = 1.0 / math.sqrt(hd)
+def _kernel_operands(q, k, v, bias, what: str):
+    """The checks both BNHD kernels make: q, k and v all bf16 or all fp32,
+    head dim 64, one device, unit last strides (a view is copied only if its
+    last stride is not 1), the bias cast to fp32."""
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise TypeError("fused_attention kernel takes q, k, v all bf16 or all fp32; "
+        raise TypeError(f"{what} kernel takes q, k, v all bf16 or all fp32; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd != _HEAD_DIM:
+    if q.shape[-1] != _HEAD_DIM:
         raise NotImplementedError(
-            f"fused_attention kernel is built for head dim {_HEAD_DIM}, got {hd}")
+            f"{what} kernel is built for head dim {_HEAD_DIM}, got {q.shape[-1]}")
     if not (k.device == v.device == q.device and (bias is None or bias.device == q.device)):
         raise ValueError("q, k, v and bias must be on the same device")
+    if 0 in (*q.shape, k.shape[1]):
+        raise ValueError(f"{what} needs non-empty inputs; got {tuple(q.shape)}, "
+                         f"Lk={k.shape[1]}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     if bias is not None:
         bias = bias.to(torch.float32)
         if bias.stride(-1) != 1:
             bias = bias.contiguous()
-    if 0 in (b, lq, h, lk):
-        raise ValueError(f"fused_attention needs non-empty inputs; got {tuple(q.shape)}, "
-                         f"Lk={lk}")
+    return q, k, v, bias
+
+
+def _fused_attention_cuda(q, k, v, bias, scale):
+    global FUSED_LAUNCHES
+    _check_bnhd(q, k, v, bias)
+    q, k, v, bias = _kernel_operands(q, k, v, bias, "fused_attention")
+    b, lq, h, hd = q.shape
+    lk = k.shape[1]
     out = torch.empty((b, lq, h, hd), dtype=q.dtype, device=q.device)
     bs = _strides(bias, (0, 1, 2)) if bias is not None else None
     with torch.cuda.device(q.device):
@@ -216,19 +235,156 @@ def _fused_attention_cuda(q, k, v, bias, scale):
     return out
 
 
+def _check_bwd(q, k, v, bias, g):
+    _check_bnhd(q, k, v, bias)
+    if k.shape[1] != q.shape[1] or g.shape != q.shape:
+        raise ValueError(f"the backward kernel takes Lq == Lk and g shaped like q; got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, g {tuple(g.shape)}")
+    if bias is not None and tuple(bias.shape[:2]) != (1, 1):
+        raise ValueError(f"the backward kernel takes a shared (1, 1, L, L) bias; got "
+                         f"{tuple(bias.shape)}")
+
+
+def fused_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  bias: Optional[torch.Tensor], g: torch.Tensor,
+                                  scale: Optional[float] = None, need_dbias: bool = True):
+    """Plain PyTorch version of the backward kernel: the TPU kernel's
+    ``_bwd_head_math`` op for op, with its casts. Per (batch, head), p =
+    softmax(q k^T * scale + bias) in fp32, divided by its row sum; dv =
+    bf16(p)^T g; dp = g v^T; ds = p (dp - rowsum(p dp)) on the fp32 p; dq =
+    bf16(ds) k * scale; dk = bf16(ds)^T q * scale ("bf16" meaning the inputs'
+    type). Returns (dq, dk, dv) contiguous in q's dtype and dbias = the sum of
+    ds over batches and heads, (1, 1, L, L) in the bias's dtype, or None
+    (no bias, or ``need_dbias`` False)."""
+    _check_bwd(q, k, v, bias, g)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, gf = (t.float().transpose(1, 2) for t in (q, k, v, g))  # (B, H, L, hd)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dsb = ds.to(q.dtype).float()
+    dq = torch.matmul(dsb, kf) * scale
+    dk = torch.matmul(dsb.transpose(-1, -2), qf) * scale
+    dq, dk, dv = (t.to(q.dtype).transpose(1, 2).contiguous() for t in (dq, dk, dv))
+    dbias = None
+    if bias is not None and need_dbias:
+        dbias = ds.sum(dim=(0, 1), keepdim=True).to(bias.dtype)
+    return dq, dk, dv, dbias
+
+
+@functools.cache
+def _fused_bwd_kernel():
+    fn = _build.load_library().attention_bnhd_bwd
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [i64p] * 4 + [
+        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias):
+    global FUSED_BWD_LAUNCHES
+    _check_bwd(q, k, v, bias, g)
+    bias_dtype = None if bias is None else bias.dtype
+    q, k, v, bias = _kernel_operands(q, k, v, bias, "fused_attention backward")
+    if g.dtype != q.dtype or g.device != q.device:
+        raise TypeError(f"g must be {q.dtype} on {q.device}; got {g.dtype} on {g.device}")
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    b, l, h, hd = q.shape
+    dq, dk, dv = (torch.empty((b, l, h, hd), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    stats = torch.empty((3, b, h, l), dtype=torch.float32, device=q.device)  # m, l, delta
+    dbias = None
+    if bias is not None and need_dbias:
+        dbias = torch.zeros((l, l), dtype=torch.float32, device=q.device)
+    row_stride = bias.stride(2) if bias is not None and l > 1 else 0
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fused_bwd_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            None if bias is None else bias.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
+            b, l, h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)),
+            _strides(v, (0, 1, 2)), _strides(g, (0, 1, 2)), row_stride, float(scale),
+            int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_attention backward kernel launch failed: CUDA error {err}")
+    FUSED_BWD_LAUNCHES += 1
+    if dbias is not None:
+        dbias = dbias[None, None].to(bias_dtype)
+    return dq, dk, dv, dbias
+
+
+def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: Optional[torch.Tensor], g: torch.Tensor,
+                        scale: Optional[float] = None, need_dbias: bool = True):
+    """Gradients of ``fused_attention`` for Lq == Lk with no bias or a
+    shared (1, 1, L, L) bias: (dq, dk, dv, dbias | None), as
+    ``fused_attention_bwd_reference`` computes them. q, k, v and g are
+    (B, L, H, hd) with any strides whose last is 1."""
+    if q.device.type == "cpu":
+        return fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention_bwd runs on cpu or cuda, not {q.device}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """``fused_attention`` with its gradient, dispatched as the JAX
+    package's custom VJP (``_fad_bwd``) dispatches it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            return fused_attention_reference(q, k, v, bias, scale)
+        return _fused_attention_cuda(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        need_dbias = bias is not None and ctx.needs_input_grad[3]
+        if q.shape[1] == k.shape[1] and (bias is None or tuple(bias.shape[:2]) == (1, 1)):
+            dq, dk, dv, dbias = fused_attention_bwd(q, k, v, bias, g, ctx.scale, need_dbias)
+            return dq, dk, dv, dbias, None
+        # cross-length, or a per-(batch, head) bias: recompute through the
+        # plain forward under autograd, as the reference recomputes through XLA
+        with torch.enable_grad():
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            bb = None if bias is None else bias.detach().requires_grad_(need_dbias)
+            out = fused_attention_reference(qq, kk, vv, bb, ctx.scale)
+            grads = torch.autograd.grad(out, [qq, kk, vv] + ([bb] if need_dbias else []), g)
+        return *grads[:3], (grads[3] if need_dbias else None), None
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(q k^T * scale + bias) v per (batch, head).
+    """softmax(q k^T * scale + bias) v per (batch, head), differentiable.
 
     q: (B, Lq, H, hd); k, v: (B, Lk, H, hd), any strides with the last one 1
     (a view of a fused projection or of a KV cache is read in place). bias,
     if given, is (1|B, 1|H, Lq, Lk), fp32 or cast to it, and may hold -inf;
     an axis of size 1 is shared, never broadcast in memory. The default scale
     is 1/sqrt(hd). Returns a contiguous (B, Lq, H, hd) in q's dtype.
+
+    The gradient of Lq == Lk with no bias or a shared bias is
+    ``fused_attention_bwd`` (the backward kernel on a CUDA tensor); dbias is
+    computed only when the bias requires a gradient. Other shapes recompute
+    through the plain forward, as the JAX package does through XLA.
     """
-    if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, bias, scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
-    return _fused_attention_cuda(q, k, v, bias, scale)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FusedAttention.apply(q, k, v, bias, scale)

@@ -1,19 +1,236 @@
-"""VAR class-conditional CFG sampling (counterpart of
-``imagefolder_tpu/train/var_train.py::var_sample``; reference
-``models/var.py:145-233``, ``inference.py``). The trainer is not ported yet.
+"""VAR teacher-forcing training and class-conditional CFG sampling
+(counterpart of ``imagefolder_tpu/train/var_train.py``; reference
+``trainer.py``, ``train.py``, ``models/var.py:145-233``, ``inference.py``).
+
+Train step: the frozen tokenizer encodes the images to per-branch,
+per-scale codes (``img_to_idxBl``, under ``torch.no_grad``) -> the
+teacher-forcing input -> VAR's training forward (class dropout, token
+dropout, drop path) -> per-PQ-branch cross entropy (trainer.py:122-147) ->
+backward (the attention's through the BNHD backward kernel on the card) ->
+clipped AdamW on the lr/wd schedule, and the EMA copy when asked for.
+State lives in the modules and the optimizer (``state_dict()`` of each); the
+checkpoint format is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import copy
+import dataclasses
+from typing import Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from imagefolder_tpu_torch.models.tokenizer import VQModel
 from imagefolder_tpu_torch.models.var import VAR
 from imagefolder_tpu_torch.ops.sampling import gumbel, gumbel_softmax, sample_with_top_k_top_p
+from imagefolder_tpu_torch.train.optim import (
+    adamw_with_freezing,
+    ema_update,
+    lr_wd_annealing,
+    var_flax_paths,
+)
 
-__all__ = ["var_sample"]
+__all__ = ["VARTrainConfig", "ProgressiveController", "VARTrainer", "var_sample"]
+
+
+@dataclasses.dataclass
+class VARTrainConfig:
+    """Mirror of the JAX package's VARTrainConfig: same fields, same
+    defaults (reference utils/arg_util.py: AdamW(0.9, 0.95), lin0 schedule,
+    grad clip 2)."""
+
+    lr: float = 1e-4
+    weight_decay: float = 0.05
+    # cosine-anneal wd to this over the run (utils/lr_control.py:47-48);
+    # 0 keeps it constant
+    weight_decay_end: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 2.0
+    sched: str = "lin0"
+    warmup_steps: int = 1000
+    total_steps: int = 100_000
+    final_lr_ratio: float = 0.1
+    label_smooth: float = 0.0
+    p_drop_factor: float = 0.0
+    ema: bool = False
+
+
+class ProgressiveController:
+    """Progressive-training schedule and per-stage warmup state (reference
+    train.py:317-325, trainer.py:105-118): a copy of the JAX package's class,
+    which is plain Python."""
+
+    def __init__(self, num_stages: int, pg: float = 0.0, pg0: int = 4,
+                 prog_wp_it: float = 20.0):
+        self.num_stages = num_stages
+        self.pg = pg
+        # pg0=4 assumes the 10-scale pyramid: clamp it on a shorter one
+        self.pg0 = max(0, min(pg0, num_stages - 1))
+        self.prog_wp_it = max(prog_wp_it, 1.0)
+        self.prog_it = 0
+        self.last_prog_si = -1
+        self.first_prog = True
+
+    def stage(self, g_it: int, wp_it: float, max_it: int) -> int:
+        """Scheduled raw stage for global iteration g_it (train.py:317-325)."""
+        if self.pg <= 0:
+            return -1
+        if g_it <= wp_it:
+            return self.pg0
+        if g_it >= max_it * self.pg:
+            return self.num_stages - 1
+        delta = self.num_stages - 1 - self.pg0
+        progress = min(max((g_it - wp_it) / (max_it * self.pg - wp_it), 0), 1)
+        return self.pg0 + round(progress * delta)
+
+    def step(self, prog_si: int):
+        """Per-iteration bookkeeping (trainer.py:109-118) ->
+        (effective prog_si, prog_wp)."""
+        if self.last_prog_si != prog_si:
+            if self.last_prog_si != -1:
+                self.first_prog = False
+            self.last_prog_si = prog_si
+            self.prog_it = 0
+        self.prog_it += 1
+        prog_wp = max(min(self.prog_it / self.prog_wp_it, 1.0), 0.01)
+        if self.first_prog:
+            prog_wp = 1.0  # the main warmup covers the first stage
+        if prog_si == self.num_stages - 1:
+            prog_si = -1  # the last stage is full training
+        return prog_si, prog_wp
+
+    def state_dict(self):
+        return {"prog_it": self.prog_it, "last_prog_si": self.last_prog_si,
+                "first_prog": self.first_prog}
+
+    def load_state_dict(self, d):
+        self.prog_it = d["prog_it"]
+        self.last_prog_si = d["last_prog_si"]
+        self.first_prog = d["first_prog"]
+
+
+class VARTrainer:
+    """Trains ``var`` on the codes of the frozen tokenizer ``vae``.
+
+    ``vae`` is frozen here (``requires_grad_(False)``, ``eval()``); the
+    optimizer covers VAR's parameters only, with the JAX package's decay
+    labels. ``generator`` drives every training draw (on the models'
+    device; the device's default generator when None). With ``tcfg.ema``,
+    ``ema_var`` is a frozen copy of ``var`` updated after every step."""
+
+    def __init__(self, vae: VQModel, var: VAR, tcfg: VARTrainConfig, *,
+                 generator: Optional[torch.Generator] = None):
+        self.vae = vae.requires_grad_(False).eval()
+        self.var, self.tcfg, self.generator = var, tcfg, generator
+        sched = lr_wd_annealing(tcfg.sched, tcfg.lr, tcfg.warmup_steps, tcfg.total_steps,
+                                tcfg.final_lr_ratio)
+        self.opt = adamw_with_freezing(
+            var, sched, weight_decay=tcfg.weight_decay, b1=tcfg.beta1, b2=tcfg.beta2,
+            grad_clip=tcfg.grad_clip, weight_decay_end=(tcfg.weight_decay_end or None),
+            total_steps=tcfg.total_steps, paths=var_flax_paths(var))
+        self.ema_var = copy.deepcopy(var).requires_grad_(False) if tcfg.ema else None
+        pns = var.config.patch_nums
+        self.L = sum(p * p for p in pns)
+        self.last_l = pns[-1] ** 2
+
+    def _codes(self, imgs: torch.Tensor, prog_si: int = -1):
+        """The tokenizer's per-branch codes and the teacher-forcing input."""
+        with torch.no_grad():
+            idx_P = self.vae.img_to_idxBl(imgs)
+            if prog_si >= 0:
+                idx_P = [branch[:prog_si + 1] for branch in idx_P]
+            gt_BL = [torch.cat(branch, dim=1) for branch in idx_P]
+            return gt_BL, self.vae.idxBl_to_var_input(idx_P, prog_si)
+
+    def _ce_and_acc(self, logits_BLV: torch.Tensor, gt_BL_list: Sequence[torch.Tensor],
+                    label_smooth: float = 0.0, prog_si: int = -1, prog_wp: float = 1.0):
+        """Per-PQ-branch CE (trainer.py:131-144) and mean/tail token accuracy.
+
+        prog_si >= 0: the loss weight covers the first ed positions (still
+        normalised by the full L), the newest stage's span scaled by prog_wp
+        (trainer.py:137-143); the tail accuracy is -1 (trainer.py:157-158)."""
+        p = self.var.config.product_quant
+        v = logits_BLV.shape[-1] // p
+        loss = 0.0
+        accs, tails = [], []
+        for i, gt in enumerate(gt_BL_list):
+            lg = logits_BLV[..., i * v:(i + 1) * v]
+            logp = F.log_softmax(lg, dim=-1)
+            nll = -logp.gather(-1, gt[..., None])[..., 0]
+            if label_smooth > 0:
+                nll = (1 - label_smooth) * nll - label_smooth * logp.mean(dim=-1)
+            loss = loss + nll  # (B, L or ed)
+            correct = (lg.argmax(dim=-1) == gt).float()
+            accs.append(correct.mean() * 100.0)
+            tails.append(correct[:, -self.last_l:].mean() * 100.0 if prog_si < 0
+                         else torch.full((), -1.0, device=lg.device))
+        loss = loss / p
+        if prog_si >= 0:
+            bg, ed = self.var.config.begin_ends[prog_si]
+            lw = torch.full((ed,), 1.0 / self.L, device=loss.device)
+            lw[bg:] *= min(max(float(prog_wp), 0.0), 1.0)
+            loss = (loss * lw).sum(dim=-1).mean()
+        else:
+            loss = (loss * (1.0 / self.L)).sum(dim=-1).mean()
+        return loss, sum(accs) / p, sum(tails) / p
+
+    def loss_and_backward(self, imgs: torch.Tensor, labels: torch.Tensor, *,
+                          prog_si: int = -1, prog_wp: float = 1.0,
+                          masks: Optional[dict] = None):
+        """Forward and backward of one batch: leaves the gradients in VAR's
+        ``.grad`` and returns (loss, acc_mean, acc_tail) as 0-d tensors.
+        ``masks``: VAR's training masks (``VAR.draw_masks``), a test hook."""
+        gt_BL, x_in = self._codes(imgs, prog_si)
+        self.var.train()
+        logits = self.var(labels, x_in, prog_si, train=True,
+                          p_drop_factor=self.tcfg.p_drop_factor, generator=self.generator,
+                          masks=masks)
+        loss, acc, tail = self._ce_and_acc(logits, gt_BL, self.tcfg.label_smooth, prog_si,
+                                           prog_wp)
+        loss.backward()
+        return loss.detach(), acc, tail
+
+    def train_step(self, imgs: torch.Tensor, labels: torch.Tensor, *, prog_si: int = -1,
+                   prog_wp: float = 1.0, masks: Optional[dict] = None) -> Dict[str, torch.Tensor]:
+        """One optimizer step on (B, H, W, 3) images in [-1, 1] and (B,)
+        labels -> {loss, acc_mean, acc_tail, grad_norm}, 0-d tensors on the
+        device (no host sync). ``prog_si``/``prog_wp``: progressive training
+        (trainer.py:103-147), the sequence truncated to the stages <= prog_si
+        and the newest stage's loss ramped in by prog_wp."""
+        self.opt.zero_grad()
+        loss, acc, tail = self.loss_and_backward(imgs, labels, prog_si=prog_si,
+                                                 prog_wp=prog_wp, masks=masks)
+        gnorm = self.opt.step()
+        if self.ema_var is not None:
+            ema_update(list(self.ema_var.parameters()), list(self.var.parameters()))
+        return {"loss": loss, "acc_mean": acc, "acc_tail": tail, "grad_norm": gnorm}
+
+    @torch.no_grad()
+    def eval_step(self, imgs: torch.Tensor, labels: torch.Tensor,
+                  var: Optional[VAR] = None) -> Dict[str, torch.Tensor]:
+        """Validation step (trainer.py:58-101) of ``var`` (the trained model
+        unless given, e.g. ``ema_var``): CE and token accuracy, mean and
+        tail, with no label smoothing, averaged over the PQ branches, as (B,)
+        per-sample vectors so that ``eval.validation.var_eval_ep`` can drop
+        the padded rows of a ragged batch."""
+        var = self.var if var is None else var
+        gt_BL, x_in = self._codes(imgs)
+        var.eval()
+        logits = var(labels, x_in)
+        p = var.config.product_quant
+        v = logits.shape[-1] // p
+        out: Dict[str, torch.Tensor] = {}
+        for i, gt in enumerate(gt_BL):
+            lg = logits[..., i * v:(i + 1) * v].float()
+            nll = -F.log_softmax(lg, dim=-1).gather(-1, gt[..., None])[..., 0]
+            correct = (lg.argmax(dim=-1) == gt).float()
+            for key, val in (("L_mean", nll.mean(-1)), ("L_tail", nll[:, -self.last_l:].mean(-1)),
+                             ("acc_mean", correct.mean(-1) * 100.0),
+                             ("acc_tail", correct[:, -self.last_l:].mean(-1) * 100.0)):
+                out[key] = out[key] + val if key in out else val
+        return {k: val / p for k, val in out.items()}
 
 
 @torch.inference_mode()

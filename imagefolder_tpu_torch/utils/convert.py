@@ -16,7 +16,7 @@ Such a Phi gets zeros. It is never applied, so its values change no result
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +25,7 @@ from imagefolder_tpu_torch.models.tokenizer import ModelArgs, check_slice
 from imagefolder_tpu_torch.models.var import VARConfig
 
 __all__ = ["vqmodel_state_dict_from_flax", "multiscale_vq_state_dict_from_flax",
-           "var_state_dict_from_flax", "to_torch"]
+           "var_key_map", "var_state_dict_from_flax", "to_torch"]
 
 
 def _put_linear(sd: dict, key: str, p: Mapping):
@@ -120,34 +120,50 @@ def vqmodel_state_dict_from_flax(params: Mapping, margs: ModelArgs) -> dict:
     return to_torch(sd)
 
 
+def var_key_map(cfg: VARConfig) -> Dict[str, Tuple[str, bool]]:
+    """Each parameter of the port's VAR -> (its flax path "a/b/leaf", whether
+    the flax array is the transpose: Dense kernels are (in, out))."""
+    m: Dict[str, Tuple[str, bool]] = {}
+
+    def linear(key: str, path: str):
+        m[f"{key}.weight"] = (f"{path}/kernel", True)
+        m[f"{key}.bias"] = (f"{path}/bias", False)
+
+    linear("word_embed", "word_embed")
+    for key in ("class_emb", "lvl_embed"):
+        m[f"{key}.weight"] = (key, False)
+    m["pos_start"] = ("pos_start", False)
+    m["pos_1LC"] = ("pos_1LC", False)
+    linear("head_nm.ada_lin.1", "head_nm/ada_lin")
+    linear("head", "head")
+    if cfg.p_drop > 0:
+        m["empty_emb.weight"] = ("empty_emb", False)
+    if cfg.shared_aln:
+        linear("shared_ada_lin.1", "shared_ada_lin")
+    for i in range(cfg.depth):
+        g, f = f"blocks.{i}.", f"block_{i}/"
+        m[g + "attn.mat_qkv.weight"] = (f + "attn/mat_qkv/kernel", True)
+        m[g + "attn.q_bias"] = (f + "attn/q_bias", False)
+        m[g + "attn.v_bias"] = (f + "attn/v_bias", False)
+        linear(g + "attn.proj", f + "attn/proj")
+        linear(g + "ffn.fc1", f + "ffn/fc1")
+        linear(g + "ffn.fc2", f + "ffn/fc2")
+        if cfg.attn_l2_norm:
+            m[g + "attn.scale_mul_1H11"] = (f + "attn/scale_mul", False)
+        if cfg.shared_aln:
+            m[g + "ada_gss"] = (f + "ada_gss", False)
+        else:
+            linear(g + "ada_lin.1", f + "ada_lin")
+    return m
+
+
 def var_state_dict_from_flax(params: Mapping, cfg: VARConfig) -> dict:
     """flax VAR params -> {name: fp32 CPU tensor} for the port's VAR."""
     sd: dict = {}
-    _put_linear(sd, "word_embed", params["word_embed"])
-    sd["class_emb.weight"] = np.asarray(params["class_emb"])
-    sd["pos_start"] = np.asarray(params["pos_start"])
-    sd["pos_1LC"] = np.asarray(params["pos_1LC"])
-    sd["lvl_embed.weight"] = np.asarray(params["lvl_embed"])
-    _put_linear(sd, "head_nm.ada_lin.1", params["head_nm"]["ada_lin"])
-    _put_linear(sd, "head", params["head"])
-    if cfg.p_drop > 0:
-        sd["empty_emb.weight"] = np.asarray(params["empty_emb"])
-    if cfg.shared_aln:
-        _put_linear(sd, "shared_ada_lin.1", params["shared_ada_lin"])
-    for i in range(cfg.depth):
-        b = params[f"block_{i}"]
-        a = b["attn"]
-        g = f"blocks.{i}."
-        sd[g + "attn.mat_qkv.weight"] = np.asarray(a["mat_qkv"]["kernel"]).T
-        sd[g + "attn.q_bias"] = np.asarray(a["q_bias"])
-        sd[g + "attn.v_bias"] = np.asarray(a["v_bias"])
-        _put_linear(sd, g + "attn.proj", a["proj"])
-        _put_linear(sd, g + "ffn.fc1", b["ffn"]["fc1"])
-        _put_linear(sd, g + "ffn.fc2", b["ffn"]["fc2"])
-        if cfg.attn_l2_norm:
-            sd[g + "attn.scale_mul_1H11"] = np.asarray(a["scale_mul"])
-        if cfg.shared_aln:
-            sd[g + "ada_gss"] = np.asarray(b["ada_gss"])
-        else:
-            _put_linear(sd, g + "ada_lin.1", b["ada_lin"])
+    for key, (path, transposed) in var_key_map(cfg).items():
+        leaf = params
+        for part in path.split("/"):
+            leaf = leaf[part]
+        leaf = np.asarray(leaf)
+        sd[key] = leaf.T if transposed else leaf
     return to_torch(sd)
