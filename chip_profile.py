@@ -1,4 +1,5 @@
-"""Where the device time of the port's VAR paths goes, on one NVIDIA GPU.
+"""Where the device time of the port's VAR paths and of the flagship GAN
+training step goes, on one NVIDIA GPU.
 
     python3 chip_profile.py    # from the repository root; needs one CUDA card
 
@@ -15,6 +16,15 @@ profiled once more cut into its phases (encode, forward and loss, backward,
 optimizer), with a synchronize after each, and each kernel's time is put to
 the phase whose host range holds its start: that split tells the backward's
 GEMMs and elementwise passes from the forward's.
+
+Then the flagship GAN ``TokenizerTrainer.train_step`` at B=64 with a bf16
+loss stack (the configuration ``chip_smoke.py`` times): the whole step by
+kind of kernel, and the step once more cut into its phases (encode,
+quantize, decode, teacher, LPIPS, DinoDisc in the generator pass, adaptive
+weight, backward, generator optimizer and EMA, disc pass, disc optimizer,
+bookkeeping). The phases are the step's own modules and calls in its order
+(``gan_phases``); their total beside the whole step's busy time shows that
+they cover it.
 """
 
 from __future__ import annotations
@@ -28,16 +38,29 @@ import torch
 from torch.profiler import DeviceType, ProfilerActivity, profile, record_function
 
 from chip_smoke import BATCH, SEED, VAR_DEPTH, msvr_margs
+from imagefolder_tpu_torch.losses.discriminators import draw_crop
+from imagefolder_tpu_torch.losses.gan import (
+    LeCamState,
+    adaptive_disc_weight,
+    lecam_reg,
+    lecam_update,
+)
 from imagefolder_tpu_torch.models import build_vae_var
+from imagefolder_tpu_torch.models.tokenizer import _orthogonal_cosine_loss
+from imagefolder_tpu_torch.ops.quantize import update_usage_ema, usage_percent
 from imagefolder_tpu_torch.train import var_train
+from imagefolder_tpu_torch.train.optim import ema_update
+from imagefolder_tpu_torch.train.recipes import flagship_gan_recipe
+from imagefolder_tpu_torch.train.tokenizer_train import TokenizerTrainer, _last_layer_kernel
 
 CALLS = 2
 # kernel name pattern -> kind, first match wins
 KINDS = [
-    (r"attn_bwd", "#6 BNHD attention backward kernel"),
+    (r"attn_bwd", "#2/#6 attention backward kernels (shared tile code)"),
     (r"attn_bnhd", "#3 BNHD attention kernel"),
     (r"attn_qkv", "#1 packed-qkv attention kernel"),
     (r"codebook_argmin", "#9 codebook kernel"),
+    (r"conv|cudnn|fprop|dgrad|wgrad|implicit", "convolutions (cuDNN: LPIPS's VGG16, blur)"),
     (r"nvjet|gemm|cutlass|sm90_xmma|cublas", "GEMMs (cuBLAS)"),
     (r"sort|radix|topk|Topk|scan|cumsum|searchsorted", "sort, top-k, scan (sampling filter)"),
     (r"layer_norm|LayerNorm", "LayerNorm"),
@@ -48,6 +71,7 @@ KINDS = [
     (r"elementwise|vectorized|unrolled", "other elementwise (add, mul, exp, where, ...)"),
     (r"multi_tensor_apply", "optimizer (multi-tensor AdamW, clip)"),
     (r"index|gather|scatter|embedding", "gathers and scatters"),
+    (r"pool", "max-pool"),
 ]
 
 
@@ -136,6 +160,91 @@ def profile_phases(name: str, phases):
             print(f"[{name}]       {v:9.3f} ms  {k}")
 
 
+def gan_phases(tr: TokenizerTrainer, x: torch.Tensor) -> list:
+    """``TokenizerTrainer.train_step`` as (label, fn) phases, with the
+    step's own modules and calls in its order (``VQModel.forward`` opened up
+    into encode, quantize, decode and teacher)."""
+    m, tcfg, cfg = tr.model, tr.tcfg, tr.model_cfg
+    b, dev, s = x.shape[0], x.device, {}
+
+    def encode():
+        s["h"] = m.encode(x)
+
+    def quantize():
+        sn = len(cfg.v_patch_nums)
+        dropout_n = torch.randint(cfg.start_drop, sn + 1, (b,), generator=tr.rng, device=dev)
+        s["outs"] = [qz(s["h"][:, i], dropout_n=dropout_n, train=True)
+                     for i, qz in enumerate(m.quantizers)]
+        ql = [o.f_hat for o in s["outs"]]
+        s["dep"] = cfg.dependency_loss_weight * _orthogonal_cosine_loss(
+            ql[0].mean(dim=(1, 2)), ql[-1].mean(dim=(1, 2)))
+
+    def decode():
+        dec, _ = m.decode(torch.cat([o.f_hat for o in s["outs"]], dim=-1), return_prelast=True)
+        s["dec"] = dec.float()
+        s["rec"] = (x - s["dec"]).square().mean()
+
+    def teacher():
+        with torch.no_grad():
+            tokens = m.semantic_model(m._teacher_input(x))
+        z_s = m.quant_conv(tokens[:, 0] if cfg.guide_type_1 == "class"
+                           else tokens[:, 1:].mean(dim=1))
+        n_drop = int(b * cfg.codebook_drop)
+        z_q = s["outs"][-1].f_hat.mean(dim=(1, 2))
+        s["sem"] = m._guide_loss(z_s[n_drop:], z_q[n_drop:], cfg.sem_loss_scale,
+                                 0) * cfg.sem_loss_weight
+
+    def lpips():
+        s["perc"] = tr.lpips(x, s["dec"]).mean()
+
+    def disc_generator_pass():
+        s["crop"] = draw_crop(x.shape[1], tr.rng, dev)
+        s["g_adv"] = tr.g_loss(tr.disc(tr._aug(s["dec"], 0.0, None), s["crop"]))
+
+    def adaptive_weight():
+        s["nll"] = tcfg.rec_weight * s["rec"] + tcfg.perceptual_weight * s["perc"]
+        w_last = _last_layer_kernel(cfg, m)
+        g_nll, = torch.autograd.grad(s["nll"], w_last, retain_graph=True)
+        g_g, = torch.autograd.grad(s["g_adv"], w_last, retain_graph=True)
+        s["d_weight"] = adaptive_disc_weight(g_nll, g_g)
+
+    def backward():
+        outs, p = s["outs"], cfg.product_quant
+        loss = (s["nll"] + s["d_weight"] * tcfg.disc_weight * s["g_adv"]
+                + tcfg.codebook_weight * (sum(o.vq_loss for o in outs) / p
+                                          + sum(o.commit_loss for o in outs) / p)
+                + s["sem"] + s["dep"])
+        tr.gen_opt.zero_grad()
+        torch.autograd.backward(loss, inputs=tr.gen_opt.params)
+
+    def generator_optimizer():
+        tr.gen_opt.step()
+        ema_update(tr.ema_params, list(m.parameters()), tcfg.ema_decay)
+
+    def disc_pass():
+        dec = s.pop("dec").detach()
+        lf = tr.disc(tr._aug(dec, 0.0, None), s["crop"], update_stats=True)
+        lr = tr.disc(tr._aug(x, 0.0, None), s["crop"], update_stats=True)
+        new = LeCamState(*(t.detach() for t in lecam_update(tr.lecam, lr, lf)))
+        d_loss = tcfg.disc_weight * (lecam_reg(lr, lf, new) * tcfg.lecam_loss_weight
+                                     + tr.d_loss(lr, lf))
+        tr.disc_opt.zero_grad()
+        d_loss.backward()
+        tr.lecam = new
+
+    def bookkeeping():
+        hits = torch.stack([o.hits_SV for o in s.pop("outs")])
+        tr.usage_ema, tr.record_hit = update_usage_ema(tr.usage_ema, hits, tr.record_hit)
+        usage_percent(tr.usage_ema, float(b * cfg.num_latent_tokens), cfg.codebook_size)
+
+    return [("encode", encode), ("quantize", quantize), ("decode", decode),
+            ("teacher", teacher), ("LPIPS", lpips),
+            ("DinoDisc, generator pass", disc_generator_pass),
+            ("adaptive weight", adaptive_weight), ("backward", backward),
+            ("generator optimizer and EMA", generator_optimizer), ("disc pass", disc_pass),
+            ("disc optimizer", tr.disc_opt.step), ("bookkeeping", bookkeeping)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile.py needs a CUDA card: torch.cuda.is_available() is False")
@@ -175,6 +284,14 @@ def main() -> int:
     profile_phases("train_step", [("encode", encode), ("forward and loss", forward),
                                   ("backward", lambda: step.pop("loss").backward()),
                                   ("optimizer", tr.opt.step)])
+    del vae, var, tr, step
+
+    mcfg, tcfg = flagship_gan_recipe(BATCH, tcfg_overrides={"loss_dtype": "bfloat16"})
+    gan = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    x = torch.rand((BATCH, mcfg.image_size, mcfg.image_size, 3), generator=gen,
+                   device=dev) * 2 - 1
+    profile_path("GAN train_step", lambda: gan.train_step(x))
+    profile_phases("GAN train_step", gan_phases(gan, x))
     return 0
 
 

@@ -9,8 +9,9 @@ exit; no failure is caught):
      all started together, into the gitignored ``imagefolder_tpu_torch/_build/``)
      and load the library;
   3. kernels: each hand-written kernel against its plain PyTorch version on
-     the card: packed-qkv attention (#1) at the ViT shapes (and its refusal
-     of a tensor that needs a gradient), BNHD attention (#3) at every VAR
+     the card: packed-qkv attention (#1) at the ViT shapes, its backward (#2)
+     at the GAN step's three shapes, under the encoder's shared mask with and
+     without dbias, ragged, in fp32 and through autograd, BNHD attention (#3) at every VAR
      sampling stage, the teacher-forcing shape and edge cases, its backward
      (#6) at the training shape with and without dbias, without a bias, at
      L = 680, ragged, on strided views and in fp32, and the codebook search
@@ -20,18 +21,20 @@ exit; no failure is caught):
      (``img_to_idxBl`` codes per scale, ``VAR.forward`` logits, greedy
      ``var_sample`` tokens and images; then one ``VARTrainer`` step's loss,
      every parameter's gradient, the gradient norm and the updated
-     parameters, with the same training masks on both sides); a code or
-     token may differ only at a near-tie, and the card then goes on from the
-     CPU's choice;
+     parameters, with the same training masks on both sides); two flagship
+     GAN ``TokenizerTrainer`` steps (every metric, every trainable gradient of
+     the generator and the disc heads, the updated parameters, with the same
+     random draws on both sides); a code or token may differ only at a
+     near-tie, and the card then goes on from the CPU's choice;
   5. main paths at B=64 in bf16, timed with CUDA events (a warm-up call, then
      median, min and max), each with every launch counter set to 0 just
      before its timed calls and read just after: the VQ-4096 round trip,
      ``var_sample`` (cfg 1.5, top-k 900, top-p 0.96), ``img_to_idxBl``, the
-     teacher-forcing ``VAR.forward``, and ``VARTrainer.train_step`` and
-     ``eval_step``;
+     teacher-forcing ``VAR.forward``, ``VARTrainer.train_step`` and
+     ``eval_step``, and the flagship GAN ``TokenizerTrainer.train_step``;
   6. times: each kernel, its plain version (order plain, kernel, kernel,
      plain) and one PyTorch library call computing the same function (for
-     #6, the backward of ``scaled_dot_product_attention``), at the main
+     #2 and #6, the backward of ``scaled_dot_product_attention``), at the main
      paths' largest shapes, beside the card's bound for that work.
 Then one JSON line of kernel records and, last, the device JSON line.
 
@@ -44,6 +47,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -53,6 +57,8 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from imagefolder_tpu_torch.losses.diffaug import draw_aug
+from imagefolder_tpu_torch.losses.discriminators import draw_crop
 from imagefolder_tpu_torch.models import build_vae_var
 from imagefolder_tpu_torch.models.tokenizer import ModelArgs, VQModel
 from imagefolder_tpu_torch.models.var import build_attn_bias
@@ -62,12 +68,15 @@ from imagefolder_tpu_torch.ops.cuda import _build
 from imagefolder_tpu_torch.ops.cuda import attention as attn
 from imagefolder_tpu_torch.ops.cuda import codebook
 from imagefolder_tpu_torch.train import var_train
+from imagefolder_tpu_torch.train.recipes import flagship_gan_recipe
+from imagefolder_tpu_torch.train.tokenizer_train import TokenizerTrainer
 from imagefolder_tpu_torch.train.var_train import VARTrainConfig, VARTrainer
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 BATCH = 64
 HEADS = 12          # ViT-B
+DISC_HEADS = 6      # DinoDisc's ViT-S/16 trunk
 VAR_DEPTH = 16      # VAR-d16: width 1024, 16 heads of 64
 VAR_HEADS = 16
 HD = 64
@@ -78,6 +87,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # kernel vs plain, max abs
 MODEL_TOL = 1e-3
 NEAR_TIE = 1e-5        # fp64 score gap under which two codes count as tied
 LOGIT_NEAR_TIE = 1e-3  # top-2 gap of fp32 CFG logits under which a greedy pick may flip
+KINK_NEAR_TIE = 1e-4   # of a tensor's max abs: a relu input or max-pool gap that may flip
 # H100 SXM (NVIDIA data sheet): HBM3 rate, dense bf16 tensor-core peak and
 # fp32 FMA peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -86,6 +96,7 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # every kernel's launch counter: (module, attribute)
 COUNTERS = {
     "attention_qkv_fwd": (attn, "LAUNCHES"),
+    "attention_qkv_bwd": (attn, "BWD_LAUNCHES"),
     "fused_attention_fwd": (attn, "FUSED_LAUNCHES"),
     "fused_attention_bwd": (attn, "FUSED_BWD_LAUNCHES"),
     "codebook_argmin": (codebook, "LAUNCHES"),
@@ -224,13 +235,75 @@ def kernels_qkv(dev) -> float:
         _check(f"[kernels] #1 {name}", err, TOL[dtype])
         if dtype == bf16 and bias is None and b == BATCH:
             main_err = max(main_err, err)
-    qkv = torch.randn((2, 37, 3 * HD * HEADS), device=dev, requires_grad=True)
-    try:
-        attn.attention_qkv(qkv, HEADS)
-    except NotImplementedError as e:
-        print(f"[kernels] #1 refuses a qkv that needs a gradient: {e}")
-    else:
-        raise AssertionError("[kernels] #1 returned an output without a gradient")
+    return main_err
+
+
+def kernels_qkv_bwd(dev) -> float:
+    """#2 against its plain version: the max abs error of dqkv (and dbias)
+    over the max abs of the plain result, at the three shapes of the GAN
+    step, with the encoder's shared -inf mask (dbias on and off), ragged and
+    in fp32; then ``attention_qkv``'s autograd on the card, which must go
+    through #2 once. dbias keeps #6's bound (see ``kernels_bnhd_bwd``).
+    Returns the largest error at the main path's shapes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cases = [  # (name, (B, N), heads, dtype, bias, dbias, main)
+        ("encoder MSVR10P2", (BATCH, 499), HEADS, bf16, None, False, True),
+        ("decoder MSVR10P2", (BATCH, 379), HEADS, bf16, None, False, True),
+        ("DinoDisc trunk", (BATCH, 197), DISC_HEADS, bf16, None, False, True),
+        ("masked, dbias off", (8, 499), HEADS, bf16, encoder_mask(499, 242, dev), False, False),
+        ("masked, dbias on", (8, 499), HEADS, bf16, encoder_mask(499, 242, dev), True, False),
+        ("masked fp32, dbias on", (2, 499), HEADS, f32, encoder_mask(499, 242, dev), True,
+         False),
+        ("DinoDisc fp32", (2, 197), DISC_HEADS, f32, None, False, False),
+    ]
+    for n in (1, 37, 130):
+        cases.append((f"ragged N={n}", (3, n), 4, bf16, None, False, False))
+        cases.append((f"ragged N={n}, bias", (3, n), 4, bf16,
+                      encoder_mask(n, n // 3, dev, 1), True, False))
+    cases.append(("ragged N=37 fp32", (3, 37), 4, f32, None, False, False))
+    main_err = 0.0
+    for name, (b, n), h, dtype, bias, need_db, main in cases:
+        qkv = torch.randn((b, n, 3 * HD * h), generator=gen, device=dev).to(dtype)
+        g = torch.randn((b, n, HD * h), generator=gen, device=dev).to(dtype)
+        got = attn.attention_qkv_bwd(qkv, h, bias, g, need_dbias=need_db)
+        want = attn.attention_qkv_bwd_reference(qkv, h, bias, g, need_dbias=need_db)
+        torch.cuda.synchronize()
+        errs = {}
+        for what, a, w in zip(("dqkv", "dbias"), got, want):
+            if (a is None) != (w is None):
+                raise AssertionError(f"[kernels] #2 {name}: {what} is {a} against {w}")
+            if w is None:
+                continue
+            if a.shape != w.shape or a.dtype != w.dtype:
+                raise AssertionError(f"[kernels] #2 {name}: {what} {tuple(a.shape)} {a.dtype}")
+            if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(w).all())):
+                raise AssertionError(f"[kernels] #2 {name}: non-finite {what}")
+            errs[what] = _max_err(a, w) / max(w.detach().abs().max().item(), 1e-30)
+        tol = TOL[dtype]
+        shown = ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        print(f"[kernels] #2 {name:22s} qkv {tuple(qkv.shape)} {str(dtype)[6:]:8s} "
+              f"bias={'shared' if bias is not None else 'none':6s}: error over max |plain| "
+              f"{shown} (tol {tol:g})")
+        for what, e in errs.items():
+            _check(f"[kernels] #2 {name} {what}", e, tol)
+        if main:
+            main_err = max(main_err, *errs.values())
+    # autograd: attention_qkv's backward on the card is one #2 launch
+    qkv = torch.randn((2, 37, 3 * HD * HEADS), generator=gen, device=dev, requires_grad=True)
+    bias = encoder_mask(37, 12, dev).requires_grad_()
+    g = torch.randn((2, 37, HD * HEADS), generator=gen, device=dev)
+    before = attn.BWD_LAUNCHES
+    dqkv, dbias = torch.autograd.grad(attn.attention_qkv(qkv, HEADS, bias), (qkv, bias), g)
+    want = attn.attention_qkv_bwd_reference(qkv.detach(), HEADS, bias.detach(), g)
+    torch.cuda.synchronize()
+    err = max(_max_err(dqkv, want[0]) / want[0].abs().max().item(),
+              _max_err(dbias, want[1]) / want[1].abs().max().item())
+    if attn.BWD_LAUNCHES != before + 1:
+        raise AssertionError(f"[kernels] #2 autograd launched {attn.BWD_LAUNCHES - before} times")
+    print(f"[kernels] #2 autograd of attention_qkv on the card: one launch, dqkv and dbias "
+          f"error over max |plain| {err:.3e} (tol {TOL[f32]:g})")
+    _check("[kernels] #2 autograd", err, TOL[f32])
     return main_err
 
 
@@ -610,6 +683,212 @@ def phase_model_train(dev, cpu_models, card_models):
     _check("[model] updated parameters", step_err, MODEL_TOL)
 
 
+class KinkLockstep(torch.overrides.TorchFunctionMode):
+    """The branches of the GAN step's piecewise-linear ops, in lockstep:
+    ``F.relu`` and ``F.max_pool2d`` (LPIPS's VGG, the hinge and LeCam
+    losses) and ``F.leaky_relu`` (DinoDisc's heads). Under ``record()`` (the
+    CPU run) each call keeps its branch, the positive mask or the max-pool
+    argmax; under ``replay()`` (the card run) each call computes its own
+    branch, requires every element where it differs from the CPU's to be a
+    near-tie (the input within ``tol`` of the tensor's max abs of the kink,
+    or the two pooled values that close), and then takes the CPU's branch,
+    in the forward and in the gradient. Without it an fp32 rounding
+    difference that moves one of millions of VGG or head activations across
+    0 sends a different gradient down that element, and the per-position
+    gradients (``pos_embed``) or those behind a BatchNormLocal then differ
+    by more than rounding. Both runs compute ``x * where(mask, 1, slope)``
+    and a gather at the argmax, which equal the library ops in value and
+    gradient."""
+
+    def __init__(self, tol: float):
+        super().__init__()
+        self.tol, self.branches, self.pending = tol, [], None
+        self.calls, self.compared, self.flips, self.max_gap = 0, 0, 0, 0.0
+
+    def record(self):
+        self.pending = None
+        return self
+
+    def replay(self):
+        self.pending = iter(self.branches)
+        return self
+
+    def _cpu_branch(self, own: torch.Tensor, gap) -> torch.Tensor:
+        if self.pending is None:
+            self.branches.append(own.cpu())
+            return own
+        want = next(self.pending).to(own.device)
+        diff = own != want
+        self.calls += 1
+        self.compared += want.numel()
+        if bool(diff.any()):
+            g = gap(diff, want)
+            self.max_gap = max(self.max_gap, g)
+            _check("[model] piecewise-linear branch flip beyond a near-tie", g, self.tol)
+            self.flips += int(diff.sum())
+        return want
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in (F.relu, F.leaky_relu):
+            x = args[0]
+            slope = 0.0 if func is F.relu else (args[1] if len(args) > 1 else
+                                                kwargs.get("negative_slope", 0.01))
+            xd = x.detach()
+            mask = self._cpu_branch(
+                xd > 0, lambda d, _: (xd[d].abs().max() / xd.abs().max().clamp_min(1e-30)).item())
+            return x * torch.where(mask, 1.0, slope).to(x.dtype)
+        if func is F.max_pool2d:
+            x, k = args[0], args[1]
+            out, idx = F.max_pool2d(x, k, return_indices=True)
+            n, c = out.shape[:2]
+
+            def pooled(i):
+                return x.reshape(n, c, -1).gather(2, i.reshape(n, c, -1)).reshape(out.shape)
+
+            idx = self._cpu_branch(idx, lambda d, want: (
+                (out - pooled(want)).detach()[d].abs().max() / x.detach().abs().max()).item())
+            return pooled(idx)
+        return func(*args, **kwargs)
+
+
+def _to(obj, dev):
+    """Tensors in nested dicts and tuples, moved to ``dev``."""
+    if isinstance(obj, dict):
+        return {k: _to(v, dev) for k, v in obj.items()}
+    if isinstance(obj, tuple):
+        return tuple(_to(v, dev) for v in obj)
+    return obj.to(dev) if torch.is_tensor(obj) else obj
+
+
+def gan_draws(batch: int, px: int, gen: torch.Generator) -> dict:
+    """Every random draw of one ``TokenizerTrainer.train_step``, made on the
+    CPU: the quantizer dropout, the three DiffAug calls (generator pass, fake
+    and real images of the disc pass) and the disc's crop-or-resize."""
+    cpu = torch.device("cpu")
+    return {"dropout_n": torch.randint(3, len(PNS) + 1, (batch,), generator=gen),
+            **{k: draw_aug(batch, gen, cpu) for k in ("aug_g", "aug_f", "aug_r")},
+            "crop": draw_crop(px, gen, cpu)}
+
+
+# zero in exact arithmetic: a conv bias that BatchNormLocal's mean removes
+ZERO_GRAD = r"heads\.\d+\.b\d\.conv\.bias"
+ZERO_GRAD_TOL = 1e-4  # of the max abs gradient of the same conv's weight
+
+
+def _grad_errs(what: str, named_cpu, params_card, trainable: list) -> tuple:
+    """Each trainable parameter's gradient, card against CPU: the max abs
+    error over the CPU gradient's max abs. Every trainable parameter must
+    have a gradient (AdamW would skip one that has none, optax decays it). A
+    gradient that is zero in exact arithmetic (``ZERO_GRAD``) is held, on
+    both sides, to ``ZERO_GRAD_TOL`` of its weight's gradient instead."""
+    named_cpu = list(named_cpu)
+    trainable = {id(p) for p in trainable}
+    weight_max = {n: p.grad.abs().max().item() for n, p in named_cpu
+                  if p.grad is not None and n.endswith(".weight")}
+    errs, zero = {}, {}
+    for (name, p_cpu), p_card in zip(named_cpu, params_card):
+        if id(p_cpu) not in trainable:
+            if p_cpu.grad is not None or p_card.grad is not None:
+                raise AssertionError(f"[model] {what} {name}: frozen, but has a gradient")
+            continue
+        if p_cpu.grad is None or p_card.grad is None:
+            raise AssertionError(f"[model] {what} {name}: no gradient (cpu "
+                                 f"{p_cpu.grad is not None}, card {p_card.grad is not None})")
+        if re.fullmatch(ZERO_GRAD, name):
+            ref = weight_max[name[:-len("bias")] + "weight"]
+            zero[name] = max(p_cpu.grad.abs().max().item(),
+                             p_card.grad.abs().max().item()) / ref
+            _check(f"[model] {what} {name} (zero in exact arithmetic)", zero[name],
+                   ZERO_GRAD_TOL)
+            continue
+        errs[name] = _max_err(p_card.grad, p_cpu.grad) / max(
+            p_cpu.grad.abs().max().item(), 1e-30)
+    return errs, zero
+
+
+def phase_model_gan(dev):
+    """Two ``TokenizerTrainer`` steps of the flagship GAN recipe in fp32 at
+    B=2 (MSVR10P2-4096 with the DINOv2 ViT-B teacher, LPIPS VGG16, DinoDisc
+    ViT-S/16 at depth 12, remat on), card against CPU from the same weights,
+    with every random draw made once on the CPU and given to both sides
+    (``train_step(draws=...)``; the first step takes the disc's crop, the
+    second its area resize). Held: every metric (loss terms, ``gen_loss``,
+    ``disc_loss``, the adaptive weight, both pre-clip gradient norms) within
+    ``MODEL_TOL`` of max(|CPU value|, 1); after the first step every
+    trainable parameter's gradient of the generator and of the disc heads
+    within ``MODEL_TOL`` of its max abs; after the second (the first lr of
+    both schedules is 0) the updated parameters and the spectral-norm state.
+    The codes go in lockstep as in ``phase_model_var``, and the branches of
+    the piecewise-linear ops as ``KinkLockstep`` says."""
+    mcfg, tcfg = flagship_gan_recipe(2, margs_overrides={"dtype_str": "float32"},
+                                     tcfg_overrides={"loss_dtype": "float32"})
+    gen = torch.Generator().manual_seed(SEED + 4)
+    tr_cpu = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED),
+                              device="cpu")
+    _excite_layerscale(tr_cpu.model, gen)
+    tr_cpu.sync_ema()
+    tr_card = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED),
+                               device=dev)
+    for name in ("model", "lpips", "disc"):
+        getattr(tr_card, name).load_state_dict(getattr(tr_cpu, name).state_dict())
+    tr_card.sync_ema()
+    px = mcfg.image_size
+    x = torch.rand((2, px, px, 3), generator=gen) * 2 - 1
+    shown, compared, flips, kink_flips, kink_gap = [], 0, 0, 0, 0.0
+    for step in range(2):
+        draws = gan_draws(2, px, gen)
+        if draws["crop"] is not None:  # above 224 px
+            draws["crop"] = (torch.tensor(step == 0), *draws["crop"][1:])
+        codes = Lockstep(quantize, "_codebook_lookup", _code_gap, NEAR_TIE)
+        kinks = KinkLockstep(KINK_NEAR_TIE)
+        with kinks.record():
+            m_cpu = codes.on_cpu(lambda: tr_cpu.train_step(x, draws=draws))
+        with kinks.replay():
+            m_card = codes.on_card(lambda: tr_card.train_step(x.to(dev),
+                                                              draws=_to(draws, dev)))
+        if kinks.calls != len(kinks.branches):
+            raise AssertionError(f"[model] the card made {kinks.calls} piecewise-linear calls, "
+                                 f"the CPU {len(kinks.branches)}")
+        compared, flips = compared + codes.compared, flips + codes.flips
+        kink_flips, kink_gap = kink_flips + kinks.flips, max(kink_gap, kinks.max_gap)
+        torch.cuda.synchronize()
+        if sorted(m_cpu) != sorted(m_card):
+            raise AssertionError(f"[model] GAN step metrics {sorted(m_card)}")
+        for k, want in m_cpu.items():
+            err = _max_err(m_card[k], want) / max(want.abs().max().item(), 1.0)
+            _check(f"[model] GAN step {step} {k}", err, MODEL_TOL)
+        worst_m = max(m_cpu, key=lambda k: _max_err(m_card[k], m_cpu[k]))
+        shown.append(f"step {step}: " + ", ".join(
+            f"{k} {m_cpu[k].item():.6f}" for k in ("gen_loss", "disc_loss",
+                                                   "disc_adaptive_weight", "grad_norm",
+                                                   "disc_grad_norm"))
+            + f", worst metric {worst_m} abs err {_max_err(m_card[worst_m], m_cpu[worst_m]):.3e}")
+        if step == 0:
+            g_errs, g_zero = _grad_errs("generator", tr_cpu.model.named_parameters(),
+                                        tr_card.model.parameters(), tr_cpu.gen_opt.params)
+            d_errs, d_zero = _grad_errs("disc", tr_cpu.disc.named_parameters(),
+                                        tr_card.disc.parameters(), tr_cpu.disc_opt.params)
+    step_err = max(_max_err(a, b) for a, b in zip(
+        [*tr_cpu.model.state_dict().values(), *tr_cpu.disc.state_dict().values()],
+        [*tr_card.model.state_dict().values(), *tr_card.disc.state_dict().values()]))
+    print(f"[model] GAN step (flagship recipe) fp32 B=2 card vs CPU: "
+          + "; ".join(shown) + f" (tol {MODEL_TOL:g} of max(|value|, 1))")
+    for what, errs, zero in (("generator", g_errs, g_zero), ("disc heads", d_errs, d_zero)):
+        worst = max(errs, key=errs.get)
+        print(f"[model] GAN step {what}: {len(errs)} parameter gradients within "
+              f"{errs[worst]:.3e} of their max abs (worst {worst}, median "
+              f"{statistics.median(errs.values()):.3e}; tol {MODEL_TOL:g})"
+              + (f"; {len(zero)} zero in exact arithmetic at most {max(zero.values()):.3e} of "
+                 f"their weight's (tol {ZERO_GRAD_TOL:g})" if zero else ""))
+        _check(f"[model] GAN step {what} gradient of {worst}", errs[worst], MODEL_TOL)
+    print(f"[model] GAN step after two steps: parameters and spectral state max abs diff "
+          f"{step_err:.3e} (tol {MODEL_TOL:g}); codes {compared - flips}/{compared} equal; "
+          f"{kink_flips} relu, leaky-relu or max-pool elements took the CPU's branch, max "
+          f"near-tie gap {kink_gap:.3e} (<= {KINK_NEAR_TIE:g} of the tensor's max abs)")
+    _check("[model] GAN step updated parameters", step_err, MODEL_TOL)
+
+
 def time_calls(path: str, fn, iters: int, per_call: dict, dev) -> dict:
     """One warm-up call, then ``iters`` calls between CUDA events, with the
     launch counters set to 0 just before and read just after."""
@@ -768,6 +1047,58 @@ def main_train_paths(dev) -> dict:
     return out
 
 
+def gan_launches(tr: TokenizerTrainer) -> dict:
+    """Kernel launches of one flagship GAN ``train_step``, from the code: #1
+    in the encoder and decoder (each block again in the backward: remat), the
+    teacher, DinoDisc in the generator pass and on the fake and real images;
+    #2 in the backward of DinoDisc's trunk (for the adaptive weight's
+    gradient of g_adv, then in the generator's backward) and of the decoder
+    and encoder (the teacher is frozen, and the disc pass's trunk sees no
+    input that needs a gradient; a trunk block after the deepest readout
+    gets no gradient); #9 in every scale of both branches."""
+    m, cfg = tr.model, tr.model_cfg
+    enc, dec = len(m.encoder.model.blocks), len(m.decoder.model.blocks)
+    sem, disc = len(m.semantic_model.blocks), len(tr.disc.dino.blocks)
+    disc_bwd = max(tr.disc.kd) + 1 if tr.disc.kd else 0
+    remat = 2 if cfg.remat else 1
+    return {"attention_qkv_fwd": remat * (enc + dec) + sem + 3 * disc,
+            "attention_qkv_bwd": enc + dec + 2 * disc_bwd,
+            "codebook_argmin": cfg.product_quant * len(cfg.v_patch_nums)}
+
+
+def main_gan_paths(dev) -> dict:
+    """``TokenizerTrainer.train_step`` of the flagship GAN recipe at B=64,
+    bf16 activations and a bf16 loss stack (``bench.py``'s train leg), from
+    seeded random weights and draws on the card: exact launches, finite
+    metrics, every trainable parameter changed after the timed steps (the
+    warm-up step's lr is 0) and every frozen one (the teacher, the VGG,
+    DinoDisc's trunk) bit-unchanged."""
+    mcfg, tcfg = flagship_gan_recipe(BATCH, tcfg_overrides={"loss_dtype": "bfloat16"})
+    tr = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    px = mcfg.image_size
+    x = torch.rand((BATCH, px, px, 3), generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev) * 2 - 1
+    named = [*(("model." + n, p) for n, p in tr.model.named_parameters()),
+             *(("lpips." + n, p) for n, p in tr.lpips.named_parameters()),
+             *(("disc." + n, p) for n, p in tr.disc.named_parameters())]
+    before = {n: p.detach().clone() for n, p in named}
+    r = time_calls("GAN train_step", lambda: tr.train_step(x), 10, gan_launches(tr), dev)
+    m = {k: v.float().mean().item() for k, v in r["out"].items()}
+    changed = {n: not torch.equal(before[n], p) for n, p in named}
+    trainable = {n: p.requires_grad for n, p in named}
+    frozen = sum(not t for t in trainable.values())
+    if not (all(math.isfinite(v) for v in m.values()) and changed == trainable):
+        bad = sorted(n for n in changed if changed[n] != trainable[n])
+        raise AssertionError(f"[main] GAN train_step metrics {m}; changed != trainable at "
+                             f"{bad[:10]} ({len(bad)})")
+    del before
+    _report("TokenizerTrainer.train_step (flagship GAN recipe)", r, BATCH,
+            ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+            + f"; {sum(changed.values())} trainable parameter tensors changed over 11 steps, "
+            f"{frozen} frozen ones (teacher, VGG, DinoDisc trunk) unchanged")
+    return {"GAN train_step": r}
+
+
 def _time_ms(fn, reps: int = 20) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     fn()
@@ -810,6 +1141,23 @@ def phase_times(dev) -> dict:
         lambda: attn.attention_qkv_reference(qkv, h),
         lambda: F.scaled_dot_product_attention(q, k, v),
         (qkv.numel() + b * n * h * HD) * 2, 4 * b * h * n * n * HD, bf16, str(tuple(qkv.shape)))
+
+    # 2: the encoder's shape, no bias (as the GAN step); the library call is
+    # the backward only of SDPA on the q, k, v views of the same qkv
+    b, n, h = BATCH, 499, HEADS
+    qkv = torch.randn((b, n, 3 * HD * h), generator=gen, device=dev).to(bf16)
+    g = torch.randn((b, n, HD * h), generator=gen, device=dev).to(bf16)
+    lq, lk, lv = (t.detach().requires_grad_()
+                  for t in qkv.view(b, n, 3, h, HD).permute(2, 0, 3, 1, 4).unbind(0))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv)
+    lib_g = g.view(b, n, h, HD).transpose(1, 2)
+    out["attention_qkv_bwd"] = _time_kernel(
+        "#2 attention_qkv backward", lambda: attn.attention_qkv_bwd(qkv, h, None, g),
+        lambda: attn.attention_qkv_bwd_reference(qkv, h, None, g),
+        lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_g, retain_graph=True),
+        (2 * qkv.numel() + g.numel()) * 2, 5 * 2 * b * h * n * n * HD, bf16,
+        f"qkv {tuple(qkv.shape)}, g {tuple(g.shape)}")
+    del lib_out, lq, lk, lv
 
     # 3: the last sampling stage (most bytes of the path), then teacher forcing
     ltot = sum(p * p for p in PNS)
@@ -863,6 +1211,8 @@ def phase_times(dev) -> dict:
 KERNELS = {
     "attention_qkv_fwd": ("imagefolder_tpu_torch/csrc/attention_qkv.cu",
                           "imagefolder_tpu/ops/pallas/attention.py:93"),
+    "attention_qkv_bwd": ("imagefolder_tpu_torch/csrc/attention_qkv_bwd.cu",
+                          "imagefolder_tpu/ops/pallas/attention.py:223"),
     "fused_attention_fwd": ("imagefolder_tpu_torch/csrc/attention_bnhd.cu",
                             "imagefolder_tpu/ops/pallas/attention.py:374"),
     "fused_attention_bwd": ("imagefolder_tpu_torch/csrc/attention_bnhd_bwd.cu",
@@ -883,13 +1233,15 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device()
     phase_build()
-    errs = {"attention_qkv_fwd": kernels_qkv(dev), "fused_attention_fwd": kernels_bnhd(dev),
+    errs = {"attention_qkv_fwd": kernels_qkv(dev), "attention_qkv_bwd": kernels_qkv_bwd(dev),
+            "fused_attention_fwd": kernels_bnhd(dev),
             "fused_attention_bwd": kernels_bnhd_bwd(dev),
             "codebook_argmin": kernels_codebook(dev)}
     phase_model_vq(dev)
     phase_model_train(dev, *phase_model_var(dev))
+    phase_model_gan(dev)
     paths = {"round trip": main_round_trip(dev), **main_var_paths(dev),
-             **main_train_paths(dev)}
+             **main_train_paths(dev), **main_gan_paths(dev)}
     times = phase_times(dev)
     records = []
     for name, (source, replaces) in KERNELS.items():

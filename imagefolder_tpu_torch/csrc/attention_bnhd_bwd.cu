@@ -5,527 +5,29 @@
 // _bnhd_bias_bwd_kernel, math _bwd_head_math): the gradient of
 // fused_attention for self-attention, q, k, v and the output gradient g all
 // (B, L, H, hd), with no bias or one fp32 (L, L) bias shared by every batch
-// and head, which may hold -inf. Per (batch, head), with rows >= L masked:
-//   p  = softmax(q k^T * scale + bias), fp32, divided by its row sum
-//   dv = bf16(p)^T g            dp = g v^T (fp32)
-//   ds = p (dp - rowsum(p dp)), on the fp32 p
-//   dq = bf16(ds) k * scale     dk = bf16(ds)^T q * scale
-//   dbias = the sum of ds over batches and heads (fp32), when asked for
-// ("bf16" is the inputs' type). q, k, v and g are strided views (batch, row
+// and head, which may hold -inf. q, k, v and g are strided views (batch, row
 // and head strides; hd stride 1); dq, dk and dv are written contiguous
-// (B, L, H, hd) in the inputs' type.
+// (B, L, H, hd) in the inputs' type. The per-head math and the two-kernel
+// design are in attention_bwd_tile.cuh, shared with the packed-qkv backward
+// (attention_qkv_bwd.cu).
 //
 // What bounds it on this card: VAR-d16's training step calls it 16 times at
 // (64, 286, 16, 64) bf16 under the block-causal bias. Each call must read
 // q, k, v, g and write dq, dk, dv: 262 MB, 78 us at 3.35 TB/s, against 34
 // GFLOP of products over the 51,445 allowed (q, k) pairs per (b, h), 34 us at
-// 989 TFLOP/s. So it is bound by memory, as the forward is.
-//
-// What the design does about it: no score, probability or ds ever goes to
-// device memory. The TPU kernel held a whole (L, L) head in VMEM and carried
-// dbias from one sequential grid step to the next; a CUDA grid runs in no
-// order and a block holds 64-row tiles, so the work is split in two kernels
-// that each own their outputs and need no sum across blocks:
-//   A, per (b, h, 64 q rows): pass 1 gets each row's max m and sum l (online,
-//     as the forward's first pass); pass 2 gets delta = rowsum(p dp); pass 3
-//     accumulates dq over the k/v tiles in registers. It writes dq, and m, l
-//     and delta (B*H*L fp32 each) to scratch.
-//   B, per (b, h, 64 k rows): one pass over the q tiles recomputes the
-//     transposed scores k q^T, p^T from m and l, dp^T = v g^T and ds^T from
-//     delta, and accumulates dv += bf16(p^T) g and dk += bf16(ds^T) q in
-//     registers; each block writes its dk and dv rows once.
-// The products run on mma.sync m16n8k16 (bf16 in, fp32 accumulate) with
-// 64-row tiles through shared memory (mma_tile.cuh), four warps of 16 rows
-// per block. dbias, which the TPU grid carried in VMEM, is an fp32 atomicAdd
-// of every non-zero ds into a zeroed (L, L) buffer from kernel A: its
-// summation order changes from run to run. VAR's bias is a constant, so its
-// training step never asks for dbias. fp32 inputs take FMA kernels with two
-// threads per row (each owns 32 of the 64 columns, interleaved so that the
-// pair reads two banks), with the same two-kernel split. Masked tiles are
-// not skipped, and nothing is pipelined: later work.
+// 989 TFLOP/s. So it is bound by memory, as the forward is. VAR's bias is a
+// constant, so its training step never asks for dbias.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_bwd_tile.cuh"
 
-#include "mma_tile.cuh"
-
-namespace {
-
-using namespace mma_tile;
-
-constexpr float kNegInf = -INFINITY;
-
-// element strides of the (B, L, H, hd) views q, k, v and g (hd stride 1),
-// and the shared bias's row stride (column stride 1)
-struct Strides {
-  int64_t qb, ql, qh, kb, kl, kh, vb, vl, vh, gb, gl, gh, bq;
-};
-
-// a warp's 16 accumulator rows (row_lo, row_hi per thread) times `mul`,
-// rounded to bf16, into the contiguous (B, L, H, 64) output of (b, h)
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[kHd / 8][4],
-                                           int b, int h, int n, int heads,
-                                           int row_lo, int row_hi, float mul) {
-  const int64_t ld = static_cast<int64_t>(heads) * kHd;
-  bf16* dst = out + (static_cast<int64_t>(b) * n * heads + h) * kHd + (threadIdx.x & 3) * 2;
-#pragma unroll
-  for (int i = 0; i < kHd / 8; ++i) {
-    if (row_lo < n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + row_lo * ld + i * 8) =
-          __floats2bfloat162_rn(acc[i][0] * mul, acc[i][1] * mul);
-    if (row_hi < n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + row_hi * ld + i * 8) =
-          __floats2bfloat162_rn(acc[i][2] * mul, acc[i][3] * mul);
-  }
-}
-
-// sum over the four threads that hold one accumulator row
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Kernel A, bf16: dq, and the row statistics m, l and delta, for 64 q rows
-// of one (b, h); kDbias adds ds into dbias.
-template <bool kVec, bool kBias, bool kDbias>
-__global__ void __launch_bounds__(kWarps * 32)
-    attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const bf16* __restrict__ g,
-                            const float* __restrict__ bias, bf16* __restrict__ dq,
-                            float* __restrict__ dbias, float* __restrict__ stats, int n,
-                            int heads, float scale, Strides st) {
-  __shared__ __align__(16) bf16 sa[kRows][kLd];  // the q tile, then the g tile
-  __shared__ __align__(16) bf16 sk[kRows][kLd];
-  __shared__ __align__(16) bf16 sv[kRows][kLd];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int t4 = lane & 3;
-  const int q0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bf16* kp = k + b * st.kb + h * st.kh;
-  const bf16* vp = v + b * st.vb + h * st.vh;
-
-  uint32_t qf[kHd / 16][4], gf[kHd / 16][4];
-  load_tile<kVec>(sa, q + b * st.qb + h * st.qh, q0, n, st.ql);
-  __syncthreads();
-  load_a(qf, sa);
-  __syncthreads();
-  load_tile<kVec>(sa, g + b * st.gb + h * st.gh, q0, n, st.gl);
-  __syncthreads();
-  load_a(gf, sa);
-
-  const int row_lo = q0 + warp * 16 + (lane >> 2);
-  const int row_hi = row_lo + 8;
-  float s[kRows / 8][4], dp[kRows / 8][4];
-
-  // pass 1: row max and row sum (online, as the forward's first pass)
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < n; k0 += kRows) {
-    __syncthreads();
-    load_tile<kVec>(sk, kp, k0, n, st.kl);
-    __syncthreads();
-    tile_scores<kBias>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < kRows / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-    float mu[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      mu[r] = m_new == kNegInf ? 0.f : m_new;
-      l[r] *= __expf(m[r] - mu[r]);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kRows / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) l[e >> 1] += __expf(s[nt][e] - mu[e >> 1]);
-  }
-  float mu[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = quad_sum(l[r]);
-    mu[r] = m[r] == kNegInf ? 0.f : m[r];
-  }
-
-  // pass 2: delta = rowsum(p dp)
-  float delta[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < n; k0 += kRows) {
-    __syncthreads();
-    load_tile<kVec>(sk, kp, k0, n, st.kl);
-    load_tile<kVec>(sv, vp, k0, n, st.vl);
-    __syncthreads();
-    tile_scores<kBias>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
-    mma_abt(dp, gf, sv);
-#pragma unroll
-    for (int nt = 0; nt < kRows / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        delta[e >> 1] += __expf(s[nt][e] - mu[e >> 1]) / l[e >> 1] * dp[nt][e];
-  }
-  delta[0] = quad_sum(delta[0]);
-  delta[1] = quad_sum(delta[1]);
-
-  // pass 3: dq = bf16(ds) k, accumulated over the k tiles
-  float acc[kHd / 8][4];
-#pragma unroll
-  for (int i = 0; i < kHd / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  for (int k0 = 0; k0 < n; k0 += kRows) {
-    __syncthreads();
-    load_tile<kVec>(sk, kp, k0, n, st.kl);
-    load_tile<kVec>(sv, vp, k0, n, st.vl);
-    __syncthreads();
-    tile_scores<kBias>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
-    mma_abt(dp, gf, sv);
-#pragma unroll
-    for (int nt = 0; nt < kRows / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float p = __expf(s[nt][e] - mu[r]) / l[r];
-        const float ds = p * (dp[nt][e] - delta[r]);
-        s[nt][e] = ds;
-        if (kDbias) {
-          const int row = r ? row_hi : row_lo;
-          const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-          if (row < n && col < n && ds != 0.f)
-            atomicAdd(dbias + static_cast<int64_t>(row) * n + col, ds);
-        }
-      }
-    }
-    uint32_t dsf[kRows / 16][4];
-    pack_a(dsf, s);
-    mma_ab(acc, dsf, sk);
-  }
-  store_rows(dq, acc, b, h, n, heads, row_lo, row_hi, scale);
-
-  if (t4 == 0) {
-    const int64_t plane = static_cast<int64_t>(gridDim.z) * heads * n;
-    float* row_stats = stats + (static_cast<int64_t>(b) * heads + h) * n;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r ? row_hi : row_lo;
-      if (row < n) {
-        row_stats[row] = mu[r];
-        row_stats[plane + row] = l[r];
-        row_stats[2 * plane + row] = delta[r];
-      }
-    }
-  }
-}
-
-// Kernel B, bf16: dk and dv for 64 k rows of one (b, h), from the row
-// statistics that kernel A wrote.
-template <bool kVec, bool kBias>
-__global__ void __launch_bounds__(kWarps * 32)
-    attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const bf16* __restrict__ g,
-                              const float* __restrict__ bias,
-                              const float* __restrict__ stats, bf16* __restrict__ dk,
-                              bf16* __restrict__ dv, int n, int heads, float scale,
-                              Strides st) {
-  __shared__ __align__(16) bf16 sq[kRows][kLd];  // the k tile, then q tiles
-  __shared__ __align__(16) bf16 sg[kRows][kLd];  // the v tile, then g tiles
-  __shared__ float sm[kRows], sl[kRows], sd[kRows];
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int t4 = lane & 3;
-  const int k0 = blockIdx.x * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bf16* qp = q + b * st.qb + h * st.qh;
-  const bf16* gp = g + b * st.gb + h * st.gh;
-  const int64_t plane = static_cast<int64_t>(gridDim.z) * heads * n;
-  const float* row_stats = stats + (static_cast<int64_t>(b) * heads + h) * n;
-
-  uint32_t kf[kHd / 16][4], vf[kHd / 16][4];
-  load_tile<kVec>(sq, k + b * st.kb + h * st.kh, k0, n, st.kl);
-  load_tile<kVec>(sg, v + b * st.vb + h * st.vh, k0, n, st.vl);
-  __syncthreads();
-  load_a(kf, sq);
-  load_a(vf, sg);
-
-  const int row_lo = k0 + warp * 16 + (lane >> 2);  // key rows
-  const int row_hi = row_lo + 8;
-  float dk_acc[kHd / 8][4], dv_acc[kHd / 8][4];
-#pragma unroll
-  for (int i = 0; i < kHd / 8; ++i) {
-    dk_acc[i][0] = dk_acc[i][1] = dk_acc[i][2] = dk_acc[i][3] = 0.f;
-    dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
-  }
-  float s[kRows / 8][4], dp[kRows / 8][4];
-  for (int q0 = 0; q0 < n; q0 += kRows) {
-    __syncthreads();
-    load_tile<kVec>(sq, qp, q0, n, st.ql);
-    load_tile<kVec>(sg, gp, q0, n, st.gl);
-    for (int i = threadIdx.x; i < kRows; i += kWarps * 32) {
-      const bool in = q0 + i < n;  // a row past the end gets p = 0 (its score is -inf)
-      sm[i] = in ? row_stats[q0 + i] : 0.f;
-      sl[i] = in ? row_stats[plane + q0 + i] : 1.f;
-      sd[i] = in ? row_stats[2 * plane + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    // transposed scores: rows are keys, columns queries
-    tile_scores<kBias, true>(s, kf, sq, bias, st.bq, row_lo, row_hi, q0, n, n, scale);
-    mma_abt(dp, vf, sg);  // dp^T = v g^T
-#pragma unroll
-    for (int nt = 0; nt < kRows / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + t4 * 2 + (e & 1);
-        const float p = __expf(s[nt][e] - sm[c]) / sl[c];
-        dp[nt][e] = p * (dp[nt][e] - sd[c]);  // ds^T
-        s[nt][e] = p;
-      }
-    }
-    uint32_t af[kRows / 16][4];
-    pack_a(af, s);
-    mma_ab(dv_acc, af, sg);
-    pack_a(af, dp);
-    mma_ab(dk_acc, af, sq);
-  }
-  store_rows(dk, dk_acc, b, h, n, heads, row_lo, row_hi, scale);
-  store_rows(dv, dv_acc, b, h, n, heads, row_lo, row_hi, 1.f);
-}
-
-// fp32: two threads per row, each holding the columns 2i + half of its
-// row's vectors in registers; 32-row tiles of the other side in shared memory.
-constexpr int kF32Tile = 32;
-constexpr int kHalf = kHd / 2;
-
-// the dot product of a row pair's registers with shared row `x`
-__device__ __forceinline__ float pair_dot(const float (&r)[kHalf], const float* x, int half) {
-  float a = 0.f;
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i) a = fmaf(r[i], x[2 * i + half], a);
-  return a + __shfl_xor_sync(0xffffffffu, a, 1);
-}
-
-template <bool kBias, bool kDbias>
-__global__ void __launch_bounds__(2 * kRows)
-    attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ g,
-                           const float* __restrict__ bias, float* __restrict__ dq,
-                           float* __restrict__ dbias, float* __restrict__ stats, int n,
-                           int heads, float scale, Strides st) {
-  __shared__ float sk[kF32Tile][kHd];
-  __shared__ float sv[kF32Tile][kHd];
-
-  const int half = threadIdx.x & 1;
-  const int row = blockIdx.x * kRows + (threadIdx.x >> 1);
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bool in = row < n;
-  const float* kp = k + b * st.kb + h * st.kh;
-  const float* vp = v + b * st.vb + h * st.vh;
-  const float* qp = q + b * st.qb + h * st.qh + static_cast<int64_t>(in ? row : 0) * st.ql;
-  const float* gp = g + b * st.gb + h * st.gh + static_cast<int64_t>(in ? row : 0) * st.gl;
-  const float* brow = kBias ? bias + static_cast<int64_t>(in ? row : 0) * st.bq : nullptr;
-
-  float qr[kHalf], gr[kHalf], acc[kHalf];
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i) {
-    qr[i] = in ? qp[2 * i + half] : 0.f;
-    gr[i] = in ? gp[2 * i + half] : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = kNegInf, l = 0.f, delta = 0.f;
-  for (int pass = 0; pass < 3; ++pass) {  // m and l; delta; dq
-    const float mu = m == kNegInf ? 0.f : m;
-    for (int k0 = 0; k0 < n; k0 += kF32Tile) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < kF32Tile * kHd; i += 2 * kRows) {
-        const int r = i / kHd, d = i % kHd;
-        const bool kin = k0 + r < n;
-        sk[r][d] = kin ? kp[(k0 + r) * st.kl + d] : 0.f;
-        if (pass > 0) sv[r][d] = kin ? vp[(k0 + r) * st.vl + d] : 0.f;
-      }
-      __syncthreads();
-      for (int j = 0; j < kF32Tile; ++j) {
-        const int col = k0 + j;
-        float s = pair_dot(qr, sk[j], half) * scale;
-        if (kBias && in && col < n) s += brow[col];
-        if (col >= n) s = kNegInf;
-        if (pass == 0) {
-          if (s > m) {
-            l = l * expf(m - s) + 1.f;
-            m = s;
-          } else if (s != kNegInf) {
-            l += expf(s - m);
-          }
-          continue;
-        }
-        const float dpv = pair_dot(gr, sv[j], half);
-        const float p = expf(s - mu) / l;
-        if (pass == 1) {
-          delta = fmaf(p, dpv, delta);
-          continue;
-        }
-        const float ds = p * (dpv - delta);
-#pragma unroll
-        for (int i = 0; i < kHalf; ++i) acc[i] = fmaf(ds, sk[j][2 * i + half], acc[i]);
-        if (kDbias && half == 0 && in && col < n && ds != 0.f)
-          atomicAdd(dbias + static_cast<int64_t>(row) * n + col, ds);
-      }
-    }
-  }
-  if (in) {
-    float* dst = dq + ((static_cast<int64_t>(b) * n + row) * heads + h) * kHd + half;
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) dst[2 * i] = acc[i] * scale;
-    if (half == 0) {
-      const int64_t plane = static_cast<int64_t>(gridDim.z) * heads * n;
-      float* row_stats = stats + (static_cast<int64_t>(b) * heads + h) * n + row;
-      row_stats[0] = m == kNegInf ? 0.f : m;
-      row_stats[plane] = l;
-      row_stats[2 * plane] = delta;
-    }
-  }
-}
-
-template <bool kBias>
-__global__ void __launch_bounds__(2 * kRows)
-    attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ g,
-                             const float* __restrict__ bias,
-                             const float* __restrict__ stats, float* __restrict__ dk,
-                             float* __restrict__ dv, int n, int heads, float scale,
-                             Strides st) {
-  __shared__ float sq[kF32Tile][kHd];
-  __shared__ float sg[kF32Tile][kHd];
-  __shared__ float sm[kF32Tile], sl[kF32Tile], sd[kF32Tile];
-
-  const int half = threadIdx.x & 1;
-  const int row = blockIdx.x * kRows + (threadIdx.x >> 1);  // a key row
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bool in = row < n;
-  const float* qp = q + b * st.qb + h * st.qh;
-  const float* gp = g + b * st.gb + h * st.gh;
-  const float* kp = k + b * st.kb + h * st.kh + static_cast<int64_t>(in ? row : 0) * st.kl;
-  const float* vp = v + b * st.vb + h * st.vh + static_cast<int64_t>(in ? row : 0) * st.vl;
-  const int64_t plane = static_cast<int64_t>(gridDim.z) * heads * n;
-  const float* row_stats = stats + (static_cast<int64_t>(b) * heads + h) * n;
-
-  float kr[kHalf], vr[kHalf], dka[kHalf], dva[kHalf];
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i) {
-    kr[i] = in ? kp[2 * i + half] : 0.f;
-    vr[i] = in ? vp[2 * i + half] : 0.f;
-    dka[i] = dva[i] = 0.f;
-  }
-  for (int q0 = 0; q0 < n; q0 += kF32Tile) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kF32Tile * kHd; i += 2 * kRows) {
-      const int r = i / kHd, d = i % kHd;
-      const bool qin = q0 + r < n;
-      sq[r][d] = qin ? qp[(q0 + r) * st.ql + d] : 0.f;
-      sg[r][d] = qin ? gp[(q0 + r) * st.gl + d] : 0.f;
-    }
-    for (int i = threadIdx.x; i < kF32Tile; i += 2 * kRows) {
-      const bool qin = q0 + i < n;
-      sm[i] = qin ? row_stats[q0 + i] : 0.f;
-      sl[i] = qin ? row_stats[plane + q0 + i] : 1.f;
-      sd[i] = qin ? row_stats[2 * plane + q0 + i] : 0.f;
-    }
-    __syncthreads();
-    for (int j = 0; j < kF32Tile; ++j) {
-      const int col = q0 + j;  // a query
-      float s = pair_dot(kr, sq[j], half) * scale;
-      if (kBias && in && col < n) s += bias[static_cast<int64_t>(col) * st.bq + row];
-      if (col >= n) s = kNegInf;
-      const float dpv = pair_dot(vr, sg[j], half);
-      const float p = expf(s - sm[j]) / sl[j];
-      const float ds = p * (dpv - sd[j]);
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i) {
-        dva[i] = fmaf(p, sg[j][2 * i + half], dva[i]);
-        dka[i] = fmaf(ds, sq[j][2 * i + half], dka[i]);
-      }
-    }
-  }
-  if (in) {
-    const int64_t off = ((static_cast<int64_t>(b) * n + row) * heads + h) * kHd + half;
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) {
-      dk[off + 2 * i] = dka[i] * scale;
-      dv[off + 2 * i] = dva[i];
-    }
-  }
-}
-
-template <typename T>
-struct Args {
-  const T *q, *k, *v, *g;
-  const float* bias;
-  T *dq, *dk, *dv;
-  float *dbias, *stats;
-  int n, heads;
-  float scale;
-  Strides st;
-};
-
-template <bool kVec>
-void launch_bf16(const Args<bf16>& a, dim3 grid, cudaStream_t stm) {
-  const dim3 block(kWarps * 32);
-  if (a.dbias)
-    attn_bwd_dq_bf16_kernel<kVec, true, true><<<grid, block, 0, stm>>>(
-        a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
-  else if (a.bias)
-    attn_bwd_dq_bf16_kernel<kVec, true, false><<<grid, block, 0, stm>>>(
-        a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
-  else
-    attn_bwd_dq_bf16_kernel<kVec, false, false><<<grid, block, 0, stm>>>(
-        a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
-  if (cudaPeekAtLastError() != cudaSuccess) return;
-  if (a.bias)
-    attn_bwd_dkdv_bf16_kernel<kVec, true><<<grid, block, 0, stm>>>(
-        a.q, a.k, a.v, a.g, a.bias, a.stats, a.dk, a.dv, a.n, a.heads, a.scale, a.st);
-  else
-    attn_bwd_dkdv_bf16_kernel<kVec, false><<<grid, block, 0, stm>>>(
-        a.q, a.k, a.v, a.g, a.bias, a.stats, a.dk, a.dv, a.n, a.heads, a.scale, a.st);
-}
-
-void launch_f32(const Args<float>& a, dim3 grid, cudaStream_t stm) {
-  const dim3 block(2 * kRows);
-  if (a.dbias)
-    attn_bwd_dq_f32_kernel<true, true><<<grid, block, 0, stm>>>(
-        a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
-  else if (a.bias)
-    attn_bwd_dq_f32_kernel<true, false><<<grid, block, 0, stm>>>(
-        a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
-  else
-    attn_bwd_dq_f32_kernel<false, false><<<grid, block, 0, stm>>>(
-        a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
-  if (cudaPeekAtLastError() != cudaSuccess) return;
-  if (a.bias)
-    attn_bwd_dkdv_f32_kernel<true><<<grid, block, 0, stm>>>(
-        a.q, a.k, a.v, a.g, a.bias, a.stats, a.dk, a.dv, a.n, a.heads, a.scale, a.st);
-  else
-    attn_bwd_dkdv_f32_kernel<false><<<grid, block, 0, stm>>>(
-        a.q, a.k, a.v, a.g, a.bias, a.stats, a.dk, a.dv, a.n, a.heads, a.scale, a.st);
-}
-
-}  // namespace
-
-// q, k, v and g (B, L, H, 64), each with its own batch, row and head
-// strides in elements (qs, ks, vs, gs = {batch, row, head}; the head-dim
-// stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32 (L, L)
-// shared by every batch and head, row stride bias_row_stride (column stride
-// 1); dq, dk and dv contiguous (B, L, H, 64) of the inputs' type; dbias null
-// (not wanted) or a zeroed fp32 (L, L) that receives the sum of ds; stats an
-// fp32 scratch of 3 * B * H * L. Launches kernel A then kernel B on `stream`
-// and returns cudaGetLastError() as an int (0 = both launched).
+// q, k, v and g (B, L, H, 64), each with its own batch, row and head strides in
+// elements (qs, ks, vs, gs = {batch, row, head}; the head-dim stride is 1),
+// all fp32 or all bf16 (is_bf16); bias null or an fp32 (L, L) shared by every
+// batch and head, row stride bias_row_stride (column stride 1); dq, dk and dv
+// contiguous (B, L, H, 64) of the inputs' type; dbias null (not wanted) or a
+// zeroed fp32 (L, L) that receives the sum of ds; stats an fp32 scratch of
+// 3 * B * H * L. Launches kernel A then kernel B on `stream` and returns
+// cudaGetLastError() as an int (0 = both launched).
 extern "C" int attention_bnhd_bwd(const void* q, const void* k, const void* v,
                                   const void* g, const void* bias, void* dq, void* dk,
                                   void* dv, void* dbias, void* stats, int batch, int n,
@@ -533,37 +35,9 @@ extern "C" int attention_bnhd_bwd(const void* q, const void* k, const void* v,
                                   const int64_t* vs, const int64_t* gs,
                                   int64_t bias_row_stride, float scale, int is_bf16,
                                   void* stream) {
-  if (batch <= 0 || n <= 0 || heads <= 0 || (dbias && !bias)) return cudaErrorInvalidValue;
-  const Strides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-                   gs[0], gs[1], gs[2], bias ? bias_row_stride : 0};
-  const dim3 grid((n + kRows - 1) / kRows, heads, batch);
-  cudaStream_t stm = static_cast<cudaStream_t>(stream);
-  const float* bp = static_cast<const float*>(bias);
-  float* dbp = static_cast<float*>(dbias);
-  float* sp = static_cast<float*>(stats);
-  if (is_bf16) {
-    const Args<bf16> a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                       static_cast<const bf16*>(v), static_cast<const bf16*>(g), bp,
-                       static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                       dbp, sp, n, heads, scale, st};
-    // 16-byte loads need every base pointer and every stride on a 16-byte
-    // (8-element) boundary
-    bool vec = reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-               reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-               reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
-               reinterpret_cast<uintptr_t>(g) % 16 == 0;
-    for (int i = 0; i < 3; ++i)
-      vec = vec && qs[i] % 8 == 0 && ks[i] % 8 == 0 && vs[i] % 8 == 0 && gs[i] % 8 == 0;
-    if (vec)
-      launch_bf16<true>(a, grid, stm);
-    else
-      launch_bf16<false>(a, grid, stm);
-  } else {
-    const Args<float> a{static_cast<const float*>(q), static_cast<const float*>(k),
-                        static_cast<const float*>(v), static_cast<const float*>(g), bp,
-                        static_cast<float*>(dq), static_cast<float*>(dk),
-                        static_cast<float*>(dv), dbp, sp, n, heads, scale, st};
-    launch_f32(a, grid, stm);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const int64_t ol = static_cast<int64_t>(heads) * kHd;
+  const BwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+                      gs[0], gs[1], gs[2], n * ol, ol, kHd, bias ? bias_row_stride : 0};
+  return launch_attention_bwd(q, k, v, g, bias, dq, dk, dv, dbias, stats, batch, n, heads,
+                              st, scale, is_bf16, static_cast<cudaStream_t>(stream));
 }

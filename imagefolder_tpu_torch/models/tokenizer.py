@@ -1,5 +1,4 @@
-"""XQ-GAN tokenizer, inference (counterpart of
-``imagefolder_tpu/models/tokenizer.py``).
+"""XQ-GAN tokenizer (counterpart of ``imagefolder_tpu/models/tokenizer.py``).
 
 encoder -> quant_conv (1x1) -> P quantizer branches -> post_quant_conv (1x1)
 -> decoder, with DINOv2 ViT encoder and decoder. A single ``v_patch_nums``
@@ -13,11 +12,18 @@ NHWC images in [-1, 1] and token-major latents at the public functions, as
 in the JAX package. ``quant_conv`` and ``post_quant_conv`` are 1x1 convs in
 the upstream state dict and are applied as channel-last linear maps in fp32.
 
+The training forward (``forward``, xqgan_model.py:268-365) runs the
+multi-scale quantizers' training calls (dropout, losses, hits), decodes
+with the pre-last activation for the adaptive GAN weight, and with
+``semantic_guide="dinov2"`` adds the InfoNCE ``sem_loss`` against the frozen
+DINOv2 teacher (``semantic_model``, the encoder's preset, run under
+``torch.no_grad``), as ``TokenizerOut``.
+
 Outside the ported slice (raise ``NotImplementedError``): cnn encoders and
-decoders, LFQ/BSQ quantizers, the semantic and detail teachers (they feed
-only training losses; run a published config with ``semantic_guide="none"``
-at inference, as ``bench.py`` does), LoRA, RoPE, learned latent pos embeds
-and non-linear ToPixel heads.
+decoders, LFQ/BSQ quantizers, the single-scale VQ's training call, the CLIP
+detail teacher (``detail_guide``), RobustTok's latent perturbation
+(``perturb_delta_max``), LoRA, RoPE, learned latent pos embeds and
+non-linear ToPixel heads.
 """
 
 from __future__ import annotations
@@ -30,11 +36,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from imagefolder_tpu_torch.models.vit import LatentDecoder, LatentEncoder
-from imagefolder_tpu_torch.ops.quantize import MultiScaleVQ, SingleVQ
+from imagefolder_tpu_torch.losses.clip_loss import clip_loss
+from imagefolder_tpu_torch.models.vit import (
+    LatentDecoder,
+    LatentEncoder,
+    ViTBackbone,
+    _backbone_kwargs,
+)
+from imagefolder_tpu_torch.ops.quantize import MultiScaleVQ, QuantOut, SingleVQ
 from imagefolder_tpu_torch.utils.init import linear_kaiming_uniform_
 
-__all__ = ["ModelArgs", "VQModel", "check_slice"]
+__all__ = ["ModelArgs", "VQModel", "TokenizerOut", "check_slice"]
+
+_IMAGENET_MEAN = (0.485, 0.456, 0.406)
+_IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 @dataclasses.dataclass
@@ -107,8 +122,9 @@ def check_slice(cfg: ModelArgs):
     unported = {
         "cnn encoder/decoder": cfg.enc_type != "dinov2" or cfg.dec_type != "dinov2",
         "LFQ quantizer": cfg.lfq,
-        "semantic/detail teachers": (cfg.semantic_guide != "none"
-                                     or cfg.detail_guide != "none"),
+        f"semantic_guide={cfg.semantic_guide!r}": cfg.semantic_guide not in ("none", "dinov2"),
+        "the CLIP detail teacher (detail_guide)": cfg.detail_guide != "none",
+        "RobustTok latent perturbation (perturb_delta_max)": cfg.perturb_delta_max > 0,
         "abs_pos_embed=False": not cfg.abs_pos_embed,
         "LoRA tuning": {cfg.enc_tuning_method, cfg.dec_tuning_method} - {"full", "frozen"},
         f"to_pixel={cfg.to_pixel!r}": cfg.to_pixel != "linear",
@@ -116,6 +132,29 @@ def check_slice(cfg: ModelArgs):
     for what, hit in unported.items():
         if hit:
             raise NotImplementedError(f"{what} is not ported")
+
+
+@dataclasses.dataclass
+class TokenizerOut:
+    """Training-forward outputs (the reference forward's tuple,
+    xqgan_model.py:365)."""
+
+    dec: torch.Tensor                       # reconstruction, NHWC fp32
+    vq_loss: torch.Tensor
+    commit_loss: torch.Tensor
+    entropy_loss: torch.Tensor
+    sem_loss: torch.Tensor
+    detail_loss: torch.Tensor
+    dependency_loss: torch.Tensor
+    hits_PSV: torch.Tensor                  # (P, S, V) codebook hits, fp32
+    pre_last: Optional[torch.Tensor] = None  # decoder pre-last activation (train)
+
+
+def _orthogonal_cosine_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Decorrelate PQ branches (xqgan_model.py:836-840)."""
+    a = a / (torch.linalg.vector_norm(a, dim=1, keepdim=True) + 1e-12)
+    b = b / (torch.linalg.vector_norm(b, dim=1, keepdim=True) + 1e-12)
+    return (a * b).sum(dim=1).mean()
 
 
 class Conv1x1(nn.Module):
@@ -148,12 +187,12 @@ class VQModel(nn.Module):
         self.encoder = LatentEncoder(
             cfg.encoder_model, cfg.image_size, 16, cfg.total_latent_tokens,
             cfg.product_quant, cfg.abs_pos_embed, cfg.enc_tuning_method,
-            cfg.enc_use_attn_mask, dt, generator=generator)
+            cfg.enc_use_attn_mask, dt, remat=cfg.remat, generator=generator)
         self.quant_conv = Conv1x1(self.encoder.embed_dim, cfg.codebook_embed_dim, generator)
         self.decoder = LatentDecoder(
             cfg.decoder_model, cfg.image_size, 16, cfg.num_latent_tokens,
             cfg.abs_pos_embed, cfg.to_pixel, cfg.dec_tuning_method,
-            dtype=dt, generator=generator)
+            dtype=dt, remat=cfg.remat, generator=generator)
         self.post_quant_conv = Conv1x1(cfg.codebook_embed_dim * cfg.product_quant,
                                        self.decoder.embed_dim, generator)
         quantizers = [self._make_quantizer(generator) for _ in range(cfg.product_quant)]
@@ -161,6 +200,10 @@ class VQModel(nn.Module):
             self.quantizes = nn.ModuleList(quantizers)
         else:
             self.quantize = quantizers[0]
+        if cfg.semantic_guide == "dinov2":  # the frozen teacher: the encoder's preset
+            self.semantic_model = ViTBackbone(
+                **_backbone_kwargs(cfg.encoder_model, cfg.image_size, 16, dt),
+                generator=generator).requires_grad_(False)
         self.to(device)
 
     def _make_quantizer(self, generator):
@@ -171,7 +214,8 @@ class VQModel(nn.Module):
         # the JAX package builds the multi-scale VQ with a cosine search always
         return MultiScaleVQ(cfg.codebook_size, cfg.codebook_embed_dim,
                             tuple(cfg.v_patch_nums), using_znorm=True,
-                            share_quant_resi=cfg.share_quant_resi, generator=generator)
+                            share_quant_resi=cfg.share_quant_resi,
+                            codebook_drop=cfg.codebook_drop, generator=generator)
 
     @property
     def quantizers(self):
@@ -184,11 +228,75 @@ class VQModel(nn.Module):
         g = self.grid
         return h.reshape(h.shape[0], cfg.product_quant, g, g, cfg.codebook_embed_dim)
 
-    def decode(self, quant: torch.Tensor) -> torch.Tensor:
-        """Quantized latents (B, g, g, P*C) -> image NHWC (unclamped)."""
+    def decode(self, quant: torch.Tensor, return_prelast: bool = False):
+        """Quantized latents (B, g, g, P*C) -> image NHWC (unclamped); with
+        ``return_prelast`` also the decoder's pre-last activation."""
         q = self.post_quant_conv(quant)
         b, g1, g2, d = q.shape
-        return self.decoder(q.reshape(b, g1 * g2, d))
+        return self.decoder(q.reshape(b, g1 * g2, d), return_prelast=return_prelast)
+
+    def _teacher_input(self, x: torch.Tensor) -> torch.Tensor:
+        """[-1, 1] -> ImageNet-normalised (xqgan_model.py:172-173, 304)."""
+        mean = torch.tensor(_IMAGENET_MEAN, device=x.device)
+        std = torch.tensor(_IMAGENET_STD, device=x.device)
+        return ((x.float() * 0.5 + 0.5) - mean) / std
+
+    def _guide_loss(self, feat_t: torch.Tensor, feat_q: torch.Tensor, scale: float,
+                    epoch: int) -> torch.Tensor:
+        """ClipLoss, with the clip_norm-annealed logit scale
+        (xqgan_model.py:321-331); ``epoch`` is a host int."""
+        f1, f2 = feat_t.float(), feat_q.float()
+        if self.config.clip_norm:
+            f1 = f1 / (torch.linalg.vector_norm(f1, dim=1, keepdim=True) + 1e-12)
+            f2 = f2 / (torch.linalg.vector_norm(f2, dim=1, keepdim=True) + 1e-12)
+            scale = (epoch % 200) / 200.0 * (100.0 - scale) + scale if epoch < 200 else 100.0
+        return clip_loss(f1, f2, scale)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False, epoch: int = 0,
+                generator: Optional[torch.Generator] = None,
+                dropout_n: Optional[torch.Tensor] = None) -> TokenizerOut:
+        """Training forward (xqgan_model.py:268-365) of NHWC images in
+        [-1, 1]. With ``train``, the quantizer dropout draws one
+        randint(start_drop, S + 1) per sample from ``generator`` (on the
+        images' device), unless ``dropout_n`` (B,) gives it, and the decoder
+        also returns its pre-last activation."""
+        cfg = self.config
+        b = x.shape[0]
+        h_P = self.encode(x)
+        sn = len(cfg.v_patch_nums)
+        if sn == 1:
+            raise NotImplementedError("the single-scale VQ's training call is not ported")
+        if train and dropout_n is None:
+            dropout_n = torch.randint(cfg.start_drop, sn + 1, (b,), generator=generator,
+                                      device=x.device)
+        outs: List[QuantOut] = [qz(h_P[:, i], dropout_n=dropout_n, train=train)
+                                for i, qz in enumerate(self.quantizers)]
+        p = cfg.product_quant
+        zero = torch.zeros((), device=x.device)
+        quant_list = [o.f_hat for o in outs]
+        dependency_loss = zero
+        if p > 1:
+            dependency_loss = cfg.dependency_loss_weight * _orthogonal_cosine_loss(
+                quant_list[0].mean(dim=(1, 2)), quant_list[-1].mean(dim=(1, 2)))
+        quant = torch.cat(quant_list, dim=-1)
+        dec, pre_last = self.decode(quant, return_prelast=True) if train else (
+            self.decode(quant), None)
+        sem_loss = zero
+        if cfg.semantic_guide == "dinov2":
+            with torch.no_grad():
+                tokens = self.semantic_model(self._teacher_input(x))
+            z_s = tokens[:, 0] if cfg.guide_type_1 == "class" else tokens[:, 1:].mean(dim=1)
+            z_s = self.quant_conv(z_s)
+            z_q = quant_list[-1].mean(dim=(1, 2))
+            n_drop = int(b * cfg.codebook_drop)
+            sem_loss = self._guide_loss(z_s[n_drop:], z_q[n_drop:], cfg.sem_loss_scale,
+                                        epoch) * cfg.sem_loss_weight
+        return TokenizerOut(
+            dec=dec, vq_loss=sum(o.vq_loss for o in outs) / p,
+            commit_loss=sum(o.commit_loss for o in outs) / p,
+            entropy_loss=sum(o.entropy_loss for o in outs) / p, sem_loss=sem_loss,
+            detail_loss=zero, dependency_loss=dependency_loss,
+            hits_PSV=torch.stack([o.hits_SV for o in outs]), pre_last=pre_last)
 
     def _branch_fhats(self, x, v_patch_nums=None) -> List[List[torch.Tensor]]:
         h_P = self.encode(x)

@@ -1,11 +1,14 @@
 """DINOv2-style ViT encoder/decoder with learned latent tokens
 (counterpart of ``imagefolder_tpu/models/vit.py``).
 
-Ported: the LayerScale ``Block`` on its sublayer path, ``ViTBackbone`` with
-its pos embed resampled to any square latent grid (``bicubic_aa``, as timm),
-the ``linear`` ``ToPixel`` head, and ``LatentEncoder`` (product
-quantization included) / ``LatentDecoder`` with absolute position
-embeddings. Module and parameter names follow the upstream torch layout that
+Ported: the ``Block`` with LayerScale (DINOv2: the sublayer path, fp32
+residual) and without it (DinoDisc's ViT-S trunk: the composed path, the
+residual in the activation dtype), ``ViTBackbone`` with its pos embed
+resampled to any square latent grid (``bicubic_aa``, as timm) and optional
+per-block activation checkpointing (``remat``), the ``linear`` ``ToPixel``
+head, and ``LatentEncoder`` (product quantization included) /
+``LatentDecoder`` (with the pre-last activation for the adaptive GAN weight)
+with absolute position embeddings. Module and parameter names follow the upstream torch layout that
 ``imagefolder_tpu/utils/convert_torch.py::export_vqmodel`` writes, so its
 state dicts load with ``strict=True``. Public functions keep the JAX
 package's NHWC / token-major layouts.
@@ -23,8 +26,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
+from torch.utils.checkpoint import checkpoint
 
-from imagefolder_tpu_torch.ops.cuda.block import attn_sublayer, mlp_sublayer
+from imagefolder_tpu_torch.ops.activations import gelu_exact
+from imagefolder_tpu_torch.ops.cuda.attention import attention_qkv
+from imagefolder_tpu_torch.ops.cuda.block import attn_sublayer, dense, mlp_sublayer
 from imagefolder_tpu_torch.ops.resize import resize
 from imagefolder_tpu_torch.utils.init import lecun_normal_, linear, normal_, trunc_normal_
 
@@ -81,28 +87,37 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm DINOv2 block with LayerScale. The residual stream enters in
-    the activation dtype and leaves in fp32, as in the JAX sublayers."""
+    """Pre-norm ViT block. With LayerScale (``init_values``, DINOv2) the
+    residual stream enters in the activation dtype and leaves in fp32, as in
+    the JAX sublayers; without it (``init_values=None``, DinoDisc's trunk)
+    it is the JAX composed path, ``x + h`` in the activation dtype, and the
+    block has no ``ls1``/``ls2``."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  init_values: Optional[float] = 1e-5,
                  dtype: torch.dtype = torch.float32, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if init_values is None:
-            raise NotImplementedError(
-                "blocks without LayerScale (the CLIP teacher) are not ported")
         self.num_heads = num_heads
         self.norm1 = LayerNorm(dim, dtype)
         self.attn = Attention(dim, generator)
-        self.ls1 = LayerScale(dim, init_values)
         self.norm2 = LayerNorm(dim, dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), generator)
-        self.ls2 = LayerScale(dim, init_values)
+        if init_values is None:
+            self.ls1 = self.ls2 = None
+        else:
+            self.ls1 = LayerScale(dim, init_values)
+            self.ls2 = LayerScale(dim, init_values)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         a, m = self.attn, self.mlp
+        if self.ls1 is None:
+            o = attention_qkv(dense(self.norm1(x), a.qkv.weight, a.qkv.bias), self.num_heads,
+                              bias=mask)
+            x = x + dense(o, a.proj.weight, a.proj.bias)
+            h = gelu_exact(dense(self.norm2(x), m.fc1.weight, m.fc1.bias))
+            return x + dense(h, m.fc2.weight, m.fc2.bias)
         x = attn_sublayer(self.norm1(x), x, a.qkv.weight, a.qkv.bias,
                           a.proj.weight, a.proj.bias, self.ls1.gamma,
                           self.num_heads, mask=mask)
@@ -131,11 +146,12 @@ class ViTBackbone(nn.Module):
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_ratio: float = 4.0, init_values: Optional[float] = 1e-5,
                  pre_norm: bool = False, dtype: torch.dtype = torch.float32, *,
-                 patch_embed: bool = True,
+                 patch_embed: bool = True, remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if pre_norm:
             raise NotImplementedError("pre_norm backbones (the CLIP teacher) are not ported")
+        self.remat = remat
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.dtype = dtype
@@ -189,9 +205,13 @@ class ViTBackbone(nn.Module):
 
     def run_blocks(self, x: torch.Tensor,
                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The blocks and the final norm. With ``remat`` and gradients on,
+        each block keeps only its input and recomputes its activations in
+        the backward (the JAX package's ``nn.remat`` per block)."""
         x = x.to(self.dtype)
+        recompute = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, mask)
+            x = checkpoint(blk, x, mask, use_reentrant=False) if recompute else blk(x, mask)
         return self.norm(x)
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
@@ -235,7 +255,7 @@ class LatentEncoder(nn.Module):
                  num_latent_tokens: int = 256, product_quant: int = 1,
                  abs_pos_embed: bool = True, tuning_method: str = "full",
                  use_attn_mask: bool = False, dtype: torch.dtype = torch.float32, *,
-                 generator: Optional[torch.Generator] = None):
+                 remat: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         if not abs_pos_embed:
             raise NotImplementedError("abs_pos_embed=False is not ported")
@@ -247,7 +267,7 @@ class LatentEncoder(nn.Module):
         self.product_quant = product_quant
         self.use_attn_mask = use_attn_mask
         self.model = ViTBackbone(**_backbone_kwargs(model_name, img_size, patch_size, dtype),
-                                 generator=generator)
+                                 remat=remat, generator=generator)
         d = self.embed_dim = self.model.embed_dim
         self.latent_tokens = nn.Parameter(
             normal_(torch.empty(1, num_latent_tokens, d), 1e-6, generator))
@@ -299,14 +319,16 @@ class ToPixel(nn.Module):
 
 class LatentDecoder(nn.Module):
     """Mask tokens at the image positions + quantized latents (B, nl, D);
-    returns unpatchified pixels (B, H, W, C) in fp32."""
+    returns unpatchified pixels (B, H, W, C) in fp32, and with
+    ``return_prelast`` also the pre-last activation (the ToPixel head's
+    input, (B, N, D) in the activation dtype)."""
 
     def __init__(self, model_name: str = "vit_base_patch14_dinov2.lvd142m",
                  img_size: int = 256, patch_size: int = 16,
                  num_latent_tokens: int = 256, abs_pos_embed: bool = True,
                  to_pixel: str = "linear", tuning_method: str = "full",
                  out_channels: int = 3, dtype: torch.dtype = torch.float32, *,
-                 generator: Optional[torch.Generator] = None):
+                 remat: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         if not abs_pos_embed:
             raise NotImplementedError("abs_pos_embed=False is not ported")
@@ -314,7 +336,7 @@ class LatentDecoder(nn.Module):
         self.grid = _latent_grid(num_latent_tokens)
         self.num_latent_tokens = num_latent_tokens
         self.model = ViTBackbone(**_backbone_kwargs(model_name, img_size, patch_size, dtype),
-                                 patch_embed=False, generator=generator)
+                                 patch_embed=False, remat=remat, generator=generator)
         d = self.embed_dim = self.model.embed_dim
         self.mask_token = nn.Parameter(normal_(torch.empty(1, 1, d), 1e-6, generator))
         self.lvl_embed = skip_init(nn.Embedding, 2, d)
@@ -322,7 +344,7 @@ class LatentDecoder(nn.Module):
         self.to_pixel = ToPixel(d, img_size, patch_size, out_channels, to_pixel,
                                 generator=generator)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, return_prelast: bool = False):
         m = self.model
         x = self.mask_token.float().expand(z.shape[0], m.num_patches, -1)
         x = m.pos_embed_tokens(x)  # (B, 1+N, D)
@@ -331,4 +353,5 @@ class LatentDecoder(nn.Module):
         lvl = self.lvl_embed.weight.float()
         x = torch.cat([x + lvl[0], z + lvl[1]], dim=1)
         x = m.run_blocks(x)[:, 1:m.num_patches + 1]  # image-position outputs
-        return self.to_pixel(x)
+        out = self.to_pixel(x)
+        return (out, x) if return_prelast else out

@@ -92,11 +92,13 @@ def _finish(cmd: list[str], output: str, returncode: int):
 def _kernel_name(mangled: str) -> str:
     """The kernel's own name (the length-prefixed identifier that ends in
     ``_kernel``) and its bool and int template arguments, e.g.
-    ``attn_bnhd_bf16_kernel<true, false>``."""
-    for m in re.finditer(r"(?=(\d+))", mangled):
+    ``attn_bnhd_bf16_kernel<true, false>``. The last such identifier is
+    taken: an anonymous namespace's name, which holds the source's name,
+    comes before it."""
+    for m in reversed(list(re.finditer(r"(?=(\d+))", mangled))):
         n = m.group(1)
         ident = mangled[m.start() + len(n):m.start() + len(n) + int(n)]
-        if ident.endswith("_kernel"):
+        if ident.endswith("_kernel") and ident.isidentifier():
             rest = mangled[m.start() + len(n) + len(ident):]
             targs = re.match(r"I((?:L[bi]\d+E)+)E", rest)
             if not targs:

@@ -2,15 +2,17 @@
 
 - ``attention_qkv``: attention on the packed qkv projection output of a ViT
   block (TPU kernel ``_attention_qkv_fwd_impl``), kernel
-  ``csrc/attention_qkv.cu``, launches counted in ``LAUNCHES``. Forward only:
-  its backward (TPU kernel ``_attention_qkv_bwd_impl``) is not ported, so on
-  a CUDA tensor that needs a gradient it raises;
+  ``csrc/attention_qkv.cu``, launches counted in ``LAUNCHES``. It is
+  differentiable: its backward (TPU kernel ``_attention_qkv_bwd_impl``) is
+  ``attention_qkv_bwd``, kernel ``csrc/attention_qkv_bwd.cu``, which writes
+  the packed dqkv directly; launches counted in ``BWD_LAUNCHES``;
 - ``fused_attention``: attention on (B, L, H, hd) views with Lq <= Lk and an
   optional bias, as VAR calls it (TPU kernel ``fused_attention``), kernel
   ``csrc/attention_bnhd.cu``, launches counted in ``FUSED_LAUNCHES``. It is
   differentiable: its backward for Lq == Lk with no bias or a shared bias
   (TPU kernel ``_fused_attention_bwd_impl``) is ``csrc/attention_bnhd_bwd.cu``,
-  launches counted in ``FUSED_BWD_LAUNCHES``.
+  launches counted in ``FUSED_BWD_LAUNCHES``. The two backward kernels share
+  their device code (``csrc/attention_bwd_tile.cuh``).
 
 Each dispatches on the tensor's device only: a CPU tensor goes to its
 ``*_reference``, the plain PyTorch version; a CUDA tensor launches the
@@ -28,14 +30,17 @@ import torch
 
 from imagefolder_tpu_torch.ops.cuda import _build
 
-__all__ = ["attention_qkv", "attention_qkv_reference", "fused_attention",
+__all__ = ["attention_qkv", "attention_qkv_reference", "attention_qkv_bwd",
+           "attention_qkv_bwd_reference", "fused_attention",
            "fused_attention_reference", "fused_attention_bwd",
-           "fused_attention_bwd_reference", "LAUNCHES", "FUSED_LAUNCHES",
-           "FUSED_BWD_LAUNCHES"]
+           "fused_attention_bwd_reference", "LAUNCHES", "BWD_LAUNCHES",
+           "FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES"]
 
 # kernel launches since the counter was last reset (a caller sets it to 0):
-# attention_qkv's, fused_attention's forward and its backward
+# attention_qkv's forward and its backward, fused_attention's forward and
+# its backward
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 FUSED_LAUNCHES = 0
 FUSED_BWD_LAUNCHES = 0
 
@@ -114,29 +119,6 @@ def _attention_qkv_cuda(qkv, heads, bias, scale):
         raise RuntimeError(f"attention_qkv kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
-
-
-def attention_qkv(qkv: torch.Tensor, heads: int,
-                  bias: Optional[torch.Tensor] = None,
-                  scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(q k^T * scale + bias) v per head, from the packed projection.
-
-    qkv: (B, N, 3C) as the fused Linear(3C) produces it, i.e. the
-    (B, N, 3, H, hd) view holds q/k/v at index 0/1/2 of axis 2. Returns
-    (B, N, C) in qkv's dtype, head h at columns h*hd. bias, if given, is
-    (1, 1, N, N), shared by batches and heads, and may hold -inf. The default
-    scale is 1/sqrt(hd).
-    """
-    if qkv.device.type == "cpu":
-        return attention_qkv_reference(qkv, heads, bias, scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"attention_qkv runs on cpu or cuda, not {qkv.device}")
-    if torch.is_grad_enabled() and (qkv.requires_grad
-                                    or (bias is not None and bias.requires_grad)):
-        raise NotImplementedError(
-            "attention_qkv has no gradient on the card: its backward (TPU kernel #2, "
-            "_attention_qkv_bwd_impl) is not ported; run it under torch.no_grad()")
-    return _attention_qkv_cuda(qkv, heads, bias, scale)
 
 
 def _check_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -388,3 +370,129 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _FusedAttention.apply(q, k, v, bias, scale)
+
+
+def attention_qkv_bwd_reference(qkv: torch.Tensor, heads: int, bias: Optional[torch.Tensor],
+                                g: torch.Tensor, scale: Optional[float] = None,
+                                need_dbias: bool = True):
+    """Plain PyTorch version of the packed backward kernel: the TPU kernel's
+    ``_bwd_head_math`` op for op, with its casts (``fused_attention_bwd_reference``
+    on the (B, N, H, hd) views of qkv and g). Returns dqkv, (B, N, 3C) in
+    qkv's dtype with dq, dk and dv at q's, k's and v's columns, and dbias =
+    the sum of ds over batches and heads, (1, 1, N, N) in the bias's dtype,
+    or None (no bias, or ``need_dbias`` False)."""
+    _check(qkv, heads, bias)
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    if tuple(g.shape) != (b, n, c):
+        raise ValueError(f"g must be {(b, n, c)}; got {tuple(g.shape)}")
+    q, k, v = qkv.view(b, n, 3, heads, c // heads).unbind(2)
+    dq, dk, dv, dbias = fused_attention_bwd_reference(
+        q, k, v, bias, g.view(b, n, heads, c // heads), scale, need_dbias)
+    return torch.stack([dq, dk, dv], dim=2).reshape(b, n, c3), dbias
+
+
+@functools.cache
+def _bwd_kernel():
+    fn = _build.load_library().attention_qkv_bwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _attention_qkv_bwd_cuda(qkv, heads, bias, g, scale, need_dbias):
+    global BWD_LAUNCHES
+    _check(qkv, heads, bias)
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    if qkv.dtype not in (torch.bfloat16, torch.float32) or g.dtype != qkv.dtype:
+        raise TypeError(f"attention_qkv backward kernel takes qkv and g both bf16 or both "
+                        f"fp32; got {qkv.dtype}, {g.dtype}")
+    if c // heads != _HEAD_DIM:
+        raise NotImplementedError(
+            f"attention_qkv backward kernel is built for head dim {_HEAD_DIM}, got {c // heads}")
+    if tuple(g.shape) != (b, n, c):
+        raise ValueError(f"g must be {(b, n, c)}; got {tuple(g.shape)}")
+    if not (g.device == qkv.device and (bias is None or bias.device == qkv.device)):
+        raise ValueError("qkv, g and bias must be on the same device")
+    if not qkv.is_contiguous():
+        raise ValueError("attention_qkv backward kernel needs a contiguous qkv")
+    g = g.contiguous()
+    bias_dtype = None if bias is None else bias.dtype
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+    dqkv = torch.empty_like(qkv)
+    dbias = None
+    if bias is not None and need_dbias:
+        dbias = torch.zeros((n, n), dtype=torch.float32, device=qkv.device)
+    if dqkv.numel() == 0:
+        return dqkv.zero_(), None if dbias is None else dbias[None, None].to(bias_dtype)
+    stats = torch.empty((3, b, heads, n), dtype=torch.float32, device=qkv.device)  # m, l, delta
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_kernel()(
+            qkv.data_ptr(), g.data_ptr(), None if bias is None else bias.data_ptr(),
+            dqkv.data_ptr(), None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
+            b, n, c, heads, n, float(scale), int(qkv.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"attention_qkv backward kernel launch failed: CUDA error {err}")
+    BWD_LAUNCHES += 1
+    if dbias is not None:
+        dbias = dbias[None, None].to(bias_dtype)
+    return dqkv, dbias
+
+
+def attention_qkv_bwd(qkv: torch.Tensor, heads: int, bias: Optional[torch.Tensor],
+                      g: torch.Tensor, scale: Optional[float] = None, need_dbias: bool = True):
+    """Gradients of ``attention_qkv``: (dqkv, dbias | None), as
+    ``attention_qkv_bwd_reference`` computes them. qkv (B, N, 3C) contiguous,
+    g (B, N, C), bias None or a shared (1, 1, N, N)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(qkv.shape[-1] // 3 // heads)
+    if qkv.device.type == "cpu":
+        return attention_qkv_bwd_reference(qkv, heads, bias, g, scale, need_dbias)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_qkv_bwd runs on cpu or cuda, not {qkv.device}")
+    return _attention_qkv_bwd_cuda(qkv, heads, bias, g, scale, need_dbias)
+
+
+class _AttentionQKV(torch.autograd.Function):
+    """``attention_qkv`` with its gradient, dispatched as the JAX package's
+    custom VJP (``_attention_qkv_diff``) dispatches it."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, bias, scale):
+        ctx.save_for_backward(qkv, bias)
+        ctx.heads, ctx.scale = heads, scale
+        if qkv.device.type == "cpu":
+            return attention_qkv_reference(qkv, heads, bias, scale)
+        return _attention_qkv_cuda(qkv, heads, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias = ctx.saved_tensors
+        need_dbias = bias is not None and ctx.needs_input_grad[2]
+        dqkv, dbias = attention_qkv_bwd(qkv, ctx.heads, bias, g, ctx.scale, need_dbias)
+        return dqkv, None, dbias, None
+
+
+def attention_qkv(qkv: torch.Tensor, heads: int,
+                  bias: Optional[torch.Tensor] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T * scale + bias) v per head, from the packed projection,
+    differentiable.
+
+    qkv: (B, N, 3C) as the fused Linear(3C) produces it, i.e. the
+    (B, N, 3, H, hd) view holds q/k/v at index 0/1/2 of axis 2. Returns
+    (B, N, C) in qkv's dtype, head h at columns h*hd. bias, if given, is
+    (1, 1, N, N), shared by batches and heads, and may hold -inf. The default
+    scale is 1/sqrt(hd). The gradient is ``attention_qkv_bwd`` (the backward
+    kernel on a CUDA tensor); dbias is computed only when the bias requires a
+    gradient.
+    """
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention_qkv runs on cpu or cuda, not {qkv.device}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(qkv.shape[-1] // 3 // heads)
+    return _AttentionQKV.apply(qkv, heads, bias, scale)

@@ -1,5 +1,4 @@
-"""Quantizers, inference path (counterpart of
-``imagefolder_tpu/ops/quantize.py``).
+"""Quantizers (counterpart of ``imagefolder_tpu/ops/quantize.py``).
 
 - ``SingleVQ``: the single-scale VQ of the main round trip. Nearest-code
   search in fp32: L2-normalised rows when ``codebook_norm``, the full
@@ -8,7 +7,11 @@
 - ``MultiScaleVQ``: the multi-scale residual VQ of the VAR tokenizers. Per
   scale it area-pools the residual, looks the codes up through
   ``_codebook_lookup`` (the ``codebook_argmin`` kernel on a CUDA tensor),
-  bicubic-upsamples the code map and applies the scale's ``Phi`` conv.
+  bicubic-upsamples the code map and applies the scale's ``Phi`` conv. Its
+  training ``forward`` (quant.py:64-144) adds quantizer dropout, the vq and
+  commit losses, straight-through f_hat and per-scale hit counts
+  (``QuantOut``); ``update_usage_ema`` and ``usage_percent`` turn the hits
+  into the trainer's codebook-usage metrics.
 
 The z.e products, the resizes and the Phi convs are PyTorch fp32 matmuls,
 exact fp32 as long as ``torch.backends.cuda.matmul.allow_tf32`` stays False
@@ -16,11 +19,13 @@ exact fp32 as long as ``torch.backends.cuda.matmul.allow_tf32`` stays False
 a matmul over the 3x3 neighbourhood rather than a conv, because cuDNN runs
 fp32 convs in TF32 by default (``torch.backends.cudnn.allow_tf32``). The
 training ``__call__`` paths (losses, hit counts, quantizer dropout,
-straight-through) are not ported yet; nor is the LFQ/BSQ quantizer.
+straight-through) of ``SingleVQ`` are not ported, nor is the LFQ/BSQ
+quantizer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import List, Optional, Sequence
 
@@ -34,11 +39,55 @@ from imagefolder_tpu_torch.ops.cuda.codebook import codebook_argmin
 from imagefolder_tpu_torch.ops.resize import resize
 from imagefolder_tpu_torch.utils.init import uniform_
 
-__all__ = ["SingleVQ", "MultiScaleVQ", "Phi", "phi_index"]
+__all__ = ["SingleVQ", "MultiScaleVQ", "Phi", "phi_index", "QuantOut", "update_usage_ema",
+           "usage_percent"]
 
 
 def _l2n(x: torch.Tensor) -> torch.Tensor:
     return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+
+
+@dataclasses.dataclass
+class QuantOut:
+    """Result of a training-mode quantizer call (the reference forward's
+    ``(f_hat, usages, vq_loss, commit_loss, entropy_loss)``, with usage as
+    raw hit counts so that its EMA lives in the trainer)."""
+
+    f_hat: torch.Tensor         # (B, H, W, C) straight-through quantized feature
+    vq_loss: torch.Tensor       # 0-d
+    commit_loss: torch.Tensor   # 0-d
+    entropy_loss: torch.Tensor  # 0-d (0 for plain VQ)
+    hits_SV: torch.Tensor       # (S, V) this batch's codebook hit counts, fp32
+
+
+def _n_quantizers(batch: int, num_scales: int, codebook_drop: float,
+                  dropout_n: Optional[torch.Tensor], train: bool,
+                  device: torch.device) -> torch.Tensor:
+    """Per-sample active-scale count (quant.py:79-86), fp32 (B,).
+    ``dropout_n`` is the shared randint(start_drop, S + 1) draw; only the
+    first ``int(B * codebook_drop)`` samples adopt it."""
+    full = torch.full((batch,), float(num_scales + 1), device=device)
+    if not train or dropout_n is None or codebook_drop <= 0.0:
+        return full
+    keep = torch.arange(batch, device=device) >= int(batch * codebook_drop)
+    return torch.where(keep, full, dropout_n.to(device=device, dtype=torch.float32))
+
+
+@torch.no_grad()
+def update_usage_ema(ema_SV: torch.Tensor, hits_SV: torch.Tensor, record_hit: int):
+    """EMA of codebook hits with the reference's warm-up (quant.py:121-127):
+    a copy at record 0, decay 0.9 below 100 records, then 0.99. Returns
+    (new EMA, record_hit + 1); ``record_hit`` is a host int."""
+    decay = 0.0 if record_hit == 0 else (0.9 if record_hit < 100 else 0.99)
+    return ema_SV * decay + hits_SV * (1.0 - decay), record_hit + 1
+
+
+def usage_percent(ema_SV: torch.Tensor, tokens_per_scale: float,
+                  vocab_size: int) -> torch.Tensor:
+    """Per-scale % of codes whose EMA hit count clears the reference margin
+    (quant.py:137-141): tokens / V * 0.08."""
+    margin = tokens_per_scale / vocab_size * 0.08
+    return (ema_SV >= margin).float().mean(dim=-1) * 100.0
 
 
 def phi_index(ratio: float, num_phi: int) -> int:
@@ -98,6 +147,9 @@ class _PhiShared(nn.Module):
     def __getitem__(self, i: int) -> Phi:
         return self.qresi
 
+    def __iter__(self):
+        return iter((self.qresi,))
+
 
 class _PhiPartiallyShared(nn.Module):
     """K Phis picked by the nearest tick (upstream PhiPartiallyShared:
@@ -112,6 +164,9 @@ class _PhiPartiallyShared(nn.Module):
 
     def __getitem__(self, i: int) -> Phi:
         return self.qresi_ls[i]
+
+    def __iter__(self):
+        return iter(self.qresi_ls)
 
 
 def _phi_bank(embed_dim: int, num_scales: int, quant_resi: float, share_quant_resi: int,
@@ -159,12 +214,14 @@ class MultiScaleVQ(nn.Module):
 
     def __init__(self, vocab_size: int, Cvae: int, v_patch_nums: Sequence[int],
                  using_znorm: bool = True, quant_resi: float = 0.5,
-                 share_quant_resi: int = 4, default_qresi_counts: int = 0, *,
+                 share_quant_resi: int = 4, default_qresi_counts: int = 0,
+                 beta: float = 0.25, codebook_drop: float = 0.0, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.vocab_size, self.Cvae = vocab_size, Cvae
         self.v_patch_nums = tuple(v_patch_nums)
         self.using_znorm = using_znorm
+        self.beta, self.codebook_drop = beta, codebook_drop
         self.embedding = skip_init(nn.Embedding, vocab_size, Cvae)
         with torch.no_grad():
             w = uniform_(self.embedding.weight, -1.0 / vocab_size, 1.0 / vocab_size,
@@ -188,6 +245,56 @@ class MultiScaleVQ(nn.Module):
 
     def _lookup(self, idx: torch.Tensor) -> torch.Tensor:
         return self.embedding.weight.float()[idx]
+
+    def phis_used(self) -> set:
+        """Indices of the Phis that some scale applies (all of them unless
+        the nearest-tick mapping skips one, e.g. phi_2 of K = 4 over three
+        scales: that one gets no gradient)."""
+        if self.quant_resi is None:
+            return set()
+        sn = len(self.v_patch_nums)
+        return {phi_index(0.0 if sn == 1 else si / (sn - 1), len(self.quant_resi))
+                for si in range(sn)}
+
+    def forward(self, f_BHWC: torch.Tensor, *, dropout_n: Optional[torch.Tensor] = None,
+                train: bool = False) -> QuantOut:
+        """Training forward (quant.py:64-144): per scale, the lookup of the
+        pooled residual (``_codebook_lookup``, no gradient), the code map
+        upsampled and through its Phi, added to f_hat under each sample's
+        dropout mask; vq_loss (gradient to the codebook and Phis) and
+        commit_loss (gradient to f) per scale over the active samples. vq_loss
+        is divided by S, commit_loss is not (the reference's quirk). f_hat
+        comes back straight-through: its value is the quantized map, its
+        gradient f's."""
+        f = f_BHWC.float()
+        b, hh, ww, c = f.shape
+        sn = len(self.v_patch_nums)
+        f_no_grad = f.detach()
+        f_rest = f_no_grad
+        f_hat = torch.zeros_like(f_no_grad)
+        n_q = _n_quantizers(b, sn, self.codebook_drop, dropout_n, train, f.device)
+        vq_loss = torch.zeros((), device=f.device)
+        commit_loss = torch.zeros((), device=f.device)
+        hits = []
+        for si, pn in enumerate(self.v_patch_nums):
+            rest = f_rest if (si == sn - 1 and pn == hh) else resize(f_rest, (pn, pn), "area")
+            idx = _codebook_lookup(rest.reshape(-1, c), self.embedding.weight,
+                                   self.using_znorm)
+            hits.append(torch.bincount(idx, minlength=self.vocab_size).float())
+            h = self._lookup(idx).reshape(b, pn, pn, c)
+            if si != sn - 1:
+                h = resize(h, (hh, ww), "bicubic")
+            h = self.apply_phi(si, sn, h)
+            mask = (si < n_q).float()[:, None, None, None]
+            ratio = mask.mean()
+            f_hat = f_hat + h * mask
+            f_rest = (f_rest - h).detach()
+            vq_loss = vq_loss + ((f_hat - f_no_grad).square() * mask).mean() / ratio
+            commit_loss = commit_loss + ((f_hat.detach() - f).square() * mask).mean() * (
+                self.beta / ratio)
+        f_hat = f_hat.detach() - f_no_grad + f
+        return QuantOut(f_hat.to(f_BHWC.dtype), vq_loss / sn, commit_loss,
+                        torch.zeros((), device=f.device), torch.stack(hits))
 
     def f_to_idxBl_or_fhat(self, f_BHWC: torch.Tensor, to_fhat: bool,
                            v_patch_nums: Optional[Sequence[int]] = None

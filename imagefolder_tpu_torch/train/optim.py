@@ -1,12 +1,14 @@
-"""The optimizer of the VAR trainer (counterpart of
+"""The optimizers of the VAR and tokenizer trainers (counterpart of
 ``imagefolder_tpu/train/optim.py``; reference ``utils/lr_control.py``,
-``utils/amp_sc.py``, ``utils/ema.py``).
+``utils/amp_sc.py``, ``utils/ema.py``, ``xqgan_train.py:338-373``).
 
-- ``lr_wd_annealing`` and ``wd_cosine_anneal``: the schedules, as plain
-  functions of the step (host floats, no device work);
+- ``lr_wd_annealing``, ``wd_cosine_anneal`` and ``cosine_with_warmup``: the
+  schedules, as plain functions of the step (host floats, no device work);
 - ``no_decay_predicate``: the JAX package's weight-decay labels, read off
-  its flax parameter paths; ``var_flax_paths`` gives each port parameter its
-  flax path;
+  its flax parameter paths; ``var_flax_paths`` and ``module_flax_paths``
+  (``VQModel``, ``DinoDisc``) give each port parameter its flax path;
+  ``tokenizer_frozen_predicate`` and ``disc_frozen_predicate`` the frozen
+  labels (the trainers turn ``requires_grad`` off there);
 - ``adamw_with_freezing``: ``torch.optim.AdamW`` over a decay and a no-decay
   group, with the schedules and optax's global-norm clip;
 - ``ema_update``.
@@ -15,24 +17,42 @@ optax's chain is clip_by_global_norm -> scale_by_adam -> (+ wd * p) ->
 scale_by_learning_rate(lr(count)), count from 0. AdamW's decoupled decay
 p (1 - lr wd) followed by p - lr adam is the same update. Freezing is
 PyTorch's: a parameter with ``requires_grad`` False never enters the
-optimizer. The per-group lr/wd scales, gradient accumulation, the tokenizer
-and discriminator freeze predicates and ``cosine_with_warmup`` belong to
-trainers not ported yet.
+optimizer. The per-group lr/wd scales and gradient accumulation are not
+ported.
 """
 
 from __future__ import annotations
 
 import math
+import re
 from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 from torch import nn
 
 from imagefolder_tpu_torch.models.var import VAR
-from imagefolder_tpu_torch.utils.convert import var_key_map
+from imagefolder_tpu_torch.utils.convert import flax_path, var_key_map
 
-__all__ = ["lr_wd_annealing", "wd_cosine_anneal", "no_decay_predicate", "var_flax_paths",
-           "adamw_with_freezing", "ScheduledAdamW", "ema_update"]
+__all__ = ["lr_wd_annealing", "wd_cosine_anneal", "cosine_with_warmup", "no_decay_predicate",
+           "var_flax_paths", "module_flax_paths",
+           "tokenizer_frozen_predicate", "disc_frozen_predicate", "adamw_with_freezing",
+           "ScheduledAdamW", "ema_update"]
+
+
+def cosine_with_warmup(base_lr: float, warmup_steps: int, total_steps: int,
+                       min_lr: float = 5e-5) -> Callable[[int], float]:
+    """timm create_scheduler('cosine') parity (xqgan_train.py:344-366):
+    base_lr * step / warmup from step 0 (so the first lr is 0), then cosine
+    to min_lr."""
+    warmup_steps = max(warmup_steps, 1)
+
+    def sched(step: int) -> float:
+        if step < warmup_steps:
+            return base_lr * step / warmup_steps
+        prog = min(max((step - warmup_steps) / max(total_steps - warmup_steps, 1), 0.0), 1.0)
+        return min_lr + 0.5 * (base_lr - min_lr) * (1 + math.cos(math.pi * prog))
+
+    return sched
 
 
 def lr_wd_annealing(sched_type: str, peak_lr: float, wp_steps: float, max_steps: int,
@@ -95,6 +115,40 @@ def no_decay_predicate(path: str) -> bool:
                  "scale_mul"}
         or "norm" in path.rsplit("/", 2)[-2:][0].lower()
     )
+
+
+def tokenizer_frozen_predicate(cfg) -> Callable[[str], bool]:
+    """Which tokenizer parameters (by flax path) get no updates: the frozen
+    teachers always, the encoder/decoder trunks under 'frozen'/'lora'
+    tuning (dinov2.py:54-79: lora trains only adapters, the final norm and
+    what lies outside the trunk)."""
+
+    def frozen(path: str) -> bool:
+        if path.startswith(("semantic_model/", "detail_model/")):
+            return True
+        for part, method in (("encoder/", cfg.enc_tuning_method),
+                             ("decoder/", cfg.dec_tuning_method)):
+            if path.startswith(part):
+                if method == "frozen":
+                    return True
+                if method in ("lora", "lat_lora"):
+                    return not ("lora_a" in path or "lora_b" in path
+                                or re.search(r"/model/norm/", path) is not None
+                                or not path.startswith(part + "model/"))
+        return False
+
+    return frozen
+
+
+def disc_frozen_predicate(path: str) -> bool:
+    """DinoDisc's trunk is frozen (discriminator_dino.py:316-317)."""
+    return path.startswith("dino/")
+
+
+def module_flax_paths(module: nn.Module) -> Dict[str, str]:
+    """Each parameter name of a ``VQModel`` or ``DinoDisc`` -> its flax path
+    (the rules that ``utils/convert.py``'s converters follow)."""
+    return {name: flax_path(name) for name, _ in module.named_parameters()}
 
 
 def var_flax_paths(var: VAR) -> Dict[str, str]:

@@ -4,7 +4,9 @@ package on the CPU, on the same numpy-seeded inputs.
 - ``resize_matrix`` / ``resize`` in all four modes;
 - ``MultiScaleVQ``'s inference surface for each Phi sharing (0, 1, 4), over
   ``patch_nums`` (1, 2, 3) and over (1, 1, 2, 3, 3), whose repeated sizes are
-  told apart by position;
+  told apart by position; its training forward with an injected quantizer
+  dropout draw (values, losses, hits and gradients), ``update_usage_ema``
+  and ``usage_percent``;
 - the product-quantized tokenizer (P = 2, scales (1, 2, 3), a 3x3 latent grid
   per branch under a 4x4 patch grid) at a tiny ViT preset (width 64, depth 2,
   2 heads; 64 px).
@@ -28,6 +30,8 @@ from imagefolder_tpu.models.tokenizer import VQModel as JaxVQModel
 from imagefolder_tpu.ops.resize import resize as jax_resize
 from imagefolder_tpu.ops.resize import resize_matrix as jax_resize_matrix
 from imagefolder_tpu.ops.quantize import MultiScaleVQ as JaxMSVQ
+from imagefolder_tpu.ops.quantize import update_usage_ema as jax_update_usage_ema
+from imagefolder_tpu.ops.quantize import usage_percent as jax_usage_percent
 from imagefolder_tpu.utils.convert_torch import export_vqmodel
 from imagefolder_tpu_torch.models import vit as pt_vit
 from imagefolder_tpu_torch.models.tokenizer import ModelArgs as PtArgs
@@ -35,7 +39,7 @@ from imagefolder_tpu_torch.models.tokenizer import VQModel as PtVQModel
 from imagefolder_tpu_torch.ops.resize import resize as pt_resize
 from imagefolder_tpu_torch.ops.resize import resize_matrix as pt_resize_matrix
 from imagefolder_tpu_torch.ops.quantize import MultiScaleVQ as PtMSVQ
-from imagefolder_tpu_torch.ops.quantize import phi_index
+from imagefolder_tpu_torch.ops.quantize import phi_index, update_usage_ema, usage_percent
 from imagefolder_tpu_torch.utils.convert import (
     multiscale_vq_state_dict_from_flax,
     to_torch,
@@ -151,6 +155,69 @@ def test_msvq_next_autoregressive_input(msvq):
                                                torch.from_numpy(h))
         for g, w in zip(got, want):
             np.testing.assert_allclose(_np(g), np.asarray(w), rtol=0, atol=Q_TOL)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_msvq_training_forward_matches_jax(msvq, train):
+    """The training call with codebook_drop 0.5 (the first of 3 samples
+    adopts the injected dropout draw): f_hat, vq and commit losses, hits,
+    and the gradients of one scalar of them in f, the codebook and the Phis."""
+    jq0, params, pq0, f = msvq
+    pns = pq0.v_patch_nums
+    jq = JaxMSVQ(vocab_size=V, Cvae=C, v_patch_nums=pns, share_quant_resi=jq0.share_quant_resi,
+                 codebook_drop=0.5)
+    pq = PtMSVQ(V, C, pns, share_quant_resi=jq0.share_quant_resi, codebook_drop=0.5)
+    pq.load_state_dict(pq0.state_dict(), strict=True)
+    dropout_n = np.array([2, 1, 3])
+    w = np.random.default_rng(4).normal(size=f.shape).astype(np.float32)
+
+    def scalar(out, w):
+        return (out.f_hat * w).sum() + out.vq_loss + 2.0 * out.commit_loss
+
+    def jax_loss(p, x):
+        out = jq.apply({"params": p}, x, dropout_n=jnp.asarray(dropout_n), train=train)
+        return scalar(out, jnp.asarray(w)), out
+
+    (_, want), (gp, gf) = jax.value_and_grad(jax_loss, argnums=(0, 1), has_aux=True)(
+        params, jnp.asarray(f))
+    tf = torch.from_numpy(f).requires_grad_()
+    got = pq(tf, dropout_n=torch.from_numpy(dropout_n), train=train)
+    scalar(got, torch.from_numpy(w)).backward()
+    np.testing.assert_allclose(_np(got.f_hat), np.asarray(want.f_hat), rtol=0, atol=Q_TOL)
+    for k in ("vq_loss", "commit_loss", "entropy_loss"):
+        np.testing.assert_allclose(_np(getattr(got, k)), np.asarray(getattr(want, k)), rtol=0,
+                                   atol=Q_TOL, err_msg=k)
+    np.testing.assert_array_equal(_np(got.hits_SV), np.asarray(want.hits_SV))
+    assert got.hits_SV.shape == (len(pns), V) and got.hits_SV.sum() == 3 * sum(
+        p * p for p in pns)
+    np.testing.assert_allclose(_np(tf.grad), np.asarray(gf), rtol=0, atol=Q_TOL)
+    want_g = to_torch(multiscale_vq_state_dict_from_flax(
+        jax.tree_util.tree_map(np.asarray, gp), len(pns), jq.share_quant_resi))
+    for name, p in pq.named_parameters():
+        wg = want_g[name].numpy()
+        if p.grad is None:  # a Phi that no scale applies
+            assert not wg.any(), name
+            continue
+        np.testing.assert_allclose(_np(p.grad), wg, rtol=0,
+                                   atol=Q_TOL * max(1.0, np.abs(wg).max()), err_msg=name)
+    used = pq.phis_used()
+    if pq.quant_resi is not None:
+        assert {i for i, phi in enumerate(pq.quant_resi) if phi.weight.grad is not None} == used
+
+
+@pytest.mark.parametrize("record_hit", [0, 5, 150])
+def test_usage_ema_and_percent_match_jax(record_hit):
+    rng = np.random.default_rng(record_hit)
+    ema = rng.uniform(0, 3, (2, 3, V)).astype(np.float32)
+    hits = rng.integers(0, 5, (2, 3, V)).astype(np.float32)
+    want, want_rec = jax_update_usage_ema(jnp.asarray(ema), jnp.asarray(hits), record_hit)
+    got, rec = update_usage_ema(torch.from_numpy(ema), torch.from_numpy(hits), record_hit)
+    assert rec == int(want_rec) == record_hit + 1
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-6, atol=1e-6)
+    pct = usage_percent(got, 12.0 * 3, V)
+    assert pct.shape == (2, 3)
+    np.testing.assert_allclose(_np(pct), np.asarray(jax_usage_percent(want, 12.0 * 3, V)),
+                               rtol=0, atol=1e-4)
 
 
 def test_msvq_embed(msvq):

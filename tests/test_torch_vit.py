@@ -123,9 +123,80 @@ def test_decoder_backbone_has_no_patch_embed(fp32_models):
 def test_unported_backbone_options_raise():
     with pytest.raises(NotImplementedError):
         pt_vit.ViTBackbone(embed_dim=64, depth=1, num_heads=2, pre_norm=True)
-    with pytest.raises(NotImplementedError):
-        pt_vit.Block(64, 2, init_values=None)
+    with pytest.raises(NotImplementedError):  # LoRA tuning
+        pt_vit.LatentEncoder(TINY, IMG, 16, num_latent_tokens=16, tuning_method="lora")
     with pytest.raises(NotImplementedError):  # learned latent pos embeds
         pt_vit.LatentEncoder(TINY, IMG, 16, num_latent_tokens=64, abs_pos_embed=False)
     with pytest.raises(NotImplementedError):
         pt_vit.LatentDecoder(TINY, IMG, 16, num_latent_tokens=16, to_pixel="conv")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_without_layerscale_matches_flax(dtype):
+    """The no-LayerScale block (DinoDisc's trunk: the composed path, residual
+    in the activation dtype), forward and input gradient, against flax's
+    Block(init_values=None) with the same params."""
+    rng = np.random.default_rng(3)
+    n, c = 29, 128
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    blk = jax_vit.Block(num_heads=2, init_values=None, dtype=jd)
+    x = rng.normal(size=(2, n, c)).astype(np.float32)
+    g = rng.normal(size=(2, n, c)).astype(np.float32)
+    params = jax.tree_util.tree_map(np.asarray, blk.init(
+        jax.random.PRNGKey(3), jnp.asarray(x, jd))["params"])
+    assert "ls1" not in params
+    out, vjp = jax.vjp(lambda t: blk.apply({"params": params}, t), jnp.asarray(x, jd))
+    dx, = vjp(jnp.asarray(g, jd))
+    mine = pt_vit.Block(c, 2, init_values=None, dtype=td)
+    sd = {}
+    for name in ("norm1", "norm2"):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = params[name]["scale"], params[name]["bias"]
+    for name, p in (("attn.qkv", params["attn"]["qkv"]), ("attn.proj", params["attn"]["proj"]),
+                    ("mlp.fc1", params["mlp"]["fc1"]["base"]),
+                    ("mlp.fc2", params["mlp"]["fc2"]["base"])):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = p["kernel"].T, p["bias"]
+    mine.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()},
+                         strict=True)
+    tx = torch.from_numpy(x).to(td).requires_grad_()
+    got = mine(tx)
+    got.backward(torch.from_numpy(g).to(td))
+    assert got.dtype == td and tx.grad.dtype == td
+    # fp32: summation order over one block (|out| <~ 10). bf16: the residual
+    # and every sublayer output are bf16 on both sides, a few roundings of
+    # 2**-8 at |x| <~ 10; XLA's attention normalizes p before its rounding
+    tol = 2e-5 if dtype == "float32" else 0.15
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(out.astype(jnp.float32)),
+                               rtol=0, atol=tol)
+    np.testing.assert_allclose(tx.grad.float().numpy(), np.asarray(dx.astype(jnp.float32)),
+                               rtol=0, atol=tol)
+
+
+def test_remat_gives_the_same_gradients(fp32_models):
+    """run_blocks with remat recomputes each block in the backward: the same
+    outputs and gradients as without."""
+    _, _, pm, img = fp32_models
+    x = torch.from_numpy(img)
+    results = []
+    for remat in (False, True):
+        pm.encoder.model.remat = remat
+        pm.zero_grad()
+        out = pm.encoder(x)
+        out.square().mean().backward()
+        results.append((out.detach(), [p.grad.clone() for p in pm.encoder.parameters()]))
+    pm.encoder.model.remat = False
+    pm.zero_grad()
+    torch.testing.assert_close(results[0][0], results[1][0], rtol=0, atol=0)
+    for g0, g1 in zip(results[0][1], results[1][1]):
+        torch.testing.assert_close(g0, g1, rtol=0, atol=1e-7)
+
+
+def test_latent_decoder_prelast_matches_flax(fp32_models):
+    jm, params, pm, _ = fp32_models
+    z = np.random.default_rng(4).normal(size=(2, 16, 64)).astype(np.float32)
+    want, want_pre = jm.apply({"params": params}, jnp.asarray(z),
+                              method=lambda m, x: m.decoder(x, return_prelast=True))
+    with torch.no_grad():
+        got, pre = pm.decoder(torch.from_numpy(z), return_prelast=True)
+    assert pre.shape == (2, (IMG // 16) ** 2, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(pre.numpy(), np.asarray(want_pre), rtol=0, atol=1e-4)
