@@ -15,7 +15,12 @@ of kernel, then the ten largest kernels by name. The train step is then
 profiled once more cut into its phases (encode, forward and loss, backward,
 optimizer), with a synchronize after each, and each kernel's time is put to
 the phase whose host range holds its start: that split tells the backward's
-GEMMs and elementwise passes from the forward's.
+GEMMs and elementwise passes from the forward's. The same again for
+MSVR10P2-4096-512 + VAR-d16 (512 px, L = 2240; ``chip_smoke.py``'s 512 px
+paths: the round trip as well, and the train step at B=16). The idle share
+printed here is against the profiled wall time, which the profiler itself
+stretches; ``PERF.md`` takes the busy time against ``chip_smoke.py``'s
+event-timed median.
 
 Then the flagship GAN ``TokenizerTrainer.train_step`` at B=64 with a bf16
 loss stack (the configuration ``chip_smoke.py`` times): the whole step by
@@ -25,6 +30,11 @@ weight, backward, generator optimizer and EMA, disc pass, disc optimizer,
 bookkeeping). The phases are the step's own modules and calls in its order
 (``gan_phases``); their total beside the whole step's busy time shows that
 they cover it.
+
+The attention kernels that share device code (#1 and #4, ``attn_fwd_*``;
+#2, #5 and #6, ``attn_bwd_*``) carry the kernel's number as their first
+template argument (``attn_fwd_bf16_kernel<4, ...>``), and each is counted
+under its own number.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ import time
 import torch
 from torch.profiler import DeviceType, ProfilerActivity, profile, record_function
 
-from chip_smoke import BATCH, SEED, VAR_DEPTH, msvr_margs
+from chip_smoke import BATCH, SEED, TRAIN_BATCH_512, VAR_DEPTH, msvr512_margs, msvr_margs
 from imagefolder_tpu_torch.losses.discriminators import draw_crop
 from imagefolder_tpu_torch.losses.gan import (
     LeCamState,
@@ -56,9 +66,12 @@ from imagefolder_tpu_torch.train.tokenizer_train import TokenizerTrainer, _last_
 CALLS = 2
 # kernel name pattern -> kind, first match wins
 KINDS = [
-    (r"attn_bwd", "#2/#6 attention backward kernels (shared tile code)"),
+    (r"attn_bwd_\w+<2\b", "#2 packed-qkv attention backward kernels"),
+    (r"attn_bwd_\w+<5\b", "#5 q-blocked attention backward kernels"),
+    (r"attn_bwd_\w+<6\b", "#6 BNHD attention backward kernels"),
     (r"attn_bnhd", "#3 BNHD attention kernel"),
-    (r"attn_qkv", "#1 packed-qkv attention kernel"),
+    (r"attn_fwd_\w+<1\b", "#1 packed-qkv attention kernel"),
+    (r"attn_fwd_\w+<4\b", "#4 q-blocked attention kernel"),
     (r"codebook_argmin", "#9 codebook kernel"),
     (r"conv|cudnn|fprop|dgrad|wgrad|implicit", "convolutions (cuDNN: LPIPS's VGG16, blur)"),
     (r"nvjet|gemm|cutlass|sm90_xmma|cublas", "GEMMs (cuBLAS)"),
@@ -94,7 +107,7 @@ def _device_kernels(prof):
     return [e for e in prof.key_averages() if _is_kernel(e)]
 
 
-def profile_path(name: str, fn):
+def profile_path(name: str, fn, batch: int = BATCH):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -112,7 +125,7 @@ def profile_path(name: str, fn):
     for e in kernels:
         by_kind[kind(e.key)] += e.device_time_total / CALLS / 1e3
         counts[kind(e.key)] += e.count // CALLS
-    print(f"[{name}] B={BATCH} bf16, per call: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+    print(f"[{name}] B={batch} bf16, per call: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
           f"idle share {1 - busy / wall:.3f}")
     for k, ms in by_kind.most_common():
         print(f"[{name}]   {ms:9.3f} ms {ms / busy * 100:5.1f}%  x{counts[k]:<6d} {k}")
@@ -245,13 +258,9 @@ def gan_phases(tr: TokenizerTrainer, x: torch.Tensor) -> list:
             ("disc optimizer", tr.disc_opt.step), ("bookkeeping", bookkeeping)]
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_profile.py needs a CUDA card: torch.cuda.is_available() is False")
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    print(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}")
-    margs = msvr_margs("bfloat16")
+def profile_var(dev, margs, tag: str, train_batch: int, round_trip: bool):
+    """The VAR paths of ``margs`` + VAR-d16 (B=64, the train step at
+    ``train_batch``), each by kind, and the train step by phase."""
     vae, var = build_vae_var(margs, VAR_DEPTH, dtype_str="bfloat16",
                              generator=torch.Generator().manual_seed(SEED), device=dev)
     vae.eval()
@@ -260,31 +269,46 @@ def main() -> int:
     labels = torch.arange(BATCH, device=dev) % 1000
     px = margs.image_size
     x = torch.rand((BATCH, px, px, 3), generator=gen, device=dev) * 2 - 1
-    profile_path("var_sample", lambda: var_train.var_sample(
+    if round_trip:
+        with torch.inference_mode():
+            profile_path(tag + "round trip", lambda: vae.img_to_reconstructed_img(x))
+    profile_path(tag + "var_sample", lambda: var_train.var_sample(
         var, vae, labels, gen, cfg_scale=1.5, top_k=900, top_p=0.96))
     with torch.inference_mode():
-        profile_path("img_to_idxBl", lambda: vae.img_to_idxBl(x))
+        profile_path(tag + "img_to_idxBl", lambda: vae.img_to_idxBl(x))
         x_in = vae.idxBl_to_var_input(vae.img_to_idxBl(x))
-        profile_path("VAR.forward", lambda: var(labels, x_in))
+        profile_path(tag + "VAR.forward", lambda: var(labels, x_in))
+        del x_in
 
     tr = var_train.VARTrainer(vae, var, var_train.VARTrainConfig(), generator=gen)
-    profile_path("train_step", lambda: tr.train_step(x, labels))
-    profile_path("eval_step", lambda: tr.eval_step(x, labels))
+    xt, lt = x[:train_batch], labels[:train_batch]
+    profile_path(tag + "train_step", lambda: tr.train_step(xt, lt), train_batch)
+    profile_path(tag + "eval_step", lambda: tr.eval_step(x, labels))
     step = {}
 
     def encode():
-        step["gt"], step["x_in"] = tr._codes(x)
+        step["gt"], step["x_in"] = tr._codes(xt)
 
     def forward():
         tr.opt.zero_grad()
         var.train()
-        logits = var(labels, step["x_in"], train=True, generator=gen)
+        logits = var(lt, step["x_in"], train=True, generator=gen)
         step["loss"] = tr._ce_and_acc(logits, step["gt"])[0]
 
-    profile_phases("train_step", [("encode", encode), ("forward and loss", forward),
-                                  ("backward", lambda: step.pop("loss").backward()),
-                                  ("optimizer", tr.opt.step)])
-    del vae, var, tr, step
+    profile_phases(tag + "train_step", [("encode", encode), ("forward and loss", forward),
+                                        ("backward", lambda: step.pop("loss").backward()),
+                                        ("optimizer", tr.opt.step)])
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_profile.py needs a CUDA card: torch.cuda.is_available() is False")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}")
+    profile_var(dev, msvr_margs("bfloat16"), "", BATCH, round_trip=False)
+    profile_var(dev, msvr512_margs("bfloat16"), "512 ", TRAIN_BATCH_512, round_trip=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
 
     mcfg, tcfg = flagship_gan_recipe(BATCH, tcfg_overrides={"loss_dtype": "bfloat16"})
     gan = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED), device=dev)

@@ -14,28 +14,34 @@ exit; no failure is caught):
      without dbias, ragged, in fp32 and through autograd, BNHD attention (#3) at every VAR
      sampling stage, the teacher-forcing shape and edge cases, its backward
      (#6) at the training shape with and without dbias, without a bias, at
-     L = 680, ragged, on strided views and in fp32, and the codebook search
-     (#9) at every scale of the multi-scale encode;
+     L = 680, ragged, on strided views and in fp32, the q-blocked attention
+     (#4) and its backward (#5) at the 512 px shapes (VAR's L = 2240 under
+     the block-causal bias, the tokenizer's packed views at N = 2050 and
+     3073), ragged past the JAX package's caps, in fp32 and, for #5, with
+     dbias and through autograd, and the codebook search (#9) at every scale
+     of both multi-scale encodes;
   4. models, card against CPU in fp32 from one seed: the VQ-4096 ViT-B
-     tokenizer at B=2, and the MSVR10P2-4096 tokenizer with VAR-d16
-     (``img_to_idxBl`` codes per scale, ``VAR.forward`` logits, greedy
-     ``var_sample`` tokens and images; then one ``VARTrainer`` step's loss,
-     every parameter's gradient, the gradient norm and the updated
-     parameters, with the same training masks on both sides); two flagship
-     GAN ``TokenizerTrainer`` steps (every metric, every trainable gradient of
-     the generator and the disc heads, the updated parameters, with the same
-     random draws on both sides); a code or token may differ only at a
-     near-tie, and the card then goes on from the CPU's choice;
-  5. main paths at B=64 in bf16, timed with CUDA events (a warm-up call, then
+     tokenizer at B=2; for MSVR10P2-4096 and MSVR10P2-4096-512, each with
+     VAR-d16, ``img_to_idxBl`` codes per scale, the round trip image,
+     ``VAR.forward`` logits, greedy ``var_sample`` tokens and images, then
+     one ``VARTrainer`` step's loss, every parameter's gradient, the gradient
+     norm and the updated parameters, with the same training masks on both
+     sides; two flagship GAN ``TokenizerTrainer`` steps (every metric, every
+     trainable gradient of the generator and the disc heads, the updated
+     parameters, with the same random draws on both sides); a code or token
+     may differ only at a near-tie, and the card then goes on from the CPU's
+     choice;
+  5. main paths in bf16, timed with CUDA events (a warm-up call, then
      median, min and max), each with every launch counter set to 0 just
-     before its timed calls and read just after: the VQ-4096 round trip,
-     ``var_sample`` (cfg 1.5, top-k 900, top-p 0.96), ``img_to_idxBl``, the
-     teacher-forcing ``VAR.forward``, ``VARTrainer.train_step`` and
-     ``eval_step``, and the flagship GAN ``TokenizerTrainer.train_step``;
+     before its timed calls and read just after: at B=64 the VQ-4096 round
+     trip; for both multi-scale configurations ``var_sample`` (cfg 1.5, top-k
+     900, top-p 0.96), ``img_to_idxBl``, the teacher-forcing ``VAR.forward``,
+     ``VARTrainer.train_step`` (B=16 at 512 px) and ``eval_step``, and the
+     512 px round trip; and the flagship GAN ``TokenizerTrainer.train_step``;
   6. times: each kernel, its plain version (order plain, kernel, kernel,
      plain) and one PyTorch library call computing the same function (for
-     #2 and #6, the backward of ``scaled_dot_product_attention``), at the main
-     paths' largest shapes, beside the card's bound for that work.
+     #2, #5 and #6, the backward of ``scaled_dot_product_attention``), at the
+     main paths' largest shapes, beside the card's bound for that work.
 Then one JSON line of kernel records and, last, the device JSON line.
 
 Imports nothing of JAX: the card's machine has none. JAX parity lives in the
@@ -81,7 +87,14 @@ VAR_DEPTH = 16      # VAR-d16: width 1024, 16 heads of 64
 VAR_HEADS = 16
 HD = 64
 PNS = (1, 1, 2, 3, 3, 4, 5, 6, 8, 11)  # MSVR10P2-4096's v_patch_nums
+PNS512 = (1, 2, 3, 4, 6, 9, 13, 18, 24, 32)  # the 512 px pyramid, L = 2240
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # kernel vs plain, max abs
+# bf16 forward outputs (#1, #3, #4) are also held per element to BF16_REL of
+# the plain value (a bf16 ulp is at most 2^-7 of its value, and each side
+# rounds its output once) plus ROW_SHARE of the RMS of its output row (one
+# head's 64 values at one position)
+BF16_REL = 2.0 ** -7
+ROW_SHARE = 2.0 ** -5
 # card vs CPU, fp32 throughout: only summation order differs, compounded over
 # 24 ViT blocks of width 768 with LayerScale raised to O(1), or 16 VAR blocks
 MODEL_TOL = 1e-3
@@ -99,6 +112,8 @@ COUNTERS = {
     "attention_qkv_bwd": (attn, "BWD_LAUNCHES"),
     "fused_attention_fwd": (attn, "FUSED_LAUNCHES"),
     "fused_attention_bwd": (attn, "FUSED_BWD_LAUNCHES"),
+    "fused_attention_qblk_fwd": (attn, "QBLK_LAUNCHES"),
+    "fused_attention_qblk_bwd": (attn, "QBLK_BWD_LAUNCHES"),
     "codebook_argmin": (codebook, "LAUNCHES"),
 }
 
@@ -148,6 +163,22 @@ def msvr_margs(dtype_str: str) -> ModelArgs:
         product_quant=2, abs_pos_embed=True, image_size=256, dtype_str=dtype_str)
 
 
+def msvr512_margs(dtype_str: str) -> ModelArgs:
+    """MSVR10P2-4096-512: ``msvr_margs`` at 512 px over the 512 px pyramid,
+    with a 32 x 32 grid of 1024 latents per branch: the JAX package's 512 px
+    recipe (``scripts/soak.py:76-81``, after upstream VAR's
+    ``arg_util.py:287-291``). Under VAR-d16 L = 2240; the encoder's N = 1 +
+    1024 + 2 * 1024 = 3073, the decoder's 1 + 1024 + 1 + 1024 = 2050. Nothing
+    is cut."""
+    return ModelArgs(
+        codebook_size=4096, codebook_embed_dim=32, v_patch_nums=PNS512,
+        enc_type="dinov2", dec_type="dinov2",
+        encoder_model="vit_base_patch14_dinov2.lvd142m",
+        decoder_model="vit_base_patch14_dinov2.lvd142m",
+        semantic_guide="none", detail_guide="none", num_latent_tokens=PNS512[-1] ** 2,
+        product_quant=2, abs_pos_embed=True, image_size=512, dtype_str=dtype_str)
+
+
 def encoder_mask(n: int, nl: int, device, block_first: int = 0) -> torch.Tensor:
     """The encoder's shared use_attn_mask bias: rows before the last nl cannot
     attend to the last nl columns. block_first > 0 also keeps the last nl rows
@@ -170,6 +201,35 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def _check(name: str, err: float, tol: float):
     if not err <= tol:
         raise AssertionError(f"{name}: max abs err {err} > {tol}")
+
+
+def _fwd_check(what: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float, str]:
+    """A forward kernel's output against its plain version's: both finite,
+    the max abs error within TOL, and in bf16 every element's error within
+    BF16_REL * |plain| + ROW_SHARE * (the RMS of its head's 64 outputs at
+    that position). The per-element bound follows the size of the values: a
+    typical 512 px output (~0.03) is smaller than TOL's 2e-2, which the few
+    large early VAR rows set. The row term covers what the order of the
+    fp32 sums and p's rounding against a running max leave before the
+    output's rounding. tests/test_torch_smoke_checks.py holds this check
+    against a CPU model of the kernels' tiled numerics, which must pass,
+    and against the model with a fault planted (the last k/v tile dropped,
+    the rescale skipped), which must fail. Returns the max abs error and a
+    note of the bound for the log line."""
+    if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
+        raise AssertionError(f"{what}: non-finite output")
+    diff = (got.float() - want.float()).abs().reshape(-1, HD)
+    err = diff.max().item()
+    _check(what, err, TOL[got.dtype])
+    if got.dtype != torch.bfloat16:
+        return err, f"(tol {TOL[got.dtype]:g})"
+    size = want.float().abs().reshape(-1, HD)
+    row_rms = size.square().mean(dim=1, keepdim=True).sqrt()
+    worst = (diff / (BF16_REL * size + ROW_SHARE * row_rms)).max().item()
+    if not worst <= 1.0:
+        raise AssertionError(f"{what}: an element's error is {worst:.3f} of its bound "
+                             "2^-7 |plain| + 2^-5 RMS(row)")
+    return err, f"(tol {TOL[got.dtype]:g}; per element {worst:.3f} of 2^-7 |plain| + 2^-5 RMS(row))"
 
 
 def bound_ms(nbytes: float, ops: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -226,16 +286,31 @@ def kernels_qkv(dev) -> float:
         got = attn.attention_qkv(qkv, HEADS, bias)
         want = attn.attention_qkv_reference(qkv, HEADS, bias)
         torch.cuda.synchronize()
-        if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
-            raise AssertionError(f"[kernels] #1 {name}: non-finite output")
-        err = _max_err(got, want)
+        err, note = _fwd_check(f"[kernels] #1 {name}", got, want)
         print(f"[kernels] #1 {name:26s} qkv {tuple(qkv.shape)} {str(dtype)[6:]:8s} "
               f"bias={'shared' if bias is not None else 'none':6s} "
-              f"max_abs_err {err:.3e} (tol {TOL[dtype]:g})")
-        _check(f"[kernels] #1 {name}", err, TOL[dtype])
+              f"max_abs_err {err:.3e} {note}")
         if dtype == bf16 and bias is None and b == BATCH:
             main_err = max(main_err, err)
     return main_err
+
+
+def _bwd_errs(num: str, name: str, got, want, names=("dq", "dk", "dv", "dbias")) -> dict:
+    """Each gradient of a backward kernel's result ``got`` against the plain
+    version's ``want``: its max abs error over the plain result's max abs,
+    after checking presence, shape, type and finiteness."""
+    errs = {}
+    for what, a, w in zip(names, got, want):
+        if (a is None) != (w is None):
+            raise AssertionError(f"[kernels] {num} {name}: {what} is {a} against {w}")
+        if w is None:
+            continue
+        if a.shape != w.shape or a.dtype != w.dtype:
+            raise AssertionError(f"[kernels] {num} {name}: {what} {tuple(a.shape)} {a.dtype}")
+        if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(w).all())):
+            raise AssertionError(f"[kernels] {num} {name}: non-finite {what}")
+        errs[what] = _max_err(a, w) / max(w.detach().abs().max().item(), 1e-30)
+    return errs
 
 
 def kernels_qkv_bwd(dev) -> float:
@@ -269,17 +344,7 @@ def kernels_qkv_bwd(dev) -> float:
         got = attn.attention_qkv_bwd(qkv, h, bias, g, need_dbias=need_db)
         want = attn.attention_qkv_bwd_reference(qkv, h, bias, g, need_dbias=need_db)
         torch.cuda.synchronize()
-        errs = {}
-        for what, a, w in zip(("dqkv", "dbias"), got, want):
-            if (a is None) != (w is None):
-                raise AssertionError(f"[kernels] #2 {name}: {what} is {a} against {w}")
-            if w is None:
-                continue
-            if a.shape != w.shape or a.dtype != w.dtype:
-                raise AssertionError(f"[kernels] #2 {name}: {what} {tuple(a.shape)} {a.dtype}")
-            if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(w).all())):
-                raise AssertionError(f"[kernels] #2 {name}: non-finite {what}")
-            errs[what] = _max_err(a, w) / max(w.detach().abs().max().item(), 1e-30)
+        errs = _bwd_errs("#2", name, got, want, ("dqkv", "dbias"))
         tol = TOL[dtype]
         shown = ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
         print(f"[kernels] #2 {name:22s} qkv {tuple(qkv.shape)} {str(dtype)[6:]:8s} "
@@ -357,14 +422,10 @@ def kernels_bnhd(dev) -> float:
         got = attn.fused_attention(q, k, v, bias, scale)
         want = attn.fused_attention_reference(q, k, v, bias, scale)
         torch.cuda.synchronize()
-        if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
-            raise AssertionError(f"[kernels] #3 {name}: non-finite output")
-        err = _max_err(got, want)
-        tol = TOL[q.dtype]
+        err, note = _fwd_check(f"[kernels] #3 {name}", got, want)
         print(f"[kernels] #3 {name:22s} q {tuple(q.shape)} k {tuple(k.shape)} "
               f"{str(q.dtype)[6:]:8s} bias={'none' if bias is None else tuple(bias.shape)} "
-              f"max_abs_err {err:.3e} (tol {tol:g})")
-        _check(f"[kernels] #3 {name}", err, tol)
+              f"max_abs_err {err:.3e} {note}")
         if main:
             main_err = max(main_err, err)
     return main_err
@@ -411,15 +472,7 @@ def kernels_bnhd_bwd(dev) -> float:
         want = attn.fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias=need_db)
         torch.cuda.synchronize()
         tol = TOL[q.dtype]
-        errs = {}
-        for what, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
-            if (a is None) != (w is None):
-                raise AssertionError(f"[kernels] #6 {name}: {what} is {a} against {w}")
-            if w is None:
-                continue
-            if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(w).all())):
-                raise AssertionError(f"[kernels] #6 {name}: non-finite {what}")
-            errs[what] = _max_err(a, w) / max(w.detach().abs().max().item(), 1e-30)
+        errs = _bwd_errs("#6", name, got, want)
         shown = ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
         print(f"[kernels] #6 {name:28s} q {tuple(q.shape)} {str(q.dtype)[6:]:8s} "
               f"bias={'none' if bias is None else tuple(bias.shape)}: error over max |plain| "
@@ -428,6 +481,161 @@ def kernels_bnhd_bwd(dev) -> float:
             _check(f"[kernels] #6 {name} {what}", e, tol)
         if main:
             main_err = max(main_err, *errs.values())
+    return main_err
+
+
+def _packed_views(gen, b, n, h, dtype, dev):
+    """q, k, v as the (B, N, 3, H, hd) views of a packed (B, N, 3C) qkv, as
+    ``attention_qkv``'s long branch hands them to the q-blocked kernels."""
+    qkv = torch.randn((b, n, 3 * HD * h), generator=gen, device=dev).to(dtype)
+    return qkv.view(b, n, 3, h, HD).unbind(2)
+
+
+def _in_chunks(fn, b: int, chunk: int, *tensors, **kw):
+    """The plain version ``fn`` over the batch in slices of ``chunk``
+    (tensors of batch ``b`` are sliced, the rest passed whole): its (B, H, L,
+    L) fp32 intermediates at a 512 px shape do not fit the card at once.
+    Results are joined on the batch axis; a (1, 1, L, L) dbias is summed."""
+    outs = []
+    for i in range(0, b, chunk):
+        outs.append(fn(*(t[i:i + chunk] if torch.is_tensor(t) and t.shape[0] == b else t
+                         for t in tensors), **kw))
+    if torch.is_tensor(outs[0]):
+        return torch.cat(outs)
+    joined = [torch.cat(parts) for parts in zip(*(o[:3] for o in outs))]
+    dbias = None if outs[0][3] is None else sum(o[3].float() for o in outs).to(outs[0][3].dtype)
+    return (*joined, dbias)
+
+
+def kernels_qblk(dev) -> float:
+    """#4 against its plain version: at VAR's 512 px teacher forcing under
+    the block-causal bias, at the decoder's and the encoder's packed views
+    (kernel at B = 64, the plain version in batch slices), ragged past the
+    JAX package's caps (2049, 2305 with a bias, 2817 without), cross-length,
+    on unaligned rows, and in fp32. Returns the largest bf16 error at the
+    main paths' shapes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    tf_bias = build_attn_bias(PNS512).to(dev)
+    ltot = tf_bias.shape[-1]
+    cases = [  # (name, q, k, v, bias, scale, plain batch slice, main)
+        ("VAR teacher forcing 512", *_bnhd(gen, 16, ltot, ltot, VAR_HEADS, bf16, dev),
+         tf_bias, 1.0, 4, True),
+        ("decoder 512 packed views", *_packed_views(gen, BATCH, 2050, HEADS, bf16, dev), None,
+         None, 8, True),
+        ("encoder 512 packed views", *_packed_views(gen, BATCH, 3073, HEADS, bf16, dev), None,
+         None, 4, True),
+        ("ragged L=2049, bias", *_bnhd(gen, 3, 2049, 2049, 4, bf16, dev),
+         encoder_mask(2049, 683, dev, 1), 1.0, 3, False),
+        ("ragged L=2305, bias", *_bnhd(gen, 3, 2305, 2305, 4, bf16, dev),
+         build_attn_bias((1, 2, 3, 4, 6, 9, 13, 18, 24, 33)).to(dev), 1.0, 3, False),
+        ("ragged L=2817, no bias", *_bnhd(gen, 3, 2817, 2817, 4, bf16, dev, l2=False), None,
+         None, 3, False),
+        ("cross length 1500 x 2500", *_bnhd(gen, 2, 1500, 2500, 4, bf16, dev, l2=False), None,
+         None, 2, False),
+        ("VAR teacher forcing 512 fp32", *_bnhd(gen, 2, ltot, ltot, VAR_HEADS, f32, dev),
+         tf_bias, 1.0, 2, False),
+        ("ragged L=2305 fp32, bias", *_bnhd(gen, 2, 2305, 2305, 4, f32, dev),
+         encoder_mask(2305, 768, dev, 64), 1.0, 2, False),
+    ]
+    # rows of 65 elements, k one element off a 16-byte boundary: no 16-byte loads
+    wide = torch.randn((2, 3, 2100, 4, HD + 1), generator=gen, device=dev).bfloat16()
+    cases.append(("unaligned rows", wide[0, ..., :HD], wide[0, ..., 1:], wide[1, ..., :HD], None,
+                  None, 3, False))
+    main_err = 0.0
+    for name, q, k, v, bias, scale, chunk, main in cases:
+        got = attn.fused_attention_qblk(q, k, v, bias, scale)
+        want = _in_chunks(attn.fused_attention_qblk_reference, q.shape[0], chunk, q, k, v, bias,
+                          scale)
+        torch.cuda.synchronize()
+        err, note = _fwd_check(f"[kernels] #4 {name}", got, want)
+        print(f"[kernels] #4 {name:28s} q {tuple(q.shape)} k {tuple(k.shape)} "
+              f"{str(q.dtype)[6:]:8s} bias={'none' if bias is None else tuple(bias.shape)} "
+              f"max_abs_err {err:.3e} {note}")
+        if main:
+            main_err = max(main_err, err)
+        del got, want
+    return main_err
+
+
+def kernels_qblk_bwd(dev) -> float:
+    """#5 against its plain version, the error of each gradient over the
+    plain result's max abs (dbias held as #6's, see ``kernels_bnhd_bwd``):
+    VAR's 512 px training shape with dbias off (the train step) and on, the
+    decoder's and the encoder's packed views, ragged past the JAX caps, and
+    fp32 (kernel at full batch, the plain version in batch slices); then
+    autograd on the card through ``dot_product_attention`` and through
+    ``attention_qkv``'s long branch, each one #5 launch. Returns the
+    largest error at the training shape."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    tf_bias = build_attn_bias(PNS512).to(dev)
+    ltot = tf_bias.shape[-1]
+    cases = [  # (name, q, k, v, bias, dbias, scale, plain batch slice, main)
+        ("VAR training 512, dbias off", *_bnhd(gen, 16, ltot, ltot, VAR_HEADS, bf16, dev),
+         tf_bias, False, 1.0, 2, True),
+        ("VAR training 512, dbias on", *_bnhd(gen, 4, ltot, ltot, VAR_HEADS, bf16, dev), tf_bias,
+         True, 1.0, 2, False),
+        ("decoder 512 packed views", *_packed_views(gen, 8, 2050, HEADS, bf16, dev), None, False,
+         None, 2, False),
+        ("encoder 512 packed views", *_packed_views(gen, 4, 3073, HEADS, bf16, dev), None, False,
+         None, 1, False),
+        ("ragged L=2049, bias", *_bnhd(gen, 3, 2049, 2049, 4, bf16, dev),
+         encoder_mask(2049, 683, dev, 1), True, 1.0, 3, False),
+        ("ragged L=2305, bias", *_bnhd(gen, 3, 2305, 2305, 4, bf16, dev),
+         encoder_mask(2305, 768, dev, 64), True, 1.0, 3, False),
+        ("ragged L=2817, no bias", *_bnhd(gen, 3, 2817, 2817, 4, bf16, dev, l2=False), None,
+         False, None, 3, False),
+        ("VAR training 512 fp32, dbias on", *_bnhd(gen, 2, ltot, ltot, VAR_HEADS, f32, dev),
+         tf_bias, True, 1.0, 1, False),
+        ("ragged L=2049 fp32, no bias", *_bnhd(gen, 2, 2049, 2049, 4, f32, dev, l2=False), None,
+         False, None, 2, False),
+    ]
+    main_err = 0.0
+    for name, q, k, v, bias, need_db, scale, chunk, main in cases:
+        g = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        got = attn.fused_attention_qblk_bwd(q, k, v, bias, g, scale, need_dbias=need_db)
+        want = _in_chunks(attn.fused_attention_qblk_bwd_reference, q.shape[0], chunk, q, k, v,
+                          bias, g, scale, need_dbias=need_db)
+        torch.cuda.synchronize()
+        errs = _bwd_errs("#5", name, got, want)
+        tol = TOL[q.dtype]
+        shown = ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        print(f"[kernels] #5 {name:31s} q {tuple(q.shape)} {str(q.dtype)[6:]:8s} "
+              f"bias={'none' if bias is None else tuple(bias.shape)}: error over max |plain| "
+              f"{shown} (tol {tol:g})")
+        for what, e in errs.items():
+            _check(f"[kernels] #5 {name} {what}", e, tol)
+        if main:
+            main_err = max(main_err, *errs.values())
+        del got, want
+    # autograd on the card: the router and the packed long branch, one #5
+    # launch each, past the budget in fp32
+    q, k, v = (t.requires_grad_() for t in _bnhd(gen, 2, 2065, 2065, 4, f32, dev, l2=False))
+    bias = encoder_mask(2065, 600, dev, 64).requires_grad_()
+    g = torch.randn(q.shape, generator=gen, device=dev)
+    qkv = torch.randn((2, 2050, 3 * HD * 4), generator=gen, device=dev, requires_grad=True)
+    gp = torch.randn((2, 2050, HD * 4), generator=gen, device=dev)
+    for name, run, want in (
+            ("dot_product_attention", lambda: torch.autograd.grad(
+                attn.dot_product_attention(q, k, v, bias), (q, k, v, bias), g),
+             lambda: attn.fused_attention_qblk_bwd_reference(
+                 q.detach(), k.detach(), v.detach(), bias.detach(), g)),
+            ("attention_qkv (packed)", lambda: (torch.autograd.grad(
+                attn.attention_qkv(qkv, 4), qkv, gp)[0], None),
+             lambda: attn.attention_qkv_bwd_reference(qkv.detach(), 4, None, gp))):
+        before = (attn.QBLK_LAUNCHES, attn.QBLK_BWD_LAUNCHES, attn.LAUNCHES, attn.BWD_LAUNCHES)
+        got, ref = run(), want()
+        torch.cuda.synchronize()
+        after = (attn.QBLK_LAUNCHES, attn.QBLK_BWD_LAUNCHES, attn.LAUNCHES, attn.BWD_LAUNCHES)
+        if [a - b for a, b in zip(after, before)] != [1, 1, 0, 0]:
+            raise AssertionError(f"[kernels] #5 autograd of {name}: launches #4, #5, #1, #2 "
+                                 f"{[a - b for a, b in zip(after, before)]}, want [1, 1, 0, 0]")
+        err = max(_max_err(a, w) / w.abs().max().item()
+                  for a, w in zip(got, ref) if w is not None)
+        print(f"[kernels] #5 autograd of {name} on the card: one #4 and one #5 launch, "
+              f"gradients' error over max |plain| {err:.3e} (tol {TOL[f32]:g})")
+        _check(f"[kernels] #5 autograd of {name}", err, TOL[f32])
     return main_err
 
 
@@ -448,7 +656,7 @@ def kernels_codebook(dev) -> float:
     the main path's shapes (0 when every index agrees)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     cases = [(f"scale pn={pn}", BATCH * pn * pn, 4096, 32, maximize, True)
-             for pn in sorted(set(PNS)) for maximize in (True, False)]
+             for pn in sorted(set(PNS) | set(PNS512)) for maximize in (True, False)]
     cases += [("V off the tile", 1000, 4000, 32, True, False),
               ("C=8", 777, 4096, 8, False, False), ("C=16", 777, 1024, 16, True, False),
               ("C=64", 777, 4096, 64, True, False)]
@@ -586,10 +794,11 @@ def _logit_gap(args, want, got, diff):
     return (lg.gather(-1, want[:, None]) - lg.gather(-1, got[:, None])).abs()[:, 0]
 
 
-def phase_model_var(dev):
-    """MSVR10P2-4096 with VAR-d16 in fp32 at B=2, card against the same
-    weights on the CPU."""
-    margs = msvr_margs("float32")
+def phase_model_var(dev, margs: ModelArgs, name: str):
+    """A multi-scale tokenizer with VAR-d16 in fp32 at B=2,
+    card against the same weights on the CPU: the encoder's latents,
+    ``img_to_idxBl``'s codes per scale, the round trip image, the VAR input,
+    ``VAR.forward`` logits and greedy ``var_sample`` tokens and images."""
     gen = torch.Generator().manual_seed(SEED)
     vae_cpu, var_cpu = build_vae_var(margs, VAR_DEPTH, generator=gen, device="cpu")
     _excite_layerscale(vae_cpu, gen)
@@ -605,6 +814,10 @@ def phase_model_var(dev):
         errs["latents"] = _max_err(vae_cpu.encode(x), vae_card.encode(x.to(dev)))
         idx_cpu = codes.on_cpu(lambda: vae_cpu.img_to_idxBl(x))
         idx_card = codes.on_card(lambda: vae_card.img_to_idxBl(x.to(dev)))
+        rec = Lockstep(quantize, "_codebook_lookup", _code_gap, NEAR_TIE)
+        errs["round trip image"] = _max_err(
+            rec.on_cpu(lambda: vae_cpu.img_to_reconstructed_img(x)),
+            rec.on_card(lambda: vae_card.img_to_reconstructed_img(x.to(dev))))
         x_in = vae_cpu.idxBl_to_var_input(idx_cpu)
         x_in_card = vae_card.idxBl_to_var_input(idx_card)
         errs["var_input"] = _max_err(x_in, x_in_card)
@@ -621,19 +834,19 @@ def phase_model_var(dev):
         raise AssertionError(f"[model] var_sample images {tuple(img_card.shape)}")
     shown = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
     distinct = torch.unique(torch.cat([i.reshape(-1) for b in idx_cpu for i in b])).numel()
-    print(f"[model] MSVR10P2-4096 + VAR-d16 fp32 B=2 card vs CPU: {shown} "
-          f"(tol {MODEL_TOL:g}); img_to_idxBl codes {codes.compared - codes.flips}/"
-          f"{codes.compared} equal over {len(codes.calls)} lookups ({distinct} distinct), "
-          f"max near-tie gap {codes.max_gap:.3e}; greedy var_sample tokens "
-          f"{picks.compared - picks.flips}/{picks.compared} equal, max top-2 logit gap "
-          f"at a flip {picks.max_gap:.3e} (<= {LOGIT_NEAR_TIE:g})")
+    print(f"[model] {name} fp32 B=2 card vs CPU: {shown} (tol {MODEL_TOL:g}); img_to_idxBl "
+          f"codes {codes.compared - codes.flips}/{codes.compared} equal over "
+          f"{len(codes.calls)} lookups ({distinct} distinct), max near-tie gap "
+          f"{codes.max_gap:.3e}, round trip codes {rec.compared - rec.flips}/{rec.compared} "
+          f"equal; greedy var_sample tokens {picks.compared - picks.flips}/{picks.compared} "
+          f"equal, max top-2 logit gap at a flip {picks.max_gap:.3e} (<= {LOGIT_NEAR_TIE:g})")
     for k, v in errs.items():
-        _check(f"[model] {k}", v, MODEL_TOL)
+        _check(f"[model] {name} {k}", v, MODEL_TOL)
     return (vae_cpu, var_cpu), (vae_card, var_card)
 
 
-def phase_model_train(dev, cpu_models, card_models):
-    """One VARTrainer step of MSVR10P2-4096 + VAR-d16 in fp32 at B=2, card
+def phase_model_train(dev, cpu_models, card_models, name: str):
+    """One VARTrainer step of a tokenizer with VAR in fp32 at B=2, card
     against CPU from the same weights (those of ``phase_model_var``): the
     loss, every parameter's gradient (max abs error over that gradient's max
     abs), the gradient norm and the updated parameters. The training masks
@@ -650,7 +863,7 @@ def phase_model_train(dev, cpu_models, card_models):
     masks = var_cpu.draw_masks(2, p_drop_factor=1.0, generator=gen)
     masks["class_drop"] = torch.tensor([False, True])
     masks["token_keep"][0, :40] = False
-    masks["drop_path"][VAR_DEPTH - 1] = (torch.tensor([0.0, 1.0]), torch.tensor([1.0, 0.0]))
+    masks["drop_path"][-1] = (torch.tensor([0.0, 1.0]), torch.tensor([1.0, 0.0]))
     masks_card = {k: v.to(dev) if torch.is_tensor(v) else
                   [None if t is None else tuple(m.to(dev) for m in t) for t in v]
                   for k, v in masks.items()}
@@ -659,11 +872,11 @@ def phase_model_train(dev, cpu_models, card_models):
     loss_card = codes.on_card(lambda: tr_card.loss_and_backward(
         x.to(dev), label.to(dev), masks=masks_card))[0]
     grad_errs = {}
-    for (name, p_cpu), p_card in zip(var_cpu.named_parameters(), var_card.parameters()):
+    for (pname, p_cpu), p_card in zip(var_cpu.named_parameters(), var_card.parameters()):
         if p_cpu.grad is None or p_card.grad is None:
-            raise AssertionError(f"[model] {name}: no gradient (cpu {p_cpu.grad is not None}, "
-                                 f"card {p_card.grad is not None})")
-        grad_errs[name] = _max_err(p_card.grad, p_cpu.grad) / max(
+            raise AssertionError(f"[model] {name} {pname}: no gradient (cpu "
+                                 f"{p_cpu.grad is not None}, card {p_card.grad is not None})")
+        grad_errs[pname] = _max_err(p_card.grad, p_cpu.grad) / max(
             p_cpu.grad.abs().max().item(), 1e-30)
     worst = max(grad_errs, key=grad_errs.get)
     gn_cpu, gn_card = tr_cpu.opt.step(), tr_card.opt.step()
@@ -673,14 +886,14 @@ def phase_model_train(dev, cpu_models, card_models):
             "grad_norm": abs(gn_card.item() - gn_cpu.item()) / gn_cpu.item(),
             f"gradient of {worst}": grad_errs[worst]}
     shown = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-    print(f"[model] VARTrainer step fp32 B=2 card vs CPU (relative): {shown} (tol {MODEL_TOL:g}; "
-          f"{len(grad_errs)} parameter gradients, median error "
+    print(f"[model] {name} VARTrainer step fp32 B=2 card vs CPU (relative): {shown} (tol "
+          f"{MODEL_TOL:g}; {len(grad_errs)} parameter gradients, median error "
           f"{statistics.median(grad_errs.values()):.3e}); loss {loss_cpu.item():.6f}, grad norm "
           f"{gn_cpu.item():.6f}; updated parameters max abs diff {step_err:.3e}; codes "
           f"{codes.compared - codes.flips}/{codes.compared} equal")
     for k, v in errs.items():
-        _check(f"[model] {k}", v, MODEL_TOL)
-    _check("[model] updated parameters", step_err, MODEL_TOL)
+        _check(f"[model] {name} {k}", v, MODEL_TOL)
+    _check(f"[model] {name} updated parameters", step_err, MODEL_TOL)
 
 
 class KinkLockstep(torch.overrides.TorchFunctionMode):
@@ -947,102 +1160,116 @@ def main_round_trip(dev) -> dict:
     return r
 
 
-def main_var_paths(dev) -> dict:
-    """var_sample, img_to_idxBl and VAR.forward of MSVR10P2-4096 + VAR-d16 in
-    bf16 at B=64."""
-    margs = msvr_margs("bfloat16")
+def main_var_paths(dev, margs: ModelArgs, tag: str, per_call: dict) -> dict:
+    """The serving paths of a multi-scale tokenizer with VAR-d16 in bf16 at
+    B=64: the round trip (when ``per_call`` names it), ``var_sample``,
+    ``img_to_idxBl`` and ``VAR.forward``, each checked against its
+    ``per_call`` launches; results keyed ``tag + path``."""
+    pns = tuple(margs.v_patch_nums)
     vae, var = build_vae_var(margs, VAR_DEPTH, dtype_str="bfloat16",
                              generator=torch.Generator().manual_seed(SEED), device=dev)
     vae.eval()
     var.eval()
-    n_enc, n_dec = len(vae.encoder.model.blocks), len(vae.decoder.model.blocks)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     labels = torch.arange(BATCH, device=dev) % 1000
+    px = margs.image_size
     out = {}
 
-    out["var_sample"] = r = time_calls(
-        "var_sample", lambda: var_train.var_sample(var, vae, labels, gen, cfg_scale=1.5,
-                                                   top_k=900, top_p=0.96),
-        5, {"fused_attention_fwd": VAR_DEPTH * len(PNS), "attention_qkv_fwd": n_dec}, dev)
+    if "round trip" in per_call:
+        x = torch.rand((BATCH, px, px, 3), generator=gen, device=dev) * 2 - 1
+        with torch.inference_mode():
+            out[tag + "round trip"] = r = time_calls(
+                tag + "round trip", lambda: vae.img_to_reconstructed_img(x), 10,
+                per_call["round trip"], dev)
+        y = r["out"]
+        if tuple(y.shape) != (BATCH, px, px, 3) or not (
+                bool(torch.isfinite(y).all()) and y.abs().max().item() <= 1.0):
+            raise AssertionError(f"[main] {tag}round trip output malformed")
+        _report(f"{tag}img_to_reconstructed_img", r, BATCH,
+                f"images {tuple(y.shape)} in [{y.min().item():.3f}, {y.max().item():.3f}]")
+        del x, y, r
+
+    out[tag + "var_sample"] = r = time_calls(
+        tag + "var_sample", lambda: var_train.var_sample(var, vae, labels, gen, cfg_scale=1.5,
+                                                         top_k=900, top_p=0.96),
+        5, per_call["var_sample"], dev)
     img = r["out"]
-    px = margs.image_size
     if tuple(img.shape) != (BATCH, px, px, 3) or not (
             bool(torch.isfinite(img).all()) and 0 <= img.min().item()
             and img.max().item() <= 1):
-        raise AssertionError("[main] var_sample images malformed")
-    _report("var_sample(cfg 1.5, top-k 900, top-p 0.96)", r, BATCH,
+        raise AssertionError(f"[main] {tag}var_sample images malformed")
+    _report(f"{tag}var_sample(cfg 1.5, top-k 900, top-p 0.96)", r, BATCH,
             f"images {tuple(img.shape)} in [{img.min().item():.3f}, {img.max().item():.3f}]")
+    del img, r
 
     x = torch.rand((BATCH, px, px, 3), generator=gen, device=dev) * 2 - 1
     with torch.inference_mode():
-        out["img_to_idxBl"] = r = time_calls(
-            "img_to_idxBl", lambda: vae.img_to_idxBl(x), 10,
-            {"codebook_argmin": margs.product_quant * len(PNS), "attention_qkv_fwd": n_enc},
+        out[tag + "img_to_idxBl"] = r = time_calls(
+            tag + "img_to_idxBl", lambda: vae.img_to_idxBl(x), 10, per_call["img_to_idxBl"],
             dev)
         idx = r["out"]
         shapes = [[tuple(i.shape) for i in b] for b in idx]
-        if shapes != [[(BATCH, pn * pn) for pn in PNS]] * margs.product_quant or not all(
+        if shapes != [[(BATCH, pn * pn) for pn in pns]] * margs.product_quant or not all(
                 0 <= int(i.min()) and int(i.max()) < margs.codebook_size
                 for b in idx for i in b):
-            raise AssertionError(f"[main] img_to_idxBl codes malformed: {shapes}")
+            raise AssertionError(f"[main] {tag}img_to_idxBl codes malformed: {shapes}")
         distinct = torch.unique(torch.cat([i.reshape(-1) for b in idx for i in b])).numel()
-        _report("img_to_idxBl", r, BATCH,
-                f"2 branches x {len(PNS)} scales of codes, {distinct} distinct")
+        _report(f"{tag}img_to_idxBl", r, BATCH,
+                f"2 branches x {len(pns)} scales of codes, {distinct} distinct")
 
         x_in = vae.idxBl_to_var_input(idx)
-        out["VAR.forward"] = r = time_calls(
-            "VAR.forward", lambda: var(labels, x_in), 10, {"fused_attention_fwd": VAR_DEPTH},
-            dev)
+        out[tag + "VAR.forward"] = r = time_calls(
+            tag + "VAR.forward", lambda: var(labels, x_in), 10, per_call["VAR.forward"], dev)
         logits = r["out"]
         if tuple(logits.shape) != (BATCH, var.config.L, var.config.vocab_size) or not bool(
                 torch.isfinite(logits).all()):
-            raise AssertionError("[main] VAR.forward logits malformed")
-        _report("VAR.forward (teacher forcing, block-causal bias)", r, BATCH,
+            raise AssertionError(f"[main] {tag}VAR.forward logits malformed")
+        _report(f"{tag}VAR.forward (teacher forcing, block-causal bias)", r, BATCH,
                 f"logits {tuple(logits.shape)}")
+    for r in out.values():
+        r.pop("out")  # keep no batch of outputs alive past the path
     return out
 
 
-def main_train_paths(dev) -> dict:
-    """VARTrainer.train_step and eval_step of MSVR10P2-4096 + VAR-d16 in bf16
-    at B=64, ``VARTrainConfig()`` defaults, the training masks drawn from a
-    seeded generator on the card."""
-    margs = msvr_margs("bfloat16")
+def main_train_paths(dev, margs: ModelArgs, tag: str, per_call: dict,
+                     train_batch: int = BATCH) -> dict:
+    """VARTrainer.train_step (at ``train_batch``) and eval_step (at B=64) of
+    a multi-scale tokenizer with VAR-d16 in bf16, ``VARTrainConfig()``
+    defaults, the training masks drawn from a seeded generator on the card;
+    each checked against its ``per_call`` launches."""
     vae, var = build_vae_var(margs, VAR_DEPTH, dtype_str="bfloat16",
                              generator=torch.Generator().manual_seed(SEED), device=dev)
     tr = VARTrainer(vae, var, VARTrainConfig(),
                     generator=torch.Generator(device=dev).manual_seed(SEED))
-    n_enc = len(vae.encoder.model.blocks)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     px = margs.image_size
     x = torch.rand((BATCH, px, px, 3), generator=gen, device=dev) * 2 - 1
     labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
-    encode = {"codebook_argmin": margs.product_quant * len(PNS), "attention_qkv_fwd": n_enc}
     out = {}
     before = [p.detach().clone() for p in var.parameters()]
-    out["train_step"] = r = time_calls(
-        "train_step", lambda: tr.train_step(x, labels), 10,
-        {**encode, "fused_attention_fwd": VAR_DEPTH, "fused_attention_bwd": VAR_DEPTH}, dev)
-    m = {k: v.item() for k, v in r["out"].items()}
+    xt, lt = x[:train_batch], labels[:train_batch]
+    out[tag + "train_step"] = r = time_calls(
+        tag + "train_step", lambda: tr.train_step(xt, lt), 10, per_call["train_step"], dev)
+    m = {k: v.item() for k, v in r.pop("out").items()}
     # every parameter with a gradient moves; empty_emb has none while token
     # dropout is off (p_drop_factor 0), and is in the no-decay group
     trained = [p.grad is not None for p in var.parameters()]
     changed = [not torch.equal(a, b) for a, b in zip(before, var.parameters())]
     if not (all(math.isfinite(v) for v in m.values()) and changed == trained):
-        raise AssertionError(f"[main] train_step metrics {m}, {sum(changed)} parameters "
+        raise AssertionError(f"[main] {tag}train_step metrics {m}, {sum(changed)} parameters "
                              f"changed, {sum(trained)} have a gradient")
-    _report("VARTrainer.train_step (VARTrainConfig())", r, BATCH,
+    _report(f"{tag}VARTrainer.train_step (VARTrainConfig())", r, train_batch,
             ", ".join(f"{k} {v:.4f}" for k, v in m.items())
             + f"; {sum(changed)}/{len(before)} parameter tensors changed over 11 steps, "
             "each one that has a gradient")
     del before
-    out["eval_step"] = r = time_calls(
-        "eval_step", lambda: tr.eval_step(x, labels), 10,
-        {**encode, "fused_attention_fwd": VAR_DEPTH}, dev)
-    ev = r["out"]
+    out[tag + "eval_step"] = r = time_calls(
+        tag + "eval_step", lambda: tr.eval_step(x, labels), 10, per_call["eval_step"], dev)
+    ev = r.pop("out")
     if sorted(ev) != ["L_mean", "L_tail", "acc_mean", "acc_tail"] or not all(
             tuple(t.shape) == (BATCH,) and bool(torch.isfinite(t).all()) for t in ev.values()):
-        raise AssertionError("[main] eval_step outputs malformed")
-    _report("VARTrainer.eval_step", r, BATCH,
+        raise AssertionError(f"[main] {tag}eval_step outputs malformed")
+    _report(f"{tag}VARTrainer.eval_step", r, BATCH,
             ", ".join(f"{k} mean {t.mean().item():.4f}" for k, t in ev.items()))
     return out
 
@@ -1112,12 +1339,12 @@ def _time_ms(fn, reps: int = 20) -> float:
 
 
 def _time_kernel(name: str, kernel, plain, library, nbytes: float, ops: float,
-                 dtype: torch.dtype, shape: str) -> dict:
+                 dtype: torch.dtype, shape: str, reps: int = 20) -> dict:
     """Kernel and plain version in the order plain, kernel, kernel, plain;
     then the library call; beside the bound for the same work."""
     with torch.inference_mode():
-        p1, k1, k2, p2 = _time_ms(plain), _time_ms(kernel), _time_ms(kernel), _time_ms(plain)
-    lib = _time_ms(library)  # outside inference mode: a library backward needs autograd
+        p1, k1, k2, p2 = (_time_ms(fn, reps) for fn in (plain, kernel, kernel, plain))
+    lib = _time_ms(library, reps)  # outside inference mode: a library backward needs autograd
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
     b_ms, by = bound_ms(nbytes, ops, dtype)
     print(f"[times] {name} {shape}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
@@ -1195,6 +1422,50 @@ def phase_times(dev) -> dict:
         7 * q.numel() * 2 + bias.numel() * 4, 5 * 2 * BATCH * VAR_HEADS * pairs * HD, bf16,
         f"q, k, v, g {tuple(q.shape)}")
 
+    # 4: VAR's 512 px teacher forcing under the block-causal bias (the
+    # kernel's record), then the decoder's and the encoder's packed views
+    # with no bias, whose plain version runs in batch slices of 8 and 4 (its
+    # (B, H, N, N) fp32 scores do not fit the card at once)
+    bias = build_attn_bias(PNS512).to(dev)
+    l512, pairs = bias.shape[-1], int(torch.isfinite(bias).sum())
+    q, k, v = _bnhd(gen, 16, l512, l512, VAR_HEADS, bf16, dev)
+    out["fused_attention_qblk_fwd"] = _time_kernel(
+        "#4 fused_attention_qblk, VAR teacher forcing 512",
+        lambda: attn.fused_attention_qblk(q, k, v, bias, 1.0),
+        lambda: attn.fused_attention_qblk_reference(q, k, v, bias, 1.0),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=bias.to(bf16), scale=1.0),
+        4 * q.numel() * 2 + bias.numel() * 4, 4 * 16 * VAR_HEADS * pairs * HD, bf16,
+        f"q, k, v {tuple(q.shape)}, bias {tuple(bias.shape)}")
+    for name, n, chunk in (("decoder", 2050, 8), ("encoder", 3073, 4)):
+        q, k, v = _packed_views(gen, BATCH, n, HEADS, bf16, dev)
+        _time_kernel(
+            f"#4 fused_attention_qblk, {name} 512 packed views (plain in slices of {chunk})",
+            lambda: attn.fused_attention_qblk(q, k, v),
+            lambda: _in_chunks(attn.fused_attention_qblk_reference, BATCH, chunk, q, k, v),
+            lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                   v.transpose(1, 2)),
+            4 * q.numel() * 2, 4 * BATCH * HEADS * n * n * HD, bf16,
+            f"q, k, v {tuple(q.shape)} of qkv ({BATCH}, {n}, {3 * HD * HEADS})", reps=5)
+
+    # 5: VAR's 512 px training shape, block-causal bias, no dbias (as the
+    # train step); the plain version in batch slices of 4
+    q, k, v = _bnhd(gen, 16, l512, l512, VAR_HEADS, bf16, dev)
+    g = torch.randn(q.shape, generator=gen, device=dev).to(bf16)
+    lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias.to(bf16), scale=1.0)
+    lib_g = g.transpose(1, 2)
+    out["fused_attention_qblk_bwd"] = _time_kernel(
+        "#5 fused_attention_qblk backward, VAR training 512 (plain in slices of 4)",
+        lambda: attn.fused_attention_qblk_bwd(q, k, v, bias, g, 1.0, need_dbias=False),
+        lambda: _in_chunks(attn.fused_attention_qblk_bwd_reference, 16, 4, q, k, v, bias, g,
+                           1.0, need_dbias=False),
+        lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_g, retain_graph=True),
+        7 * q.numel() * 2 + bias.numel() * 4, 5 * 2 * 16 * VAR_HEADS * pairs * HD, bf16,
+        f"q, k, v, g {tuple(q.shape)}", reps=5)
+    del lib_out, lq, lk, lv
+
     # 9: the last scale of a B=64 encode
     n, vsz, c = BATCH * PNS[-1] ** 2, 4096, 32
     x = _l2n(torch.randn((n, c), generator=gen, device=dev))
@@ -1217,9 +1488,43 @@ KERNELS = {
                             "imagefolder_tpu/ops/pallas/attention.py:374"),
     "fused_attention_bwd": ("imagefolder_tpu_torch/csrc/attention_bnhd_bwd.cu",
                             "imagefolder_tpu/ops/pallas/attention.py:708"),
+    "fused_attention_qblk_fwd": ("imagefolder_tpu_torch/csrc/attention_qblk.cu",
+                                 "imagefolder_tpu/ops/pallas/attention.py:482"),
+    "fused_attention_qblk_bwd": ("imagefolder_tpu_torch/csrc/attention_qblk_bwd.cu",
+                                 "imagefolder_tpu/ops/pallas/attention.py:589"),
     "codebook_argmin": ("imagefolder_tpu_torch/csrc/codebook_argmin.cu",
                         "imagefolder_tpu/ops/pallas/codebook.py:62"),
 }
+
+# launches per call of each VAR-side main path, counted from the code: ViT-B
+# blocks (12 per encoder or decoder), VAR-d16 blocks (16), scales of both PQ
+# branches (2 x 10), sampling stages (10). At 256 px every attention is
+# under the single-block budget (#1, #3, #6); at 512 px the encoder (N =
+# 3073), the decoder (N = 2050) and teacher forcing (L = 2240) are past it
+# (#4, #5), while the KV-cached decode (at most 1024 x 2240) stays on #3.
+VIT_DEPTH = 12
+LAUNCHES_256 = {
+    "var_sample": {"fused_attention_fwd": VAR_DEPTH * len(PNS), "attention_qkv_fwd": VIT_DEPTH},
+    "img_to_idxBl": {"codebook_argmin": 2 * len(PNS), "attention_qkv_fwd": VIT_DEPTH},
+    "VAR.forward": {"fused_attention_fwd": VAR_DEPTH},
+    "train_step": {"codebook_argmin": 2 * len(PNS), "attention_qkv_fwd": VIT_DEPTH,
+                   "fused_attention_fwd": VAR_DEPTH, "fused_attention_bwd": VAR_DEPTH},
+    "eval_step": {"codebook_argmin": 2 * len(PNS), "attention_qkv_fwd": VIT_DEPTH,
+                  "fused_attention_fwd": VAR_DEPTH},
+}
+LAUNCHES_512 = {
+    "round trip": {"fused_attention_qblk_fwd": 2 * VIT_DEPTH, "codebook_argmin": 2 * len(PNS512)},
+    "var_sample": {"fused_attention_fwd": VAR_DEPTH * len(PNS512),
+                   "fused_attention_qblk_fwd": VIT_DEPTH},
+    "img_to_idxBl": {"codebook_argmin": 2 * len(PNS512), "fused_attention_qblk_fwd": VIT_DEPTH},
+    "VAR.forward": {"fused_attention_qblk_fwd": VAR_DEPTH},
+    "train_step": {"codebook_argmin": 2 * len(PNS512),
+                   "fused_attention_qblk_fwd": VIT_DEPTH + VAR_DEPTH,
+                   "fused_attention_qblk_bwd": VAR_DEPTH},
+    "eval_step": {"codebook_argmin": 2 * len(PNS512),
+                  "fused_attention_qblk_fwd": VIT_DEPTH + VAR_DEPTH},
+}
+TRAIN_BATCH_512 = 16  # the train step at L = 2240 peaks at 52 GiB of the 80 GB card
 
 
 def main() -> int:
@@ -1231,18 +1536,39 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+
+    def lap(what: str):
+        print(f"[time] {what} done at {time.perf_counter() - t0:.1f} s")
+
     phase_device()
     phase_build()
+    lap("build")
     errs = {"attention_qkv_fwd": kernels_qkv(dev), "attention_qkv_bwd": kernels_qkv_bwd(dev),
             "fused_attention_fwd": kernels_bnhd(dev),
             "fused_attention_bwd": kernels_bnhd_bwd(dev),
+            "fused_attention_qblk_fwd": kernels_qblk(dev),
+            "fused_attention_qblk_bwd": kernels_qblk_bwd(dev),
             "codebook_argmin": kernels_codebook(dev)}
+    lap("kernels")
     phase_model_vq(dev)
-    phase_model_train(dev, *phase_model_var(dev))
+    lap("model VQ-4096")
+    for margs, name in ((msvr_margs("float32"), "MSVR10P2-4096 + VAR-d16"),
+                        (msvr512_margs("float32"), "MSVR10P2-4096-512 + VAR-d16")):
+        phase_model_train(dev, *phase_model_var(dev, margs, name), name)
+        lap(f"model {name}")
     phase_model_gan(dev)
-    paths = {"round trip": main_round_trip(dev), **main_var_paths(dev),
-             **main_train_paths(dev), **main_gan_paths(dev)}
+    lap("model GAN step")
+    paths = {"round trip": main_round_trip(dev),
+             **main_var_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256),
+             **main_train_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256),
+             **main_gan_paths(dev)}
+    lap("main paths at 256 px")
+    paths.update({**main_var_paths(dev, msvr512_margs("bfloat16"), "512 ", LAUNCHES_512),
+                  **main_train_paths(dev, msvr512_margs("bfloat16"), "512 ", LAUNCHES_512,
+                                     TRAIN_BATCH_512)})
+    lap("main paths at 512 px")
     times = phase_times(dev)
+    lap("times")
     records = []
     for name, (source, replaces) in KERNELS.items():
         by_path = {p: r["launches"][name] for p, r in paths.items() if r["launches"][name]}

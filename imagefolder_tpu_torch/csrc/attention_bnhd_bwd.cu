@@ -38,6 +38,6 @@ extern "C" int attention_bnhd_bwd(const void* q, const void* k, const void* v,
   const int64_t ol = static_cast<int64_t>(heads) * kHd;
   const BwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
                       gs[0], gs[1], gs[2], n * ol, ol, kHd, bias ? bias_row_stride : 0};
-  return launch_attention_bwd(q, k, v, g, bias, dq, dk, dv, dbias, stats, batch, n, heads,
+  return launch_attention_bwd<6>(q, k, v, g, bias, dq, dk, dv, dbias, stats, batch, n, heads,
                               st, scale, is_bf16, static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,11 @@
-// Self-attention backward device code shared by the BNHD backward
-// (attention_bnhd_bwd.cu, kernel #6) and the packed-qkv backward
-// (attention_qkv_bwd.cu, kernel #2): the two compute the same per-head math
-// (the TPU kernels' _bwd_head_math) and differ only in where q, k, v, g and
-// the three gradients live, which the strides below carry.
+// Self-attention backward device code shared by the packed-qkv backward
+// (attention_qkv_bwd.cu, kernel #2), the q-blocked backward
+// (attention_qblk_bwd.cu, kernel #5) and the BNHD backward
+// (attention_bnhd_bwd.cu, kernel #6): the three compute the same per-head
+// math (the TPU kernels' _bwd_head_math) and differ only in where q, k, v, g
+// and the three gradients live, which the strides below carry. Each entry
+// instantiates the kernels with its own number (kId), so that a profile
+// attributes their time to the right one.
 //
 // Per (batch, head), with rows >= n masked:
 //   p  = softmax(q k^T * scale + bias), fp32, divided by its row sum
@@ -77,7 +80,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // Kernel A, bf16: dq, and the row statistics m, l and delta, for 64 q rows
 // of one (b, h); kDbias adds ds into dbias.
-template <bool kVec, bool kBias, bool kDbias>
+template <int kId, bool kVec, bool kBias, bool kDbias>
 __global__ void __launch_bounds__(kWarps * 32)
     attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const bf16* __restrict__ g,
@@ -213,7 +216,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 // Kernel B, bf16: dk and dv for 64 k rows of one (b, h), from the row
 // statistics that kernel A wrote.
-template <bool kVec, bool kBias>
+template <int kId, bool kVec, bool kBias>
 __global__ void __launch_bounds__(kWarps * 32)
     attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const bf16* __restrict__ g,
@@ -299,7 +302,7 @@ __device__ __forceinline__ float pair_dot(const float (&r)[kHalf], const float* 
   return a + __shfl_xor_sync(0xffffffffu, a, 1);
 }
 
-template <bool kBias, bool kDbias>
+template <int kId, bool kBias, bool kDbias>
 __global__ void __launch_bounds__(2 * kRows)
     attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, const float* __restrict__ g,
@@ -381,7 +384,7 @@ __global__ void __launch_bounds__(2 * kRows)
   }
 }
 
-template <bool kBias>
+template <int kId, bool kBias>
 __global__ void __launch_bounds__(2 * kRows)
     attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, const float* __restrict__ g,
@@ -463,44 +466,45 @@ struct BwdArgs {
   BwdStrides st;
 };
 
-template <bool kVec>
+template <int kId, bool kVec>
 void launch_bwd_bf16(const BwdArgs<bf16>& a, dim3 grid, cudaStream_t stm) {
   const dim3 block(kWarps * 32);
   if (a.dbias)
-    attn_bwd_dq_bf16_kernel<kVec, true, true><<<grid, block, 0, stm>>>(
+    attn_bwd_dq_bf16_kernel<kId, kVec, true, true><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
   else if (a.bias)
-    attn_bwd_dq_bf16_kernel<kVec, true, false><<<grid, block, 0, stm>>>(
+    attn_bwd_dq_bf16_kernel<kId, kVec, true, false><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
   else
-    attn_bwd_dq_bf16_kernel<kVec, false, false><<<grid, block, 0, stm>>>(
+    attn_bwd_dq_bf16_kernel<kId, kVec, false, false><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
   if (cudaPeekAtLastError() != cudaSuccess) return;
   if (a.bias)
-    attn_bwd_dkdv_bf16_kernel<kVec, true><<<grid, block, 0, stm>>>(
+    attn_bwd_dkdv_bf16_kernel<kId, kVec, true><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.stats, a.dk, a.dv, a.n, a.heads, a.scale, a.st);
   else
-    attn_bwd_dkdv_bf16_kernel<kVec, false><<<grid, block, 0, stm>>>(
+    attn_bwd_dkdv_bf16_kernel<kId, kVec, false><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.stats, a.dk, a.dv, a.n, a.heads, a.scale, a.st);
 }
 
+template <int kId>
 void launch_bwd_f32(const BwdArgs<float>& a, dim3 grid, cudaStream_t stm) {
   const dim3 block(2 * kRows);
   if (a.dbias)
-    attn_bwd_dq_f32_kernel<true, true><<<grid, block, 0, stm>>>(
+    attn_bwd_dq_f32_kernel<kId, true, true><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
   else if (a.bias)
-    attn_bwd_dq_f32_kernel<true, false><<<grid, block, 0, stm>>>(
+    attn_bwd_dq_f32_kernel<kId, true, false><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
   else
-    attn_bwd_dq_f32_kernel<false, false><<<grid, block, 0, stm>>>(
+    attn_bwd_dq_f32_kernel<kId, false, false><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
   if (cudaPeekAtLastError() != cudaSuccess) return;
   if (a.bias)
-    attn_bwd_dkdv_f32_kernel<true><<<grid, block, 0, stm>>>(
+    attn_bwd_dkdv_f32_kernel<kId, true><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.stats, a.dk, a.dv, a.n, a.heads, a.scale, a.st);
   else
-    attn_bwd_dkdv_f32_kernel<false><<<grid, block, 0, stm>>>(
+    attn_bwd_dkdv_f32_kernel<kId, false><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.stats, a.dk, a.dv, a.n, a.heads, a.scale, a.st);
 }
 
@@ -508,7 +512,10 @@ void launch_bwd_f32(const BwdArgs<float>& a, dim3 grid, cudaStream_t stm) {
 // (outputs) at the strides `st`, all fp32 or all bf16 (is_bf16); bias null or
 // an fp32 (n, n) whose row stride is st.bq; dbias null (not wanted) or a
 // zeroed fp32 (n, n); stats an fp32 scratch of 3 * batch * heads * n.
-// Returns cudaGetLastError() as an int (0 = both launched).
+// Returns cudaGetLastError() as an int (0 = both launched). kId is the
+// kernel's number (#2, #5, #6): it only names the instantiations, so that a
+// profile tells the three entries apart.
+template <int kId>
 int launch_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                          const void* bias, void* dq, void* dk, void* dv, void* dbias,
                          void* stats, int batch, int n, int heads, const BwdStrides& st,
@@ -533,15 +540,15 @@ int launch_attention_bwd(const void* q, const void* k, const void* v, const void
                reinterpret_cast<uintptr_t>(g) % 16 == 0;
     for (int i = 0; i < 12; ++i) vec = vec && in_strides[i] % 8 == 0;
     if (vec)
-      launch_bwd_bf16<true>(a, grid, stm);
+      launch_bwd_bf16<kId, true>(a, grid, stm);
     else
-      launch_bwd_bf16<false>(a, grid, stm);
+      launch_bwd_bf16<kId, false>(a, grid, stm);
   } else {
     const BwdArgs<float> a{static_cast<const float*>(q), static_cast<const float*>(k),
                            static_cast<const float*>(v), static_cast<const float*>(g), bp,
                            static_cast<float*>(dq), static_cast<float*>(dk),
                            static_cast<float*>(dv), dbp, sp, n, heads, scale, st};
-    launch_bwd_f32(a, grid, stm);
+    launch_bwd_f32<kId>(a, grid, stm);
   }
   return static_cast<int>(cudaGetLastError());
 }

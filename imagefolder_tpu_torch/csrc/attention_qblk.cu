@@ -1,0 +1,50 @@
+// Q-blocked BNHD attention forward for Hopper (sm_90a), bound through ctypes.
+//
+// Replaces the TPU kernel imagefolder_tpu/ops/pallas/attention.py:
+// _fused_attention_qblk_fwd (kernel body _kernel_qblk): per (batch, head),
+// o = softmax(q k^T * scale + bias) v for q (B, Lq, H, hd) and k, v
+// (B, Lk, H, hd) past the single-block budget (Lq * Lk > 2^22), with o
+// divided by the row sum AFTER p v, as the packed kernel does, and unlike
+// the BNHD kernel #3 (attention_bnhd.cu), which divides p before it. q, k
+// and v are strided views (batch, row and head strides; hd stride 1), so
+// the (B, N, 3, H, hd) views of a packed qkv are read in place with no
+// copy. The bias is none or one fp32 (Lq, Lk) shared by every batch and
+// head, with a row stride, and may hold -inf. The output is contiguous
+// (B, Lq, H, hd).
+//
+// The TPU kernel split the q axis into blocks so that one (qblk, Lk) fp32
+// score tile fit its VMEM budget, and the JAX package capped L at 2304
+// with a bias and 2816 without one (attention.py:666-667). A Hopper block
+// streams k/v tiles with an online softmax (attention_fwd_tile.cuh, shared
+// with the packed forward attention_qkv.cu), so it holds no score tile and
+// takes any length; offsets are 64-bit (the 512 px encoder's q view has a
+// batch stride of 3073 * 2304 elements, 453 M over 64 images).
+//
+// What bounds it on this card: at VAR's 512 px teacher forcing, (16, 2240,
+// 16, 64) bf16 under the block-causal bias, a call needs 4*B*H*hd operations
+// per (q, k) pair the mask allows, 214 GFLOP over 65% of the L^2 pairs
+// (0.217 ms at 989 TFLOP/s), on 314 MB of compulsory traffic (0.094 ms at
+// 3.35 TB/s); at the tokenizer's N = 2050 and 3073, with no mask, the ratio
+// is higher still. It is bound by operations: the design keeps the two
+// products on the tensor cores and every score in registers. The mask's
+// blank tiles are computed, not skipped (329 GFLOP in all at VAR's shape);
+// skipping them, and wgmma with TMA, are later work.
+
+#include "attention_fwd_tile.cuh"
+
+// q (B, Lq, H, 64), k and v (B, Lk, H, 64), each with its own batch, row and
+// head strides in elements (qs, ks, vs = {batch, row, head}; the head-dim
+// stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32
+// (Lq, Lk) shared by every batch and head, row stride bias_row_stride
+// (column stride 1); out contiguous (B, Lq, H, 64) of q's type. Launches on
+// `stream` and returns cudaGetLastError() as an int (0 = launched).
+extern "C" int attention_qblk_fwd(const void* q, const void* k, const void* v,
+                                  const void* bias, void* out, int batch, int lq, int lk,
+                                  int heads, const int64_t* qs, const int64_t* ks,
+                                  const int64_t* vs, int64_t bias_row_stride, float scale,
+                                  int is_bf16, void* stream) {
+  const FwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+                      bias ? bias_row_stride : 0};
+  return launch_attention_fwd<4>(q, k, v, bias, out, batch, lq, lk, heads, st, scale, is_bf16,
+                              static_cast<cudaStream_t>(stream));
+}

@@ -45,7 +45,7 @@ extern "C" int attention_qkv_bwd(const void* qkv, const void* g, const void* bia
   const size_t esz = is_bf16 ? sizeof(bf16) : sizeof(float);
   const char* in = static_cast<const char*>(qkv);
   char* out = static_cast<char*>(dqkv);
-  return launch_attention_bwd(in, in + c * esz, in + 2 * c * esz, g, bias, out,
+  return launch_attention_bwd<2>(in, in + c * esz, in + 2 * c * esz, g, bias, out,
                               out + c * esz, out + 2 * c * esz, dbias, stats, batch, n, heads,
                               st, scale, is_bf16, static_cast<cudaStream_t>(stream));
 }

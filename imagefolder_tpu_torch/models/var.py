@@ -6,7 +6,9 @@ class-embedding SOS + per-scale level embedding + absolute positions, AdaLN
 conditioning (shared or per-block), block-causal attention (scale i attends
 to scales <= i), and a head of ``codebook_size * product_quant`` logits (the
 PQ branches folded, decoded in parallel). Attention goes through the
-``fused_attention`` kernel on (B, L, H, hd) views.
+``dot_product_attention`` router on (B, L, H, hd) views: the BNHD kernel
+(#3) under the single-block budget, the q-blocked kernel (#4) past it (the
+512 px pyramid, L = 2240), as in the JAX package.
 
 Module and parameter names follow the upstream torch layout that
 ``imagefolder_tpu/utils/convert_torch.py::export_var`` writes, so its state
@@ -43,7 +45,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 from torch.utils.checkpoint import checkpoint
 
-from imagefolder_tpu_torch.ops.cuda.attention import fused_attention
+from imagefolder_tpu_torch.ops.cuda.attention import dot_product_attention
 from imagefolder_tpu_torch.ops.cuda.block import dense
 from imagefolder_tpu_torch.utils.init import linear, normal_, trunc_normal_
 
@@ -170,7 +172,7 @@ class VARSelfAttention(nn.Module):
             scale = 0.25 / math.sqrt(self.head_dim)
         if cache is not None:
             k, v = cache.append(k, v)
-        out = fused_attention(q, k, v, bias=attn_bias, scale=scale)
+        out = dot_product_attention(q, k, v, bias=attn_bias, scale=scale)
         return dense(out.view(b, l, c), self.proj.weight, self.proj.bias)
 
 

@@ -5,18 +5,32 @@
   ``csrc/attention_qkv.cu``, launches counted in ``LAUNCHES``. It is
   differentiable: its backward (TPU kernel ``_attention_qkv_bwd_impl``) is
   ``attention_qkv_bwd``, kernel ``csrc/attention_qkv_bwd.cu``, which writes
-  the packed dqkv directly; launches counted in ``BWD_LAUNCHES``;
+  the packed dqkv directly; launches counted in ``BWD_LAUNCHES``. Past the
+  single-block budget (N * N > ``_SINGLE_MAX_ELEMS``: the 512 px tokenizer)
+  it takes the q-blocked kernels on the (B, N, 3, H, hd) views instead, as
+  the JAX package does;
 - ``fused_attention``: attention on (B, L, H, hd) views with Lq <= Lk and an
   optional bias, as VAR calls it (TPU kernel ``fused_attention``), kernel
   ``csrc/attention_bnhd.cu``, launches counted in ``FUSED_LAUNCHES``. It is
   differentiable: its backward for Lq == Lk with no bias or a shared bias
   (TPU kernel ``_fused_attention_bwd_impl``) is ``csrc/attention_bnhd_bwd.cu``,
-  launches counted in ``FUSED_BWD_LAUNCHES``. The two backward kernels share
-  their device code (``csrc/attention_bwd_tile.cuh``).
+  launches counted in ``FUSED_BWD_LAUNCHES``;
+- ``fused_attention_qblk``: the q-blocked BNHD attention that the JAX
+  package runs past the single-block budget (TPU kernel
+  ``_fused_attention_qblk_fwd``: o divided by the row sum after p v, a
+  shared bias or none), kernel ``csrc/attention_qblk.cu``, launches counted
+  in ``QBLK_LAUNCHES``. It is differentiable: its backward (TPU kernel
+  ``_fused_attention_qblk_bwd``: dk and dv summed in fp32 over every q
+  block) is ``csrc/attention_qblk_bwd.cu``, launches counted in
+  ``QBLK_BWD_LAUNCHES``;
+- ``dot_product_attention``: the router VAR calls, which picks between
+  ``fused_attention`` and ``fused_attention_qblk`` as the JAX package does.
 
-Each dispatches on the tensor's device only: a CPU tensor goes to its
-``*_reference``, the plain PyTorch version; a CUDA tensor launches the
-hand-written kernel or raises.
+The two forwards that divide after p v (#1, #4) share their device code
+(``csrc/attention_fwd_tile.cuh``), and so do the three backwards (#2, #5, #6;
+``csrc/attention_bwd_tile.cuh``). Each dispatches on the tensor's device
+only: a CPU tensor goes to its ``*_reference``, the plain PyTorch version; a
+CUDA tensor launches the hand-written kernel or raises.
 """
 
 from __future__ import annotations
@@ -33,18 +47,33 @@ from imagefolder_tpu_torch.ops.cuda import _build
 __all__ = ["attention_qkv", "attention_qkv_reference", "attention_qkv_bwd",
            "attention_qkv_bwd_reference", "fused_attention",
            "fused_attention_reference", "fused_attention_bwd",
-           "fused_attention_bwd_reference", "LAUNCHES", "BWD_LAUNCHES",
-           "FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES"]
+           "fused_attention_bwd_reference", "fused_attention_qblk",
+           "fused_attention_qblk_reference", "fused_attention_qblk_bwd",
+           "fused_attention_qblk_bwd_reference", "dot_product_attention",
+           "LAUNCHES", "BWD_LAUNCHES", "FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES",
+           "QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES"]
 
 # kernel launches since the counter was last reset (a caller sets it to 0):
 # attention_qkv's forward and its backward, fused_attention's forward and
-# its backward
+# its backward, fused_attention_qblk's forward and its backward
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 FUSED_LAUNCHES = 0
 FUSED_BWD_LAUNCHES = 0
+QBLK_LAUNCHES = 0
+QBLK_BWD_LAUNCHES = 0
 
 _HEAD_DIM = 64  # the kernel's compiled head width (every DINOv2 preset)
+
+# Score elements Lq * Lk per (batch, head) up to which the JAX package runs
+# its single-block kernels (#1/#2 packed, #3/#6 BNHD; the BNHD pair divides
+# p by its row sum before p v) and past which it runs the q-blocked pair
+# (#4/#5, o divided after p v). On the TPU it was a VMEM budget; on the card
+# no such budget binds, and the constant only selects which kernel's
+# numerics a call gets, so that the port computes what the JAX package
+# computes. The JAX package's caps past it (_QBLK_MAX_L*, where it gives way
+# to XLA) stay behind: the port keeps the q-blocked kernels at any length.
+_SINGLE_MAX_ELEMS = 1 << 22
 
 
 def _check(qkv: torch.Tensor, heads: int, bias: Optional[torch.Tensor]):
@@ -65,18 +94,8 @@ def attention_qkv_reference(qkv: torch.Tensor, heads: int,
     sum taken on the fp32 p, and o / l at the end."""
     _check(qkv, heads, bias)
     b, n, c3 = qkv.shape
-    c = c3 // 3
-    hd = c // heads
-    if scale is None:
-        scale = 1.0 / math.sqrt(hd)
-    q, k, v = qkv.view(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if bias is not None:
-        s = s + bias.float()
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    o = torch.matmul(p.to(qkv.dtype).float(), v.float())
-    o = o / p.sum(dim=-1, keepdim=True)
-    return o.to(qkv.dtype).transpose(1, 2).reshape(b, n, c)
+    q, k, v = qkv.view(b, n, 3, heads, c3 // 3 // heads).unbind(2)
+    return fused_attention_qblk_reference(q, k, v, bias, scale).view(b, n, c3 // 3)
 
 
 @functools.cache
@@ -261,8 +280,10 @@ def fused_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 
 
 @functools.cache
-def _fused_bwd_kernel():
-    fn = _build.load_library().attention_bnhd_bwd
+def _bnhd_bwd_kernel(symbol: str):
+    """The BNHD backward entry ``symbol`` (#6 ``attention_bnhd_bwd``, #5
+    ``attention_qblk_bwd``): both take the same arguments."""
+    fn = getattr(_build.load_library(), symbol)
     i64p = ctypes.POINTER(ctypes.c_int64)
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [i64p] * 4 + [
         ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -270,11 +291,12 @@ def _fused_bwd_kernel():
     return fn
 
 
-def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias):
-    global FUSED_BWD_LAUNCHES
+def _bnhd_bwd_cuda(symbol, what, q, k, v, bias, g, scale, need_dbias):
+    """Launch the backward entry ``symbol`` on checked operands; the caller
+    counts the launch."""
     _check_bwd(q, k, v, bias, g)
     bias_dtype = None if bias is None else bias.dtype
-    q, k, v, bias = _kernel_operands(q, k, v, bias, "fused_attention backward")
+    q, k, v, bias = _kernel_operands(q, k, v, bias, what)
     if g.dtype != q.dtype or g.device != q.device:
         raise TypeError(f"g must be {q.dtype} on {q.device}; got {g.dtype} on {g.device}")
     if g.stride(-1) != 1:
@@ -289,7 +311,7 @@ def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias):
     row_stride = bias.stride(2) if bias is not None and l > 1 else 0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fused_bwd_kernel()(
+        err = _bnhd_bwd_kernel(symbol)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             None if bias is None else bias.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
@@ -297,11 +319,30 @@ def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias):
             _strides(v, (0, 1, 2)), _strides(g, (0, 1, 2)), row_stride, float(scale),
             int(q.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"fused_attention backward kernel launch failed: CUDA error {err}")
-    FUSED_BWD_LAUNCHES += 1
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
     if dbias is not None:
         dbias = dbias[None, None].to(bias_dtype)
     return dq, dk, dv, dbias
+
+
+def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias):
+    global FUSED_BWD_LAUNCHES
+    out = _bnhd_bwd_cuda("attention_bnhd_bwd", "fused_attention backward", q, k, v, bias, g,
+                         scale, need_dbias)
+    FUSED_BWD_LAUNCHES += 1
+    return out
+
+
+def _dispatch_bwd(what, cuda_fn, q, k, v, bias, g, scale, need_dbias):
+    """A BNHD backward (#5 or #6) on q's device: the plain version on the
+    CPU, ``cuda_fn`` (which launches the kernel) on a card."""
+    if q.device.type == "cpu":
+        return fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias)
+    if q.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {q.device}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return cuda_fn(q, k, v, bias, g, scale, need_dbias)
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -311,13 +352,8 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     shared (1, 1, L, L) bias: (dq, dk, dv, dbias | None), as
     ``fused_attention_bwd_reference`` computes them. q, k, v and g are
     (B, L, H, hd) with any strides whose last is 1."""
-    if q.device.type == "cpu":
-        return fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention_bwd runs on cpu or cuda, not {q.device}")
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    return _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias)
+    return _dispatch_bwd("fused_attention_bwd", _fused_attention_bwd_cuda, q, k, v, bias, g,
+                         scale, need_dbias)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -370,6 +406,150 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _FusedAttention.apply(q, k, v, bias, scale)
+
+
+def _check_qblk(q, k, v, bias):
+    _check_bnhd(q, k, v, bias)
+    if bias is not None and tuple(bias.shape[:2]) != (1, 1):
+        raise ValueError(f"the q-blocked kernel takes a shared (1, 1, Lq, Lk) bias; got "
+                         f"{tuple(bias.shape)}")
+
+
+def fused_attention_qblk_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   bias: Optional[torch.Tensor] = None,
+                                   scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of the q-blocked kernel (and, on the packed
+    views, of ``attention_qkv``'s), with the TPU kernels' numerics: fp32
+    scores and softmax, p rounded to the input dtype before p v, the row sum
+    taken on the fp32 p, and o / l at the end."""
+    _check_qblk(q, k, v, bias)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # (B, H, L, hd)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(p.to(q.dtype).float(), vf) / p.sum(dim=-1, keepdim=True)
+    return o.to(q.dtype).transpose(1, 2).contiguous()
+
+
+@functools.cache
+def _qblk_kernel():
+    fn = _build.load_library().attention_qblk_fwd
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [i64p] * 3 + [
+        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _fused_attention_qblk_cuda(q, k, v, bias, scale):
+    global QBLK_LAUNCHES
+    _check_qblk(q, k, v, bias)
+    q, k, v, bias = _kernel_operands(q, k, v, bias, "fused_attention_qblk")
+    b, lq, h, hd = q.shape
+    out = torch.empty((b, lq, h, hd), dtype=q.dtype, device=q.device)
+    row_stride = bias.stride(2) if bias is not None and lq > 1 else 0
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _qblk_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            b, lq, k.shape[1], h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)),
+            _strides(v, (0, 1, 2)), row_stride, float(scale),
+            int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_attention_qblk kernel launch failed: CUDA error {err}")
+    QBLK_LAUNCHES += 1
+    return out
+
+
+# The q-blocked backward's plain version: its per-head math is #6's
+# (``_bwd_head_math`` with its casts), with dk and dv summed in fp32 over
+# every q row before their one cast, which is what the TPU kernel's fp32
+# accumulation over q blocks computes.
+fused_attention_qblk_bwd_reference = fused_attention_bwd_reference
+
+
+def _fused_attention_qblk_bwd_cuda(q, k, v, bias, g, scale, need_dbias):
+    global QBLK_BWD_LAUNCHES
+    out = _bnhd_bwd_cuda("attention_qblk_bwd", "fused_attention_qblk backward", q, k, v,
+                         bias, g, scale, need_dbias)
+    QBLK_BWD_LAUNCHES += 1
+    return out
+
+
+def fused_attention_qblk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             bias: Optional[torch.Tensor], g: torch.Tensor,
+                             scale: Optional[float] = None, need_dbias: bool = True):
+    """Gradients of ``fused_attention_qblk`` (Lq == Lk, no bias or a shared
+    (1, 1, L, L) bias): (dq, dk, dv, dbias | None), as
+    ``fused_attention_qblk_bwd_reference`` computes them. q, k, v and g are
+    (B, L, H, hd) with any strides whose last is 1."""
+    return _dispatch_bwd("fused_attention_qblk_bwd", _fused_attention_qblk_bwd_cuda, q, k, v,
+                         bias, g, scale, need_dbias)
+
+
+class _FusedAttentionQblk(torch.autograd.Function):
+    """``fused_attention_qblk`` with its gradient: the counterpart of the
+    JAX package's ``_fused_attention_qblk_diff`` (``_faq_fwd``/``_faq_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            return fused_attention_qblk_reference(q, k, v, bias, scale)
+        return _fused_attention_qblk_cuda(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        need_dbias = bias is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, dbias = fused_attention_qblk_bwd(q, k, v, bias, g, ctx.scale, need_dbias)
+        return dq, dk, dv, dbias, None
+
+
+def fused_attention_qblk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T * scale + bias) v per (batch, head), normalised after
+    p v, differentiable: the JAX package's q-blocked attention.
+
+    q: (B, Lq, H, hd); k, v: (B, Lk, H, hd), any strides with the last one 1
+    (the views of a packed qkv are read in place). bias, if given, is one
+    (1, 1, Lq, Lk) shared by batches and heads, fp32 or cast to it, and may
+    hold -inf. Any length: the card has no VMEM budget. The default scale is
+    1/sqrt(hd). Returns a contiguous (B, Lq, H, hd) in q's dtype. The
+    gradient (Lq == Lk only, as in the JAX package) is
+    ``fused_attention_qblk_bwd``; dbias is computed only when the bias
+    requires a gradient.
+    """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_attention_qblk runs on cpu or cuda, not {q.device}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FusedAttentionQblk.apply(q, k, v, bias, scale)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """The JAX package's attention router (``dot_product_attention``), as a
+    contract on numerics rather than on memory:
+    - Lq * Lk <= ``_SINGLE_MAX_ELEMS``: ``fused_attention`` (#3, backward #6);
+    - past it, self-attention (Lq == Lk) with a shared bias or none:
+      ``fused_attention_qblk`` (#4, backward #5), at any length (the JAX
+      package caps it at 2304 with a bias and 2816 without, past which it
+      uses XLA: the port's one deliberate difference, at bf16 rounding);
+    - any other shape past it: ``fused_attention``. The JAX package uses
+      XLA there; no path of the repository reaches it.
+    Arguments and result as ``fused_attention``."""
+    shared = bias is None or tuple(bias.shape[:2]) == (1, 1)
+    if q.shape[1] * k.shape[1] > _SINGLE_MAX_ELEMS and shared and q.shape[1] == k.shape[1]:
+        return fused_attention_qblk(q, k, v, bias, scale)
+    return fused_attention(q, k, v, bias, scale)
 
 
 def attention_qkv_bwd_reference(qkv: torch.Tensor, heads: int, bias: Optional[torch.Tensor],
@@ -490,9 +670,20 @@ def attention_qkv(qkv: torch.Tensor, heads: int,
     scale is 1/sqrt(hd). The gradient is ``attention_qkv_bwd`` (the backward
     kernel on a CUDA tensor); dbias is computed only when the bias requires a
     gradient.
+
+    Past the single-block budget (N * N > ``_SINGLE_MAX_ELEMS``) it runs the
+    q-blocked pair on the (B, N, H, hd) views of qkv, read in place, as the
+    JAX package does (its ``attention_qkv``'s long branch): the result is
+    the same function, and the packed gradient comes back through the
+    q-blocked backward.
     """
     if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_qkv runs on cpu or cuda, not {qkv.device}")
+    _check(qkv, heads, bias)
+    b, n, c3 = qkv.shape
     if scale is None:
-        scale = 1.0 / math.sqrt(qkv.shape[-1] // 3 // heads)
+        scale = 1.0 / math.sqrt(c3 // 3 // heads)
+    if n * n > _SINGLE_MAX_ELEMS:
+        q, k, v = qkv.view(b, n, 3, heads, c3 // 3 // heads).unbind(2)
+        return fused_attention_qblk(q, k, v, bias, scale).view(b, n, c3 // 3)
     return _AttentionQKV.apply(qkv, heads, bias, scale)
