@@ -1,11 +1,16 @@
-"""Where the device time of the port's VAR paths and of the flagship GAN
-training step goes, on one NVIDIA GPU.
+"""Where the device time of the port's round trip, RAR and VAR paths and of
+the flagship GAN training step goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py    # from the repository root; needs one CUDA card
+    python3 chip_profile.py [rar] [var] [gan]   # from the repository root; one CUDA card
 
-Builds MSVR10P2-4096 + VAR-d16 in bf16 at B=64 from seeded random weights
-(the configuration ``chip_smoke.py`` times), and for each of ``var_sample``
-(cfg 1.5, top-k 900, top-p 0.96), ``img_to_idxBl``, ``VAR.forward``,
+Runs the sections named (all three by default). ``rar``: the VQ-4096 round
+trip composed and with the fused sublayers (#7, #8), RAR sampling at B=64
+(RAR-B ``rar_generate`` with CFG and the fused RobustTok decode) and the RAR
+generator alone, each by kind of kernel. ``var``: builds MSVR10P2-4096 +
+VAR-d16 in bf16 at B=64 from seeded random weights (the configuration
+``chip_smoke.py`` times), and for each of ``var_sample`` (cfg 1.5, top-k
+900, top-p 0.96; decoded by bench.py's ViT-S sample-leg tokenizer),
+``img_to_idxBl``, ``VAR.forward``,
 ``VARTrainer.train_step`` and ``VARTrainer.eval_step`` (``VARTrainConfig()``
 defaults) runs one warm-up call, then two calls under ``torch.profiler``.
 Prints, per path and per call: the host wall time (ending in a
@@ -22,7 +27,7 @@ printed here is against the profiled wall time, which the profiler itself
 stretches; ``PERF.md`` takes the busy time against ``chip_smoke.py``'s
 event-timed median.
 
-Then the flagship GAN ``TokenizerTrainer.train_step`` at B=64 with a bf16
+``gan``: the flagship GAN ``TokenizerTrainer.train_step`` at B=64 with a bf16
 loss stack (the configuration ``chip_smoke.py`` times): the whole step by
 kind of kernel, and the step once more cut into its phases (encode,
 quantize, decode, teacher, LPIPS, DinoDisc in the generator pass, adaptive
@@ -31,10 +36,11 @@ bookkeeping). The phases are the step's own modules and calls in its order
 (``gan_phases``); their total beside the whole step's busy time shows that
 they cover it.
 
-The attention kernels that share device code (#1 and #4, ``attn_fwd_*``;
-#2, #5 and #6, ``attn_bwd_*``) carry the kernel's number as their first
-template argument (``attn_fwd_bf16_kernel<4, ...>``), and each is counted
-under its own number.
+The kernels that share device code (#1, #4 and #7's attention,
+``attn_fwd_*``; #2, #5 and #6, ``attn_bwd_*``; the GEMMs of #7, #8 and #10,
+``gemm_*``) carry the kernel's number as their first template argument
+(``attn_fwd_bf16_kernel<4, ...>``, ``gemm_bf16_kernel<8, 1>``), and each is
+counted under its own number.
 """
 
 from __future__ import annotations
@@ -47,7 +53,18 @@ import time
 import torch
 from torch.profiler import DeviceType, ProfilerActivity, profile, record_function
 
-from chip_smoke import BATCH, SEED, TRAIN_BATCH_512, VAR_DEPTH, msvr512_margs, msvr_margs
+from chip_smoke import (
+    BATCH,
+    RAR_SAMPLING,
+    SEED,
+    TRAIN_BATCH_512,
+    VAR_DEPTH,
+    _excite_adaln,
+    bench_margs,
+    bench_sample_margs,
+    msvr512_margs,
+    msvr_margs,
+)
 from imagefolder_tpu_torch.losses.discriminators import draw_crop
 from imagefolder_tpu_torch.losses.gan import (
     LeCamState,
@@ -55,7 +72,10 @@ from imagefolder_tpu_torch.losses.gan import (
     lecam_reg,
     lecam_update,
 )
-from imagefolder_tpu_torch.models import build_vae_var
+from imagefolder_tpu_torch.models import build_rar, build_vae_var
+from imagefolder_tpu_torch.models.rar import rar_generate
+from imagefolder_tpu_torch.models.tokenizer import VQModel
+from imagefolder_tpu_torch.models.vit import set_fused_sublayers
 from imagefolder_tpu_torch.models.tokenizer import _orthogonal_cosine_loss
 from imagefolder_tpu_torch.ops.quantize import update_usage_ema, usage_percent
 from imagefolder_tpu_torch.train import var_train
@@ -66,6 +86,9 @@ from imagefolder_tpu_torch.train.tokenizer_train import TokenizerTrainer, _last_
 CALLS = 2
 # kernel name pattern -> kind, first match wins
 KINDS = [
+    (r"gemm_\w+<7\b|attn_fwd_\w+<7\b", "#7 fused attention sublayer (GEMMs, #1's tile)"),
+    (r"gemm_\w+<8\b", "#8 fused MLP sublayer (GEMMs)"),
+    (r"gemm_\w+<10\b", "#10 fused MLP probe (GEMMs)"),
     (r"attn_bwd_\w+<2\b", "#2 packed-qkv attention backward kernels"),
     (r"attn_bwd_\w+<5\b", "#5 q-blocked attention backward kernels"),
     (r"attn_bwd_\w+<6\b", "#6 BNHD attention backward kernels"),
@@ -258,13 +281,44 @@ def gan_phases(tr: TokenizerTrainer, x: torch.Tensor) -> list:
             ("disc optimizer", tr.disc_opt.step), ("bookkeeping", bookkeeping)]
 
 
-def profile_var(dev, margs, tag: str, train_batch: int, round_trip: bool):
+def profile_rar(dev):
+    """The VQ-4096 round trip composed and with the fused sublayers (#7,
+    #8), RAR sampling at B=64 (``rar_generate`` with CFG and the fused
+    RobustTok decode, as ``chip_smoke.py``'s ``rar sample``), and the RAR
+    generator alone."""
+    margs = bench_margs("bfloat16")
+    vae = VQModel(margs, generator=torch.Generator().manual_seed(SEED), device=dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.rand((BATCH, margs.image_size, margs.image_size, 3), generator=gen,
+                   device=dev) * 2 - 1
+    with torch.inference_mode():
+        profile_path("round trip", lambda: vae.img_to_reconstructed_img(x))
+        set_fused_sublayers(vae, True, True)
+        profile_path("round trip fused", lambda: vae.img_to_reconstructed_img(x))
+        g = torch.Generator().manual_seed(SEED + 11)
+        rar = build_rar(margs, dtype_str="bfloat16", generator=g, device="cpu").eval()
+        _excite_adaln(rar, g)
+        rar.to(dev)
+        labels = torch.arange(BATCH, device=dev) % 1000
+
+        def generate():
+            return rar_generate(rar, labels, gen, cache_dtype=torch.bfloat16, **RAR_SAMPLING)
+
+        profile_path("rar sample", lambda: vae.decode_tokens(generate()))
+        profile_path("rar generate", generate)
+
+
+def profile_var(dev, margs, tag: str, train_batch: int, round_trip: bool, sample_margs=None):
     """The VAR paths of ``margs`` + VAR-d16 (B=64, the train step at
-    ``train_batch``), each by kind, and the train step by phase."""
+    ``train_batch``), each by kind, and the train step by phase;
+    ``var_sample`` decodes through a tokenizer of ``sample_margs`` when
+    given, as ``chip_smoke.py`` times it."""
     vae, var = build_vae_var(margs, VAR_DEPTH, dtype_str="bfloat16",
                              generator=torch.Generator().manual_seed(SEED), device=dev)
     vae.eval()
     var.eval()
+    sample_vae = vae if sample_margs is None else VQModel(
+        sample_margs, generator=torch.Generator().manual_seed(SEED), device=dev).eval()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     labels = torch.arange(BATCH, device=dev) % 1000
     px = margs.image_size
@@ -273,7 +327,8 @@ def profile_var(dev, margs, tag: str, train_batch: int, round_trip: bool):
         with torch.inference_mode():
             profile_path(tag + "round trip", lambda: vae.img_to_reconstructed_img(x))
     profile_path(tag + "var_sample", lambda: var_train.var_sample(
-        var, vae, labels, gen, cfg_scale=1.5, top_k=900, top_p=0.96))
+        var, sample_vae, labels, gen, cfg_scale=1.5, top_k=900, top_p=0.96))
+    del sample_vae
     with torch.inference_mode():
         profile_path(tag + "img_to_idxBl", lambda: vae.img_to_idxBl(x))
         x_in = vae.idxBl_to_var_input(vae.img_to_idxBl(x))
@@ -306,8 +361,17 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     print(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}")
-    profile_var(dev, msvr_margs("bfloat16"), "", BATCH, round_trip=False)
-    profile_var(dev, msvr512_margs("bfloat16"), "512 ", TRAIN_BATCH_512, round_trip=True)
+    sections = set(sys.argv[1:]) or {"rar", "var", "gan"}
+    if not sections <= {"rar", "var", "gan"}:
+        raise SystemExit(f"sections are rar, var and gan; got {sorted(sections)}")
+    if "rar" in sections:
+        profile_rar(dev)
+    if "var" in sections:
+        profile_var(dev, msvr_margs("bfloat16"), "", BATCH, round_trip=False,
+                    sample_margs=bench_sample_margs("bfloat16"))
+        profile_var(dev, msvr512_margs("bfloat16"), "512 ", TRAIN_BATCH_512, round_trip=True)
+    if "gan" not in sections:
+        return 0
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     mcfg, tcfg = flagship_gan_recipe(BATCH, tcfg_overrides={"loss_dtype": "bfloat16"})

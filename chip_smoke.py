@@ -11,37 +11,51 @@ exit; no failure is caught):
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card: packed-qkv attention (#1) at the ViT shapes, its backward (#2)
      at the GAN step's three shapes, under the encoder's shared mask with and
-     without dbias, ragged, in fp32 and through autograd, BNHD attention (#3) at every VAR
-     sampling stage, the teacher-forcing shape and edge cases, its backward
-     (#6) at the training shape with and without dbias, without a bias, at
-     L = 680, ragged, on strided views and in fp32, the q-blocked attention
-     (#4) and its backward (#5) at the 512 px shapes (VAR's L = 2240 under
-     the block-causal bias, the tokenizer's packed views at N = 2050 and
+     without dbias, ragged, in fp32 and through autograd, BNHD attention (#3)
+     at every VAR sampling stage, the teacher-forcing shape and edge cases, its
+     backward (#6) at the training shape with and without dbias, without a
+     bias, at L = 680, ragged, on strided views and in fp32, the q-blocked
+     attention (#4) and its backward (#5) at the 512 px shapes (VAR's L = 2240
+     under the block-causal bias, the tokenizer's packed views at N = 2050 and
      3073), ragged past the JAX package's caps, in fp32 and, for #5, with
-     dbias and through autograd, and the codebook search (#9) at every scale
-     of both multi-scale encodes;
+     dbias and through autograd, the codebook search (#9) at every scale of
+     both multi-scale encodes, and the fused sublayers: attention (#7) at the
+     ViT-B decoder's and encoder's and at ViT-S width, the MLP (#8) at ViT-B
+     and ViT-S width, the MLP probe (#10) at scripts/perf.py's shape, each
+     ragged, with res = 0 and in fp32, LayerScale of order 1, #7 and #8
+     through autograd, and the wrappers' refusals;
   4. models, card against CPU in fp32 from one seed: the VQ-4096 ViT-B
-     tokenizer at B=2; for MSVR10P2-4096 and MSVR10P2-4096-512, each with
-     VAR-d16, ``img_to_idxBl`` codes per scale, the round trip image,
-     ``VAR.forward`` logits, greedy ``var_sample`` tokens and images, then
-     one ``VARTrainer`` step's loss, every parameter's gradient, the gradient
-     norm and the updated parameters, with the same training masks on both
-     sides; two flagship GAN ``TokenizerTrainer`` steps (every metric, every
-     trainable gradient of the generator and the disc heads, the updated
-     parameters, with the same random draws on both sides); a code or token
-     may differ only at a near-tie, and the card then goes on from the CPU's
-     choice;
+     tokenizer at B=2, then its decode and round trip with the fused
+     sublayers on the card; RAR-B at full width with CFG, B=2, the same
+     Gumbel noise on both sides, and its tokens decoded by that tokenizer
+     (RobustTok at inference) fused on the card; for MSVR10P2-4096 and
+     MSVR10P2-4096-512, each with VAR-d16, ``img_to_idxBl`` codes per scale,
+     the round trip image, ``VAR.forward`` logits, greedy ``var_sample``
+     tokens and images, then one ``VARTrainer`` step's loss, every
+     parameter's gradient, the gradient norm and the updated parameters,
+     with the same training masks on both sides; two flagship GAN
+     ``TokenizerTrainer`` steps (every metric, every trainable gradient of
+     the generator and the disc heads, the updated parameters, with the same
+     random draws on both sides); a code or token may differ only at a
+     near-tie, and the card then goes on from the CPU's choice;
   5. main paths in bf16, timed with CUDA events (a warm-up call, then
      median, min and max), each with every launch counter set to 0 just
      before its timed calls and read just after: at B=64 the VQ-4096 round
-     trip; for both multi-scale configurations ``var_sample`` (cfg 1.5, top-k
-     900, top-p 0.96), ``img_to_idxBl``, the teacher-forcing ``VAR.forward``,
-     ``VARTrainer.train_step`` (B=16 at 512 px) and ``eval_step``, and the
-     512 px round trip; and the flagship GAN ``TokenizerTrainer.train_step``;
+     trip, composed and then fused (``round trip fused``); RAR sampling
+     (``rar sample``: ``rar_generate`` with CFG and the fused RobustTok
+     decode; then the generator and the decode alone); the MLP probe (12
+     chained #10 calls at scripts/perf.py's shape); for both multi-scale
+     configurations ``var_sample`` (cfg 1.5, top-k 900, top-p 0.96; at 256 px
+     decoded by bench.py's sample-leg tokenizer, ViT-S), ``img_to_idxBl``,
+     the teacher-forcing ``VAR.forward``, ``VARTrainer.train_step`` (B=16 at
+     512 px) and ``eval_step``, and the 512 px round trip; and the flagship
+     GAN ``TokenizerTrainer.train_step``;
   6. times: each kernel, its plain version (order plain, kernel, kernel,
      plain) and one PyTorch library call computing the same function (for
-     #2, #5 and #6, the backward of ``scaled_dot_product_attention``), at the
-     main paths' largest shapes, beside the card's bound for that work.
+     #2, #5 and #6, the backward of ``scaled_dot_product_attention``; for #7
+     and #8, which no one call computes, the composed path; for #10 none),
+     at the main paths' largest shapes, beside the card's bound for that
+     work.
 Then one JSON line of kernel records and, last, the device JSON line.
 
 Imports nothing of JAX: the card's machine has none. JAX parity lives in the
@@ -65,13 +79,15 @@ import torch.nn.functional as F
 
 from imagefolder_tpu_torch.losses.diffaug import draw_aug
 from imagefolder_tpu_torch.losses.discriminators import draw_crop
-from imagefolder_tpu_torch.models import build_vae_var
+from imagefolder_tpu_torch.models import build_rar, build_vae_var
+from imagefolder_tpu_torch.models import rar as rar_mod
 from imagefolder_tpu_torch.models.tokenizer import ModelArgs, VQModel
 from imagefolder_tpu_torch.models.var import build_attn_bias
-from imagefolder_tpu_torch.models.vit import LayerScale
+from imagefolder_tpu_torch.models.vit import LayerScale, set_fused_sublayers
 from imagefolder_tpu_torch.ops import quantize
 from imagefolder_tpu_torch.ops.cuda import _build
 from imagefolder_tpu_torch.ops.cuda import attention as attn
+from imagefolder_tpu_torch.ops.cuda import block
 from imagefolder_tpu_torch.ops.cuda import codebook
 from imagefolder_tpu_torch.train import var_train
 from imagefolder_tpu_torch.train.recipes import flagship_gan_recipe
@@ -115,6 +131,9 @@ COUNTERS = {
     "fused_attention_qblk_fwd": (attn, "QBLK_LAUNCHES"),
     "fused_attention_qblk_bwd": (attn, "QBLK_BWD_LAUNCHES"),
     "codebook_argmin": (codebook, "LAUNCHES"),
+    "attn_sublayer_fused": (block, "SUBLAYER_ATTN_LAUNCHES"),
+    "mlp_sublayer_fused": (block, "SUBLAYER_MLP_LAUNCHES"),
+    "fused_mlp": (block, "FUSED_MLP_LAUNCHES"),
 }
 
 
@@ -139,7 +158,10 @@ def check_launches(path: str, calls: int, per_call: dict) -> dict:
 
 def bench_margs(dtype_str: str) -> ModelArgs:
     """The tokenizer configuration bench.py measures for the JAX package:
-    VQ-4096, DINOv2 ViT-B/16 encoder and decoder, 256 px, 256 latents."""
+    VQ-4096, DINOv2 ViT-B/16 encoder and decoder, 256 px, 256 latents. It is
+    also RobustTok at inference (``configs/RobustTok.yaml``, the tokenizer of
+    ``configs/generator/robustTok-rar.yaml:22-41``; its DINOv2 teacher feeds
+    only training losses and is left out), which decodes RAR's tokens."""
     return ModelArgs(
         codebook_size=4096, codebook_embed_dim=64, v_patch_nums=(16,),
         enc_type="dinov2", dec_type="dinov2",
@@ -153,12 +175,27 @@ def msvr_margs(dtype_str: str) -> ModelArgs:
     """configs/MSVR10P2-4096.yaml at inference: two PQ branches of 121
     latents, ten scales, one 4096 x 32 codebook per branch, DINOv2 ViT-B/16
     encoder and decoder, 256 px. The teachers feed only training losses and
-    are left out, as bench.py's sample leg does."""
+    are left out. The model checks, teacher forcing and training use it;
+    the 256 px sampling leg uses ``bench_sample_margs``."""
     return ModelArgs(
         codebook_size=4096, codebook_embed_dim=32, v_patch_nums=PNS,
         enc_type="dinov2", dec_type="dinov2",
         encoder_model="vit_base_patch14_dinov2.lvd142m",
         decoder_model="vit_base_patch14_dinov2.lvd142m",
+        semantic_guide="none", detail_guide="none", num_latent_tokens=121,
+        product_quant=2, abs_pos_embed=True, image_size=256, dtype_str=dtype_str)
+
+
+def bench_sample_margs(dtype_str: str) -> ModelArgs:
+    """The tokenizer of bench.py's sample leg (``bench.py:256-264``):
+    ``msvr_margs`` with DINOv2 ViT-S/14 encoder and decoder (width 384, 6
+    heads of 64, depth 12), 121 latents per PQ branch, a 4096 x 32 codebook
+    per branch, 256 px."""
+    return ModelArgs(
+        codebook_size=4096, codebook_embed_dim=32, v_patch_nums=PNS,
+        enc_type="dinov2", dec_type="dinov2",
+        encoder_model="vit_small_patch14_dinov2.lvd142m",
+        decoder_model="vit_small_patch14_dinov2.lvd142m",
         semantic_guide="none", detail_guide="none", num_latent_tokens=121,
         product_quant=2, abs_pos_embed=True, image_size=256, dtype_str=dtype_str)
 
@@ -683,6 +720,199 @@ def kernels_codebook(dev) -> float:
     return main_gap
 
 
+def _sublayer_operands(gen, b, n, c, hidden, dtype, dev, res=torch.float32):
+    """xn (B, N, C) in ``dtype``, the residual stream in ``res`` (or zeros
+    when ``res`` is None), and one sublayer's parameters in the (out, in)
+    layout: W1 (hidden, C), b1, W2 (C, hidden or C for the attention's
+    proj), b2, with the layers' init bounds, biases of 0.1, and LayerScale
+    of order 1 (at DINOv2's 1e-5, ls * y would vanish under res and hide
+    any error in y)."""
+    c2 = c if hidden == 3 * c else hidden
+    xn = torch.randn((b, n, c), generator=gen, device=dev).to(dtype)
+    r = (torch.zeros((b, n, c), device=dev) if res is None else
+         torch.randn((b, n, c), generator=gen, device=dev).to(res))
+    w1 = (torch.rand((hidden, c), generator=gen, device=dev) * 2 - 1) * c ** -0.5
+    w2 = (torch.rand((c, c2), generator=gen, device=dev) * 2 - 1) * c2 ** -0.5
+    b1 = torch.randn(hidden, generator=gen, device=dev) * 0.1
+    b2 = torch.randn(c, generator=gen, device=dev) * 0.1
+    ls = torch.rand(c, generator=gen, device=dev) * 0.5 + 0.5
+    return xn, r, w1, b1, w2, b2, ls
+
+
+def _sublayer_check(what: str, got: torch.Tensor, want: torch.Tensor, res: torch.Tensor,
+                    ls: torch.Tensor, dtype: torch.dtype) -> tuple[float, str]:
+    """A fused sublayer's fp32 output against its plain version's: both
+    finite; in fp32 (``dtype``, the activations') the max abs error within
+    TOL; in bf16 every element
+    within ls * (2^-6 |y| + 2^-6 RMS(y's row)) + 2^-20 |out|, where y =
+    (plain - res) / ls is the sublayer's bf16 output before LayerScale:
+    two roundings of y (the product's and the bias add's) may each land
+    one bf16 ulp apart on the two sides, a rounding flip inside (a qkv, o
+    or h element) moves y by a small share of its row's RMS, and the last
+    term covers the fp32 residual add. tests/test_torch_sublayer_checks.py
+    holds this check against a CPU model of the kernels' numerics (GEMMs
+    summed in 32-wide k-steps, #1's tiled attention), which must pass, and
+    against the model with a fault planted (the last k/v tile or GEMM
+    k-step dropped, a bias omitted, LayerScale skipped, the last partial
+    row tile unstored), which must fail; tests/test_torch_block_fused.py
+    holds the same bound against the Pallas kernels on the CPU."""
+    if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
+        raise AssertionError(f"{what}: non-finite output")
+    if got.shape != want.shape or got.dtype != torch.float32:
+        raise AssertionError(f"{what}: output {tuple(got.shape)} {got.dtype}")
+    diff = (got - want).abs()
+    err = diff.max().item()
+    if dtype == torch.float32:
+        _check(what, err, TOL[torch.float32])
+        return err, f"(tol {TOL[torch.float32]:g})"
+    y = (want - res.float()) / ls
+    rms = y.square().mean(dim=-1, keepdim=True).sqrt()
+    worst = (diff / (ls * (2.0 ** -6 * y.abs() + 2.0 ** -6 * rms)
+                     + 2.0 ** -20 * want.abs())).max().item()
+    if not worst <= 1.0:
+        raise AssertionError(f"{what}: an element's error is {worst:.3f} of its bound "
+                             "ls (2^-6 |y| + 2^-6 RMS(row)) + 2^-20 |out|")
+    return err, f"(per element {worst:.3f} of ls (2^-6 |y| + 2^-6 RMS(row)))"
+
+
+def _expect_refusal(what: str, exc: type, fn):
+    try:
+        fn()
+    except exc as e:
+        print(f"[kernels] {what}: refused ({type(e).__name__}: {e})")
+        return
+    raise AssertionError(f"[kernels] {what}: not refused")
+
+
+def kernels_sublayers(dev) -> dict:
+    """#7, #8 and #10 against their plain versions: #7 at the decoder's
+    (64, 514, 768) and the encoder's (64, 513, 768) with 12 heads and at
+    ViT-S width 384 with 6 heads, #8 at (64, 514, 768) with hidden 3072 and
+    at ViT-S width, #10 at scripts/perf.py's (32832, 768, 3072); each also
+    ragged, with res = 0, and in fp32; then autograd through each fused
+    sublayer on the card (one forward launch; gradients against the
+    composed path's) and the wrappers' refusals. Returns the largest bf16
+    max abs error of each at the main paths' shapes."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    errs = {"attn_sublayer_fused": 0.0, "mlp_sublayer_fused": 0.0, "fused_mlp": 0.0}
+    attn_cases = [  # (name, (B, N, C), heads, dtype, res dtype or None, main)
+        ("decoder VQ-4096", (BATCH, 514, 768), HEADS, bf16, f32, True),
+        ("encoder VQ-4096, bf16 res", (BATCH, 513, 768), HEADS, bf16, bf16, True),
+        ("decoder ViT-S", (BATCH, 379, 384), 6, bf16, f32, True),
+        ("ragged", (3, 37, 768), HEADS, bf16, f32, False),
+        ("res = 0", (8, 514, 768), HEADS, bf16, None, False),
+        ("decoder fp32", (2, 514, 768), HEADS, f32, f32, False),
+        ("ragged ViT-S fp32", (3, 37, 384), 6, f32, f32, False),
+    ]
+    for name, (b, n, c), h, dtype, res, main in attn_cases:
+        xn, r, wq, bq, wp, bp, ls = _sublayer_operands(gen, b, n, c, 3 * c, dtype, dev, res)
+        got = block.attn_sublayer_fused(xn, r, wq, bq, wp, bp, ls, h)
+        want = block.attn_sublayer_fused_reference(xn, r, wq, bq, wp, bp, ls, h)
+        torch.cuda.synchronize()
+        tag = f"[kernels] #7 {name}"
+        err, note = _sublayer_check(tag, got, want, r, ls, dtype)
+        print(f"{tag:38s} xn {(b, n, c)} heads {h} {str(dtype)[6:]:8s} max_abs_err {err:.3e} "
+              f"{note}")
+        if main:
+            errs["attn_sublayer_fused"] = max(errs["attn_sublayer_fused"], err)
+    mlp_cases = [  # (name, (B, N, C), hidden, dtype, res dtype or None, main)
+        ("decoder VQ-4096", (BATCH, 514, 768), 3072, bf16, f32, True),
+        ("encoder VQ-4096", (BATCH, 513, 768), 3072, bf16, f32, True),
+        ("decoder ViT-S, bf16 res", (BATCH, 379, 384), 1536, bf16, bf16, True),
+        ("ragged", (3, 37, 768), 3072, bf16, f32, False),
+        ("res = 0", (8, 514, 768), 3072, bf16, None, False),
+        ("decoder fp32", (2, 514, 768), 3072, f32, f32, False),
+        ("ragged fp32", (3, 37, 384), 1536, f32, f32, False),
+    ]
+    for name, (b, n, c), hid, dtype, res, main in mlp_cases:
+        xn, r, w1, b1, w2, b2, ls = _sublayer_operands(gen, b, n, c, hid, dtype, dev, res)
+        got = block.mlp_sublayer_fused(xn, r, w1, b1, w2, b2, ls)
+        want = block.mlp_sublayer_fused_reference(xn, r, w1, b1, w2, b2, ls)
+        torch.cuda.synchronize()
+        tag = f"[kernels] #8 {name}"
+        err, note = _sublayer_check(tag, got, want, r, ls, dtype)
+        print(f"{tag:38s} xn {(b, n, c)} hidden {hid} {str(dtype)[6:]:8s} max_abs_err "
+              f"{err:.3e} {note}")
+        if main:
+            errs["mlp_sublayer_fused"] = max(errs["mlp_sublayer_fused"], err)
+    for name, m, dtype, main in (("perf.py's probe", BATCH * 513, bf16, True),
+                                 ("ragged", 77, bf16, False), ("fp32", 300, f32, False),
+                                 ("ragged fp32", 37, f32, False)):
+        x = torch.randn((m, 768), generator=gen, device=dev).to(dtype)
+        w1 = (torch.randn((3072, 768), generator=gen, device=dev) * 0.02).to(dtype)
+        w2 = (torch.randn((768, 3072), generator=gen, device=dev) * 0.02).to(dtype)
+        b1 = torch.randn(3072, generator=gen, device=dev) * 0.1
+        b2 = torch.randn(768, generator=gen, device=dev) * 0.1
+        got = block.fused_mlp(x, w1, b1, w2, b2)
+        want = block.fused_mlp_reference(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"[kernels] #10 {name}: output {got.dtype} or not finite")
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        if dtype == f32:
+            _check(f"[kernels] #10 {name}", err, TOL[f32])
+            note = f"(tol {TOL[f32]:g})"
+        else:  # one rounding of o, and rounding flips of h elements
+            size = want.float().abs()
+            rms = size.square().mean(dim=-1, keepdim=True).sqrt()
+            worst = (diff / (BF16_REL * size + ROW_SHARE * rms)).max().item()
+            if not worst <= 1.0:
+                raise AssertionError(f"[kernels] #10 {name}: an element's error is "
+                                     f"{worst:.3f} of 2^-7 |plain| + 2^-5 RMS(row)")
+            note = f"(per element {worst:.3f} of 2^-7 |plain| + 2^-5 RMS(row))"
+        print(f"[kernels] #10 {name:31s} x ({m}, 768) hidden 3072 {str(dtype)[6:]:8s} "
+              f"max_abs_err {err:.3e} {note}")
+        if main:
+            errs["fused_mlp"] = max(errs["fused_mlp"], err)
+
+    # autograd on the card, fp32: one forward launch of the fused kernel; the
+    # backward recomputes through the composed path (cuBLAS, #1 and #2)
+    for num, name, fused, composed, hidden in (
+            ("#7", "attn_sublayer_fused", lambda *a: block.attn_sublayer_fused(*a, HEADS),
+             lambda *a: block._attn_composed(*a, HEADS), 3 * 768),
+            ("#8", "mlp_sublayer_fused", block.mlp_sublayer_fused,
+             block.mlp_sublayer_fused_reference, 3072)):
+        ops = [t.requires_grad_() for t in _sublayer_operands(gen, 2, 37, 768, hidden, f32, dev)]
+        g = torch.randn((2, 37, 768), generator=gen, device=dev)
+        before = read_counts()
+        got = torch.autograd.grad(fused(*ops), ops, g)
+        after = read_counts()
+        want = torch.autograd.grad(composed(*ops), ops, g)
+        torch.cuda.synchronize()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        expect = {name: 1, **({"attention_qkv_fwd": 1, "attention_qkv_bwd": 1}
+                              if num == "#7" else {})}
+        if launched != expect:
+            raise AssertionError(f"[kernels] {num} autograd launched {launched}, want {expect}")
+        err = max(_max_err(a, w) / max(w.abs().max().item(), 1e-30) for a, w in zip(got, want))
+        print(f"[kernels] {num} autograd of {name} on the card: launches {launched}; every "
+              f"input's gradient against the composed path's, error over max |composed| "
+              f"{err:.3e} (tol {TOL[f32]:g})")
+        _check(f"[kernels] {num} autograd", err, TOL[f32])
+
+    x96 = torch.zeros((2, 5, 96), device=dev)
+    _expect_refusal("#8 at width 96", ValueError, lambda: block.mlp_sublayer_fused(
+        x96, x96, torch.zeros((384, 96), device=dev), torch.zeros(384, device=dev),
+        torch.zeros((96, 384), device=dev), torch.zeros(96, device=dev),
+        torch.zeros(96, device=dev)))
+    x128 = torch.zeros((2, 5, 128), device=dev)
+    _expect_refusal("#7 at head dim 32", NotImplementedError, lambda: block.attn_sublayer_fused(
+        x128, x128, torch.zeros((384, 128), device=dev), torch.zeros(384, device=dev),
+        torch.zeros((128, 128), device=dev), torch.zeros(128, device=dev),
+        torch.zeros(128, device=dev), 4))
+    _expect_refusal("#10 with its weights on the CPU", ValueError, lambda: block.fused_mlp(
+        torch.zeros((7, 64), device=dev), torch.zeros((64, 64)), torch.zeros(64),
+        torch.zeros((64, 64)), torch.zeros(64)))
+    _expect_refusal("#7 at width 100", ValueError, lambda: block.attn_sublayer_fused(
+        torch.zeros((2, 5, 100), device=dev), torch.zeros((2, 5, 100), device=dev),
+        torch.zeros((300, 100), device=dev), torch.zeros(300, device=dev),
+        torch.zeros((100, 100), device=dev), torch.zeros(100, device=dev),
+        torch.zeros(100, device=dev), 1))
+    return errs
+
+
 def _excite_layerscale(model: torch.nn.Module, gen: torch.Generator):
     """LayerScale starts at 1e-5, which leaves every block (and its attention)
     out of the output; raise it so that the comparison sees them."""
@@ -694,7 +924,9 @@ def _excite_layerscale(model: torch.nn.Module, gen: torch.Generator):
 
 def phase_model_vq(dev):
     """The VQ-4096 round-trip tokenizer, card against the same weights on
-    the CPU."""
+    the CPU; then, with the fused sublayers on the card (#7 and #8 in every
+    block, exact launches), its decode and round trip against the CPU's
+    composed path. Returns the CPU and the card models, the card's fused."""
     cfg = bench_margs("float32")
     gen = torch.Generator().manual_seed(SEED)
     cpu = VQModel(cfg, generator=gen, device="cpu").eval()
@@ -730,6 +962,103 @@ def phase_model_vq(dev):
     for k, v in errs.items():
         _check(f"[model] {k}", v, MODEL_TOL)
 
+    # the fused sublayers on the card against the CPU's composed path
+    depth = len(card.encoder.model.blocks)
+    if set_fused_sublayers(card, True, True) != 2 * depth:
+        raise AssertionError("[model] set_fused_sublayers missed a block")
+    errs = {}
+    with torch.inference_mode():
+        reset_counts()
+        img_fused = card.decode_tokens(tok_cpu.to(dev))
+        torch.cuda.synchronize()
+        check_launches("[model] fused decode_tokens", 1,
+                       {"attn_sublayer_fused": depth, "mlp_sublayer_fused": depth})
+        errs["decode_tokens"] = _max_err(img_cpu, img_fused)
+        reset_counts()
+        rec_fused = card.img_to_reconstructed_img(x.to(dev))
+        torch.cuda.synchronize()
+        check_launches("[model] fused round trip", 1,
+                       {"attn_sublayer_fused": 2 * depth, "mlp_sublayer_fused": 2 * depth})
+        if not diff.numel():  # the codes are the CPU's: the images must agree
+            errs["img_to_reconstructed_img"] = _max_err(rec_cpu, rec_fused)
+    shown = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    print(f"[model] VQ-4096 fp32 B=2, fused sublayers on the card (#7 and #8, {depth} each "
+          f"in the decoder) vs the CPU's composed path: {shown} (tol {MODEL_TOL:g})")
+    for k, v in errs.items():
+        _check(f"[model] fused {k}", v, MODEL_TOL)
+    return cpu, card
+
+
+def _excite_adaln(model: torch.nn.Module, gen: torch.Generator):
+    """RAR's AdaLN-zero layers start at 0, which leaves every block out of
+    the output: draw them so that the gates, shifts and scales are O(1)."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Sequential) and isinstance(mod[0], torch.nn.SiLU):
+                mod[1].weight.normal_(0.0, 0.05, generator=gen)
+                mod[1].bias.uniform_(-0.5, 0.5, generator=gen)
+
+
+def _gumbel_gap(args, want, got, diff):
+    """sample_tokens(logits, gumbel, T): the gap between the two picks'
+    scores logits / T + g, in fp64."""
+    score = (args[0].double() / args[2] + args[1].double())[diff]
+    return (score.gather(-1, want[:, None]) - score.gather(-1, got[:, None])).abs()[:, 0]
+
+
+RAR_SAMPLING = dict(guidance_scale=16.0, guidance_scale_pow=2.75, randomize_temperature=1.0)
+
+
+def phase_model_rar(dev, vq_cpu: VQModel, vq_card: VQModel):
+    """RAR-B at full width (768 wide, 24 deep, 16 heads, 256 tokens, 4096
+    codes) in fp32, B=2 with CFG at ``configs/generator/robustTok-rar.yaml``'s
+    settings, card against the same weights on the CPU, with the Gumbel noise
+    drawn once on the CPU and handed to both: every pick equal except at a
+    near-tie (the card then goes on from the CPU's pick), the CFG logits of
+    the first and the last step; then the tokens decoded by the RobustTok
+    tokenizer of ``phase_model_vq``, fused sublayers on the card against
+    the composed path on the CPU."""
+    gen = torch.Generator().manual_seed(SEED + 10)
+    rar_cpu = build_rar(vq_cpu.config, generator=gen, device="cpu").eval()
+    _excite_adaln(rar_cpu, gen)
+    rar_card = copy.deepcopy(rar_cpu).to(dev)
+    cfg = rar_cpu.config
+    labels = torch.tensor([207, 980])
+    noise = rar_mod._gumbel((cfg.image_seq_len, 2, cfg.codebook_size), gen, "cpu")
+    picks = Lockstep(rar_mod, "sample_tokens", _gumbel_gap, LOGIT_NEAR_TIE, keep_card_args=True)
+    tok_cpu = picks.on_cpu(lambda: rar_mod.rar_generate(rar_cpu, labels, noise=noise,
+                                                        **RAR_SAMPLING))
+    tok_card = picks.on_card(lambda: rar_mod.rar_generate(
+        rar_card, labels.to(dev), noise=noise.to(dev), **RAR_SAMPLING))
+    torch.cuda.synchronize()
+    errs = {}
+    for name, i in (("first step", 0), ("last step", cfg.image_seq_len - 1)):
+        want = picks.calls[i][0][0]
+        errs[f"CFG logits, {name}"] = _max_err(picks.card_args[i][0], want) / \
+            want.abs().max().item()
+    if not torch.equal(tok_card.cpu(), tok_cpu):
+        raise AssertionError("[model] RAR: the card's tokens are not the CPU's picks")
+    with torch.inference_mode():
+        img_cpu = vq_cpu.decode_tokens(tok_cpu)
+        reset_counts()
+        img_card = vq_card.decode_tokens(tok_card)  # fused sublayers (phase_model_vq)
+        torch.cuda.synchronize()
+    depth = len(vq_card.decoder.model.blocks)
+    check_launches("[model] RAR tokens' fused decode", 1,
+                   {"attn_sublayer_fused": depth, "mlp_sublayer_fused": depth})
+    errs["decoded images"] = _max_err(img_cpu, img_card)
+    if tuple(img_card.shape) != (2, 256, 256, 3):
+        raise AssertionError(f"[model] RAR decode {tuple(img_card.shape)}")
+    shown = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    print(f"[model] RAR-B fp32 B=2 CFG {RAR_SAMPLING['guidance_scale']:g} card vs CPU: "
+          f"{shown} (tol {MODEL_TOL:g}; logits relative to their max abs); tokens "
+          f"{picks.compared - picks.flips}/{picks.compared} picked alike, max near-tie gap "
+          f"{picks.max_gap:.3e} (<= {LOGIT_NEAR_TIE:g}); "
+          f"{torch.unique(tok_cpu).numel()} distinct tokens; decoded by RobustTok with "
+          f"#7 and #8 ({depth} each) on the card")
+    for k, v in errs.items():
+        _check(f"[model] RAR {k}", v, MODEL_TOL)
+
 
 class Lockstep:
     """Runs a path on the CPU and then on the card with ``module.name``
@@ -737,12 +1066,14 @@ class Lockstep:
     run compares each of its results with the CPU's, requires every entry
     that differs to be a near-tie (``gap(cpu_args, cpu_out, card_out)`` <=
     ``tol``), and hands the CPU's result on, so that one near-tie flip does
-    not change everything after it."""
+    not change everything after it. With ``keep_card_args`` the card's
+    arguments are kept too (``card_args``)."""
 
-    def __init__(self, module, name: str, gap, tol: float):
+    def __init__(self, module, name: str, gap, tol: float, keep_card_args: bool = False):
         self.module, self.name, self.orig = module, name, getattr(module, name)
         self.gap, self.tol = gap, tol
         self.calls, self.compared, self.flips, self.max_gap = [], 0, 0, 0.0
+        self.card_args = [] if keep_card_args else None
 
     def _run(self, fn, wrapper):
         setattr(self.module, self.name, wrapper)
@@ -763,6 +1094,8 @@ class Lockstep:
 
         def replay(*args):
             got = self.orig(*args)
+            if self.card_args is not None:
+                self.card_args.append(args)
             cpu_args, want = next(pending)
             diff = got.cpu() != want
             self.compared += want.numel()
@@ -1129,47 +1462,154 @@ def _report(path: str, r: dict, batch: int, what: str):
           f"{r['peak'] / 2**30:.2f} GiB allocated; launches per call {per_call}; {what}")
 
 
+def _check_images(what: str, y: torch.Tensor, batch: int, px: int):
+    if tuple(y.shape) != (batch, px, px, 3) or y.dtype != torch.float32:
+        raise AssertionError(f"[main] {what} output {tuple(y.shape)} {y.dtype}")
+    if not (bool(torch.isfinite(y).all()) and y.abs().max().item() <= 1.0):
+        raise AssertionError(f"[main] {what} output not finite or outside [-1, 1]")
+
+
 def main_round_trip(dev) -> dict:
+    """The VQ-4096 round trip at B=64, composed (#1 in every block) and then,
+    on the same model and input, with the fused sublayers (#7 and #8 in
+    every block, #1 none), so that the two differ only in the option."""
     cfg = bench_margs("bfloat16")
     px, nl, vocab = cfg.image_size, cfg.num_latent_tokens, cfg.codebook_size
     model = VQModel(cfg, generator=torch.Generator().manual_seed(SEED), device=dev).eval()
     x = torch.rand((BATCH, px, px, 3), generator=torch.Generator(device=dev).manual_seed(SEED),
                    device=dev) * 2 - 1
-    per_call = {"attention_qkv_fwd": len(model.encoder.model.blocks)
-                + len(model.decoder.model.blocks)}  # 24
+    depth = len(model.encoder.model.blocks) + len(model.decoder.model.blocks)  # 24
+    out = {}
     with torch.inference_mode():
-        r = time_calls("round trip", lambda: model.img_to_reconstructed_img(x), 10,
-                       per_call, dev)
+        out["round trip"] = r = time_calls("round trip", lambda: model.img_to_reconstructed_img(x),
+                                           10, {"attention_qkv_fwd": depth}, dev)
         tokens = model.encode_to_tokens(x)
         rec = model.decode_tokens(tokens)
         torch.cuda.synchronize()
-    y = r["out"]
-    if tuple(y.shape) != (BATCH, px, px, 3) or y.dtype != torch.float32:
-        raise AssertionError(f"[main] round trip output {tuple(y.shape)} {y.dtype}")
-    if not (bool(torch.isfinite(y).all()) and y.abs().max().item() <= 1.0):
-        raise AssertionError("[main] round trip output not finite or outside [-1, 1]")
-    if tuple(tokens.shape) != (BATCH, nl) or not (
-            0 <= tokens.min().item() and tokens.max().item() < vocab):
-        raise AssertionError(f"[main] tokens {tuple(tokens.shape)} "
-                             f"in [{tokens.min().item()}, {tokens.max().item()}]")
-    if tuple(rec.shape) != (BATCH, px, px, 3) or not bool(torch.isfinite(rec).all()):
-        raise AssertionError("[main] decode_tokens output malformed")
-    _report("VQ-4096 img_to_reconstructed_img", r, BATCH,
-            f"tokens {tuple(tokens.shape)} in [{tokens.min().item()}, "
-            f"{tokens.max().item()}], {torch.unique(tokens).numel()} distinct")
-    return r
+        _check_images("round trip", r.pop("out"), BATCH, px)
+        if tuple(tokens.shape) != (BATCH, nl) or not (
+                0 <= tokens.min().item() and tokens.max().item() < vocab):
+            raise AssertionError(f"[main] tokens {tuple(tokens.shape)} "
+                                 f"in [{tokens.min().item()}, {tokens.max().item()}]")
+        if tuple(rec.shape) != (BATCH, px, px, 3) or not bool(torch.isfinite(rec).all()):
+            raise AssertionError("[main] decode_tokens output malformed")
+        _report("VQ-4096 img_to_reconstructed_img", r, BATCH,
+                f"tokens {tuple(tokens.shape)} in [{tokens.min().item()}, "
+                f"{tokens.max().item()}], {torch.unique(tokens).numel()} distinct")
+
+        set_fused_sublayers(model, True, True)
+        out["round trip fused"] = r = time_calls(
+            "round trip fused", lambda: model.img_to_reconstructed_img(x), 10,
+            {"attn_sublayer_fused": depth, "mlp_sublayer_fused": depth}, dev)
+        y = r.pop("out")
+        _check_images("round trip fused", y, BATCH, px)
+        rec_fused = model.decode_tokens(tokens)
+        torch.cuda.synchronize()
+        # the same tokens through the fused and the composed decoder, bf16:
+        # with DINOv2's LayerScale of 1e-5 the sublayers move the fp32
+        # stream little, so the images must agree to four bf16 ulps of
+        # their largest value (phase_model_vq holds the fused decode with
+        # LayerScale of order 1, in fp32)
+        dec_err = _max_err(rec_fused, rec)
+        dec_tol = 2.0 ** -6 * rec.float().abs().max().item()
+        _check("[main] fused against composed decode_tokens", dec_err, dec_tol)
+        _report("VQ-4096 img_to_reconstructed_img, fused sublayers", r, BATCH,
+                f"decode_tokens of the composed run's tokens against the composed decoder: "
+                f"max abs diff {dec_err:.3e} (tol 2^-6 max |image| = {dec_tol:.3e})")
+    return out
 
 
-def main_var_paths(dev, margs: ModelArgs, tag: str, per_call: dict) -> dict:
+def main_rar_paths(dev) -> dict:
+    """RAR sampling at B=64 in bf16: ``rar_generate`` (RAR-B, CFG at
+    ``configs/generator/robustTok-rar.yaml``'s settings, a bf16 KV cache as
+    ``scripts/sample_rar.py`` sets it) and ``decode_tokens`` on the RobustTok
+    tokenizer with the fused sublayers (#7 and #8 in each decoder block);
+    then each of the two alone: the generator launches no kernel (its
+    attention is plain PyTorch over the cache, as the JAX package's decode
+    is XLA)."""
+    margs = bench_margs("bfloat16")
+    vae = VQModel(margs, generator=torch.Generator().manual_seed(SEED), device=dev).eval()
+    set_fused_sublayers(vae, True, True)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    rar = build_rar(margs, dtype_str="bfloat16", generator=gen, device="cpu").eval()
+    _excite_adaln(rar, gen)  # drawn on the CPU, as every model's weights
+    rar.to(dev)
+    labels = torch.arange(BATCH, device=dev) % 1000
+    sgen = torch.Generator(device=dev).manual_seed(SEED)
+    depth = len(vae.decoder.model.blocks)
+    decode = {"attn_sublayer_fused": depth, "mlp_sublayer_fused": depth}
+
+    def generate():
+        return rar_mod.rar_generate(rar, labels, sgen, cache_dtype=torch.bfloat16,
+                                    **RAR_SAMPLING)
+
+    out = {}
+    with torch.inference_mode():
+        out["rar sample"] = r = time_calls("rar sample", lambda: vae.decode_tokens(generate()),
+                                           3, decode, dev)
+        _check_images("rar sample", r.pop("out"), BATCH, margs.image_size)
+        _report("RAR-B rar_generate + fused decode_tokens (CFG 16, pow 2.75)", r, BATCH,
+                "images in [-1, 1]")
+        out["rar generate"] = r = time_calls("rar generate", generate, 2, {}, dev)
+        tok = r.pop("out")
+        if tuple(tok.shape) != (BATCH, rar.config.image_seq_len) or not (
+                0 <= int(tok.min()) and int(tok.max()) < rar.config.codebook_size):
+            raise AssertionError(f"[main] rar_generate tokens {tuple(tok.shape)}")
+        _report("RAR-B rar_generate alone", r, BATCH,
+                f"tokens {tuple(tok.shape)}, {torch.unique(tok).numel()} distinct")
+        out["rar decode"] = r = time_calls("rar decode", lambda: vae.decode_tokens(tok), 10,
+                                           decode, dev)
+        _check_images("rar decode", r.pop("out"), BATCH, margs.image_size)
+        _report("RobustTok decode_tokens alone, fused sublayers", r, BATCH, "images in [-1, 1]")
+    return out
+
+
+MLP_PROBE = (BATCH * 513, 768, 3072, 12)  # scripts/perf.py:29-33: B*L rows, D, HID; 12 layers
+
+
+def main_mlp_probe(dev) -> dict:
+    """scripts/perf.py's MLP probe on the fused kernel: 12 chained #10 calls
+    over (B*L, D) = (32832, 768) bf16 rows, hidden 3072, the weights N(0,
+    0.02) and zero fp32 biases as the probe draws them."""
+    m, d, hid, layers = MLP_PROBE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    x = torch.randn((m, d), generator=gen, device=dev).bfloat16()
+    w1 = (torch.randn((hid, d), generator=gen, device=dev) * 0.02).bfloat16()
+    w2 = (torch.randn((d, hid), generator=gen, device=dev) * 0.02).bfloat16()
+    b1, b2 = torch.zeros(hid, device=dev), torch.zeros(d, device=dev)
+
+    def stack():
+        t = x
+        for _ in range(layers):
+            t = block.fused_mlp(t, w1, b1, w2, b2)
+        return t
+
+    with torch.inference_mode():
+        r = time_calls("mlp probe", stack, 10, {"fused_mlp": layers}, dev)
+    y = r.pop("out")
+    if tuple(y.shape) != (m, d) or y.dtype != torch.bfloat16 or not bool(
+            torch.isfinite(y).all()):
+        raise AssertionError(f"[main] mlp probe output {tuple(y.shape)} {y.dtype}")
+    _report(f"{layers}x fused MLP probe (scripts/perf.py, ({m}, {d}), hidden {hid})", r,
+            BATCH, f"output RMS {y.float().square().mean().sqrt().item():.3e}")
+    return {"mlp probe": r}
+
+
+def main_var_paths(dev, margs: ModelArgs, tag: str, per_call: dict,
+                   sample_margs: ModelArgs | None = None) -> dict:
     """The serving paths of a multi-scale tokenizer with VAR-d16 in bf16 at
     B=64: the round trip (when ``per_call`` names it), ``var_sample``,
     ``img_to_idxBl`` and ``VAR.forward``, each checked against its
-    ``per_call`` launches; results keyed ``tag + path``."""
+    ``per_call`` launches; results keyed ``tag + path``. ``var_sample``
+    decodes through a tokenizer of ``sample_margs`` when given (bench.py's
+    sample leg, whose VAR has the same vocabulary and Cvae)."""
     pns = tuple(margs.v_patch_nums)
     vae, var = build_vae_var(margs, VAR_DEPTH, dtype_str="bfloat16",
                              generator=torch.Generator().manual_seed(SEED), device=dev)
     vae.eval()
     var.eval()
+    sample_vae = vae if sample_margs is None else VQModel(
+        sample_margs, generator=torch.Generator().manual_seed(SEED), device=dev).eval()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     labels = torch.arange(BATCH, device=dev) % 1000
     px = margs.image_size
@@ -1190,8 +1630,8 @@ def main_var_paths(dev, margs: ModelArgs, tag: str, per_call: dict) -> dict:
         del x, y, r
 
     out[tag + "var_sample"] = r = time_calls(
-        tag + "var_sample", lambda: var_train.var_sample(var, vae, labels, gen, cfg_scale=1.5,
-                                                         top_k=900, top_p=0.96),
+        tag + "var_sample", lambda: var_train.var_sample(var, sample_vae, labels, gen,
+                                                         cfg_scale=1.5, top_k=900, top_p=0.96),
         5, per_call["var_sample"], dev)
     img = r["out"]
     if tuple(img.shape) != (BATCH, px, px, 3) or not (
@@ -1199,8 +1639,9 @@ def main_var_paths(dev, margs: ModelArgs, tag: str, per_call: dict) -> dict:
             and img.max().item() <= 1):
         raise AssertionError(f"[main] {tag}var_sample images malformed")
     _report(f"{tag}var_sample(cfg 1.5, top-k 900, top-p 0.96)", r, BATCH,
-            f"images {tuple(img.shape)} in [{img.min().item():.3f}, {img.max().item():.3f}]")
-    del img, r
+            f"images {tuple(img.shape)} in [{img.min().item():.3f}, {img.max().item():.3f}]; "
+            f"decoded by {sample_vae.config.decoder_model}")
+    del img, r, sample_vae
 
     x = torch.rand((BATCH, px, px, 3), generator=gen, device=dev) * 2 - 1
     with torch.inference_mode():
@@ -1339,19 +1780,25 @@ def _time_ms(fn, reps: int = 20) -> float:
 
 
 def _time_kernel(name: str, kernel, plain, library, nbytes: float, ops: float,
-                 dtype: torch.dtype, shape: str, reps: int = 20) -> dict:
+                 dtype: torch.dtype, shape: str, reps: int = 20,
+                 library_call: str = "one PyTorch call") -> dict:
     """Kernel and plain version in the order plain, kernel, kernel, plain;
-    then the library call; beside the bound for the same work."""
+    then the library call (``library_call`` says what it is; None where no
+    PyTorch call computes the same function); beside the bound for the
+    same work."""
     with torch.inference_mode():
         p1, k1, k2, p2 = (_time_ms(fn, reps) for fn in (plain, kernel, kernel, plain))
-    lib = _time_ms(library, reps)  # outside inference mode: a library backward needs autograd
+    # outside inference mode: a library backward needs autograd
+    lib = None if library is None else _time_ms(library, reps)
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
     b_ms, by = bound_ms(nbytes, ops, dtype)
+    shown = "none" if lib is None else f"{lib:.4f} ms"
     print(f"[times] {name} {shape}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
-          f"(order plain, kernel, kernel, plain), library {lib:.4f} ms; bound {b_ms:.4f} ms "
-          f"by {by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G ops); kernel at "
+          f"(order plain, kernel, kernel, plain), library ({library_call}) {shown}; bound "
+          f"{b_ms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G ops); kernel at "
           f"{b_ms / k_ms * 100:.1f}% of the bound")
-    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib, "bound_ms": b_ms, "bound_by": by}
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib, "library_call": library_call,
+            "bound_ms": b_ms, "bound_by": by}
 
 
 def phase_times(dev) -> dict:
@@ -1367,7 +1814,8 @@ def phase_times(dev) -> dict:
         "#1 attention_qkv", lambda: attn.attention_qkv(qkv, h),
         lambda: attn.attention_qkv_reference(qkv, h),
         lambda: F.scaled_dot_product_attention(q, k, v),
-        (qkv.numel() + b * n * h * HD) * 2, 4 * b * h * n * n * HD, bf16, str(tuple(qkv.shape)))
+        (qkv.numel() + b * n * h * HD) * 2, 4 * b * h * n * n * HD, bf16, str(tuple(qkv.shape)),
+        library_call="SDPA")
 
     # 2: the encoder's shape, no bias (as the GAN step); the library call is
     # the backward only of SDPA on the q, k, v views of the same qkv
@@ -1383,7 +1831,7 @@ def phase_times(dev) -> dict:
         lambda: attn.attention_qkv_bwd_reference(qkv, h, None, g),
         lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_g, retain_graph=True),
         (2 * qkv.numel() + g.numel()) * 2, 5 * 2 * b * h * n * n * HD, bf16,
-        f"qkv {tuple(qkv.shape)}, g {tuple(g.shape)}")
+        f"qkv {tuple(qkv.shape)}, g {tuple(g.shape)}", library_call="SDPA backward")
     del lib_out, lq, lk, lv
 
     # 3: the last sampling stage (most bytes of the path), then teacher forcing
@@ -1403,7 +1851,7 @@ def phase_times(dev) -> dict:
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=None if bias is None else bias.to(bf16), scale=1.0),
             nbytes, 4 * b * VAR_HEADS * pairs * HD, bf16,
-            f"q {tuple(q.shape)} k {tuple(k.shape)}")
+            f"q {tuple(q.shape)} k {tuple(k.shape)}", library_call="SDPA")
         out.setdefault("fused_attention_fwd", rec)
 
     # 6: the training shape, block-causal bias, no dbias (as the train step)
@@ -1420,7 +1868,7 @@ def phase_times(dev) -> dict:
         lambda: attn.fused_attention_bwd_reference(q, k, v, bias, g, 1.0, need_dbias=False),
         lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_g, retain_graph=True),
         7 * q.numel() * 2 + bias.numel() * 4, 5 * 2 * BATCH * VAR_HEADS * pairs * HD, bf16,
-        f"q, k, v, g {tuple(q.shape)}")
+        f"q, k, v, g {tuple(q.shape)}", library_call="SDPA backward")
 
     # 4: VAR's 512 px teacher forcing under the block-causal bias (the
     # kernel's record), then the decoder's and the encoder's packed views
@@ -1437,7 +1885,7 @@ def phase_times(dev) -> dict:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=bias.to(bf16), scale=1.0),
         4 * q.numel() * 2 + bias.numel() * 4, 4 * 16 * VAR_HEADS * pairs * HD, bf16,
-        f"q, k, v {tuple(q.shape)}, bias {tuple(bias.shape)}")
+        f"q, k, v {tuple(q.shape)}, bias {tuple(bias.shape)}", library_call="SDPA")
     for name, n, chunk in (("decoder", 2050, 8), ("encoder", 3073, 4)):
         q, k, v = _packed_views(gen, BATCH, n, HEADS, bf16, dev)
         _time_kernel(
@@ -1447,7 +1895,8 @@ def phase_times(dev) -> dict:
             lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                                    v.transpose(1, 2)),
             4 * q.numel() * 2, 4 * BATCH * HEADS * n * n * HD, bf16,
-            f"q, k, v {tuple(q.shape)} of qkv ({BATCH}, {n}, {3 * HD * HEADS})", reps=5)
+            f"q, k, v {tuple(q.shape)} of qkv ({BATCH}, {n}, {3 * HD * HEADS})", reps=5,
+            library_call="SDPA")
 
     # 5: VAR's 512 px training shape, block-causal bias, no dbias (as the
     # train step); the plain version in batch slices of 4
@@ -1463,8 +1912,43 @@ def phase_times(dev) -> dict:
                            1.0, need_dbias=False),
         lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_g, retain_graph=True),
         7 * q.numel() * 2 + bias.numel() * 4, 5 * 2 * 16 * VAR_HEADS * pairs * HD, bf16,
-        f"q, k, v, g {tuple(q.shape)}", reps=5)
+        f"q, k, v, g {tuple(q.shape)}", reps=5, library_call="SDPA backward")
     del lib_out, lq, lk, lv
+
+    # 7 and 8: the VQ-4096 decoder's shape, the residual stream fp32 (every
+    # block's but the first); the library column is the composed path
+    # (cuBLAS GEMMs, #1 and the elementwise passes): no one PyTorch call
+    # computes either sublayer
+    b, n, c, h, hid = BATCH, 514, 768, HEADS, 3072
+    m = b * n
+    ops_a = _sublayer_operands(gen, b, n, c, 3 * c, bf16, dev)
+    out["attn_sublayer_fused"] = _time_kernel(
+        "#7 attn_sublayer_fused, decoder", lambda: block.attn_sublayer_fused(*ops_a, h),
+        lambda: block.attn_sublayer_fused_reference(*ops_a, h),
+        lambda: block.attn_sublayer(*ops_a, h),
+        m * c * (2 + 4 + 4) + (3 * c * c + c * c) * 2 + (4 * c) * 2 + c * 4,
+        2 * m * c * 3 * c + 4 * b * h * n * n * HD + 2 * m * c * c, bf16,
+        f"xn {(b, n, c)}, {h} heads", library_call="composed path: cuBLAS, #1, elementwise")
+    ops_m = _sublayer_operands(gen, b, n, c, hid, bf16, dev)
+    out["mlp_sublayer_fused"] = _time_kernel(
+        "#8 mlp_sublayer_fused, decoder", lambda: block.mlp_sublayer_fused(*ops_m),
+        lambda: block.mlp_sublayer_fused_reference(*ops_m), lambda: block.mlp_sublayer(*ops_m),
+        m * c * (2 + 4 + 4) + 2 * c * hid * 2 + (hid + c) * 2 + c * 4, 4 * m * c * hid, bf16,
+        f"xn {(b, n, c)}, hidden {hid}", library_call="composed path: cuBLAS, elementwise")
+    del ops_a, ops_m
+
+    # 10: scripts/perf.py's probe shape
+    m, d, hid, _ = MLP_PROBE
+    x = torch.randn((m, d), generator=gen, device=dev).bfloat16()
+    w1 = (torch.randn((hid, d), generator=gen, device=dev) * 0.02).bfloat16()
+    w2 = (torch.randn((d, hid), generator=gen, device=dev) * 0.02).bfloat16()
+    b1, b2 = torch.zeros(hid, device=dev), torch.zeros(d, device=dev)
+    out["fused_mlp"] = _time_kernel(
+        "#10 fused_mlp, perf.py's probe", lambda: block.fused_mlp(x, w1, b1, w2, b2),
+        lambda: block.fused_mlp_reference(x, w1, b1, w2, b2), None,
+        2 * m * d * 2 + 2 * d * hid * 2 + (hid + d) * 4, 4 * m * d * hid, bf16,
+        f"x ({m}, {d}), hidden {hid}", library_call="none")
+    del x
 
     # 9: the last scale of a B=64 encode
     n, vsz, c = BATCH * PNS[-1] ** 2, 4096, 32
@@ -1475,7 +1959,8 @@ def phase_times(dev) -> dict:
         lambda: codebook.codebook_argmin_reference(x, cb, True),
         lambda: torch.argmax(x @ cb.T, dim=-1),
         (n * c + vsz * c) * 4 + n * 8, 2 * n * vsz * c, torch.float32,
-        f"x ({n}, {c}) codebook ({vsz}, {c})")
+        f"x ({n}, {c}) codebook ({vsz}, {c})",
+        library_call="x @ e.T, argmax")
     return out
 
 
@@ -1494,11 +1979,18 @@ KERNELS = {
                                  "imagefolder_tpu/ops/pallas/attention.py:589"),
     "codebook_argmin": ("imagefolder_tpu_torch/csrc/codebook_argmin.cu",
                         "imagefolder_tpu/ops/pallas/codebook.py:62"),
+    "attn_sublayer_fused": ("imagefolder_tpu_torch/csrc/attn_sublayer.cu",
+                            "imagefolder_tpu/ops/pallas/block.py:89"),
+    "mlp_sublayer_fused": ("imagefolder_tpu_torch/csrc/mlp_sublayer.cu",
+                           "imagefolder_tpu/ops/pallas/block.py:205"),
+    "fused_mlp": ("imagefolder_tpu_torch/csrc/mlp_sublayer.cu", "scripts/perf.py:252"),
 }
 
-# launches per call of each VAR-side main path, counted from the code: ViT-B
-# blocks (12 per encoder or decoder), VAR-d16 blocks (16), scales of both PQ
-# branches (2 x 10), sampling stages (10). At 256 px every attention is
+# launches per call of each VAR-side main path, counted from the code: ViT
+# blocks (12 per encoder or decoder, ViT-B or, in the 256 px var_sample's
+# decoder, ViT-S: also 12 blocks of head dim 64, so #1 12 either way), VAR-d16
+# blocks (16), scales of both PQ branches (2 x 10), sampling stages (10). The
+# fused sublayers (#7, #8) are off on these paths. At 256 px every attention is
 # under the single-block budget (#1, #3, #6); at 512 px the encoder (N =
 # 3073), the decoder (N = 2050) and teacher forcing (L = 2240) are past it
 # (#4, #5), while the KV-cached decode (at most 1024 x 2240) stays on #3.
@@ -1548,20 +2040,25 @@ def main() -> int:
             "fused_attention_bwd": kernels_bnhd_bwd(dev),
             "fused_attention_qblk_fwd": kernels_qblk(dev),
             "fused_attention_qblk_bwd": kernels_qblk_bwd(dev),
-            "codebook_argmin": kernels_codebook(dev)}
+            "codebook_argmin": kernels_codebook(dev), **kernels_sublayers(dev)}
     lap("kernels")
-    phase_model_vq(dev)
+    vq_models = phase_model_vq(dev)
     lap("model VQ-4096")
+    phase_model_rar(dev, *vq_models)
+    del vq_models
+    lap("model RAR-B")
     for margs, name in ((msvr_margs("float32"), "MSVR10P2-4096 + VAR-d16"),
                         (msvr512_margs("float32"), "MSVR10P2-4096-512 + VAR-d16")):
         phase_model_train(dev, *phase_model_var(dev, margs, name), name)
         lap(f"model {name}")
     phase_model_gan(dev)
     lap("model GAN step")
-    paths = {"round trip": main_round_trip(dev),
-             **main_var_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256),
-             **main_train_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256),
-             **main_gan_paths(dev)}
+    paths = {**main_round_trip(dev), **main_rar_paths(dev), **main_mlp_probe(dev)}
+    lap("round trips, RAR sampling, MLP probe")
+    paths.update({**main_var_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256,
+                                   bench_sample_margs("bfloat16")),
+                  **main_train_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256),
+                  **main_gan_paths(dev)})
     lap("main paths at 256 px")
     paths.update({**main_var_paths(dev, msvr512_margs("bfloat16"), "512 ", LAUNCHES_512),
                   **main_train_paths(dev, msvr512_margs("bfloat16"), "512 ", LAUNCHES_512,

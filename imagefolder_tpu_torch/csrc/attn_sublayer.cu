@@ -1,0 +1,66 @@
+// Fused ViT attention sublayer for Hopper (sm_90a), bound through ctypes:
+// kernel #7.
+//
+// Replaces the TPU kernel imagefolder_tpu/ops/pallas/block.py:
+// _attn_sublayer_fused (kernel body _attn_sub_kernel): for a LayerScale
+// block with no mask,
+//   qkv = round(xn Wq) + round(bq)                       (B, N, 3C), act type
+//   o   = per head softmax(q k^T * scale) v / rowsum     (B, N, C), act type
+//   out = fp32(res) + ls * (round(o Wp) + round(bp))     (B, N, C), fp32
+// with "round" a rounding to the activation type (bf16; nothing in fp32),
+// p rounded before p v and o divided by the fp32 row sum after it, as in the
+// packed-qkv kernel #1.
+//
+// What bounds it on this card: at the VQ-4096 decoder's (64, 514, 768) with
+// 12 heads, the two projections are 2 * 32896 * 768 * (2304 + 768) = 155
+// GFLOP and the attention 4 * 64 * 12 * 514^2 * 64 = 52 GFLOP: 207 GFLOP,
+// 0.21 ms at the 989 TFLOP/s bf16 peak, against about 150 MB of compulsory
+// traffic (xn, res and the weights in, fp32 out; 0.05 ms at 3.35 TB/s). It
+// is bound by operations.
+//
+// What the design does about it: the TPU kernel kept one image's whole
+// (N, 3C) qkv slab in VMEM, 2.4 MB at the decoder's shape, about ten times
+// what a Hopper block can hold, so the single launch is not ported. What is
+// ported is what the composed path spends outside its products: the bias
+// adds, casts, LayerScale multiply and fp32 residual add, each an
+// elementwise pass over device memory, here folded into the GEMMs'
+// epilogues (gemm_epilogue.cuh). The split is three launches on one
+// stream: the qkv GEMM (kDense) writes the packed qkv; the forward tile of
+// #1 (attention_fwd_tile.cuh, instantiated as kernel 7) reads it in place;
+// the proj GEMM (kDenseLsRes) writes the fp32 output. qkv and o go through
+// device memory once each (at the decoder's shape 152 MB and 51 MB in bf16),
+// the price of the split. The products run on mma.sync; wgmma, TMA and
+// keeping o on chip are later work.
+
+#include "attention_fwd_tile.cuh"
+#include "gemm_epilogue.cuh"
+
+// xn (B*N, C) in the act type (bf16 if is_bf16, else fp32); res (B*N, C) bf16
+// (res_bf16) or fp32; wq (3C, C) and wp (C, C) in the act type, PyTorch's
+// (out, in) layout; bq (3C,) and bp (C,) in the act type; ls (C,) fp32; qkv
+// (B*N, 3C) and attn (B*N, C) act-type scratch; out (B*N, C) fp32. All
+// contiguous and 16-byte aligned. C must be heads * 64 and a multiple of 64.
+// Launches three kernels on `stream` and returns the first nonzero
+// cudaGetLastError() as an int (0 = launched).
+extern "C" int attn_sublayer_fwd(const void* xn, const void* res, const void* wq,
+                                 const void* bq, const void* wp, const void* bp, const void* ls,
+                                 void* qkv, void* attn, void* out, int batch, int n, int c,
+                                 int heads, float scale, int is_bf16, int res_bf16,
+                                 void* stream) {
+  if (c != heads * kHd || batch <= 0 || n <= 0) return cudaErrorInvalidValue;
+  cudaStream_t stm = static_cast<cudaStream_t>(stream);
+  const int m = batch * n;
+  const EpiArgs e_qkv{bq, nullptr, nullptr, qkv, 0};
+  int err = launch_gemm<7, kDense>(xn, wq, m, 3 * c, c, e_qkv, is_bf16, stm);
+  if (err) return err;
+  const int64_t row = 3 * static_cast<int64_t>(c);
+  const int64_t bat = n * row;
+  const FwdStrides st{bat, row, kHd, bat, row, kHd, bat, row, kHd, 0};
+  const size_t esz = is_bf16 ? sizeof(bf16) : sizeof(float);
+  const char* in = static_cast<const char*>(qkv);
+  err = launch_attention_fwd<7>(in, in + c * esz, in + 2 * c * esz, nullptr, attn, batch, n, n,
+                                heads, st, scale, is_bf16, stm);
+  if (err) return err;
+  const EpiArgs e_proj{bp, res, static_cast<const float*>(ls), out, res_bf16};
+  return launch_gemm<7, kDenseLsRes>(attn, wp, m, c, c, e_proj, is_bf16, stm);
+}

@@ -2,8 +2,9 @@
 (counterpart of ``imagefolder_tpu/models/vit.py``).
 
 Ported: the ``Block`` with LayerScale (DINOv2: the sublayer path, fp32
-residual) and without it (DinoDisc's ViT-S trunk: the composed path, the
-residual in the activation dtype), ``ViTBackbone`` with its pos embed
+residual, composed or, after ``set_fused_sublayers``, fused) and without
+it (DinoDisc's ViT-S trunk: the composed path, the residual in the
+activation dtype), ``ViTBackbone`` with its pos embed
 resampled to any square latent grid (``bicubic_aa``, as timm) and optional
 per-block activation checkpointing (``remat``), the ``linear`` ``ToPixel``
 head, and ``LatentEncoder`` (product quantization included) /
@@ -35,7 +36,7 @@ from imagefolder_tpu_torch.ops.resize import resize
 from imagefolder_tpu_torch.utils.init import lecun_normal_, linear, normal_, trunc_normal_
 
 __all__ = ["ViTBackbone", "LatentEncoder", "LatentDecoder", "ToPixel",
-           "VIT_PRESETS"]
+           "VIT_PRESETS", "set_fused_sublayers"]
 
 # timm dinov2 model presets (vision_transformer.py:2895-2925)
 VIT_PRESETS = {
@@ -89,16 +90,22 @@ class Mlp(nn.Module):
 class Block(nn.Module):
     """Pre-norm ViT block. With LayerScale (``init_values``, DINOv2) the
     residual stream enters in the activation dtype and leaves in fp32, as in
-    the JAX sublayers; without it (``init_values=None``, DinoDisc's trunk)
-    it is the JAX composed path, ``x + h`` in the activation dtype, and the
-    block has no ``ls1``/``ls2``."""
+    the JAX sublayers, and ``fuse_attn`` / ``fuse_mlp`` route the sublayers
+    to the fused kernels (#7, #8; see ``set_fused_sublayers``); without it
+    (``init_values=None``, DinoDisc's trunk) it is the JAX composed path,
+    ``x + h`` in the activation dtype, the block has no ``ls1``/``ls2``, and
+    it never fuses."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  init_values: Optional[float] = 1e-5,
                  dtype: torch.dtype = torch.float32, *,
+                 fuse_attn: bool = False, fuse_mlp: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if init_values is None and (fuse_attn or fuse_mlp):
+            raise ValueError("a Block without LayerScale never fuses its sublayers")
         self.num_heads = num_heads
+        self.fuse_attn, self.fuse_mlp = fuse_attn, fuse_mlp
         self.norm1 = LayerNorm(dim, dtype)
         self.attn = Attention(dim, generator)
         self.norm2 = LayerNorm(dim, dtype)
@@ -120,9 +127,23 @@ class Block(nn.Module):
             return x + dense(h, m.fc2.weight, m.fc2.bias)
         x = attn_sublayer(self.norm1(x), x, a.qkv.weight, a.qkv.bias,
                           a.proj.weight, a.proj.bias, self.ls1.gamma,
-                          self.num_heads, mask=mask)
+                          self.num_heads, mask=mask, fused=self.fuse_attn)
         return mlp_sublayer(self.norm2(x), x, m.fc1.weight, m.fc1.bias,
-                            m.fc2.weight, m.fc2.bias, self.ls2.gamma)
+                            m.fc2.weight, m.fc2.bias, self.ls2.gamma, fused=self.fuse_mlp)
+
+
+def set_fused_sublayers(module: nn.Module, attn: bool, mlp: bool) -> int:
+    """Route every LayerScale ``Block`` under ``module`` through the fused
+    sublayer kernels (#7 for attention, #8 for the MLP) or back to the
+    composed path: the explicit, per-model counterpart of the JAX package's
+    ``IMGF_FUSE_ATTN`` / ``IMGF_FUSE_MLP`` (off by default, as there). The
+    attention fuses only where the JAX router would: no mask and N * N within
+    the single-block budget. Blocks without LayerScale never fuse. Returns
+    the number of blocks set."""
+    blocks = [b for b in module.modules() if isinstance(b, Block) and b.ls1 is not None]
+    for b in blocks:
+        b.fuse_attn, b.fuse_mlp = bool(attn), bool(mlp)
+    return len(blocks)
 
 
 class PatchEmbed(nn.Module):

@@ -11,8 +11,10 @@ the inverse of the JAX package's ``convert_lpips_checkpoint`` (the taming
 layout), and ``dinodisc_state_dict_from_flax`` mirrors the flax DinoDisc
 tree (the JAX package exports no discriminator): ``dino.*`` in the ViT
 layout, the heads, and the ``spectral`` collection's ``u`` and ``sigma`` as
-buffers. ``flax_path`` names the flax path of a port parameter, which the
-trainers' optimizer labels read. They cover the ported slice only.
+buffers. ``rar_state_dict_from_flax`` writes the reference RAR layout of
+``export_rar``. ``flax_path`` names the flax path of a port parameter,
+which the trainers' optimizer labels read. They cover the ported slice
+only.
 
 One gap is filled: a Phi that the nearest-tick mapping never picks (e.g.
 ``phi_2`` of K = 4 with ``v_patch_nums=(1, 2, 3)``) was never called in flax
@@ -35,7 +37,8 @@ from imagefolder_tpu_torch.models.var import VARConfig
 
 __all__ = ["vqmodel_state_dict_from_flax", "multiscale_vq_state_dict_from_flax",
            "lpips_state_dict_from_flax", "dinodisc_state_dict_from_flax", "flax_path",
-           "var_key_map", "var_state_dict_from_flax", "to_torch"]
+           "var_key_map", "var_state_dict_from_flax", "rar_state_dict_from_flax",
+           "to_torch"]
 
 
 def _put_linear(sd: dict, key: str, p: Mapping):
@@ -256,4 +259,30 @@ def var_state_dict_from_flax(params: Mapping, cfg: VARConfig) -> dict:
             leaf = leaf[part]
         leaf = np.asarray(leaf)
         sd[key] = leaf.T if transposed else leaf
+    return to_torch(sd)
+
+
+def rar_state_dict_from_flax(params: Mapping) -> dict:
+    """flax RAR params -> {name: fp32 CPU tensor} in the reference RAR layout
+    (``BaseModel.save_pretrained_weight``, RAR/modules/base_model.py:52-81),
+    the layout ``export_rar`` writes, for the port's ``RAR``."""
+    sd: dict = {}
+    for name in ("cls_token", "pos_embed", "target_aware_pos_embed", "timesteps_embeddings"):
+        sd[name] = np.asarray(params[name])
+    sd["embeddings.weight"] = np.asarray(params["embeddings"])
+    _put_linear(sd, "adaln_before_head.adaLN_modulation.1", params["final_ada"])
+    _put_linear(sd, "lm_head", params["lm_head"])
+    i = 0
+    while f"block_{i}" in params:
+        b, g = params[f"block_{i}"], f"blocks.{i}."
+        _put_linear(sd, g + "adaLN_modulation.1", b["adaLN"])
+        _put_ln(sd, g + "norm1", b["norm1"])
+        _put_ln(sd, g + "norm2", b["norm2"])
+        for name in ("qkv", "proj"):
+            _put_linear(sd, f"{g}attn.{name}", b["attn"][name])
+        for name in ("q_norm", "k_norm"):
+            _put_ln(sd, f"{g}attn.{name}", b["attn"][name])
+        for name in ("fc1", "fc2"):
+            _put_linear(sd, f"{g}mlp.{name}", b[name])
+        i += 1
     return to_torch(sd)
