@@ -40,7 +40,9 @@ The kernels that share device code (#1, #4 and #7's attention,
 ``attn_fwd_*``; #2, #5 and #6, ``attn_bwd_*``; the GEMMs of #7, #8 and #10,
 ``gemm_*``) carry the kernel's number as their first template argument
 (``attn_fwd_bf16_kernel<4, ...>``, ``gemm_bf16_kernel<8, 1>``), and each is
-counted under its own number.
+counted under its own number: the bf16 backward of #2 and #5 is three
+kernels (``attn_bwd_prep_kernel``, ``attn_bwd_sm90_kernel``,
+``attn_bwd_dq_kernel``), all counted under the backward's number.
 """
 
 from __future__ import annotations
@@ -89,8 +91,8 @@ KINDS = [
     (r"gemm_\w+<7\b|attn_fwd_\w+<7\b", "#7 fused attention sublayer (GEMMs, #1's tile)"),
     (r"gemm_\w+<8\b", "#8 fused MLP sublayer (GEMMs)"),
     (r"gemm_\w+<10\b", "#10 fused MLP probe (GEMMs)"),
-    (r"attn_bwd_\w+<2\b", "#2 packed-qkv attention backward kernels"),
-    (r"attn_bwd_\w+<5\b", "#5 q-blocked attention backward kernels"),
+    (r"attn_bwd_\w+<2\b", "#2 packed-qkv attention backward kernels (prep, main, dq)"),
+    (r"attn_bwd_\w+<5\b", "#5 q-blocked attention backward kernels (prep, main, dq)"),
     (r"attn_bwd_\w+<6\b", "#6 BNHD attention backward kernels"),
     (r"attn_bnhd", "#3 BNHD attention kernel"),
     (r"attn_fwd_\w+<1\b", "#1 packed-qkv attention kernel"),

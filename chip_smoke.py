@@ -11,14 +11,19 @@ exit; no failure is caught):
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card: packed-qkv attention (#1) at the ViT shapes, its backward (#2)
      at the GAN step's three shapes, under the encoder's shared mask with and
-     without dbias, ragged, in fp32 and through autograd, BNHD attention (#3)
+     without dbias, ragged, in fp32 and through autograd (fp32, and bf16 at
+     the encoder's shape, where the forward saves its output and lse for the
+     backward), BNHD attention (#3)
      at every VAR sampling stage, the teacher-forcing shape and edge cases, its
      backward (#6) at the training shape with and without dbias, without a
      bias, at L = 680, ragged, on strided views and in fp32, the q-blocked
      attention (#4) and its backward (#5) at the 512 px shapes (VAR's L = 2240
      under the block-causal bias, the tokenizer's packed views at N = 2050 and
      3073), ragged past the JAX package's caps, in fp32 and, for #5, with
-     dbias and through autograd, the codebook search (#9) at every scale of
+     dbias and through autograd (fp32, and bf16 at VAR's training shape), the
+     two pieces of the bf16 backward of #2 and #5 (the blank-tile map, exact,
+     on VAR's 512 px bias and the ragged encoder masks; the forwards' lse,
+     whose store leaves the output unchanged), the codebook search (#9) at every scale of
      both multi-scale encodes, and the fused sublayers: attention (#7) at the
      ViT-B decoder's and encoder's and at ViT-S width, the MLP (#8) at ViT-B
      and ViT-S width, the MLP probe (#10) at scripts/perf.py's shape, each
@@ -50,7 +55,9 @@ exit; no failure is caught):
      the teacher-forcing ``VAR.forward``, ``VARTrainer.train_step`` (B=16 at
      512 px) and ``eval_step``, and the 512 px round trip; and the flagship
      GAN ``TokenizerTrainer.train_step``;
-  6. times: each kernel, its plain version (order plain, kernel, kernel,
+  6. times: each kernel (#2 and #5 as training calls them, with the
+     forward's saved output and lse; #1 and #4 also with the lse store on),
+     its plain version (order plain, kernel, kernel,
      plain) and one PyTorch library call computing the same function (for
      #2, #5 and #6, the backward of ``scaled_dot_product_attention``; for #7
      and #8, which no one call computes, the composed path; for #10 none),
@@ -406,7 +413,25 @@ def kernels_qkv_bwd(dev) -> float:
     print(f"[kernels] #2 autograd of attention_qkv on the card: one launch, dqkv and dbias "
           f"error over max |plain| {err:.3e} (tol {TOL[f32]:g})")
     _check("[kernels] #2 autograd", err, TOL[f32])
-    return main_err
+    # bf16 autograd at the encoder's shape, as the GAN step runs it: the
+    # forward (one #1 launch) saves its output and lse, the backward (one #2
+    # launch) reads them
+    qkv = torch.randn((BATCH, 499, 3 * HD * HEADS), generator=gen, device=dev).to(bf16)
+    g = torch.randn((BATCH, 499, HD * HEADS), generator=gen, device=dev).to(bf16)
+    before = (attn.LAUNCHES, attn.BWD_LAUNCHES)
+    leaf = qkv.clone().requires_grad_()
+    (dqkv,) = torch.autograd.grad(attn.attention_qkv(leaf, HEADS), leaf, g)
+    want = attn.attention_qkv_bwd_reference(qkv, HEADS, None, g)[0]
+    torch.cuda.synchronize()
+    counts = [attn.LAUNCHES - before[0], attn.BWD_LAUNCHES - before[1]]
+    if counts != [1, 1]:
+        raise AssertionError(f"[kernels] #2 bf16 autograd launched #1, #2 {counts}, want [1, 1]")
+    err = _bwd_errs("#2", "bf16 autograd", (dqkv,), (want,), ("dqkv",))["dqkv"]
+    print(f"[kernels] #2 bf16 autograd of attention_qkv, qkv {tuple(qkv.shape)}: one #1 launch "
+          f"(lse saved), one #2 launch, dqkv error over max |plain| {err:.3e} "
+          f"(tol {TOL[bf16]:g})")
+    _check("[kernels] #2 bf16 autograd", err, TOL[bf16])
+    return max(main_err, err)
 
 
 def _bnhd(gen, b, lq, lk, h, dtype, dev, l2=True):
@@ -673,7 +698,84 @@ def kernels_qblk_bwd(dev) -> float:
         print(f"[kernels] #5 autograd of {name} on the card: one #4 and one #5 launch, "
               f"gradients' error over max |plain| {err:.3e} (tol {TOL[f32]:g})")
         _check(f"[kernels] #5 autograd of {name}", err, TOL[f32])
-    return main_err
+    # bf16 autograd at VAR's 512 px training shape through the router, as the
+    # train step runs it: the forward (one #4 launch) saves its output and
+    # lse, the backward (one #5 launch) reads them
+    q, k, v = _bnhd(gen, 16, ltot, ltot, VAR_HEADS, bf16, dev)
+    g = torch.randn(q.shape, generator=gen, device=dev).to(bf16)
+    before = (attn.QBLK_LAUNCHES, attn.QBLK_BWD_LAUNCHES)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(attn.dot_product_attention(*leaves, tf_bias, 1.0), leaves, g)
+    want = _in_chunks(attn.fused_attention_qblk_bwd_reference, 16, 2, q, k, v, tf_bias, g, 1.0,
+                      need_dbias=False)
+    torch.cuda.synchronize()
+    counts = [attn.QBLK_LAUNCHES - before[0], attn.QBLK_BWD_LAUNCHES - before[1]]
+    if counts != [1, 1]:
+        raise AssertionError(f"[kernels] #5 bf16 autograd launched #4, #5 {counts}, want [1, 1]")
+    errs = _bwd_errs("#5", "bf16 autograd", got, want[:3], ("dq", "dk", "dv"))
+    print(f"[kernels] #5 bf16 autograd of dot_product_attention, VAR training 512 q "
+          f"{tuple(q.shape)}: one #4 launch (lse saved), one #5 launch, error over max |plain| "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f" (tol {TOL[bf16]:g})")
+    for what, e in errs.items():
+        _check(f"[kernels] #5 bf16 autograd {what}", e, TOL[bf16])
+    return max(main_err, *errs.values())
+
+
+def kernels_bwd_pieces(dev):
+    """The two pieces that the bf16 backward of #2 and #5 adds, against
+    their plain versions: the blank-tile map (exact) on VAR's 512 px block-
+    causal bias and on the ragged encoder masks at L = 2049 and 2305; and
+    the forwards' lse (#4 on VAR's 512 px shape and the encoder's packed
+    views, #1 at the GAN encoder's shape and under its mask), error over the
+    plain lse's max abs within TOL."""
+    for name, bias in (("VAR 512 block-causal", build_attn_bias(PNS512).to(dev)),
+                       ("encoder mask L=2049", encoder_mask(2049, 683, dev, 1)),
+                       ("encoder mask L=2305", encoder_mask(2305, 768, dev, 64))):
+        got, want = attn.blank_tile_map(bias), attn.blank_tile_map_reference(bias)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"[kernels] blank-tile map {name}: "
+                                 f"{int((got != want).sum())} tiles differ")
+        print(f"[kernels] blank-tile map {name:22s} {tuple(got.shape)}: equal to the plain "
+              f"map, {int(got.sum())} of {got.numel()} tiles blank")
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    tf_bias = build_attn_bias(PNS512).to(dev)
+    ltot = tf_bias.shape[-1]
+    cases = []  # (name, q, k, bias, forward with lse, forward without)
+    for name, (b, n), dtype, bias in (("#4 VAR 512", (4, ltot), bf16, tf_bias),
+                                      ("#4 VAR 512 fp32", (2, ltot), f32, tf_bias)):
+        q, k, v = _bnhd(gen, b, n, n, VAR_HEADS, dtype, dev)
+        cases.append((name, q, k, bias,
+                      lambda q=q, k=k, v=v, bias=bias: attn.fused_attention_qblk_lse(
+                          q, k, v, bias, 1.0),
+                      lambda q=q, k=k, v=v, bias=bias: attn.fused_attention_qblk(
+                          q, k, v, bias, 1.0)))
+    q, k, v = _packed_views(gen, 2, 3073, HEADS, bf16, dev)
+    cases.append(("#4 encoder 512 packed views", q, k, None,
+                  lambda: attn.fused_attention_qblk_lse(q, k, v),
+                  lambda: attn.fused_attention_qblk(q, k, v)))
+    for name, (b, n), dtype, bias in (("#1 encoder MSVR10P2", (BATCH, 499), bf16, None),
+                                      ("#1 encoder fp32", (2, 499), f32, None),
+                                      ("#1 masked", (8, 513), bf16, encoder_mask(513, 256, dev))):
+        qkv = torch.randn((b, n, 3 * HD * HEADS), generator=gen, device=dev).to(dtype)
+        cases.append((name, *qkv.view(b, n, 3, HEADS, HD).unbind(2)[:2], bias,
+                      lambda qkv=qkv, bias=bias: attn.attention_qkv_lse(qkv, HEADS, bias),
+                      lambda qkv=qkv, bias=bias: attn.attention_qkv(qkv, HEADS, bias)))
+    for name, q, k, bias, with_lse, without in cases:
+        out, lse = with_lse()
+        want = attn.attention_lse_reference(q, k, bias, 1.0 if name.startswith("#4 VAR") else None)
+        same = torch.equal(out, without())
+        torch.cuda.synchronize()
+        if lse.shape != want.shape or not bool(torch.isfinite(lse).all()):
+            raise AssertionError(f"[kernels] lse {name}: shape {tuple(lse.shape)} or non-finite")
+        err = _max_err(lse, want) / want.abs().max().item()
+        print(f"[kernels] lse {name:30s} {str(q.dtype)[6:]:8s} (B, H, L) {tuple(lse.shape)}: "
+              f"error over max |plain| {err:.3e} (tol {TOL[q.dtype]:g}); output "
+              f"{'equal to' if same else 'DIFFERS from'} the launch without lse")
+        _check(f"[kernels] lse {name}", err, TOL[q.dtype])
+        if not same:
+            raise AssertionError(f"[kernels] lse {name}: the output changed with the lse store")
 
 
 def _score_gap(x: torch.Tensor, cb: torch.Tensor, maximize: bool, a: torch.Tensor,
@@ -1801,6 +1903,17 @@ def _time_kernel(name: str, kernel, plain, library, nbytes: float, ops: float,
             "bound_ms": b_ms, "bound_by": by}
 
 
+def _time_lse(name: str, off, on, rec: dict, reps: int = 20):
+    """A forward with its lse store off and on, in the order off, on, on,
+    off; both means go into the kernel's record (``ms`` stays the off
+    time, from ``_time_kernel``)."""
+    with torch.inference_mode():
+        a1, b1, b2, a2 = (_time_ms(fn, reps) for fn in (off, on, on, off))
+    rec["lse_off_ms"], rec["lse_on_ms"] = (a1 + a2) / 2, (b1 + b2) / 2
+    print(f"[times] {name}: lse store off {a1:.4f}/{a2:.4f} ms, on {b1:.4f}/{b2:.4f} ms "
+          f"(order off, on, on, off): {(rec['lse_on_ms'] / rec['lse_off_ms'] - 1) * 100:+.2f}%")
+
+
 def phase_times(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     bf16 = torch.bfloat16
@@ -1816,23 +1929,29 @@ def phase_times(dev) -> dict:
         lambda: F.scaled_dot_product_attention(q, k, v),
         (qkv.numel() + b * n * h * HD) * 2, 4 * b * h * n * n * HD, bf16, str(tuple(qkv.shape)),
         library_call="SDPA")
+    _time_lse("#1 attention_qkv", lambda: attn.attention_qkv(qkv, h),
+              lambda: attn.attention_qkv_lse(qkv, h), out["attention_qkv_fwd"])
 
-    # 2: the encoder's shape, no bias (as the GAN step); the library call is
-    # the backward only of SDPA on the q, k, v views of the same qkv
+    # 2: the encoder's shape, no bias, as the GAN step's autograd calls it:
+    # with the forward's saved output and lse (prep, main and dq kernels
+    # timed); the library call is the backward only of SDPA on the q, k, v
+    # views of the same qkv
     b, n, h = BATCH, 499, HEADS
     qkv = torch.randn((b, n, 3 * HD * h), generator=gen, device=dev).to(bf16)
     g = torch.randn((b, n, HD * h), generator=gen, device=dev).to(bf16)
+    o_fwd, lse = attn.attention_qkv_lse(qkv, h)
     lq, lk, lv = (t.detach().requires_grad_()
                   for t in qkv.view(b, n, 3, h, HD).permute(2, 0, 3, 1, 4).unbind(0))
     lib_out = F.scaled_dot_product_attention(lq, lk, lv)
     lib_g = g.view(b, n, h, HD).transpose(1, 2)
     out["attention_qkv_bwd"] = _time_kernel(
-        "#2 attention_qkv backward", lambda: attn.attention_qkv_bwd(qkv, h, None, g),
+        "#2 attention_qkv backward",
+        lambda: attn.attention_qkv_bwd(qkv, h, None, g, o=o_fwd, lse=lse),
         lambda: attn.attention_qkv_bwd_reference(qkv, h, None, g),
         lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_g, retain_graph=True),
         (2 * qkv.numel() + g.numel()) * 2, 5 * 2 * b * h * n * n * HD, bf16,
         f"qkv {tuple(qkv.shape)}, g {tuple(g.shape)}", library_call="SDPA backward")
-    del lib_out, lq, lk, lv
+    del lib_out, lq, lk, lv, o_fwd, lse
 
     # 3: the last sampling stage (most bytes of the path), then teacher forcing
     ltot = sum(p * p for p in PNS)
@@ -1886,6 +2005,10 @@ def phase_times(dev) -> dict:
             attn_mask=bias.to(bf16), scale=1.0),
         4 * q.numel() * 2 + bias.numel() * 4, 4 * 16 * VAR_HEADS * pairs * HD, bf16,
         f"q, k, v {tuple(q.shape)}, bias {tuple(bias.shape)}", library_call="SDPA")
+    _time_lse("#4 fused_attention_qblk, VAR teacher forcing 512",
+              lambda: attn.fused_attention_qblk(q, k, v, bias, 1.0),
+              lambda: attn.fused_attention_qblk_lse(q, k, v, bias, 1.0),
+              out["fused_attention_qblk_fwd"])
     for name, n, chunk in (("decoder", 2050, 8), ("encoder", 3073, 4)):
         q, k, v = _packed_views(gen, BATCH, n, HEADS, bf16, dev)
         _time_kernel(
@@ -1898,22 +2021,26 @@ def phase_times(dev) -> dict:
             f"q, k, v {tuple(q.shape)} of qkv ({BATCH}, {n}, {3 * HD * HEADS})", reps=5,
             library_call="SDPA")
 
-    # 5: VAR's 512 px training shape, block-causal bias, no dbias (as the
-    # train step); the plain version in batch slices of 4
+    # 5: VAR's 512 px training shape, block-causal bias, no dbias, as the
+    # train step's autograd calls it: with the forward's saved output and lse
+    # (prep, main and dq kernels timed); the plain version in batch slices
+    # of 4
     q, k, v = _bnhd(gen, 16, l512, l512, VAR_HEADS, bf16, dev)
     g = torch.randn(q.shape, generator=gen, device=dev).to(bf16)
+    o_fwd, lse = attn.fused_attention_qblk_lse(q, k, v, bias, 1.0)
     lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias.to(bf16), scale=1.0)
     lib_g = g.transpose(1, 2)
     out["fused_attention_qblk_bwd"] = _time_kernel(
         "#5 fused_attention_qblk backward, VAR training 512 (plain in slices of 4)",
-        lambda: attn.fused_attention_qblk_bwd(q, k, v, bias, g, 1.0, need_dbias=False),
+        lambda: attn.fused_attention_qblk_bwd(q, k, v, bias, g, 1.0, need_dbias=False,
+                                              o=o_fwd, lse=lse),
         lambda: _in_chunks(attn.fused_attention_qblk_bwd_reference, 16, 4, q, k, v, bias, g,
                            1.0, need_dbias=False),
         lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_g, retain_graph=True),
         7 * q.numel() * 2 + bias.numel() * 4, 5 * 2 * 16 * VAR_HEADS * pairs * HD, bf16,
         f"q, k, v, g {tuple(q.shape)}", reps=5, library_call="SDPA backward")
-    del lib_out, lq, lk, lv
+    del lib_out, lq, lk, lv, o_fwd, lse
 
     # 7 and 8: the VQ-4096 decoder's shape, the residual stream fp32 (every
     # block's but the first); the library column is the composed path
@@ -2041,6 +2168,7 @@ def main() -> int:
             "fused_attention_qblk_fwd": kernels_qblk(dev),
             "fused_attention_qblk_bwd": kernels_qblk_bwd(dev),
             "codebook_argmin": kernels_codebook(dev), **kernels_sublayers(dev)}
+    kernels_bwd_pieces(dev)
     lap("kernels")
     vq_models = phase_model_vq(dev)
     lap("model VQ-4096")

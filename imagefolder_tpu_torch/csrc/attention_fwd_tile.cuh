@@ -27,8 +27,11 @@
 // times an index can wrap (the 512 px encoder's packed q view alone spans
 // 453 M elements over 64 images). fp32 inputs take a plain FMA kernel with
 // the same tiling of rows and the same online softmax, exact to fp32
-// rounding. wgmma, TMA, a pipelined k/v ring and skipping tiles that a mask
-// blanks are later work.
+// rounding. With kLse set, each kernel also stores its rows' lse = m +
+// log(l) (fp32, B x H x Lq) from the m and l it already holds, for the
+// backward of #2 and #5 (attention_bwd_sm90.cuh); the instantiations
+// without it are the inference paths'. wgmma, TMA, a pipelined k/v ring and
+// skipping tiles that a mask blanks are later work.
 
 #pragma once
 
@@ -51,12 +54,12 @@ struct FwdStrides {
   int64_t qb, ql, qh, kb, kl, kh, vb, vl, vh, bq;
 };
 
-template <int kId, bool kVec, bool kBias>
+template <int kId, bool kVec, bool kBias, bool kLse>
 __global__ void __launch_bounds__(kWarps * 32)
     attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const float* __restrict__ bias,
-                         bf16* __restrict__ out, int lq, int lk, int heads, float scale,
-                         FwdStrides st) {
+                         bf16* __restrict__ out, float* __restrict__ lse, int lq, int lk,
+                         int heads, float scale, FwdStrides st) {
   __shared__ __align__(16) bf16 sq[kRows][kLd];
   __shared__ __align__(16) bf16 sk[kRows][kLd];
   __shared__ __align__(16) bf16 sv[kRows][kLd];
@@ -158,6 +161,14 @@ __global__ void __launch_bounds__(kWarps * 32)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  if (kLse && t4 == 0) {  // lse = m + log(l) per row, fp32 (B, H, Lq)
+    float* row_lse = lse + (static_cast<int64_t>(b) * heads + h) * lq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? row_hi : row_lo;
+      if (row < lq) row_lse[row] = (m[r] == kFwdNegInf ? 0.f : m[r]) + logf(l[r]);
+    }
+  }
   const int64_t ldo = static_cast<int64_t>(heads) * kHd;
   bf16* dst = out + (static_cast<int64_t>(b) * lq * heads + h) * kHd + t4 * 2;
 #pragma unroll
@@ -175,12 +186,12 @@ __global__ void __launch_bounds__(kWarps * 32)
 // memory read by broadcast; q and o stay in registers.
 constexpr int kFwdF32Tile = 32;
 
-template <int kId, bool kBias>
+template <int kId, bool kBias, bool kLse>
 __global__ void __launch_bounds__(kRows)
     attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ bias,
-                        float* __restrict__ out, int lq, int lk, int heads, float scale,
-                        FwdStrides st) {
+                        float* __restrict__ out, float* __restrict__ lse, int lq, int lk,
+                        int heads, float scale, FwdStrides st) {
   __shared__ float sk[kFwdF32Tile][kHd];
   __shared__ float sv[kFwdF32Tile][kHd];
 
@@ -244,19 +255,24 @@ __global__ void __launch_bounds__(kRows)
     float* dst = out + ((static_cast<int64_t>(b) * lq + row) * heads + h) * kHd;
 #pragma unroll
     for (int d = 0; d < kHd; ++d) dst[d] = o[d] / l;
+    if (kLse)
+      lse[(static_cast<int64_t>(b) * heads + h) * lq + row] = (m == kFwdNegInf ? 0.f : m) + logf(l);
   }
 }
 
 // Launches the forward on `stream` for q (B, Lq, H, 64) and k, v (B, Lk, H,
 // 64) at the strides `st`, all fp32 or all bf16 (is_bf16); bias null or an
 // fp32 (Lq, Lk) whose row stride is st.bq; out contiguous (B, Lq, H * 64) of
-// the inputs' type. Returns cudaGetLastError() as an int (0 = launched).
-// kId is the kernel's number (#1, #4): it only names the instantiations, so
-// that a profile tells the two entries apart.
+// the inputs' type; lse null, or an fp32 (B, H, Lq) that receives each row's
+// m + log(l) for the backward (attention_bwd_sm90.cuh). Returns
+// cudaGetLastError() as an int (0 = launched). kId is the kernel's number
+// (#1, #4, #7): it only names the instantiations, so that a profile tells
+// the entries apart.
 template <int kId>
 int launch_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
                          void* out, int batch, int lq, int lk, int heads,
-                         const FwdStrides& st, float scale, int is_bf16, cudaStream_t stm) {
+                         const FwdStrides& st, float scale, int is_bf16, cudaStream_t stm,
+                         float* lse = nullptr) {
   if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0) return cudaErrorInvalidValue;
   const dim3 grid((lq + kRows - 1) / kRows, heads, batch);
   const float* bp = static_cast<const float*>(bias);
@@ -274,23 +290,37 @@ int launch_attention_fwd(const void* q, const void* k, const void* v, const void
                reinterpret_cast<uintptr_t>(v) % 16 == 0;
     for (int i = 0; i < 9; ++i) vec = vec && in_strides[i] % 8 == 0;
     const dim3 block(kWarps * 32);
-    if (vec && bp)
-      attn_fwd_bf16_kernel<kId, true, true><<<grid, block, 0, stm>>>(qp, kp, vp, bp, op, lq, lk, heads, scale, st);
-    else if (vec)
-      attn_fwd_bf16_kernel<kId, true, false><<<grid, block, 0, stm>>>(qp, kp, vp, bp, op, lq, lk, heads, scale, st);
-    else if (bp)
-      attn_fwd_bf16_kernel<kId, false, true><<<grid, block, 0, stm>>>(qp, kp, vp, bp, op, lq, lk, heads, scale, st);
-    else
-      attn_fwd_bf16_kernel<kId, false, false><<<grid, block, 0, stm>>>(qp, kp, vp, bp, op, lq, lk, heads, scale, st);
+#define FWD_BF16(kVec, kBias, kLse)                                               \
+  attn_fwd_bf16_kernel<kId, kVec, kBias, kLse><<<grid, block, 0, stm>>>(          \
+      qp, kp, vp, bp, op, lse, lq, lk, heads, scale, st)
+    if (lse) {
+      if (vec && bp) FWD_BF16(true, true, true);
+      else if (vec) FWD_BF16(true, false, true);
+      else if (bp) FWD_BF16(false, true, true);
+      else FWD_BF16(false, false, true);
+    } else {
+      if (vec && bp) FWD_BF16(true, true, false);
+      else if (vec) FWD_BF16(true, false, false);
+      else if (bp) FWD_BF16(false, true, false);
+      else FWD_BF16(false, false, false);
+    }
+#undef FWD_BF16
   } else {
     const float* qp = static_cast<const float*>(q);
     const float* kp = static_cast<const float*>(k);
     const float* vp = static_cast<const float*>(v);
     float* op = static_cast<float*>(out);
-    if (bp)
-      attn_fwd_f32_kernel<kId, true><<<grid, kRows, 0, stm>>>(qp, kp, vp, bp, op, lq, lk, heads, scale, st);
-    else
-      attn_fwd_f32_kernel<kId, false><<<grid, kRows, 0, stm>>>(qp, kp, vp, bp, op, lq, lk, heads, scale, st);
+#define FWD_F32(kBias, kLse)                                                \
+  attn_fwd_f32_kernel<kId, kBias, kLse><<<grid, kRows, 0, stm>>>(          \
+      qp, kp, vp, bp, op, lse, lq, lk, heads, scale, st)
+    if (lse) {
+      if (bp) FWD_F32(true, true);
+      else FWD_F32(false, true);
+    } else {
+      if (bp) FWD_F32(true, false);
+      else FWD_F32(false, false);
+    }
+#undef FWD_F32
   }
   return static_cast<int>(cudaGetLastError());
 }

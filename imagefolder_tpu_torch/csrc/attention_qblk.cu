@@ -36,15 +36,17 @@
 // head strides in elements (qs, ks, vs = {batch, row, head}; the head-dim
 // stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32
 // (Lq, Lk) shared by every batch and head, row stride bias_row_stride
-// (column stride 1); out contiguous (B, Lq, H, 64) of q's type. Launches on
-// `stream` and returns cudaGetLastError() as an int (0 = launched).
+// (column stride 1); out contiguous (B, Lq, H, 64) of q's type; lse null, or
+// an fp32 (B, H, Lq) that receives each row's log-sum-exp for the backward
+// (#5). Launches on `stream` and returns cudaGetLastError() as an int (0 =
+// launched).
 extern "C" int attention_qblk_fwd(const void* q, const void* k, const void* v,
-                                  const void* bias, void* out, int batch, int lq, int lk,
-                                  int heads, const int64_t* qs, const int64_t* ks,
+                                  const void* bias, void* out, void* lse, int batch, int lq,
+                                  int lk, int heads, const int64_t* qs, const int64_t* ks,
                                   const int64_t* vs, int64_t bias_row_stride, float scale,
                                   int is_bf16, void* stream) {
   const FwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
                       bias ? bias_row_stride : 0};
   return launch_attention_fwd<4>(q, k, v, bias, out, batch, lq, lk, heads, st, scale, is_bf16,
-                              static_cast<cudaStream_t>(stream));
+                              static_cast<cudaStream_t>(stream), static_cast<float*>(lse));
 }

@@ -31,9 +31,11 @@
 #include "attention_fwd_tile.cuh"
 
 // qkv (B, N, 3C) and out (B, N, C), contiguous, fp32 or bf16 (is_bf16);
-// bias null or fp32 (N, N) contiguous. C must be heads * 64. Launches on
-// `stream` and returns cudaGetLastError() as an int (0 = launched).
-extern "C" int attention_qkv_fwd(const void* qkv, const void* bias, void* out,
+// bias null or fp32 (N, N) contiguous; lse null, or an fp32 (B, heads, N)
+// that receives each row's log-sum-exp for the backward (#2). C must be
+// heads * 64. Launches on `stream` and returns cudaGetLastError() as an int
+// (0 = launched).
+extern "C" int attention_qkv_fwd(const void* qkv, const void* bias, void* out, void* lse,
                                  int batch, int n, int c, int heads,
                                  float scale, int is_bf16, void* stream) {
   if (c != heads * kHd) return cudaErrorInvalidValue;
@@ -43,5 +45,6 @@ extern "C" int attention_qkv_fwd(const void* qkv, const void* bias, void* out,
   const size_t esz = is_bf16 ? sizeof(bf16) : sizeof(float);
   const char* in = static_cast<const char*>(qkv);
   return launch_attention_fwd<1>(in, in + c * esz, in + 2 * c * esz, bias, out, batch, n, n,
-                              heads, st, scale, is_bf16, static_cast<cudaStream_t>(stream));
+                              heads, st, scale, is_bf16, static_cast<cudaStream_t>(stream),
+                              static_cast<float*>(lse));
 }

@@ -19,21 +19,32 @@
 // (DinoDisc trunk) bf16 with no bias. At the encoder's shape each call must
 // read qkv and g and write dqkv: 343 MB, 0.102 ms at 3.35 TB/s, against five
 // products of 2*N*N*64 per (b, h) over 768 heads, 122 GFLOP, 0.124 ms at
-// 989 TFLOP/s: it is bound by operations. The per-head math and the
-// two-kernel design (no score ever in device memory) are the BNHD
-// backward's, shared through attention_bwd_tile.cuh: only the strides differ.
+// 989 TFLOP/s: it is bound by operations. In bf16 the device code is
+// attention_bwd_sm90.cuh, shared with the q-blocked backward (#5): the
+// products on wgmma (seven per pair: S and dP once for dk and dv, once for
+// dq), p from the forward's saved lse, delta from its saved o, dq written
+// straight into the q columns; only the strides differ. fp32, and a call
+// that asks for dbias, keep the two-kernel design of attention_bwd_tile.cuh
+// (no score ever in device memory; see attention_bwd_sm90.cuh for why dbias
+// stays there).
 
-#include "attention_bwd_tile.cuh"
+#include "attention_bwd_sm90.cuh"
 
 // qkv (B, N, 3C) and g (B, N, C), contiguous, both fp32 or both bf16
 // (is_bf16), C = heads * 64; bias null or an fp32 (N, N) shared by every
 // batch and head, row stride bias_row_stride (column stride 1); dqkv a
 // (B, N, 3C) of qkv's type; dbias null (not wanted) or a zeroed fp32 (N, N)
-// that receives the sum of ds; stats an fp32 scratch of 3 * B * heads * N.
-// Launches kernel A then kernel B on `stream` and returns cudaGetLastError()
-// as an int (0 = both launched).
-extern "C" int attention_qkv_bwd(const void* qkv, const void* g, const void* bias, void* dqkv,
-                                 void* dbias, void* stats, int batch, int n, int c, int heads,
+// that receives the sum of ds. bf16 without dbias: o the forward's
+// (B, N, C) output, lse its fp32 (B, heads, N) log-sum-exp, work an fp32
+// scratch of sm90::work_floats(B, N, heads), blank a scratch of two bytes
+// per tile pair (2 * ceil(N/64)^2) when a bias is given; prep, main and dq
+// kernels. fp32, or dbias wanted: o, lse and blank unused, work an fp32
+// scratch of 3 * B * heads * N; kernels A and B of attention_bwd_tile.cuh.
+// Launches on `stream` and returns cudaGetLastError() as an int (0 = all
+// launched).
+extern "C" int attention_qkv_bwd(const void* qkv, const void* g, const void* o, const void* lse,
+                                 const void* bias, void* dqkv, void* dbias, void* work,
+                                 void* blank, int batch, int n, int c, int heads,
                                  int64_t bias_row_stride, float scale, int is_bf16,
                                  void* stream) {
   if (c != heads * kHd) return cudaErrorInvalidValue;
@@ -42,10 +53,19 @@ extern "C" int attention_qkv_bwd(const void* qkv, const void* g, const void* bia
   const int64_t gb = static_cast<int64_t>(n) * c;
   const BwdStrides st{bat, row, kHd, bat, row, kHd, bat, row, kHd, gb, c, kHd,
                       bat, row, kHd, bias ? bias_row_stride : 0};
+  const cudaStream_t stm = static_cast<cudaStream_t>(stream);
   const size_t esz = is_bf16 ? sizeof(bf16) : sizeof(float);
   const char* in = static_cast<const char*>(qkv);
   char* out = static_cast<char*>(dqkv);
-  return launch_attention_bwd<2>(in, in + c * esz, in + 2 * c * esz, g, bias, out,
-                              out + c * esz, out + 2 * c * esz, dbias, stats, batch, n, heads,
-                              st, scale, is_bf16, static_cast<cudaStream_t>(stream));
+  if (!is_bf16 || dbias)
+    return launch_attention_bwd<2>(in, in + c * esz, in + 2 * c * esz, g, bias, out,
+                                   out + c * esz, out + 2 * c * esz, dbias, work, batch, n,
+                                   heads, st, scale, is_bf16, stm);
+  const bf16* qp = static_cast<const bf16*>(qkv);
+  bf16* dp = static_cast<bf16*>(dqkv);
+  return sm90::launch_attention_bwd_sm90<2>(
+      qp, qp + c, qp + 2 * c, static_cast<const bf16*>(g), static_cast<const bf16*>(o),
+      sm90::OStrides{gb, c, kHd}, static_cast<const float*>(lse),
+      static_cast<const float*>(bias), dp, dp + c, dp + 2 * c, static_cast<float*>(work),
+      static_cast<uint8_t*>(blank), batch, n, heads, st, scale, stm);
 }

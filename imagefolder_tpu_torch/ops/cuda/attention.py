@@ -27,10 +27,17 @@
   ``fused_attention`` and ``fused_attention_qblk`` as the JAX package does.
 
 The two forwards that divide after p v (#1, #4) share their device code
-(``csrc/attention_fwd_tile.cuh``), and so do the three backwards (#2, #5, #6;
-``csrc/attention_bwd_tile.cuh``). Each dispatches on the tensor's device
-only: a CPU tensor goes to its ``*_reference``, the plain PyTorch version; a
-CUDA tensor launches the hand-written kernel or raises.
+(``csrc/attention_fwd_tile.cuh``). In bf16 the backwards of those two (#2,
+#5) share FlashAttention-2's algorithm on wgmma (``csrc/attention_bwd_sm90.cuh``):
+it takes the forward's output o and its per-row log-sum-exp lse, which the
+autograd forwards save when a gradient is wanted (``attention_lse_reference``
+is the plain version of lse), skips the 64 x 64 tiles that a bias blanks
+(``blank_tile_map``, plain version ``blank_tile_map_reference``); dk and dv
+come from a kernel per 64 keys, dq from one per 64 q rows. fp32 backwards,
+calls that ask for dbias, and #6 keep ``csrc/attention_bwd_tile.cuh``.
+Each dispatches on the tensor's device only: a CPU tensor goes to its
+``*_reference``, the plain PyTorch version; a CUDA tensor launches the
+hand-written kernel or raises.
 """
 
 from __future__ import annotations
@@ -50,6 +57,8 @@ __all__ = ["attention_qkv", "attention_qkv_reference", "attention_qkv_bwd",
            "fused_attention_bwd_reference", "fused_attention_qblk",
            "fused_attention_qblk_reference", "fused_attention_qblk_bwd",
            "fused_attention_qblk_bwd_reference", "dot_product_attention",
+           "attention_lse_reference", "attention_qkv_lse", "fused_attention_qblk_lse",
+           "blank_tile_map", "blank_tile_map_reference",
            "LAUNCHES", "BWD_LAUNCHES", "FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES",
            "QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES"]
 
@@ -64,6 +73,7 @@ QBLK_LAUNCHES = 0
 QBLK_BWD_LAUNCHES = 0
 
 _HEAD_DIM = 64  # the kernel's compiled head width (every DINOv2 preset)
+_TILE = 64  # q rows and keys per tile of the bf16 backward (#2, #5) and its blank map
 
 # Score elements Lq * Lk per (batch, head) up to which the JAX package runs
 # its single-block kernels (#1/#2 packed, #3/#6 BNHD; the BNHD pair divides
@@ -101,14 +111,15 @@ def attention_qkv_reference(qkv: torch.Tensor, heads: int,
 @functools.cache
 def _kernel():
     fn = _build.load_library().attention_qkv_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _attention_qkv_cuda(qkv, heads, bias, scale):
+def _attention_qkv_cuda(qkv, heads, bias, scale, want_lse: bool = False):
+    """#1's launch; with ``want_lse`` also each row's log-sum-exp, fp32
+    (B, heads, N), for the backward: returns (out, lse)."""
     global LAUNCHES
     _check(qkv, heads, bias)
     b, n, c3 = qkv.shape
@@ -127,17 +138,18 @@ def _attention_qkv_cuda(qkv, heads, bias, scale):
             raise ValueError("bias and qkv must be on the same device")
         bias = bias.to(torch.float32).contiguous()
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device) if want_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if want_lse else out
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(qkv.data_ptr(), None if bias is None else bias.data_ptr(),
-                        out.data_ptr(), b, n, c, heads, float(scale),
-                        int(qkv.dtype == torch.bfloat16), stream)
+                        out.data_ptr(), None if lse is None else lse.data_ptr(), b, n, c,
+                        heads, float(scale), int(qkv.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"attention_qkv kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
-    return out
+    return (out, lse) if want_lse else out
 
 
 def _check_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -183,6 +195,11 @@ def _fused_kernel():
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    """A tensor's device address for ctypes, None for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def _strides(t: torch.Tensor, dims) -> ctypes.Array:
@@ -280,10 +297,8 @@ def fused_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 
 
 @functools.cache
-def _bnhd_bwd_kernel(symbol: str):
-    """The BNHD backward entry ``symbol`` (#6 ``attention_bnhd_bwd``, #5
-    ``attention_qblk_bwd``): both take the same arguments."""
-    fn = getattr(_build.load_library(), symbol)
+def _bnhd_bwd_kernel():
+    fn = _build.load_library().attention_bnhd_bwd
     i64p = ctypes.POINTER(ctypes.c_int64)
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [i64p] * 4 + [
         ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -291,9 +306,10 @@ def _bnhd_bwd_kernel(symbol: str):
     return fn
 
 
-def _bnhd_bwd_cuda(symbol, what, q, k, v, bias, g, scale, need_dbias):
-    """Launch the backward entry ``symbol`` on checked operands; the caller
-    counts the launch."""
+def _bwd_operands(q, k, v, bias, g, what: str):
+    """The checks both BNHD backward kernels (#5, #6) make, on top of
+    ``_kernel_operands``'s: g of q's type and device, with unit last stride.
+    Returns (q, k, v, bias, g, the bias's own dtype)."""
     _check_bwd(q, k, v, bias, g)
     bias_dtype = None if bias is None else bias.dtype
     q, k, v, bias = _kernel_operands(q, k, v, bias, what)
@@ -301,6 +317,13 @@ def _bnhd_bwd_cuda(symbol, what, q, k, v, bias, g, scale, need_dbias):
         raise TypeError(f"g must be {q.dtype} on {q.device}; got {g.dtype} on {g.device}")
     if g.stride(-1) != 1:
         g = g.contiguous()
+    return q, k, v, bias, g, bias_dtype
+
+
+def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias):
+    global FUSED_BWD_LAUNCHES
+    what = "fused_attention backward"
+    q, k, v, bias, g, bias_dtype = _bwd_operands(q, k, v, bias, g, what)
     b, l, h, hd = q.shape
     dq, dk, dv = (torch.empty((b, l, h, hd), dtype=q.dtype, device=q.device)
                   for _ in range(3))
@@ -311,7 +334,7 @@ def _bnhd_bwd_cuda(symbol, what, q, k, v, bias, g, scale, need_dbias):
     row_stride = bias.stride(2) if bias is not None and l > 1 else 0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bnhd_bwd_kernel(symbol)(
+        err = _bnhd_bwd_kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             None if bias is None else bias.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
@@ -320,29 +343,10 @@ def _bnhd_bwd_cuda(symbol, what, q, k, v, bias, g, scale, need_dbias):
             int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+    FUSED_BWD_LAUNCHES += 1
     if dbias is not None:
         dbias = dbias[None, None].to(bias_dtype)
     return dq, dk, dv, dbias
-
-
-def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias):
-    global FUSED_BWD_LAUNCHES
-    out = _bnhd_bwd_cuda("attention_bnhd_bwd", "fused_attention backward", q, k, v, bias, g,
-                         scale, need_dbias)
-    FUSED_BWD_LAUNCHES += 1
-    return out
-
-
-def _dispatch_bwd(what, cuda_fn, q, k, v, bias, g, scale, need_dbias):
-    """A BNHD backward (#5 or #6) on q's device: the plain version on the
-    CPU, ``cuda_fn`` (which launches the kernel) on a card."""
-    if q.device.type == "cpu":
-        return fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias)
-    if q.device.type != "cuda":
-        raise ValueError(f"{what} runs on cpu or cuda, not {q.device}")
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    return cuda_fn(q, k, v, bias, g, scale, need_dbias)
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -352,8 +356,13 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     shared (1, 1, L, L) bias: (dq, dk, dv, dbias | None), as
     ``fused_attention_bwd_reference`` computes them. q, k, v and g are
     (B, L, H, hd) with any strides whose last is 1."""
-    return _dispatch_bwd("fused_attention_bwd", _fused_attention_bwd_cuda, q, k, v, bias, g,
-                         scale, need_dbias)
+    if q.device.type == "cpu":
+        return fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention_bwd runs on cpu or cuda, not {q.device}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -438,31 +447,35 @@ def fused_attention_qblk_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Te
 def _qblk_kernel():
     fn = _build.load_library().attention_qblk_fwd
     i64p = ctypes.POINTER(ctypes.c_int64)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [i64p] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [i64p] * 3 + [
         ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _fused_attention_qblk_cuda(q, k, v, bias, scale):
+def _fused_attention_qblk_cuda(q, k, v, bias, scale, want_lse: bool = False):
+    """#4's launch; with ``want_lse`` also each row's log-sum-exp, fp32
+    (B, H, Lq), for the backward: returns (out, lse)."""
     global QBLK_LAUNCHES
     _check_qblk(q, k, v, bias)
     q, k, v, bias = _kernel_operands(q, k, v, bias, "fused_attention_qblk")
     b, lq, h, hd = q.shape
     out = torch.empty((b, lq, h, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if want_lse else None
     row_stride = bias.stride(2) if bias is not None and lq > 1 else 0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _qblk_kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, lq, k.shape[1], h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)),
             _strides(v, (0, 1, 2)), row_stride, float(scale),
             int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"fused_attention_qblk kernel launch failed: CUDA error {err}")
     QBLK_LAUNCHES += 1
-    return out
+    return (out, lse) if want_lse else out
 
 
 # The q-blocked backward's plain version: its per-head math is #6's
@@ -472,23 +485,203 @@ def _fused_attention_qblk_cuda(q, k, v, bias, scale):
 fused_attention_qblk_bwd_reference = fused_attention_bwd_reference
 
 
-def _fused_attention_qblk_bwd_cuda(q, k, v, bias, g, scale, need_dbias):
+def attention_lse_reference(q: torch.Tensor, k: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of the per-row log-sum-exp that the forwards #1 and #4
+    store for the bf16 backward: logsumexp over keys of the fp32 scores
+    q k^T * scale + bias, (B, H, Lq) fp32, for q (B, Lq, H, hd), k
+    (B, Lk, H, hd) and a shared (1, 1, Lq, Lk) bias or none (for #1, the
+    (B, N, H, hd) views of qkv). A row whose every score is -inf gets -inf."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float().transpose(1, 2), k.float().transpose(1, 2).transpose(-1, -2))
+    s = s * scale
+    if bias is not None:
+        s = s + bias.float()
+    return torch.logsumexp(s, dim=-1)
+
+
+def fused_attention_qblk_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None,
+                             scale: Optional[float] = None):
+    """``fused_attention_qblk``'s output and each row's log-sum-exp, fp32
+    (B, H, Lq), as its autograd forward saves them for the bf16 backward:
+    on a card one #4 launch with the lse store on (counted in
+    ``QBLK_LAUNCHES``), on the CPU the plain versions. No gradient."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return (fused_attention_qblk_reference(q, k, v, bias, scale),
+                attention_lse_reference(q, k, bias, scale))
+    return _fused_attention_qblk_cuda(q, k, v, bias, scale, want_lse=True)
+
+
+def attention_qkv_lse(qkv: torch.Tensor, heads: int, bias: Optional[torch.Tensor] = None,
+                      scale: Optional[float] = None):
+    """``attention_qkv``'s output (single-block route) and each row's
+    log-sum-exp, fp32 (B, heads, N), as its autograd forward saves them for
+    the bf16 backward: on a card one #1 launch with the lse store on
+    (counted in ``LAUNCHES``), on the CPU the plain versions. No gradient."""
+    _check(qkv, heads, bias)
+    b, n, c3 = qkv.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(c3 // 3 // heads)
+    if qkv.device.type == "cpu":
+        q, k, _ = qkv.view(b, n, 3, heads, c3 // 3 // heads).unbind(2)
+        return (attention_qkv_reference(qkv, heads, bias, scale),
+                attention_lse_reference(q, k, bias, scale))
+    return _attention_qkv_cuda(qkv, heads, bias, scale, want_lse=True)
+
+
+def _check_map_bias(bias: torch.Tensor) -> torch.Tensor:
+    if bias.dim() == 4 and tuple(bias.shape[:2]) == (1, 1):
+        bias = bias[0, 0]
+    if bias.dim() != 2 or bias.shape[0] != bias.shape[1] or bias.shape[0] == 0:
+        raise ValueError(f"the blank-tile map takes a shared (1, 1, L, L) or (L, L) bias; got "
+                         f"{tuple(bias.shape)}")
+    return bias
+
+
+def blank_tile_map_reference(bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of the bf16 backward's blank-tile map: for a shared
+    (1, 1, L, L) or (L, L) bias, a (T, T) uint8 with T = ceil(L / 64), 1 where
+    every entry of the 64 x 64 tile (q rows, keys) within (L, L) is -inf:
+    the tiles whose every p is 0, which the kernel never loads."""
+    bias = _check_map_bias(bias)
+    n = bias.shape[0]
+    t = -(-n // _TILE)
+    pad = torch.full((t * _TILE, t * _TILE), float("-inf"), device=bias.device)
+    pad[:n, :n] = bias.float()
+    tiles = pad.view(t, _TILE, t, _TILE)
+    return (tiles == float("-inf")).all(dim=3).all(dim=1).to(torch.uint8)
+
+
+@functools.cache
+def _map_kernel():
+    fn = _build.load_library().attention_blank_tile_map
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def blank_tile_map(bias: torch.Tensor) -> torch.Tensor:
+    """The blank-tile map as ``blank_tile_map_reference`` computes it. On a
+    CUDA tensor it runs the backward's pre-pass alone, which builds the map
+    inside every bf16 call of #2 and #5 with a bias; this entry serves the
+    checks and counts no launch."""
+    bias = _check_map_bias(bias)
+    if bias.device.type == "cpu":
+        return blank_tile_map_reference(bias)
+    if bias.device.type != "cuda":
+        raise ValueError(f"blank_tile_map runs on cpu or cuda, not {bias.device}")
+    bias = bias.to(torch.float32)
+    if bias.stride(-1) != 1:
+        bias = bias.contiguous()
+    n = bias.shape[0]
+    t = -(-n // _TILE)
+    out = torch.empty((2, t, t), dtype=torch.uint8, device=bias.device)  # blank, all-zero
+    with torch.cuda.device(bias.device):
+        err = _map_kernel()(bias.data_ptr(), out.data_ptr(), n, bias.stride(0) if n > 1 else 0,
+                            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"blank_tile_map kernel launch failed: CUDA error {err}")
+    return out[0]
+
+
+def _work_floats(b: int, n: int, h: int) -> int:
+    """The bf16 backward's fp32 workspace: lse and delta, (B, H, Lpad) each,
+    Lpad = L up to a whole tile (``sm90::work_floats``)."""
+    return b * h * (-(-n // _TILE) * _TILE) * 2
+
+
+def _copy_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if its base and its batch, row and head strides sit on
+    16-byte boundaries (the bf16 backward's 16-byte loads), else a
+    contiguous copy."""
+    ok = t.data_ptr() % 16 == 0 and all(
+        t.stride(d) % 8 == 0 or t.shape[d] == 1 for d in range(3))
+    return t if ok else t.contiguous()
+
+
+@functools.cache
+def _qblk_bwd_kernel():
+    fn = _build.load_library().attention_qblk_bwd
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [i64p] * 5 + [
+        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _fused_attention_qblk_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, lse=None):
     global QBLK_BWD_LAUNCHES
-    out = _bnhd_bwd_cuda("attention_qblk_bwd", "fused_attention_qblk backward", q, k, v,
-                         bias, g, scale, need_dbias)
+    what = "fused_attention_qblk backward"
+    q, k, v, bias, g, bias_dtype = _bwd_operands(q, k, v, bias, g, what)
+    b, l, h, hd = q.shape
+    dbias = None
+    if bias is not None and need_dbias:
+        dbias = torch.zeros((l, l), dtype=torch.float32, device=q.device)
+    # bf16 without dbias: the wgmma kernel on the forward's o and lse
+    sm90 = q.dtype == torch.bfloat16 and dbias is None
+    blank = None
+    if sm90:
+        q, k, v, g = (_copy_ready(t) for t in (q, k, v, g))
+        if o is None or lse is None:  # a direct call: the forward gives them (counted as #4)
+            o, lse = _fused_attention_qblk_cuda(q, k, v, bias, scale, want_lse=True)
+        if o.shape != q.shape or o.dtype != q.dtype or tuple(lse.shape) != (b, h, l) \
+                or lse.dtype != torch.float32:
+            raise ValueError(f"{what}: o must be {tuple(q.shape)} {q.dtype} and lse ({b}, {h}, "
+                             f"{l}) fp32; got {tuple(o.shape)} {o.dtype}, {tuple(lse.shape)} "
+                             f"{lse.dtype}")
+        o = _copy_ready(o) if o.stride(-1) == 1 else o.contiguous()
+        lse = lse.contiguous()
+        work = torch.empty(_work_floats(b, l, h), dtype=torch.float32, device=q.device)
+        if bias is not None:
+            blank = torch.empty(2 * (-(-l // _TILE)) ** 2, dtype=torch.uint8, device=q.device)
+    else:
+        work = torch.empty((3, b, h, l), dtype=torch.float32, device=q.device)  # m, l, delta
+    dq, dk, dv = (torch.empty((b, l, h, hd), dtype=q.dtype, device=q.device) for _ in range(3))
+    row_stride = bias.stride(2) if bias is not None and l > 1 else 0
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _qblk_bwd_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(o if sm90 else None),
+            _ptr(lse if sm90 else None), _ptr(bias), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _ptr(dbias), work.data_ptr(), _ptr(blank), b, l, h, _strides(q, (0, 1, 2)),
+            _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)), _strides(g, (0, 1, 2)),
+            _strides(o, (0, 1, 2)) if sm90 else None, row_stride, float(scale),
+            int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
     QBLK_BWD_LAUNCHES += 1
-    return out
+    if dbias is not None:
+        dbias = dbias[None, None].to(bias_dtype)
+    return dq, dk, dv, dbias
 
 
 def fused_attention_qblk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              bias: Optional[torch.Tensor], g: torch.Tensor,
-                             scale: Optional[float] = None, need_dbias: bool = True):
+                             scale: Optional[float] = None, need_dbias: bool = True,
+                             o: Optional[torch.Tensor] = None,
+                             lse: Optional[torch.Tensor] = None):
     """Gradients of ``fused_attention_qblk`` (Lq == Lk, no bias or a shared
     (1, 1, L, L) bias): (dq, dk, dv, dbias | None), as
     ``fused_attention_qblk_bwd_reference`` computes them. q, k, v and g are
-    (B, L, H, hd) with any strides whose last is 1."""
-    return _dispatch_bwd("fused_attention_qblk_bwd", _fused_attention_qblk_bwd_cuda, q, k, v,
-                         bias, g, scale, need_dbias)
+    (B, L, H, hd) with any strides whose last is 1. o and lse are the
+    forward's output and its (B, H, L) fp32 log-sum-exp, which the bf16
+    kernel reads (autograd passes them); a bf16 call on the card without
+    them first runs the forward (#4) to get them. A call that asks for
+    dbias, fp32 or bf16, runs the two-kernel design, which recomputes the
+    row statistics and needs neither. The plain version ignores them."""
+    if q.device.type == "cpu":
+        return fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention_qblk_bwd runs on cpu or cuda, not {q.device}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _fused_attention_qblk_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o, lse)
 
 
 class _FusedAttentionQblk(torch.autograd.Function):
@@ -497,17 +690,25 @@ class _FusedAttentionQblk(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
-        ctx.save_for_backward(q, k, v, bias)
         ctx.scale = scale
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, bias, None, None)
             return fused_attention_qblk_reference(q, k, v, bias, scale)
+        if q.dtype == torch.bfloat16 and any(ctx.needs_input_grad[:3]) \
+                and q.shape[1] == k.shape[1]:
+            # the bf16 backward reads the output and each row's lse
+            out, lse = _fused_attention_qblk_cuda(q, k, v, bias, scale, want_lse=True)
+            ctx.save_for_backward(q, k, v, bias, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v, bias, None, None)
         return _fused_attention_qblk_cuda(q, k, v, bias, scale)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
+        q, k, v, bias, o, lse = ctx.saved_tensors
         need_dbias = bias is not None and ctx.needs_input_grad[3]
-        dq, dk, dv, dbias = fused_attention_qblk_bwd(q, k, v, bias, g, ctx.scale, need_dbias)
+        dq, dk, dv, dbias = fused_attention_qblk_bwd(q, k, v, bias, g, ctx.scale, need_dbias,
+                                                     o, lse)
         return dq, dk, dv, dbias, None
 
 
@@ -575,13 +776,13 @@ def attention_qkv_bwd_reference(qkv: torch.Tensor, heads: int, bias: Optional[to
 @functools.cache
 def _bwd_kernel():
     fn = _build.load_library().attention_qkv_bwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
         ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _attention_qkv_bwd_cuda(qkv, heads, bias, g, scale, need_dbias):
+def _attention_qkv_bwd_cuda(qkv, heads, bias, g, scale, need_dbias, o=None, lse=None):
     global BWD_LAUNCHES
     _check(qkv, heads, bias)
     b, n, c3 = qkv.shape
@@ -608,13 +809,29 @@ def _attention_qkv_bwd_cuda(qkv, heads, bias, g, scale, need_dbias):
         dbias = torch.zeros((n, n), dtype=torch.float32, device=qkv.device)
     if dqkv.numel() == 0:
         return dqkv.zero_(), None if dbias is None else dbias[None, None].to(bias_dtype)
-    stats = torch.empty((3, b, heads, n), dtype=torch.float32, device=qkv.device)  # m, l, delta
+    # bf16 without dbias: the wgmma kernel on the forward's o and lse
+    sm90 = qkv.dtype == torch.bfloat16 and dbias is None
+    blank = None
+    if sm90:
+        if o is None or lse is None:  # a direct call: the forward gives them (counted as #1)
+            o, lse = _attention_qkv_cuda(qkv, heads, bias, scale, want_lse=True)
+        if tuple(o.shape) != (b, n, c) or o.dtype != qkv.dtype \
+                or tuple(lse.shape) != (b, heads, n) or lse.dtype != torch.float32:
+            raise ValueError(f"attention_qkv backward: o must be {(b, n, c)} {qkv.dtype} and "
+                             f"lse {(b, heads, n)} fp32; got {tuple(o.shape)} {o.dtype}, "
+                             f"{tuple(lse.shape)} {lse.dtype}")
+        o, lse = o.contiguous(), lse.contiguous()
+        work = torch.empty(_work_floats(b, n, heads), dtype=torch.float32, device=qkv.device)
+        if bias is not None:
+            blank = torch.empty(2 * (-(-n // _TILE)) ** 2, dtype=torch.uint8, device=qkv.device)
+    else:
+        work = torch.empty((3, b, heads, n), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_kernel()(
-            qkv.data_ptr(), g.data_ptr(), None if bias is None else bias.data_ptr(),
-            dqkv.data_ptr(), None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
-            b, n, c, heads, n, float(scale), int(qkv.dtype == torch.bfloat16), stream)
+            qkv.data_ptr(), g.data_ptr(), _ptr(o if sm90 else None), _ptr(lse if sm90 else None),
+            _ptr(bias), dqkv.data_ptr(), _ptr(dbias), work.data_ptr(), _ptr(blank), b, n, c, heads,
+            n, float(scale), int(qkv.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"attention_qkv backward kernel launch failed: CUDA error {err}")
     BWD_LAUNCHES += 1
@@ -624,17 +841,23 @@ def _attention_qkv_bwd_cuda(qkv, heads, bias, g, scale, need_dbias):
 
 
 def attention_qkv_bwd(qkv: torch.Tensor, heads: int, bias: Optional[torch.Tensor],
-                      g: torch.Tensor, scale: Optional[float] = None, need_dbias: bool = True):
+                      g: torch.Tensor, scale: Optional[float] = None, need_dbias: bool = True,
+                      o: Optional[torch.Tensor] = None, lse: Optional[torch.Tensor] = None):
     """Gradients of ``attention_qkv``: (dqkv, dbias | None), as
     ``attention_qkv_bwd_reference`` computes them. qkv (B, N, 3C) contiguous,
-    g (B, N, C), bias None or a shared (1, 1, N, N)."""
+    g (B, N, C), bias None or a shared (1, 1, N, N). o and lse are the
+    forward's (B, N, C) output and its (B, heads, N) fp32 log-sum-exp, which
+    the bf16 kernel reads (autograd passes them); a bf16 call on the card
+    without them first runs the forward (#1) to get them. A call that asks
+    for dbias, fp32 or bf16, runs the two-kernel design, which recomputes
+    the row statistics and needs neither. The plain version ignores them."""
     if scale is None:
         scale = 1.0 / math.sqrt(qkv.shape[-1] // 3 // heads)
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_reference(qkv, heads, bias, g, scale, need_dbias)
     if qkv.device.type != "cuda":
         raise ValueError(f"attention_qkv_bwd runs on cpu or cuda, not {qkv.device}")
-    return _attention_qkv_bwd_cuda(qkv, heads, bias, g, scale, need_dbias)
+    return _attention_qkv_bwd_cuda(qkv, heads, bias, g, scale, need_dbias, o, lse)
 
 
 class _AttentionQKV(torch.autograd.Function):
@@ -643,17 +866,23 @@ class _AttentionQKV(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, heads, bias, scale):
-        ctx.save_for_backward(qkv, bias)
         ctx.heads, ctx.scale = heads, scale
         if qkv.device.type == "cpu":
+            ctx.save_for_backward(qkv, bias, None, None)
             return attention_qkv_reference(qkv, heads, bias, scale)
+        if qkv.dtype == torch.bfloat16 and ctx.needs_input_grad[0]:
+            # the bf16 backward reads the output and each row's lse
+            out, lse = _attention_qkv_cuda(qkv, heads, bias, scale, want_lse=True)
+            ctx.save_for_backward(qkv, bias, out, lse)
+            return out
+        ctx.save_for_backward(qkv, bias, None, None)
         return _attention_qkv_cuda(qkv, heads, bias, scale)
 
     @staticmethod
     def backward(ctx, g):
-        qkv, bias = ctx.saved_tensors
+        qkv, bias, o, lse = ctx.saved_tensors
         need_dbias = bias is not None and ctx.needs_input_grad[2]
-        dqkv, dbias = attention_qkv_bwd(qkv, ctx.heads, bias, g, ctx.scale, need_dbias)
+        dqkv, dbias = attention_qkv_bwd(qkv, ctx.heads, bias, g, ctx.scale, need_dbias, o, lse)
         return dqkv, None, dbias, None
 
 
