@@ -1,6 +1,13 @@
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py      # from the repository root; needs one CUDA card
+    python3 chip_smoke.py times [KERNEL ...]
+
+With ``times``, only phases 1, 2 and 6 run, for the kernel records named
+(``TIMES``' keys; all by default), and the last line is their JSON. To
+compare two commits in one chip call, unpack each into a gitignored
+directory, copy this script into each, and run it there in the order
+parent, change, change, parent: each imports the package beside it.
 
 Phases, each printing what it found (any failure ends the run with a non-zero
 exit; no failure is caught):
@@ -14,16 +21,19 @@ exit; no failure is caught):
      without dbias, ragged, in fp32 and through autograd (fp32, and bf16 at
      the encoder's shape, where the forward saves its output and lse for the
      backward), BNHD attention (#3)
-     at every VAR sampling stage, the teacher-forcing shape and edge cases, its
-     backward (#6) at the training shape with and without dbias, without a
-     bias, at L = 680, ragged, on strided views and in fp32, the q-blocked
+     at every VAR sampling stage, the 512 px last one, the teacher-forcing
+     shape and edge cases, its backward (#6) at the training shape with and
+     without dbias, without a bias, at L = 680, ragged, on strided views, in
+     fp32 and through bf16 autograd (one #3 launch saving o and lse, one #6
+     launch), the q-blocked
      attention (#4) and its backward (#5) at the 512 px shapes (VAR's L = 2240
      under the block-causal bias, the tokenizer's packed views at N = 2050 and
      3073), ragged past the JAX package's caps, in fp32 and, for #5, with
      dbias and through autograd (fp32, and bf16 at VAR's training shape), the
-     two pieces of the bf16 backward of #2 and #5 (the blank-tile map, exact,
-     on VAR's 512 px bias and the ragged encoder masks; the forwards' lse,
-     whose store leaves the output unchanged), the codebook search (#9) at every scale of
+     two pieces of the bf16 backward of #2, #5 and #6 (the blank-tile map,
+     exact, on VAR's 512 px bias and the ragged encoder masks; the forwards'
+     lse, #1, #3 and #4, whose store leaves the output unchanged), the
+     codebook search (#9) at every scale of
      both multi-scale encodes, and the fused sublayers: attention (#7) at the
      ViT-B decoder's and encoder's and at ViT-S width, the MLP (#8) at ViT-B
      and ViT-S width, the MLP probe (#10) at scripts/perf.py's shape, each
@@ -55,8 +65,11 @@ exit; no failure is caught):
      the teacher-forcing ``VAR.forward``, ``VARTrainer.train_step`` (B=16 at
      512 px) and ``eval_step``, and the 512 px round trip; and the flagship
      GAN ``TokenizerTrainer.train_step``;
-  6. times: each kernel (#2 and #5 as training calls them, with the
-     forward's saved output and lse; #1 and #4 also with the lse store on),
+  6. times: each kernel (#2, #5 and #6 as training calls them, with the
+     forward's saved output and lse, #6 through autograd; #1, #3 and #4
+     also with the lse store on, #3 as the train step's autograd runs its
+     forward; #3 at the last 256 px sampling stage, teacher forcing and the
+     512 px last sampling stage),
      its plain version (order plain, kernel, kernel,
      plain) and one PyTorch library call computing the same function (for
      #2, #5 and #6, the backward of ``scaled_dot_product_attention``; for #7
@@ -448,7 +461,8 @@ def _bnhd(gen, b, lq, lk, h, dtype, dev, l2=True):
 
 def kernels_bnhd(dev) -> float:
     """#3 against its plain version; returns the largest bf16 error at the
-    main paths' shapes (the sampling stages and teacher forcing)."""
+    main paths' shapes (the 256 px sampling stages, teacher forcing and the
+    512 px last sampling stage, whose plain version runs in batch slices)."""
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     tf_bias = build_attn_bias(PNS).to(dev)
@@ -459,6 +473,9 @@ def kernels_bnhd(dev) -> float:
         cum += pn * pn
         cases.append((f"sample stage {si}", *_bnhd(gen, 2 * BATCH, pn * pn, cum, VAR_HEADS,
                                                     bf16, dev), None, 1.0, True))
+    l512 = sum(p * p for p in PNS512)
+    cases.append(("512 px last sample stage", *_bnhd(gen, 2 * BATCH, PNS512[-1] ** 2, l512,
+                                                     VAR_HEADS, bf16, dev), None, 1.0, True))
     cases.append(("teacher forcing", *_bnhd(gen, BATCH, ltot, ltot, VAR_HEADS, bf16, dev),
                   tf_bias, 1.0, True))
     cases.append(("teacher forcing fp32", *_bnhd(gen, 2, ltot, ltot, VAR_HEADS, f32, dev),
@@ -468,6 +485,10 @@ def kernels_bnhd(dev) -> float:
     cases.append(("ragged", *_bnhd(gen, 3, 37, 77, 4, bf16, dev, l2=False), None, None, False))
     cases.append(("Lq=1", *_bnhd(gen, 5, 1, 2, 4, bf16, dev), None, 1.0, False))
     cases.append(("Lq=1 fp32", *_bnhd(gen, 5, 1, 2, 4, f32, dev), None, 1.0, False))
+    # the stride of a size-1 axis is never read: this view is not copied
+    q1 = torch.randn((2, 4, HD), generator=gen, device=dev).bfloat16()
+    cases.append(("Lq=1, odd row stride", q1.as_strided((2, 1, 4, HD), (4 * HD, 3, HD, 1)),
+                  *_bnhd(gen, 2, 1, 9, 4, bf16, dev)[1:], None, 1.0, False))
     per_bh = torch.randn((2, 4, 37, 45), generator=gen, device=dev)
     per_bh[..., 5:9] = float("-inf")
     for dtype in (bf16, f32):
@@ -482,23 +503,29 @@ def kernels_bnhd(dev) -> float:
     main_err = 0.0
     for name, q, k, v, bias, scale, main in cases:
         got = attn.fused_attention(q, k, v, bias, scale)
-        want = attn.fused_attention_reference(q, k, v, bias, scale)
+        want = _in_chunks(attn.fused_attention_reference, q.shape[0], 16, q, k, v, bias, scale)
         torch.cuda.synchronize()
         err, note = _fwd_check(f"[kernels] #3 {name}", got, want)
-        print(f"[kernels] #3 {name:22s} q {tuple(q.shape)} k {tuple(k.shape)} "
+        print(f"[kernels] #3 {name:24s} q {tuple(q.shape)} k {tuple(k.shape)} "
               f"{str(q.dtype)[6:]:8s} bias={'none' if bias is None else tuple(bias.shape)} "
               f"max_abs_err {err:.3e} {note}")
         if main:
             main_err = max(main_err, err)
+        del got, want
     return main_err
 
 
 def kernels_bnhd_bwd(dev) -> float:
     """#6 against its plain version: for each of dq, dk, dv (and dbias), the
-    max abs error over the max abs of the plain result. dbias sums ds over
-    B*H heads with fp32 atomics in an order that changes from run to run;
-    its terms are the same fp32 values as the plain version's, so it is held
-    to the same bound. Returns the largest error at the training shape."""
+    max abs error over the max abs of the plain result. The bf16 calls
+    without dbias run the wgmma backward on #3's o and lse (a direct call
+    first runs #3 with its lse store); fp32, dbias and L = 1 calls the
+    two-kernel design. dbias sums ds over B*H heads with fp32 atomics in an order that
+    changes from run to run; its terms are the same fp32 values as the
+    plain version's, so it is held to the same bound. Then bf16 autograd at
+    the training shape through ``dot_product_attention``, as the train step
+    runs it: one #3 launch (lse saved) and one #6 launch. Returns the
+    largest error at the training shape."""
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     tf_bias = build_attn_bias(PNS).to(dev)
@@ -543,7 +570,23 @@ def kernels_bnhd_bwd(dev) -> float:
             _check(f"[kernels] #6 {name} {what}", e, tol)
         if main:
             main_err = max(main_err, *errs.values())
-    return main_err
+    q, k, v = _bnhd(gen, BATCH, ltot, ltot, VAR_HEADS, bf16, dev)
+    g = torch.randn(q.shape, generator=gen, device=dev).to(bf16)
+    before = (attn.FUSED_LAUNCHES, attn.FUSED_BWD_LAUNCHES)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(attn.dot_product_attention(*leaves, tf_bias, 1.0), leaves, g)
+    want = attn.fused_attention_bwd_reference(q, k, v, tf_bias, g, 1.0, need_dbias=False)
+    torch.cuda.synchronize()
+    counts = [attn.FUSED_LAUNCHES - before[0], attn.FUSED_BWD_LAUNCHES - before[1]]
+    if counts != [1, 1]:
+        raise AssertionError(f"[kernels] #6 bf16 autograd launched #3, #6 {counts}, want [1, 1]")
+    errs = _bwd_errs("#6", "bf16 autograd", got, want[:3], ("dq", "dk", "dv"))
+    print(f"[kernels] #6 bf16 autograd of dot_product_attention, training shape q "
+          f"{tuple(q.shape)}: one #3 launch (lse saved), one #6 launch, error over max |plain| "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f" (tol {TOL[bf16]:g})")
+    for what, e in errs.items():
+        _check(f"[kernels] #6 bf16 autograd {what}", e, TOL[bf16])
+    return max(main_err, *errs.values())
 
 
 def _packed_views(gen, b, n, h, dtype, dev):
@@ -722,12 +765,15 @@ def kernels_qblk_bwd(dev) -> float:
 
 
 def kernels_bwd_pieces(dev):
-    """The two pieces that the bf16 backward of #2 and #5 adds, against
+    """The two pieces that the bf16 backward of #2, #5 and #6 adds, against
     their plain versions: the blank-tile map (exact) on VAR's 512 px block-
     causal bias and on the ragged encoder masks at L = 2049 and 2305; and
     the forwards' lse (#4 on VAR's 512 px shape and the encoder's packed
-    views, #1 at the GAN encoder's shape and under its mask), error over the
-    plain lse's max abs within TOL."""
+    views, #1 at the GAN encoder's shape and under its mask, #3 at the last
+    256 px sampling stage, teacher forcing, the 512 px last sampling stage
+    (streamed k and v) and a ragged shape with a per-(B, H) bias), error
+    over the plain lse's max abs within TOL, and the output bit-equal with
+    the store on and off."""
     for name, bias in (("VAR 512 block-causal", build_attn_bias(PNS512).to(dev)),
                        ("encoder mask L=2049", encoder_mask(2049, 683, dev, 1)),
                        ("encoder mask L=2305", encoder_mask(2305, 768, dev, 64))):
@@ -742,29 +788,45 @@ def kernels_bwd_pieces(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     tf_bias = build_attn_bias(PNS512).to(dev)
     ltot = tf_bias.shape[-1]
-    cases = []  # (name, q, k, bias, forward with lse, forward without)
+    cases = []  # (name, q, k, bias, scale, forward with lse, forward without)
     for name, (b, n), dtype, bias in (("#4 VAR 512", (4, ltot), bf16, tf_bias),
                                       ("#4 VAR 512 fp32", (2, ltot), f32, tf_bias)):
         q, k, v = _bnhd(gen, b, n, n, VAR_HEADS, dtype, dev)
-        cases.append((name, q, k, bias,
+        cases.append((name, q, k, bias, 1.0,
                       lambda q=q, k=k, v=v, bias=bias: attn.fused_attention_qblk_lse(
                           q, k, v, bias, 1.0),
                       lambda q=q, k=k, v=v, bias=bias: attn.fused_attention_qblk(
                           q, k, v, bias, 1.0)))
     q, k, v = _packed_views(gen, 2, 3073, HEADS, bf16, dev)
-    cases.append(("#4 encoder 512 packed views", q, k, None,
-                  lambda: attn.fused_attention_qblk_lse(q, k, v),
-                  lambda: attn.fused_attention_qblk(q, k, v)))
+    cases.append(("#4 encoder 512 packed views", q, k, None, None,
+                  lambda q=q, k=k, v=v: attn.fused_attention_qblk_lse(q, k, v),
+                  lambda q=q, k=k, v=v: attn.fused_attention_qblk(q, k, v)))
     for name, (b, n), dtype, bias in (("#1 encoder MSVR10P2", (BATCH, 499), bf16, None),
                                       ("#1 encoder fp32", (2, 499), f32, None),
                                       ("#1 masked", (8, 513), bf16, encoder_mask(513, 256, dev))):
         qkv = torch.randn((b, n, 3 * HD * HEADS), generator=gen, device=dev).to(dtype)
-        cases.append((name, *qkv.view(b, n, 3, HEADS, HD).unbind(2)[:2], bias,
+        cases.append((name, *qkv.view(b, n, 3, HEADS, HD).unbind(2)[:2], bias, None,
                       lambda qkv=qkv, bias=bias: attn.attention_qkv_lse(qkv, HEADS, bias),
                       lambda qkv=qkv, bias=bias: attn.attention_qkv(qkv, HEADS, bias)))
-    for name, q, k, bias, with_lse, without in cases:
+    ltot256 = sum(p * p for p in PNS)
+    per_bh = torch.randn((3, 4, 37, 77), generator=gen, device=dev)
+    per_bh[:, :, :9, :64] = float("-inf")  # the first key tile blank for the early rows
+    for name, (b, lq, lk, h), bias, scale in (
+            ("#3 last 256 px sample stage", (2 * BATCH, PNS[-1] ** 2, ltot256, VAR_HEADS), None,
+             1.0),
+            ("#3 teacher forcing", (BATCH, ltot256, ltot256, VAR_HEADS),
+             build_attn_bias(PNS).to(dev), 1.0),
+            ("#3 512 px last sample stage", (8, PNS512[-1] ** 2, ltot, VAR_HEADS), None, 1.0),
+            ("#3 ragged, per-(B,H) bias", (3, 37, 77, 4), per_bh, None)):
+        q, k, v = _bnhd(gen, b, lq, lk, h, bf16, dev, l2=scale is not None)
+        cases.append((name, q, k, bias, scale,
+                      lambda q=q, k=k, v=v, bias=bias, scale=scale: attn.fused_attention_lse(
+                          q, k, v, bias, scale),
+                      lambda q=q, k=k, v=v, bias=bias, scale=scale: attn.fused_attention(
+                          q, k, v, bias, scale)))
+    for name, q, k, bias, scale, with_lse, without in cases:
         out, lse = with_lse()
-        want = attn.attention_lse_reference(q, k, bias, 1.0 if name.startswith("#4 VAR") else None)
+        want = attn.attention_lse_reference(q, k, bias, scale)
         same = torch.equal(out, without())
         torch.cuda.synchronize()
         if lse.shape != want.shape or not bool(torch.isfinite(lse).all()):
@@ -1906,97 +1968,123 @@ def _time_kernel(name: str, kernel, plain, library, nbytes: float, ops: float,
 def _time_lse(name: str, off, on, rec: dict, reps: int = 20):
     """A forward with its lse store off and on, in the order off, on, on,
     off; both means go into the kernel's record (``ms`` stays the off
-    time, from ``_time_kernel``)."""
-    with torch.inference_mode():
-        a1, b1, b2, a2 = (_time_ms(fn, reps) for fn in (off, on, on, off))
+    time, from ``_time_kernel``). Not in inference mode: ``on`` may be the
+    forward as autograd runs it when a gradient is wanted."""
+    a1, b1, b2, a2 = (_time_ms(fn, reps) for fn in (off, on, on, off))
     rec["lse_off_ms"], rec["lse_on_ms"] = (a1 + a2) / 2, (b1 + b2) / 2
     print(f"[times] {name}: lse store off {a1:.4f}/{a2:.4f} ms, on {b1:.4f}/{b2:.4f} ms "
           f"(order off, on, on, off): {(rec['lse_on_ms'] / rec['lse_off_ms'] - 1) * 100:+.2f}%")
 
 
-def phase_times(dev) -> dict:
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    bf16 = torch.bfloat16
-    out = {}
-
-    # 1: the VQ-4096 decoder's shape
+def times_qkv_fwd(dev, gen) -> dict:
+    """#1 at the VQ-4096 decoder's shape, with the lse store off and on."""
     b, n, h = BATCH, 514, HEADS
-    qkv = torch.randn((b, n, 3 * HD * h), generator=gen, device=dev).to(bf16)
+    qkv = torch.randn((b, n, 3 * HD * h), generator=gen, device=dev).to(torch.bfloat16)
     q, k, v = qkv.view(b, n, 3, h, HD).permute(2, 0, 3, 1, 4).unbind(0)  # (B, H, N, hd) views
-    out["attention_qkv_fwd"] = _time_kernel(
+    rec = _time_kernel(
         "#1 attention_qkv", lambda: attn.attention_qkv(qkv, h),
         lambda: attn.attention_qkv_reference(qkv, h),
         lambda: F.scaled_dot_product_attention(q, k, v),
-        (qkv.numel() + b * n * h * HD) * 2, 4 * b * h * n * n * HD, bf16, str(tuple(qkv.shape)),
-        library_call="SDPA")
+        (qkv.numel() + b * n * h * HD) * 2, 4 * b * h * n * n * HD, torch.bfloat16,
+        str(tuple(qkv.shape)), library_call="SDPA")
     _time_lse("#1 attention_qkv", lambda: attn.attention_qkv(qkv, h),
-              lambda: attn.attention_qkv_lse(qkv, h), out["attention_qkv_fwd"])
+              lambda: attn.attention_qkv_lse(qkv, h), rec)
+    return rec
 
-    # 2: the encoder's shape, no bias, as the GAN step's autograd calls it:
-    # with the forward's saved output and lse (prep, main and dq kernels
-    # timed); the library call is the backward only of SDPA on the q, k, v
-    # views of the same qkv
+
+def times_qkv_bwd(dev, gen) -> dict:
+    """#2 at the encoder's shape, no bias, as the GAN step's autograd calls
+    it: with the forward's saved output and lse (prep, main and dq kernels
+    timed); the library call is the backward only of SDPA on the q, k, v
+    views of the same qkv."""
     b, n, h = BATCH, 499, HEADS
-    qkv = torch.randn((b, n, 3 * HD * h), generator=gen, device=dev).to(bf16)
-    g = torch.randn((b, n, HD * h), generator=gen, device=dev).to(bf16)
+    qkv = torch.randn((b, n, 3 * HD * h), generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((b, n, HD * h), generator=gen, device=dev).to(torch.bfloat16)
     o_fwd, lse = attn.attention_qkv_lse(qkv, h)
     lq, lk, lv = (t.detach().requires_grad_()
                   for t in qkv.view(b, n, 3, h, HD).permute(2, 0, 3, 1, 4).unbind(0))
     lib_out = F.scaled_dot_product_attention(lq, lk, lv)
     lib_g = g.view(b, n, h, HD).transpose(1, 2)
-    out["attention_qkv_bwd"] = _time_kernel(
+    return _time_kernel(
         "#2 attention_qkv backward",
         lambda: attn.attention_qkv_bwd(qkv, h, None, g, o=o_fwd, lse=lse),
         lambda: attn.attention_qkv_bwd_reference(qkv, h, None, g),
         lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_g, retain_graph=True),
-        (2 * qkv.numel() + g.numel()) * 2, 5 * 2 * b * h * n * n * HD, bf16,
+        (2 * qkv.numel() + g.numel()) * 2, 5 * 2 * b * h * n * n * HD, torch.bfloat16,
         f"qkv {tuple(qkv.shape)}, g {tuple(g.shape)}", library_call="SDPA backward")
-    del lib_out, lq, lk, lv, o_fwd, lse
 
-    # 3: the last sampling stage (most bytes of the path), then teacher forcing
+
+def times_bnhd_fwd(dev, gen) -> dict:
+    """#3 at the last 256 px sampling stage (most bytes of the path: the
+    kernel's record), teacher forcing (and there the lse store's cost: the
+    forward as the train step's autograd runs it, against the forward
+    alone), the 512 px last sampling stage (bound by operations; the plain
+    version in batch slices of 16); each shape's record also under
+    "shapes"."""
+    bf16 = torch.bfloat16
     ltot = sum(p * p for p in PNS)
-    for name, (b, lq, lk), bias in (
-            ("#3 fused_attention, last sampling stage", (2 * BATCH, PNS[-1] ** 2, ltot), None),
-            ("#3 fused_attention, teacher forcing", (BATCH, ltot, ltot),
-             build_attn_bias(PNS).to(dev))):
+    l512 = sum(p * p for p in PNS512)
+    shapes = {}
+    for name, (b, lq, lk), bias, chunk, reps in (
+            ("last 256 px sampling stage", (2 * BATCH, PNS[-1] ** 2, ltot), None, 2 * BATCH, 20),
+            ("teacher forcing", (BATCH, ltot, ltot), build_attn_bias(PNS).to(dev), BATCH, 20),
+            ("512 px last sampling stage", (2 * BATCH, PNS512[-1] ** 2, l512), None, 16, 5)):
         q, k, v = _bnhd(gen, b, lq, lk, VAR_HEADS, bf16, dev)
         pairs = lq * lk if bias is None else int(torch.isfinite(bias).sum())
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + (
             0 if bias is None else bias.numel() * 4)
-        rec = _time_kernel(
-            name, lambda: attn.fused_attention(q, k, v, bias, 1.0),
-            lambda: attn.fused_attention_reference(q, k, v, bias, 1.0),
+        shapes[name] = rec = _time_kernel(
+            f"#3 fused_attention, {name}", lambda: attn.fused_attention(q, k, v, bias, 1.0),
+            lambda: _in_chunks(attn.fused_attention_reference, b, chunk, q, k, v, bias, 1.0),
             lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=None if bias is None else bias.to(bf16), scale=1.0),
             nbytes, 4 * b * VAR_HEADS * pairs * HD, bf16,
-            f"q {tuple(q.shape)} k {tuple(k.shape)}", library_call="SDPA")
-        out.setdefault("fused_attention_fwd", rec)
+            f"q {tuple(q.shape)} k {tuple(k.shape)}", reps=reps, library_call="SDPA")
+        if bias is not None:
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            _time_lse(f"#3 fused_attention, {name}",
+                      lambda: attn.fused_attention(q, k, v, bias, 1.0),
+                      lambda: attn.fused_attention(qg, kg, vg, bias, 1.0), rec)
+    return {**shapes["last 256 px sampling stage"], "shapes": shapes}
 
-    # 6: the training shape, block-causal bias, no dbias (as the train step)
+
+def times_bnhd_bwd(dev, gen) -> dict:
+    """#6 at the training shape, block-causal bias, no dbias, as the train
+    step calls it: the backward of ``fused_attention`` through autograd
+    (with #3's saved output and lse: prep, main and dq kernels timed), as
+    the library call is SDPA's backward through autograd."""
+    bf16 = torch.bfloat16
     bias = build_attn_bias(PNS).to(dev)
+    ltot = bias.shape[-1]
     q, k, v = _bnhd(gen, BATCH, ltot, ltot, VAR_HEADS, bf16, dev)
     g = torch.randn(q.shape, generator=gen, device=dev).to(bf16)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = attn.fused_attention(qg, kg, vg, bias, 1.0)
     lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias.to(bf16), scale=1.0)
     lib_g = g.transpose(1, 2)
     pairs = int(torch.isfinite(bias).sum())
-    out["fused_attention_bwd"] = _time_kernel(
+    return _time_kernel(
         "#6 fused_attention backward, training shape",
-        lambda: attn.fused_attention_bwd(q, k, v, bias, g, 1.0, need_dbias=False),
+        lambda: torch.autograd.grad(out, (qg, kg, vg), g, retain_graph=True),
         lambda: attn.fused_attention_bwd_reference(q, k, v, bias, g, 1.0, need_dbias=False),
         lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_g, retain_graph=True),
         7 * q.numel() * 2 + bias.numel() * 4, 5 * 2 * BATCH * VAR_HEADS * pairs * HD, bf16,
         f"q, k, v, g {tuple(q.shape)}", library_call="SDPA backward")
 
-    # 4: VAR's 512 px teacher forcing under the block-causal bias (the
-    # kernel's record), then the decoder's and the encoder's packed views
-    # with no bias, whose plain version runs in batch slices of 8 and 4 (its
-    # (B, H, N, N) fp32 scores do not fit the card at once)
+
+def times_qblk_fwd(dev, gen) -> dict:
+    """#4 at VAR's 512 px teacher forcing under the block-causal bias (the
+    kernel's record, and the lse store's cost), then the decoder's and the
+    encoder's packed views with no bias, whose plain version runs in batch
+    slices of 8 and 4 (its (B, H, N, N) fp32 scores do not fit the card at
+    once)."""
+    bf16 = torch.bfloat16
     bias = build_attn_bias(PNS512).to(dev)
     l512, pairs = bias.shape[-1], int(torch.isfinite(bias).sum())
     q, k, v = _bnhd(gen, 16, l512, l512, VAR_HEADS, bf16, dev)
-    out["fused_attention_qblk_fwd"] = _time_kernel(
+    rec = _time_kernel(
         "#4 fused_attention_qblk, VAR teacher forcing 512",
         lambda: attn.fused_attention_qblk(q, k, v, bias, 1.0),
         lambda: attn.fused_attention_qblk_reference(q, k, v, bias, 1.0),
@@ -2007,8 +2095,8 @@ def phase_times(dev) -> dict:
         f"q, k, v {tuple(q.shape)}, bias {tuple(bias.shape)}", library_call="SDPA")
     _time_lse("#4 fused_attention_qblk, VAR teacher forcing 512",
               lambda: attn.fused_attention_qblk(q, k, v, bias, 1.0),
-              lambda: attn.fused_attention_qblk_lse(q, k, v, bias, 1.0),
-              out["fused_attention_qblk_fwd"])
+              lambda: attn.fused_attention_qblk_lse(q, k, v, bias, 1.0), rec)
+    del q, k, v
     for name, n, chunk in (("decoder", 2050, 8), ("encoder", 3073, 4)):
         q, k, v = _packed_views(gen, BATCH, n, HEADS, bf16, dev)
         _time_kernel(
@@ -2020,18 +2108,25 @@ def phase_times(dev) -> dict:
             4 * q.numel() * 2, 4 * BATCH * HEADS * n * n * HD, bf16,
             f"q, k, v {tuple(q.shape)} of qkv ({BATCH}, {n}, {3 * HD * HEADS})", reps=5,
             library_call="SDPA")
+        del q, k, v
+    return rec
 
-    # 5: VAR's 512 px training shape, block-causal bias, no dbias, as the
-    # train step's autograd calls it: with the forward's saved output and lse
-    # (prep, main and dq kernels timed); the plain version in batch slices
-    # of 4
+
+def times_qblk_bwd(dev, gen) -> dict:
+    """#5 at VAR's 512 px training shape, block-causal bias, no dbias, as
+    the train step's autograd calls it: with the forward's saved output and
+    lse (prep, main and dq kernels timed); the plain version in batch
+    slices of 4."""
+    bf16 = torch.bfloat16
+    bias = build_attn_bias(PNS512).to(dev)
+    l512, pairs = bias.shape[-1], int(torch.isfinite(bias).sum())
     q, k, v = _bnhd(gen, 16, l512, l512, VAR_HEADS, bf16, dev)
     g = torch.randn(q.shape, generator=gen, device=dev).to(bf16)
     o_fwd, lse = attn.fused_attention_qblk_lse(q, k, v, bias, 1.0)
     lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias.to(bf16), scale=1.0)
     lib_g = g.transpose(1, 2)
-    out["fused_attention_qblk_bwd"] = _time_kernel(
+    return _time_kernel(
         "#5 fused_attention_qblk backward, VAR training 512 (plain in slices of 4)",
         lambda: attn.fused_attention_qblk_bwd(q, k, v, bias, g, 1.0, need_dbias=False,
                                               o=o_fwd, lse=lse),
@@ -2040,55 +2135,79 @@ def phase_times(dev) -> dict:
         lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_g, retain_graph=True),
         7 * q.numel() * 2 + bias.numel() * 4, 5 * 2 * 16 * VAR_HEADS * pairs * HD, bf16,
         f"q, k, v, g {tuple(q.shape)}", reps=5, library_call="SDPA backward")
-    del lib_out, lq, lk, lv, o_fwd, lse
 
-    # 7 and 8: the VQ-4096 decoder's shape, the residual stream fp32 (every
-    # block's but the first); the library column is the composed path
-    # (cuBLAS GEMMs, #1 and the elementwise passes): no one PyTorch call
-    # computes either sublayer
-    b, n, c, h, hid = BATCH, 514, 768, HEADS, 3072
+
+# #7 and #8 at the VQ-4096 decoder's shape, the residual stream fp32 (every
+# block's but the first); the library column is the composed path (cuBLAS
+# GEMMs, #1 and the elementwise passes): no one PyTorch call computes either
+# sublayer
+SUBLAYER = (BATCH, 514, 768, HEADS, 3072)  # b, n, c, heads, hidden
+
+
+def times_attn_sublayer(dev, gen) -> dict:
+    b, n, c, h, _ = SUBLAYER
     m = b * n
-    ops_a = _sublayer_operands(gen, b, n, c, 3 * c, bf16, dev)
-    out["attn_sublayer_fused"] = _time_kernel(
-        "#7 attn_sublayer_fused, decoder", lambda: block.attn_sublayer_fused(*ops_a, h),
-        lambda: block.attn_sublayer_fused_reference(*ops_a, h),
-        lambda: block.attn_sublayer(*ops_a, h),
+    ops = _sublayer_operands(gen, b, n, c, 3 * c, torch.bfloat16, dev)
+    return _time_kernel(
+        "#7 attn_sublayer_fused, decoder", lambda: block.attn_sublayer_fused(*ops, h),
+        lambda: block.attn_sublayer_fused_reference(*ops, h),
+        lambda: block.attn_sublayer(*ops, h),
         m * c * (2 + 4 + 4) + (3 * c * c + c * c) * 2 + (4 * c) * 2 + c * 4,
-        2 * m * c * 3 * c + 4 * b * h * n * n * HD + 2 * m * c * c, bf16,
+        2 * m * c * 3 * c + 4 * b * h * n * n * HD + 2 * m * c * c, torch.bfloat16,
         f"xn {(b, n, c)}, {h} heads", library_call="composed path: cuBLAS, #1, elementwise")
-    ops_m = _sublayer_operands(gen, b, n, c, hid, bf16, dev)
-    out["mlp_sublayer_fused"] = _time_kernel(
-        "#8 mlp_sublayer_fused, decoder", lambda: block.mlp_sublayer_fused(*ops_m),
-        lambda: block.mlp_sublayer_fused_reference(*ops_m), lambda: block.mlp_sublayer(*ops_m),
-        m * c * (2 + 4 + 4) + 2 * c * hid * 2 + (hid + c) * 2 + c * 4, 4 * m * c * hid, bf16,
-        f"xn {(b, n, c)}, hidden {hid}", library_call="composed path: cuBLAS, elementwise")
-    del ops_a, ops_m
 
-    # 10: scripts/perf.py's probe shape
+
+def times_mlp_sublayer(dev, gen) -> dict:
+    b, n, c, _, hid = SUBLAYER
+    m = b * n
+    ops = _sublayer_operands(gen, b, n, c, hid, torch.bfloat16, dev)
+    return _time_kernel(
+        "#8 mlp_sublayer_fused, decoder", lambda: block.mlp_sublayer_fused(*ops),
+        lambda: block.mlp_sublayer_fused_reference(*ops), lambda: block.mlp_sublayer(*ops),
+        m * c * (2 + 4 + 4) + 2 * c * hid * 2 + (hid + c) * 2 + c * 4, 4 * m * c * hid,
+        torch.bfloat16, f"xn {(b, n, c)}, hidden {hid}",
+        library_call="composed path: cuBLAS, elementwise")
+
+
+def times_fused_mlp(dev, gen) -> dict:
+    """#10 at scripts/perf.py's probe shape."""
     m, d, hid, _ = MLP_PROBE
     x = torch.randn((m, d), generator=gen, device=dev).bfloat16()
     w1 = (torch.randn((hid, d), generator=gen, device=dev) * 0.02).bfloat16()
     w2 = (torch.randn((d, hid), generator=gen, device=dev) * 0.02).bfloat16()
     b1, b2 = torch.zeros(hid, device=dev), torch.zeros(d, device=dev)
-    out["fused_mlp"] = _time_kernel(
+    return _time_kernel(
         "#10 fused_mlp, perf.py's probe", lambda: block.fused_mlp(x, w1, b1, w2, b2),
         lambda: block.fused_mlp_reference(x, w1, b1, w2, b2), None,
-        2 * m * d * 2 + 2 * d * hid * 2 + (hid + d) * 4, 4 * m * d * hid, bf16,
+        2 * m * d * 2 + 2 * d * hid * 2 + (hid + d) * 4, 4 * m * d * hid, torch.bfloat16,
         f"x ({m}, {d}), hidden {hid}", library_call="none")
-    del x
 
-    # 9: the last scale of a B=64 encode
+
+def times_codebook(dev, gen) -> dict:
+    """#9 at the last scale of a B=64 encode."""
     n, vsz, c = BATCH * PNS[-1] ** 2, 4096, 32
     x = _l2n(torch.randn((n, c), generator=gen, device=dev))
     cb = _l2n(torch.randn((vsz, c), generator=gen, device=dev))
-    out["codebook_argmin"] = _time_kernel(
+    return _time_kernel(
         "#9 codebook_argmin", lambda: codebook.codebook_argmin(x, cb, True),
         lambda: codebook.codebook_argmin_reference(x, cb, True),
         lambda: torch.argmax(x @ cb.T, dim=-1),
         (n * c + vsz * c) * 4 + n * 8, 2 * n * vsz * c, torch.float32,
-        f"x ({n}, {c}) codebook ({vsz}, {c})",
-        library_call="x @ e.T, argmax")
-    return out
+        f"x ({n}, {c}) codebook ({vsz}, {c})", library_call="x @ e.T, argmax")
+
+
+TIMES = {"attention_qkv_fwd": times_qkv_fwd, "attention_qkv_bwd": times_qkv_bwd,
+         "fused_attention_fwd": times_bnhd_fwd, "fused_attention_bwd": times_bnhd_bwd,
+         "fused_attention_qblk_fwd": times_qblk_fwd, "fused_attention_qblk_bwd": times_qblk_bwd,
+         "attn_sublayer_fused": times_attn_sublayer, "mlp_sublayer_fused": times_mlp_sublayer,
+         "fused_mlp": times_fused_mlp, "codebook_argmin": times_codebook}
+
+
+def phase_times(dev, names=tuple(TIMES)) -> dict:
+    """Each named kernel's record (``TIMES``), in the order given, on inputs
+    from one generator."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    return {name: TIMES[name](dev, gen) for name in names}
 
 
 KERNELS = {
@@ -2146,9 +2265,11 @@ LAUNCHES_512 = {
 TRAIN_BATCH_512 = 16  # the train step at L = 2240 peaks at 52 GiB of the 80 GB card
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
+    if argv and (argv[0] != "times" or not set(argv[1:]) <= set(TIMES)):
+        raise SystemExit(f"usage: chip_smoke.py [times [{' '.join(TIMES)} ...]]")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     # fp32 on the card means fp32: no TF32 in matmuls or cuDNN
@@ -2162,6 +2283,10 @@ def main() -> int:
     phase_device()
     phase_build()
     lap("build")
+    if argv:  # the times phase alone, for the kernels named (all by default)
+        times = phase_times(dev, argv[1:] or tuple(TIMES))
+        print(json.dumps({"times": times}))
+        return 0
     errs = {"attention_qkv_fwd": kernels_qkv(dev), "attention_qkv_bwd": kernels_qkv_bwd(dev),
             "fused_attention_fwd": kernels_bnhd(dev),
             "fused_attention_bwd": kernels_bnhd_bwd(dev),
@@ -2211,4 +2336,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,8 +1,8 @@
-// Self-attention backward device code of the BNHD backward
-// (attention_bnhd_bwd.cu, kernel #6), and, in fp32 or when dbias is asked
-// for, of the packed-qkv backward (attention_qkv_bwd.cu, kernel #2) and the
-// q-blocked backward (attention_qblk_bwd.cu, kernel #5), whose other bf16
-// calls run attention_bwd_sm90.cuh: the three compute the same per-head
+// Self-attention backward device code, in fp32 or when dbias is asked
+// for, of the packed-qkv backward (attention_qkv_bwd.cu, kernel #2), the
+// q-blocked backward (attention_qblk_bwd.cu, kernel #5) and the BNHD
+// backward (attention_bnhd_bwd.cu, kernel #6), whose other bf16 calls run
+// attention_bwd_sm90.cuh: the three compute the same per-head
 // math (the TPU kernels' _bwd_head_math) and differ only in where q, k, v, g
 // and the three gradients live, which the strides below carry. Each entry
 // instantiates the kernels with its own number (kId), so that a profile

@@ -1,0 +1,386 @@
+// BNHD attention forward for Hopper (sm_90a) in bf16 on wgmma: the device
+// code of kernel #3 (attention_bnhd.cu), which replaces the TPU kernel
+// imagefolder_tpu/ops/pallas/attention.py: fused_attention (kernel bodies
+// _kernel and _kernel_bias).
+//
+// Per (batch, head), q (Lq rows) against k and v (Lk rows), keys >= Lk
+// masked:
+//   s = q k^T * scale + bias (fp32)   m = rowmax(s)   l = rowsum(exp(s - m))
+//   o = sum over keys of bf16(exp(s - m) / l) v, in fp32, cast once
+// p is divided by its row sum BEFORE it is rounded to bf16 for p v, as the
+// Pallas kernel does (#1 and #4 divide o after p v instead): the wrapper's
+// _SINGLE_MAX_ELEMS makes that rounding point part of which numerics a call
+// gets. A streaming kernel knows l only once it has seen every key, so each
+// block makes two passes over the key tiles:
+//   pass 1: S = Q K^T per tile; a running max m and row sum l (online);
+//   pass 2: S again; P = bf16(exp2(S scale log2(e) - lse2)) with lse2 =
+//           m log2(e) + log2(l), which is exp(s - m) / l in fp32 with the
+//           division folded into the exponent, as a register A operand;
+//           O += P V.
+// With kLse the block also stores lse = m + log(l) per row (fp32, B x H x
+// Lq) for the backward (attention_bwd_sm90.cuh, #6); a row whose every score
+// is -inf gets -inf. The output does not depend on kLse.
+//
+// What bounds it: by its shapes, VAR's KV-cached decode at 256 px (q (128,
+// pn^2 <= 121, 16, 64) against k, v (128, <= 286, 16, 64)) and its teacher
+// forcing (64, 286, 16, 64) are bound by memory (the last sampling stage
+// moves 213 MB for 18 GFLOP); the 512 px decode's last stage, q (128, 1024,
+// 16, 64) against k, v (128, 2240, 16, 64), by operations (1.20 TFLOP at
+// 4 hd per (q, k) pair; two passes run 1.5x that on the tensor cores, and
+// two exponentials per pair on the special-function units). On the card
+// neither unit alone bounds it: timing-only variants (PERF.md) show the
+// products and the softmax of a warpgroup adding up rather than
+// overlapping, each product waited for before the step that reads it. So
+// the design spends as few instructions in that chain as it can: one FFMA
+// and one exponential per score in pass 2 and, on full tiles without a
+// bias, in pass 1 (the row max taken on the raw scores); the scale, bias
+// and mask only on tiles that need them.
+//
+// Design: a block of two warpgroups (256 threads) per (b, h, 128 q rows);
+// each warpgroup owns 64 q rows and both read the block's k and v tiles,
+// which halves the shared memory and the copies per q row against one
+// warpgroup per block and puts four warpgroups on an SM (two blocks of
+// 97 KB or less, at most 128 registers a thread). Q is loaded once and held
+// as the register A operand; both products run on wgmma m64n64k16 (bf16 in,
+// fp32 accumulate; K read K-major for S, V read MN-major for P V), each
+// waited for before its result is read; no score reaches device memory.
+// Keys come in 64-row tiles through shared memory in wgmma's 128-byte
+// swizzle, copied by cp.async (all 256 threads) ahead of their use:
+//   - resident (Lk <= 320: every 256 px call): every copy of k and v is
+//     issued up front, k tile by tile so that pass 1 starts on the first
+//     tile while the rest land; pass 2 reads k and v from shared memory, so
+//     k comes from device memory once;
+//   - streamed (longer Lk: the 512 px decode, up to 2240): a ring of four
+//     k/v slots walks the 2 nt items of both passes (pass 1 loads k, pass 2
+//     k and v), three items in flight ahead of the one being computed.
+// Ragged edges: q rows >= Lq load as zeros and are computed, never stored
+// (Lq = 1 included; a warpgroup whose 64 rows all lie past Lq computes
+// nothing and only copies and syncs with the other); keys >= Lk load as
+// zeros and score -inf. A row whose tiles so far are all -inf (the
+// block-causal mask's early rows) keeps m at -inf and exponentiates against
+// 0, so that -inf - -inf never makes a NaN. A bias (1|B, 1|H, Lq, Lk),
+// stride 0 on a broadcast axis, is read in place at its strides, after
+// each score product's wait (a branch while a wgmma owns registers corrupts
+// them: see attention_bwd_sm90.cuh). Every offset is 64-bit. Blank tiles
+// of a bias are computed, not skipped (5 of 25 at VAR's L = 286; the
+// decode has none).
+//
+// The one-pass forward of #1 and #4 (o / l after p v) would be a template
+// flag here: pass 2 alone, with m and l kept online and o rescaled by
+// exp(m_old - m_new) at each tile; the tile ring, the score tile and the
+// store are the same.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "wgmma_tile.cuh"
+
+namespace {
+namespace sm90 {
+
+// Element strides of q, k and v (batch, row, head; the head-dim stride is
+// 1) and of the bias (batch, head, row; column stride 1; 0 on a broadcast
+// axis).
+struct FwdStrides {
+  int64_t qb, ql, qh, kb, kl, kh, vb, vl, vh, bb, bh, bq;
+};
+
+constexpr int kFwdWG = 2;          // warpgroups per block, 64 q rows each, one k/v ring
+constexpr int kFwdThreads = kFwdWG * kThreads;
+constexpr int kFwdSlots = 4;       // streamed: k/v slots of the ring
+constexpr int kResidentTiles = 5;  // resident: up to five key tiles (Lk <= 320)
+constexpr float kLn2 = 0.6931471805599453f;
+
+// dynamic shared memory for the q tiles and `slots` k/v pairs; +1024 to align
+constexpr int fwd_smem_bytes(int slots) {
+  return (kFwdWG + 2 * slots) * kTileBytes + 1024;
+}
+
+// cp.async.wait_group with a count known at run time (at most kResidentTiles)
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 5: cp_async_wait<5>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 1: cp_async_wait<1>(); break;
+    default: cp_async_wait<0>(); break;
+  }
+}
+
+// S = Q K^T over one 64-key tile into x (qf the A fragments, sk the
+// swizzled k tile), issued and waited for. Element i of a thread's
+// accumulator sits at row q0 + row_lo + 8 ((i >> 1) & 1) and column k0 +
+// 8 (i >> 2) + 2 t4 + (i & 1).
+__device__ __forceinline__ void score_tile(float (&x)[32], const uint32_t (&qf)[4][4],
+                                           uint32_t sk) {
+  fence_acc(x);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(x, qf[kk], tile_desc(sk + kk * 32), kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(x);
+}
+
+// x = S * scale + bias in base 2 (times log2 e); on the ragged last tile,
+// -inf past lk. The bias is read after the product's wait, while no wgmma
+// owns registers.
+template <bool kBias>
+__device__ __forceinline__ void scale_tile(float (&x)[32], const float* bp, int64_t bq, int q0,
+                                           int k0, int row_lo, int t4, int lq, int lk,
+                                           float scale2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] *= scale2;
+  if (kBias) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int row = q0 + row_lo + 8 * ((i >> 1) & 1);
+      const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      if (row < lq && col < lk) x[i] = fmaf(bp[row * bq + col], kLog2e, x[i]);
+    }
+  }
+  if (k0 + kTile > lk) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (k0 + 8 * (i >> 2) + 2 * t4 + (i & 1) >= lk) x[i] = -INFINITY;
+  }
+}
+
+// the max of row r's 16 elements of x (r = 0: row_lo, 1: row_lo + 8), as a tree
+__device__ __forceinline__ float row_max(const float (&x)[32], int r) {
+  float t[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t[j] = fmaxf(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
+#pragma unroll
+  for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+    for (int j = 0; j < w; ++j) t[j] = fmaxf(t[j], t[j + w]);
+  return t[0];
+}
+
+// kFwdWG warpgroups per (b, h, 64 kFwdWG q rows), each owning 64 q rows and
+// sharing the block's k/v tiles; see the header comment.
+template <int kId, bool kBias, bool kLse, bool kResident>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+    attn_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const float* __restrict__ bias,
+                         bf16* __restrict__ out, float* __restrict__ lse, int lq, int lk,
+                         int heads, float scale, FwdStrides st) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const int wg = threadIdx.x / kThreads;  // this thread's warpgroup
+  const uint32_t sq = ((raw + 1023) & ~1023u) + wg * kTileBytes;  // its q tile
+  const uint32_t skv = ((raw + 1023) & ~1023u) + kFwdWG * kTileBytes;  // slot s: k, then v
+
+  const int nt = (lk + kTile - 1) / kTile;
+  const int q0 = (blockIdx.x * kFwdWG + wg) * kTile, h = blockIdx.y, b = blockIdx.z;
+  const bool active = q0 < lq;  // a warpgroup past Lq only copies and syncs
+  const int lane = threadIdx.x & 31;
+  const int row_lo = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows q0 + row_lo (+ 8)
+  const int t4 = lane & 3;
+  const bf16* kp = k + b * st.kb + h * st.kh;
+  const bf16* vp = v + b * st.vb + h * st.vh;
+  const float* bp = kBias ? bias + b * st.bb + h * st.bh : nullptr;
+  const float scale2 = scale * kLog2e;
+
+  // item it < nt is pass 1 over key tile it, item nt + j pass 2 over tile j
+  auto slot = [&](int it) -> uint32_t {
+    const int s = kResident ? (it < nt ? it : it - nt) : it % kFwdSlots;
+    return skv + 2 * s * kTileBytes;
+  };
+  auto load_k = [&](uint32_t dst, int j) {
+    load_tile_async<kFwdThreads>(dst, kp, j * kTile, lk, st.kl, threadIdx.x);
+  };
+  auto load_v = [&](uint32_t dst, int j) {
+    load_tile_async<kFwdThreads>(dst + kTileBytes, vp, j * kTile, lk, st.vl, threadIdx.x);
+  };
+  auto load_item = [&](int it) {  // streamed: k (pass 1), or k and v (pass 2)
+    load_k(slot(it), it < nt ? it : it - nt);
+    if (it >= nt) load_v(slot(it), it - nt);
+  };
+  load_tile_async(sq, q + b * st.qb + h * st.qh, q0, lq, st.ql, threadIdx.x % kThreads);
+  if (kResident) {
+    for (int j = 0; j < nt; ++j) {  // group j: k tile j (group 0 also q)
+      load_k(slot(j), j);
+      cp_async_commit();
+    }
+    for (int j = 0; j < nt; ++j) load_v(slot(j), j);  // group nt: every v tile
+    cp_async_commit();
+  } else {
+#pragma unroll
+    for (int i = 0; i < kFwdSlots - 1; ++i) {
+      if (i < 2 * nt) load_item(i);
+      cp_async_commit();
+    }
+  }
+  // wait for item it's tiles; streamed, then start item it + kFwdSlots - 1
+  // into the slot that item it - 1 has left (every thread is past it)
+  auto begin_item = [&](int it) {
+    if (kResident) {
+      if (it > nt) return;  // pass 2 past its first tile: all resident
+      if (it < nt)
+        cp_async_wait_n(nt - it);
+      else
+        cp_async_wait<0>();
+    } else {
+      cp_async_wait<kFwdSlots - 2>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (!kResident) {
+      const int nx = it + kFwdSlots - 1;
+      if (nx < 2 * nt) load_item(nx);
+      cp_async_commit();
+    }
+  };
+
+  // pass 1: m and this thread's share of l, online, in base 2
+  uint32_t qf[4][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int it = 0; it < nt; ++it) {
+    begin_item(it);
+    if (!active) continue;
+    if (it == 0) tile_to_a(qf, sq);
+    float x[32];
+    score_tile(x, qf, slot(it));
+    // a full tile without a bias at a positive scale keeps the raw scores:
+    // max(s) * scale is the max of s * scale, and one FFMA per score gives
+    // the exponent; otherwise x is the scaled, biased, masked score
+    const bool raw = !kBias && scale2 > 0.f && (it + 1) * kTile <= lk;
+    if (!raw) scale_tile<kBias>(x, bp, st.bq, q0, it * kTile, row_lo, t4, lq, lk, scale2);
+    const float sx = raw ? scale2 : 1.f;  // x * sx is the score in base 2
+    float mu[2], lt[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = row_max(x, r) * sx;
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      mu[r] = m_new == -INFINITY ? 0.f : m_new;
+      l[r] *= fast_exp2(m[r] - mu[r]);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      lt[(i >> 1) & 1][(i >> 2) & 1] += fast_exp2(fmaf(x[i], sx, -mu[(i >> 1) & 1]));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] += lt[r][0] + lt[r][1];
+  }
+  // lse2 = m + log2(l) per row, in base 2: p = exp2(x - lse2) is exp(s - m) / l
+  float lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    lse2[r] = (m[r] == -INFINITY ? 0.f : m[r]) + log2f(l[r]);
+  }
+  if (kLse && active && t4 == 0) {  // lse = m + log(l), natural base
+    float* row_lse = lse + (static_cast<int64_t>(b) * heads + h) * lq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + row_lo + 8 * r;
+      if (row < lq) row_lse[row] = lse2[r] * kLn2;
+    }
+  }
+
+  // pass 2: O += bf16(exp(S - m) / l) V, p normalised before its rounding
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int it = nt; it < 2 * nt; ++it) {
+    begin_item(it);
+    if (!active) continue;
+    const uint32_t sk = slot(it);
+    const int k0 = (it - nt) * kTile;
+    float x[32];
+    score_tile(x, qf, sk);
+    if (!kBias && k0 + kTile <= lk) {  // a full tile without a bias: one FFMA per score
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] = fast_exp2(fmaf(x[i], scale2, -lse2[(i >> 1) & 1]));
+    } else {
+      scale_tile<kBias>(x, bp, st.bq, q0, k0, row_lo, t4, lq, lk, scale2);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x[i] = fast_exp2(x[i] - lse2[(i >> 1) & 1]);
+    }
+    uint32_t pf[4][4];
+    acc_to_a(pf, x);
+    fence_frag(pf);
+    fence_acc(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // O += P V over the keys
+      wgmma_rs<1>(o, pf[kk], tile_desc(sk + kTileBytes + kk * 2048), 1);
+    wgmma_commit();
+    fence_frag(pf);
+    wgmma_wait<0>();
+    fence_acc(o);
+    fence_frag(pf);
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+
+  const int64_t ldo = static_cast<int64_t>(heads) * kHd;
+  bf16* dst = out + (static_cast<int64_t>(b) * lq * heads + h) * kHd + 2 * t4;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int row = q0 + row_lo + 8 * ((i >> 1) & 1);
+    if (row < lq)
+      *reinterpret_cast<__nv_bfloat162*>(dst + row * ldo + 8 * (i >> 2)) =
+          __floats2bfloat162_rn(o[i], o[i + 1]);
+  }
+}
+
+template <int kId, bool kBias, bool kLse, bool kResident>
+void launch_fwd_sm90(const bf16* q, const bf16* k, const bf16* v, const float* bias, bf16* out,
+                     float* lse, int batch, int lq, int lk, int heads, const FwdStrides& st,
+                     float scale, cudaStream_t stm) {
+  const int nt = (lk + kTile - 1) / kTile;
+  const int smem = fwd_smem_bytes(kResident ? nt : kFwdSlots);
+  cudaFuncSetAttribute(attn_fwd_sm90_kernel<kId, kBias, kLse, kResident>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const dim3 grid((lq + kFwdWG * kTile - 1) / (kFwdWG * kTile), heads, batch);
+  attn_fwd_sm90_kernel<kId, kBias, kLse, kResident><<<grid, kFwdThreads, smem, stm>>>(
+      q, k, v, bias, out, lse, lq, lk, heads, scale, st);
+}
+
+// The forward on `stm` for bf16 q (B, Lq, H, 64) and k, v (B, Lk, H, 64) at
+// the strides st.q*, st.k*, st.v*; bias null or fp32 at the strides st.bb,
+// st.bh, st.bq (column stride 1); out contiguous (B, Lq, H, 64) bf16; lse
+// null, or an fp32 (B, H, Lq) that receives each row's m + log(l). Every base
+// pointer of q, k and v, and every stride of an axis longer than 1, must be
+// on a 16-byte boundary (the stride of an axis of size 1 is never read). Returns
+// cudaGetLastError() as an int (0 = launched). kId is the kernel's number:
+// it only names the instantiations, so that a profile tells entries apart.
+template <int kId>
+int launch_attention_fwd_sm90(const bf16* q, const bf16* k, const bf16* v, const float* bias,
+                              bf16* out, float* lse, int batch, int lq, int lk, int heads,
+                              const FwdStrides& st, float scale, cudaStream_t stm) {
+  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0) return cudaErrorInvalidValue;
+  const int64_t al[9] = {batch > 1 ? st.qb : 0, lq > 1 ? st.ql : 0, heads > 1 ? st.qh : 0,
+                         batch > 1 ? st.kb : 0, lk > 1 ? st.kl : 0, heads > 1 ? st.kh : 0,
+                         batch > 1 ? st.vb : 0, lk > 1 ? st.vl : 0, heads > 1 ? st.vh : 0};
+  bool ok = reinterpret_cast<uintptr_t>(q) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  for (int i = 0; i < 9; ++i) ok = ok && al[i] % 8 == 0;
+  if (!ok) return cudaErrorMisalignedAddress;
+  const bool resident = (lk + kTile - 1) / kTile <= kResidentTiles;
+#define FWD_SM90(kBias, kLse)                                                                 \
+  (resident ? launch_fwd_sm90<kId, kBias, kLse, true>(q, k, v, bias, out, lse, batch, lq, lk, \
+                                                       heads, st, scale, stm)                 \
+            : launch_fwd_sm90<kId, kBias, kLse, false>(q, k, v, bias, out, lse, batch, lq, lk, \
+                                                        heads, st, scale, stm))
+  if (bias && lse) FWD_SM90(true, true);
+  else if (bias) FWD_SM90(true, false);
+  else if (lse) FWD_SM90(false, true);
+  else FWD_SM90(false, false);
+#undef FWD_SM90
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sm90
+}  // namespace

@@ -10,11 +10,12 @@
   it takes the q-blocked kernels on the (B, N, 3, H, hd) views instead, as
   the JAX package does;
 - ``fused_attention``: attention on (B, L, H, hd) views with Lq <= Lk and an
-  optional bias, as VAR calls it (TPU kernel ``fused_attention``), kernel
-  ``csrc/attention_bnhd.cu``, launches counted in ``FUSED_LAUNCHES``. It is
-  differentiable: its backward for Lq == Lk with no bias or a shared bias
-  (TPU kernel ``_fused_attention_bwd_impl``) is ``csrc/attention_bnhd_bwd.cu``,
-  launches counted in ``FUSED_BWD_LAUNCHES``;
+  optional bias, as VAR calls it (TPU kernel ``fused_attention``: p divided
+  by the row sum before p v), kernel ``csrc/attention_bnhd.cu``, launches
+  counted in ``FUSED_LAUNCHES``. It is differentiable: its backward for
+  Lq == Lk with no bias or a shared bias (TPU kernel
+  ``_fused_attention_bwd_impl``) is ``csrc/attention_bnhd_bwd.cu``, launches
+  counted in ``FUSED_BWD_LAUNCHES``;
 - ``fused_attention_qblk``: the q-blocked BNHD attention that the JAX
   package runs past the single-block budget (TPU kernel
   ``_fused_attention_qblk_fwd``: o divided by the row sum after p v, a
@@ -27,14 +28,17 @@
   ``fused_attention`` and ``fused_attention_qblk`` as the JAX package does.
 
 The two forwards that divide after p v (#1, #4) share their device code
-(``csrc/attention_fwd_tile.cuh``). In bf16 the backwards of those two (#2,
-#5) share FlashAttention-2's algorithm on wgmma (``csrc/attention_bwd_sm90.cuh``):
-it takes the forward's output o and its per-row log-sum-exp lse, which the
-autograd forwards save when a gradient is wanted (``attention_lse_reference``
-is the plain version of lse), skips the 64 x 64 tiles that a bias blanks
+(``csrc/attention_fwd_tile.cuh``); the BNHD forward #3 runs in bf16 on wgmma
+(``csrc/attention_fwd_sm90.cuh``: two passes over the key tiles, k and v
+resident in shared memory up to Lk = 320), in fp32 on an FMA kernel. In
+bf16 the three backwards (#2, #5, #6) share FlashAttention-2's algorithm on
+wgmma (``csrc/attention_bwd_sm90.cuh``): it takes the forward's output o
+and its per-row log-sum-exp lse, which the autograd forwards save when a
+gradient is wanted (the forwards' lse store; ``attention_lse_reference`` is
+the plain version of lse), skips the 64 x 64 tiles that a bias blanks
 (``blank_tile_map``, plain version ``blank_tile_map_reference``); dk and dv
 come from a kernel per 64 keys, dq from one per 64 q rows. fp32 backwards,
-calls that ask for dbias, and #6 keep ``csrc/attention_bwd_tile.cuh``.
+calls that ask for dbias, and #6 at L = 1 keep ``csrc/attention_bwd_tile.cuh``.
 Each dispatches on the tensor's device only: a CPU tensor goes to its
 ``*_reference``, the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel or raises.
@@ -57,7 +61,8 @@ __all__ = ["attention_qkv", "attention_qkv_reference", "attention_qkv_bwd",
            "fused_attention_bwd_reference", "fused_attention_qblk",
            "fused_attention_qblk_reference", "fused_attention_qblk_bwd",
            "fused_attention_qblk_bwd_reference", "dot_product_attention",
-           "attention_lse_reference", "attention_qkv_lse", "fused_attention_qblk_lse",
+           "attention_lse_reference", "attention_qkv_lse", "fused_attention_lse",
+           "fused_attention_qblk_lse",
            "blank_tile_map", "blank_tile_map_reference",
            "LAUNCHES", "BWD_LAUNCHES", "FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES",
            "QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES"]
@@ -73,7 +78,7 @@ QBLK_LAUNCHES = 0
 QBLK_BWD_LAUNCHES = 0
 
 _HEAD_DIM = 64  # the kernel's compiled head width (every DINOv2 preset)
-_TILE = 64  # q rows and keys per tile of the bf16 backward (#2, #5) and its blank map
+_TILE = 64  # q rows and keys per tile of the bf16 backward (#2, #5, #6) and its blank map
 
 # Score elements Lq * Lk per (batch, head) up to which the JAX package runs
 # its single-block kernels (#1/#2 packed, #3/#6 BNHD; the BNHD pair divides
@@ -191,7 +196,7 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _fused_kernel():
     fn = _build.load_library().attention_bnhd_fwd
     i64p = ctypes.POINTER(ctypes.c_int64)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [i64p] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [i64p] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -231,26 +236,41 @@ def _kernel_operands(q, k, v, bias, what: str):
     return q, k, v, bias
 
 
-def _fused_attention_cuda(q, k, v, bias, scale):
+def _copy_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if its base and its batch, row and head strides sit on
+    16-byte boundaries (the wgmma kernels' 16-byte copies), else a
+    contiguous copy."""
+    ok = t.data_ptr() % 16 == 0 and all(
+        t.stride(d) % 8 == 0 or t.shape[d] == 1 for d in range(3))
+    return t if ok else t.contiguous()
+
+
+def _fused_attention_cuda(q, k, v, bias, scale, want_lse: bool = False):
+    """#3's launch; with ``want_lse`` (bf16 only) also each row's
+    log-sum-exp, fp32 (B, H, Lq), for the backward: returns (out, lse)."""
     global FUSED_LAUNCHES
     _check_bnhd(q, k, v, bias)
     q, k, v, bias = _kernel_operands(q, k, v, bias, "fused_attention")
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_copy_ready(t) for t in (q, k, v))
+    elif want_lse:
+        raise TypeError("fused_attention's lse store is in its bf16 kernel; got fp32")
     b, lq, h, hd = q.shape
     lk = k.shape[1]
     out = torch.empty((b, lq, h, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if want_lse else None
     bs = _strides(bias, (0, 1, 2)) if bias is not None else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fused_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(lse),
             b, lq, lk, h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)),
             _strides(v, (0, 1, 2)), bs, float(scale),
             int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"fused_attention kernel launch failed: CUDA error {err}")
     FUSED_LAUNCHES += 1
-    return out
+    return (out, lse) if want_lse else out
 
 
 def _check_bwd(q, k, v, bias, g):
@@ -300,7 +320,7 @@ def fused_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 def _bnhd_bwd_kernel():
     fn = _build.load_library().attention_bnhd_bwd
     i64p = ctypes.POINTER(ctypes.c_int64)
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [i64p] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [i64p] * 5 + [
         ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -320,26 +340,42 @@ def _bwd_operands(q, k, v, bias, g, what: str):
     return q, k, v, bias, g, bias_dtype
 
 
-def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias):
+def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, lse=None):
     global FUSED_BWD_LAUNCHES
     what = "fused_attention backward"
     q, k, v, bias, g, bias_dtype = _bwd_operands(q, k, v, bias, g, what)
     b, l, h, hd = q.shape
-    dq, dk, dv = (torch.empty((b, l, h, hd), dtype=q.dtype, device=q.device)
-                  for _ in range(3))
-    stats = torch.empty((3, b, h, l), dtype=torch.float32, device=q.device)  # m, l, delta
     dbias = None
     if bias is not None and need_dbias:
         dbias = torch.zeros((l, l), dtype=torch.float32, device=q.device)
+    # bf16 without dbias: the wgmma kernel on the forward's o and lse. At
+    # L = 1 every p is 1 and dq, dk are exactly 0, as the two-kernel design
+    # gives them; p from lse (1 - 1e-7) and delta from o leave ~1e-7 of |dp|
+    # in ds there, so that call keeps the two-kernel design (as dbias does)
+    sm90 = q.dtype == torch.bfloat16 and dbias is None and l > 1
+    blank = None
+    if sm90:
+        q, k, v, g = (_copy_ready(t) for t in (q, k, v, g))
+        if o is None or lse is None:  # a direct call: the forward gives them (counted as #3)
+            o, lse = _fused_attention_cuda(q, k, v, bias, scale, want_lse=True)
+        _check_o_lse(what, q, o, lse)
+        o = _copy_ready(o) if o.stride(-1) == 1 else o.contiguous()
+        lse = lse.contiguous()
+        work = torch.empty(_work_floats(b, l, h), dtype=torch.float32, device=q.device)
+        if bias is not None:
+            blank = torch.empty(2 * (-(-l // _TILE)) ** 2, dtype=torch.uint8, device=q.device)
+    else:
+        work = torch.empty((3, b, h, l), dtype=torch.float32, device=q.device)  # m, l, delta
+    dq, dk, dv = (torch.empty((b, l, h, hd), dtype=q.dtype, device=q.device) for _ in range(3))
     row_stride = bias.stride(2) if bias is not None and l > 1 else 0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bnhd_bwd_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            None if bias is None else bias.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
-            b, l, h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)),
-            _strides(v, (0, 1, 2)), _strides(g, (0, 1, 2)), row_stride, float(scale),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(o if sm90 else None),
+            _ptr(lse if sm90 else None), _ptr(bias), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _ptr(dbias), work.data_ptr(), _ptr(blank), b, l, h, _strides(q, (0, 1, 2)),
+            _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)), _strides(g, (0, 1, 2)),
+            _strides(o, (0, 1, 2)) if sm90 else None, row_stride, float(scale),
             int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
@@ -351,18 +387,32 @@ def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias):
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: Optional[torch.Tensor], g: torch.Tensor,
-                        scale: Optional[float] = None, need_dbias: bool = True):
+                        scale: Optional[float] = None, need_dbias: bool = True,
+                        o: Optional[torch.Tensor] = None,
+                        lse: Optional[torch.Tensor] = None):
     """Gradients of ``fused_attention`` for Lq == Lk with no bias or a
     shared (1, 1, L, L) bias: (dq, dk, dv, dbias | None), as
     ``fused_attention_bwd_reference`` computes them. q, k, v and g are
-    (B, L, H, hd) with any strides whose last is 1."""
+    (B, L, H, hd) with any strides whose last is 1. o and lse are the
+    forward's output and its (B, H, L) fp32 log-sum-exp, which the bf16
+    kernel reads (autograd passes them); a bf16 call on the card without
+    them first runs the forward (#3) to get them. A call that asks for
+    dbias, fp32 or bf16, and a call at L = 1 run the two-kernel design,
+    which recomputes the row statistics and needs neither. The plain
+    version ignores them."""
     if q.device.type == "cpu":
         return fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_bwd runs on cpu or cuda, not {q.device}")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias)
+    return _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o, lse)
+
+
+def _bwd_kernel_takes(q, k, bias) -> bool:
+    """Whether ``fused_attention``'s gradient is the backward kernel's:
+    Lq == Lk with no bias or a shared (1, 1, L, L) one."""
+    return q.shape[1] == k.shape[1] and (bias is None or tuple(bias.shape[:2]) == (1, 1))
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -371,18 +421,26 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
-        ctx.save_for_backward(q, k, v, bias)
         ctx.scale = scale
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, bias, None, None)
             return fused_attention_reference(q, k, v, bias, scale)
+        if q.dtype == torch.bfloat16 and any(ctx.needs_input_grad[:3]) \
+                and _bwd_kernel_takes(q, k, bias):
+            # the bf16 backward reads the output and each row's lse
+            out, lse = _fused_attention_cuda(q, k, v, bias, scale, want_lse=True)
+            ctx.save_for_backward(q, k, v, bias, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v, bias, None, None)
         return _fused_attention_cuda(q, k, v, bias, scale)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
+        q, k, v, bias, o, lse = ctx.saved_tensors
         need_dbias = bias is not None and ctx.needs_input_grad[3]
-        if q.shape[1] == k.shape[1] and (bias is None or tuple(bias.shape[:2]) == (1, 1)):
-            dq, dk, dv, dbias = fused_attention_bwd(q, k, v, bias, g, ctx.scale, need_dbias)
+        if _bwd_kernel_takes(q, k, bias):
+            dq, dk, dv, dbias = fused_attention_bwd(q, k, v, bias, g, ctx.scale, need_dbias,
+                                                    o, lse)
             return dq, dk, dv, dbias, None
         # cross-length, or a per-(batch, head) bias: recompute through the
         # plain forward under autograd, as the reference recomputes through XLA
@@ -406,9 +464,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     is 1/sqrt(hd). Returns a contiguous (B, Lq, H, hd) in q's dtype.
 
     The gradient of Lq == Lk with no bias or a shared bias is
-    ``fused_attention_bwd`` (the backward kernel on a CUDA tensor); dbias is
-    computed only when the bias requires a gradient. Other shapes recompute
-    through the plain forward, as the JAX package does through XLA.
+    ``fused_attention_bwd`` (the backward kernel on a CUDA tensor; in bf16
+    the forward then also stores each row's lse, and autograd keeps it with
+    the output for the backward); dbias is computed only when the bias
+    requires a gradient. Other shapes recompute through the plain forward,
+    as the JAX package does through XLA.
     """
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
@@ -488,10 +548,10 @@ fused_attention_qblk_bwd_reference = fused_attention_bwd_reference
 def attention_lse_reference(q: torch.Tensor, k: torch.Tensor,
                             bias: Optional[torch.Tensor] = None,
                             scale: Optional[float] = None) -> torch.Tensor:
-    """Plain version of the per-row log-sum-exp that the forwards #1 and #4
-    store for the bf16 backward: logsumexp over keys of the fp32 scores
+    """Plain version of the per-row log-sum-exp that the forwards #1, #3 and
+    #4 store for the bf16 backward: logsumexp over keys of the fp32 scores
     q k^T * scale + bias, (B, H, Lq) fp32, for q (B, Lq, H, hd), k
-    (B, Lk, H, hd) and a shared (1, 1, Lq, Lk) bias or none (for #1, the
+    (B, Lk, H, hd) and a (1|B, 1|H, Lq, Lk) bias or none (for #1, the
     (B, N, H, hd) views of qkv). A row whose every score is -inf gets -inf."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
@@ -500,6 +560,24 @@ def attention_lse_reference(q: torch.Tensor, k: torch.Tensor,
     if bias is not None:
         s = s + bias.float()
     return torch.logsumexp(s, dim=-1)
+
+
+def fused_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None):
+    """``fused_attention``'s output and each row's log-sum-exp, fp32
+    (B, H, Lq), as its autograd forward saves them for the bf16 backward:
+    on a card one #3 launch with the lse store on (counted in
+    ``FUSED_LAUNCHES``; bf16 only), on the CPU the plain versions. No
+    gradient."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return (fused_attention_reference(q, k, v, bias, scale),
+                attention_lse_reference(q, k, bias, scale))
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention_lse runs on cpu or cuda, not {q.device}")
+    return _fused_attention_cuda(q, k, v, bias, scale, want_lse=True)
 
 
 def fused_attention_qblk_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -596,13 +674,15 @@ def _work_floats(b: int, n: int, h: int) -> int:
     return b * h * (-(-n // _TILE) * _TILE) * 2
 
 
-def _copy_ready(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself if its base and its batch, row and head strides sit on
-    16-byte boundaries (the bf16 backward's 16-byte loads), else a
-    contiguous copy."""
-    ok = t.data_ptr() % 16 == 0 and all(
-        t.stride(d) % 8 == 0 or t.shape[d] == 1 for d in range(3))
-    return t if ok else t.contiguous()
+def _check_o_lse(what: str, q: torch.Tensor, o: torch.Tensor, lse: torch.Tensor):
+    """o shaped and typed as q, lse fp32 (B, H, L): what the bf16 backward
+    reads."""
+    b, l, h, _ = q.shape
+    if o.shape != q.shape or o.dtype != q.dtype or tuple(lse.shape) != (b, h, l) \
+            or lse.dtype != torch.float32:
+        raise ValueError(f"{what}: o must be {tuple(q.shape)} {q.dtype} and lse ({b}, {h}, "
+                         f"{l}) fp32; got {tuple(o.shape)} {o.dtype}, {tuple(lse.shape)} "
+                         f"{lse.dtype}")
 
 
 @functools.cache
@@ -630,11 +710,7 @@ def _fused_attention_qblk_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, 
         q, k, v, g = (_copy_ready(t) for t in (q, k, v, g))
         if o is None or lse is None:  # a direct call: the forward gives them (counted as #4)
             o, lse = _fused_attention_qblk_cuda(q, k, v, bias, scale, want_lse=True)
-        if o.shape != q.shape or o.dtype != q.dtype or tuple(lse.shape) != (b, h, l) \
-                or lse.dtype != torch.float32:
-            raise ValueError(f"{what}: o must be {tuple(q.shape)} {q.dtype} and lse ({b}, {h}, "
-                             f"{l}) fp32; got {tuple(o.shape)} {o.dtype}, {tuple(lse.shape)} "
-                             f"{lse.dtype}")
+        _check_o_lse(what, q, o, lse)
         o = _copy_ready(o) if o.stride(-1) == 1 else o.contiguous()
         lse = lse.contiguous()
         work = torch.empty(_work_floats(b, l, h), dtype=torch.float32, device=q.device)

@@ -91,12 +91,15 @@ def _case(name):
     if name == "#3 last 256 px sampling stage":
         return (_tiled_before, attn.fused_attention_reference,
                 *cs._bnhd(gen, 4, 121, 286, 1, bf16, cpu), None, 1.0)
+    if name == "#3 512 px last sampling stage":
+        return (_tiled_before, attn.fused_attention_reference,
+                *cs._bnhd(gen, 1, 1024, 2240, 1, bf16, cpu), None, 1.0)
     raise KeyError(name)
 
 
 CASES = ["VAR teacher forcing 512", "decoder 512 packed views", "ragged L=2049, bias",
          "ragged L=2817, no bias", "#1 encoder, -inf first tiles",
-         "#3 last 256 px sampling stage"]
+         "#3 last 256 px sampling stage", "#3 512 px last sampling stage"]
 
 
 @pytest.mark.parametrize("name", CASES)
