@@ -39,11 +39,14 @@ they cover it.
 The kernels that share device code (#1, #4 and #7's attention,
 ``attn_fwd_*``; #2, #5 and #6, ``attn_bwd_*``; the GEMMs of #7, #8 and #10,
 ``gemm_*``) carry the kernel's number as their first template argument
-(``attn_fwd_bf16_kernel<4, ...>``, ``gemm_bf16_kernel<8, 1>``), and each is
-counted under its own number: the bf16 backward of #2, #5 and #6 is three
+(``attn_fwd_onepass_kernel<4, ...>``, ``gemm_bf16_kernel<8, 1>``), and each
+is counted under its own number: the bf16 backward of #2, #5 and #6 is three
 kernels (``attn_bwd_prep_kernel``, ``attn_bwd_sm90_kernel``,
-``attn_bwd_dq_kernel``), all counted under the backward's number; #3 is
-``attn_fwd_sm90_kernel<3, ...>`` in bf16 and ``attn_bnhd_f32_kernel`` in
+``attn_bwd_dq_kernel``), all counted under the backward's number; #4 under a
+bias is the blank-tile map's pre-pass (``attn_bwd_prep_kernel<4>``) and the
+forward, both counted under #4; #1, #4 and #7 are
+``attn_fwd_onepass_kernel`` in bf16 and ``attn_fwd_f32_kernel`` in fp32; #3
+is ``attn_fwd_sm90_kernel<3, ...>`` in bf16 and ``attn_bnhd_f32_kernel`` in
 fp32.
 """
 
@@ -98,7 +101,8 @@ KINDS = [
     (r"attn_bwd_\w+<6\b", "#6 BNHD attention backward kernels"),
     (r"attn_fwd_sm90_\w*<3\b|attn_bnhd", "#3 BNHD attention kernel"),
     (r"attn_fwd_\w+<1\b", "#1 packed-qkv attention kernel"),
-    (r"attn_fwd_\w+<4\b", "#4 q-blocked attention kernel"),
+    (r"attn_fwd_\w+<4\b|attn_bwd_\w+<4\b",
+     "#4 q-blocked attention kernel (and its map pre-pass)"),
     (r"codebook_argmin", "#9 codebook kernel"),
     (r"conv|cudnn|fprop|dgrad|wgrad|implicit", "convolutions (cuDNN: LPIPS's VGG16, blur)"),
     (r"nvjet|gemm|cutlass|sm90_xmma|cublas", "GEMMs (cuBLAS)"),

@@ -29,7 +29,9 @@ exit; no failure is caught):
      attention (#4) and its backward (#5) at the 512 px shapes (VAR's L = 2240
      under the block-causal bias, the tokenizer's packed views at N = 2050 and
      3073), ragged past the JAX package's caps, in fp32 and, for #5, with
-     dbias and through autograd (fp32, and bf16 at VAR's training shape), the
+     dbias and through autograd (fp32, and bf16 at VAR's training shape);
+     #4 under each bf16 bias with the blank-tile map against the same
+     launch without it, bit for bit; the
      two pieces of the bf16 backward of #2, #5 and #6 (the blank-tile map,
      exact, on VAR's 512 px bias and the ragged encoder masks; the forwards'
      lse, #1, #3 and #4, whose store leaves the output unchanged), the
@@ -617,8 +619,9 @@ def kernels_qblk(dev) -> float:
     the block-causal bias, at the decoder's and the encoder's packed views
     (kernel at B = 64, the plain version in batch slices), ragged past the
     JAX package's caps (2049, 2305 with a bias, 2817 without), cross-length,
-    on unaligned rows, and in fp32. Returns the largest bf16 error at the
-    main paths' shapes."""
+    on unaligned rows, and in fp32; then each biased bf16 case with the
+    blank-tile map against the launch without one, bit for bit. Returns the
+    largest bf16 error at the main paths' shapes."""
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     tf_bias = build_attn_bias(PNS512).to(dev)
@@ -634,6 +637,8 @@ def kernels_qblk(dev) -> float:
          encoder_mask(2049, 683, dev, 1), 1.0, 3, False),
         ("ragged L=2305, bias", *_bnhd(gen, 3, 2305, 2305, 4, bf16, dev),
          build_attn_bias((1, 2, 3, 4, 6, 9, 13, 18, 24, 33)).to(dev), 1.0, 3, False),
+        ("ragged L=2305, encoder mask", *_bnhd(gen, 3, 2305, 2305, 4, bf16, dev),
+         encoder_mask(2305, 768, dev, 64), 1.0, 3, False),
         ("ragged L=2817, no bias", *_bnhd(gen, 3, 2817, 2817, 4, bf16, dev, l2=False), None,
          None, 3, False),
         ("cross length 1500 x 2500", *_bnhd(gen, 2, 1500, 2500, 4, bf16, dev, l2=False), None,
@@ -660,6 +665,24 @@ def kernels_qblk(dev) -> float:
         if main:
             main_err = max(main_err, err)
         del got, want
+    # the blank-tile map changes no bit: each biased bf16 case with the
+    # map (the default: the pre-pass writes it, the forward skips the tiles
+    # it blanks) against the same launch with none (every tile computed)
+    for name, q, k, v, bias, scale, _, _ in cases:
+        if bias is None or q.dtype != bf16:
+            continue
+        skipped = attn._fused_attention_qblk_cuda(q, k, v, bias, scale)
+        computed = attn._fused_attention_qblk_cuda(q, k, v, bias, scale, skip_blank=False)
+        torch.cuda.synchronize()
+        copied = attn.block_key_tiles_reference(bias)
+        blank = attn.blank_tile_map_reference(bias)
+        if not torch.equal(skipped, computed):
+            raise AssertionError(f"[kernels] #4 {name}: the blank-tile map changed "
+                                 f"{int((skipped != computed).sum())} outputs")
+        print(f"[kernels] #4 {name:28s} with the blank-tile map: bit-equal to every tile "
+              f"computed; {int(blank.sum())} of {blank.numel()} (64 q, 64 key) tiles skipped, "
+              f"{int(copied.sum())} of {copied.numel()} (128 q, 64 key) block copies made")
+        del skipped, computed
     return main_err
 
 
@@ -2079,7 +2102,7 @@ def times_qblk_fwd(dev, gen) -> dict:
     kernel's record, and the lse store's cost), then the decoder's and the
     encoder's packed views with no bias, whose plain version runs in batch
     slices of 8 and 4 (its (B, H, N, N) fp32 scores do not fit the card at
-    once)."""
+    once); each shape's record also under "shapes"."""
     bf16 = torch.bfloat16
     bias = build_attn_bias(PNS512).to(dev)
     l512, pairs = bias.shape[-1], int(torch.isfinite(bias).sum())
@@ -2097,9 +2120,10 @@ def times_qblk_fwd(dev, gen) -> dict:
               lambda: attn.fused_attention_qblk(q, k, v, bias, 1.0),
               lambda: attn.fused_attention_qblk_lse(q, k, v, bias, 1.0), rec)
     del q, k, v
+    shapes = {"VAR teacher forcing 512": rec}
     for name, n, chunk in (("decoder", 2050, 8), ("encoder", 3073, 4)):
         q, k, v = _packed_views(gen, BATCH, n, HEADS, bf16, dev)
-        _time_kernel(
+        shapes[f"{name} 512 packed views"] = _time_kernel(
             f"#4 fused_attention_qblk, {name} 512 packed views (plain in slices of {chunk})",
             lambda: attn.fused_attention_qblk(q, k, v),
             lambda: _in_chunks(attn.fused_attention_qblk_reference, BATCH, chunk, q, k, v),
@@ -2109,7 +2133,7 @@ def times_qblk_fwd(dev, gen) -> dict:
             f"q, k, v {tuple(q.shape)} of qkv ({BATCH}, {n}, {3 * HD * HEADS})", reps=5,
             library_call="SDPA")
         del q, k, v
-    return rec
+    return {**rec, "shapes": shapes}
 
 
 def times_qblk_bwd(dev, gen) -> dict:
@@ -2240,6 +2264,9 @@ KERNELS = {
 # under the single-block budget (#1, #3, #6); at 512 px the encoder (N =
 # 3073), the decoder (N = 2050) and teacher forcing (L = 2240) are past it
 # (#4, #5), while the KV-cached decode (at most 1024 x 2240) stays on #3.
+# A counter counts calls of its wrapper: a bf16 #4 call under VAR's bias is
+# two kernels (the blank-tile map's pre-pass, then the forward) counted as
+# one, as each call of #2, #5 and #6 is three (prep, main, dq).
 VIT_DEPTH = 12
 LAUNCHES_256 = {
     "var_sample": {"fused_attention_fwd": VAR_DEPTH * len(PNS), "attention_qkv_fwd": VIT_DEPTH},

@@ -11,8 +11,8 @@
 // primitives are wgmma_tile.cuh's.
 //
 // Per (batch, head), with lse = m + log(l) saved by the forward
-// (attention_fwd_tile.cuh with kLse for #1 and #4, attention_fwd_sm90.cuh
-// with kLse for #3) and o the forward's bf16 output:
+// (attention_fwd_sm90.cuh with kLse: the one-pass kernel for #1 and #4,
+// the two-pass kernel for #3) and o the forward's bf16 output:
 //   delta = rowsum(fp32(o) fp32(g))            (prep)
 //   p  = exp(q k^T * scale + bias - lse)        (fp32)
 //   dp = g v^T (fp32)       ds = p (dp - delta)

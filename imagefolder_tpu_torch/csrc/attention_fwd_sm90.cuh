@@ -1,40 +1,59 @@
-// BNHD attention forward for Hopper (sm_90a) in bf16 on wgmma: the device
-// code of kernel #3 (attention_bnhd.cu), which replaces the TPU kernel
+// Attention forwards for Hopper (sm_90a) in bf16 on wgmma: the BNHD forward
+// of kernel #3 (attention_bnhd.cu), which replaces the TPU kernel
 // imagefolder_tpu/ops/pallas/attention.py: fused_attention (kernel bodies
-// _kernel and _kernel_bias).
+// _kernel and _kernel_bias), and the one-pass forward of the packed-qkv
+// kernel #1 (attention_qkv.cu; _attention_qkv_fwd_impl, body
+// _qkv_kernel_impl), the q-blocked kernel #4 (attention_qblk.cu;
+// _fused_attention_qblk_fwd, body _kernel_qblk) and #7's attention step
+// (attn_sublayer.cu).
 //
 // Per (batch, head), q (Lq rows) against k and v (Lk rows), keys >= Lk
-// masked:
-//   s = q k^T * scale + bias (fp32)   m = rowmax(s)   l = rowsum(exp(s - m))
-//   o = sum over keys of bf16(exp(s - m) / l) v, in fp32, cast once
-// p is divided by its row sum BEFORE it is rounded to bf16 for p v, as the
-// Pallas kernel does (#1 and #4 divide o after p v instead): the wrapper's
+// masked, s = q k^T * scale + bias (fp32), m = rowmax(s), l =
+// rowsum(exp(s - m)); then
+//   #3:           o = sum over keys of bf16(exp(s - m) / l) v, cast once;
+//   #1, #4, #7:   o = (sum over keys of bf16(exp(s - m)) v) / l, cast once.
+// #3 divides p by its row sum BEFORE the bf16 rounding for p v, as its
+// Pallas kernel does; the others divide o after p v: the wrapper's
 // _SINGLE_MAX_ELEMS makes that rounding point part of which numerics a call
-// gets. A streaming kernel knows l only once it has seen every key, so each
+// gets.
+//
+// #3: a streaming kernel knows l only once it has seen every key, so each
 // block makes two passes over the key tiles:
 //   pass 1: S = Q K^T per tile; a running max m and row sum l (online);
 //   pass 2: S again; P = bf16(exp2(S scale log2(e) - lse2)) with lse2 =
 //           m log2(e) + log2(l), which is exp(s - m) / l in fp32 with the
 //           division folded into the exponent, as a register A operand;
 //           O += P V.
-// With kLse the block also stores lse = m + log(l) per row (fp32, B x H x
-// Lq) for the backward (attention_bwd_sm90.cuh, #6); a row whose every score
-// is -inf gets -inf. The output does not depend on kLse.
+// One pass (#1, #4, #7): per key tile, S = Q K^T; the running max m moves to
+// m_new, and o and l are scaled by alpha = exp2(m - m_new); P =
+// bf16(exp2(S scale log2(e) - m_new)) as a register A operand; l += rowsum
+// of the fp32 P; O += P V. At the end o / l, cast once. Each k/v tile is read
+// once, so k and v always stream together through the ring below.
+// With kLse either kernel also stores lse = m + log(l) per row (fp32, B x H
+// x Lq) for the backward (attention_bwd_sm90.cuh: #6 from #3; #2 and #5
+// from the one-pass forward); a row whose every score is -inf gets -inf. The
+// output does not depend on kLse.
 //
-// What bounds it: by its shapes, VAR's KV-cached decode at 256 px (q (128,
+// What bounds them: by its shapes, VAR's KV-cached decode at 256 px (q (128,
 // pn^2 <= 121, 16, 64) against k, v (128, <= 286, 16, 64)) and its teacher
 // forcing (64, 286, 16, 64) are bound by memory (the last sampling stage
 // moves 213 MB for 18 GFLOP); the 512 px decode's last stage, q (128, 1024,
 // 16, 64) against k, v (128, 2240, 16, 64), by operations (1.20 TFLOP at
 // 4 hd per (q, k) pair; two passes run 1.5x that on the tensor cores, and
-// two exponentials per pair on the special-function units). On the card
-// neither unit alone bounds it: timing-only variants (PERF.md) show the
-// products and the softmax of a warpgroup adding up rather than
-// overlapping, each product waited for before the step that reads it. So
-// the design spends as few instructions in that chain as it can: one FFMA
-// and one exponential per score in pass 2 and, on full tiles without a
-// bias, in pass 1 (the row max taken on the raw scores); the scale, bias
-// and mask only on tiles that need them.
+// two exponentials per pair on the special-function units), as are the
+// one-pass shapes: #4 at VAR's 512 px teacher forcing (16, 2240, 16, 64)
+// (214 GFLOP over the pairs the block-causal mask allows, 314 MB) and at
+// the tokenizer's 512 px packed views (N = 2050 and 3073, 12 heads, B = 64:
+// 206 and 464 GFLOP), #1 at (64, 514, 12 x 64) (52 GFLOP, 202 MB). At head
+// dim 64 a 64 x 64 tile's two products take the tensor cores about as long
+// as its 4096 exponentials take the special-function units (16 a clock on
+// an SM), so the products and the softmax must overlap for either to near
+// its peak. On the card they do not overlap within a warpgroup:
+// timing-only variants of #3 (PERF.md) show them adding up, each product
+// waited for before the step that reads it. So the design spends as few
+// instructions in that chain as it can: one FFMA and one exponential per
+// score on full tiles without a bias (the row max taken on the raw
+// scores); the scale, bias and mask only on tiles that need them.
 //
 // Design: a block of two warpgroups (256 threads) per (b, h, 128 q rows);
 // each warpgroup owns 64 q rows and both read the block's k and v tiles,
@@ -46,13 +65,25 @@
 // waited for before its result is read; no score reaches device memory.
 // Keys come in 64-row tiles through shared memory in wgmma's 128-byte
 // swizzle, copied by cp.async (all 256 threads) ahead of their use:
-//   - resident (Lk <= 320: every 256 px call): every copy of k and v is
+//   - #3 resident (Lk <= 320: every 256 px call): every copy of k and v is
 //     issued up front, k tile by tile so that pass 1 starts on the first
 //     tile while the rest land; pass 2 reads k and v from shared memory, so
 //     k comes from device memory once;
-//   - streamed (longer Lk: the 512 px decode, up to 2240): a ring of four
+//   - #3 streamed (longer Lk: the 512 px decode, up to 2240): a ring of four
 //     k/v slots walks the 2 nt items of both passes (pass 1 loads k, pass 2
-//     k and v), three items in flight ahead of the one being computed.
+//     k and v), three items in flight ahead of the one being computed;
+//   - one pass: the same ring, one item (k and v) per key tile the block
+//     needs.
+// Blank tiles (one pass, with a bias and its blank-tile map): the map
+// (attention_bwd_sm90.cuh's prep kernel, one byte per (64 q rows, 64 keys)
+// tile: 1 when every bias entry is -inf, and a second plane, 1 when every
+// one is 0) gives each block the list of key tiles it copies: those where
+// either warpgroup's tile is not blank (a warpgroup past Lq counts as
+// blank). A warpgroup skips both products and the softmax of a tile that is
+// blank for it, which adds exactly 0 to l and o and leaves m (alpha = 1):
+// the output is bit-equal to computing the tile. On a tile whose bias is
+// all 0 it reads no bias. Without a map (null, or no bias) every tile is
+// computed: 34% of VAR's 512 px tiles are blank.
 // Ragged edges: q rows >= Lq load as zeros and are computed, never stored
 // (Lq = 1 included; a warpgroup whose 64 rows all lie past Lq computes
 // nothing and only copies and syncs with the other); keys >= Lk load as
@@ -61,14 +92,10 @@
 // 0, so that -inf - -inf never makes a NaN. A bias (1|B, 1|H, Lq, Lk),
 // stride 0 on a broadcast axis, is read in place at its strides, after
 // each score product's wait (a branch while a wgmma owns registers corrupts
-// them: see attention_bwd_sm90.cuh). Every offset is 64-bit. Blank tiles
-// of a bias are computed, not skipped (5 of 25 at VAR's L = 286; the
-// decode has none).
-//
-// The one-pass forward of #1 and #4 (o / l after p v) would be a template
-// flag here: pass 2 alone, with m and l kept online and o rescaled by
-// exp(m_old - m_new) at each tile; the tile ring, the score tile and the
-// store are the same.
+// them: see attention_bwd_sm90.cuh). Every offset is 64-bit (the 512 px
+// encoder's packed q view spans 453 M elements over 64 images). #3 computes
+// the blank tiles of its bias (5 of 25 at VAR's L = 286; the decode has
+// none).
 
 #pragma once
 
@@ -335,6 +362,19 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   }
 }
 
+// Every base pointer of q, k and v, and every stride of an axis longer
+// than 1, on a 16-byte boundary: the cp.async copies' rule.
+inline bool fwd_aligned(const bf16* q, const bf16* k, const bf16* v, int batch, int lq, int lk,
+                        int heads, const FwdStrides& st) {
+  const int64_t al[9] = {batch > 1 ? st.qb : 0, lq > 1 ? st.ql : 0, heads > 1 ? st.qh : 0,
+                         batch > 1 ? st.kb : 0, lk > 1 ? st.kl : 0, heads > 1 ? st.kh : 0,
+                         batch > 1 ? st.vb : 0, lk > 1 ? st.vl : 0, heads > 1 ? st.vh : 0};
+  bool ok = reinterpret_cast<uintptr_t>(q) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  for (int i = 0; i < 9; ++i) ok = ok && al[i] % 8 == 0;
+  return ok;
+}
+
 template <int kId, bool kBias, bool kLse, bool kResident>
 void launch_fwd_sm90(const bf16* q, const bf16* k, const bf16* v, const float* bias, bf16* out,
                      float* lse, int batch, int lq, int lk, int heads, const FwdStrides& st,
@@ -361,13 +401,7 @@ int launch_attention_fwd_sm90(const bf16* q, const bf16* k, const bf16* v, const
                               bf16* out, float* lse, int batch, int lq, int lk, int heads,
                               const FwdStrides& st, float scale, cudaStream_t stm) {
   if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0) return cudaErrorInvalidValue;
-  const int64_t al[9] = {batch > 1 ? st.qb : 0, lq > 1 ? st.ql : 0, heads > 1 ? st.qh : 0,
-                         batch > 1 ? st.kb : 0, lk > 1 ? st.kl : 0, heads > 1 ? st.kh : 0,
-                         batch > 1 ? st.vb : 0, lk > 1 ? st.vl : 0, heads > 1 ? st.vh : 0};
-  bool ok = reinterpret_cast<uintptr_t>(q) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-            reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  for (int i = 0; i < 9; ++i) ok = ok && al[i] % 8 == 0;
-  if (!ok) return cudaErrorMisalignedAddress;
+  if (!fwd_aligned(q, k, v, batch, lq, lk, heads, st)) return cudaErrorMisalignedAddress;
   const bool resident = (lk + kTile - 1) / kTile <= kResidentTiles;
 #define FWD_SM90(kBias, kLse)                                                                 \
   (resident ? launch_fwd_sm90<kId, kBias, kLse, true>(q, k, v, bias, out, lse, batch, lq, lk, \
@@ -379,6 +413,233 @@ int launch_attention_fwd_sm90(const bf16* q, const bf16* k, const bf16* v, const
   else if (lse) FWD_SM90(false, true);
   else FWD_SM90(false, false);
 #undef FWD_SM90
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// ------------------------- one pass: #1, #4, #7 ------------------------- //
+
+constexpr int kListShift = 24;  // a tile list entry: key tile | flags << kListShift
+
+// kFwdWG warpgroups per (b, h, 64 kFwdWG q rows), one pass over the key
+// tiles: o / l after p v (see the header comment). blank null: every key
+// tile; else the (nt, nt) blank-tile map, then the map of all-zero bias
+// tiles (lq == lk).
+template <int kId, bool kBias, bool kLse>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+    attn_fwd_onepass_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const float* __restrict__ bias,
+                            const uint8_t* __restrict__ blank, bf16* __restrict__ out,
+                            float* __restrict__ lse, int lq, int lk, int heads, float scale,
+                            FwdStrides st) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int warp_count[kFwdThreads / 32];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t tiles = (raw + 1023) & ~1023u;
+  const int wg = threadIdx.x / kThreads;  // this thread's warpgroup
+  const uint32_t sq = tiles + wg * kTileBytes;  // its q tile
+  const uint32_t skv = tiles + kFwdWG * kTileBytes;  // slot s: k, then v
+  // the block's list of key tiles, after the ring
+  int* list = reinterpret_cast<int*>(smem_raw + (tiles - raw) +
+                                     (kFwdWG + 2 * kFwdSlots) * kTileBytes);
+
+  const int nt = (lk + kTile - 1) / kTile;
+  const int q0 = (blockIdx.x * kFwdWG + wg) * kTile, h = blockIdx.y, b = blockIdx.z;
+  const bool active = q0 < lq;  // a warpgroup past Lq only copies and syncs
+  const int lane = threadIdx.x & 31;
+  const int row_lo = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows q0 + row_lo (+ 8)
+  const int t4 = lane & 3;
+  const bf16* kp = k + b * st.kb + h * st.kh;
+  const bf16* vp = v + b * st.vb + h * st.vh;
+  const float* bp = kBias ? bias + b * st.bb + h * st.bh : nullptr;
+  const float scale2 = scale * kLog2e;
+
+  // With a map: list the key tiles that either warpgroup needs, in order,
+  // each with its flags (bit w: blank for warpgroup w; bit kFwdWG + w: all
+  // 0), compacted by ballots, kFwdThreads tiles at a time.
+  int items = nt;
+  if (blank) {
+    const int qt0 = blockIdx.x * kFwdWG;  // the block's first q tile; the map is nt x nt
+    items = 0;
+    for (int c0 = 0; c0 < nt; c0 += kFwdThreads) {
+      const int kt = c0 + threadIdx.x;
+      int entry = 0;
+      bool need = false;
+      if (kt < nt) {
+        int flags = 0;
+#pragma unroll
+        for (int w = 0; w < kFwdWG; ++w) {
+          const int64_t at = static_cast<int64_t>(qt0 + w) * nt + kt;
+          const bool in = qt0 + w < nt;
+          flags |= (!in || blank[at] ? 1 : 0) << w;
+          flags |= (in && blank[static_cast<int64_t>(nt) * nt + at] ? 1 : 0) << (kFwdWG + w);
+        }
+        need = (flags & ((1 << kFwdWG) - 1)) != (1 << kFwdWG) - 1;
+        entry = kt | (flags << kListShift);
+      }
+      const unsigned ballot = __ballot_sync(0xffffffffu, need);
+      if (lane == 0) warp_count[threadIdx.x >> 5] = __popc(ballot);
+      __syncthreads();
+      int before = items;
+#pragma unroll
+      for (int w = 0; w < kFwdThreads / 32; ++w) {
+        if (w < static_cast<int>(threadIdx.x >> 5)) before += warp_count[w];
+        items += warp_count[w];
+      }
+      if (need) list[before + __popc(ballot & ((1u << lane) - 1))] = entry;
+      __syncthreads();  // the list is complete, warp_count free again
+    }
+  }
+  auto tile_of = [&](int it) { return blank ? list[it] & ((1 << kListShift) - 1) : it; };
+  auto slot = [&](int it) -> uint32_t { return skv + 2 * (it % kFwdSlots) * kTileBytes; };
+  auto load_item = [&](int it) {  // k and v of the item's key tile
+    const int j = tile_of(it);
+    load_tile_async<kFwdThreads>(slot(it), kp, j * kTile, lk, st.kl, threadIdx.x);
+    load_tile_async<kFwdThreads>(slot(it) + kTileBytes, vp, j * kTile, lk, st.vl, threadIdx.x);
+  };
+  load_tile_async(sq, q + b * st.qb + h * st.qh, q0, lq, st.ql, threadIdx.x % kThreads);
+#pragma unroll
+  for (int i = 0; i < kFwdSlots - 1; ++i) {  // group i: item i (group 0 also q)
+    if (i < items) load_item(i);
+    cp_async_commit();
+  }
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's share
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int it = 0; it < items; ++it) {
+    // wait for item it; start item it + kFwdSlots - 1 into the slot that
+    // item it - 1 has left (every thread is past it)
+    cp_async_wait<kFwdSlots - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    if (it + kFwdSlots - 1 < items) load_item(it + kFwdSlots - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const int flags = blank ? list[it] >> kListShift : 0;
+    if ((flags >> wg) & 1) continue;  // blank for this warpgroup: adds exactly 0
+    const uint32_t sk = slot(it);
+    const int k0 = tile_of(it) * kTile;
+    // q's A fragments, read from shared memory for each tile: carried round
+    // this loop in registers (loaded at its first item, or before it, even
+    // with fences on them around each product) they came out wrong from the
+    // second key tile on, with no diagnostic from ptxas. Four ldmatrix a
+    // tile cost nothing measurable (nor did Q read by the product from
+    // shared memory instead: PERF.md)
+    uint32_t qf[4][4];
+    tile_to_a(qf, sq);
+    float x[32];
+    score_tile(x, qf, sk);
+    // a full tile without a bias at a positive scale keeps the raw scores:
+    // max(s) * scale is the max of s * scale, and one FFMA per score gives
+    // the exponent; otherwise x is the scaled, biased, masked score. An
+    // all-0 bias tile is not read but keeps the scaled path, whose rounding
+    // adding 0 does not change: the map changes no bit of the output
+    const bool raw = !kBias && scale2 > 0.f && k0 + kTile <= lk;
+    if (kBias && !((flags >> (kFwdWG + wg)) & 1))
+      scale_tile<true>(x, bp, st.bq, q0, k0, row_lo, t4, lq, lk, scale2);
+    else if (!raw)
+      scale_tile<false>(x, bp, st.bq, q0, k0, row_lo, t4, lq, lk, scale2);
+    const float sx = raw ? scale2 : 1.f;  // x * sx is the score in base 2
+    float mu[2], alpha[2], lt[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = row_max(x, r) * sx;
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      mu[r] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = fast_exp2(m[r] - mu[r]);  // 0 while the row is all -inf
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      o[i] *= alpha[(i >> 1) & 1];
+      x[i] = fast_exp2(fmaf(x[i], sx, -mu[(i >> 1) & 1]));
+      lt[(i >> 1) & 1][(i >> 2) & 1] += x[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], lt[r][0] + lt[r][1]);
+    uint32_t pf[4][4];
+    acc_to_a(pf, x);
+    fence_frag(pf);
+    fence_acc(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // O += P V over the keys
+      wgmma_rs<1>(o, pf[kk], tile_desc(sk + kTileBytes + kk * 2048), 1);
+    wgmma_commit();
+    fence_frag(pf);
+    wgmma_wait<0>();
+    fence_acc(o);
+    fence_frag(pf);
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (kLse && t4 == 0) {  // lse = m + log(l), natural base
+    float* row_lse = lse + (static_cast<int64_t>(b) * heads + h) * lq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + row_lo + 8 * r;
+      if (row < lq) row_lse[row] = ((m[r] == -INFINITY ? 0.f : m[r]) + log2f(l[r])) * kLn2;
+    }
+  }
+  const int64_t ldo = static_cast<int64_t>(heads) * kHd;
+  bf16* dst = out + (static_cast<int64_t>(b) * lq * heads + h) * kHd + 2 * t4;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int r = (i >> 1) & 1;
+    const int row = q0 + row_lo + 8 * r;
+    if (row < lq)
+      *reinterpret_cast<__nv_bfloat162*>(dst + row * ldo + 8 * (i >> 2)) =
+          __floats2bfloat162_rn(o[i] / l[r], o[i + 1] / l[r]);
+  }
+}
+
+template <int kId, bool kBias, bool kLse>
+void launch_fwd_onepass(const bf16* q, const bf16* k, const bf16* v, const float* bias,
+                        const uint8_t* blank, bf16* out, float* lse, int batch, int lq, int lk,
+                        int heads, const FwdStrides& st, float scale, cudaStream_t stm) {
+  const int nt = (lk + kTile - 1) / kTile;
+  const int smem = fwd_smem_bytes(kFwdSlots) + (blank ? nt : 0) * static_cast<int>(sizeof(int));
+  cudaFuncSetAttribute(attn_fwd_onepass_kernel<kId, kBias, kLse>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const dim3 grid((lq + kFwdWG * kTile - 1) / (kFwdWG * kTile), heads, batch);
+  attn_fwd_onepass_kernel<kId, kBias, kLse><<<grid, kFwdThreads, smem, stm>>>(
+      q, k, v, bias, blank, out, lse, lq, lk, heads, scale, st);
+}
+
+// The one-pass forward on `stm`: arguments as launch_attention_fwd_sm90's,
+// and blank null or the blank-tile map of the bias and its map of all-zero
+// tiles (2 ceil(lq/64)^2 bytes, as the prep kernel of attention_bwd_sm90.cuh
+// writes them), which needs a bias and lq == lk.
+template <int kId>
+int launch_attention_fwd_onepass(const bf16* q, const bf16* k, const bf16* v, const float* bias,
+                                 const uint8_t* blank, bf16* out, float* lse, int batch, int lq,
+                                 int lk, int heads, const FwdStrides& st, float scale,
+                                 cudaStream_t stm) {
+  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || (blank && (!bias || lq != lk)))
+    return cudaErrorInvalidValue;
+  if (!fwd_aligned(q, k, v, batch, lq, lk, heads, st)) return cudaErrorMisalignedAddress;
+  if (bias && lse)
+    launch_fwd_onepass<kId, true, true>(q, k, v, bias, blank, out, lse, batch, lq, lk, heads,
+                                        st, scale, stm);
+  else if (bias)
+    launch_fwd_onepass<kId, true, false>(q, k, v, bias, blank, out, lse, batch, lq, lk, heads,
+                                         st, scale, stm);
+  else if (lse)
+    launch_fwd_onepass<kId, false, true>(q, k, v, bias, blank, out, lse, batch, lq, lk, heads,
+                                         st, scale, stm);
+  else
+    launch_fwd_onepass<kId, false, false>(q, k, v, bias, blank, out, lse, batch, lq, lk, heads,
+                                          st, scale, stm);
   return static_cast<int>(cudaGetLastError());
 }
 

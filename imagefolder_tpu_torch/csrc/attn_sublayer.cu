@@ -25,12 +25,13 @@
 // adds, casts, LayerScale multiply and fp32 residual add, each an
 // elementwise pass over device memory, here folded into the GEMMs'
 // epilogues (gemm_epilogue.cuh). The split is three launches on one
-// stream: the qkv GEMM (kDense) writes the packed qkv; the forward tile of
-// #1 (attention_fwd_tile.cuh, instantiated as kernel 7) reads it in place;
-// the proj GEMM (kDenseLsRes) writes the fp32 output. qkv and o go through
+// stream: the qkv GEMM (kDense) writes the packed qkv; #1's forward
+// (attention_fwd_tile.cuh: in bf16 the one-pass wgmma kernel of
+// attention_fwd_sm90.cuh, instantiated as kernel 7) reads it in place; the
+// proj GEMM (kDenseLsRes) writes the fp32 output. qkv and o go through
 // device memory once each (at the decoder's shape 152 MB and 51 MB in bf16),
-// the price of the split. The products run on mma.sync; wgmma, TMA and
-// keeping o on chip are later work.
+// the price of the split. The GEMMs run on mma.sync; wgmma, TMA and keeping
+// o on chip are later work.
 
 #include "attention_fwd_tile.cuh"
 #include "gemm_epilogue.cuh"
@@ -55,11 +56,11 @@ extern "C" int attn_sublayer_fwd(const void* xn, const void* res, const void* wq
   if (err) return err;
   const int64_t row = 3 * static_cast<int64_t>(c);
   const int64_t bat = n * row;
-  const FwdStrides st{bat, row, kHd, bat, row, kHd, bat, row, kHd, 0};
+  const FwdStrides st{bat, row, kHd, bat, row, kHd, bat, row, kHd, 0, 0, 0};
   const size_t esz = is_bf16 ? sizeof(bf16) : sizeof(float);
   const char* in = static_cast<const char*>(qkv);
-  err = launch_attention_fwd<7>(in, in + c * esz, in + 2 * c * esz, nullptr, attn, batch, n, n,
-                                heads, st, scale, is_bf16, stm);
+  err = launch_attention_fwd<7>(in, in + c * esz, in + 2 * c * esz, nullptr, nullptr, attn,
+                                batch, n, n, heads, st, scale, is_bf16, stm);
   if (err) return err;
   const EpiArgs e_proj{bp, res, static_cast<const float*>(ls), out, res_bf16};
   return launch_gemm<7, kDenseLsRes>(attn, wp, m, c, c, e_proj, is_bf16, stm);

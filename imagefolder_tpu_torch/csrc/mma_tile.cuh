@@ -1,6 +1,6 @@
 // Warp-level tensor-core helpers shared by the attention kernels
-// (attention_fwd_tile.cuh, attention_bwd_tile.cuh; attention_bnhd.cu's fp32
-// kernel takes its constants): ldmatrix
+// (attention_bwd_tile.cuh; the fp32 forwards of attention_fwd_tile.cuh and
+// attention_bnhd.cu take its constants): ldmatrix
 // loads from shared memory, mma.sync m16n8k16 with bf16 operands and fp32
 // accumulators, a 64-row, 64-column bf16 tile loader with zero rows past the
 // end, and the three warp products the BNHD kernels are built from: a warp's

@@ -27,10 +27,15 @@
 - ``dot_product_attention``: the router VAR calls, which picks between
   ``fused_attention`` and ``fused_attention_qblk`` as the JAX package does.
 
-The two forwards that divide after p v (#1, #4) share their device code
-(``csrc/attention_fwd_tile.cuh``); the BNHD forward #3 runs in bf16 on wgmma
-(``csrc/attention_fwd_sm90.cuh``: two passes over the key tiles, k and v
-resident in shared memory up to Lk = 320), in fp32 on an FMA kernel. In
+The forwards run in bf16 on wgmma (``csrc/attention_fwd_sm90.cuh``): the two
+that divide after p v (#1, #4, and #7's attention step) on its one-pass
+kernel, which with a square bias (#4) skips the 64 x 64 tiles that the bias
+blanks (a pre-pass writes the map; ``block_key_tiles_reference`` is the
+plain version of which key tiles a block copies); the BNHD forward #3 on its
+two-pass kernel (k and v resident in shared memory up to Lk = 320). bf16
+views whose base or strides are off 16 bytes are copied first
+(``_copy_ready``). In fp32 each has an FMA kernel (#1 and #4:
+``csrc/attention_fwd_tile.cuh``). In
 bf16 the three backwards (#2, #5, #6) share FlashAttention-2's algorithm on
 wgmma (``csrc/attention_bwd_sm90.cuh``): it takes the forward's output o
 and its per-row log-sum-exp lse, which the autograd forwards save when a
@@ -63,7 +68,7 @@ __all__ = ["attention_qkv", "attention_qkv_reference", "attention_qkv_bwd",
            "fused_attention_qblk_bwd_reference", "dot_product_attention",
            "attention_lse_reference", "attention_qkv_lse", "fused_attention_lse",
            "fused_attention_qblk_lse",
-           "blank_tile_map", "blank_tile_map_reference",
+           "blank_tile_map", "blank_tile_map_reference", "block_key_tiles_reference",
            "LAUNCHES", "BWD_LAUNCHES", "FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES",
            "QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES"]
 
@@ -113,6 +118,15 @@ def attention_qkv_reference(qkv: torch.Tensor, heads: int,
     return fused_attention_qblk_reference(q, k, v, bias, scale).view(b, n, c3 // 3)
 
 
+def _launch(what: str, entry, device, *args):
+    """The kernel entry ``entry()`` called with ``args`` and ``device``'s
+    current stream; raises if it returns a CUDA error."""
+    with torch.cuda.device(device):
+        err = entry()(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
 @functools.cache
 def _kernel():
     fn = _build.load_library().attention_qkv_fwd
@@ -146,13 +160,10 @@ def _attention_qkv_cuda(qkv, heads, bias, scale, want_lse: bool = False):
     lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device) if want_lse else None
     if out.numel() == 0:
         return (out, lse) if want_lse else out
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(qkv.data_ptr(), None if bias is None else bias.data_ptr(),
-                        out.data_ptr(), None if lse is None else lse.data_ptr(), b, n, c,
-                        heads, float(scale), int(qkv.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"attention_qkv kernel launch failed: CUDA error {err}")
+    if qkv.dtype == torch.bfloat16:  # the wgmma kernel's 16-byte copies
+        qkv = _copy_ready(qkv.view(b, n, 3 * heads, _HEAD_DIM)).view(b, n, c3)
+    _launch("attention_qkv", _kernel, qkv.device, qkv.data_ptr(), _ptr(bias), out.data_ptr(),
+            _ptr(lse), b, n, c, heads, float(scale), int(qkv.dtype == torch.bfloat16))
     LAUNCHES += 1
     return (out, lse) if want_lse else out
 
@@ -239,10 +250,11 @@ def _kernel_operands(q, k, v, bias, what: str):
 def _copy_ready(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself if its base and its batch, row and head strides sit on
     16-byte boundaries (the wgmma kernels' 16-byte copies), else a
-    contiguous copy."""
+    contiguous copy in new memory (a contiguous tensor whose base is off
+    16 bytes is copied too)."""
     ok = t.data_ptr() % 16 == 0 and all(
         t.stride(d) % 8 == 0 or t.shape[d] == 1 for d in range(3))
-    return t if ok else t.contiguous()
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _fused_attention_cuda(q, k, v, bias, scale, want_lse: bool = False):
@@ -260,15 +272,10 @@ def _fused_attention_cuda(q, k, v, bias, scale, want_lse: bool = False):
     out = torch.empty((b, lq, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if want_lse else None
     bs = _strides(bias, (0, 1, 2)) if bias is not None else None
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fused_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(lse),
-            b, lq, lk, h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)),
-            _strides(v, (0, 1, 2)), bs, float(scale),
-            int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_attention kernel launch failed: CUDA error {err}")
+    _launch("fused_attention", _fused_kernel, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(lse), b, lq, lk, h,
+            _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)), bs,
+            float(scale), int(q.dtype == torch.bfloat16))
     FUSED_LAUNCHES += 1
     return (out, lse) if want_lse else out
 
@@ -368,17 +375,13 @@ def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, lse=N
         work = torch.empty((3, b, h, l), dtype=torch.float32, device=q.device)  # m, l, delta
     dq, dk, dv = (torch.empty((b, l, h, hd), dtype=q.dtype, device=q.device) for _ in range(3))
     row_stride = bias.stride(2) if bias is not None and l > 1 else 0
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _bnhd_bwd_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(o if sm90 else None),
-            _ptr(lse if sm90 else None), _ptr(bias), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _ptr(dbias), work.data_ptr(), _ptr(blank), b, l, h, _strides(q, (0, 1, 2)),
-            _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)), _strides(g, (0, 1, 2)),
+    _launch(what, _bnhd_bwd_kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            g.data_ptr(), _ptr(o if sm90 else None), _ptr(lse if sm90 else None), _ptr(bias),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), work.data_ptr(),
+            _ptr(blank), b, l, h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)),
+            _strides(v, (0, 1, 2)), _strides(g, (0, 1, 2)),
             _strides(o, (0, 1, 2)) if sm90 else None, row_stride, float(scale),
-            int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+            int(q.dtype == torch.bfloat16))
     FUSED_BWD_LAUNCHES += 1
     if dbias is not None:
         dbias = dbias[None, None].to(bias_dtype)
@@ -507,33 +510,37 @@ def fused_attention_qblk_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Te
 def _qblk_kernel():
     fn = _build.load_library().attention_qblk_fwd
     i64p = ctypes.POINTER(ctypes.c_int64)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [i64p] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [i64p] * 3 + [
         ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _fused_attention_qblk_cuda(q, k, v, bias, scale, want_lse: bool = False):
+def _fused_attention_qblk_cuda(q, k, v, bias, scale, want_lse: bool = False,
+                               skip_blank: bool = True):
     """#4's launch; with ``want_lse`` also each row's log-sum-exp, fp32
-    (B, H, Lq), for the backward: returns (out, lse)."""
+    (B, H, Lq), for the backward: returns (out, lse). In bf16 with a bias
+    and Lq == Lk the launch is two kernels, counted as one: a pre-pass
+    writes the bias's blank-tile map, and the forward skips the tiles it
+    blanks; ``skip_blank=False`` passes no map, so that every tile is
+    computed (for the checks: the output is the same, bit for bit)."""
     global QBLK_LAUNCHES
     _check_qblk(q, k, v, bias)
     q, k, v, bias = _kernel_operands(q, k, v, bias, "fused_attention_qblk")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:  # the wgmma kernel's 16-byte copies
+        q, k, v = (_copy_ready(t) for t in (q, k, v))
     b, lq, h, hd = q.shape
     out = torch.empty((b, lq, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device) if want_lse else None
+    blank = None
+    if skip_blank and bf16 and bias is not None and lq == k.shape[1]:
+        blank = torch.empty(2 * (-(-lq // _TILE)) ** 2, dtype=torch.uint8, device=q.device)
     row_stride = bias.stride(2) if bias is not None and lq > 1 else 0
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _qblk_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            b, lq, k.shape[1], h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)),
-            _strides(v, (0, 1, 2)), row_stride, float(scale),
-            int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_attention_qblk kernel launch failed: CUDA error {err}")
+    _launch("fused_attention_qblk", _qblk_kernel, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), _ptr(bias), _ptr(blank), out.data_ptr(), _ptr(lse), b, lq, k.shape[1],
+            h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)),
+            row_stride, float(scale), int(bf16))
     QBLK_LAUNCHES += 1
     return (out, lse) if want_lse else out
 
@@ -635,6 +642,20 @@ def blank_tile_map_reference(bias: torch.Tensor) -> torch.Tensor:
     return (tiles == float("-inf")).all(dim=3).all(dim=1).to(torch.uint8)
 
 
+def block_key_tiles_reference(bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of the key tiles a block of #4's one-pass forward
+    copies under a shared (1, 1, L, L) or (L, L) bias: a block of two
+    warpgroups owns 128 q rows, 64 each, and copies key tile kt unless the
+    blank-tile map blanks it for both (a warpgroup past L counts as
+    blank). (ceil(L / 128), T) bool with T = ceil(L / 64), True where the
+    block copies the tile."""
+    blank = blank_tile_map_reference(bias).bool()
+    t = blank.shape[0]
+    rows = torch.ones((2 * (-(-t // 2)), t), dtype=torch.bool, device=blank.device)
+    rows[:t] = blank
+    return ~rows.view(-1, 2, t).all(dim=1)
+
+
 @functools.cache
 def _map_kernel():
     fn = _build.load_library().attention_blank_tile_map
@@ -647,8 +668,8 @@ def _map_kernel():
 def blank_tile_map(bias: torch.Tensor) -> torch.Tensor:
     """The blank-tile map as ``blank_tile_map_reference`` computes it. On a
     CUDA tensor it runs the backward's pre-pass alone, which builds the map
-    inside every bf16 call of #2 and #5 with a bias; this entry serves the
-    checks and counts no launch."""
+    inside every bf16 call of #2, #4 and #5 with a bias; this entry serves
+    the checks and counts no launch."""
     bias = _check_map_bias(bias)
     if bias.device.type == "cpu":
         return blank_tile_map_reference(bias)
@@ -660,11 +681,8 @@ def blank_tile_map(bias: torch.Tensor) -> torch.Tensor:
     n = bias.shape[0]
     t = -(-n // _TILE)
     out = torch.empty((2, t, t), dtype=torch.uint8, device=bias.device)  # blank, all-zero
-    with torch.cuda.device(bias.device):
-        err = _map_kernel()(bias.data_ptr(), out.data_ptr(), n, bias.stride(0) if n > 1 else 0,
-                            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"blank_tile_map kernel launch failed: CUDA error {err}")
+    _launch("blank_tile_map", _map_kernel, bias.device, bias.data_ptr(), out.data_ptr(), n,
+            bias.stride(0) if n > 1 else 0)
     return out[0]
 
 
@@ -720,17 +738,13 @@ def _fused_attention_qblk_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, 
         work = torch.empty((3, b, h, l), dtype=torch.float32, device=q.device)  # m, l, delta
     dq, dk, dv = (torch.empty((b, l, h, hd), dtype=q.dtype, device=q.device) for _ in range(3))
     row_stride = bias.stride(2) if bias is not None and l > 1 else 0
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _qblk_bwd_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(o if sm90 else None),
-            _ptr(lse if sm90 else None), _ptr(bias), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _ptr(dbias), work.data_ptr(), _ptr(blank), b, l, h, _strides(q, (0, 1, 2)),
-            _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)), _strides(g, (0, 1, 2)),
+    _launch(what, _qblk_bwd_kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            g.data_ptr(), _ptr(o if sm90 else None), _ptr(lse if sm90 else None), _ptr(bias),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), work.data_ptr(),
+            _ptr(blank), b, l, h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)),
+            _strides(v, (0, 1, 2)), _strides(g, (0, 1, 2)),
             _strides(o, (0, 1, 2)) if sm90 else None, row_stride, float(scale),
-            int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+            int(q.dtype == torch.bfloat16))
     QBLK_BWD_LAUNCHES += 1
     if dbias is not None:
         dbias = dbias[None, None].to(bias_dtype)
@@ -902,14 +916,10 @@ def _attention_qkv_bwd_cuda(qkv, heads, bias, g, scale, need_dbias, o=None, lse=
             blank = torch.empty(2 * (-(-n // _TILE)) ** 2, dtype=torch.uint8, device=qkv.device)
     else:
         work = torch.empty((3, b, heads, n), dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_kernel()(
-            qkv.data_ptr(), g.data_ptr(), _ptr(o if sm90 else None), _ptr(lse if sm90 else None),
-            _ptr(bias), dqkv.data_ptr(), _ptr(dbias), work.data_ptr(), _ptr(blank), b, n, c, heads,
-            n, float(scale), int(qkv.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"attention_qkv backward kernel launch failed: CUDA error {err}")
+    _launch("attention_qkv backward", _bwd_kernel, qkv.device, qkv.data_ptr(), g.data_ptr(),
+            _ptr(o if sm90 else None), _ptr(lse if sm90 else None), _ptr(bias),
+            dqkv.data_ptr(), _ptr(dbias), work.data_ptr(), _ptr(blank), b, n, c, heads, n,
+            float(scale), int(qkv.dtype == torch.bfloat16))
     BWD_LAUNCHES += 1
     if dbias is not None:
         dbias = dbias[None, None].to(bias_dtype)
