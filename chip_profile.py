@@ -1,9 +1,9 @@
 """Where the device time of the port's round trip, RAR and VAR paths and of
 the flagship GAN training step goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py [rar] [var] [gan]   # from the repository root; one CUDA card
+    python3 chip_profile.py [rar] [var] [gan] [gemm]   # from the repository root; one CUDA card
 
-Runs the sections named (all three by default). ``rar``: the VQ-4096 round
+Runs the sections named (all four by default). ``rar``: the VQ-4096 round
 trip composed and with the fused sublayers (#7, #8), RAR sampling at B=64
 (RAR-B ``rar_generate`` with CFG and the fused RobustTok decode) and the RAR
 generator alone, each by kind of kernel. ``var``: builds MSVR10P2-4096 +
@@ -27,6 +27,10 @@ printed here is against the profiled wall time, which the profiler itself
 stretches; ``PERF.md`` takes the busy time against ``chip_smoke.py``'s
 event-timed median.
 
+``gemm``: the VQ-4096 round trip composed and fused, each GEMM's device
+time per call: the fused sublayers' ``gemm_sm90_kernel`` instantiations by
+name beside cuBLAS's products (``aten::mm`` / ``aten::addmm``) by shape.
+
 ``gan``: the flagship GAN ``TokenizerTrainer.train_step`` at B=64 with a bf16
 loss stack (the configuration ``chip_smoke.py`` times): the whole step by
 kind of kernel, and the step once more cut into its phases (encode,
@@ -39,7 +43,7 @@ they cover it.
 The kernels that share device code (#1, #4 and #7's attention,
 ``attn_fwd_*``; #2, #5 and #6, ``attn_bwd_*``; the GEMMs of #7, #8 and #10,
 ``gemm_*``) carry the kernel's number as their first template argument
-(``attn_fwd_onepass_kernel<4, ...>``, ``gemm_bf16_kernel<8, 1>``), and each
+(``attn_fwd_onepass_kernel<4, ...>``, ``gemm_sm90_kernel<8, 1, 256>``), and each
 is counted under its own number: the bf16 backward of #2, #5 and #6 is three
 kernels (``attn_bwd_prep_kernel``, ``attn_bwd_sm90_kernel``,
 ``attn_bwd_dq_kernel``), all counted under the backward's number; #4 under a
@@ -316,6 +320,52 @@ def profile_rar(dev):
         profile_path("rar generate", generate)
 
 
+def gemm_times(prof) -> dict:
+    """Device ms per call of each GEMM in a profile: the sublayers' own
+    (``gemm_sm90_kernel<kId, kEpi, BN, ...>`` by name) and PyTorch's
+    (``aten::mm`` and ``aten::addmm`` by their operands' shapes, (M, K) x
+    (K, N); cuBLAS's kernels run inside them), each as (ms, launches)."""
+    out = {}
+    for e in _device_kernels(prof):
+        if re.search(r"gemm_sm90_kernel<", e.key):
+            name = re.search(r"gemm_sm90_kernel<[^>]*>", e.key).group(0)
+            ms, cnt = out.get(name, (0.0, 0))
+            out[name] = (ms + e.device_time_total / CALLS / 1e3, cnt + e.count // CALLS)
+    for e in prof.events():
+        if e.name in ("aten::mm", "aten::addmm") and e.input_shapes:
+            shapes = [tuple(sh) for sh in e.input_shapes if len(sh) == 2]
+            key = f"{e.name} {' x '.join(map(str, shapes[-2:]))}"
+            ms, cnt = out.get(key, (0.0, 0))
+            out[key] = (ms + e.device_time_total / CALLS / 1e3, cnt + 1 / CALLS)
+    return out
+
+
+def profile_gemm(dev):
+    """The VQ-4096 round trip (B=64 bf16) composed and with the fused
+    sublayers: each product's device time per call, the sublayers' GEMM
+    instantiations (qkv kDense and proj kDenseLsRes of #7, fc1 kDenseGelu
+    and fc2 kDenseLsRes of #8; encoder M = 32832 and decoder M = 32896
+    together) beside cuBLAS's for the same products in the composed path."""
+    margs = bench_margs("bfloat16")
+    vae = VQModel(margs, generator=torch.Generator().manual_seed(SEED), device=dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.rand((BATCH, margs.image_size, margs.image_size, 3), generator=gen,
+                   device=dev) * 2 - 1
+    with torch.inference_mode():
+        for tag in ("composed", "fused"):
+            if tag == "fused":
+                set_fused_sublayers(vae, True, True)
+            vae.img_to_reconstructed_img(x)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         record_shapes=True) as prof:
+                for _ in range(CALLS):
+                    vae.img_to_reconstructed_img(x)
+                torch.cuda.synchronize()
+            for key, (ms, cnt) in sorted(gemm_times(prof).items(), key=lambda kv: -kv[1][0]):
+                print(f"[gemm round trip {tag}] {ms:9.3f} ms x{cnt:<5g} {key}")
+
+
 def profile_var(dev, margs, tag: str, train_batch: int, round_trip: bool, sample_margs=None):
     """The VAR paths of ``margs`` + VAR-d16 (B=64, the train step at
     ``train_batch``), each by kind, and the train step by phase;
@@ -369,9 +419,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     print(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}")
-    sections = set(sys.argv[1:]) or {"rar", "var", "gan"}
-    if not sections <= {"rar", "var", "gan"}:
-        raise SystemExit(f"sections are rar, var and gan; got {sorted(sections)}")
+    sections = set(sys.argv[1:]) or {"rar", "var", "gan", "gemm"}
+    if not sections <= {"rar", "var", "gan", "gemm"}:
+        raise SystemExit(f"sections are rar, var, gan and gemm; got {sorted(sections)}")
+    if "gemm" in sections:
+        profile_gemm(dev)
     if "rar" in sections:
         profile_rar(dev)
     if "var" in sections:

@@ -938,11 +938,13 @@ def _sublayer_check(what: str, got: torch.Tensor, want: torch.Tensor, res: torch
     or h element) moves y by a small share of its row's RMS, and the last
     term covers the fp32 residual add. tests/test_torch_sublayer_checks.py
     holds this check against a CPU model of the kernels' numerics (GEMMs
-    summed in 32-wide k-steps, #1's tiled attention), which must pass, and
+    summed in 64-wide k-tiles, #1's tiled attention), which must pass, and
     against the model with a fault planted (the last k/v tile or GEMM
-    k-step dropped, a bias omitted, LayerScale skipped, the last partial
-    row tile unstored), which must fail; tests/test_torch_block_fused.py
-    holds the same bound against the Pallas kernels on the CPU."""
+    k-tile dropped, a bias omitted, LayerScale skipped, the last partial
+    row tile unstored), which must fail; tests/test_torch_gemm_sm90.py
+    holds it against a model of the GEMM's tiles and schedule, and
+    tests/test_torch_block_fused.py the same bound against the Pallas
+    kernels on the CPU."""
     if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
         raise AssertionError(f"{what}: non-finite output")
     if got.shape != want.shape or got.dtype != torch.float32:
@@ -976,10 +978,12 @@ def kernels_sublayers(dev) -> dict:
     (64, 514, 768) and the encoder's (64, 513, 768) with 12 heads and at
     ViT-S width 384 with 6 heads, #8 at (64, 514, 768) with hidden 3072 and
     at ViT-S width, #10 at scripts/perf.py's (32832, 768, 3072); each also
-    ragged, with res = 0, and in fp32; then autograd through each fused
-    sublayer on the card (one forward launch; gradients against the
-    composed path's) and the wrappers' refusals. Returns the largest bf16
-    max abs error of each at the main paths' shapes."""
+    ragged, with res = 0, and in fp32; #8 with fc2 (K = 3072, N = 768) at a
+    ragged M of 2331 rows, and #10 at 1000 rows, where both GEMMs have
+    fewer tiles than the card has SMs (96 and 24); then autograd through
+    each fused sublayer on the card (one forward launch; gradients against
+    the composed path's) and the wrappers' refusals. Returns the largest
+    bf16 max abs error of each at the main paths' shapes."""
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     errs = {"attn_sublayer_fused": 0.0, "mlp_sublayer_fused": 0.0, "fused_mlp": 0.0}
@@ -1008,6 +1012,7 @@ def kernels_sublayers(dev) -> dict:
         ("encoder VQ-4096", (BATCH, 513, 768), 3072, bf16, f32, True),
         ("decoder ViT-S, bf16 res", (BATCH, 379, 384), 1536, bf16, bf16, True),
         ("ragged", (3, 37, 768), 3072, bf16, f32, False),
+        ("fc2 at a ragged M", (7, 333, 768), 3072, bf16, f32, False),
         ("res = 0", (8, 514, 768), 3072, bf16, None, False),
         ("decoder fp32", (2, 514, 768), 3072, f32, f32, False),
         ("ragged fp32", (3, 37, 384), 1536, f32, f32, False),
@@ -1024,7 +1029,9 @@ def kernels_sublayers(dev) -> dict:
         if main:
             errs["mlp_sublayer_fused"] = max(errs["mlp_sublayer_fused"], err)
     for name, m, dtype, main in (("perf.py's probe", BATCH * 513, bf16, True),
-                                 ("ragged", 77, bf16, False), ("fp32", 300, f32, False),
+                                 ("ragged", 77, bf16, False),
+                                 ("tiles below the SM count", 1000, bf16, False),
+                                 ("fp32", 300, f32, False),
                                  ("ragged fp32", 37, f32, False)):
         x = torch.randn((m, 768), generator=gen, device=dev).to(dtype)
         w1 = (torch.randn((3072, 768), generator=gen, device=dev) * 0.02).to(dtype)

@@ -30,8 +30,19 @@
 // attention_fwd_sm90.cuh, instantiated as kernel 7) reads it in place; the
 // proj GEMM (kDenseLsRes) writes the fp32 output. qkv and o go through
 // device memory once each (at the decoder's shape 152 MB and 51 MB in bf16),
-// the price of the split. The GEMMs run on mma.sync; wgmma, TMA and keeping
-// o on chip are later work.
+// the price of the split.
+//
+// The GEMMs (bf16) are gemm_epilogue.cuh's warp-specialised, persistent
+// kernel: a TMA producer warpgroup feeds a ring of 128-byte-swizzled
+// stages to two consumer warpgroups that run m64n256k16 wgmma products
+// with both operands in shared memory, 128 x 256 output tiles (128 x 128
+// at ViT-S's widths). The qkv product (116 GFLOP at the decoder's shape)
+// is bound by operations, and its bf16 output leaves by TMA stores that
+// overlap the next tile's products; the proj product (39 GFLOP) reads the
+// fp32 residual and writes the fp32 output (about 250 MB, 0.075 ms at 3.35
+// TB/s against 0.039 ms of products) and is bound by bytes, which its
+// epilogue moves between the block's tiles. Keeping o on chip is later
+// work.
 
 #include "attention_fwd_tile.cuh"
 #include "gemm_epilogue.cuh"

@@ -29,6 +29,16 @@
 // (202 MB at the decoder's shape, written and read), the price of the
 // split; streaming the hidden dimension through shared memory so that h
 // stays on chip is a later redesign.
+//
+// The GEMMs (bf16) are gemm_epilogue.cuh's warp-specialised, persistent
+// kernel: a TMA producer warpgroup feeds a ring of 128-byte-swizzled
+// stages to two consumer warpgroups that run m64n256k16 wgmma products
+// with both operands in shared memory, 128 x 256 output tiles (128 x 128
+// at ViT-S's widths). Both products are bound by operations (155 GFLOP
+// each at the decoder's shape); h leaves fc1 by TMA stores that overlap
+// the next tile's products, but fc1's 101 M erf-GELUs and fc2's fp32
+// residual read and output write run between a block's tiles, while its
+// tensor cores wait.
 
 #include "gemm_epilogue.cuh"
 

@@ -1,11 +1,13 @@
-// Warpgroup building blocks for Hopper (sm_90a) shared by the attention
-// kernels on wgmma: the bf16 backward (attention_bwd_sm90.cuh: #2, #5, #6)
-// and the BNHD forward (attention_fwd_sm90.cuh: #3). One warpgroup (128
-// threads) owns 64-row tiles of a 64-wide head; tiles sit in shared memory
-// in the 128-byte swizzle that wgmma reads (16-byte chunk c of row r at
-// chunk c ^ (r % 8)), written by cp.async 16-byte copies with zero fill
-// past the end, and feed m64n64k16 products (bf16 in, fp32 accumulate) with
-// the A operand in registers.
+// Warpgroup building blocks for Hopper (sm_90a) shared by the kernels on
+// wgmma: the bf16 attention backward (attention_bwd_sm90.cuh: #2, #5, #6),
+// the attention forwards (attention_fwd_sm90.cuh: #1, #3, #4) and, for its
+// fences and descriptor, the sublayers' GEMM (gemm_epilogue.cuh: #7, #8,
+// #10). In the attention kernels one warpgroup (128 threads) owns 64-row
+// tiles of a 64-wide head; tiles sit in shared memory in the 128-byte
+// swizzle that wgmma reads (16-byte chunk c of row r at chunk c ^ (r % 8)),
+// written by cp.async 16-byte copies with zero fill past the end, and feed
+// m64n64k16 products (bf16 in, fp32 accumulate) with the A operand in
+// registers.
 
 #pragma once
 
@@ -63,9 +65,10 @@ __device__ __forceinline__ void wgmma_wait() {
 // products start, right after, and after the wait; register A operands
 // right after the products start and after the wait, which keeps them live
 // (and their registers unreused) until the wgmma has read them.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 __device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
 #pragma unroll

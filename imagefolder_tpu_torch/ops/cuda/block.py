@@ -109,8 +109,9 @@ def _entry(symbol: str):
 
 
 def _operand(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``t`` in ``dtype``, contiguous and on a 16-byte boundary (the GEMM's
-    cp.async loads); a copy only where it is not already so."""
+    """``t`` in ``dtype``, contiguous and on a 16-byte boundary (the base
+    address a TMA tensor map takes); a copy only where it is not already
+    so."""
     t = t.to(dtype).contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

@@ -3,15 +3,16 @@
 CPU.
 
 The kernels cannot run here, so a plain PyTorch model of their numerics
-stands in for them: each GEMM's fp32 sum in 32-wide k-steps, rounded to
-bf16 before its bias add (the Dense epilogue), GELU in fp32 rounded to
-bf16, LayerScale and the fp32 residual add in the last epilogue; #7's
+stands in for them: each GEMM's fp32 sum in 64-wide k-tiles (the wgmma
+GEMM's k-tile, ``csrc/gemm_epilogue.cuh``'s kBK), rounded to bf16 before
+its bias add (the Dense epilogue), GELU in fp32 rounded to bf16,
+LayerScale and the fp32 residual add in the last epilogue; #7's
 attention as #1's tiles (64 keys, an online max and row sum in fp32, p
 rounded against the running max before p v, o / l at the end). The check
 must pass that model at #7's decoder shape (N = 514, the last k/v tile
 holds 2 keys) and #8's encoder shape (N = 513, the last 128-row tile is
 partly filled), and fail it once a fault is planted in it: the last k/v
-tile or a GEMM's last k-step dropped, the bias omitted, LayerScale
+tile or a GEMM's last k-tile dropped, the bias omitted, LayerScale
 skipped, or the last partial row tile left unstored.
 """
 
@@ -26,7 +27,7 @@ import chip_smoke as cs
 from imagefolder_tpu_torch.ops.activations import gelu_exact
 from imagefolder_tpu_torch.ops.cuda import block
 
-K_STEP, ROW_TILE, KV_TILE = 32, 128, 64
+K_STEP, ROW_TILE, KV_TILE = 64, 128, 64
 
 
 def _attention(qkv, heads, fault=None):
@@ -51,7 +52,7 @@ def _attention(qkv, heads, fault=None):
 
 
 def _dense(x, w, b, fault=None):
-    """A GEMM with the Dense epilogue: fp32 sums over 32-wide k-steps in
+    """A GEMM with the Dense epilogue: fp32 sums over 64-wide k-tiles in
     order, rounded to x's dtype, then + b in x's dtype."""
     wt = w.to(x.dtype)
     steps = list(range(0, x.shape[-1], K_STEP))
