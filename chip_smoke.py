@@ -36,16 +36,20 @@ exit; no failure is caught):
      exact, on VAR's 512 px bias and the ragged encoder masks; the forwards'
      lse, #1, #3 and #4, whose store leaves the output unchanged), the
      codebook search (#9) at every scale of
-     both multi-scale encodes, and the fused sublayers: attention (#7) at the
+     both multi-scale encodes, on codebooks whose rows repeat across its
+     code ranges and at N below a row tile, and the fused sublayers: attention (#7) at the
      ViT-B decoder's and encoder's and at ViT-S width, the MLP (#8) at ViT-B
      and ViT-S width, the MLP probe (#10) at scripts/perf.py's shape, each
      ragged, with res = 0 and in fp32, LayerScale of order 1, #7 and #8
-     through autograd, and the wrappers' refusals;
+     through autograd, and the wrappers' refusals; then #3, #4, #5 and #6
+     at head dim 48 through the same checks (RAR-B's (64, 258, 16, 48)
+     under the causal mask, #4/#5 past the single-block budget);
   4. models, card against CPU in fp32 from one seed: the VQ-4096 ViT-B
      tokenizer at B=2, then its decode and round trip with the fused
      sublayers on the card; RAR-B at full width with CFG, B=2, the same
      Gumbel noise on both sides, and its tokens decoded by that tokenizer
-     (RobustTok at inference) fused on the card; for MSVR10P2-4096 and
+     (RobustTok at inference) fused on the card; RAR-B's training forward,
+     ``ar_loss`` and every parameter's gradient at B=2; for MSVR10P2-4096 and
      MSVR10P2-4096-512, each with VAR-d16, ``img_to_idxBl`` codes per scale,
      the round trip image, ``VAR.forward`` logits, greedy ``var_sample``
      tokens and images, then one ``VARTrainer`` step's loss, every
@@ -60,7 +64,8 @@ exit; no failure is caught):
      before its timed calls and read just after: at B=64 the VQ-4096 round
      trip, composed and then fused (``round trip fused``); RAR sampling
      (``rar sample``: ``rar_generate`` with CFG and the fused RobustTok
-     decode; then the generator and the decode alone); the MLP probe (12
+     decode; then the generator and the decode alone); RAR-B's training
+     forward and backward (``rar train fwd+bwd``); the MLP probe (12
      chained #10 calls at scripts/perf.py's shape); for both multi-scale
      configurations ``var_sample`` (cfg 1.5, top-k 900, top-p 0.96; at 256 px
      decoded by bench.py's sample-leg tokenizer, ViT-S), ``img_to_idxBl``,
@@ -70,8 +75,10 @@ exit; no failure is caught):
   6. times: each kernel (#2, #5 and #6 as training calls them, with the
      forward's saved output and lse, #6 through autograd; #1, #3 and #4
      also with the lse store on, #3 as the train step's autograd runs its
-     forward; #3 at the last 256 px sampling stage, teacher forcing and the
-     512 px last sampling stage),
+     forward; #3 at the last 256 px sampling stage, teacher forcing, the
+     512 px last sampling stage and RAR-B's teacher forcing; #6 also at
+     RAR-B's training shape; #9 at every scale of both encodes, each a CUDA
+     graph of 20 calls, with its sums per encode),
      its plain version (order plain, kernel, kernel,
      plain) and one PyTorch library call computing the same function (for
      #2, #5 and #6, the backward of ``scaled_dot_product_attention``; for #7
@@ -262,11 +269,12 @@ def _check(name: str, err: float, tol: float):
         raise AssertionError(f"{name}: max abs err {err} > {tol}")
 
 
-def _fwd_check(what: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float, str]:
+def _fwd_check(what: str, got: torch.Tensor, want: torch.Tensor,
+               hd: int = HD) -> tuple[float, str]:
     """A forward kernel's output against its plain version's: both finite,
     the max abs error within TOL, and in bf16 every element's error within
-    BF16_REL * |plain| + ROW_SHARE * (the RMS of its head's 64 outputs at
-    that position). The per-element bound follows the size of the values: a
+    BF16_REL * |plain| + ROW_SHARE * (the RMS of its head's ``hd`` outputs
+    at that position). The per-element bound follows the size of the values: a
     typical 512 px output (~0.03) is smaller than TOL's 2e-2, which the few
     large early VAR rows set. The row term covers what the order of the
     fp32 sums and p's rounding against a running max leave before the
@@ -277,12 +285,12 @@ def _fwd_check(what: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float,
     note of the bound for the log line."""
     if not (bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())):
         raise AssertionError(f"{what}: non-finite output")
-    diff = (got.float() - want.float()).abs().reshape(-1, HD)
+    diff = (got.float() - want.float()).abs().reshape(-1, hd)
     err = diff.max().item()
     _check(what, err, TOL[got.dtype])
     if got.dtype != torch.bfloat16:
         return err, f"(tol {TOL[got.dtype]:g})"
-    size = want.float().abs().reshape(-1, HD)
+    size = want.float().abs().reshape(-1, hd)
     row_rms = size.square().mean(dim=1, keepdim=True).sqrt()
     worst = (diff / (BF16_REL * size + ROW_SHARE * row_rms)).max().item()
     if not worst <= 1.0:
@@ -449,13 +457,14 @@ def kernels_qkv_bwd(dev) -> float:
     return max(main_err, err)
 
 
-def _bnhd(gen, b, lq, lk, h, dtype, dev, l2=True):
-    """q (B, Lq, H, 64), k and v (B, Lk, H, 64) as VAR's attention makes them:
+def _bnhd(gen, b, lq, lk, h, dtype, dev, l2=True, hd=HD):
+    """q (B, Lq, H, hd), k and v (B, Lk, H, hd) as VAR's attention makes them:
     with attn_l2_norm, L2-normed q times its temperature (4 at init) and
-    L2-normed k, read at scale 1."""
-    q = torch.randn((b, lq, h, HD), generator=gen, device=dev)
-    k = torch.randn((b, lk, h, HD), generator=gen, device=dev)
-    v = torch.randn((b, lk, h, HD), generator=gen, device=dev)
+    L2-normed k, read at scale 1; with ``l2`` False, unit normals (RAR's
+    qk-normed q and k at scale 1/sqrt(hd))."""
+    q = torch.randn((b, lq, h, hd), generator=gen, device=dev)
+    k = torch.randn((b, lk, h, hd), generator=gen, device=dev)
+    v = torch.randn((b, lk, h, hd), generator=gen, device=dev)
     if l2:
         q, k = _l2n(q) * 4.0, _l2n(k)
     return q.to(dtype), k.to(dtype), v.to(dtype)
@@ -863,6 +872,153 @@ def kernels_bwd_pieces(dev):
             raise AssertionError(f"[kernels] lse {name}: the output changed with the lse store")
 
 
+RAR_HEADS, RAR_HD = 16, 48  # RAR-B: 768 wide, 16 heads of 48
+RAR_SEQ = 258  # RAR-B's training sequence: [cls, cond] and 256 tokens
+
+
+def _causal(n: int, dev) -> torch.Tensor:
+    """RAR's training mask (``RAR.forward``): (1, 1, n, n), -inf above the
+    diagonal."""
+    pos = torch.arange(n, device=dev)
+    return torch.zeros(n, n, device=dev).masked_fill(
+        pos[:, None] < pos[None, :], float("-inf"))[None, None]
+
+
+def _fwd_cases_hd48(num: str, fn, ref, cases, hd: int):
+    """A forward kernel ``fn`` against its plain version ``ref`` on each
+    (name, q, k, v, bias) case at scale 1/sqrt(hd), under ``_fwd_check``."""
+    scale = 1.0 / math.sqrt(hd)
+    for name, q, k, v, bias in cases:
+        got = fn(q, k, v, bias, scale)
+        want = ref(q, k, v, bias, scale)
+        torch.cuda.synchronize()
+        err, note = _fwd_check(f"[kernels] {num} hd {hd} {name}", got, want, hd=hd)
+        print(f"[kernels] {num} hd {hd} {name:28s} q {tuple(q.shape)} k {tuple(k.shape)} "
+              f"{str(q.dtype)[6:]:8s} bias={'none' if bias is None else tuple(bias.shape)} "
+              f"max_abs_err {err:.3e} {note}")
+        del got, want
+
+
+def _bwd_cases_hd48(num: str, fn, ref, cases, hd: int, gen):
+    """A backward kernel ``fn`` against its plain version ``ref`` on each
+    (name, q, k, v, bias, dbias) case at scale 1/sqrt(hd): each gradient's
+    max abs error over the plain result's max abs within TOL."""
+    scale = 1.0 / math.sqrt(hd)
+    for name, q, k, v, bias, need_db in cases:
+        g = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+        got = fn(q, k, v, bias, g, scale, need_dbias=need_db)
+        want = ref(q, k, v, bias, g, scale, need_dbias=need_db)
+        torch.cuda.synchronize()
+        errs = _bwd_errs(num, name, got, want)
+        print(f"[kernels] {num} hd {hd} {name:31s} q {tuple(q.shape)} {str(q.dtype)[6:]:8s} "
+              f"bias={'none' if bias is None else tuple(bias.shape)}: error over max |plain| "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f" (tol {TOL[q.dtype]:g})")
+        for what, e in errs.items():
+            _check(f"[kernels] {num} hd {hd} {name} {what}", e, TOL[q.dtype])
+        del got, want
+
+
+def _autograd_hd48(num: str, counters, q, k, v, bias, gen) -> None:
+    """bf16 autograd through ``dot_product_attention`` at head dim 48, as a
+    training step runs it: one forward launch (lse saved), one backward
+    launch (the two ``attn`` counters named), gradients against the plain
+    backward within TOL."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    g = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    before = [getattr(attn, c) for c in counters]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(attn.dot_product_attention(*leaves, bias, scale), leaves, g)
+    want = attn.fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias=False)
+    torch.cuda.synchronize()
+    counts = [getattr(attn, c) - b for c, b in zip(counters, before)]
+    if counts != [1, 1]:
+        raise AssertionError(f"[kernels] {num} hd 48 bf16 autograd launched {counts}, "
+                             "want [1, 1]")
+    errs = _bwd_errs(num, "bf16 autograd", got, want[:3], ("dq", "dk", "dv"))
+    print(f"[kernels] {num} hd 48 bf16 autograd of dot_product_attention q {tuple(q.shape)}: "
+          f"one forward launch (lse saved), one backward launch, error over max |plain| "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f" (tol {TOL[q.dtype]:g})")
+    for what, e in errs.items():
+        _check(f"[kernels] {num} hd 48 bf16 autograd {what}", e, TOL[q.dtype])
+
+
+def kernels_hd48(dev):
+    """#3, #4, #5 and #6 at head dim 48 (RAR-B's 768 / 16, run on the
+    kernels' 64-wide tiles zero-padded), through the checks they pass at 64:
+    #3 at RAR-B's teacher forcing (64, 258, 16, 48) under the causal mask, in
+    fp32, cross-length, with k and v streamed (Lk past the resident 320),
+    Lq = 1, a per-(B, H) bias, strided views of a fused qkv, unaligned rows;
+    #6 at RAR-B's training shape with dbias off (the wgmma backward) and on,
+    with no bias, in fp32, ragged (L = 1, 37, 130) and on strided views; #4
+    and #5 at a small L past the single-block budget (2100, 2049 ragged,
+    1500 x 2500 for #4), under an encoder mask and in fp32, #4 bit-equal
+    with and without its blank-tile map; then bf16 autograd through the
+    router for the pair each side of the budget."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    hd = RAR_HD
+    gen = torch.Generator(device=dev).manual_seed(SEED + 48)
+    causal = _causal(RAR_SEQ, dev)
+
+    def bnhd(b, lq, lk, h, dtype):
+        return _bnhd(gen, b, lq, lk, h, dtype, dev, l2=False, hd=hd)
+
+    rar = (RAR_SEQ, RAR_SEQ, RAR_HEADS)
+    qkv = torch.randn((4, 30, 3, RAR_HEADS, hd), generator=gen, device=dev).bfloat16()
+    wide = torch.randn((3, 40, 4, hd + 1), generator=gen, device=dev).bfloat16()
+    per_bh = torch.randn((2, 4, 37, 45), generator=gen, device=dev)
+    per_bh[..., 5:9] = float("-inf")
+    _fwd_cases_hd48("#3", attn.fused_attention, attn.fused_attention_reference, [
+        ("RAR-B teacher forcing", *bnhd(BATCH, *rar, bf16), causal),
+        ("RAR-B teacher forcing fp32", *bnhd(2, *rar, f32), causal),
+        ("cross length 37 x 77", *bnhd(3, 37, 77, 4, bf16), None),
+        ("streamed k, v: 100 x 700", *bnhd(4, 100, 700, 4, bf16), None),
+        ("Lq=1", *bnhd(5, 1, 2, 4, bf16), None),
+        ("Lq=1 fp32", *bnhd(5, 1, 2, 4, f32), None),
+        ("per-(B,H) bias", *bnhd(2, 37, 45, 4, bf16), per_bh),
+        ("per-(B,H) bias fp32", *bnhd(2, 37, 45, 4, f32), per_bh),
+        ("strided qkv views", *qkv.unbind(2), build_attn_bias((1, 2, 3, 4)).to(dev)),
+        ("unaligned rows", wide[:, :21, :, :hd], wide[..., :hd], wide[..., 1:], None)], hd)
+    bwd = [
+        ("RAR-B training, dbias off", *bnhd(BATCH, *rar, bf16), causal, False),
+        ("RAR-B training, dbias on", *bnhd(8, *rar, bf16), causal, True),
+        ("RAR-B training, no bias", *bnhd(BATCH, *rar, bf16), None, False),
+        ("RAR-B training fp32, dbias on", *bnhd(2, *rar, f32), causal, True)]
+    for n in (1, 37, 130):
+        bwd.append((f"ragged L={n}", *bnhd(3, n, n, 4, bf16), None, False))
+        bwd.append((f"ragged L={n}, bias", *bnhd(3, n, n, 4, bf16),
+                    encoder_mask(n, n // 3, dev), True))
+    bwd += [("strided qkv views", *qkv.unbind(2), build_attn_bias((1, 2, 3, 4)).to(dev), True),
+            ("ragged L=37 fp32", *bnhd(3, 37, 37, 4, f32), None, False)]
+    _bwd_cases_hd48("#6", attn.fused_attention_bwd, attn.fused_attention_bwd_reference, bwd,
+                    hd, gen)
+    _autograd_hd48("#3/#6", ("FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES"),
+                   *bnhd(BATCH, *rar, bf16), causal, gen)
+    del bwd
+    mask = encoder_mask(2100, 700, dev, 64)
+    qblk = [("L=2100, encoder mask", *bnhd(2, 2100, 2100, 4, bf16), mask),
+            ("ragged L=2049, no bias", *bnhd(2, 2049, 2049, 4, bf16), None),
+            ("cross length 1500 x 2500", *bnhd(2, 1500, 2500, 4, bf16), None),
+            ("L=2100 fp32, encoder mask", *bnhd(2, 2100, 2100, 4, f32), mask)]
+    _fwd_cases_hd48("#4", attn.fused_attention_qblk, attn.fused_attention_qblk_reference,
+                    qblk, hd)
+    name, q, k, v, bias = qblk[0]
+    skipped = attn._fused_attention_qblk_cuda(q, k, v, bias, 1.0 / math.sqrt(hd))
+    computed = attn._fused_attention_qblk_cuda(q, k, v, bias, 1.0 / math.sqrt(hd),
+                                               skip_blank=False)
+    torch.cuda.synchronize()
+    if not torch.equal(skipped, computed):
+        raise AssertionError(f"[kernels] #4 hd 48 {name}: the blank-tile map changed "
+                             f"{int((skipped != computed).sum())} outputs")
+    print(f"[kernels] #4 hd 48 {name}: with the blank-tile map bit-equal to every tile computed")
+    _bwd_cases_hd48("#5", attn.fused_attention_qblk_bwd,
+                    attn.fused_attention_qblk_bwd_reference, [
+        ("L=2100, encoder mask, dbias off", *qblk[0][1:4], mask, False),
+        ("L=2100, encoder mask, dbias on", *qblk[0][1:4], mask, True),
+        ("ragged L=2049, no bias", *qblk[1][1:4], None, False),
+        ("L=2100 fp32, dbias on", *qblk[3][1:4], mask, True)], hd, gen)
+    _autograd_hd48("#4/#5", ("QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES"), *qblk[0][1:4], mask, gen)
+
+
 def _score_gap(x: torch.Tensor, cb: torch.Tensor, maximize: bool, a: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """|score(a) - score(b)| per row in fp64, the score being the kernel's
@@ -874,20 +1030,44 @@ def _score_gap(x: torch.Tensor, cb: torch.Tensor, maximize: bool, a: torch.Tenso
     return (s.gather(1, a[:, None]) - s.gather(1, b[:, None])).abs()[:, 0]
 
 
+# codebook rows planted twice by ``kernels_codebook``: (first, copy) pairs
+# across the boundaries of the code ranges the kernel splits a 4096 book into
+# (512 codes a range at 8 ranges, 1024 at 4, 2048 at 2), and one far apart;
+# each line names the ranges the call took (``codebook.code_ranges``)
+DUPLICATE_CODES = ((511, 512), (1023, 1024), (2047, 2048), (100, 3000))
+
+
 def kernels_codebook(dev) -> float:
     """#9 against its plain version: indices equal except at near-ties,
-    where the fp64 score gap must be <= NEAR_TIE. Returns the largest gap at
-    the main path's shapes (0 when every index agrees)."""
+    where the fp64 score gap must be <= NEAR_TIE, at every scale of both
+    encodes, V off the tile, each C, N below one row tile; then codebooks
+    holding ``DUPLICATE_CODES`` at pn = 2, 11 and 13, whose planted rows
+    must take the first copy, as the plain version does; those calls must
+    split the book in at least two ways, one of them into several ranges.
+    Returns the largest gap at the main path's shapes (0 when every index
+    agrees)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
-    cases = [(f"scale pn={pn}", BATCH * pn * pn, 4096, 32, maximize, True)
+    cases = [(f"scale pn={pn}", BATCH * pn * pn, 4096, 32, maximize, True, None)
              for pn in sorted(set(PNS) | set(PNS512)) for maximize in (True, False)]
-    cases += [("V off the tile", 1000, 4000, 32, True, False),
-              ("C=8", 777, 4096, 8, False, False), ("C=16", 777, 1024, 16, True, False),
-              ("C=64", 777, 4096, 64, True, False)]
-    main_gap = 0.0
-    for name, n, v, c, maximize, main in cases:
+    cases += [("V off the tile", 1000, 4000, 32, True, False, None),
+              ("C=8", 777, 4096, 8, False, False, None),
+              ("C=16", 777, 1024, 16, True, False, None),
+              ("C=64", 777, 4096, 64, True, False, None),
+              ("N below a row tile", 5, 4096, 32, True, False, None),
+              ("x off 16 bytes", 300, 4096, 32, False, False, "unaligned")]
+    cases += [(f"duplicates pn={pn}", BATCH * pn * pn, 4096, 32, maximize, False, "dup")
+              for pn in (2, 11, 13) for maximize in (True, False)]
+    main_gap, dup_splits = 0.0, set()
+    for name, n, v, c, maximize, main, kind in cases:
         x = torch.randn((n, c), generator=gen, device=dev)
         cb = torch.randn((v, c), generator=gen, device=dev)
+        if kind == "unaligned":  # the wrapper copies it to a 16-byte boundary
+            x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(n, c)
+        dup = kind == "dup"
+        if dup:  # row i sits on the planted pair i (plus a little noise)
+            for i, (a, b) in enumerate(DUPLICATE_CODES):
+                cb[b] = cb[a]
+                x[i] = cb[a] + 1e-3 * x[i]
         if maximize:  # the quantizer passes L2-normalised rows
             x, cb = _l2n(x), _l2n(cb)
         got = codebook.codebook_argmin(x, cb, maximize)
@@ -896,14 +1076,26 @@ def kernels_codebook(dev) -> float:
         diff = (got != want).nonzero()[:, 0]
         gap = _score_gap(x[diff], cb, maximize, got[diff], want[diff]).max().item() \
             if diff.numel() else 0.0
-        print(f"[kernels] #9 {name:14s} x ({n}, {c}) codebook ({v}, {c}) "
-              f"maximize={maximize!s:5s} {n - diff.numel()}/{n} equal, "
-              f"max fp64 score gap {gap:.3e} (near-tie <= {NEAR_TIE:g})")
+        print(f"[kernels] #9 {name:18s} x ({n}, {c}) codebook ({v}, {c}) "
+              f"maximize={maximize!s:5s} {codebook.code_ranges(n, v, c, maximize)} code "
+              f"ranges, {n - diff.numel()}/{n} equal, max fp64 score gap {gap:.3e} "
+              f"(near-tie <= {NEAR_TIE:g})")
         if not (0 <= int(got.min()) and int(got.max()) < v):
             raise AssertionError(f"[kernels] #9 {name}: index out of range")
         _check(f"[kernels] #9 {name} score gap", gap, NEAR_TIE)
+        if dup:
+            dup_splits.add(codebook.code_ranges(n, v, c, maximize))
+            first = torch.tensor([a for a, _ in DUPLICATE_CODES], device=dev)
+            planted = got[:len(DUPLICATE_CODES)]
+            if not (torch.equal(planted, first) and torch.equal(want[:len(first)], first)):
+                raise AssertionError(f"[kernels] #9 {name}: planted rows took "
+                                     f"{planted.tolist()}, plain {want[:len(first)].tolist()}, "
+                                     f"want the first copies {first.tolist()}")
         if main:
             main_gap = max(main_gap, gap)
+    if len(dup_splits) < 2 or max(dup_splits) < 2:
+        raise AssertionError(f"[kernels] #9 the duplicate cases split the book into "
+                             f"{sorted(dup_splits)} ranges: they cover too few splits")
     return main_gap
 
 
@@ -1254,6 +1446,68 @@ def phase_model_rar(dev, vq_cpu: VQModel, vq_card: VQModel):
         _check(f"[model] RAR {k}", v, MODEL_TOL)
 
 
+# RAR's k_norm bias adds q.b to every score of a query row, which the softmax
+# cancels: its gradient is 0 in exact arithmetic
+RAR_ZERO_GRAD = r"blocks\.\d+\.attn\.k_norm\.bias"
+
+
+def _rar_batch(cfg, batch: int, gen: torch.Generator):
+    """Training inputs for RAR from ``gen`` on the CPU: tokens, condition-
+    token ids and per-sample orders (a raster order first, the rest random
+    permutations, as RAR's training draws them)."""
+    ids = torch.randint(0, cfg.codebook_size, (batch, cfg.image_seq_len), generator=gen)
+    cond = torch.randint(0, cfg.condition_num_classes, (batch,), generator=gen) + \
+        cfg.codebook_size + 1
+    orders = torch.argsort(torch.rand((batch, cfg.image_seq_len), generator=gen), dim=1)
+    orders[0] = torch.arange(cfg.image_seq_len)
+    return ids, cond, orders
+
+
+def phase_model_rar_train(dev):
+    """RAR-B at full width (768 wide, 24 deep, 16 heads of 48, 256 tokens,
+    4096 codes) in fp32, B=2: the teacher-forcing forward over per-sample
+    orders under the causal mask, ``ar_loss`` and its backward, card against
+    the same weights on the CPU: logits, loss and every parameter's
+    gradient (max abs error over the CPU's max abs) within MODEL_TOL, the
+    k_norm biases (0 in exact arithmetic) to ZERO_GRAD_TOL of their weights'
+    gradients. On the card one #3 and one #6 launch per block (fp32: the
+    FMA forward, the two-kernel backward)."""
+    gen = torch.Generator().manual_seed(SEED + 12)
+    rar_cpu = build_rar(bench_margs("float32"), generator=gen, device="cpu")
+    _excite_adaln(rar_cpu, gen)
+    rar_card = copy.deepcopy(rar_cpu).to(dev)
+    cfg = rar_cpu.config
+    batch = _rar_batch(cfg, 2, gen)
+
+    def run(model, device):
+        logits, labels = model(*(t.to(device) for t in batch))
+        loss, _ = rar_mod.ar_loss(logits, labels)
+        loss.backward()
+        return logits.detach(), loss.detach()
+
+    reset_counts()
+    logits_card, loss_card = run(rar_card, dev)
+    torch.cuda.synchronize()
+    check_launches("[model] RAR-B training fp32", 1, {"fused_attention_fwd": cfg.depth,
+                                                      "fused_attention_bwd": cfg.depth})
+    logits_cpu, loss_cpu = run(rar_cpu, "cpu")
+    grad_errs, zero = _grad_errs("RAR-B training", rar_cpu.named_parameters(),
+                                 rar_card.parameters(), list(rar_cpu.parameters()),
+                                 RAR_ZERO_GRAD)
+    worst = max(grad_errs, key=grad_errs.get)
+    errs = {"logits": _max_err(logits_card, logits_cpu) / logits_cpu.abs().max().item(),
+            "loss": abs(loss_card.item() - loss_cpu.item()) / abs(loss_cpu.item()),
+            f"gradient of {worst}": grad_errs[worst]}
+    shown = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    print(f"[model] RAR-B training fp32 B=2 (forward, ar_loss, backward) card vs CPU "
+          f"(relative): {shown} (tol {MODEL_TOL:g}; {len(grad_errs)} parameter gradients, "
+          f"median error {statistics.median(grad_errs.values()):.3e}; {len(zero)} k_norm "
+          f"biases at most {max(zero.values()):.3e} of their weights' gradients, tol "
+          f"{ZERO_GRAD_TOL:g}); loss {loss_cpu.item():.6f}; #3 and #6 {cfg.depth} launches each")
+    for k, v in errs.items():
+        _check(f"[model] RAR-B training {k}", v, MODEL_TOL)
+
+
 class Lockstep:
     """Runs a path on the CPU and then on the card with ``module.name``
     wrapped. The CPU run records each call's arguments and result; the card
@@ -1516,12 +1770,14 @@ ZERO_GRAD = r"heads\.\d+\.b\d\.conv\.bias"
 ZERO_GRAD_TOL = 1e-4  # of the max abs gradient of the same conv's weight
 
 
-def _grad_errs(what: str, named_cpu, params_card, trainable: list) -> tuple:
+def _grad_errs(what: str, named_cpu, params_card, trainable: list,
+               zero_grad: str = ZERO_GRAD) -> tuple:
     """Each trainable parameter's gradient, card against CPU: the max abs
     error over the CPU gradient's max abs. Every trainable parameter must
     have a gradient (AdamW would skip one that has none, optax decays it). A
-    gradient that is zero in exact arithmetic (``ZERO_GRAD``) is held, on
-    both sides, to ``ZERO_GRAD_TOL`` of its weight's gradient instead."""
+    gradient that is zero in exact arithmetic (names matching ``zero_grad``,
+    each a bias) is held, on both sides, to ``ZERO_GRAD_TOL`` of its
+    weight's gradient instead."""
     named_cpu = list(named_cpu)
     trainable = {id(p) for p in trainable}
     weight_max = {n: p.grad.abs().max().item() for n, p in named_cpu
@@ -1535,7 +1791,7 @@ def _grad_errs(what: str, named_cpu, params_card, trainable: list) -> tuple:
         if p_cpu.grad is None or p_card.grad is None:
             raise AssertionError(f"[model] {what} {name}: no gradient (cpu "
                                  f"{p_cpu.grad is not None}, card {p_card.grad is not None})")
-        if re.fullmatch(ZERO_GRAD, name):
+        if re.fullmatch(zero_grad, name):
             ref = weight_max[name[:-len("bias")] + "weight"]
             zero[name] = max(p_cpu.grad.abs().max().item(),
                              p_card.grad.abs().max().item()) / ref
@@ -1758,6 +2014,39 @@ def main_rar_paths(dev) -> dict:
     return out
 
 
+def main_rar_train(dev) -> dict:
+    """RAR-B's training forward and backward at B=64 in bf16 (``rar train
+    fwd+bwd``): ``RAR.forward`` over per-sample orders under the causal
+    mask, ``ar_loss``, and its backward, with the parameters' gradients set
+    to None before each call. Per call one #3 launch with the lse store and
+    one #6 launch per block (24 each); every parameter gets a finite
+    gradient. The optimizer step (RAR's trainer) is not part of the path."""
+    gen = torch.Generator().manual_seed(SEED + 13)
+    rar = build_rar(bench_margs("bfloat16"), dtype_str="bfloat16", generator=gen, device="cpu")
+    _excite_adaln(rar, gen)
+    rar.to(dev)
+    cfg = rar.config
+    ids, cond, orders = (t.to(dev) for t in _rar_batch(cfg, BATCH, gen))
+
+    def step():
+        rar.zero_grad(set_to_none=True)
+        loss, _ = rar_mod.ar_loss(*rar(ids, cond, orders))
+        loss.backward()
+        return loss.detach()
+
+    r = time_calls("rar train fwd+bwd", step, 5, {"fused_attention_fwd": cfg.depth,
+                                                 "fused_attention_bwd": cfg.depth}, dev)
+    loss = r.pop("out")
+    bad = [n for n, p in rar.named_parameters() if p.grad is None or
+           not bool(torch.isfinite(p.grad).all())]
+    if not bool(torch.isfinite(loss)) or bad:
+        raise AssertionError(f"[main] rar train fwd+bwd: loss {loss.item()}, parameters "
+                             f"without a finite gradient {bad[:5]}")
+    _report("RAR-B train forward + ar_loss + backward (hd 48)", r, BATCH,
+            f"loss {loss.item():.4f}, every parameter's gradient finite")
+    return {"rar train fwd+bwd": r}
+
+
 MLP_PROBE = (BATCH * 513, 768, 3072, 12)  # scripts/perf.py:29-33: B*L rows, D, HID; 12 layers
 
 
@@ -1973,17 +2262,38 @@ def _time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _time_graph_ms(fn, reps: int = 20) -> float:
+    """``fn`` captured ``reps`` times into one CUDA graph and the graph's
+    replay timed: the device time of the calls with no host gap between
+    them (a small launch takes the card less time than Python takes to
+    issue it)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _time_kernel(name: str, kernel, plain, library, nbytes: float, ops: float,
                  dtype: torch.dtype, shape: str, reps: int = 20,
-                 library_call: str = "one PyTorch call") -> dict:
+                 library_call: str = "one PyTorch call", timer=_time_ms) -> dict:
     """Kernel and plain version in the order plain, kernel, kernel, plain;
     then the library call (``library_call`` says what it is; None where no
     PyTorch call computes the same function); beside the bound for the
-    same work."""
+    same work. ``timer`` times ``reps`` calls of one of them."""
     with torch.inference_mode():
-        p1, k1, k2, p2 = (_time_ms(fn, reps) for fn in (plain, kernel, kernel, plain))
+        p1, k1, k2, p2 = (timer(fn, reps) for fn in (plain, kernel, kernel, plain))
     # outside inference mode: a library backward needs autograd
-    lib = None if library is None else _time_ms(library, reps)
+    lib = None if library is None else timer(library, reps)
     k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
     b_ms, by = bound_ms(nbytes, ops, dtype)
     shown = "none" if lib is None else f"{lib:.4f} ms"
@@ -2104,6 +2414,55 @@ def times_bnhd_bwd(dev, gen) -> dict:
         f"q, k, v, g {tuple(q.shape)}", library_call="SDPA backward")
 
 
+def times_bnhd_fwd_hd48(dev, gen) -> dict:
+    """#3 at RAR-B's teacher forcing, (64, 258, 16, 48) bf16 under the
+    causal mask at scale 1/sqrt(48), with the lse store off and on (on: the
+    forward as the training step's autograd runs it)."""
+    bf16 = torch.bfloat16
+    bias = _causal(RAR_SEQ, dev)
+    q, k, v = _bnhd(gen, BATCH, RAR_SEQ, RAR_SEQ, RAR_HEADS, bf16, dev, l2=False, hd=RAR_HD)
+    scale = 1.0 / math.sqrt(RAR_HD)
+    pairs = int(torch.isfinite(bias).sum())
+    rec = _time_kernel(
+        "#3 fused_attention, RAR-B teacher forcing (hd 48)",
+        lambda: attn.fused_attention(q, k, v, bias, scale),
+        lambda: attn.fused_attention_reference(q, k, v, bias, scale),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=bias.to(bf16), scale=scale),
+        4 * q.numel() * 2 + bias.numel() * 4, 4 * BATCH * RAR_HEADS * pairs * RAR_HD, bf16,
+        f"q, k, v {tuple(q.shape)}, bias {tuple(bias.shape)}", library_call="SDPA")
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    _time_lse("#3 fused_attention, RAR-B teacher forcing (hd 48)",
+              lambda: attn.fused_attention(q, k, v, bias, scale),
+              lambda: attn.fused_attention(qg, kg, vg, bias, scale), rec)
+    return rec
+
+
+def times_bnhd_bwd_hd48(dev, gen) -> dict:
+    """#6 at RAR-B's training shape, (64, 258, 16, 48) bf16 under the causal
+    mask, no dbias, through autograd with #3's saved output and lse (prep,
+    main and dq kernels timed), as the library call is SDPA's backward
+    through autograd."""
+    bf16 = torch.bfloat16
+    bias = _causal(RAR_SEQ, dev)
+    q, k, v = _bnhd(gen, BATCH, RAR_SEQ, RAR_SEQ, RAR_HEADS, bf16, dev, l2=False, hd=RAR_HD)
+    scale = 1.0 / math.sqrt(RAR_HD)
+    g = torch.randn(q.shape, generator=gen, device=dev).to(bf16)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = attn.fused_attention(qg, kg, vg, bias, scale)
+    lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias.to(bf16), scale=scale)
+    pairs = int(torch.isfinite(bias).sum())
+    return _time_kernel(
+        "#6 fused_attention backward, RAR-B training (hd 48)",
+        lambda: torch.autograd.grad(out, (qg, kg, vg), g, retain_graph=True),
+        lambda: attn.fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias=False),
+        lambda: torch.autograd.grad(lib_out, (lq, lk, lv), g.transpose(1, 2), retain_graph=True),
+        7 * q.numel() * 2 + bias.numel() * 4, 5 * 2 * BATCH * RAR_HEADS * pairs * RAR_HD, bf16,
+        f"q, k, v, g {tuple(q.shape)}", library_call="SDPA backward")
+
+
 def times_qblk_fwd(dev, gen) -> dict:
     """#4 at VAR's 512 px teacher forcing under the block-causal bias (the
     kernel's record, and the lse store's cost), then the decoder's and the
@@ -2215,23 +2574,49 @@ def times_fused_mlp(dev, gen) -> dict:
 
 
 def times_codebook(dev, gen) -> dict:
-    """#9 at the last scale of a B=64 encode."""
-    n, vsz, c = BATCH * PNS[-1] ** 2, 4096, 32
-    x = _l2n(torch.randn((n, c), generator=gen, device=dev))
+    """#9 at every scale of both multi-scale encodes at B=64 (N = 64 pn^2
+    rows per PQ branch against a 4096 x 32 codebook, the cosine search the
+    quantizer runs), each kernel, plain version and library call timed as a
+    CUDA graph of 20 calls (``_time_graph_ms``); then per encode the sums
+    over its 20 launches (two branches a scale), under "encodes". The
+    record's own numbers are the last 256 px scale's (N = 7744); every
+    scale's record is under "shapes"."""
+    vsz, c = 4096, 32
     cb = _l2n(torch.randn((vsz, c), generator=gen, device=dev))
-    return _time_kernel(
-        "#9 codebook_argmin", lambda: codebook.codebook_argmin(x, cb, True),
-        lambda: codebook.codebook_argmin_reference(x, cb, True),
-        lambda: torch.argmax(x @ cb.T, dim=-1),
-        (n * c + vsz * c) * 4 + n * 8, 2 * n * vsz * c, torch.float32,
-        f"x ({n}, {c}) codebook ({vsz}, {c})", library_call="x @ e.T, argmax")
+    shapes = {}
+    for pn in sorted(set(PNS) | set(PNS512)):
+        n = BATCH * pn * pn
+        x = _l2n(torch.randn((n, c), generator=gen, device=dev))
+        shapes[f"pn={pn}"] = _time_kernel(
+            f"#9 codebook_argmin, pn={pn}", lambda: codebook.codebook_argmin(x, cb, True),
+            lambda: codebook.codebook_argmin_reference(x, cb, True),
+            lambda: torch.argmax(x @ cb.T, dim=-1),
+            (n * c + vsz * c) * 4 + n * 8, 2 * n * vsz * c, torch.float32,
+            f"x ({n}, {c}) codebook ({vsz}, {c})", library_call="x @ e.T, argmax",
+            timer=_time_graph_ms)
+    encodes = {}
+    for px, pns in (("256 px", PNS), ("512 px", PNS512)):
+        encodes[px] = {k: sum(2 * shapes[f"pn={pn}"][k] for pn in pns)
+                       for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        e = encodes[px]
+        print(f"[times] #9 codebook_argmin, one {px} encode at B={BATCH} (2 x {len(pns)} "
+              f"launches, pn {pns}): kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, "
+              f"library {e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms; kernel at "
+              f"{e['bound_ms'] / e['ms'] * 100:.1f}% of the bound")
+    return {**shapes[f"pn={PNS[-1]}"], "shapes": shapes, "encodes": encodes}
 
 
 TIMES = {"attention_qkv_fwd": times_qkv_fwd, "attention_qkv_bwd": times_qkv_bwd,
          "fused_attention_fwd": times_bnhd_fwd, "fused_attention_bwd": times_bnhd_bwd,
          "fused_attention_qblk_fwd": times_qblk_fwd, "fused_attention_qblk_bwd": times_qblk_bwd,
          "attn_sublayer_fused": times_attn_sublayer, "mlp_sublayer_fused": times_mlp_sublayer,
-         "fused_mlp": times_fused_mlp, "codebook_argmin": times_codebook}
+         "fused_mlp": times_fused_mlp, "codebook_argmin": times_codebook,
+         "fused_attention_fwd_hd48": times_bnhd_fwd_hd48,
+         "fused_attention_bwd_hd48": times_bnhd_bwd_hd48}
+# records timed at head dim 48, filed with their kernel's record under
+# "shapes" in the kernels line
+HD48_TIMES = {"fused_attention_fwd_hd48": ("fused_attention_fwd", "RAR-B teacher forcing, hd 48"),
+              "fused_attention_bwd_hd48": ("fused_attention_bwd", "RAR-B training, hd 48")}
 
 
 def phase_times(dev, names=tuple(TIMES)) -> dict:
@@ -2328,11 +2713,13 @@ def main(argv: list[str]) -> int:
             "fused_attention_qblk_bwd": kernels_qblk_bwd(dev),
             "codebook_argmin": kernels_codebook(dev), **kernels_sublayers(dev)}
     kernels_bwd_pieces(dev)
+    kernels_hd48(dev)
     lap("kernels")
     vq_models = phase_model_vq(dev)
     lap("model VQ-4096")
     phase_model_rar(dev, *vq_models)
     del vq_models
+    phase_model_rar_train(dev)
     lap("model RAR-B")
     for margs, name in ((msvr_margs("float32"), "MSVR10P2-4096 + VAR-d16"),
                         (msvr512_margs("float32"), "MSVR10P2-4096-512 + VAR-d16")):
@@ -2340,8 +2727,9 @@ def main(argv: list[str]) -> int:
         lap(f"model {name}")
     phase_model_gan(dev)
     lap("model GAN step")
-    paths = {**main_round_trip(dev), **main_rar_paths(dev), **main_mlp_probe(dev)}
-    lap("round trips, RAR sampling, MLP probe")
+    paths = {**main_round_trip(dev), **main_rar_paths(dev), **main_rar_train(dev),
+             **main_mlp_probe(dev)}
+    lap("round trips, RAR sampling and training, MLP probe")
     paths.update({**main_var_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256,
                                    bench_sample_margs("bfloat16")),
                   **main_train_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256),
@@ -2352,6 +2740,8 @@ def main(argv: list[str]) -> int:
                                      TRAIN_BATCH_512)})
     lap("main paths at 512 px")
     times = phase_times(dev)
+    for key, (name, label) in HD48_TIMES.items():
+        times[name].setdefault("shapes", {})[label] = times.pop(key)
     lap("times")
     records = []
     for name, (source, replaces) in KERNELS.items():

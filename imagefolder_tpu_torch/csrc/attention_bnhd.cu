@@ -29,6 +29,10 @@
 // bounds it and why the design is so are in that header. fp32 inputs (VAR's
 // default dtype, the full-width model checks) take an FMA kernel with one
 // thread per q row and the same two passes; it has no lse store.
+//
+// Head dims 64 (VAR) and 48 (RAR-B's training forward, 768 / 16), each
+// instantiated from the same code (kD): the wgmma kernel zero-pads a 48-wide
+// head to its 64-wide tiles (attention_fwd_sm90.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,14 +56,14 @@ using Strides = sm90::FwdStrides;
 // memory read by broadcast; q and o stay in registers.
 constexpr int kF32Tile = 32;
 
-template <bool kBias>
+template <int kD, bool kBias>
 __global__ void __launch_bounds__(kRows)
     attn_bnhd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ bias,
                          float* __restrict__ out, int lq, int lk, int heads,
                          float scale, Strides st) {
-  __shared__ float sk[kF32Tile][kHd];
-  __shared__ float sv[kF32Tile][kHd];
+  __shared__ float sk[kF32Tile][kD];
+  __shared__ float sv[kF32Tile][kD];
 
   const int row = blockIdx.x * kRows + threadIdx.x;
   const int h = blockIdx.y;
@@ -69,9 +73,9 @@ __global__ void __launch_bounds__(kRows)
   const float* vp = v + b * st.vb + h * st.vh;
   const float* bp = kBias ? bias + b * st.bb + h * st.bh + row * st.bq : nullptr;
 
-  float qr[kHd], o[kHd];
+  float qr[kD], o[kD];
 #pragma unroll
-  for (int d = 0; d < kHd; ++d) {
+  for (int d = 0; d < kD; ++d) {
     qr[d] = row < lq ? qp[row * st.ql + d] : 0.f;
     o[d] = 0.f;
   }
@@ -81,8 +85,8 @@ __global__ void __launch_bounds__(kRows)
     const float mu = m == kNegInf ? 0.f : m;  // pass 2: the final max
     for (int k0 = 0; k0 < lk; k0 += kF32Tile) {
       __syncthreads();
-      for (int i = threadIdx.x; i < kF32Tile * kHd; i += kRows) {
-        const int r = i / kHd, d = i % kHd;
+      for (int i = threadIdx.x; i < kF32Tile * kD; i += kRows) {
+        const int r = i / kD, d = i % kD;
         const bool in = k0 + r < lk;
         sk[r][d] = in ? kp[(k0 + r) * st.kl + d] : 0.f;
         if (pass == 1) sv[r][d] = in ? vp[(k0 + r) * st.vl + d] : 0.f;
@@ -95,7 +99,7 @@ __global__ void __launch_bounds__(kRows)
       for (int j = 0; j < kF32Tile; ++j) {
         float acc = 0.f;
 #pragma unroll
-        for (int d = 0; d < kHd; ++d) acc = fmaf(qr[d], sk[j][d], acc);
+        for (int d = 0; d < kD; ++d) acc = fmaf(qr[d], sk[j][d], acc);
         const int col = k0 + j;
         float x = acc * scale;
         if (kBias && row < lq && col < lk) x += bp[col];
@@ -114,54 +118,68 @@ __global__ void __launch_bounds__(kRows)
         for (int j = 0; j < kF32Tile; ++j) {
           const float p = expf(sc[j] - mu) / l;
 #pragma unroll
-          for (int d = 0; d < kHd; ++d) o[d] = fmaf(p, sv[j][d], o[d]);
+          for (int d = 0; d < kD; ++d) o[d] = fmaf(p, sv[j][d], o[d]);
         }
       }
     }
   }
   if (row < lq) {
-    float* dst = out + ((static_cast<int64_t>(b) * lq + row) * heads + h) * kHd;
+    float* dst = out + ((static_cast<int64_t>(b) * lq + row) * heads + h) * kD;
 #pragma unroll
-    for (int d = 0; d < kHd; ++d) dst[d] = o[d];
+    for (int d = 0; d < kD; ++d) dst[d] = o[d];
   }
 }
 
-}  // namespace
-
-// q (B, Lq, H, 64), k and v (B, Lk, H, 64), each with its own batch, row and
-// head strides in elements (qs, ks, vs = {batch, row, head}; the head-dim
-// stride is 1), all fp32 or all bf16 (is_bf16); bias null or fp32 with
-// strides bs = {batch, head, row} (column stride 1, 0 on a broadcast axis);
-// out contiguous (B, Lq, H, 64) of q's type; lse null, or (bf16 only) an
-// fp32 (B, H, Lq) that receives each row's log-sum-exp for the backward
-// (#6). bf16 needs every base pointer and q/k/v stride on a 16-byte
-// boundary. Launches on `stream` and returns cudaGetLastError() as an int
-// (0 = launched).
-extern "C" int attention_bnhd_fwd(const void* q, const void* k, const void* v,
-                                  const void* bias, void* out, void* lse, int batch, int lq,
-                                  int lk, int heads, const int64_t* qs,
-                                  const int64_t* ks, const int64_t* vs,
-                                  const int64_t* bs, float scale, int is_bf16,
-                                  void* stream) {
-  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || (lse && !is_bf16))
-    return cudaErrorInvalidValue;
-  Strides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-             bias ? bs[0] : 0, bias ? bs[1] : 0, bias ? bs[2] : 0};
-  cudaStream_t stm = static_cast<cudaStream_t>(stream);
-  const float* bp = static_cast<const float*>(bias);
+template <int kD>
+int launch_bnhd_fwd(const void* q, const void* k, const void* v, const float* bias, void* out,
+                    void* lse, int batch, int lq, int lk, int heads, const Strides& st,
+                    float scale, int is_bf16, cudaStream_t stm) {
   if (is_bf16)
-    return sm90::launch_attention_fwd_sm90<3>(
+    return sm90::launch_attention_fwd_sm90<3, kD>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        bp, static_cast<bf16*>(out), static_cast<float*>(lse), batch, lq, lk, heads, st, scale,
+        bias, static_cast<bf16*>(out), static_cast<float*>(lse), batch, lq, lk, heads, st, scale,
         stm);
   const dim3 grid((lq + kRows - 1) / kRows, heads, batch);
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
   const float* vp = static_cast<const float*>(v);
   float* op = static_cast<float*>(out);
-  if (bp)
-    attn_bnhd_f32_kernel<true><<<grid, kRows, 0, stm>>>(qp, kp, vp, bp, op, lq, lk, heads, scale, st);
+  if (bias)
+    attn_bnhd_f32_kernel<kD, true><<<grid, kRows, 0, stm>>>(qp, kp, vp, bias, op, lq, lk, heads,
+                                                            scale, st);
   else
-    attn_bnhd_f32_kernel<false><<<grid, kRows, 0, stm>>>(qp, kp, vp, bp, op, lq, lk, heads, scale, st);
+    attn_bnhd_f32_kernel<kD, false><<<grid, kRows, 0, stm>>>(qp, kp, vp, bias, op, lq, lk, heads,
+                                                             scale, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd 48 or 64, each with its own
+// batch, row and head strides in elements (qs, ks, vs = {batch, row, head};
+// the head-dim stride is 1), all fp32 or all bf16 (is_bf16); bias null or
+// fp32 with strides bs = {batch, head, row} (column stride 1, 0 on a
+// broadcast axis);
+// out contiguous (B, Lq, H, hd) of q's type; lse null, or (bf16 only) an
+// fp32 (B, H, Lq) that receives each row's log-sum-exp for the backward
+// (#6). bf16 needs every base pointer and q/k/v stride on a 16-byte
+// boundary. Launches on `stream` and returns cudaGetLastError() as an int
+// (0 = launched; cudaErrorInvalidValue for another head dim).
+extern "C" int attention_bnhd_fwd(const void* q, const void* k, const void* v,
+                                  const void* bias, void* out, void* lse, int batch, int lq,
+                                  int lk, int heads, const int64_t* qs,
+                                  const int64_t* ks, const int64_t* vs,
+                                  const int64_t* bs, float scale, int is_bf16, int hd,
+                                  void* stream) {
+  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || (lse && !is_bf16) ||
+      (hd != 48 && hd != 64))
+    return cudaErrorInvalidValue;
+  Strides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+             bias ? bs[0] : 0, bias ? bs[1] : 0, bias ? bs[2] : 0};
+  cudaStream_t stm = static_cast<cudaStream_t>(stream);
+  const float* bp = static_cast<const float*>(bias);
+  return hd == 48 ? launch_bnhd_fwd<48>(q, k, v, bp, out, lse, batch, lq, lk, heads, st, scale,
+                                        is_bf16, stm)
+                  : launch_bnhd_fwd<64>(q, k, v, bp, out, lse, batch, lq, lk, heads, st, scale,
+                                        is_bf16, stm);
 }

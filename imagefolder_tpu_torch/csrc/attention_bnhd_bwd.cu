@@ -32,38 +32,54 @@
 
 #include "attention_bwd_sm90.cuh"
 
-// q, k, v and g (B, L, H, 64), each with its own batch, row and head strides
-// in elements (qs, ks, vs, gs = {batch, row, head}; the head-dim stride is
-// 1), all fp32 or all bf16 (is_bf16); bias null or an fp32 (L, L) shared by
-// every batch and head, row stride bias_row_stride (column stride 1); dq, dk
-// and dv contiguous (B, L, H, 64) of the inputs' type; dbias null (not
-// wanted) or a zeroed fp32 (L, L) that receives the sum of ds. bf16 without
-// dbias: o the forward's output at strides os, lse its fp32 (B, H, L)
+namespace {
+
+template <int kD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* g, const void* o,
+               const int64_t* os, const void* lse, const void* bias, void* dq, void* dk,
+               void* dv, void* dbias, void* work, void* blank, int batch, int n, int heads,
+               const BwdStrides& st, float scale, int is_bf16, cudaStream_t stm) {
+  if (!is_bf16 || dbias || n == 1)
+    return launch_attention_bwd<6, kD>(q, k, v, g, bias, dq, dk, dv, dbias, work, batch, n,
+                                       heads, st, scale, is_bf16, stm);
+  return sm90::launch_attention_bwd_sm90<6, kD>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<const bf16*>(o), sm90::OStrides{os[0], os[1], os[2]},
+      static_cast<const float*>(lse), static_cast<const float*>(bias), static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(work),
+      static_cast<uint8_t*>(blank), batch, n, heads, st, scale, stm);
+}
+
+}  // namespace
+
+// q, k, v and g (B, L, H, hd), hd 48 or 64, each with its own batch, row and
+// head strides in elements (qs, ks, vs, gs = {batch, row, head}; the head-dim
+// stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32 (L, L)
+// shared by every batch and head, row stride bias_row_stride (column stride
+// 1); dq, dk and dv contiguous (B, L, H, hd) of the inputs' type; dbias null
+// (not wanted) or a zeroed fp32 (L, L) that receives the sum of ds. bf16
+// without dbias: o the forward's output at strides os, lse its fp32 (B, H, L)
 // log-sum-exp, work an fp32 scratch of sm90::work_floats(B, L, H), blank a
-// scratch of two bytes per tile pair (2 * ceil(L/64)^2) when a bias is
-// given; prep, main and dq kernels. fp32, dbias wanted, or L = 1: o, lse
-// and blank unused, work an fp32 scratch of 3 * B * H * L; kernels A and B
-// of attention_bwd_tile.cuh. Launches on `stream` and returns
-// cudaGetLastError() as an int (0 = all launched).
+// scratch of two bytes per tile pair (2 * ceil(L/64)^2) when a bias is given;
+// prep, main and dq kernels. fp32, dbias wanted, or L = 1: o, lse and blank
+// unused, work an fp32 scratch of 3 * B * H * L; kernels A and B of
+// attention_bwd_tile.cuh. Launches on `stream` and returns cudaGetLastError()
+// as an int (0 = all launched; cudaErrorInvalidValue for another head dim).
 extern "C" int attention_bnhd_bwd(const void* q, const void* k, const void* v,
                                   const void* g, const void* o, const void* lse,
                                   const void* bias, void* dq, void* dk, void* dv, void* dbias,
                                   void* work, void* blank, int batch, int n, int heads,
                                   const int64_t* qs, const int64_t* ks, const int64_t* vs,
                                   const int64_t* gs, const int64_t* os,
-                                  int64_t bias_row_stride, float scale, int is_bf16,
+                                  int64_t bias_row_stride, float scale, int is_bf16, int hd,
                                   void* stream) {
-  const int64_t ol = static_cast<int64_t>(heads) * kHd;
+  if (hd != 48 && hd != 64) return cudaErrorInvalidValue;
+  const int64_t ol = static_cast<int64_t>(heads) * hd;
   const BwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-                      gs[0], gs[1], gs[2], n * ol, ol, kHd, bias ? bias_row_stride : 0};
+                      gs[0], gs[1], gs[2], n * ol, ol, hd, bias ? bias_row_stride : 0};
   const cudaStream_t stm = static_cast<cudaStream_t>(stream);
-  if (!is_bf16 || dbias || n == 1)
-    return launch_attention_bwd<6>(q, k, v, g, bias, dq, dk, dv, dbias, work, batch, n, heads,
-                                   st, scale, is_bf16, stm);
-  return sm90::launch_attention_bwd_sm90<6>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const bf16*>(o), sm90::OStrides{os[0], os[1], os[2]},
-      static_cast<const float*>(lse), static_cast<const float*>(bias), static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(work),
-      static_cast<uint8_t*>(blank), batch, n, heads, st, scale, stm);
+  return hd == 48 ? launch_bwd<48>(q, k, v, g, o, os, lse, bias, dq, dk, dv, dbias, work, blank,
+                                   batch, n, heads, st, scale, is_bf16, stm)
+                  : launch_bwd<64>(q, k, v, g, o, os, lse, bias, dq, dk, dv, dbias, work, blank,
+                                   batch, n, heads, st, scale, is_bf16, stm);
 }

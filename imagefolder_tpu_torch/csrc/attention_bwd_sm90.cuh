@@ -71,6 +71,11 @@
 // dv, bf16(ds) for dq and dk, fp32 sums, one cast of each output). p comes
 // from lse, not from exp(s - max) / sum (fp32 rounding), and delta from the
 // bf16 o, not from rowsum(p dp).
+// Head dim kD: 64, or 48 for #5 and #6 (RAR-B's training backward). A
+// 48-wide head keeps the 64-wide tiles with zero columns 48-63
+// (wgmma_tile.cuh): S^T, dP^T, S and dP run 3 K-steps, dV, dK and dQ compute
+// zero columns past 48, which are never stored, and the prep pass reads 6 of
+// a row's 8 chunks.
 
 #pragma once
 
@@ -102,7 +107,7 @@ struct OStrides {
 // prep: blocks [0, row_blocks) take 32 rows each (8 threads per (b, h, row)
 // of the padded length lpad, 16-byte loads and stores); the next ntq * ntk
 // blocks take one tile of the maps each (none when bias is null).
-template <int kId>
+template <int kId, int kD>
 __global__ void __launch_bounds__(256)
     attn_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ g,
                          const float* __restrict__ lse, const float* __restrict__ bias,
@@ -113,12 +118,12 @@ __global__ void __launch_bounds__(256)
   if (static_cast<int>(blockIdx.x) < row_blocks) {
     const int64_t idx = static_cast<int64_t>(blockIdx.x) * 32 + (threadIdx.x >> 3);
     const bool valid = idx < static_cast<int64_t>(batch) * heads * lpad;
-    const int part = threadIdx.x & 7;  // this thread's 8 of the row's 64 values
+    const int part = threadIdx.x & 7;  // this thread's 8 of the row's kD values, if any
     const int r = static_cast<int>(idx % lpad);
     const int64_t bh = idx / lpad;
     const int h = static_cast<int>(bh % heads), b = static_cast<int>(bh / heads);
     float d = 0.f;
-    if (valid && r < n) {
+    if (valid && r < n && part < kD / 8) {
       const uint4 ov = *reinterpret_cast<const uint4*>(
           o + b * os.b + static_cast<int64_t>(r) * os.l + h * os.h + part * 8);
       const uint4 gv = *reinterpret_cast<const uint4*>(
@@ -163,7 +168,7 @@ __global__ void __launch_bounds__(256)
 }
 
 // main: one warpgroup per (b, h, 64 keys), dk and dv; see the header comment.
-template <int kId, bool kBias>
+template <int kId, int kD, bool kBias>
 __global__ void __launch_bounds__(kThreads, 2)
     attn_bwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ g,
@@ -202,16 +207,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bf16* qp = q + b * st.qb + h * st.qh;
   const bf16* gp = g + b * st.gb + h * st.gh;
   auto load_stage = [&](int s, int qt) {
-    load_tile_async(sq0 + s * kTileBytes, qp, qt * kTile, n, st.ql);
-    load_tile_async(sg0 + s * kTileBytes, gp, qt * kTile, n, st.gl);
+    load_tile_async<kD>(sq0 + s * kTileBytes, qp, qt * kTile, n, st.ql);
+    load_tile_async<kD>(sg0 + s * kTileBytes, gp, qt * kTile, n, st.gl);
     if (threadIdx.x < 32) {  // lse2 and delta: 16 chunks each, padded rows
       const float* src = (threadIdx.x < 16 ? lse2 : delta) + bh * lpad + qt * kTile +
                          (threadIdx.x & 15) * 4;
       cp_async16(smem_addr(sstat + s * 2 * kTile) + threadIdx.x * 16, src, true);
     }
   };
-  load_tile_async(sk, k + b * st.kb + h * st.kh, k0, n, st.kl);
-  load_tile_async(sv, v + b * st.vb + h * st.vh, k0, n, st.vl);
+  load_tile_async<kD>(sk, k + b * st.kb + h * st.kh, k0, n, st.kl);
+  load_tile_async<kD>(sv, v + b * st.vb + h * st.vh, k0, n, st.vl);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < cnt) load_stage(s, qlist[s] & (kZeroTile - 1));
@@ -269,11 +274,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     fence_acc(dpacc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // S^T = K Q^T over the head dim
+    for (int kk = 0; kk < kD / 16; ++kk)  // S^T = K Q^T over the head dim
       wgmma_rs<0>(sacc, kf[kk], tile_desc(sq + kk * 32), kk);
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // dP^T = V G^T
+    for (int kk = 0; kk < kD / 16; ++kk)  // dP^T = V G^T
       wgmma_rs<0>(dpacc, vf[kk], tile_desc(sg + kk * 32), kk);
     wgmma_commit();
     fence_acc(sacc);
@@ -330,7 +335,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   bf16* dkp = dk + b * st.ob + h * st.oh + 2 * t4;
   bf16* dvp = dv + b * st.ob + h * st.oh + 2 * t4;
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
+  for (int i = 0; i < kD / 2; i += 2) {  // columns 8 (i >> 2) + 2 t4 (+ 1) < kD
     const int kr = k0 + row_lo + 8 * ((i >> 1) & 1);
     if (kr >= n) continue;
     const int64_t off = static_cast<int64_t>(kr) * st.ol + 8 * (i >> 2);
@@ -347,7 +352,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 // the main kernel computes them, dQ += bf16(dS) K (K read MN-major). dq is
 // cast and written once, into dq's layout (the q columns of the packed dqkv
 // for #2).
-template <int kId, bool kBias>
+template <int kId, int kD, bool kBias>
 __global__ void __launch_bounds__(kThreads, 2)
     attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ g,
@@ -383,11 +388,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bf16* kp = k + b * st.kb + h * st.kh;
   const bf16* vp = v + b * st.vb + h * st.vh;
   auto load_stage = [&](int s, int kt) {
-    load_tile_async(sk0 + s * kTileBytes, kp, kt * kTile, n, st.kl);
-    load_tile_async(sv0 + s * kTileBytes, vp, kt * kTile, n, st.vl);
+    load_tile_async<kD>(sk0 + s * kTileBytes, kp, kt * kTile, n, st.kl);
+    load_tile_async<kD>(sv0 + s * kTileBytes, vp, kt * kTile, n, st.vl);
   };
-  load_tile_async(sq, q + b * st.qb + h * st.qh, q0, n, st.ql);
-  load_tile_async(sg, g + b * st.gb + h * st.gh, q0, n, st.gl);
+  load_tile_async<kD>(sq, q + b * st.qb + h * st.qh, q0, n, st.ql);
+  load_tile_async<kD>(sg, g + b * st.gb + h * st.gh, q0, n, st.gl);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < cnt) load_stage(s, klist[s] & (kZeroTile - 1));
@@ -442,11 +447,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     fence_acc(dpacc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // S = Q K^T over the head dim
+    for (int kk = 0; kk < kD / 16; ++kk)  // S = Q K^T over the head dim
       wgmma_rs<0>(sacc, qf[kk], tile_desc(sk + kk * 32), kk);
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // dP = G V^T
+    for (int kk = 0; kk < kD / 16; ++kk)  // dP = G V^T
       wgmma_rs<0>(dpacc, gf[kk], tile_desc(sv + kk * 32), kk);
     wgmma_commit();
     fence_acc(sacc);
@@ -483,7 +488,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   bf16* dqp = dq + b * st.ob + h * st.oh + 2 * t4;
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
+  for (int i = 0; i < kD / 2; i += 2) {  // columns 8 (i >> 2) + 2 t4 (+ 1) < kD
     const int qr = q0 + row_lo + 8 * ((i >> 1) & 1);
     if (qr < n)
       *reinterpret_cast<__nv_bfloat162*>(dqp + static_cast<int64_t>(qr) * st.ol + 8 * (i >> 2)) =
@@ -492,7 +497,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // the main kernel, then the dq kernel, with the dynamic shared memory they take
-template <int kId, bool kBias>
+template <int kId, int kD, bool kBias>
 void launch_main_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* g,
                     const float* bias, const uint8_t* blank, const float* lse2,
                     const float* delta, bf16* dq, bf16* dk, bf16* dv, int n, int lpad,
@@ -500,14 +505,14 @@ void launch_main_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* g,
   const int nt = lpad / kTile;
   const int smem = kSmemFixed + nt * static_cast<int>(sizeof(int));
   const dim3 grid(nt, heads, batch);
-  cudaFuncSetAttribute(attn_bwd_sm90_kernel<kId, kBias>,
+  cudaFuncSetAttribute(attn_bwd_sm90_kernel<kId, kD, kBias>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  attn_bwd_sm90_kernel<kId, kBias><<<grid, kThreads, smem, stm>>>(
+  attn_bwd_sm90_kernel<kId, kD, kBias><<<grid, kThreads, smem, stm>>>(
       q, k, v, g, bias, blank, lse2, delta, dk, dv, n, lpad, heads, scale, st);
   if (cudaPeekAtLastError() != cudaSuccess) return;
-  cudaFuncSetAttribute(attn_bwd_dq_kernel<kId, kBias>,
+  cudaFuncSetAttribute(attn_bwd_dq_kernel<kId, kD, kBias>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  attn_bwd_dq_kernel<kId, kBias><<<grid, kThreads, smem, stm>>>(
+  attn_bwd_dq_kernel<kId, kD, kBias><<<grid, kThreads, smem, stm>>>(
       q, k, v, g, bias, blank, lse2, delta, dq, n, lpad, heads, scale, st);
 }
 
@@ -518,14 +523,14 @@ inline int64_t work_floats(int batch, int n, int heads) {
   return static_cast<int64_t>(batch) * heads * lpad * 2;
 }
 
-// prep, main and dq on `stm` for bf16 q, k, v, g (B, n, H, 64 at the
+// prep, main and dq on `stm` for bf16 q, k, v, g (B, n, H, kD at the
 // strides st.q*, st.k*, ...), the forward's o (strides os) and lse (fp32
 // (B, H, n)); bias null or an fp32 (n, n), row stride st.bq; dq, dk, dv at
 // the output strides st.o*; work fp32 of work_floats(); blank two bytes per
 // tile pair (2 * ceil(n/64)^2: the blank map, then the map of all-zero
 // tiles) when a bias is given. Every base pointer and stride of q, k, v, g
 // and o must be on a 16-byte boundary. Returns cudaGetLastError() as an int.
-template <int kId>
+template <int kId, int kD = kHd>
 int launch_attention_bwd_sm90(const bf16* q, const bf16* k, const bf16* v, const bf16* g,
                               const bf16* o, const OStrides& os, const float* lse,
                               const float* bias, bf16* dq, bf16* dk, bf16* dv, float* work,
@@ -547,16 +552,16 @@ int launch_attention_bwd_sm90(const bf16* q, const bf16* k, const bf16* v, const
 
   const int64_t rows = static_cast<int64_t>(batch) * heads * lpad;
   const int row_blocks = static_cast<int>((rows + 31) / 32);
-  attn_bwd_prep_kernel<kId><<<row_blocks + (bias ? nt * nt : 0), 256, 0, stm>>>(
+  attn_bwd_prep_kernel<kId, kD><<<row_blocks + (bias ? nt * nt : 0), 256, 0, stm>>>(
       o, g, lse, bias, lse2, delta, blank, batch, n, lpad, heads, row_blocks, st, os);
   if (cudaPeekAtLastError() != cudaSuccess) return static_cast<int>(cudaGetLastError());
 
   if (bias)
-    launch_main_dq<kId, true>(q, k, v, g, bias, blank, lse2, delta, dq, dk, dv, n, lpad, batch,
-                              heads, scale, st, stm);
+    launch_main_dq<kId, kD, true>(q, k, v, g, bias, blank, lse2, delta, dq, dk, dv, n, lpad,
+                                  batch, heads, scale, st, stm);
   else
-    launch_main_dq<kId, false>(q, k, v, g, bias, blank, lse2, delta, dq, dk, dv, n, lpad, batch,
-                               heads, scale, st, stm);
+    launch_main_dq<kId, kD, false>(q, k, v, g, bias, blank, lse2, delta, dq, dk, dv, n, lpad,
+                                   batch, heads, scale, st, stm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -570,7 +575,7 @@ int launch_blank_tile_map(const float* bias, uint8_t* blank, int n, int64_t bq,
   const int ntq = (n + kTile - 1) / kTile;
   BwdStrides st{};
   st.bq = bq;
-  attn_bwd_prep_kernel<kId><<<ntq * ntq, 256, 0, stm>>>(
+  attn_bwd_prep_kernel<kId, kHd><<<ntq * ntq, 256, 0, stm>>>(
       nullptr, nullptr, nullptr, bias, nullptr, nullptr, blank, 1, n, ntq * kTile, 1,
       0, st, OStrides{});
   return static_cast<int>(cudaGetLastError());

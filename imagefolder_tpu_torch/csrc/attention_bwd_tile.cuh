@@ -33,6 +33,9 @@
 // FMA kernels with two threads per row (each owns 32 of the 64 columns,
 // interleaved so that the pair reads two banks), with the same two-kernel
 // split. Masked tiles are not skipped, and nothing is pipelined.
+// Head dim kD: 64, or 48 for #5 and #6. The bf16 kernels run a 48-wide head
+// on zero-padded 64-wide tiles (mma_tile.cuh) and store its 48 columns; the
+// fp32 kernels are written for kD.
 
 #pragma once
 
@@ -57,13 +60,14 @@ struct BwdStrides {
 };
 
 // a warp's 16 accumulator rows (row_lo, row_hi per thread) times `mul`,
-// rounded to bf16, into the output rows of (b, h)
+// rounded to bf16, into the output rows of (b, h): their first kD columns
+template <int kD>
 __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[kHd / 8][4],
                                            int b, int h, int n, const BwdStrides& st,
                                            int row_lo, int row_hi, float mul) {
   bf16* dst = out + b * st.ob + h * st.oh + (threadIdx.x & 3) * 2;
 #pragma unroll
-  for (int i = 0; i < kHd / 8; ++i) {
+  for (int i = 0; i < kD / 8; ++i) {
     if (row_lo < n)
       *reinterpret_cast<__nv_bfloat162*>(dst + row_lo * st.ol + i * 8) =
           __floats2bfloat162_rn(acc[i][0] * mul, acc[i][1] * mul);
@@ -81,7 +85,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // Kernel A, bf16: dq, and the row statistics m, l and delta, for 64 q rows
 // of one (b, h); kDbias adds ds into dbias.
-template <int kId, bool kVec, bool kBias, bool kDbias>
+template <int kId, int kD, bool kVec, bool kBias, bool kDbias>
 __global__ void __launch_bounds__(kWarps * 32)
     attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const bf16* __restrict__ g,
@@ -102,11 +106,11 @@ __global__ void __launch_bounds__(kWarps * 32)
   const bf16* vp = v + b * st.vb + h * st.vh;
 
   uint32_t qf[kHd / 16][4], gf[kHd / 16][4];
-  load_tile<kVec>(sa, q + b * st.qb + h * st.qh, q0, n, st.ql);
+  load_tile<kVec, kD>(sa, q + b * st.qb + h * st.qh, q0, n, st.ql);
   __syncthreads();
   load_a(qf, sa);
   __syncthreads();
-  load_tile<kVec>(sa, g + b * st.gb + h * st.gh, q0, n, st.gl);
+  load_tile<kVec, kD>(sa, g + b * st.gb + h * st.gh, q0, n, st.gl);
   __syncthreads();
   load_a(gf, sa);
 
@@ -119,7 +123,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   float l[2] = {0.f, 0.f};
   for (int k0 = 0; k0 < n; k0 += kRows) {
     __syncthreads();
-    load_tile<kVec>(sk, kp, k0, n, st.kl);
+    load_tile<kVec, kD>(sk, kp, k0, n, st.kl);
     __syncthreads();
     tile_scores<kBias>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
     float mx[2] = {kBwdNegInf, kBwdNegInf};
@@ -153,8 +157,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   float delta[2] = {0.f, 0.f};
   for (int k0 = 0; k0 < n; k0 += kRows) {
     __syncthreads();
-    load_tile<kVec>(sk, kp, k0, n, st.kl);
-    load_tile<kVec>(sv, vp, k0, n, st.vl);
+    load_tile<kVec, kD>(sk, kp, k0, n, st.kl);
+    load_tile<kVec, kD>(sv, vp, k0, n, st.vl);
     __syncthreads();
     tile_scores<kBias>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
     mma_abt(dp, gf, sv);
@@ -173,8 +177,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int i = 0; i < kHd / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   for (int k0 = 0; k0 < n; k0 += kRows) {
     __syncthreads();
-    load_tile<kVec>(sk, kp, k0, n, st.kl);
-    load_tile<kVec>(sv, vp, k0, n, st.vl);
+    load_tile<kVec, kD>(sk, kp, k0, n, st.kl);
+    load_tile<kVec, kD>(sv, vp, k0, n, st.vl);
     __syncthreads();
     tile_scores<kBias>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
     mma_abt(dp, gf, sv);
@@ -198,7 +202,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     pack_a(dsf, s);
     mma_ab(acc, dsf, sk);
   }
-  store_rows(dq, acc, b, h, n, st, row_lo, row_hi, scale);
+  store_rows<kD>(dq, acc, b, h, n, st, row_lo, row_hi, scale);
 
   if (t4 == 0) {
     const int64_t plane = static_cast<int64_t>(gridDim.z) * heads * n;
@@ -217,7 +221,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 // Kernel B, bf16: dk and dv for 64 k rows of one (b, h), from the row
 // statistics that kernel A wrote.
-template <int kId, bool kVec, bool kBias>
+template <int kId, int kD, bool kVec, bool kBias>
 __global__ void __launch_bounds__(kWarps * 32)
     attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const bf16* __restrict__ g,
@@ -241,8 +245,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   const float* row_stats = stats + (static_cast<int64_t>(b) * heads + h) * n;
 
   uint32_t kf[kHd / 16][4], vf[kHd / 16][4];
-  load_tile<kVec>(sq, k + b * st.kb + h * st.kh, k0, n, st.kl);
-  load_tile<kVec>(sg, v + b * st.vb + h * st.vh, k0, n, st.vl);
+  load_tile<kVec, kD>(sq, k + b * st.kb + h * st.kh, k0, n, st.kl);
+  load_tile<kVec, kD>(sg, v + b * st.vb + h * st.vh, k0, n, st.vl);
   __syncthreads();
   load_a(kf, sq);
   load_a(vf, sg);
@@ -258,8 +262,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   float s[kRows / 8][4], dp[kRows / 8][4];
   for (int q0 = 0; q0 < n; q0 += kRows) {
     __syncthreads();
-    load_tile<kVec>(sq, qp, q0, n, st.ql);
-    load_tile<kVec>(sg, gp, q0, n, st.gl);
+    load_tile<kVec, kD>(sq, qp, q0, n, st.ql);
+    load_tile<kVec, kD>(sg, gp, q0, n, st.gl);
     for (int i = threadIdx.x; i < kRows; i += kWarps * 32) {
       const bool in = q0 + i < n;  // a row past the end gets p = 0 (its score is -inf)
       sm[i] = in ? row_stats[q0 + i] : 0.f;
@@ -286,16 +290,17 @@ __global__ void __launch_bounds__(kWarps * 32)
     pack_a(af, dp);
     mma_ab(dk_acc, af, sq);
   }
-  store_rows(dk, dk_acc, b, h, n, st, row_lo, row_hi, scale);
-  store_rows(dv, dv_acc, b, h, n, st, row_lo, row_hi, 1.f);
+  store_rows<kD>(dk, dk_acc, b, h, n, st, row_lo, row_hi, scale);
+  store_rows<kD>(dv, dv_acc, b, h, n, st, row_lo, row_hi, 1.f);
 }
 
 // fp32: two threads per row, each holding the columns 2i + half of its
-// row's vectors in registers; 32-row tiles of the other side in shared memory.
+// row's vectors in registers (kD / 2 each); 32-row tiles of the other side
+// in shared memory.
 constexpr int kF32Tile = 32;
-constexpr int kHalf = kHd / 2;
 
 // the dot product of a row pair's registers with shared row `x`
+template <int kHalf>
 __device__ __forceinline__ float pair_dot(const float (&r)[kHalf], const float* x, int half) {
   float a = 0.f;
 #pragma unroll
@@ -303,15 +308,16 @@ __device__ __forceinline__ float pair_dot(const float (&r)[kHalf], const float* 
   return a + __shfl_xor_sync(0xffffffffu, a, 1);
 }
 
-template <int kId, bool kBias, bool kDbias>
+template <int kId, int kD, bool kBias, bool kDbias>
 __global__ void __launch_bounds__(2 * kRows)
     attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, const float* __restrict__ g,
                            const float* __restrict__ bias, float* __restrict__ dq,
                            float* __restrict__ dbias, float* __restrict__ stats, int n,
                            int heads, float scale, BwdStrides st) {
-  __shared__ float sk[kF32Tile][kHd];
-  __shared__ float sv[kF32Tile][kHd];
+  constexpr int kHalf = kD / 2;
+  __shared__ float sk[kF32Tile][kD];
+  __shared__ float sv[kF32Tile][kD];
 
   const int half = threadIdx.x & 1;
   const int row = blockIdx.x * kRows + (threadIdx.x >> 1);
@@ -336,8 +342,8 @@ __global__ void __launch_bounds__(2 * kRows)
     const float mu = m == kBwdNegInf ? 0.f : m;
     for (int k0 = 0; k0 < n; k0 += kF32Tile) {
       __syncthreads();
-      for (int i = threadIdx.x; i < kF32Tile * kHd; i += 2 * kRows) {
-        const int r = i / kHd, d = i % kHd;
+      for (int i = threadIdx.x; i < kF32Tile * kD; i += 2 * kRows) {
+        const int r = i / kD, d = i % kD;
         const bool kin = k0 + r < n;
         sk[r][d] = kin ? kp[(k0 + r) * st.kl + d] : 0.f;
         if (pass > 0) sv[r][d] = kin ? vp[(k0 + r) * st.vl + d] : 0.f;
@@ -385,7 +391,7 @@ __global__ void __launch_bounds__(2 * kRows)
   }
 }
 
-template <int kId, bool kBias>
+template <int kId, int kD, bool kBias>
 __global__ void __launch_bounds__(2 * kRows)
     attn_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, const float* __restrict__ g,
@@ -393,8 +399,9 @@ __global__ void __launch_bounds__(2 * kRows)
                              const float* __restrict__ stats, float* __restrict__ dk,
                              float* __restrict__ dv, int n, int heads, float scale,
                              BwdStrides st) {
-  __shared__ float sq[kF32Tile][kHd];
-  __shared__ float sg[kF32Tile][kHd];
+  constexpr int kHalf = kD / 2;
+  __shared__ float sq[kF32Tile][kD];
+  __shared__ float sg[kF32Tile][kD];
   __shared__ float sm[kF32Tile], sl[kF32Tile], sd[kF32Tile];
 
   const int half = threadIdx.x & 1;
@@ -418,8 +425,8 @@ __global__ void __launch_bounds__(2 * kRows)
   }
   for (int q0 = 0; q0 < n; q0 += kF32Tile) {
     __syncthreads();
-    for (int i = threadIdx.x; i < kF32Tile * kHd; i += 2 * kRows) {
-      const int r = i / kHd, d = i % kHd;
+    for (int i = threadIdx.x; i < kF32Tile * kD; i += 2 * kRows) {
+      const int r = i / kD, d = i % kD;
       const bool qin = q0 + r < n;
       sq[r][d] = qin ? qp[(q0 + r) * st.ql + d] : 0.f;
       sg[r][d] = qin ? gp[(q0 + r) * st.gl + d] : 0.f;
@@ -467,56 +474,56 @@ struct BwdArgs {
   BwdStrides st;
 };
 
-template <int kId, bool kVec>
+template <int kId, int kD, bool kVec>
 void launch_bwd_bf16(const BwdArgs<bf16>& a, dim3 grid, cudaStream_t stm) {
   const dim3 block(kWarps * 32);
   if (a.dbias)
-    attn_bwd_dq_bf16_kernel<kId, kVec, true, true><<<grid, block, 0, stm>>>(
+    attn_bwd_dq_bf16_kernel<kId, kD, kVec, true, true><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
   else if (a.bias)
-    attn_bwd_dq_bf16_kernel<kId, kVec, true, false><<<grid, block, 0, stm>>>(
+    attn_bwd_dq_bf16_kernel<kId, kD, kVec, true, false><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
   else
-    attn_bwd_dq_bf16_kernel<kId, kVec, false, false><<<grid, block, 0, stm>>>(
+    attn_bwd_dq_bf16_kernel<kId, kD, kVec, false, false><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
   if (cudaPeekAtLastError() != cudaSuccess) return;
   if (a.bias)
-    attn_bwd_dkdv_bf16_kernel<kId, kVec, true><<<grid, block, 0, stm>>>(
+    attn_bwd_dkdv_bf16_kernel<kId, kD, kVec, true><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.stats, a.dk, a.dv, a.n, a.heads, a.scale, a.st);
   else
-    attn_bwd_dkdv_bf16_kernel<kId, kVec, false><<<grid, block, 0, stm>>>(
+    attn_bwd_dkdv_bf16_kernel<kId, kD, kVec, false><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.stats, a.dk, a.dv, a.n, a.heads, a.scale, a.st);
 }
 
-template <int kId>
+template <int kId, int kD>
 void launch_bwd_f32(const BwdArgs<float>& a, dim3 grid, cudaStream_t stm) {
   const dim3 block(2 * kRows);
   if (a.dbias)
-    attn_bwd_dq_f32_kernel<kId, true, true><<<grid, block, 0, stm>>>(
+    attn_bwd_dq_f32_kernel<kId, kD, true, true><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
   else if (a.bias)
-    attn_bwd_dq_f32_kernel<kId, true, false><<<grid, block, 0, stm>>>(
+    attn_bwd_dq_f32_kernel<kId, kD, true, false><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
   else
-    attn_bwd_dq_f32_kernel<kId, false, false><<<grid, block, 0, stm>>>(
+    attn_bwd_dq_f32_kernel<kId, kD, false, false><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.dq, a.dbias, a.stats, a.n, a.heads, a.scale, a.st);
   if (cudaPeekAtLastError() != cudaSuccess) return;
   if (a.bias)
-    attn_bwd_dkdv_f32_kernel<kId, true><<<grid, block, 0, stm>>>(
+    attn_bwd_dkdv_f32_kernel<kId, kD, true><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.stats, a.dk, a.dv, a.n, a.heads, a.scale, a.st);
   else
-    attn_bwd_dkdv_f32_kernel<kId, false><<<grid, block, 0, stm>>>(
+    attn_bwd_dkdv_f32_kernel<kId, kD, false><<<grid, block, 0, stm>>>(
         a.q, a.k, a.v, a.g, a.bias, a.stats, a.dk, a.dv, a.n, a.heads, a.scale, a.st);
 }
 
 // Kernel A then kernel B on `stream` for q, k, v, g (inputs) and dq, dk, dv
-// (outputs) at the strides `st`, all fp32 or all bf16 (is_bf16); bias null or
+// (outputs, (B, n, H, kD)) at the strides `st`, all fp32 or all bf16 (is_bf16); bias null or
 // an fp32 (n, n) whose row stride is st.bq; dbias null (not wanted) or a
 // zeroed fp32 (n, n); stats an fp32 scratch of 3 * batch * heads * n.
 // Returns cudaGetLastError() as an int (0 = both launched). kId is the
 // kernel's number (#2, #5, #6): it only names the instantiations, so that a
 // profile tells the three entries apart.
-template <int kId>
+template <int kId, int kD = kHd>
 int launch_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                          const void* bias, void* dq, void* dk, void* dv, void* dbias,
                          void* stats, int batch, int n, int heads, const BwdStrides& st,
@@ -541,15 +548,15 @@ int launch_attention_bwd(const void* q, const void* k, const void* v, const void
                reinterpret_cast<uintptr_t>(g) % 16 == 0;
     for (int i = 0; i < 12; ++i) vec = vec && in_strides[i] % 8 == 0;
     if (vec)
-      launch_bwd_bf16<kId, true>(a, grid, stm);
+      launch_bwd_bf16<kId, kD, true>(a, grid, stm);
     else
-      launch_bwd_bf16<kId, false>(a, grid, stm);
+      launch_bwd_bf16<kId, kD, false>(a, grid, stm);
   } else {
     const BwdArgs<float> a{static_cast<const float*>(q), static_cast<const float*>(k),
                            static_cast<const float*>(v), static_cast<const float*>(g), bp,
                            static_cast<float*>(dq), static_cast<float*>(dk),
                            static_cast<float*>(dv), dbp, sp, n, heads, scale, st};
-    launch_bwd_f32<kId>(a, grid, stm);
+    launch_bwd_f32<kId, kD>(a, grid, stm);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -96,6 +96,10 @@
 // encoder's packed q view spans 453 M elements over 64 images). #3 computes
 // the blank tiles of its bias (5 of 25 at VAR's L = 286; the decode has
 // none).
+// Head dim: kD = 64 (VAR, every ViT) or 48 (#3 and #4 only: RAR-B, MaskGIT-B
+// at 768 / 16). A 48-wide head keeps the 64-wide tiles (wgmma_tile.cuh):
+// S = Q K^T runs 3 K-steps instead of 4, P V computes the zero columns 48-63
+// of V, and only 48 columns are stored.
 
 #pragma once
 
@@ -140,15 +144,16 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
 }
 
 // S = Q K^T over one 64-key tile into x (qf the A fragments, sk the
-// swizzled k tile), issued and waited for. Element i of a thread's
-// accumulator sits at row q0 + row_lo + 8 ((i >> 1) & 1) and column k0 +
-// 8 (i >> 2) + 2 t4 + (i & 1).
+// swizzled k tile), over a head dim of kD (kD / 16 K-steps), issued and
+// waited for. Element i of a thread's accumulator sits at row q0 + row_lo +
+// 8 ((i >> 1) & 1) and column k0 + 8 (i >> 2) + 2 t4 + (i & 1).
+template <int kD>
 __device__ __forceinline__ void score_tile(float (&x)[32], const uint32_t (&qf)[4][4],
                                            uint32_t sk) {
   fence_acc(x);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<0>(x, qf[kk], tile_desc(sk + kk * 32), kk);
+  for (int kk = 0; kk < kD / 16; ++kk) wgmma_rs<0>(x, qf[kk], tile_desc(sk + kk * 32), kk);
   wgmma_commit();
   wgmma_wait<0>();
   fence_acc(x);
@@ -191,8 +196,8 @@ __device__ __forceinline__ float row_max(const float (&x)[32], int r) {
 }
 
 // kFwdWG warpgroups per (b, h, 64 kFwdWG q rows), each owning 64 q rows and
-// sharing the block's k/v tiles; see the header comment.
-template <int kId, bool kBias, bool kLse, bool kResident>
+// sharing the block's k/v tiles, at head dim kD; see the header comment.
+template <int kId, int kD, bool kBias, bool kLse, bool kResident>
 __global__ void __launch_bounds__(kFwdThreads, 2)
     attn_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const float* __restrict__ bias,
@@ -221,16 +226,17 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
     return skv + 2 * s * kTileBytes;
   };
   auto load_k = [&](uint32_t dst, int j) {
-    load_tile_async<kFwdThreads>(dst, kp, j * kTile, lk, st.kl, threadIdx.x);
+    load_tile_async<kFwdThreads, kD>(dst, kp, j * kTile, lk, st.kl, threadIdx.x);
   };
   auto load_v = [&](uint32_t dst, int j) {
-    load_tile_async<kFwdThreads>(dst + kTileBytes, vp, j * kTile, lk, st.vl, threadIdx.x);
+    load_tile_async<kFwdThreads, kD>(dst + kTileBytes, vp, j * kTile, lk, st.vl, threadIdx.x);
   };
   auto load_item = [&](int it) {  // streamed: k (pass 1), or k and v (pass 2)
     load_k(slot(it), it < nt ? it : it - nt);
     if (it >= nt) load_v(slot(it), it - nt);
   };
-  load_tile_async(sq, q + b * st.qb + h * st.qh, q0, lq, st.ql, threadIdx.x % kThreads);
+  load_tile_async<kThreads, kD>(sq, q + b * st.qb + h * st.qh, q0, lq, st.ql,
+                                threadIdx.x % kThreads);
   if (kResident) {
     for (int j = 0; j < nt; ++j) {  // group j: k tile j (group 0 also q)
       load_k(slot(j), j);
@@ -274,7 +280,7 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
     if (!active) continue;
     if (it == 0) tile_to_a(qf, sq);
     float x[32];
-    score_tile(x, qf, slot(it));
+    score_tile<kD>(x, qf, slot(it));
     // a full tile without a bias at a positive scale keeps the raw scores:
     // max(s) * scale is the max of s * scale, and one FFMA per score gives
     // the exponent; otherwise x is the scaled, biased, masked score
@@ -325,7 +331,7 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
     const uint32_t sk = slot(it);
     const int k0 = (it - nt) * kTile;
     float x[32];
-    score_tile(x, qf, sk);
+    score_tile<kD>(x, qf, sk);
     if (!kBias && k0 + kTile <= lk) {  // a full tile without a bias: one FFMA per score
 #pragma unroll
       for (int i = 0; i < 32; ++i) x[i] = fast_exp2(fmaf(x[i], scale2, -lse2[(i >> 1) & 1]));
@@ -351,10 +357,10 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   cp_async_wait<0>();
   if (!active) return;
 
-  const int64_t ldo = static_cast<int64_t>(heads) * kHd;
-  bf16* dst = out + (static_cast<int64_t>(b) * lq * heads + h) * kHd + 2 * t4;
+  const int64_t ldo = static_cast<int64_t>(heads) * kD;
+  bf16* dst = out + (static_cast<int64_t>(b) * lq * heads + h) * kD + 2 * t4;
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
+  for (int i = 0; i < kD / 2; i += 2) {  // columns 8 (i >> 2) + 2 t4 (+ 1) < kD
     const int row = q0 + row_lo + 8 * ((i >> 1) & 1);
     if (row < lq)
       *reinterpret_cast<__nv_bfloat162*>(dst + row * ldo + 8 * (i >> 2)) =
@@ -375,39 +381,39 @@ inline bool fwd_aligned(const bf16* q, const bf16* k, const bf16* v, int batch, 
   return ok;
 }
 
-template <int kId, bool kBias, bool kLse, bool kResident>
+template <int kId, int kD, bool kBias, bool kLse, bool kResident>
 void launch_fwd_sm90(const bf16* q, const bf16* k, const bf16* v, const float* bias, bf16* out,
                      float* lse, int batch, int lq, int lk, int heads, const FwdStrides& st,
                      float scale, cudaStream_t stm) {
   const int nt = (lk + kTile - 1) / kTile;
   const int smem = fwd_smem_bytes(kResident ? nt : kFwdSlots);
-  cudaFuncSetAttribute(attn_fwd_sm90_kernel<kId, kBias, kLse, kResident>,
+  cudaFuncSetAttribute(attn_fwd_sm90_kernel<kId, kD, kBias, kLse, kResident>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid((lq + kFwdWG * kTile - 1) / (kFwdWG * kTile), heads, batch);
-  attn_fwd_sm90_kernel<kId, kBias, kLse, kResident><<<grid, kFwdThreads, smem, stm>>>(
+  attn_fwd_sm90_kernel<kId, kD, kBias, kLse, kResident><<<grid, kFwdThreads, smem, stm>>>(
       q, k, v, bias, out, lse, lq, lk, heads, scale, st);
 }
 
-// The forward on `stm` for bf16 q (B, Lq, H, 64) and k, v (B, Lk, H, 64) at
+// The forward on `stm` for bf16 q (B, Lq, H, kD) and k, v (B, Lk, H, kD) at
 // the strides st.q*, st.k*, st.v*; bias null or fp32 at the strides st.bb,
-// st.bh, st.bq (column stride 1); out contiguous (B, Lq, H, 64) bf16; lse
+// st.bh, st.bq (column stride 1); out contiguous (B, Lq, H, kD) bf16; lse
 // null, or an fp32 (B, H, Lq) that receives each row's m + log(l). Every base
 // pointer of q, k and v, and every stride of an axis longer than 1, must be
 // on a 16-byte boundary (the stride of an axis of size 1 is never read). Returns
 // cudaGetLastError() as an int (0 = launched). kId is the kernel's number:
 // it only names the instantiations, so that a profile tells entries apart.
-template <int kId>
+template <int kId, int kD = kHd>
 int launch_attention_fwd_sm90(const bf16* q, const bf16* k, const bf16* v, const float* bias,
                               bf16* out, float* lse, int batch, int lq, int lk, int heads,
                               const FwdStrides& st, float scale, cudaStream_t stm) {
   if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0) return cudaErrorInvalidValue;
   if (!fwd_aligned(q, k, v, batch, lq, lk, heads, st)) return cudaErrorMisalignedAddress;
   const bool resident = (lk + kTile - 1) / kTile <= kResidentTiles;
-#define FWD_SM90(kBias, kLse)                                                                 \
-  (resident ? launch_fwd_sm90<kId, kBias, kLse, true>(q, k, v, bias, out, lse, batch, lq, lk, \
-                                                       heads, st, scale, stm)                 \
-            : launch_fwd_sm90<kId, kBias, kLse, false>(q, k, v, bias, out, lse, batch, lq, lk, \
-                                                        heads, st, scale, stm))
+#define FWD_SM90(kBias, kLse)                                                                  \
+  (resident ? launch_fwd_sm90<kId, kD, kBias, kLse, true>(q, k, v, bias, out, lse, batch, lq, \
+                                                           lk, heads, st, scale, stm)          \
+            : launch_fwd_sm90<kId, kD, kBias, kLse, false>(q, k, v, bias, out, lse, batch, lq, \
+                                                            lk, heads, st, scale, stm))
   if (bias && lse) FWD_SM90(true, true);
   else if (bias) FWD_SM90(true, false);
   else if (lse) FWD_SM90(false, true);
@@ -422,10 +428,10 @@ int launch_attention_fwd_sm90(const bf16* q, const bf16* k, const bf16* v, const
 constexpr int kListShift = 24;  // a tile list entry: key tile | flags << kListShift
 
 // kFwdWG warpgroups per (b, h, 64 kFwdWG q rows), one pass over the key
-// tiles: o / l after p v (see the header comment). blank null: every key
-// tile; else the (nt, nt) blank-tile map, then the map of all-zero bias
-// tiles (lq == lk).
-template <int kId, bool kBias, bool kLse>
+// tiles at head dim kD: o / l after p v (see the header comment). blank
+// null: every key tile; else the (nt, nt) blank-tile map, then the map of
+// all-zero bias tiles (lq == lk).
+template <int kId, int kD, bool kBias, bool kLse>
 __global__ void __launch_bounds__(kFwdThreads, 2)
     attn_fwd_onepass_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const float* __restrict__ bias,
@@ -494,10 +500,12 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   auto slot = [&](int it) -> uint32_t { return skv + 2 * (it % kFwdSlots) * kTileBytes; };
   auto load_item = [&](int it) {  // k and v of the item's key tile
     const int j = tile_of(it);
-    load_tile_async<kFwdThreads>(slot(it), kp, j * kTile, lk, st.kl, threadIdx.x);
-    load_tile_async<kFwdThreads>(slot(it) + kTileBytes, vp, j * kTile, lk, st.vl, threadIdx.x);
+    load_tile_async<kFwdThreads, kD>(slot(it), kp, j * kTile, lk, st.kl, threadIdx.x);
+    load_tile_async<kFwdThreads, kD>(slot(it) + kTileBytes, vp, j * kTile, lk, st.vl,
+                                     threadIdx.x);
   };
-  load_tile_async(sq, q + b * st.qb + h * st.qh, q0, lq, st.ql, threadIdx.x % kThreads);
+  load_tile_async<kThreads, kD>(sq, q + b * st.qb + h * st.qh, q0, lq, st.ql,
+                                threadIdx.x % kThreads);
 #pragma unroll
   for (int i = 0; i < kFwdSlots - 1; ++i) {  // group i: item i (group 0 also q)
     if (i < items) load_item(i);
@@ -530,7 +538,7 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
     uint32_t qf[4][4];
     tile_to_a(qf, sq);
     float x[32];
-    score_tile(x, qf, sk);
+    score_tile<kD>(x, qf, sk);
     // a full tile without a bias at a positive scale keeps the raw scores:
     // max(s) * scale is the max of s * scale, and one FFMA per score gives
     // the exponent; otherwise x is the scaled, biased, masked score. An
@@ -591,10 +599,10 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
       if (row < lq) row_lse[row] = ((m[r] == -INFINITY ? 0.f : m[r]) + log2f(l[r])) * kLn2;
     }
   }
-  const int64_t ldo = static_cast<int64_t>(heads) * kHd;
-  bf16* dst = out + (static_cast<int64_t>(b) * lq * heads + h) * kHd + 2 * t4;
+  const int64_t ldo = static_cast<int64_t>(heads) * kD;
+  bf16* dst = out + (static_cast<int64_t>(b) * lq * heads + h) * kD + 2 * t4;
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
+  for (int i = 0; i < kD / 2; i += 2) {  // columns 8 (i >> 2) + 2 t4 (+ 1) < kD
     const int r = (i >> 1) & 1;
     const int row = q0 + row_lo + 8 * r;
     if (row < lq)
@@ -603,16 +611,16 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   }
 }
 
-template <int kId, bool kBias, bool kLse>
+template <int kId, int kD, bool kBias, bool kLse>
 void launch_fwd_onepass(const bf16* q, const bf16* k, const bf16* v, const float* bias,
                         const uint8_t* blank, bf16* out, float* lse, int batch, int lq, int lk,
                         int heads, const FwdStrides& st, float scale, cudaStream_t stm) {
   const int nt = (lk + kTile - 1) / kTile;
   const int smem = fwd_smem_bytes(kFwdSlots) + (blank ? nt : 0) * static_cast<int>(sizeof(int));
-  cudaFuncSetAttribute(attn_fwd_onepass_kernel<kId, kBias, kLse>,
+  cudaFuncSetAttribute(attn_fwd_onepass_kernel<kId, kD, kBias, kLse>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid((lq + kFwdWG * kTile - 1) / (kFwdWG * kTile), heads, batch);
-  attn_fwd_onepass_kernel<kId, kBias, kLse><<<grid, kFwdThreads, smem, stm>>>(
+  attn_fwd_onepass_kernel<kId, kD, kBias, kLse><<<grid, kFwdThreads, smem, stm>>>(
       q, k, v, bias, blank, out, lse, lq, lk, heads, scale, st);
 }
 
@@ -620,7 +628,7 @@ void launch_fwd_onepass(const bf16* q, const bf16* k, const bf16* v, const float
 // and blank null or the blank-tile map of the bias and its map of all-zero
 // tiles (2 ceil(lq/64)^2 bytes, as the prep kernel of attention_bwd_sm90.cuh
 // writes them), which needs a bias and lq == lk.
-template <int kId>
+template <int kId, int kD = kHd>
 int launch_attention_fwd_onepass(const bf16* q, const bf16* k, const bf16* v, const float* bias,
                                  const uint8_t* blank, bf16* out, float* lse, int batch, int lq,
                                  int lk, int heads, const FwdStrides& st, float scale,
@@ -628,18 +636,14 @@ int launch_attention_fwd_onepass(const bf16* q, const bf16* k, const bf16* v, co
   if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || (blank && (!bias || lq != lk)))
     return cudaErrorInvalidValue;
   if (!fwd_aligned(q, k, v, batch, lq, lk, heads, st)) return cudaErrorMisalignedAddress;
-  if (bias && lse)
-    launch_fwd_onepass<kId, true, true>(q, k, v, bias, blank, out, lse, batch, lq, lk, heads,
-                                        st, scale, stm);
-  else if (bias)
-    launch_fwd_onepass<kId, true, false>(q, k, v, bias, blank, out, lse, batch, lq, lk, heads,
-                                         st, scale, stm);
-  else if (lse)
-    launch_fwd_onepass<kId, false, true>(q, k, v, bias, blank, out, lse, batch, lq, lk, heads,
-                                         st, scale, stm);
-  else
-    launch_fwd_onepass<kId, false, false>(q, k, v, bias, blank, out, lse, batch, lq, lk, heads,
-                                          st, scale, stm);
+#define FWD_ONEPASS(kBias, kLse)                                                          \
+  launch_fwd_onepass<kId, kD, kBias, kLse>(q, k, v, bias, blank, out, lse, batch, lq, lk, heads, \
+                                           st, scale, stm)
+  if (bias && lse) FWD_ONEPASS(true, true);
+  else if (bias) FWD_ONEPASS(true, false);
+  else if (lse) FWD_ONEPASS(false, true);
+  else FWD_ONEPASS(false, false);
+#undef FWD_ONEPASS
   return static_cast<int>(cudaGetLastError());
 }
 

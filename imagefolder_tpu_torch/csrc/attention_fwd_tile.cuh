@@ -9,9 +9,10 @@
 // Per (batch, head), with key columns >= Lk masked:
 //   s = q k^T * scale + bias (fp32)     p = exp(s - rowmax(s)) (fp32)
 //   o = (bf16(p) v) / rowsum(p)         ("bf16" is the inputs' type)
-// The output is contiguous (B, Lq, H * 64), head h at columns h*64: the
+// The output is contiguous (B, Lq, H * hd), head h at columns h*hd: the
 // (B, N, C) that the packed kernel's out projection reads, and the
-// (B, Lq, H, hd) of a BNHD call.
+// (B, Lq, H, hd) of a BNHD call. hd is 64, or 48 for #4 alone (the packed
+// #1 and #7 serve the ViTs, whose heads are all 64 wide).
 //
 // bf16 runs the one-pass wgmma kernel of attention_fwd_sm90.cuh (its
 // design, its bound and the blank-tile map are described there). This file
@@ -47,14 +48,14 @@ using FwdStrides = sm90::FwdStrides;
 // memory read by broadcast; q and o stay in registers.
 constexpr int kFwdF32Tile = 32;
 
-template <int kId, bool kBias, bool kLse>
+template <int kId, int kD, bool kBias, bool kLse>
 __global__ void __launch_bounds__(kRows)
     attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ bias,
                         float* __restrict__ out, float* __restrict__ lse, int lq, int lk,
                         int heads, float scale, FwdStrides st) {
-  __shared__ float sk[kFwdF32Tile][kHd];
-  __shared__ float sv[kFwdF32Tile][kHd];
+  __shared__ float sk[kFwdF32Tile][kD];
+  __shared__ float sv[kFwdF32Tile][kD];
 
   const int row = blockIdx.x * kRows + threadIdx.x;
   const int h = blockIdx.y;
@@ -65,9 +66,9 @@ __global__ void __launch_bounds__(kRows)
   const float* vp = v + b * st.vb + h * st.vh;
   const float* brow = kBias ? bias + static_cast<int64_t>(in ? row : 0) * st.bq : nullptr;
 
-  float qr[kHd], o[kHd];
+  float qr[kD], o[kD];
 #pragma unroll
-  for (int d = 0; d < kHd; ++d) {
+  for (int d = 0; d < kD; ++d) {
     qr[d] = in ? qp[d] : 0.f;
     o[d] = 0.f;
   }
@@ -75,8 +76,8 @@ __global__ void __launch_bounds__(kRows)
 
   for (int k0 = 0; k0 < lk; k0 += kFwdF32Tile) {
     __syncthreads();
-    for (int i = threadIdx.x; i < kFwdF32Tile * kHd; i += kRows) {
-      const int r = i / kHd, d = i % kHd;
+    for (int i = threadIdx.x; i < kFwdF32Tile * kD; i += kRows) {
+      const int r = i / kD, d = i % kD;
       const bool kin = k0 + r < lk;
       sk[r][d] = kin ? kp[(k0 + r) * st.kl + d] : 0.f;
       sv[r][d] = kin ? vp[(k0 + r) * st.vl + d] : 0.f;
@@ -89,7 +90,7 @@ __global__ void __launch_bounds__(kRows)
     for (int j = 0; j < kFwdF32Tile; ++j) {
       float acc = 0.f;
 #pragma unroll
-      for (int d = 0; d < kHd; ++d) acc = fmaf(qr[d], sk[j][d], acc);
+      for (int d = 0; d < kD; ++d) acc = fmaf(qr[d], sk[j][d], acc);
       const int col = k0 + j;
       float x = acc * scale;
       if (kBias && in && col < lk) x += brow[col];
@@ -103,35 +104,35 @@ __global__ void __launch_bounds__(kRows)
     m = m_new;
     l *= alpha;
 #pragma unroll
-    for (int d = 0; d < kHd; ++d) o[d] *= alpha;
+    for (int d = 0; d < kD; ++d) o[d] *= alpha;
 #pragma unroll
     for (int j = 0; j < kFwdF32Tile; ++j) {
       const float p = expf(s[j] - mu);
       l += p;
 #pragma unroll
-      for (int d = 0; d < kHd; ++d) o[d] = fmaf(p, sv[j][d], o[d]);
+      for (int d = 0; d < kD; ++d) o[d] = fmaf(p, sv[j][d], o[d]);
     }
   }
   if (in) {
-    float* dst = out + ((static_cast<int64_t>(b) * lq + row) * heads + h) * kHd;
+    float* dst = out + ((static_cast<int64_t>(b) * lq + row) * heads + h) * kD;
 #pragma unroll
-    for (int d = 0; d < kHd; ++d) dst[d] = o[d] / l;
+    for (int d = 0; d < kD; ++d) dst[d] = o[d] / l;
     if (kLse)
       lse[(static_cast<int64_t>(b) * heads + h) * lq + row] = (m == kFwdNegInf ? 0.f : m) + logf(l);
   }
 }
 
-// Launches the forward on `stream` for q (B, Lq, H, 64) and k, v (B, Lk, H,
-// 64) at the strides `st`, all fp32 or all bf16 (is_bf16); bias null or an
+// Launches the forward on `stream` for q (B, Lq, H, kD) and k, v (B, Lk, H,
+// kD) at the strides `st`, all fp32 or all bf16 (is_bf16); bias null or an
 // fp32 (Lq, Lk) whose row stride is st.bq; blank null, or (bf16, with a bias
 // and Lq == Lk) the bias's blank-tile map and map of all-zero tiles, whose
-// blank tiles the kernel skips; out contiguous (B, Lq, H * 64) of the inputs'
+// blank tiles the kernel skips; out contiguous (B, Lq, H * kD) of the inputs'
 // type; lse null, or an fp32 (B, H, Lq) that receives each row's m + log(l)
 // for the backward (attention_bwd_sm90.cuh). bf16 needs every base pointer
 // and stride of q, k and v on a 16-byte boundary. Returns cudaGetLastError()
 // as an int (0 = launched). kId is the kernel's number (#1, #4, #7): it
 // only names the instantiations, so that a profile tells the entries apart.
-template <int kId>
+template <int kId, int kD = kHd>
 int launch_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
                          const uint8_t* blank, void* out, int batch, int lq, int lk, int heads,
                          const FwdStrides& st, float scale, int is_bf16, cudaStream_t stm,
@@ -139,7 +140,7 @@ int launch_attention_fwd(const void* q, const void* k, const void* v, const void
   if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0) return cudaErrorInvalidValue;
   const float* bp = static_cast<const float*>(bias);
   if (is_bf16)
-    return sm90::launch_attention_fwd_onepass<kId>(
+    return sm90::launch_attention_fwd_onepass<kId, kD>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         bp, blank, static_cast<bf16*>(out), lse, batch, lq, lk, heads, st, scale, stm);
   if (blank) return cudaErrorInvalidValue;
@@ -149,7 +150,7 @@ int launch_attention_fwd(const void* q, const void* k, const void* v, const void
   const float* vp = static_cast<const float*>(v);
   float* op = static_cast<float*>(out);
 #define FWD_F32(kBias, kLse)                                                \
-  attn_fwd_f32_kernel<kId, kBias, kLse><<<grid, kRows, 0, stm>>>(          \
+  attn_fwd_f32_kernel<kId, kD, kBias, kLse><<<grid, kRows, 0, stm>>>(      \
       qp, kp, vp, bp, op, lse, lq, lk, heads, scale, st)
   if (lse) {
     if (bp) FWD_F32(true, true);

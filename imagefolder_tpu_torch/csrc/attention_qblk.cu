@@ -35,23 +35,24 @@
 #include "attention_bwd_sm90.cuh"
 #include "attention_fwd_tile.cuh"
 
-// q (B, Lq, H, 64), k and v (B, Lk, H, 64), each with its own batch, row and
-// head strides in elements (qs, ks, vs = {batch, row, head}; the head-dim
-// stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32
+// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd 48 or 64, each with its own
+// batch, row and head strides in elements (qs, ks, vs = {batch, row, head};
+// the head-dim stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32
 // (Lq, Lk) shared by every batch and head, row stride bias_row_stride
 // (column stride 1); blank null, or (bf16, with a bias and Lq == Lk) a
 // scratch of 2 * ceil(Lq/64)^2 bytes: the pre-pass writes the bias's
 // blank-tile map there and the forward skips the tiles it blanks (null:
-// every tile computed); out contiguous (B, Lq, H, 64) of q's type; lse
+// every tile computed); out contiguous (B, Lq, H, hd) of q's type; lse
 // null, or an fp32 (B, H, Lq) that receives each row's log-sum-exp for the
 // backward (#5). bf16 needs every base pointer and stride of q, k and v on
 // a 16-byte boundary. Launches on `stream` and returns cudaGetLastError()
-// as an int (0 = launched).
+// as an int (0 = launched; cudaErrorInvalidValue for another head dim).
 extern "C" int attention_qblk_fwd(const void* q, const void* k, const void* v,
                                   const void* bias, void* blank, void* out, void* lse, int batch,
                                   int lq, int lk, int heads, const int64_t* qs,
                                   const int64_t* ks, const int64_t* vs, int64_t bias_row_stride,
-                                  float scale, int is_bf16, void* stream) {
+                                  float scale, int is_bf16, int hd, void* stream) {
+  if (hd != 48 && hd != 64) return cudaErrorInvalidValue;
   const FwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
                       0, 0, bias ? bias_row_stride : 0};
   const cudaStream_t stm = static_cast<cudaStream_t>(stream);
@@ -62,6 +63,9 @@ extern "C" int attention_qblk_fwd(const void* q, const void* k, const void* v,
                                                    st.bq, stm);
     if (err) return err;
   }
-  return launch_attention_fwd<4>(q, k, v, bias, map, out, batch, lq, lk, heads, st, scale,
-                                 is_bf16, stm, static_cast<float*>(lse));
+  float* lp = static_cast<float*>(lse);
+  return hd == 48 ? launch_attention_fwd<4, 48>(q, k, v, bias, map, out, batch, lq, lk, heads, st,
+                                                scale, is_bf16, stm, lp)
+                  : launch_attention_fwd<4, 64>(q, k, v, bias, map, out, batch, lq, lk, heads, st,
+                                                scale, is_bf16, stm, lp);
 }

@@ -8,160 +8,379 @@
 // the Pallas kernel (first occurrence within a tile, strict < across tiles).
 //
 // What bounds it on this card: the multi-scale quantizer calls it with
-// C = 32 and V = 4096 at N = B * pn^2 rows. At N = 7744 that is 2.03 GFLOP
-// of fp32 multiply-adds against 1.5 MB of compulsory traffic, so it is bound
-// by operations: 30 us at the 67 TFLOP/s fp32 FMA peak. The products must be
+// C = 32 and V = 4096 at N = B * pn^2 rows, 20 times per encode (two PQ
+// branches, ten scales). At N = 7744 that is 2.03 GFLOP of fp32
+// multiply-adds against 1.5 MB of compulsory traffic, so it is bound by
+// operations: 30 us at the 67 TFLOP/s fp32 FMA peak. The products must be
 // exact fp32: TF32 or bf16 tensor cores flip near-tied codes, and a flipped
 // code at one scale changes every later residual of the multi-scale encode.
+// Most of an encode's launches are small (N = 64 to 2304 at 256 px): there
+// a design that gives each block whole rows of the codebook launches a few
+// blocks that each walk all 4096 codes, and leaves the card nearly empty.
 //
-// What the design does about it: the TPU kernel kept an (N-tile, V-tile)
-// score block in VMEM and a running (min, argmin) in scratch across the
-// sequential grid. Here a block of 128 threads owns 32 whole rows, so no
-// reduction crosses blocks: it streams the codebook through shared memory in
-// tiles of 128 codes (the 16 threads that read 16 different codes hit 16
-// banks). Each thread holds 4 rows x 8 codes of dot products in registers,
-// accumulated with fmaf over c in order, and keeps a running (best, index) per row with a strict <, over codes that it
-// visits in increasing order. At the end, the 16 threads that share a row
-// merge their pairs by (value, index) with warp shuffles. Padded codes
-// (v >= V) are never compared; rows >= N are never stored. The x tile stays
-// in shared memory and is read by broadcast. The scores never reach device
-// memory: the output is N int64 indices. Both shared tiles pad their rows by
-// one float, which also keeps the two row groups of a warp on other banks.
+// What the design does about it:
+//   - Fill the card at small N: the codebook is split into S code ranges
+//     (S in {1, 2, 4, 8}), one per block of a thread-block cluster; S is the
+//     one that gives the fewest code tiles a block scans times the waves of
+//     clusters that ceil(N / 128) row tiles take, at the number of clusters
+//     of S blocks that fit the card at once (cudaOccupancyMaxActiveClusters:
+//     a cluster's blocks share a GPC, so fewer fit than SMs / S). Each block
+//     scans its range in increasing code order with a strict <; after
+//     cluster.sync() the block of rank 0 merges the
+//     ranks' (best, index) pairs per row from their shared memory
+//     (distributed shared memory), in rank order, by value and then index,
+//     so that the first occurrence holds across ranges. One launch, no
+//     workspace.
+//   - An FFMA main loop toward the fp32 peak: 256 threads own a 128-row x
+//     256-code tile, each thread an 8 x 16 register tile (rows ty + 16 i,
+//     codes tx + 16 j). x and each code tile sit in shared memory row-major,
+//     as in device memory, with rows padded to C + 4 floats: one 16-byte
+//     load gives four c of a row or a code, and the codes a quarter-warp
+//     reads land in distinct banks. On this card an SM does 128 FFMA a
+//     clock but reads 128 bytes of shared memory a clock into registers, so
+//     a thread's tile sets the ceiling: 8 x 8 reads 16 floats per 64 FFMA,
+//     as fast as the products run; 8 x 16 reads 24 per 128. Tiles arrive by
+//     coalesced 16-byte cp.async copies, code tiles double-buffered so that
+//     the next lands while this one's products run; the 512 KB book stays
+//     in L2. Tiles kept c-major would need 4-byte copies that transpose on
+//     the way, 32 cache lines a warp instruction: timed so, the loads took
+//     as long as the products (PERF.md).
+//   - Exact fp32: every score is accumulated with fmaf over c in increasing
+//     order from 0 and scored as base - 2 acc. The argmin epilogue runs in
+//     registers per code column; the 16 threads that share a row then merge
+//     by (value, index) with warp shuffles.
+// Padded codes (v >= V, or past a rank's range) are never compared; rows
+// >= N are never stored. The scores never reach device memory: the output is
+// N int64 indices. One block an SM (128 accumulators a thread; 94 KB of
+// shared memory at C = 32).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kCodeThreads = 16;                       // threads across codes
-constexpr int kRowThreads = kThreads / kCodeThreads;   // 8 threads across rows
-constexpr int kRowsPerThread = 4;
-constexpr int kCodesPerThread = 8;
-constexpr int kRows = kRowThreads * kRowsPerThread;    // 32 rows per block
-constexpr int kCodes = kCodeThreads * kCodesPerThread; // 128 codes per tile
+namespace cg = cooperative_groups;
 
+constexpr int kThreads = 256;
+constexpr int kRows = 128;      // rows per block (row tile)
+constexpr int kCodes = 256;     // codes per tile of the scan
+constexpr int kMaxSplit = 8;    // code ranges per row tile: the portable cluster size
+static_assert(kCodes == kThreads, "one |e|^2 copy a thread per code tile");
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// a tile's rows are padded by kPad floats: a pitch of C + 4 keeps 16-byte
+// rows and puts the rows of eight consecutive codes on distinct 16-byte
+// bank groups
+constexpr int kPad = 4;
+
+// dynamic shared memory: x [kRows][C + kPad], two code tiles
+// [kCodes][C + kPad] and their two rows of |e|^2
+template <int C>
+constexpr int smem_bytes() {
+  return (kRows * (C + kPad) + 2 * kCodes * (C + kPad) + 2 * kCodes) * 4;
+}
+
+// One block: row tile blockIdx.y against code range `rank` (its cluster
+// rank, blockIdx.x) of v_per codes; see the header comment.
 template <int C, bool kNorms>
-__global__ void __launch_bounds__(kThreads)
-    codebook_argmin_kernel(const float* __restrict__ x,
-                           const float* __restrict__ cb,
-                           const float* __restrict__ e2,
-                           int64_t* __restrict__ out, int n, int v) {
-  __shared__ float sx[kRows][C + 1];
-  __shared__ float se[kCodes][C + 1];
+__global__ void __launch_bounds__(kThreads, 1)
+    codebook_argmin_kernel(const float* __restrict__ x, const float* __restrict__ cb,
+                           const float* __restrict__ e2, int64_t* __restrict__ out, int n,
+                           int v, int v_per) {
+  constexpr int P = C + kPad;  // row pitch of the tiles, in floats
+  extern __shared__ float4 smem4[];
+  float* sx = reinterpret_cast<float*>(smem4);  // [kRows][P]
+  float* se = sx + kRows * P;                   // [2][kCodes][P]
+  float* sb = se + 2 * kCodes * P;              // [2][kCodes]
+  __shared__ float rbest[kRows];                // this block's per-row result
+  __shared__ int rarg[kRows];
 
-  const int tc = threadIdx.x % kCodeThreads;
-  const int tr = threadIdx.x / kCodeThreads;
-  const int row0 = blockIdx.x * kRows;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int row0 = blockIdx.y * kRows;
+  const int vbeg = rank * v_per;
+  const int vend = min(v, vbeg + v_per);
+  const int ntiles = vend > vbeg ? (vend - vbeg + kCodes - 1) / kCodes : 0;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;  // rows ty + 16 i, codes tx + 16 j
 
-  for (int i = threadIdx.x; i < kRows * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    sx[r][c] = row0 + r < n ? x[static_cast<int64_t>(row0 + r) * C + c] : 0.f;
+  // x and code tile t, row-major: consecutive threads copy consecutive
+  // 16-byte chunks of device memory
+  for (int i = tid; i < kRows * C / 4; i += kThreads) {
+    const int r = i / (C / 4), q = i % (C / 4);
+    const bool in = row0 + r < n;
+    cp_async16(sx + r * P + 4 * q, x + (in ? static_cast<int64_t>(row0 + r) * C + 4 * q : 0),
+               in);
   }
-
-  float best[kRowsPerThread];
-  int arg[kRowsPerThread];
-#pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
-    best[r] = INFINITY;
-    arg[r] = 0;
-  }
-
-  for (int v0 = 0; v0 < v; v0 += kCodes) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = threadIdx.x; i < kCodes * C; i += kThreads) {
-      const int j = i / C, c = i % C;
-      se[j][c] = v0 + j < v ? cb[static_cast<int64_t>(v0 + j) * C + c] : 0.f;
+  auto load_tile = [&](int t) {
+    float* dst = se + (t & 1) * kCodes * P;
+    const int v0 = vbeg + t * kCodes;
+    for (int i = tid; i < kCodes * C / 4; i += kThreads) {
+      const int j = i / (C / 4), q = i % (C / 4);
+      const bool in = v0 + j < vend;
+      cp_async16(dst + j * P + 4 * q, cb + (in ? static_cast<int64_t>(v0 + j) * C + 4 * q : 0),
+                 in);
     }
+    if (kNorms) {
+      const bool in = v0 + tid < vend;  // kCodes == kThreads: one each
+      cp_async4(sb + (t & 1) * kCodes + tid, e2 + (in ? v0 + tid : 0), in);
+    }
+  };
+  if (ntiles > 0) load_tile(0);
+  cp_async_commit();  // group 0: x and tile 0
+
+  float best[8];  // rows ty + 16 i
+  int arg[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    best[i] = INFINITY;
+    arg[i] = 0;
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) load_tile(t + 1);  // into the buffer tile t - 1 has left
+    cp_async_commit();
+    cp_async_wait1();  // tile t (and x) landed
     __syncthreads();
 
-    float acc[kRowsPerThread][kCodesPerThread];
+    const float* xs = sx + ty * P;
+    const float* es = se + (t & 1) * kCodes * P + tx * P;
+    float acc[8][16];
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < kCodesPerThread; ++j) acc[r][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < C; ++c) {
-      float xr[kRowsPerThread], ej[kCodesPerThread];
+      for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+    // four c at a time, each accumulator's sum still taken over c in order
+#pragma unroll 1
+    for (int c = 0; c < C; c += 4) {
+      float4 xv[8];
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) xr[r] = sx[tr * kRowsPerThread + r][c];
+      for (int i = 0; i < 8; ++i) xv[i] = *reinterpret_cast<const float4*>(xs + 16 * i * P + c);
 #pragma unroll
-      for (int j = 0; j < kCodesPerThread; ++j) ej[j] = se[tc + j * kCodeThreads][c];
+      for (int j = 0; j < 16; ++j) {
+        const float4 ev = *reinterpret_cast<const float4*>(es + 16 * j * P + c);
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r)
-#pragma unroll
-        for (int j = 0; j < kCodesPerThread; ++j) acc[r][j] = fmaf(xr[r], ej[j], acc[r][j]);
+        for (int i = 0; i < 8; ++i) {
+          acc[i][j] = fmaf(xv[i].x, ev.x, acc[i][j]);
+          acc[i][j] = fmaf(xv[i].y, ev.y, acc[i][j]);
+          acc[i][j] = fmaf(xv[i].z, ev.z, acc[i][j]);
+          acc[i][j] = fmaf(xv[i].w, ev.w, acc[i][j]);
+        }
+      }
     }
 
-    // this thread's codes v0 + tc + 16 j rise with j: a strict < keeps the
-    // first of equal scores
+    // this thread's codes rise with j: a strict < keeps the first of equal
+    // scores
+    const int v0 = vbeg + t * kCodes;
 #pragma unroll
-    for (int j = 0; j < kCodesPerThread; ++j) {
-      const int code = v0 + tc + j * kCodeThreads;
-      if (code < v) {
-        const float base = kNorms ? e2[code] : 0.f;
+    for (int j = 0; j < 16; ++j) {
+      const int jj = tx + 16 * j;
+      if (v0 + jj < vend) {
+        const float base = kNorms ? sb[(t & 1) * kCodes + jj] : 0.f;
 #pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-          const float d = base - 2.f * acc[r][j];
-          if (d < best[r]) {
-            best[r] = d;
-            arg[r] = code;
+        for (int i = 0; i < 8; ++i) {
+          const float d = base - 2.f * acc[i][j];
+          if (d < best[i]) {
+            best[i] = d;
+            arg[i] = v0 + jj;
           }
         }
       }
     }
+    __syncthreads();  // every thread is done with buffer t & 1
   }
+  cp_async_wait_all();  // a rank with no codes still copied x
 
   // merge the 16 code threads of each row (lanes 0-15 or 16-31 of a warp):
   // the smaller score wins, and of equal scores the smaller index
 #pragma unroll
-  for (int r = 0; r < kRowsPerThread; ++r) {
+  for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int off = kCodeThreads / 2; off > 0; off /= 2) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best[r], off);
-      const int oa = __shfl_xor_sync(0xffffffffu, arg[r], off);
-      if (ob < best[r] || (ob == best[r] && oa < arg[r])) {
-        best[r] = ob;
-        arg[r] = oa;
+    for (int off = 8; off > 0; off /= 2) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best[i], off);
+      const int oa = __shfl_xor_sync(0xffffffffu, arg[i], off);
+      if (ob < best[i] || (ob == best[i] && oa < arg[i])) {
+        best[i] = ob;
+        arg[i] = oa;
       }
     }
-    const int row = row0 + tr * kRowsPerThread + r;
-    if (tc == 0 && row < n) out[row] = arg[r];
+    const int r = ty + 16 * i;
+    if (tx == 0) {
+      if (split == 1) {
+        if (row0 + r < n) out[row0 + r] = arg[i];
+      } else {
+        rbest[r] = best[i];
+        rarg[r] = arg[i];
+      }
+    }
   }
+  if (split == 1) return;
+
+  // across the cluster: rank 0 reads every rank that holds codes, in rank
+  // order, from its shared memory; the second sync keeps each rank's shared
+  // memory alive until then
+  cluster.sync();
+  if (rank == 0 && tid < kRows && row0 + tid < n) {
+    float b = rbest[tid];
+    int a = rarg[tid];
+    for (int s = 1; s < split && s * v_per < v; ++s) {
+      const float ob = cluster.map_shared_rank(rbest, s)[tid];
+      const int oa = cluster.map_shared_rank(rarg, s)[tid];
+      if (ob < b || (ob == b && oa < a)) {
+        b = ob;
+        a = oa;
+      }
+    }
+    out[row0 + tid] = a;
+  }
+  cluster.sync();
+}
+
+// The launch of one call: row tile y, cluster rank x, as many clusters of
+// `split` blocks as row tiles
+template <int C, bool kNorms>
+cudaLaunchConfig_t launch_config(int split, int row_tiles, cudaStream_t st,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, row_tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes<C>();
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = split;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of s = 1, 2, 4, 8 blocks that fit the card at once, read once
+// per instantiation
+template <int C, bool kNorms>
+int max_clusters(int s) {
+  static int known[4] = {0, 0, 0, 0};
+  const int k = s == 1 ? 0 : s == 2 ? 1 : s == 4 ? 2 : 3;
+  if (!known[k]) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = launch_config<C, kNorms>(s, 1, nullptr, &attr);
+    int n = 0;
+    cudaOccupancyMaxActiveClusters(&n, codebook_argmin_kernel<C, kNorms>, &cfg);
+    known[k] = n > 0 ? n : 1;
+  }
+  return known[k];
+}
+
+// The split S in {1, 2, 4, 8} for n rows of a v-code book that gives the
+// least time by a count of code tiles: each block scans ceil(v / (kCodes
+// S)) tiles, and the row tiles' clusters run in ceil(row tiles /
+// max_clusters(S)) waves. Ties go to the smaller S (less merging, fewer
+// copies of x).
+template <int C, bool kNorms>
+int split_for(int n, int v) {
+  const int64_t tiles = (n + kRows - 1) / kRows;
+  int best = 1;
+  int64_t best_cost = INT64_MAX;
+  for (int s = 1; s <= kMaxSplit && (s == 1 || (s / 2) * kCodes < v); s *= 2) {
+    const int64_t per_block = (v + static_cast<int64_t>(s) * kCodes - 1) / (s * kCodes);
+    const int64_t fit = max_clusters<C, kNorms>(s);
+    const int64_t cost = per_block * ((tiles + fit - 1) / fit);
+    if (cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// split_for with the kernel's shared-memory attribute set, which the
+// occupancy query and the launch need
+template <int C, bool kNorms>
+int split_of(int n, int v) {
+  cudaFuncSetAttribute(codebook_argmin_kernel<C, kNorms>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<C>());
+  return split_for<C, kNorms>(n, v);
+}
+
+template <int C, bool kNorms>
+int launch(const float* x, const float* cb, const float* e2, int64_t* out, int n, int v,
+           cudaStream_t st) {
+  const int split = split_of<C, kNorms>(n, v);
+  const int v_per = ((v + split - 1) / split + kCodes - 1) / kCodes * kCodes;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config<C, kNorms>(split, (n + kRows - 1) / kRows, st, &attr);
+  return static_cast<int>(
+      cudaLaunchKernelEx(&cfg, codebook_argmin_kernel<C, kNorms>, x, cb, e2, out, n, v, v_per));
 }
 
 template <int C>
-void launch(const float* x, const float* cb, const float* e2, int64_t* out,
-            int n, int v, cudaStream_t st) {
-  const dim3 grid((n + kRows - 1) / kRows);
-  if (e2)
-    codebook_argmin_kernel<C, true><<<grid, kThreads, 0, st>>>(x, cb, e2, out, n, v);
-  else
-    codebook_argmin_kernel<C, false><<<grid, kThreads, 0, st>>>(x, cb, e2, out, n, v);
+int launch_c(const float* x, const float* cb, const float* e2, int64_t* out, int n, int v,
+             cudaStream_t st) {
+  return e2 ? launch<C, true>(x, cb, e2, out, n, v, st)
+            : launch<C, false>(x, cb, e2, out, n, v, st);
 }
 
 }  // namespace
 
 // x (N, C) and codebook (V, C) fp32 contiguous; e2 (V,) fp32 with |e_v|^2,
 // or null for `maximize` (scores -2 x.e); out (N,) int64. C in {8, 16, 32,
-// 64}. Launches on `stream` and returns cudaGetLastError() as an int
-// (0 = launched).
+// 64}; N up to 65535 row tiles of 128. Launches on `stream` and returns the
+// launch's error, then cudaGetLastError(), as an int (0 = launched).
 extern "C" int codebook_argmin(const void* x, const void* codebook,
                                const void* e2, void* out, int n, int v, int c,
                                void* stream) {
-  if (n <= 0 || v <= 0) return cudaErrorInvalidValue;
+  if (n <= 0 || v <= 0 || (n + kRows - 1) / kRows > 65535) return cudaErrorInvalidValue;
   const float* xp = static_cast<const float*>(x);
   const float* cp = static_cast<const float*>(codebook);
   const float* ep = static_cast<const float*>(e2);
   int64_t* op = static_cast<int64_t*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
   switch (c) {
-    case 8: launch<8>(xp, cp, ep, op, n, v, st); break;
-    case 16: launch<16>(xp, cp, ep, op, n, v, st); break;
-    case 32: launch<32>(xp, cp, ep, op, n, v, st); break;
-    case 64: launch<64>(xp, cp, ep, op, n, v, st); break;
+    case 8: err = launch_c<8>(xp, cp, ep, op, n, v, st); break;
+    case 16: err = launch_c<16>(xp, cp, ep, op, n, v, st); break;
+    case 32: err = launch_c<32>(xp, cp, ep, op, n, v, st); break;
+    case 64: err = launch_c<64>(xp, cp, ep, op, n, v, st); break;
     default: return cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return err ? err : static_cast<int>(cudaGetLastError());
+}
+
+// The split S that a call of codebook_argmin for n rows of a v-code book of
+// width c (norms: with |e|^2, i.e. not maximize) takes on the current
+// device, for the checks; 0 for a width the kernel is not built for.
+extern "C" int codebook_argmin_split(int n, int v, int c, int norms) {
+  if (n <= 0 || v <= 0) return 0;
+  switch (c) {
+    case 8: return norms ? split_of<8, true>(n, v) : split_of<8, false>(n, v);
+    case 16: return norms ? split_of<16, true>(n, v) : split_of<16, false>(n, v);
+    case 32: return norms ? split_of<32, true>(n, v) : split_of<32, false>(n, v);
+    case 64: return norms ? split_of<64, true>(n, v) : split_of<64, false>(n, v);
+    default: return 0;
+  }
 }

@@ -7,7 +7,11 @@
 // swizzle that wgmma reads (16-byte chunk c of row r at chunk c ^ (r % 8)),
 // written by cp.async 16-byte copies with zero fill past the end, and feed
 // m64n64k16 products (bf16 in, fp32 accumulate) with the A operand in
-// registers.
+// registers. A narrower head (kD = 48: RAR-B, MaskGIT-B) keeps the same
+// 64-wide tile and descriptor: its rows are copied into chunks 0-5 and
+// chunks 6-7 are zero-filled, so a product over the head dim runs kD / 16
+// K-steps and a product whose N is the head dim computes zero columns past
+// kD, which are never stored.
 
 #pragma once
 
@@ -25,7 +29,7 @@ using mma_tile::bf16;
 using mma_tile::pack_bf16;
 using mma_tile::smem_addr;
 
-constexpr int kHd = 64;                    // head dim
+constexpr int kHd = 64;                    // a tile's width: the widest head dim
 constexpr int kTile = 64;                  // q rows and keys per tile
 constexpr int kThreads = 128;              // one warpgroup
 constexpr int kTileBytes = kTile * kHd * 2;  // one bf16 tile, 8 KB
@@ -141,26 +145,33 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&d)[3
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
-// rows [row0, row0 + 64) x 64 values of one head's slice (row stride ld)
-// into a swizzled tile at `dst`; rows >= n are zero. Each of the kN threads
-// that share the copy (tid its index among them; by default the one
-// warpgroup of the block) starts 512 / kN 16-byte copies.
-template <int kN = kThreads>
+// rows [row0, row0 + 64) x kD values (kD = 48 or 64) of one head's slice
+// (row stride ld) into a swizzled 64-wide tile at `dst`; rows >= n and
+// columns >= kD are zero. Each of the kN threads that share the copy (tid
+// its index among them; by default the one warpgroup of the block) starts
+// 512 / kN 16-byte copies.
+template <int kN = kThreads, int kD = kHd>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src, int row0, int n,
                                                 int64_t ld, int tid) {
+  static_assert(kD % 16 == 0 && kD <= kHd, "a head dim of whole 16-wide K-steps, at most 64");
 #pragma unroll
   for (int j = 0; j < kTile * 8 / kN; ++j) {
     const int i = tid + j * kN;
     const int r = i >> 3, c = i & 7;
-    const bool in = row0 + r < n;
+    const bool row_in = row0 + r < n;
+    // chunks past a narrow head's width copy nothing from its first chunk;
+    // at kD = kHd both conditions fold away
+    const bool in = row_in && c < kD / 8;
     cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4),
-               src + static_cast<int64_t>(in ? row0 + r : 0) * ld + c * 8, in);
+               src + static_cast<int64_t>(row_in ? row0 + r : 0) * ld + (c < kD / 8 ? c * 8 : 0),
+               in);
   }
 }
 
+template <int kD = kHd>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src, int row0, int n,
                                                 int64_t ld) {
-  load_tile_async(dst, src, row0, n, ld, threadIdx.x);
+  load_tile_async<kThreads, kD>(dst, src, row0, n, ld, threadIdx.x);
 }
 
 }  // namespace sm90

@@ -17,8 +17,8 @@ parameters; the residual stream is added in fp32 and each block returns the
 activation dtype.
 
 Attention: the training forward (causal mask) goes through the
-``dot_product_attention`` router (#3 on the card, which is built for head
-dim 64: RAR-B's 768 / 16 = 48 is refused there until #3 and #6 take it).
+``dot_product_attention`` router (#3 on the card, backward #6, both built
+for RAR-B's head dim 768 / 16 = 48 as well as 64).
 The KV-cached decode is plain PyTorch attention over the written prefix of
 each block's cache, as the JAX package's decode is XLA's
 ``jax.nn.dot_product_attention`` and no kernel of its own: fp32 scores and
@@ -43,7 +43,7 @@ from torch.nn.utils import skip_init
 from torch.utils.checkpoint import checkpoint
 
 from imagefolder_tpu_torch.ops.activations import gelu_exact
-from imagefolder_tpu_torch.ops.cuda.attention import _HEAD_DIM, dot_product_attention
+from imagefolder_tpu_torch.ops.cuda.attention import dot_product_attention
 from imagefolder_tpu_torch.ops.cuda.block import dense
 from imagefolder_tpu_torch.utils.init import linear, trunc_normal_
 
@@ -159,12 +159,6 @@ class RARAttention(nn.Module):
             k, v = cache.append(k, v)
             out = _cached_attention(q, k.to(dt), v.to(dt))
         else:
-            if x.device.type == "cuda" and self.head_dim != _HEAD_DIM:
-                raise NotImplementedError(
-                    f"RAR's training forward on the card runs the BNHD attention kernels "
-                    f"(#3, backward #6), built for head dim {_HEAD_DIM}; this model's is "
-                    f"{self.head_dim} (RAR-B: 768 / 16 = 48). The KV-cached decode "
-                    f"(rar_generate) does not use them.")
             out = dot_product_attention(q, k, v, bias=mask)
         return dense(out.reshape(b, n, c), self.proj.weight, self.proj.bias)
 

@@ -44,6 +44,8 @@ the plain version of lse), skips the 64 x 64 tiles that a bias blanks
 (``blank_tile_map``, plain version ``blank_tile_map_reference``); dk and dv
 come from a kernel per 64 keys, dq from one per 64 q rows. fp32 backwards,
 calls that ask for dbias, and #6 at L = 1 keep ``csrc/attention_bwd_tile.cuh``.
+The BNHD kernels (#3-#6) take heads of 48 (RAR-B) or 64; the packed pair
+(#1, #2), which only the ViTs call, takes 64. Other widths raise.
 Each dispatches on the tensor's device only: a CPU tensor goes to its
 ``*_reference``, the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel or raises.
@@ -82,7 +84,12 @@ FUSED_BWD_LAUNCHES = 0
 QBLK_LAUNCHES = 0
 QBLK_BWD_LAUNCHES = 0
 
-_HEAD_DIM = 64  # the kernel's compiled head width (every DINOv2 preset)
+# compiled head widths: the packed pair #1/#2 (and #7's attention step)
+# serve the ViTs, every preset of which has heads of 64; the BNHD kernels
+# #3-#6 also take 48 (RAR-B and MaskGIT-B: 768 / 16), zero-padded to the
+# 64-wide tiles on the card. Other widths raise.
+_HEAD_DIM = 64
+_BNHD_HEAD_DIMS = (48, 64)
 _TILE = 64  # q rows and keys per tile of the bf16 backward (#2, #5, #6) and its blank map
 
 # Score elements Lq * Lk per (batch, head) up to which the JAX package runs
@@ -151,7 +158,8 @@ def _attention_qkv_cuda(qkv, heads, bias, scale, want_lse: bool = False):
         raise ValueError("attention_qkv kernel needs a contiguous qkv")
     if c // heads != _HEAD_DIM:
         raise NotImplementedError(
-            f"attention_qkv kernel is built for head dim {_HEAD_DIM}, got {c // heads}")
+            f"attention_qkv kernel is built for head dim {_HEAD_DIM} (every ViT preset), "
+            f"got {c // heads}")
     if bias is not None:
         if bias.device != qkv.device:
             raise ValueError("bias and qkv must be on the same device")
@@ -208,7 +216,7 @@ def _fused_kernel():
     fn = _build.load_library().attention_bnhd_fwd
     i64p = ctypes.POINTER(ctypes.c_int64)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [i64p] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -224,16 +232,17 @@ def _strides(t: torch.Tensor, dims) -> ctypes.Array:
 
 
 def _kernel_operands(q, k, v, bias, what: str):
-    """The checks both BNHD kernels make: q, k and v all bf16 or all fp32,
-    head dim 64, one device, unit last strides (a view is copied only if its
-    last stride is not 1), the bias cast to fp32."""
+    """The checks the BNHD kernels (#3-#6) make: q, k and v all bf16 or all
+    fp32, head dim 48 or 64, one device, unit last strides (a view is copied
+    only if its last stride is not 1), the bias cast to fp32. Every check
+    comes before any launch."""
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"{what} kernel takes q, k, v all bf16 or all fp32; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[-1] != _HEAD_DIM:
+    if q.shape[-1] not in _BNHD_HEAD_DIMS:
         raise NotImplementedError(
-            f"{what} kernel is built for head dim {_HEAD_DIM}, got {q.shape[-1]}")
+            f"{what} kernel is built for head dims {_BNHD_HEAD_DIMS}, got {q.shape[-1]}")
     if not (k.device == v.device == q.device and (bias is None or bias.device == q.device)):
         raise ValueError("q, k, v and bias must be on the same device")
     if 0 in (*q.shape, k.shape[1]):
@@ -275,7 +284,7 @@ def _fused_attention_cuda(q, k, v, bias, scale, want_lse: bool = False):
     _launch("fused_attention", _fused_kernel, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(lse), b, lq, lk, h,
             _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)), bs,
-            float(scale), int(q.dtype == torch.bfloat16))
+            float(scale), int(q.dtype == torch.bfloat16), hd)
     FUSED_LAUNCHES += 1
     return (out, lse) if want_lse else out
 
@@ -328,7 +337,7 @@ def _bnhd_bwd_kernel():
     fn = _build.load_library().attention_bnhd_bwd
     i64p = ctypes.POINTER(ctypes.c_int64)
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [i64p] * 5 + [
-        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -381,7 +390,7 @@ def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, lse=N
             _ptr(blank), b, l, h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)),
             _strides(v, (0, 1, 2)), _strides(g, (0, 1, 2)),
             _strides(o, (0, 1, 2)) if sm90 else None, row_stride, float(scale),
-            int(q.dtype == torch.bfloat16))
+            int(q.dtype == torch.bfloat16), hd)
     FUSED_BWD_LAUNCHES += 1
     if dbias is not None:
         dbias = dbias[None, None].to(bias_dtype)
@@ -511,7 +520,7 @@ def _qblk_kernel():
     fn = _build.load_library().attention_qblk_fwd
     i64p = ctypes.POINTER(ctypes.c_int64)
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [i64p] * 3 + [
-        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -540,7 +549,7 @@ def _fused_attention_qblk_cuda(q, k, v, bias, scale, want_lse: bool = False,
     _launch("fused_attention_qblk", _qblk_kernel, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _ptr(bias), _ptr(blank), out.data_ptr(), _ptr(lse), b, lq, k.shape[1],
             h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)),
-            row_stride, float(scale), int(bf16))
+            row_stride, float(scale), int(bf16), hd)
     QBLK_LAUNCHES += 1
     return (out, lse) if want_lse else out
 
@@ -708,7 +717,7 @@ def _qblk_bwd_kernel():
     fn = _build.load_library().attention_qblk_bwd
     i64p = ctypes.POINTER(ctypes.c_int64)
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [i64p] * 5 + [
-        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -744,7 +753,7 @@ def _fused_attention_qblk_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, 
             _ptr(blank), b, l, h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)),
             _strides(v, (0, 1, 2)), _strides(g, (0, 1, 2)),
             _strides(o, (0, 1, 2)) if sm90 else None, row_stride, float(scale),
-            int(q.dtype == torch.bfloat16))
+            int(q.dtype == torch.bfloat16), hd)
     QBLK_BWD_LAUNCHES += 1
     if dbias is not None:
         dbias = dbias[None, None].to(bias_dtype)
@@ -882,7 +891,8 @@ def _attention_qkv_bwd_cuda(qkv, heads, bias, g, scale, need_dbias, o=None, lse=
                         f"fp32; got {qkv.dtype}, {g.dtype}")
     if c // heads != _HEAD_DIM:
         raise NotImplementedError(
-            f"attention_qkv backward kernel is built for head dim {_HEAD_DIM}, got {c // heads}")
+            f"attention_qkv backward kernel is built for head dim {_HEAD_DIM} (every ViT "
+            f"preset), got {c // heads}")
     if tuple(g.shape) != (b, n, c):
         raise ValueError(f"g must be {(b, n, c)}; got {tuple(g.shape)}")
     if not (g.device == qkv.device and (bias is None or bias.device == qkv.device)):

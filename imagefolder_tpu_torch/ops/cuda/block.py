@@ -156,8 +156,8 @@ def _attn_sublayer_cuda(xn, res, wq, bq, wp, bp, ls, heads):
                                "ls": (ls, (c,))})
     _check_widths(what, C=c)
     if heads <= 0 or c % heads or c // heads != _attn._HEAD_DIM:
-        raise NotImplementedError(f"{what} kernel is built for head dim {_attn._HEAD_DIM}, "
-                                  f"got C={c} over {heads} heads")
+        raise NotImplementedError(f"{what} kernel is built for head dim {_attn._HEAD_DIM} "
+                                  f"(every ViT preset), got C={c} over {heads} heads")
     act = xn.dtype
     if 0 in (b, n):
         raise ValueError(f"{what} needs a non-empty input; got {tuple(xn.shape)}")

@@ -15,7 +15,8 @@ import torch
 
 from imagefolder_tpu_torch.ops.cuda import _build
 
-__all__ = ["codebook_argmin", "codebook_argmin_reference", "LAUNCHES", "WIDTHS"]
+__all__ = ["codebook_argmin", "codebook_argmin_reference", "code_ranges", "LAUNCHES",
+           "WIDTHS"]
 
 # kernel launches since the counter was last reset (a caller sets it to 0)
 LAUNCHES = 0
@@ -44,6 +45,14 @@ def codebook_argmin_reference(x: torch.Tensor, codebook: torch.Tensor,
     return torch.argmin(dist, dim=-1)
 
 
+def _ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous fp32 tensor whose base sits on a 16-byte
+    boundary (the kernel copies rows in 16-byte chunks): copied only where
+    it is not one already."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 @functools.cache
 def _kernel():
     fn = _build.load_library().codebook_argmin
@@ -61,8 +70,7 @@ def _codebook_argmin_cuda(x, codebook, maximize):
     n, c = x.shape
     if c not in WIDTHS:
         raise NotImplementedError(f"codebook_argmin kernel is built for C in {WIDTHS}, got {c}")
-    x = x.float().contiguous()
-    cb = codebook.float().contiguous()
+    x, cb = _ready(x), _ready(codebook)
     e2 = None if maximize else cb.square().sum(dim=-1)
     out = torch.empty((n,), dtype=torch.int64, device=x.device)
     if n == 0:
@@ -88,3 +96,21 @@ def codebook_argmin(x: torch.Tensor, codebook: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"codebook_argmin runs on cpu or cuda, not {x.device}")
     return _codebook_argmin_cuda(x, codebook, maximize)
+
+
+@functools.cache
+def _split_entry():
+    fn = _build.load_library().codebook_argmin_split
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def code_ranges(n: int, v: int, c: int, maximize: bool) -> int:
+    """The number of code ranges (the cluster size) the card's kernel splits
+    a (v, c) codebook into for n rows, as it picks it on the current CUDA
+    device; for the checks, which plant codes on the ranges' boundaries."""
+    if c not in WIDTHS:
+        raise NotImplementedError(f"codebook_argmin kernel is built for C in {WIDTHS}, got {c}")
+    with torch.cuda.device(torch.cuda.current_device()):
+        return _split_entry()(n, v, c, int(not maximize))

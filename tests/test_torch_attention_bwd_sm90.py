@@ -15,12 +15,14 @@ the card's: each gradient within 2e-2 of the JAX result's max abs.
 
 Also here: the map's plain version against a brute-force scan of the bias,
 and the check's teeth: the model with one non-blank tile wrongly skipped
-must fail the bound.
+must fail the bound. #5 also runs at head dim 48 (RAR-B's 768 / 16), which
+the kernel zero-pads to its 64-wide tiles: the model pads the same way.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -29,6 +31,7 @@ from imagefolder_tpu_torch.models.var import build_attn_bias
 from imagefolder_tpu_torch.ops.cuda import attention as pt_attn
 
 HD = 64
+HD_PADDED = 64  # the kernels' tile width: a 48-wide head runs zero-padded to it
 TILE = 64
 TOL = 2e-2  # chip_smoke.py's bf16 bound: of the plain result's max abs
 PYRAMID = (1, 3, 5, 7, 9)  # block-causal, L = 165: three tiles a side, one blank
@@ -38,23 +41,31 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def pad_head(x: torch.Tensor) -> torch.Tensor:
+    """(..., hd) zero-padded to the kernels' (..., 64) tile width, as the
+    card's tile loads fill the columns past hd with zeros."""
+    return F.pad(x, (0, HD_PADDED - x.shape[-1]))
+
+
 def sm90_model(q, k, v, g, bias, scale, o, lse, skip=()):
-    """The card kernel's algorithm on (B, L, H, 64) bf16 q, k, v, g, with the
-    forward's bf16 o and fp32 (B, H, L) lse: for every (64 keys, 64 q rows)
+    """The card kernel's algorithm on (B, L, H, hd) bf16 q, k, v, g (hd 48
+    or 64, zero-padded to 64 as the kernel's tiles are, and the padding
+    columns dropped from the results), with the forward's bf16 o and fp32
+    (B, H, L) lse: for every (64 keys, 64 q rows)
     tile that the blank-tile map leaves, p^T = exp(k q^T * scale + bias^T -
     lse), dv += bf16(p^T) g, dp^T = v g^T, ds^T = p^T (dp^T - delta), dk +=
     bf16(ds^T) q, dq += bf16(ds) k; then bf16(dq * scale), bf16(dk * scale),
     bf16(dv). ``skip`` names (q tile, key tile) pairs to leave out as well
     (a planted fault)."""
-    b, l, h, _ = q.shape
+    b, l, h, hd = q.shape
     t = -(-l // TILE)
-    qf, kf, vf, gf = (x.float().transpose(1, 2) for x in (q, k, v, g))  # (B, H, L, 64)
-    delta = (o.float() * g.float()).sum(-1).transpose(1, 2)  # (B, H, L)
+    qf, kf, vf, gf = (pad_head(x.float()).transpose(1, 2) for x in (q, k, v, g))  # (B, H, L, 64)
+    delta = (pad_head(o.float()) * pad_head(g.float())).sum(-1).transpose(1, 2)  # (B, H, L)
     blank = (pt_attn.blank_tile_map_reference(bias).clone() if bias is not None
              else torch.zeros((t, t), dtype=torch.uint8))
     for qt, kt in skip:
         blank[qt, kt] = 1
-    dq, dk, dv = (torch.zeros((b, h, l, HD)) for _ in range(3))
+    dq, dk, dv = (torch.zeros((b, h, l, HD_PADDED)) for _ in range(3))
     for kt in range(t):
         ks = slice(kt * TILE, min(l, kt * TILE + TILE))
         for qt in range(t):
@@ -70,12 +81,13 @@ def sm90_model(q, k, v, g, bias, scale, o, lse, skip=()):
             ds = p * (dp - delta[:, :, None, qs])
             dk[:, :, ks] += _bf(ds) @ qf[:, :, qs]
             dq[:, :, qs] += _bf(ds).transpose(-1, -2) @ kf[:, :, ks]
-    return tuple(x.to(torch.bfloat16).transpose(1, 2) for x in (dq * scale, dk * scale, dv))
+    return tuple(x[..., :hd].to(torch.bfloat16).transpose(1, 2)
+                 for x in (dq * scale, dk * scale, dv))
 
 
-def _inputs(b, l, h, seed):
+def _inputs(b, l, h, seed, hd=HD):
     rng = np.random.default_rng(seed)
-    return [rng.normal(size=(b, l, h, HD)).astype(np.float32) for _ in range(4)]
+    return [rng.normal(size=(b, l, h, hd)).astype(np.float32) for _ in range(4)]
 
 
 def _bias(kind: str, l: int):
@@ -101,13 +113,13 @@ def _worst(got, want) -> float:
     return max(errs)
 
 
-def _qblk_case(bias_kind, seed=0):
+def _qblk_case(bias_kind, seed=0, hd=HD):
     l = 165 if bias_kind == "block_causal" else 150
-    q, k, v, g = _inputs(2, l, 2, seed)
+    q, k, v, g = _inputs(2, l, 2, seed, hd)
     bias = _bias(bias_kind, l)
     tq, tk, tv, tg = (torch.from_numpy(x).bfloat16() for x in (q, k, v, g))
     tb = None if bias is None else torch.from_numpy(bias)
-    scale = 1.0 / np.sqrt(HD)
+    scale = 1.0 / np.sqrt(hd)
     o = pt_attn.fused_attention_qblk_reference(tq, tk, tv, tb, scale)
     lse = pt_attn.attention_lse_reference(tq, tk, tb, scale)
     want = jax_attn._fused_attention_qblk_bwd(
@@ -124,6 +136,18 @@ def test_model_matches_pallas_qblk_bwd(bias_kind):
     args, want = _qblk_case(bias_kind)
     got = sm90_model(*args)
     assert all(x.dtype == torch.bfloat16 for x in got)
+    assert _worst(got, want) <= TOL
+
+
+@pytest.mark.parametrize("bias_kind", ["none", "block_causal", "dense"])
+def test_model_matches_pallas_qblk_bwd_at_head_dim_48(bias_kind):
+    """#5 at head dim 48: the model on zero-padded 64-wide tiles against
+    ``_fused_attention_qblk_bwd`` in interpret mode on the unpadded
+    48-wide inputs, bf16, within the card's bound; the gradients come back
+    48 wide."""
+    args, want = _qblk_case(bias_kind, seed=3, hd=48)
+    got = sm90_model(*args)
+    assert all(x.dtype == torch.bfloat16 and x.shape == args[0].shape for x in got)
     assert _worst(got, want) <= TOL
 
 
@@ -158,6 +182,13 @@ def test_model_with_a_skipped_tile_fails(skip):
     args, want = _qblk_case("block_causal")
     assert not pt_attn.blank_tile_map_reference(args[4])[skip]
     assert _worst(sm90_model(*args, skip=(skip,)), want) > 5 * TOL
+
+
+def test_model_with_a_skipped_tile_fails_at_head_dim_48():
+    """The bound keeps its teeth at head dim 48: the last diagonal tile
+    wrongly skipped misses it by a wide margin."""
+    args, want = _qblk_case("block_causal", seed=3, hd=48)
+    assert _worst(sm90_model(*args, skip=((2, 2),)), want) > 5 * TOL
 
 
 def _brute_map(bias: np.ndarray) -> np.ndarray:

@@ -19,6 +19,10 @@ JAX gradient's max abs.
 Also here: the check's teeth (the forward model with one key tile dropped
 must fail it), and the CPU dispatch of ``fused_attention_lse`` and of the
 autograd forward, which on the CPU launch nothing and save no o and lse.
+The pair also runs at head dim 48 (RAR-B's 768 / 16), zero-padded to the
+64-wide tiles as the kernel pads it; the checks the BNHD kernels make
+before any launch (``_kernel_operands``) take 48 and 64 and refuse other
+widths.
 """
 
 import numpy as np
@@ -31,7 +35,7 @@ import chip_smoke as cs
 from imagefolder_tpu.ops.pallas import attention as jax_attn
 from imagefolder_tpu_torch.models.var import build_attn_bias
 from imagefolder_tpu_torch.ops.cuda import attention as pt_attn
-from test_torch_attention_bwd_sm90 import sm90_model
+from test_torch_attention_bwd_sm90 import pad_head, sm90_model
 
 HD = 64
 TILE = 64
@@ -41,14 +45,16 @@ PYRAMID = (1, 3, 5, 7, 9)  # block-causal, L = 165: three tiles a side, one blan
 
 
 def fwd_sm90_model(q, k, v, bias, scale, drop=None):
-    """The card kernel's algorithm on bf16 q (B, Lq, H, 64) and k, v
-    (B, Lk, H, 64), bias None or (1|B, 1|H, Lq, Lk): pass 1 keeps a running
+    """The card kernel's algorithm on bf16 q (B, Lq, H, hd) and k, v
+    (B, Lk, H, hd), hd 48 or 64 zero-padded to the kernel's 64-wide tiles,
+    bias None or (1|B, 1|H, Lq, Lk): pass 1 keeps a running
     max m and row sum l over 64-key tiles (a row whose tiles so far are all
     -inf exponentiates against 0); pass 2 sums bf16(exp(s - m) / l) v in
-    fp32. Returns (o, lse): o bf16 (B, Lq, H, 64), lse fp32 (B, H, Lq) =
+    fp32. Returns (o, lse): o bf16 (B, Lq, H, hd), lse fp32 (B, H, Lq) =
     m + log(l). ``drop`` names a key tile both passes leave out (a planted
     fault)."""
-    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # (B, H, L, 64)
+    hd = q.shape[-1]
+    qf, kf, vf = (pad_head(x.float()).transpose(1, 2) for x in (q, k, v))  # (B, H, L, 64)
     starts = [k0 for k0 in range(0, kf.shape[2], TILE) if k0 // TILE != drop]
 
     def scores(k0):
@@ -68,34 +74,34 @@ def fwd_sm90_model(q, k, v, bias, scale, drop=None):
     for k0 in starts:
         p = torch.exp(scores(k0) - mu[..., None]) / l[..., None]
         o = o + p.bfloat16().float() @ vf[:, :, k0:k0 + TILE]
-    return o.to(q.dtype).transpose(1, 2).contiguous(), mu + torch.log(l)
+    return o[..., :hd].to(q.dtype).transpose(1, 2).contiguous(), mu + torch.log(l)
 
 
-def _inputs(b, lq, lk, h, seed, n=3):
+def _inputs(b, lq, lk, h, seed, n=3, hd=HD):
     rng = np.random.default_rng(seed)
-    shapes = [(b, lq, h, HD)] + [(b, lk, h, HD)] * (n - 1)
+    shapes = [(b, lq, h, hd)] + [(b, lk, h, hd)] * (n - 1)
     return [rng.normal(size=s).astype(np.float32) for s in shapes]
 
 
-def _fwd_case(name):
+def _fwd_case(name, hd=HD):
     """(q, k, v, bias) as numpy, from a seed: the 512 px decode's stage 5
     (81 new rows against 147 cached, three key tiles, the last ragged), one
     new row against two key tiles, teacher forcing at L = 165 under the
     block-causal bias, and a per-(B, H) bias whose first key tile is all
     -inf for the early rows."""
     if name == "decode 81 x 147":
-        return (*_inputs(2, 81, 147, 2, 1), None)
+        return (*_inputs(2, 81, 147, 2, 1, hd=hd), None)
     if name == "Lq=1":
-        return (*_inputs(2, 1, 70, 2, 2), None)
+        return (*_inputs(2, 1, 70, 2, 2, hd=hd), None)
     if name == "block-causal L=165":
         bias = build_attn_bias(PYRAMID).numpy()
         assert bias.shape == (1, 1, 165, 165)
-        return (*_inputs(2, 165, 165, 2, 3), bias)
+        return (*_inputs(2, 165, 165, 2, 3, hd=hd), bias)
     if name == "per-(B,H) bias":
         bias = np.random.default_rng(4).normal(size=(2, 2, 37, 100)).astype(np.float32)
         bias[:, :, :11, :TILE] = -np.inf
         bias[1, 0, :, 70:75] = -np.inf
-        return (*_inputs(2, 37, 100, 2, 4), bias)
+        return (*_inputs(2, 37, 100, 2, 4, hd=hd), bias)
     raise KeyError(name)
 
 
@@ -130,6 +136,22 @@ def test_fwd_model_matches_pallas(name):
     assert (lse - want).abs().max().item() <= LSE_TOL * want.abs().max().item()
 
 
+@pytest.mark.parametrize("name", FWD_CASES)
+def test_fwd_model_matches_pallas_at_head_dim_48(name):
+    """#3 at head dim 48: the model on zero-padded tiles against the Pallas
+    ``fused_attention`` in interpret mode on the 48-wide inputs, within
+    chip_smoke.py's bf16 forward check (per element against the RMS of the
+    head's 48 outputs); its lse against the plain lse."""
+    q, k, v, bias = _fwd_case(name, hd=48)
+    scale = 1.0 / np.sqrt(48)
+    tq, tk, tv, tb = _torch(q, k, v, bias)
+    got, lse = fwd_sm90_model(tq, tk, tv, tb, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    cs._fwd_check(f"#3 model {name}, hd 48", got, _jax_fwd(q, k, v, bias, scale), hd=48)
+    want = pt_attn.attention_lse_reference(tq, tk, tb, scale)
+    assert (lse - want).abs().max().item() <= LSE_TOL * want.abs().max().item()
+
+
 @pytest.mark.parametrize("name,drop", [("decode 81 x 147", 2), ("decode 81 x 147", 0),
                                        ("block-causal L=165", 1), ("Lq=1", 1)])
 def test_fwd_model_with_a_dropped_tile_fails(name, drop):
@@ -142,6 +164,18 @@ def test_fwd_model_with_a_dropped_tile_fails(name, drop):
     with pytest.raises(AssertionError):
         cs._fwd_check(f"#3 model {name}, tile {drop} dropped", got,
                       _jax_fwd(q, k, v, bias, scale))
+
+
+@pytest.mark.parametrize("name,drop", [("decode 81 x 147", 2), ("block-causal L=165", 1)])
+def test_fwd_model_with_a_dropped_tile_fails_at_head_dim_48(name, drop):
+    """The check keeps its teeth at head dim 48: a key tile left out of both
+    passes fails it."""
+    q, k, v, bias = _fwd_case(name, hd=48)
+    scale = 1.0 / np.sqrt(48)
+    got, _ = fwd_sm90_model(*_torch(q, k, v, bias), scale, drop=drop)
+    with pytest.raises(AssertionError):
+        cs._fwd_check(f"#3 model {name}, hd 48, tile {drop} dropped", got,
+                      _jax_fwd(q, k, v, bias, scale), hd=48)
 
 
 def test_fwd_model_lse_of_a_blank_row_is_minus_inf():
@@ -162,9 +196,21 @@ def test_bwd_model_on_the_new_forward_matches_pallas(bias_kind):
     """#6 on the wgmma backward: ``sm90_model`` fed #3's o and lse (the
     forward model's) against ``_fused_attention_bwd_impl`` in interpret
     mode at L = 165, bf16, within 2e-2 of each JAX gradient's max abs."""
-    q, k, v, g = _inputs(2, 165, 165, 2, 6, n=4)
+    _check_bwd_on_fwd_model(bias_kind, HD)
+
+
+@pytest.mark.parametrize("bias_kind", ["none", "block_causal"])
+def test_bwd_model_on_the_new_forward_matches_pallas_at_head_dim_48(bias_kind):
+    """#6 at head dim 48 (RAR-B's training backward, here under the
+    block-causal pyramid and with no bias): the models on zero-padded tiles
+    against ``_fused_attention_bwd_impl`` on the 48-wide inputs."""
+    _check_bwd_on_fwd_model(bias_kind, 48)
+
+
+def _check_bwd_on_fwd_model(bias_kind, hd):
+    q, k, v, g = _inputs(2, 165, 165, 2, 6, n=4, hd=hd)
     bias = build_attn_bias(PYRAMID).numpy() if bias_kind == "block_causal" else None
-    scale = 1.0 / np.sqrt(HD)
+    scale = 1.0 / np.sqrt(hd)
     tq, tk, tv, tb = _torch(q, k, v, bias)
     tg = torch.from_numpy(g).bfloat16()
     o, lse = fwd_sm90_model(tq, tk, tv, tb, scale)
@@ -175,7 +221,7 @@ def test_bwd_model_on_the_new_forward_matches_pallas(bias_kind):
         interpret=True)[:3]
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         w = np.asarray(w.astype(jnp.float32))
-        assert a.dtype == torch.bfloat16 and np.isfinite(w).all()
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape and np.isfinite(w).all()
         err = np.abs(a.float().numpy() - w).max() / np.abs(w).max()
         assert err <= TOL, f"{name}: {err}"
 
@@ -233,3 +279,26 @@ def test_copy_ready_agrees_with_the_kernel_alignment(view):
     assert (got.data_ptr() != t.data_ptr()) == copied
     assert torch.equal(got, t)
     assert all(s % 8 == 0 for s in pt_attn._strides(got, (0, 1, 2)))
+
+
+@pytest.mark.parametrize("hd", [48, 64, 40, 80])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_operands_take_head_dims_48_and_64(hd, dtype):
+    """The checks every BNHD kernel (#3-#6) makes before it launches: head
+    dims 48 and 64 pass (the bias cast to fp32), any other width raises
+    NotImplementedError naming the built widths. They come before any
+    launch, so CPU tensors reach them."""
+    q, k, v = (torch.zeros((2, 5, 3, hd), dtype=dtype) for _ in range(3))
+    bias = torch.zeros((1, 1, 5, 5), dtype=torch.bfloat16)
+    if hd in (48, 64):
+        *qkv, b = pt_attn._kernel_operands(q, k, v, bias, "fused_attention")
+        assert all(x is y for x, y in zip(qkv, (q, k, v))) and b.dtype == torch.float32
+        return
+    with pytest.raises(NotImplementedError, match=r"head dims \(48, 64\), got " + str(hd)):
+        pt_attn._kernel_operands(q, k, v, bias, "fused_attention")
+    for call in (pt_attn._fused_attention_cuda, pt_attn._fused_attention_qblk_cuda):
+        with pytest.raises(NotImplementedError, match="head dims"):
+            call(q, k, v, bias, 1.0)
+    for call in (pt_attn._fused_attention_bwd_cuda, pt_attn._fused_attention_qblk_bwd_cuda):
+        with pytest.raises(NotImplementedError, match="head dims"):
+            call(q, k, v, bias, q, 1.0, False)

@@ -24,7 +24,8 @@ tile unless it is blank for both) against a brute-force scan of VAR's 512
 px bias; the bf16 dispatch of #1 and #4 through ``_copy_ready`` (a view off
 16 bytes reaches the kernel as an aligned copy) with the map's scratch
 passed exactly for a square bias; and ``chip_profile.py``'s attribution of
-the new instantiations.
+the new instantiations. #4 also runs at head dim 48 (the BNHD kernels take
+RAR-B's 768 / 16), zero-padded to the 64-wide tiles as the kernel pads it.
 """
 
 import numpy as np
@@ -38,6 +39,7 @@ import chip_smoke as cs
 from imagefolder_tpu.ops.pallas import attention as jax_attn
 from imagefolder_tpu_torch.models.var import build_attn_bias
 from imagefolder_tpu_torch.ops.cuda import attention as pt_attn
+from test_torch_attention_bwd_sm90 import pad_head
 
 HD = 64
 TILE = 64
@@ -53,16 +55,18 @@ def q_blocks(monkeypatch):
 
 
 def onepass_model(q, k, v, bias, scale, blank=None, skip=()):
-    """The card kernel's algorithm on bf16 q (B, Lq, H, 64) and k, v
-    (B, Lk, H, 64), bias None or (1, 1, Lq, Lk): per 64-row q tile, over the
+    """The card kernel's algorithm on bf16 q (B, Lq, H, hd) and k, v
+    (B, Lk, H, hd), hd 48 or 64 zero-padded to the kernel's 64-wide tiles,
+    bias None or (1, 1, Lq, Lk): per 64-row q tile, over the
     64-key tiles in order, except those the map ``blank`` ((Tq, Tk) uint8 or
     None) blanks and the (q tile, key tile) pairs in ``skip`` (a planted
     fault): s = q k^T * scale + bias; m_new = max(m, rowmax(s)); mu = m_new,
     or 0 while the row is all -inf; alpha = exp(m - mu); p = exp(s - mu);
     l = l alpha + rowsum(p); o = o alpha + bf16(p) v. At the end o / l,
-    cast once, and lse = mu + log(l). Returns (o bf16 (B, Lq, H, 64), lse
+    cast once, and lse = mu + log(l). Returns (o bf16 (B, Lq, H, hd), lse
     fp32 (B, H, Lq))."""
-    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # (B, H, L, 64)
+    hd = q.shape[-1]
+    qf, kf, vf = (pad_head(x.float()).transpose(1, 2) for x in (q, k, v))  # (B, H, L, 64)
     lq, lk = qf.shape[2], kf.shape[2]
     o = torch.empty(qf.shape)
     lse = torch.empty(qf.shape[:3])
@@ -88,7 +92,7 @@ def onepass_model(q, k, v, bias, scale, blank=None, skip=()):
         mu = torch.where(m == float("-inf"), torch.zeros_like(m), m)
         o[:, :, qs] = acc / l[..., None]
         lse[:, :, qs] = mu + torch.log(l)
-    return o.to(q.dtype).transpose(1, 2).contiguous(), lse
+    return o[..., :hd].to(q.dtype).transpose(1, 2).contiguous(), lse
 
 
 def _rng_inputs(shapes, seed):
@@ -108,7 +112,7 @@ def _qkv_case(name):
     raise KeyError(name)
 
 
-def _qblk_case(name):
+def _qblk_case(name, hd=HD):
     """(q, k, v, bias) as numpy: teacher forcing at L = 165 under the
     block-causal bias (key tile 2 blank for q tile 0), a ragged L = 130
     (the last tile two keys) with no bias, and L = 150 under an encoder
@@ -116,11 +120,11 @@ def _qblk_case(name):
     if name == "block-causal L=165":
         bias = build_attn_bias(PYRAMID).numpy()
         assert bias.shape == (1, 1, 165, 165)
-        return (*_rng_inputs([(2, 165, 2, HD)] * 3, 2), bias)
+        return (*_rng_inputs([(2, 165, 2, hd)] * 3, 2), bias)
     if name == "ragged L=130":
-        return (*_rng_inputs([(2, 130, 2, HD)] * 3, 3), None)
+        return (*_rng_inputs([(2, 130, 2, hd)] * 3, 3), None)
     if name == "encoder mask L=150":
-        return (*_rng_inputs([(2, 150, 2, HD)] * 3, 4),
+        return (*_rng_inputs([(2, 150, 2, hd)] * 3, 4),
                 cs.encoder_mask(150, 50, torch.device("cpu"), 64).numpy())
     raise KeyError(name)
 
@@ -189,6 +193,21 @@ def test_model_matches_pallas_qblk(name):
     _check_lse(lse, _bf(q), _bf(k), tb, 1.0)
 
 
+@pytest.mark.parametrize("name", ["block-causal L=165", "ragged L=130", "encoder mask L=150"])
+def test_model_matches_pallas_qblk_at_head_dim_48(name):
+    """#4 at head dim 48: the one-pass model on zero-padded tiles, skipping
+    the tiles the map blanks, against ``_fused_attention_qblk_fwd`` in
+    interpret mode on the 48-wide inputs, within chip_smoke.py's bf16
+    forward check; its lse against the plain lse."""
+    q, k, v, bias = _qblk_case(name, hd=48)
+    tb = _bias(bias)
+    blank = None if tb is None else pt_attn.blank_tile_map_reference(tb)
+    got, lse = onepass_model(_bf(q), _bf(k), _bf(v), tb, 1.0, blank)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    cs._fwd_check(f"#4 model {name}, hd 48", got, _jax_qblk(q, k, v, bias, 1.0), hd=48)
+    _check_lse(lse, _bf(q), _bf(k), tb, 1.0)
+
+
 @pytest.mark.parametrize("name", ["block-causal L=165", "encoder mask L=150", "#1 encoder mask"])
 def test_skipping_blank_tiles_is_bit_equal(name):
     """A tile whose every bias entry is -inf adds exactly 0 to l and o and
@@ -224,6 +243,18 @@ def test_skipping_a_live_tile_fails(name, tile):
     with pytest.raises(AssertionError):
         cs._fwd_check(f"#4 model {name}, tile {tile} skipped", got,
                       _jax_qblk(q, k, v, bias, 1.0))
+
+
+def test_skipping_a_live_tile_fails_at_head_dim_48():
+    """The check keeps its teeth at head dim 48: the pyramid's diagonal
+    tile (1, 1) skipped fails it."""
+    q, k, v, bias = _qblk_case("block-causal L=165", hd=48)
+    tb = _bias(bias)
+    got, _ = onepass_model(_bf(q), _bf(k), _bf(v), tb, 1.0,
+                           pt_attn.blank_tile_map_reference(tb), skip=((1, 1),))
+    with pytest.raises(AssertionError):
+        cs._fwd_check("#4 model, hd 48, tile (1, 1) skipped", got,
+                      _jax_qblk(q, k, v, bias, 1.0), hd=48)
 
 
 def test_block_rule_matches_brute_force_on_var512_bias():

@@ -9,6 +9,11 @@ Sampling is held token for token: the JAX sampler's Gumbel draws are
 replayed from its own key splits (``rar.py:361-364``, ``:395-397``;
 ``jax.random.categorical`` is argmax(logits + gumbel(key, logits.shape)))
 and handed to the port as ``noise=``.
+
+A second tiny RAR has heads of 48 (width 96, 2 heads, depth 1), RAR-B's head dim
+(768 / 16), which the card's attention kernels #3 and #6 take since they
+were built for it: its training forward and every parameter's gradient of
+``ar_loss`` are held against the JAX model and ``jax.grad``.
 """
 
 import dataclasses
@@ -32,6 +37,7 @@ from imagefolder_tpu_torch.models.rar import RARConfig, ar_loss, rar_generate
 from imagefolder_tpu_torch.utils.convert import rar_state_dict_from_flax
 
 TINY = dict(seq_len=16, codebook_size=32, hidden=64, depth=2, heads=4, num_classes=10)
+TINY48 = dict(TINY, hidden=96, heads=2, depth=1)  # RAR-B's head dim, 48
 B, L, V = 2, 16, 32
 SAMPLING = dict(guidance_scale=4.0, randomize_temperature=1.0, guidance_scale_pow=2.75)
 
@@ -47,16 +53,20 @@ def _excite_adaln(tree, rng):
     return np.asarray(tree)
 
 
-@pytest.fixture(scope="module")
-def models():
-    jr = jax_build_rar(**TINY)
+def _build(tiny):
+    jr = jax_build_rar(**tiny)
     ids = jnp.zeros((B, L), jnp.int32)
     params = jax.jit(jr.init)(jax.random.PRNGKey(0), ids, jnp.zeros((B,), jnp.int32))["params"]
     params = _excite_adaln(jax.tree_util.tree_map(np.asarray, params),
                            np.random.default_rng(0))
-    pr = build_rar(**TINY, device="cpu")
+    pr = build_rar(**tiny, device="cpu")
     pr.load_state_dict(rar_state_dict_from_flax(params), strict=True)
     return jr, params, pr.eval()
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _build(TINY)
 
 
 def test_converter_matches_export_rar(models):
@@ -175,3 +185,44 @@ def test_rar_generate_tokens_match_jax(models, guidance):
     assert torch.equal(got[4], got[None])
     again = rar_generate(pr, torch.from_numpy(labels), torch.Generator().manual_seed(0), **kw)
     assert again.shape == (B, L) and 0 <= int(again.min()) and int(again.max()) < V
+
+
+
+def test_training_forward_and_gradients_at_head_dim_48():
+    """RAR at head dim 48: the training forward's logits with per-sample
+    orders, the AR loss, and every parameter's gradient of it against the
+    JAX model's and ``jax.grad`` of the JAX ``ar_loss`` (the flax gradients
+    carried to the port's layout by the same converter as the params)."""
+    jr, params, pr = _build(TINY48)
+    assert pr.config.embed_dim // pr.config.num_heads == 48
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, V, (B, L))
+    cond = rng.integers(0, 10, B) + V + 1
+    orders = np.stack([rng.permutation(L), np.arange(L)])
+
+    def jax_loss(p):
+        logits, labels = jr.apply({"params": p}, jnp.asarray(ids), jnp.asarray(cond),
+                                  jnp.asarray(orders))
+        return jax_ar_loss(logits, labels)[0], logits
+
+    (want_loss, want), grads = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(params)
+    want_grads = rar_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, grads))
+    pr.zero_grad(set_to_none=True)
+    got, labels = pr(torch.from_numpy(ids), torch.from_numpy(cond), torch.from_numpy(orders))
+    loss, _ = ar_loss(got, labels)
+    loss.backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-6)
+    named = dict(pr.named_parameters())
+    assert sorted(named) == sorted(want_grads)
+    top = max(float(t.abs().max()) for t in want_grads.values())
+    for name, param in named.items():
+        w = want_grads[name].numpy()
+        g = np.zeros_like(w) if param.grad is None else param.grad.numpy()
+        # fp32 on both sides, summation order only: within 1e-4 of the
+        # tensor's largest gradient, plus 1e-6 of the model's largest for
+        # the gradients that are 0 in exact arithmetic and rounding noise on
+        # both sides (k_norm's bias adds q.b to every score of a row, which
+        # the softmax cancels)
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4 * np.abs(w).max() + 1e-6 * top,
+                                   err_msg=name)
