@@ -2,9 +2,14 @@
 
     python3 chip_smoke.py      # from the repository root; needs one CUDA card
     python3 chip_smoke.py times [KERNEL ...]
+    python3 chip_smoke.py outputs FILE
+    python3 chip_smoke.py same FILE FILE
 
 With ``times``, only phases 1, 2 and 6 run, for the kernel records named
-(``TIMES``' keys; all by default), and the last line is their JSON. To
+(``TIMES``' keys; all by default), and the last line is their JSON.
+``outputs`` saves #3-#6's
+results at head dims 48 and 64 from a fixed seed, and ``same`` compares two
+such files bit for bit (run each ``outputs`` from its own checkout). To
 compare two commits in one chip call, unpack each into a gitignored
 directory, copy this script into each, and run it there in the order
 parent, change, change, parent: each imports the package beside it.
@@ -43,13 +48,19 @@ exit; no failure is caught):
      ragged, with res = 0 and in fp32, LayerScale of order 1, #7 and #8
      through autograd, and the wrappers' refusals; then #3, #4, #5 and #6
      at head dim 48 through the same checks (RAR-B's (64, 258, 16, 48)
-     under the causal mask, #4/#5 past the single-block budget);
+     under the causal mask, #4/#5 past the single-block budget); #3 and #6
+     at MaskGIT-B's (64, 257, 16, 48) without a bias; #3-#6 at head dims
+     32 and 40, and 44, 80 and 128 refused with no launch;
   4. models, card against CPU in fp32 from one seed: the VQ-4096 ViT-B
      tokenizer at B=2, then its decode and round trip with the fused
      sublayers on the card; RAR-B at full width with CFG, B=2, the same
      Gumbel noise on both sides, and its tokens decoded by that tokenizer
      (RobustTok at inference) fused on the card; RAR-B's training forward,
-     ``ar_loss`` and every parameter's gradient at B=2; for MSVR10P2-4096 and
+     ``ar_loss`` and every parameter's gradient at B=2; MaskGIT-B with each
+     trunk (bert, uvit) at B=2: logits, and ``maskgit_generate``'s draws
+     and re-masks in lockstep with the same Gumbel draws; one
+     ``MaskGITTrainer`` step and two ``RARTrainer`` steps (loss, every
+     gradient, parameters, EMA) with the same draws; for MSVR10P2-4096 and
      MSVR10P2-4096-512, each with VAR-d16, ``img_to_idxBl`` codes per scale,
      the round trip image, ``VAR.forward`` logits, greedy ``var_sample``
      tokens and images, then one ``VARTrainer`` step's loss, every
@@ -65,7 +76,10 @@ exit; no failure is caught):
      trip, composed and then fused (``round trip fused``); RAR sampling
      (``rar sample``: ``rar_generate`` with CFG and the fused RobustTok
      decode; then the generator and the decode alone); RAR-B's training
-     forward and backward (``rar train fwd+bwd``); the MLP probe (12
+     forward and backward (``rar train fwd+bwd``); MaskGIT-B sampling
+     (``maskgit sample``: ``maskgit_generate`` at its defaults and the fused
+     RobustTok decode), ``maskgit train step`` and ``rar train step`` (the
+     whole trainer steps); the MLP probe (12
      chained #10 calls at scripts/perf.py's shape); for both multi-scale
      configurations ``var_sample`` (cfg 1.5, top-k 900, top-p 0.96; at 256 px
      decoded by bench.py's sample-leg tokenizer, ViT-S), ``img_to_idxBl``,
@@ -76,8 +90,9 @@ exit; no failure is caught):
      forward's saved output and lse, #6 through autograd; #1, #3 and #4
      also with the lse store on, #3 as the train step's autograd runs its
      forward; #3 at the last 256 px sampling stage, teacher forcing, the
-     512 px last sampling stage and RAR-B's teacher forcing; #6 also at
-     RAR-B's training shape; #9 at every scale of both encodes, each a CUDA
+     512 px last sampling stage, RAR-B's teacher forcing and MaskGIT-B's
+     shape; #6 also at RAR-B's and MaskGIT-B's training shapes; #9 at every
+     scale of both encodes, each a CUDA
      graph of 20 calls, with its sums per encode),
      its plain version (order plain, kernel, kernel,
      plain) and one PyTorch library call computing the same function (for
@@ -108,7 +123,8 @@ import torch.nn.functional as F
 
 from imagefolder_tpu_torch.losses.diffaug import draw_aug
 from imagefolder_tpu_torch.losses.discriminators import draw_crop
-from imagefolder_tpu_torch.models import build_rar, build_vae_var
+from imagefolder_tpu_torch.models import build_maskgit, build_rar, build_vae_var
+from imagefolder_tpu_torch.models import maskgit as maskgit_mod
 from imagefolder_tpu_torch.models import rar as rar_mod
 from imagefolder_tpu_torch.models.tokenizer import ModelArgs, VQModel
 from imagefolder_tpu_torch.models.var import build_attn_bias
@@ -119,6 +135,8 @@ from imagefolder_tpu_torch.ops.cuda import attention as attn
 from imagefolder_tpu_torch.ops.cuda import block
 from imagefolder_tpu_torch.ops.cuda import codebook
 from imagefolder_tpu_torch.train import var_train
+from imagefolder_tpu_torch.train.rar_train import (MaskGITTrainer, RARTrainConfig, RARTrainer,
+                                                   get_rar_random_ratio)
 from imagefolder_tpu_torch.train.recipes import flagship_gan_recipe
 from imagefolder_tpu_torch.train.tokenizer_train import TokenizerTrainer
 from imagefolder_tpu_torch.train.var_train import VARTrainConfig, VARTrainer
@@ -884,7 +902,7 @@ def _causal(n: int, dev) -> torch.Tensor:
         pos[:, None] < pos[None, :], float("-inf"))[None, None]
 
 
-def _fwd_cases_hd48(num: str, fn, ref, cases, hd: int):
+def _fwd_cases_hd(num: str, fn, ref, cases, hd: int):
     """A forward kernel ``fn`` against its plain version ``ref`` on each
     (name, q, k, v, bias) case at scale 1/sqrt(hd), under ``_fwd_check``."""
     scale = 1.0 / math.sqrt(hd)
@@ -899,7 +917,7 @@ def _fwd_cases_hd48(num: str, fn, ref, cases, hd: int):
         del got, want
 
 
-def _bwd_cases_hd48(num: str, fn, ref, cases, hd: int, gen):
+def _bwd_cases_hd(num: str, fn, ref, cases, hd: int, gen):
     """A backward kernel ``fn`` against its plain version ``ref`` on each
     (name, q, k, v, bias, dbias) case at scale 1/sqrt(hd): each gradient's
     max abs error over the plain result's max abs within TOL."""
@@ -918,12 +936,13 @@ def _bwd_cases_hd48(num: str, fn, ref, cases, hd: int, gen):
         del got, want
 
 
-def _autograd_hd48(num: str, counters, q, k, v, bias, gen) -> None:
-    """bf16 autograd through ``dot_product_attention`` at head dim 48, as a
+def _autograd_hd(num: str, counters, q, k, v, bias, gen) -> None:
+    """bf16 autograd through ``dot_product_attention`` at q's head dim, as a
     training step runs it: one forward launch (lse saved), one backward
     launch (the two ``attn`` counters named), gradients against the plain
     backward within TOL."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    hd = q.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
     g = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
     before = [getattr(attn, c) for c in counters]
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -932,14 +951,15 @@ def _autograd_hd48(num: str, counters, q, k, v, bias, gen) -> None:
     torch.cuda.synchronize()
     counts = [getattr(attn, c) - b for c, b in zip(counters, before)]
     if counts != [1, 1]:
-        raise AssertionError(f"[kernels] {num} hd 48 bf16 autograd launched {counts}, "
+        raise AssertionError(f"[kernels] {num} hd {hd} bf16 autograd launched {counts}, "
                              "want [1, 1]")
     errs = _bwd_errs(num, "bf16 autograd", got, want[:3], ("dq", "dk", "dv"))
-    print(f"[kernels] {num} hd 48 bf16 autograd of dot_product_attention q {tuple(q.shape)}: "
-          f"one forward launch (lse saved), one backward launch, error over max |plain| "
+    print(f"[kernels] {num} hd {hd} bf16 autograd of dot_product_attention q {tuple(q.shape)} "
+          f"bias={'none' if bias is None else tuple(bias.shape)}: one forward launch (lse "
+          f"saved), one backward launch, error over max |plain| "
           + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f" (tol {TOL[q.dtype]:g})")
     for what, e in errs.items():
-        _check(f"[kernels] {num} hd 48 bf16 autograd {what}", e, TOL[q.dtype])
+        _check(f"[kernels] {num} hd {hd} bf16 autograd {what}", e, TOL[q.dtype])
 
 
 def kernels_hd48(dev):
@@ -967,7 +987,7 @@ def kernels_hd48(dev):
     wide = torch.randn((3, 40, 4, hd + 1), generator=gen, device=dev).bfloat16()
     per_bh = torch.randn((2, 4, 37, 45), generator=gen, device=dev)
     per_bh[..., 5:9] = float("-inf")
-    _fwd_cases_hd48("#3", attn.fused_attention, attn.fused_attention_reference, [
+    _fwd_cases_hd("#3", attn.fused_attention, attn.fused_attention_reference, [
         ("RAR-B teacher forcing", *bnhd(BATCH, *rar, bf16), causal),
         ("RAR-B teacher forcing fp32", *bnhd(2, *rar, f32), causal),
         ("cross length 37 x 77", *bnhd(3, 37, 77, 4, bf16), None),
@@ -989,9 +1009,9 @@ def kernels_hd48(dev):
                     encoder_mask(n, n // 3, dev), True))
     bwd += [("strided qkv views", *qkv.unbind(2), build_attn_bias((1, 2, 3, 4)).to(dev), True),
             ("ragged L=37 fp32", *bnhd(3, 37, 37, 4, f32), None, False)]
-    _bwd_cases_hd48("#6", attn.fused_attention_bwd, attn.fused_attention_bwd_reference, bwd,
+    _bwd_cases_hd("#6", attn.fused_attention_bwd, attn.fused_attention_bwd_reference, bwd,
                     hd, gen)
-    _autograd_hd48("#3/#6", ("FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES"),
+    _autograd_hd("#3/#6", ("FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES"),
                    *bnhd(BATCH, *rar, bf16), causal, gen)
     del bwd
     mask = encoder_mask(2100, 700, dev, 64)
@@ -999,24 +1019,102 @@ def kernels_hd48(dev):
             ("ragged L=2049, no bias", *bnhd(2, 2049, 2049, 4, bf16), None),
             ("cross length 1500 x 2500", *bnhd(2, 1500, 2500, 4, bf16), None),
             ("L=2100 fp32, encoder mask", *bnhd(2, 2100, 2100, 4, f32), mask)]
-    _fwd_cases_hd48("#4", attn.fused_attention_qblk, attn.fused_attention_qblk_reference,
+    _fwd_cases_hd("#4", attn.fused_attention_qblk, attn.fused_attention_qblk_reference,
                     qblk, hd)
-    name, q, k, v, bias = qblk[0]
-    skipped = attn._fused_attention_qblk_cuda(q, k, v, bias, 1.0 / math.sqrt(hd))
-    computed = attn._fused_attention_qblk_cuda(q, k, v, bias, 1.0 / math.sqrt(hd),
-                                               skip_blank=False)
-    torch.cuda.synchronize()
-    if not torch.equal(skipped, computed):
-        raise AssertionError(f"[kernels] #4 hd 48 {name}: the blank-tile map changed "
-                             f"{int((skipped != computed).sum())} outputs")
-    print(f"[kernels] #4 hd 48 {name}: with the blank-tile map bit-equal to every tile computed")
-    _bwd_cases_hd48("#5", attn.fused_attention_qblk_bwd,
+    _blank_map_bit_equal(qblk[0][0], *qblk[0][1:], hd)
+    _bwd_cases_hd("#5", attn.fused_attention_qblk_bwd,
                     attn.fused_attention_qblk_bwd_reference, [
         ("L=2100, encoder mask, dbias off", *qblk[0][1:4], mask, False),
         ("L=2100, encoder mask, dbias on", *qblk[0][1:4], mask, True),
         ("ragged L=2049, no bias", *qblk[1][1:4], None, False),
         ("L=2100 fp32, dbias on", *qblk[3][1:4], mask, True)], hd, gen)
-    _autograd_hd48("#4/#5", ("QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES"), *qblk[0][1:4], mask, gen)
+    _autograd_hd("#4/#5", ("QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES"), *qblk[0][1:4], mask, gen)
+
+
+MASKGIT_SEQ = 257  # MaskGIT-B's sequence: the condition token and 256 image tokens
+NARROW_HDS = (32, 40)  # head widths below 48 that the BNHD kernels run on 48's code
+
+
+def _blank_map_bit_equal(what: str, q, k, v, bias, hd: int):
+    """#4 with its blank-tile map against the same launch computing every
+    tile: bit-equal."""
+    skipped = attn._fused_attention_qblk_cuda(q, k, v, bias, 1.0 / math.sqrt(hd))
+    computed = attn._fused_attention_qblk_cuda(q, k, v, bias, 1.0 / math.sqrt(hd),
+                                               skip_blank=False)
+    torch.cuda.synchronize()
+    if not torch.equal(skipped, computed):
+        raise AssertionError(f"[kernels] #4 hd {hd} {what}: the blank-tile map changed "
+                             f"{int((skipped != computed).sum())} outputs")
+    print(f"[kernels] #4 hd {hd} {what}: with the blank-tile map bit-equal to every tile "
+          "computed")
+
+
+def kernels_maskgit_and_narrow_heads(dev):
+    """#3 and #6 at MaskGIT-B's (64, 257, 16, 48) with no bias (its
+    bidirectional trunk), in bf16 and fp32 and through bf16 autograd (one
+    launch each); then the head widths below 48 that run on the kD = 48
+    code at run time (``NARROW_HDS``): #3 and #6 at a small shape (L = 130
+    under the causal mask and without a bias, cross length, streamed k and
+    v, dbias on, fp32, bf16 autograd), and #4 and #5 at head dim 32 past
+    the single-block budget (L = 2100 under an encoder mask, ragged 2049
+    without a bias, fp32, #4 bit-equal with and without its blank-tile map,
+    bf16 autograd); and heads of 44, 80 and 128 refused by #3-#6 with no
+    launch."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + MASKGIT_SEQ)
+
+    def bnhd(b, lq, lk, h, dtype, hd):
+        return _bnhd(gen, b, lq, lk, h, dtype, dev, l2=False, hd=hd)
+
+    mg = (MASKGIT_SEQ, MASKGIT_SEQ, RAR_HEADS)
+    _fwd_cases_hd("#3", attn.fused_attention, attn.fused_attention_reference, [
+        ("MaskGIT-B, no bias", *bnhd(BATCH, *mg, bf16, RAR_HD), None),
+        ("MaskGIT-B fp32, no bias", *bnhd(BATCH, *mg, f32, RAR_HD), None)], RAR_HD)
+    _bwd_cases_hd("#6", attn.fused_attention_bwd, attn.fused_attention_bwd_reference, [
+        ("MaskGIT-B training, no bias", *bnhd(BATCH, *mg, bf16, RAR_HD), None, False),
+        ("MaskGIT-B training fp32, no bias", *bnhd(BATCH, *mg, f32, RAR_HD), None, False)],
+        RAR_HD, gen)
+    _autograd_hd("#3/#6", ("FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES"),
+                 *bnhd(BATCH, *mg, bf16, RAR_HD), None, gen)
+    causal = _causal(130, dev)
+    for hd in NARROW_HDS:
+        _fwd_cases_hd("#3", attn.fused_attention, attn.fused_attention_reference, [
+            ("L=130, causal", *bnhd(4, 130, 130, 4, bf16, hd), causal),
+            ("L=130, no bias", *bnhd(4, 130, 130, 4, bf16, hd), None),
+            ("L=130 fp32, causal", *bnhd(2, 130, 130, 4, f32, hd), causal),
+            ("cross length 37 x 77", *bnhd(3, 37, 77, 4, bf16, hd), None),
+            ("streamed k, v: 100 x 700", *bnhd(4, 100, 700, 4, bf16, hd), None)], hd)
+        _bwd_cases_hd("#6", attn.fused_attention_bwd, attn.fused_attention_bwd_reference, [
+            ("L=130, causal, dbias off", *bnhd(4, 130, 130, 4, bf16, hd), causal, False),
+            ("L=130, no bias", *bnhd(4, 130, 130, 4, bf16, hd), None, False),
+            ("L=130, causal, dbias on", *bnhd(4, 130, 130, 4, bf16, hd), causal, True),
+            ("ragged L=37 fp32", *bnhd(3, 37, 37, 4, f32, hd), None, False)], hd, gen)
+        _autograd_hd("#3/#6", ("FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES"),
+                     *bnhd(4, 130, 130, 4, bf16, hd), causal, gen)
+    hd = NARROW_HDS[0]
+    mask = encoder_mask(2100, 700, dev, 64)
+    qblk = [("L=2100, encoder mask", *bnhd(2, 2100, 2100, 4, bf16, hd), mask),
+            ("ragged L=2049, no bias", *bnhd(2, 2049, 2049, 4, bf16, hd), None),
+            ("L=2100 fp32, encoder mask", *bnhd(2, 2100, 2100, 4, f32, hd), mask)]
+    _fwd_cases_hd("#4", attn.fused_attention_qblk, attn.fused_attention_qblk_reference,
+                  qblk, hd)
+    _blank_map_bit_equal(qblk[0][0], *qblk[0][1:], hd)
+    _bwd_cases_hd("#5", attn.fused_attention_qblk_bwd,
+                  attn.fused_attention_qblk_bwd_reference, [
+        ("L=2100, encoder mask, dbias off", *qblk[0][1:4], mask, False),
+        ("ragged L=2049, no bias", *qblk[1][1:4], None, False),
+        ("L=2100 fp32, dbias on", *qblk[2][1:4], mask, True)], hd, gen)
+    _autograd_hd("#4/#5", ("QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES"), *qblk[0][1:4], mask, gen)
+    # other widths are refused before any launch
+    reset_counts()
+    for hd in (44, 80, 128):
+        q, k, v = bnhd(2, 70, 70, 2, bf16, hd)
+        for num, fn in (("#3", attn.fused_attention), ("#4", attn.fused_attention_qblk)):
+            _expect_refusal(f"{num} hd {hd}", NotImplementedError, lambda: fn(q, k, v))
+        for num, fn in (("#6", attn.fused_attention_bwd), ("#5", attn.fused_attention_qblk_bwd)):
+            _expect_refusal(f"{num} hd {hd}", NotImplementedError,
+                            lambda: fn(q, k, v, None, q, need_dbias=False))
+    check_launches("[kernels] refused head dims", 1, {})
 
 
 def _score_gap(x: torch.Tensor, cb: torch.Tensor, maximize: bool, a: torch.Tensor,
@@ -1506,6 +1604,204 @@ def phase_model_rar_train(dev):
           f"{ZERO_GRAD_TOL:g}); loss {loss_cpu.item():.6f}; #3 and #6 {cfg.depth} launches each")
     for k, v in errs.items():
         _check(f"[model] RAR-B training {k}", v, MODEL_TOL)
+
+
+# maskgit_generate's defaults, as scripts/train_rar.py's MaskGIT preview
+# samples: 8 steps, constant guidance 3.0, randomize_temperature 4.5
+MASKGIT_SAMPLING = dict(guidance_scale=3.0, guidance_decay="constant",
+                        randomize_temperature=4.5, num_sample_steps=8)
+MASKGIT_STEPS = MASKGIT_SAMPLING["num_sample_steps"]
+
+
+def _maskgit_blocks(cfg) -> int:
+    """Blocks a MaskGIT forward runs, one #3 launch each: depth, or for
+    U-ViT depth / 2 in, one mid and depth / 2 out."""
+    return cfg.depth + (cfg.arch == "uvit")
+
+
+def _draw_gap(args, want, got, diff):
+    """draw_tokens(logits, gumbel, T): the gap between the two picks'
+    scores logits + T g, in fp64."""
+    score = (args[0].double() + args[2] * args[1].double())[diff]
+    return (score.gather(-1, want[:, None]) - score.gather(-1, got[:, None])).abs()[:, 0]
+
+
+def _remask_gap(args, want, got, diff):
+    """remask(confidence, mask_len): how far a position that flips lies
+    from its row's cut, in fp64."""
+    conf, mask_len = args[0].double(), args[1]
+    cut = torch.sort(conf, dim=-1).values[:, mask_len - 1:mask_len]
+    return (conf - cut).abs()[diff]
+
+
+def phase_model_maskgit(dev):
+    """MaskGIT-B at full width (768 wide, depth 24, 16 heads of 48, 256
+    tokens, 4096 codes) with each trunk, ``bert`` and ``uvit`` (25 blocks),
+    in fp32 at B=2, card against the same weights on the CPU: the logits of
+    a partly masked input, conditioned and with every condition dropped;
+    then ``maskgit_generate``'s tokens at its defaults with the same Gumbel
+    draws on both sides, every draw and re-mask equal except at a near-tie
+    (the card then goes on from the CPU's choice). One #3 launch per block
+    and forward, two forwards (CFG) per step."""
+    margs = bench_margs("float32")
+    for i, arch in enumerate(("bert", "uvit")):
+        gen = torch.Generator().manual_seed(SEED + 20 + i)
+        cpu = build_maskgit(margs, arch=arch, generator=gen, device="cpu").eval()
+        card = copy.deepcopy(cpu).to(dev)
+        cfg, blocks = cpu.config, _maskgit_blocks(cpu.config)
+        l, v = cfg.image_seq_len, cfg.codebook_size
+        labels = torch.tensor([207, 980])
+        ids = torch.randint(0, v, (2, l), generator=gen)
+        ids[:, ::3] = cfg.mask_token_id
+        errs = {}
+        with torch.no_grad():
+            for name, p in (("logits", 0.0), ("logits, condition dropped", 1.0)):
+                want = cpu(ids, labels, cond_drop_prob=p)
+                reset_counts()
+                got = card(ids.to(dev), labels.to(dev), cond_drop_prob=p)
+                torch.cuda.synchronize()
+                check_launches(f"[model] MaskGIT-B {arch} forward", 1,
+                               {"fused_attention_fwd": blocks})
+                errs[name] = _max_err(got, want) / want.abs().max().item()
+        noise = [(maskgit_mod._gumbel((2, l, v), gen, "cpu"),
+                  maskgit_mod._gumbel((2, l), gen, "cpu")) for _ in range(MASKGIT_STEPS)]
+        draws = Lockstep(maskgit_mod, "draw_tokens", _draw_gap, LOGIT_NEAR_TIE)
+        again = Lockstep(maskgit_mod, "remask", _remask_gap, LOGIT_NEAR_TIE)
+        tok_cpu = draws.on_cpu(lambda: again.on_cpu(lambda: maskgit_mod.maskgit_generate(
+            cpu, labels, noise=noise, **MASKGIT_SAMPLING)))
+        reset_counts()
+        tok_card = draws.on_card(lambda: again.on_card(lambda: maskgit_mod.maskgit_generate(
+            card, labels.to(dev), noise=[(a.to(dev), b.to(dev)) for a, b in noise],
+            **MASKGIT_SAMPLING)))
+        torch.cuda.synchronize()
+        check_launches(f"[model] MaskGIT-B {arch} maskgit_generate", 1,
+                       {"fused_attention_fwd": 2 * MASKGIT_STEPS * blocks})
+        if not torch.equal(tok_card.cpu(), tok_cpu):
+            raise AssertionError(f"[model] MaskGIT-B {arch}: the card's tokens are not the "
+                                 "CPU's")
+        shown = ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        print(f"[model] MaskGIT-B {arch} ({blocks} blocks) fp32 B=2 card vs CPU: {shown} "
+              f"(tol {MODEL_TOL:g}, relative to their max abs); maskgit_generate "
+              f"({MASKGIT_STEPS} steps, CFG {MASKGIT_SAMPLING['guidance_scale']:g}): tokens "
+              f"{draws.compared - draws.flips}/{draws.compared} drawn alike, re-masks "
+              f"{again.compared - again.flips}/{again.compared} alike, max near-tie gap "
+              f"{max(draws.max_gap, again.max_gap):.3e} (<= {LOGIT_NEAR_TIE:g}); "
+              f"{torch.unique(tok_cpu).numel()} distinct tokens; #3 "
+              f"{2 * MASKGIT_STEPS * blocks} launches")
+        for k, e in errs.items():
+            _check(f"[model] MaskGIT-B {arch} {k}", e, MODEL_TOL)
+
+
+def phase_model_maskgit_train(dev):
+    """One ``MaskGITTrainer`` step of MaskGIT-B (bert) in fp32 at B=2, card
+    against CPU from the same weights with the same masking draws (t,
+    scores) and condition drop, at ``total_steps`` 10 (no warmup: the step
+    runs at the peak lr, 2e-4): loss, every parameter's gradient (max abs
+    error over the CPU's max abs; the key third of each qkv bias, 0 in
+    exact arithmetic, to ZERO_GRAD_TOL of the qkv weight's gradient on both
+    sides) and the updated parameters. One #3 and one #6 launch per block
+    (fp32: the FMA forward, the two-kernel backward)."""
+    gen = torch.Generator().manual_seed(SEED + 22)
+    cpu = build_maskgit(bench_margs("float32"), generator=gen, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    cfg = cpu.config
+    l = cfg.image_seq_len
+    tokens = torch.randint(0, cfg.codebook_size, (2, l), generator=gen)
+    labels = torch.tensor([207, 980])
+    draws = dict(t=torch.rand(2, generator=gen), scores=torch.rand((2, l), generator=gen),
+                 drop=torch.tensor([False, True]))
+    tr_cpu, tr_card = MaskGITTrainer(cpu, 10), MaskGITTrainer(card, 10)
+    reset_counts()
+    m_card = tr_card.train_step(tokens.to(dev), labels.to(dev),
+                                **{k: x.to(dev) for k, x in draws.items()})
+    torch.cuda.synchronize()
+    check_launches("[model] MaskGIT-B train step fp32", 1,
+                   {"fused_attention_fwd": cfg.depth, "fused_attention_bwd": cfg.depth})
+    m_cpu = tr_cpu.train_step(tokens, labels, **draws)
+    grad_errs, zero = {}, {}
+    for (name, p_cpu), p_card in zip(cpu.named_parameters(), card.parameters()):
+        g_cpu, g_card = p_cpu.grad, p_card.grad.cpu()
+        if name.endswith("attn.qkv.bias"):  # the key third shifts a row's scores
+            d = g_cpu.shape[0] // 3
+            ref = dict(cpu.named_parameters())[name[:-4] + "weight"].grad.abs().max().item()
+            zero[name] = max(g_cpu[d:2 * d].abs().max().item(),
+                             g_card[d:2 * d].abs().max().item()) / ref
+            _check(f"[model] MaskGIT-B train step {name} key third", zero[name], ZERO_GRAD_TOL)
+            keep = torch.ones(3 * d, dtype=torch.bool)
+            keep[d:2 * d] = False
+            g_cpu, g_card = g_cpu[keep], g_card[keep]
+        grad_errs[name] = _max_err(g_card, g_cpu) / max(g_cpu.abs().max().item(), 1e-30)
+    worst = max(grad_errs, key=grad_errs.get)
+    step_err = max(_max_err(a, b) for a, b in zip(cpu.parameters(), card.parameters()))
+    errs = {"loss": abs(m_card["loss"].item() - m_cpu["loss"].item()) / m_cpu["loss"].item(),
+            "grad_norm": abs(m_card["grad_norm"].item() - m_cpu["grad_norm"].item())
+            / m_cpu["grad_norm"].item(),
+            f"gradient of {worst}": grad_errs[worst]}
+    shown = ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+    print(f"[model] MaskGIT-B MaskGITTrainer step fp32 B=2 card vs CPU (relative): {shown} "
+          f"(tol {MODEL_TOL:g}; {len(grad_errs)} parameter gradients, median error "
+          f"{statistics.median(grad_errs.values()):.3e}; {len(zero)} qkv biases' key thirds "
+          f"at most {max(zero.values()):.3e} of their weights' gradients, tol "
+          f"{ZERO_GRAD_TOL:g}); loss {m_cpu['loss'].item():.6f}; updated parameters max abs "
+          f"diff {step_err:.3e}; #3 and #6 {cfg.depth} launches each")
+    for k, e in errs.items():
+        _check(f"[model] MaskGIT-B train step {k}", e, MODEL_TOL)
+    _check("[model] MaskGIT-B train step updated parameters", step_err, MODEL_TOL)
+
+
+def phase_model_rar_trainer(dev):
+    """Two ``RARTrainer`` steps of RAR-B in fp32 at B=2, card against CPU
+    from the same weights (AdaLN drawn at random) with the same condition
+    drops and orders (one raster, one random), at a warmup of 1 step (the
+    first at lr 0, the second at the peak, 4e-4) with AdamW, the clip at 1
+    and the EMA: loss, ``correct_tokens`` (within one token's share),
+    ``grad_norm`` and every parameter's clipped gradient (k_norm's biases
+    to ZERO_GRAD_TOL) after each step, then the parameters and the EMA. One
+    #3 and one #6 launch per block and step."""
+    gen = torch.Generator().manual_seed(SEED + 23)
+    cpu = build_rar(bench_margs("float32"), generator=gen, device="cpu")
+    _excite_adaln(cpu, gen)
+    card = copy.deepcopy(cpu).to(dev)
+    cfg = cpu.config
+    tcfg = RARTrainConfig(warmup_steps=1, total_steps=10)
+    tr_cpu, tr_card = RARTrainer(cpu, tcfg), RARTrainer(card, tcfg)
+    share = 1.0 / (2 * cfg.image_seq_len)
+    for step in range(2):
+        tokens = torch.randint(0, cfg.codebook_size, (2, cfg.image_seq_len), generator=gen)
+        labels = torch.randint(0, cfg.condition_num_classes, (2,), generator=gen)
+        drop = torch.tensor([step == 1, False])
+        orders = cpu.sample_orders(2, 0.5, gen, uniforms=torch.tensor([0.5, 0.0]))
+        reset_counts()
+        m_card = tr_card.train_step(tokens.to(dev), labels.to(dev), 0.5, drop=drop.to(dev),
+                                    orders=orders.to(dev))
+        torch.cuda.synchronize()
+        check_launches(f"[model] RARTrainer step {step + 1} fp32", 1,
+                       {"fused_attention_fwd": cfg.depth, "fused_attention_bwd": cfg.depth})
+        m_cpu = tr_cpu.train_step(tokens, labels, 0.5, drop=drop, orders=orders)
+        grad_errs, zero = _grad_errs("RARTrainer", cpu.named_parameters(), card.parameters(),
+                                     list(cpu.parameters()), RAR_ZERO_GRAD)
+        worst = max(grad_errs, key=grad_errs.get)
+        errs = {k: abs(m_card[k].item() - m_cpu[k].item()) / m_cpu[k].item()
+                for k in ("loss", "grad_norm")}
+        errs[f"gradient of {worst}"] = grad_errs[worst]
+        acc_diff = abs(m_card["correct_tokens"].item() - m_cpu["correct_tokens"].item())
+        shown = ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        print(f"[model] RAR-B RARTrainer step {step + 1} fp32 B=2 card vs CPU (relative): "
+              f"{shown} (tol {MODEL_TOL:g}; {len(grad_errs)} parameter gradients, median "
+              f"{statistics.median(grad_errs.values()):.3e}; {len(zero)} k_norm biases at most "
+              f"{max(zero.values()):.3e} of their weights', tol {ZERO_GRAD_TOL:g}); loss "
+              f"{m_cpu['loss'].item():.6f}, correct_tokens {m_cpu['correct_tokens'].item():.6f} "
+              f"(card {acc_diff:.2e} off, <= {share:.2e}), grad norm "
+              f"{m_cpu['grad_norm'].item():.6f}, lr {tr_cpu.opt.lr_schedule(step):g}")
+        for k, e in errs.items():
+            _check(f"[model] RARTrainer step {step + 1} {k}", e, MODEL_TOL)
+        _check(f"[model] RARTrainer step {step + 1} correct_tokens", acc_diff, share)
+    step_err = max(_max_err(a, b) for a, b in zip(cpu.parameters(), card.parameters()))
+    ema_err = max(_max_err(a, b) for a, b in zip(tr_cpu.ema, tr_card.ema))
+    print(f"[model] RAR-B RARTrainer after two steps: parameters max abs diff {step_err:.3e}, "
+          f"EMA {ema_err:.3e} (tol {MODEL_TOL:g})")
+    _check("[model] RARTrainer updated parameters", step_err, MODEL_TOL)
+    _check("[model] RARTrainer EMA", ema_err, MODEL_TOL)
 
 
 class Lockstep:
@@ -2047,6 +2343,82 @@ def main_rar_train(dev) -> dict:
     return {"rar train fwd+bwd": r}
 
 
+def main_maskgit_paths(dev) -> dict:
+    """MaskGIT-B (bert) at B=64 in bf16: ``maskgit sample``,
+    ``maskgit_generate`` at its defaults (8 steps, constant guidance 3.0,
+    temperature 4.5; two forwards a step) with the Gumbel draws from a card
+    generator, and ``decode_tokens`` on the RobustTok tokenizer with the
+    fused sublayers; then ``maskgit train step``, one ``MaskGITTrainer``
+    step (masking, forward with the condition dropped at 0.1, ``mlm_loss``,
+    backward, AdamW) with its draws from a card generator. Per call: #3
+    384, #7 12, #8 12; then #3 24 (lse stored) and #6 24."""
+    margs = bench_margs("bfloat16")
+    vae = VQModel(margs, generator=torch.Generator().manual_seed(SEED), device=dev).eval()
+    set_fused_sublayers(vae, True, True)
+    model = build_maskgit(margs, dtype_str="bfloat16",
+                          generator=torch.Generator().manual_seed(SEED + 24), device=dev)
+    cfg = model.config
+    labels = torch.arange(BATCH, device=dev) % 1000
+    sgen = torch.Generator(device=dev).manual_seed(SEED)
+    depth = len(vae.decoder.model.blocks)
+    out = {}
+    with torch.inference_mode():
+        out["maskgit sample"] = r = time_calls(
+            "maskgit sample",
+            lambda: vae.decode_tokens(maskgit_mod.maskgit_generate(model, labels, sgen)),
+            3, {"fused_attention_fwd": 2 * MASKGIT_STEPS * cfg.depth,
+                "attn_sublayer_fused": depth, "mlp_sublayer_fused": depth}, dev)
+        _check_images("maskgit sample", r.pop("out"), BATCH, margs.image_size)
+        _report("MaskGIT-B maskgit_generate (8 steps, CFG 3) + fused decode_tokens", r, BATCH,
+                "images in [-1, 1]")
+    tr = MaskGITTrainer(model, 250_000)
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.codebook_size, (BATCH, cfg.image_seq_len), generator=tgen,
+                           device=dev)
+    out["maskgit train step"] = r = time_calls(
+        "maskgit train step", lambda: tr.train_step(tokens, labels, tgen), 5,
+        {"fused_attention_fwd": cfg.depth, "fused_attention_bwd": cfg.depth}, dev)
+    _check_metrics("maskgit train step", r.pop("out"), model)
+    _report("MaskGIT-B MaskGITTrainer.train_step (mask, forward, mlm_loss, backward, AdamW)",
+            r, BATCH, "loss and grad norm finite, every parameter finite")
+    return out
+
+
+def main_rar_train_step(dev) -> dict:
+    """``rar train step``: one ``RARTrainer.train_step`` of RAR-B at B=64 in
+    bf16 at the RAR recipe's settings (``RARTrainConfig``'s defaults):
+    condition dropout, per-sample orders at random ratio 1 (the annealing's
+    start), forward, ``ar_loss``, backward, AdamW with the clip, EMA; its
+    draws from a card generator. Per call #3 24 (lse stored) and #6 24."""
+    gen = torch.Generator().manual_seed(SEED + 25)
+    rar = build_rar(bench_margs("bfloat16"), dtype_str="bfloat16", generator=gen, device="cpu")
+    _excite_adaln(rar, gen)
+    rar.to(dev)
+    cfg, tcfg = rar.config, RARTrainConfig()
+    tr = RARTrainer(rar, tcfg)
+    tgen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    tokens = torch.randint(0, cfg.codebook_size, (BATCH, cfg.image_seq_len), generator=tgen,
+                           device=dev)
+    labels = torch.arange(BATCH, device=dev) % 1000
+    ratio = get_rar_random_ratio(tcfg.random_ratio_anneal_start, tcfg.random_ratio_anneal_end, 0)
+    r = time_calls("rar train step", lambda: tr.train_step(tokens, labels, ratio, tgen), 5,
+                   {"fused_attention_fwd": cfg.depth, "fused_attention_bwd": cfg.depth}, dev)
+    _check_metrics("rar train step", r.pop("out"), rar)
+    if not all(bool(torch.isfinite(e).all()) for e in tr.ema):
+        raise AssertionError("[main] rar train step: a non-finite EMA parameter")
+    _report("RAR-B RARTrainer.train_step (drop, orders, forward, ar_loss, backward, AdamW, "
+            "EMA)", r, BATCH, "loss and grad norm finite, every parameter and EMA finite")
+    return {"rar train step": r}
+
+
+def _check_metrics(path: str, metrics: dict, model: torch.nn.Module):
+    """A train step's loss and grad norm finite, and every parameter."""
+    bad = [n for n, p in model.named_parameters() if not bool(torch.isfinite(p).all())]
+    if not all(bool(torch.isfinite(metrics[k])) for k in ("loss", "grad_norm")) or bad:
+        raise AssertionError(f"[main] {path}: loss {metrics['loss'].item()}, grad norm "
+                             f"{metrics['grad_norm'].item()}, non-finite parameters {bad[:5]}")
+
+
 MLP_PROBE = (BATCH * 513, 768, 3072, 12)  # scripts/perf.py:29-33: B*L rows, D, HID; 12 layers
 
 
@@ -2414,53 +2786,78 @@ def times_bnhd_bwd(dev, gen) -> dict:
         f"q, k, v, g {tuple(q.shape)}", library_call="SDPA backward")
 
 
-def times_bnhd_fwd_hd48(dev, gen) -> dict:
-    """#3 at RAR-B's teacher forcing, (64, 258, 16, 48) bf16 under the
-    causal mask at scale 1/sqrt(48), with the lse store off and on (on: the
-    forward as the training step's autograd runs it)."""
+def _times_bnhd_fwd_hd48(dev, gen, what: str, seq: int, causal: bool) -> dict:
+    """#3 at head dim 48, (64, seq, 16, 48) bf16 at scale 1/sqrt(48), under
+    the causal mask or with no bias, with the lse store off and on (on: the
+    forward as a training step's autograd runs it)."""
     bf16 = torch.bfloat16
-    bias = _causal(RAR_SEQ, dev)
-    q, k, v = _bnhd(gen, BATCH, RAR_SEQ, RAR_SEQ, RAR_HEADS, bf16, dev, l2=False, hd=RAR_HD)
+    bias = _causal(seq, dev) if causal else None
+    q, k, v = _bnhd(gen, BATCH, seq, seq, RAR_HEADS, bf16, dev, l2=False, hd=RAR_HD)
     scale = 1.0 / math.sqrt(RAR_HD)
-    pairs = int(torch.isfinite(bias).sum())
+    pairs = int(torch.isfinite(bias).sum()) if causal else seq * seq
     rec = _time_kernel(
-        "#3 fused_attention, RAR-B teacher forcing (hd 48)",
+        f"#3 fused_attention, {what} (hd 48)",
         lambda: attn.fused_attention(q, k, v, bias, scale),
         lambda: attn.fused_attention_reference(q, k, v, bias, scale),
         lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=bias.to(bf16), scale=scale),
-        4 * q.numel() * 2 + bias.numel() * 4, 4 * BATCH * RAR_HEADS * pairs * RAR_HD, bf16,
-        f"q, k, v {tuple(q.shape)}, bias {tuple(bias.shape)}", library_call="SDPA")
+            attn_mask=None if bias is None else bias.to(bf16), scale=scale),
+        4 * q.numel() * 2 + (bias.numel() * 4 if causal else 0),
+        4 * BATCH * RAR_HEADS * pairs * RAR_HD, bf16,
+        f"q, k, v {tuple(q.shape)}, bias {'none' if bias is None else tuple(bias.shape)}",
+        library_call="SDPA")
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    _time_lse("#3 fused_attention, RAR-B teacher forcing (hd 48)",
+    _time_lse(f"#3 fused_attention, {what} (hd 48)",
               lambda: attn.fused_attention(q, k, v, bias, scale),
               lambda: attn.fused_attention(qg, kg, vg, bias, scale), rec)
     return rec
 
 
-def times_bnhd_bwd_hd48(dev, gen) -> dict:
-    """#6 at RAR-B's training shape, (64, 258, 16, 48) bf16 under the causal
-    mask, no dbias, through autograd with #3's saved output and lse (prep,
-    main and dq kernels timed), as the library call is SDPA's backward
-    through autograd."""
+def _times_bnhd_bwd_hd48(dev, gen, what: str, seq: int, causal: bool) -> dict:
+    """#6 at head dim 48, (64, seq, 16, 48) bf16 under the causal mask or
+    with no bias, no dbias, through autograd with #3's saved output and lse
+    (prep, main and dq kernels timed), as the library call is SDPA's
+    backward through autograd."""
     bf16 = torch.bfloat16
-    bias = _causal(RAR_SEQ, dev)
-    q, k, v = _bnhd(gen, BATCH, RAR_SEQ, RAR_SEQ, RAR_HEADS, bf16, dev, l2=False, hd=RAR_HD)
+    bias = _causal(seq, dev) if causal else None
+    q, k, v = _bnhd(gen, BATCH, seq, seq, RAR_HEADS, bf16, dev, l2=False, hd=RAR_HD)
     scale = 1.0 / math.sqrt(RAR_HD)
     g = torch.randn(q.shape, generator=gen, device=dev).to(bf16)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     out = attn.fused_attention(qg, kg, vg, bias, scale)
     lq, lk, lv = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias.to(bf16), scale=scale)
-    pairs = int(torch.isfinite(bias).sum())
+    lib_out = F.scaled_dot_product_attention(
+        lq, lk, lv, attn_mask=None if bias is None else bias.to(bf16), scale=scale)
+    pairs = int(torch.isfinite(bias).sum()) if causal else seq * seq
     return _time_kernel(
-        "#6 fused_attention backward, RAR-B training (hd 48)",
+        f"#6 fused_attention backward, {what} (hd 48)",
         lambda: torch.autograd.grad(out, (qg, kg, vg), g, retain_graph=True),
         lambda: attn.fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias=False),
         lambda: torch.autograd.grad(lib_out, (lq, lk, lv), g.transpose(1, 2), retain_graph=True),
-        7 * q.numel() * 2 + bias.numel() * 4, 5 * 2 * BATCH * RAR_HEADS * pairs * RAR_HD, bf16,
+        7 * q.numel() * 2 + (bias.numel() * 4 if causal else 0),
+        5 * 2 * BATCH * RAR_HEADS * pairs * RAR_HD, bf16,
         f"q, k, v, g {tuple(q.shape)}", library_call="SDPA backward")
+
+
+def times_bnhd_fwd_hd48(dev, gen) -> dict:
+    """#3 at RAR-B's teacher forcing, (64, 258, 16, 48) under the causal mask."""
+    return _times_bnhd_fwd_hd48(dev, gen, "RAR-B teacher forcing", RAR_SEQ, True)
+
+
+def times_bnhd_bwd_hd48(dev, gen) -> dict:
+    """#6 at RAR-B's training shape, (64, 258, 16, 48) under the causal mask."""
+    return _times_bnhd_bwd_hd48(dev, gen, "RAR-B training", RAR_SEQ, True)
+
+
+def times_bnhd_fwd_maskgit(dev, gen) -> dict:
+    """#3 at MaskGIT-B's shape, (64, 257, 16, 48) with no bias: each forward
+    of sampling and of the training step."""
+    return _times_bnhd_fwd_hd48(dev, gen, "MaskGIT-B", MASKGIT_SEQ, False)
+
+
+def times_bnhd_bwd_maskgit(dev, gen) -> dict:
+    """#6 at MaskGIT-B's training shape, (64, 257, 16, 48) with no bias."""
+    return _times_bnhd_bwd_hd48(dev, gen, "MaskGIT-B training", MASKGIT_SEQ, False)
 
 
 def times_qblk_fwd(dev, gen) -> dict:
@@ -2612,11 +3009,16 @@ TIMES = {"attention_qkv_fwd": times_qkv_fwd, "attention_qkv_bwd": times_qkv_bwd,
          "attn_sublayer_fused": times_attn_sublayer, "mlp_sublayer_fused": times_mlp_sublayer,
          "fused_mlp": times_fused_mlp, "codebook_argmin": times_codebook,
          "fused_attention_fwd_hd48": times_bnhd_fwd_hd48,
-         "fused_attention_bwd_hd48": times_bnhd_bwd_hd48}
+         "fused_attention_bwd_hd48": times_bnhd_bwd_hd48,
+         "fused_attention_fwd_maskgit": times_bnhd_fwd_maskgit,
+         "fused_attention_bwd_maskgit": times_bnhd_bwd_maskgit}
 # records timed at head dim 48, filed with their kernel's record under
 # "shapes" in the kernels line
-HD48_TIMES = {"fused_attention_fwd_hd48": ("fused_attention_fwd", "RAR-B teacher forcing, hd 48"),
-              "fused_attention_bwd_hd48": ("fused_attention_bwd", "RAR-B training, hd 48")}
+SHAPE_TIMES = {
+    "fused_attention_fwd_hd48": ("fused_attention_fwd", "RAR-B teacher forcing, hd 48"),
+    "fused_attention_bwd_hd48": ("fused_attention_bwd", "RAR-B training, hd 48"),
+    "fused_attention_fwd_maskgit": ("fused_attention_fwd", "MaskGIT-B, no bias, hd 48"),
+    "fused_attention_bwd_maskgit": ("fused_attention_bwd", "MaskGIT-B training, no bias, hd 48")}
 
 
 def phase_times(dev, names=tuple(TIMES)) -> dict:
@@ -2624,6 +3026,60 @@ def phase_times(dev, names=tuple(TIMES)) -> dict:
     from one generator."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     return {name: TIMES[name](dev, gen) for name in names}
+
+
+def phase_outputs(dev, path: str):
+    """Every BNHD kernel (#3-#6) at head dims 48 and 64 on inputs from a
+    fixed seed, saved to ``path``: #3 with and without the causal mask and
+    its lse, #6 on the wgmma backward (o and lse from #3), with dbias (its
+    dq, dk and dv: dbias is summed by atomicAdd in no fixed order) and in
+    fp32, #4 and #5 past the single-block budget under an encoder mask.
+    Two checkouts' files compared by ``same`` show whether a change left
+    the kernels' results bit for bit as they were."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4864)
+    out = {}
+    for hd in (48, 64):
+        scale = 1.0 / math.sqrt(hd)
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"hd {hd} {str(dtype)[6:]}"
+            causal = _causal(130, dev)
+            q, k, v = _bnhd(gen, 4, 130, 130, 4, dtype, dev, l2=False, hd=hd)
+            g = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+            out[f"#3 causal {tag}"] = attn.fused_attention(q, k, v, causal, scale)
+            out[f"#3 no bias {tag}"] = attn.fused_attention(q, k, v, None, scale)
+            kw = {}
+            if dtype == torch.bfloat16:
+                kw["o"], kw["lse"] = attn.fused_attention_lse(q, k, v, causal, scale)
+                out[f"#3 lse {tag}"] = kw["lse"]
+            out[f"#6 {tag}"] = attn.fused_attention_bwd(q, k, v, causal, g, scale, False, **kw)[:3]
+            # dbias itself sums by atomicAdd in no fixed order: not compared
+            out[f"#6 dbias {tag}"] = attn.fused_attention_bwd(q, k, v, causal, g, scale,
+                                                              True)[:3]
+            mask = encoder_mask(2100, 700, dev, 64)
+            q, k, v = _bnhd(gen, 2, 2100, 2100, 4, dtype, dev, l2=False, hd=hd)
+            g = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+            out[f"#4 {tag}"] = attn.fused_attention_qblk(q, k, v, mask, scale)
+            out[f"#5 {tag}"] = attn.fused_attention_qblk_bwd(q, k, v, mask, g, scale, False)[:3]
+    torch.cuda.synchronize()
+    torch.save(_to(out, torch.device("cpu")), path)
+    print(f"[outputs] {len(out)} results at head dims 48 and 64 saved to {path}")
+
+
+def phase_same(a: str, b: str) -> int:
+    """Whether two ``outputs`` files hold the same results bit for bit."""
+    ra, rb = torch.load(a), torch.load(b)
+    if set(ra) != set(rb):
+        raise AssertionError(f"[same] the files name different results: {set(ra) ^ set(rb)}")
+    differ = []
+    for key in ra:
+        xs, ys = ra[key], rb[key]
+        xs, ys = (xs, ys) if isinstance(xs, (tuple, list)) else ((xs,), (ys,))
+        if any((x is None) != (y is None) or (x is not None and not torch.equal(x, y))
+               for x, y in zip(xs, ys)):
+            differ.append(key)
+    print(f"[same] {len(ra) - len(differ)} of {len(ra)} results bit-equal"
+          + (f"; differ: {differ}" if differ else ""))
+    return 1 if differ else 0
 
 
 KERNELS = {
@@ -2687,8 +3143,13 @@ TRAIN_BATCH_512 = 16  # the train step at L = 2240 peaks at 52 GiB of the 80 GB 
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
-    if argv and (argv[0] != "times" or not set(argv[1:]) <= set(TIMES)):
-        raise SystemExit(f"usage: chip_smoke.py [times [{' '.join(TIMES)} ...]]")
+    if argv and not ((argv[0] == "times" and set(argv[1:]) <= set(TIMES))
+                     or (argv[0] == "outputs" and len(argv) == 2)
+                     or (argv[0] == "same" and len(argv) == 3)):
+        raise SystemExit("usage: chip_smoke.py [outputs FILE | same FILE FILE | "
+                         f"times [{' '.join(TIMES)} ...]]")
+    if argv[:1] == ["same"]:
+        return phase_same(*argv[1:])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     # fp32 on the card means fp32: no TF32 in matmuls or cuDNN
@@ -2702,6 +3163,9 @@ def main(argv: list[str]) -> int:
     phase_device()
     phase_build()
     lap("build")
+    if argv[:1] == ["outputs"]:
+        phase_outputs(dev, argv[1])
+        return 0
     if argv:  # the times phase alone, for the kernels named (all by default)
         times = phase_times(dev, argv[1:] or tuple(TIMES))
         print(json.dumps({"times": times}))
@@ -2714,6 +3178,7 @@ def main(argv: list[str]) -> int:
             "codebook_argmin": kernels_codebook(dev), **kernels_sublayers(dev)}
     kernels_bwd_pieces(dev)
     kernels_hd48(dev)
+    kernels_maskgit_and_narrow_heads(dev)
     lap("kernels")
     vq_models = phase_model_vq(dev)
     lap("model VQ-4096")
@@ -2721,6 +3186,10 @@ def main(argv: list[str]) -> int:
     del vq_models
     phase_model_rar_train(dev)
     lap("model RAR-B")
+    phase_model_maskgit(dev)
+    phase_model_maskgit_train(dev)
+    phase_model_rar_trainer(dev)
+    lap("model MaskGIT-B and the trainers")
     for margs, name in ((msvr_margs("float32"), "MSVR10P2-4096 + VAR-d16"),
                         (msvr512_margs("float32"), "MSVR10P2-4096-512 + VAR-d16")):
         phase_model_train(dev, *phase_model_var(dev, margs, name), name)
@@ -2730,6 +3199,8 @@ def main(argv: list[str]) -> int:
     paths = {**main_round_trip(dev), **main_rar_paths(dev), **main_rar_train(dev),
              **main_mlp_probe(dev)}
     lap("round trips, RAR sampling and training, MLP probe")
+    paths.update({**main_maskgit_paths(dev), **main_rar_train_step(dev)})
+    lap("MaskGIT sampling and training, RAR train step")
     paths.update({**main_var_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256,
                                    bench_sample_margs("bfloat16")),
                   **main_train_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256),
@@ -2740,7 +3211,7 @@ def main(argv: list[str]) -> int:
                                      TRAIN_BATCH_512)})
     lap("main paths at 512 px")
     times = phase_times(dev)
-    for key, (name, label) in HD48_TIMES.items():
+    for key, (name, label) in SHAPE_TIMES.items():
         times[name].setdefault("shapes", {})[label] = times.pop(key)
     lap("times")
     records = []

@@ -32,7 +32,9 @@
 //
 // Head dims 64 (VAR) and 48 (RAR-B's training forward, 768 / 16), each
 // instantiated from the same code (kD): the wgmma kernel zero-pads a 48-wide
-// head to its 64-wide tiles (attention_fwd_sm90.cuh).
+// head to its 64-wide tiles (attention_fwd_sm90.cuh). Any other multiple of
+// 8 up to 64 runs under those two at run time (st.hd): up to 48 under kD =
+// 48, 56 under 64, its columns past hd zero in every tile and never stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,7 +78,7 @@ __global__ void __launch_bounds__(kRows)
   float qr[kD], o[kD];
 #pragma unroll
   for (int d = 0; d < kD; ++d) {
-    qr[d] = row < lq ? qp[row * st.ql + d] : 0.f;
+    qr[d] = row < lq && d < st.hd ? qp[row * st.ql + d] : 0.f;
     o[d] = 0.f;
   }
   float m = kNegInf, l = 0.f;
@@ -87,7 +89,7 @@ __global__ void __launch_bounds__(kRows)
       __syncthreads();
       for (int i = threadIdx.x; i < kF32Tile * kD; i += kRows) {
         const int r = i / kD, d = i % kD;
-        const bool in = k0 + r < lk;
+        const bool in = k0 + r < lk && d < st.hd;
         sk[r][d] = in ? kp[(k0 + r) * st.kl + d] : 0.f;
         if (pass == 1) sv[r][d] = in ? vp[(k0 + r) * st.vl + d] : 0.f;
       }
@@ -124,9 +126,10 @@ __global__ void __launch_bounds__(kRows)
     }
   }
   if (row < lq) {
-    float* dst = out + ((static_cast<int64_t>(b) * lq + row) * heads + h) * kD;
+    float* dst = out + ((static_cast<int64_t>(b) * lq + row) * heads + h) * st.hd;
 #pragma unroll
-    for (int d = 0; d < kD; ++d) dst[d] = o[d];
+    for (int d = 0; d < kD; ++d)
+      if (d < st.hd) dst[d] = o[d];
   }
 }
 
@@ -155,12 +158,11 @@ int launch_bnhd_fwd(const void* q, const void* k, const void* v, const float* bi
 
 }  // namespace
 
-// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd 48 or 64, each with its own
-// batch, row and head strides in elements (qs, ks, vs = {batch, row, head};
-// the head-dim stride is 1), all fp32 or all bf16 (is_bf16); bias null or
-// fp32 with strides bs = {batch, head, row} (column stride 1, 0 on a
-// broadcast axis);
-// out contiguous (B, Lq, H, hd) of q's type; lse null, or (bf16 only) an
+// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 64,
+// each with its own batch, row and head strides in elements (qs, ks, vs =
+// {batch, row, head}; the head-dim stride is 1), all fp32 or all bf16
+// (is_bf16); bias null or fp32 with strides bs = {batch, head, row} (column
+// stride 1, 0 on a broadcast axis); out contiguous (B, Lq, H, hd) of q's type; lse null, or (bf16 only) an
 // fp32 (B, H, Lq) that receives each row's log-sum-exp for the backward
 // (#6). bf16 needs every base pointer and q/k/v stride on a 16-byte
 // boundary. Launches on `stream` and returns cudaGetLastError() as an int
@@ -171,14 +173,14 @@ extern "C" int attention_bnhd_fwd(const void* q, const void* k, const void* v,
                                   const int64_t* ks, const int64_t* vs,
                                   const int64_t* bs, float scale, int is_bf16, int hd,
                                   void* stream) {
-  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || (lse && !is_bf16) ||
-      (hd != 48 && hd != 64))
+  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || (lse && !is_bf16) || hd < 8 ||
+      hd > 64 || hd % 8)
     return cudaErrorInvalidValue;
   Strides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-             bias ? bs[0] : 0, bias ? bs[1] : 0, bias ? bs[2] : 0};
+             bias ? bs[0] : 0, bias ? bs[1] : 0, bias ? bs[2] : 0, hd};
   cudaStream_t stm = static_cast<cudaStream_t>(stream);
   const float* bp = static_cast<const float*>(bias);
-  return hd == 48 ? launch_bnhd_fwd<48>(q, k, v, bp, out, lse, batch, lq, lk, heads, st, scale,
+  return hd <= 48 ? launch_bnhd_fwd<48>(q, k, v, bp, out, lse, batch, lq, lk, heads, st, scale,
                                         is_bf16, stm)
                   : launch_bnhd_fwd<64>(q, k, v, bp, out, lse, batch, lq, lk, heads, st, scale,
                                         is_bf16, stm);

@@ -71,11 +71,12 @@
 // dv, bf16(ds) for dq and dk, fp32 sums, one cast of each output). p comes
 // from lse, not from exp(s - max) / sum (fp32 rounding), and delta from the
 // bf16 o, not from rowsum(p dp).
-// Head dim kD: 64, or 48 for #5 and #6 (RAR-B's training backward). A
-// 48-wide head keeps the 64-wide tiles with zero columns 48-63
-// (wgmma_tile.cuh): S^T, dP^T, S and dP run 3 K-steps, dV, dK and dQ compute
-// zero columns past 48, which are never stored, and the prep pass reads 6 of
-// a row's 8 chunks.
+// Head dim kD: 64, or 48 for #5 and #6 (RAR-B's training backward), and at
+// run time st.hd, any multiple of 8 up to kD (#5 and #6 run hd <= 48 under
+// kD = 48 and 56 under 64). A narrower head keeps the 64-wide tiles with
+// zero columns past hd (wgmma_tile.cuh): S^T, dP^T, S and dP run kD / 16
+// K-steps, dV, dK and dQ compute zero columns past hd, which are never
+// stored, and the prep pass reads hd / 8 of a row's 8 chunks.
 
 #pragma once
 
@@ -123,7 +124,7 @@ __global__ void __launch_bounds__(256)
     const int64_t bh = idx / lpad;
     const int h = static_cast<int>(bh % heads), b = static_cast<int>(bh / heads);
     float d = 0.f;
-    if (valid && r < n && part < kD / 8) {
+    if (valid && r < n && part < st.hd / 8) {
       const uint4 ov = *reinterpret_cast<const uint4*>(
           o + b * os.b + static_cast<int64_t>(r) * os.l + h * os.h + part * 8);
       const uint4 gv = *reinterpret_cast<const uint4*>(
@@ -207,16 +208,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bf16* qp = q + b * st.qb + h * st.qh;
   const bf16* gp = g + b * st.gb + h * st.gh;
   auto load_stage = [&](int s, int qt) {
-    load_tile_async<kD>(sq0 + s * kTileBytes, qp, qt * kTile, n, st.ql);
-    load_tile_async<kD>(sg0 + s * kTileBytes, gp, qt * kTile, n, st.gl);
+    load_tile_wg<kD>(sq0 + s * kTileBytes, qp, qt * kTile, n, st.ql, st.hd);
+    load_tile_wg<kD>(sg0 + s * kTileBytes, gp, qt * kTile, n, st.gl, st.hd);
     if (threadIdx.x < 32) {  // lse2 and delta: 16 chunks each, padded rows
       const float* src = (threadIdx.x < 16 ? lse2 : delta) + bh * lpad + qt * kTile +
                          (threadIdx.x & 15) * 4;
       cp_async16(smem_addr(sstat + s * 2 * kTile) + threadIdx.x * 16, src, true);
     }
   };
-  load_tile_async<kD>(sk, k + b * st.kb + h * st.kh, k0, n, st.kl);
-  load_tile_async<kD>(sv, v + b * st.vb + h * st.vh, k0, n, st.vl);
+  load_tile_wg<kD>(sk, k + b * st.kb + h * st.kh, k0, n, st.kl, st.hd);
+  load_tile_wg<kD>(sv, v + b * st.vb + h * st.vh, k0, n, st.vl, st.hd);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < cnt) load_stage(s, qlist[s] & (kZeroTile - 1));
@@ -337,7 +338,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int i = 0; i < kD / 2; i += 2) {  // columns 8 (i >> 2) + 2 t4 (+ 1) < kD
     const int kr = k0 + row_lo + 8 * ((i >> 1) & 1);
-    if (kr >= n) continue;
+    if (kr >= n || 8 * (i >> 2) + 2 * t4 >= st.hd) continue;
     const int64_t off = static_cast<int64_t>(kr) * st.ol + 8 * (i >> 2);
     *reinterpret_cast<__nv_bfloat162*>(dkp + off) =
         __floats2bfloat162_rn(dk_acc[i] * scale, dk_acc[i + 1] * scale);
@@ -388,11 +389,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bf16* kp = k + b * st.kb + h * st.kh;
   const bf16* vp = v + b * st.vb + h * st.vh;
   auto load_stage = [&](int s, int kt) {
-    load_tile_async<kD>(sk0 + s * kTileBytes, kp, kt * kTile, n, st.kl);
-    load_tile_async<kD>(sv0 + s * kTileBytes, vp, kt * kTile, n, st.vl);
+    load_tile_wg<kD>(sk0 + s * kTileBytes, kp, kt * kTile, n, st.kl, st.hd);
+    load_tile_wg<kD>(sv0 + s * kTileBytes, vp, kt * kTile, n, st.vl, st.hd);
   };
-  load_tile_async<kD>(sq, q + b * st.qb + h * st.qh, q0, n, st.ql);
-  load_tile_async<kD>(sg, g + b * st.gb + h * st.gh, q0, n, st.gl);
+  load_tile_wg<kD>(sq, q + b * st.qb + h * st.qh, q0, n, st.ql, st.hd);
+  load_tile_wg<kD>(sg, g + b * st.gb + h * st.gh, q0, n, st.gl, st.hd);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < cnt) load_stage(s, klist[s] & (kZeroTile - 1));
@@ -490,7 +491,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int i = 0; i < kD / 2; i += 2) {  // columns 8 (i >> 2) + 2 t4 (+ 1) < kD
     const int qr = q0 + row_lo + 8 * ((i >> 1) & 1);
-    if (qr < n)
+    if (qr < n && 8 * (i >> 2) + 2 * t4 < st.hd)
       *reinterpret_cast<__nv_bfloat162*>(dqp + static_cast<int64_t>(qr) * st.ol + 8 * (i >> 2)) =
           __floats2bfloat162_rn(dqacc[i] * scale, dqacc[i + 1] * scale);
   }

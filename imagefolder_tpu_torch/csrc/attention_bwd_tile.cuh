@@ -33,9 +33,11 @@
 // FMA kernels with two threads per row (each owns 32 of the 64 columns,
 // interleaved so that the pair reads two banks), with the same two-kernel
 // split. Masked tiles are not skipped, and nothing is pipelined.
-// Head dim kD: 64, or 48 for #5 and #6. The bf16 kernels run a 48-wide head
-// on zero-padded 64-wide tiles (mma_tile.cuh) and store its 48 columns; the
-// fp32 kernels are written for kD.
+// Head dim kD: 64, or 48 for #5 and #6, and at run time st.hd, any multiple
+// of 8 up to kD (#5 and #6 run hd <= 48 under kD = 48 and 56 under 64). The
+// bf16 kernels run a narrower head on zero-padded 64-wide tiles
+// (mma_tile.cuh) and store its hd columns; the fp32 kernels hold kD columns,
+// zero past hd, and store hd.
 
 #pragma once
 
@@ -54,13 +56,15 @@ constexpr float kBwdNegInf = -INFINITY;
 
 // Element strides (hd stride 1) of the inputs q, k, v and g and of the
 // outputs dq, dk and dv (one set, o*, shared by the three), each as batch,
-// row and head strides; and the shared bias's row stride (column stride 1).
+// row and head strides; the shared bias's row stride (column stride 1); and
+// the head dim hd (a multiple of 8, at most the kernel's kD).
 struct BwdStrides {
   int64_t qb, ql, qh, kb, kl, kh, vb, vl, vh, gb, gl, gh, ob, ol, oh, bq;
+  int hd = kHd;
 };
 
 // a warp's 16 accumulator rows (row_lo, row_hi per thread) times `mul`,
-// rounded to bf16, into the output rows of (b, h): their first kD columns
+// rounded to bf16, into the output rows of (b, h): their first st.hd columns
 template <int kD>
 __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[kHd / 8][4],
                                            int b, int h, int n, const BwdStrides& st,
@@ -68,6 +72,7 @@ __device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[kHd / 8
   bf16* dst = out + b * st.ob + h * st.oh + (threadIdx.x & 3) * 2;
 #pragma unroll
   for (int i = 0; i < kD / 8; ++i) {
+    if (i * 8 >= st.hd) break;
     if (row_lo < n)
       *reinterpret_cast<__nv_bfloat162*>(dst + row_lo * st.ol + i * 8) =
           __floats2bfloat162_rn(acc[i][0] * mul, acc[i][1] * mul);
@@ -106,11 +111,11 @@ __global__ void __launch_bounds__(kWarps * 32)
   const bf16* vp = v + b * st.vb + h * st.vh;
 
   uint32_t qf[kHd / 16][4], gf[kHd / 16][4];
-  load_tile<kVec, kD>(sa, q + b * st.qb + h * st.qh, q0, n, st.ql);
+  load_tile<kVec, kD>(sa, q + b * st.qb + h * st.qh, q0, n, st.ql, st.hd);
   __syncthreads();
   load_a(qf, sa);
   __syncthreads();
-  load_tile<kVec, kD>(sa, g + b * st.gb + h * st.gh, q0, n, st.gl);
+  load_tile<kVec, kD>(sa, g + b * st.gb + h * st.gh, q0, n, st.gl, st.hd);
   __syncthreads();
   load_a(gf, sa);
 
@@ -123,7 +128,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   float l[2] = {0.f, 0.f};
   for (int k0 = 0; k0 < n; k0 += kRows) {
     __syncthreads();
-    load_tile<kVec, kD>(sk, kp, k0, n, st.kl);
+    load_tile<kVec, kD>(sk, kp, k0, n, st.kl, st.hd);
     __syncthreads();
     tile_scores<kBias>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
     float mx[2] = {kBwdNegInf, kBwdNegInf};
@@ -157,8 +162,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   float delta[2] = {0.f, 0.f};
   for (int k0 = 0; k0 < n; k0 += kRows) {
     __syncthreads();
-    load_tile<kVec, kD>(sk, kp, k0, n, st.kl);
-    load_tile<kVec, kD>(sv, vp, k0, n, st.vl);
+    load_tile<kVec, kD>(sk, kp, k0, n, st.kl, st.hd);
+    load_tile<kVec, kD>(sv, vp, k0, n, st.vl, st.hd);
     __syncthreads();
     tile_scores<kBias>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
     mma_abt(dp, gf, sv);
@@ -177,8 +182,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int i = 0; i < kHd / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   for (int k0 = 0; k0 < n; k0 += kRows) {
     __syncthreads();
-    load_tile<kVec, kD>(sk, kp, k0, n, st.kl);
-    load_tile<kVec, kD>(sv, vp, k0, n, st.vl);
+    load_tile<kVec, kD>(sk, kp, k0, n, st.kl, st.hd);
+    load_tile<kVec, kD>(sv, vp, k0, n, st.vl, st.hd);
     __syncthreads();
     tile_scores<kBias>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
     mma_abt(dp, gf, sv);
@@ -245,8 +250,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   const float* row_stats = stats + (static_cast<int64_t>(b) * heads + h) * n;
 
   uint32_t kf[kHd / 16][4], vf[kHd / 16][4];
-  load_tile<kVec, kD>(sq, k + b * st.kb + h * st.kh, k0, n, st.kl);
-  load_tile<kVec, kD>(sg, v + b * st.vb + h * st.vh, k0, n, st.vl);
+  load_tile<kVec, kD>(sq, k + b * st.kb + h * st.kh, k0, n, st.kl, st.hd);
+  load_tile<kVec, kD>(sg, v + b * st.vb + h * st.vh, k0, n, st.vl, st.hd);
   __syncthreads();
   load_a(kf, sq);
   load_a(vf, sg);
@@ -262,8 +267,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   float s[kRows / 8][4], dp[kRows / 8][4];
   for (int q0 = 0; q0 < n; q0 += kRows) {
     __syncthreads();
-    load_tile<kVec, kD>(sq, qp, q0, n, st.ql);
-    load_tile<kVec, kD>(sg, gp, q0, n, st.gl);
+    load_tile<kVec, kD>(sq, qp, q0, n, st.ql, st.hd);
+    load_tile<kVec, kD>(sg, gp, q0, n, st.gl, st.hd);
     for (int i = threadIdx.x; i < kRows; i += kWarps * 32) {
       const bool in = q0 + i < n;  // a row past the end gets p = 0 (its score is -inf)
       sm[i] = in ? row_stats[q0 + i] : 0.f;
@@ -333,8 +338,9 @@ __global__ void __launch_bounds__(2 * kRows)
   float qr[kHalf], gr[kHalf], acc[kHalf];
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
-    qr[i] = in ? qp[2 * i + half] : 0.f;
-    gr[i] = in ? gp[2 * i + half] : 0.f;
+    const bool col = in && 2 * i + half < st.hd;
+    qr[i] = col ? qp[2 * i + half] : 0.f;
+    gr[i] = col ? gp[2 * i + half] : 0.f;
     acc[i] = 0.f;
   }
   float m = kBwdNegInf, l = 0.f, delta = 0.f;
@@ -344,7 +350,7 @@ __global__ void __launch_bounds__(2 * kRows)
       __syncthreads();
       for (int i = threadIdx.x; i < kF32Tile * kD; i += 2 * kRows) {
         const int r = i / kD, d = i % kD;
-        const bool kin = k0 + r < n;
+        const bool kin = k0 + r < n && d < st.hd;
         sk[r][d] = kin ? kp[(k0 + r) * st.kl + d] : 0.f;
         if (pass > 0) sv[r][d] = kin ? vp[(k0 + r) * st.vl + d] : 0.f;
       }
@@ -380,7 +386,8 @@ __global__ void __launch_bounds__(2 * kRows)
   if (in) {
     float* dst = dq + b * st.ob + static_cast<int64_t>(row) * st.ol + h * st.oh + half;
 #pragma unroll
-    for (int i = 0; i < kHalf; ++i) dst[2 * i] = acc[i] * scale;
+    for (int i = 0; i < kHalf; ++i)
+      if (2 * i + half < st.hd) dst[2 * i] = acc[i] * scale;
     if (half == 0) {
       const int64_t plane = static_cast<int64_t>(gridDim.z) * heads * n;
       float* row_stats = stats + (static_cast<int64_t>(b) * heads + h) * n + row;
@@ -419,15 +426,16 @@ __global__ void __launch_bounds__(2 * kRows)
   float kr[kHalf], vr[kHalf], dka[kHalf], dva[kHalf];
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
-    kr[i] = in ? kp[2 * i + half] : 0.f;
-    vr[i] = in ? vp[2 * i + half] : 0.f;
+    const bool col = in && 2 * i + half < st.hd;
+    kr[i] = col ? kp[2 * i + half] : 0.f;
+    vr[i] = col ? vp[2 * i + half] : 0.f;
     dka[i] = dva[i] = 0.f;
   }
   for (int q0 = 0; q0 < n; q0 += kF32Tile) {
     __syncthreads();
     for (int i = threadIdx.x; i < kF32Tile * kD; i += 2 * kRows) {
       const int r = i / kD, d = i % kD;
-      const bool qin = q0 + r < n;
+      const bool qin = q0 + r < n && d < st.hd;
       sq[r][d] = qin ? qp[(q0 + r) * st.ql + d] : 0.f;
       sg[r][d] = qin ? gp[(q0 + r) * st.gl + d] : 0.f;
     }
@@ -457,6 +465,7 @@ __global__ void __launch_bounds__(2 * kRows)
     const int64_t off = b * st.ob + static_cast<int64_t>(row) * st.ol + h * st.oh + half;
 #pragma unroll
     for (int i = 0; i < kHalf; ++i) {
+      if (2 * i + half >= st.hd) break;
       dk[off + 2 * i] = dka[i] * scale;
       dv[off + 2 * i] = dva[i];
     }

@@ -97,9 +97,12 @@
 // the blank tiles of its bias (5 of 25 at VAR's L = 286; the decode has
 // none).
 // Head dim: kD = 64 (VAR, every ViT) or 48 (#3 and #4 only: RAR-B, MaskGIT-B
-// at 768 / 16). A 48-wide head keeps the 64-wide tiles (wgmma_tile.cuh):
-// S = Q K^T runs 3 K-steps instead of 4, P V computes the zero columns 48-63
-// of V, and only 48 columns are stored.
+// at 768 / 16), and at run time st.hd, any multiple of 8 up to kD (#3 and
+// #4 run hd <= 48 under kD = 48 and 56 under 64). A narrower head keeps the
+// 64-wide tiles (wgmma_tile.cuh): its rows are copied into hd / 8 chunks
+// and the rest zero-filled, S = Q K^T runs kD / 16 K-steps (3 instead of 4
+// at kD = 48), P V computes the zero columns of V past hd, and only hd
+// columns are stored.
 
 #pragma once
 
@@ -115,9 +118,11 @@ namespace sm90 {
 
 // Element strides of q, k and v (batch, row, head; the head-dim stride is
 // 1) and of the bias (batch, head, row; column stride 1; 0 on a broadcast
-// axis).
+// axis), and the head dim hd (a multiple of 8, at most the kernel's kD;
+// the output is (B, Lq, H, hd)).
 struct FwdStrides {
   int64_t qb, ql, qh, kb, kl, kh, vb, vl, vh, bb, bh, bq;
+  int hd = kHd;
 };
 
 constexpr int kFwdWG = 2;          // warpgroups per block, 64 q rows each, one k/v ring
@@ -226,17 +231,18 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
     return skv + 2 * s * kTileBytes;
   };
   auto load_k = [&](uint32_t dst, int j) {
-    load_tile_async<kFwdThreads, kD>(dst, kp, j * kTile, lk, st.kl, threadIdx.x);
+    load_tile_async<kFwdThreads, kD>(dst, kp, j * kTile, lk, st.kl, threadIdx.x, st.hd);
   };
   auto load_v = [&](uint32_t dst, int j) {
-    load_tile_async<kFwdThreads, kD>(dst + kTileBytes, vp, j * kTile, lk, st.vl, threadIdx.x);
+    load_tile_async<kFwdThreads, kD>(dst + kTileBytes, vp, j * kTile, lk, st.vl, threadIdx.x,
+                                     st.hd);
   };
   auto load_item = [&](int it) {  // streamed: k (pass 1), or k and v (pass 2)
     load_k(slot(it), it < nt ? it : it - nt);
     if (it >= nt) load_v(slot(it), it - nt);
   };
   load_tile_async<kThreads, kD>(sq, q + b * st.qb + h * st.qh, q0, lq, st.ql,
-                                threadIdx.x % kThreads);
+                                threadIdx.x % kThreads, st.hd);
   if (kResident) {
     for (int j = 0; j < nt; ++j) {  // group j: k tile j (group 0 also q)
       load_k(slot(j), j);
@@ -357,12 +363,12 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   cp_async_wait<0>();
   if (!active) return;
 
-  const int64_t ldo = static_cast<int64_t>(heads) * kD;
-  bf16* dst = out + (static_cast<int64_t>(b) * lq * heads + h) * kD + 2 * t4;
+  const int64_t ldo = static_cast<int64_t>(heads) * st.hd;
+  bf16* dst = out + (static_cast<int64_t>(b) * lq * heads + h) * st.hd + 2 * t4;
 #pragma unroll
   for (int i = 0; i < kD / 2; i += 2) {  // columns 8 (i >> 2) + 2 t4 (+ 1) < kD
     const int row = q0 + row_lo + 8 * ((i >> 1) & 1);
-    if (row < lq)
+    if (row < lq && 8 * (i >> 2) + 2 * t4 < st.hd)
       *reinterpret_cast<__nv_bfloat162*>(dst + row * ldo + 8 * (i >> 2)) =
           __floats2bfloat162_rn(o[i], o[i + 1]);
   }
@@ -500,12 +506,12 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   auto slot = [&](int it) -> uint32_t { return skv + 2 * (it % kFwdSlots) * kTileBytes; };
   auto load_item = [&](int it) {  // k and v of the item's key tile
     const int j = tile_of(it);
-    load_tile_async<kFwdThreads, kD>(slot(it), kp, j * kTile, lk, st.kl, threadIdx.x);
+    load_tile_async<kFwdThreads, kD>(slot(it), kp, j * kTile, lk, st.kl, threadIdx.x, st.hd);
     load_tile_async<kFwdThreads, kD>(slot(it) + kTileBytes, vp, j * kTile, lk, st.vl,
-                                     threadIdx.x);
+                                     threadIdx.x, st.hd);
   };
   load_tile_async<kThreads, kD>(sq, q + b * st.qb + h * st.qh, q0, lq, st.ql,
-                                threadIdx.x % kThreads);
+                                threadIdx.x % kThreads, st.hd);
 #pragma unroll
   for (int i = 0; i < kFwdSlots - 1; ++i) {  // group i: item i (group 0 also q)
     if (i < items) load_item(i);
@@ -599,13 +605,13 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
       if (row < lq) row_lse[row] = ((m[r] == -INFINITY ? 0.f : m[r]) + log2f(l[r])) * kLn2;
     }
   }
-  const int64_t ldo = static_cast<int64_t>(heads) * kD;
-  bf16* dst = out + (static_cast<int64_t>(b) * lq * heads + h) * kD + 2 * t4;
+  const int64_t ldo = static_cast<int64_t>(heads) * st.hd;
+  bf16* dst = out + (static_cast<int64_t>(b) * lq * heads + h) * st.hd + 2 * t4;
 #pragma unroll
   for (int i = 0; i < kD / 2; i += 2) {  // columns 8 (i >> 2) + 2 t4 (+ 1) < kD
     const int r = (i >> 1) & 1;
     const int row = q0 + row_lo + 8 * r;
-    if (row < lq)
+    if (row < lq && 8 * (i >> 2) + 2 * t4 < st.hd)
       *reinterpret_cast<__nv_bfloat162*>(dst + row * ldo + 8 * (i >> 2)) =
           __floats2bfloat162_rn(o[i] / l[r], o[i + 1] / l[r]);
   }

@@ -11,8 +11,9 @@
 //   o = (bf16(p) v) / rowsum(p)         ("bf16" is the inputs' type)
 // The output is contiguous (B, Lq, H * hd), head h at columns h*hd: the
 // (B, N, C) that the packed kernel's out projection reads, and the
-// (B, Lq, H, hd) of a BNHD call. hd is 64, or 48 for #4 alone (the packed
-// #1 and #7 serve the ViTs, whose heads are all 64 wide).
+// (B, Lq, H, hd) of a BNHD call. hd (st.hd) is 64, or for #4 alone any
+// multiple of 8 up to 64, run under kD = 48 up to 48 and kD = 64 past it
+// (the packed #1 and #7 serve the ViTs, whose heads are all 64 wide).
 //
 // bf16 runs the one-pass wgmma kernel of attention_fwd_sm90.cuh (its
 // design, its bound and the blank-tile map are described there). This file
@@ -69,7 +70,7 @@ __global__ void __launch_bounds__(kRows)
   float qr[kD], o[kD];
 #pragma unroll
   for (int d = 0; d < kD; ++d) {
-    qr[d] = in ? qp[d] : 0.f;
+    qr[d] = in && d < st.hd ? qp[d] : 0.f;
     o[d] = 0.f;
   }
   float m = kFwdNegInf, l = 0.f;
@@ -78,7 +79,7 @@ __global__ void __launch_bounds__(kRows)
     __syncthreads();
     for (int i = threadIdx.x; i < kFwdF32Tile * kD; i += kRows) {
       const int r = i / kD, d = i % kD;
-      const bool kin = k0 + r < lk;
+      const bool kin = k0 + r < lk && d < st.hd;
       sk[r][d] = kin ? kp[(k0 + r) * st.kl + d] : 0.f;
       sv[r][d] = kin ? vp[(k0 + r) * st.vl + d] : 0.f;
     }
@@ -114,19 +115,20 @@ __global__ void __launch_bounds__(kRows)
     }
   }
   if (in) {
-    float* dst = out + ((static_cast<int64_t>(b) * lq + row) * heads + h) * kD;
+    float* dst = out + ((static_cast<int64_t>(b) * lq + row) * heads + h) * st.hd;
 #pragma unroll
-    for (int d = 0; d < kD; ++d) dst[d] = o[d] / l;
+    for (int d = 0; d < kD; ++d)
+      if (d < st.hd) dst[d] = o[d] / l;
     if (kLse)
       lse[(static_cast<int64_t>(b) * heads + h) * lq + row] = (m == kFwdNegInf ? 0.f : m) + logf(l);
   }
 }
 
-// Launches the forward on `stream` for q (B, Lq, H, kD) and k, v (B, Lk, H,
-// kD) at the strides `st`, all fp32 or all bf16 (is_bf16); bias null or an
+// Launches the forward on `stream` for q (B, Lq, H, st.hd) and k, v (B, Lk,
+// H, st.hd) at the strides `st`, all fp32 or all bf16 (is_bf16); bias null or an
 // fp32 (Lq, Lk) whose row stride is st.bq; blank null, or (bf16, with a bias
 // and Lq == Lk) the bias's blank-tile map and map of all-zero tiles, whose
-// blank tiles the kernel skips; out contiguous (B, Lq, H * kD) of the inputs'
+// blank tiles the kernel skips; out contiguous (B, Lq, H * st.hd) of the inputs'
 // type; lse null, or an fp32 (B, H, Lq) that receives each row's m + log(l)
 // for the backward (attention_bwd_sm90.cuh). bf16 needs every base pointer
 // and stride of q, k and v on a 16-byte boundary. Returns cudaGetLastError()

@@ -35,7 +35,15 @@
 #include "attention_bwd_sm90.cuh"
 #include "attention_fwd_tile.cuh"
 
-// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd 48 or 64, each with its own
+// hd <= 48: the kD = 48 instantiations, compiled apart (attention_qblk_hd48.cu)
+int attention_qblk_fwd_hd48(const void* q, const void* k, const void* v, const void* bias,
+                            const uint8_t* map, void* out, float* lse, int batch, int lq,
+                            int lk, int heads, const int64_t* qs, const int64_t* ks,
+                            const int64_t* vs, int64_t bias_row_stride, float scale,
+                            int is_bf16, int hd, cudaStream_t stm);
+
+// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 64 (run
+// under the kD = 48 kernels up to 48), each with its own
 // batch, row and head strides in elements (qs, ks, vs = {batch, row, head};
 // the head-dim stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32
 // (Lq, Lk) shared by every batch and head, row stride bias_row_stride
@@ -52,9 +60,9 @@ extern "C" int attention_qblk_fwd(const void* q, const void* k, const void* v,
                                   int lq, int lk, int heads, const int64_t* qs,
                                   const int64_t* ks, const int64_t* vs, int64_t bias_row_stride,
                                   float scale, int is_bf16, int hd, void* stream) {
-  if (hd != 48 && hd != 64) return cudaErrorInvalidValue;
+  if (hd < 8 || hd > 64 || hd % 8) return cudaErrorInvalidValue;
   const FwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-                      0, 0, bias ? bias_row_stride : 0};
+                      0, 0, bias ? bias_row_stride : 0, hd};
   const cudaStream_t stm = static_cast<cudaStream_t>(stream);
   uint8_t* map = static_cast<uint8_t*>(blank);
   if (map) {
@@ -64,8 +72,9 @@ extern "C" int attention_qblk_fwd(const void* q, const void* k, const void* v,
     if (err) return err;
   }
   float* lp = static_cast<float*>(lse);
-  return hd == 48 ? launch_attention_fwd<4, 48>(q, k, v, bias, map, out, batch, lq, lk, heads, st,
-                                                scale, is_bf16, stm, lp)
-                  : launch_attention_fwd<4, 64>(q, k, v, bias, map, out, batch, lq, lk, heads, st,
-                                                scale, is_bf16, stm, lp);
+  if (hd <= 48)
+    return attention_qblk_fwd_hd48(q, k, v, bias, map, out, lp, batch, lq, lk, heads, qs, ks, vs,
+                                   bias_row_stride, scale, is_bf16, hd, stm);
+  return launch_attention_fwd<4, 64>(q, k, v, bias, map, out, batch, lq, lk, heads, st, scale,
+                                     is_bf16, stm, lp);
 }

@@ -62,7 +62,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, const
 
 }  // namespace
 
-// q, k, v and g (B, L, H, hd), hd 48 or 64, each with its own batch, row and
+// q, k, v and g (B, L, H, hd), hd a multiple of 8 up to 64 (run under the
+// kD = 48 kernels up to 48), each with its own batch, row and
 // head strides in elements (qs, ks, vs, gs = {batch, row, head}; the head-dim
 // stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32 (L, L)
 // shared by every batch and head, row stride bias_row_stride (column stride
@@ -83,12 +84,12 @@ extern "C" int attention_qblk_bwd(const void* q, const void* k, const void* v,
                                   const int64_t* gs, const int64_t* os,
                                   int64_t bias_row_stride, float scale, int is_bf16, int hd,
                                   void* stream) {
-  if (hd != 48 && hd != 64) return cudaErrorInvalidValue;
+  if (hd < 8 || hd > 64 || hd % 8) return cudaErrorInvalidValue;
   const int64_t ol = static_cast<int64_t>(heads) * hd;
   const BwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-                      gs[0], gs[1], gs[2], n * ol, ol, hd, bias ? bias_row_stride : 0};
+                      gs[0], gs[1], gs[2], n * ol, ol, hd, bias ? bias_row_stride : 0, hd};
   const cudaStream_t stm = static_cast<cudaStream_t>(stream);
-  return hd == 48 ? launch_bwd<48>(q, k, v, g, o, os, lse, bias, dq, dk, dv, dbias, work, blank,
+  return hd <= 48 ? launch_bwd<48>(q, k, v, g, o, os, lse, bias, dq, dk, dv, dbias, work, blank,
                                    batch, n, heads, st, scale, is_bf16, stm)
                   : launch_bwd<64>(q, k, v, g, o, os, lse, bias, dq, dk, dv, dbias, work, blank,
                                    batch, n, heads, st, scale, is_bf16, stm);

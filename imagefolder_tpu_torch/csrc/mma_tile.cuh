@@ -3,9 +3,9 @@
 // attention_bnhd.cu take its constants): ldmatrix
 // loads from shared memory, mma.sync m16n8k16 with bf16 operands and fp32
 // accumulators, a 64-row, 64-column bf16 tile loader with zero rows past the
-// end (and zero columns past a 48-wide head's end: a narrower head runs the
-// same products on its zero-padded tiles, and its users store only its
-// columns), and the three warp products the BNHD kernels are built from: a
+// end (and zero columns past a narrower head's end: a head of hd < 64 runs
+// the same products on its zero-padded tiles, and its users store only its
+// hd columns), and the three warp products the BNHD kernels are built from: a
 // warp's 16 rows times a shared tile transposed (scores), fp32 accumulators
 // packed back into bf16 A fragments, and A fragments times a shared tile.
 
@@ -59,21 +59,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Rows [row0, row0 + kRows) x kD columns (kD = 48 or 64) of one head's q,
-// k or v slice into a kHd-wide shared tile; rows >= n and columns >= kD are
-// zeros. `ld` is the row stride in elements. kVec: 16-byte loads (the caller
-// has checked the base pointer and the row stride). Called by all kWarps *
-// 32 threads of the block.
+// Rows [row0, row0 + kRows) x hd columns (hd a multiple of 8, at most kD;
+// kD = 48 or 64) of one head's q, k or v slice into a kHd-wide shared tile;
+// rows >= n and columns >= hd are zeros. `ld` is the row stride in
+// elements. kVec: 16-byte loads (the caller has checked the base pointer
+// and the row stride). Called by all kWarps * 32 threads of the block.
 template <bool kVec, int kD = kHd>
 __device__ __forceinline__ void load_tile(bf16 (*dst)[kLd], const bf16* src,
-                                          int row0, int n, int64_t ld) {
+                                          int row0, int n, int64_t ld, int hd = kD) {
   static_assert(kD % 16 == 0 && kD <= kHd, "a head dim of whole 16-wide K-steps, at most 64");
   constexpr int kChunks = kRows * kHd / 8;
   for (int i = threadIdx.x; i < kChunks; i += kWarps * 32) {
     const int r = i / (kHd / 8);
     const int col = (i % (kHd / 8)) * 8;
     const int row = row0 + r;
-    const bool in = row < n && col < kD;
+    const bool in = row < n && col < hd;
     const bf16* s = src + static_cast<int64_t>(row) * ld + col;
     if (kVec) {
       uint4 v = make_uint4(0u, 0u, 0u, 0u);

@@ -7,11 +7,12 @@
 // swizzle that wgmma reads (16-byte chunk c of row r at chunk c ^ (r % 8)),
 // written by cp.async 16-byte copies with zero fill past the end, and feed
 // m64n64k16 products (bf16 in, fp32 accumulate) with the A operand in
-// registers. A narrower head (kD = 48: RAR-B, MaskGIT-B) keeps the same
-// 64-wide tile and descriptor: its rows are copied into chunks 0-5 and
-// chunks 6-7 are zero-filled, so a product over the head dim runs kD / 16
-// K-steps and a product whose N is the head dim computes zero columns past
-// kD, which are never stored.
+// registers. A narrower head (any multiple of 8 below 64: 48 for RAR-B and
+// MaskGIT-B) keeps the same 64-wide tile and descriptor: its hd / 8 chunks
+// of a row are copied and the chunks past them zero-filled, so a product
+// over the head dim runs kD / 16 K-steps (kD = 48 for hd <= 48, else 64;
+// the K-steps past ceil(hd / 16) add exact zeros) and a product whose N is
+// the head dim computes zero columns past hd, which are never stored.
 
 #pragma once
 
@@ -145,33 +146,35 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&d)[3
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
-// rows [row0, row0 + 64) x kD values (kD = 48 or 64) of one head's slice
-// (row stride ld) into a swizzled 64-wide tile at `dst`; rows >= n and
-// columns >= kD are zero. Each of the kN threads that share the copy (tid
-// its index among them; by default the one warpgroup of the block) starts
-// 512 / kN 16-byte copies.
+// rows [row0, row0 + 64) x hd values (hd a multiple of 8, at most kD; kD =
+// 48 or 64) of one head's slice (row stride ld) into a swizzled 64-wide
+// tile at `dst`; rows >= n and columns >= hd are zero. Each of the kN
+// threads that share the copy (tid its index among them; by default the one
+// warpgroup of the block) starts 512 / kN 16-byte copies.
 template <int kN = kThreads, int kD = kHd>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src, int row0, int n,
-                                                int64_t ld, int tid) {
+                                                int64_t ld, int tid, int hd = kD) {
   static_assert(kD % 16 == 0 && kD <= kHd, "a head dim of whole 16-wide K-steps, at most 64");
+  const int chunks = hd >> 3;
 #pragma unroll
   for (int j = 0; j < kTile * 8 / kN; ++j) {
     const int i = tid + j * kN;
     const int r = i >> 3, c = i & 7;
     const bool row_in = row0 + r < n;
     // chunks past a narrow head's width copy nothing from its first chunk;
-    // at kD = kHd both conditions fold away
-    const bool in = row_in && c < kD / 8;
+    // at hd = kHd, known when compiled, both conditions fold away
+    const bool in = row_in && c < chunks;
     cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4),
-               src + static_cast<int64_t>(row_in ? row0 + r : 0) * ld + (c < kD / 8 ? c * 8 : 0),
+               src + static_cast<int64_t>(row_in ? row0 + r : 0) * ld + (c < chunks ? c * 8 : 0),
                in);
   }
 }
 
+// the same copy shared by the block's one warpgroup
 template <int kD = kHd>
-__device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src, int row0, int n,
-                                                int64_t ld) {
-  load_tile_async<kThreads, kD>(dst, src, row0, n, ld, threadIdx.x);
+__device__ __forceinline__ void load_tile_wg(uint32_t dst, const bf16* src, int row0, int n,
+                                             int64_t ld, int hd = kD) {
+  load_tile_async<kThreads, kD>(dst, src, row0, n, ld, threadIdx.x, hd);
 }
 
 }  // namespace sm90

@@ -17,8 +17,8 @@ parameters; the residual stream is added in fp32 and each block returns the
 activation dtype.
 
 Attention: the training forward (causal mask) goes through the
-``dot_product_attention`` router (#3 on the card, backward #6, both built
-for RAR-B's head dim 768 / 16 = 48 as well as 64).
+``dot_product_attention`` router (#3 on the card, backward #6, which take
+RAR-B's head dim 768 / 16 = 48 and every other multiple of 8 up to 64).
 The KV-cached decode is plain PyTorch attention over the written prefix of
 each block's cache, as the JAX package's decode is XLA's
 ``jax.nn.dot_product_attention`` and no kernel of its own: fp32 scores and
@@ -256,17 +256,38 @@ class RAR(nn.Module):
 
     def preprocess_condition(self, condition: torch.Tensor,
                              generator: Optional[torch.Generator] = None,
-                             cond_drop_prob: float = 0.0) -> torch.Tensor:
-        """class id -> condition-token id, dropped to the none-condition with
-        probability ``cond_drop_prob`` (draws from ``generator``;
-        rar.py:303-308)."""
+                             cond_drop_prob: float = 0.0,
+                             drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """class id -> condition-token id, dropped to the none-condition where
+        ``drop`` (B,) is true or, without ``drop``, with probability
+        ``cond_drop_prob`` (draws from ``generator``; rar.py:303-308)."""
         cfg = self.config
         cond = condition + cfg.codebook_size + 1
-        if cond_drop_prob > 0 and generator is not None:
+        if drop is None and cond_drop_prob > 0 and generator is not None:
             drop = torch.rand(cond.shape, generator=generator,
                               device=cond.device) < cond_drop_prob
-            cond = torch.where(drop, cfg.none_condition_id, cond)
+        if drop is not None:
+            cond = torch.where(drop.to(cond.device), cfg.none_condition_id, cond)
         return cond
+
+    def sample_orders(self, batch: int, random_ratio: float,
+                      generator: Optional[torch.Generator] = None, *,
+                      uniforms: Optional[torch.Tensor] = None,
+                      permutations: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Per-sample orders (B, L) (rar.py:266-279): a random permutation
+        where a uniform falls below ``random_ratio``, else the raster order.
+        ``uniforms`` (B,) and ``permutations`` (B, L) are drawn from
+        ``generator`` (the uniforms, then one permutation per sample) unless
+        given."""
+        l, dev = self.config.image_seq_len, self.device
+        if uniforms is None:
+            uniforms = torch.rand(batch, generator=generator, device=dev)
+        if permutations is None:
+            permutations = torch.stack([torch.randperm(l, generator=generator, device=dev)
+                                        for _ in range(batch)])
+        raster = torch.arange(l, device=dev).expand(batch, l)
+        use_random = uniforms.to(dev)[:, None] < random_ratio
+        return torch.where(use_random, permutations.to(dev), raster)
 
     def forward(self, input_ids: torch.Tensor, condition: torch.Tensor,
                 orders: Optional[torch.Tensor] = None):

@@ -44,8 +44,9 @@ the plain version of lse), skips the 64 x 64 tiles that a bias blanks
 (``blank_tile_map``, plain version ``blank_tile_map_reference``); dk and dv
 come from a kernel per 64 keys, dq from one per 64 q rows. fp32 backwards,
 calls that ask for dbias, and #6 at L = 1 keep ``csrc/attention_bwd_tile.cuh``.
-The BNHD kernels (#3-#6) take heads of 48 (RAR-B) or 64; the packed pair
-(#1, #2), which only the ViTs call, takes 64. Other widths raise.
+The BNHD kernels (#3-#6) take every head width that is a multiple of 8 up
+to 64 (48 for RAR-B and MaskGIT-B); the packed pair (#1, #2), which only
+the ViTs call, takes 64. Other widths raise.
 Each dispatches on the tensor's device only: a CPU tensor goes to its
 ``*_reference``, the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel or raises.
@@ -84,12 +85,13 @@ FUSED_BWD_LAUNCHES = 0
 QBLK_LAUNCHES = 0
 QBLK_BWD_LAUNCHES = 0
 
-# compiled head widths: the packed pair #1/#2 (and #7's attention step)
-# serve the ViTs, every preset of which has heads of 64; the BNHD kernels
-# #3-#6 also take 48 (RAR-B and MaskGIT-B: 768 / 16), zero-padded to the
-# 64-wide tiles on the card. Other widths raise.
+# head widths: the packed pair #1/#2 (and #7's attention step) serve the
+# ViTs, every preset of which has heads of 64; the BNHD kernels #3-#6 take
+# every multiple of 8 up to 64 (48: RAR-B and MaskGIT-B, 768 / 16), a
+# narrower head zero-padded to the 64-wide tiles on the card (compiled at
+# 48 and 64; up to 48 runs under 48's). Other widths raise.
 _HEAD_DIM = 64
-_BNHD_HEAD_DIMS = (48, 64)
+_BNHD_HEAD_DIMS = tuple(range(8, 65, 8))
 _TILE = 64  # q rows and keys per tile of the bf16 backward (#2, #5, #6) and its blank map
 
 # Score elements Lq * Lk per (batch, head) up to which the JAX package runs
@@ -233,7 +235,7 @@ def _strides(t: torch.Tensor, dims) -> ctypes.Array:
 
 def _kernel_operands(q, k, v, bias, what: str):
     """The checks the BNHD kernels (#3-#6) make: q, k and v all bf16 or all
-    fp32, head dim 48 or 64, one device, unit last strides (a view is copied
+    fp32, a head dim in ``_BNHD_HEAD_DIMS``, one device, unit last strides (a view is copied
     only if its last stride is not 1), the bias cast to fp32. Every check
     comes before any launch."""
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
@@ -242,7 +244,8 @@ def _kernel_operands(q, k, v, bias, what: str):
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.shape[-1] not in _BNHD_HEAD_DIMS:
         raise NotImplementedError(
-            f"{what} kernel is built for head dims {_BNHD_HEAD_DIMS}, got {q.shape[-1]}")
+            f"{what} kernel takes head dims that are multiples of 8 up to 64 "
+            f"({', '.join(map(str, _BNHD_HEAD_DIMS))}), got {q.shape[-1]}")
     if not (k.device == v.device == q.device and (bias is None or bias.device == q.device)):
         raise ValueError("q, k, v and bias must be on the same device")
     if 0 in (*q.shape, k.shape[1]):

@@ -11,7 +11,9 @@
   labels (the trainers turn ``requires_grad`` off there);
 - ``adamw_with_freezing``: ``torch.optim.AdamW`` over a decay and a no-decay
   group, with the schedules and optax's global-norm clip;
-- ``ema_update``.
+- ``warmup_cosine_decay_schedule``: optax's, for the RAR and MaskGIT
+  trainers;
+- ``ema_update`` and ``ema_decay_schedule`` (open-muse's EMA decay).
 
 optax's chain is clip_by_global_norm -> scale_by_adam -> (+ wd * p) ->
 scale_by_learning_rate(lr(count)), count from 0. AdamW's decoupled decay
@@ -33,10 +35,10 @@ from torch import nn
 from imagefolder_tpu_torch.models.var import VAR
 from imagefolder_tpu_torch.utils.convert import flax_path, var_key_map
 
-__all__ = ["lr_wd_annealing", "wd_cosine_anneal", "cosine_with_warmup", "no_decay_predicate",
-           "var_flax_paths", "module_flax_paths",
-           "tokenizer_frozen_predicate", "disc_frozen_predicate", "adamw_with_freezing",
-           "ScheduledAdamW", "ema_update"]
+__all__ = ["lr_wd_annealing", "wd_cosine_anneal", "cosine_with_warmup",
+           "warmup_cosine_decay_schedule", "no_decay_predicate", "var_flax_paths",
+           "module_flax_paths", "tokenizer_frozen_predicate", "disc_frozen_predicate",
+           "adamw_with_freezing", "ScheduledAdamW", "ema_update", "ema_decay_schedule"]
 
 
 def cosine_with_warmup(base_lr: float, warmup_steps: int, total_steps: int,
@@ -51,6 +53,28 @@ def cosine_with_warmup(base_lr: float, warmup_steps: int, total_steps: int,
             return base_lr * step / warmup_steps
         prog = min(max((step - warmup_steps) / max(total_steps - warmup_steps, 1), 0.0), 1.0)
         return min_lr + 0.5 * (base_lr - min_lr) * (1 + math.cos(math.pi * prog))
+
+    return sched
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0
+                                 ) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule``: from step 0 (so the first lr is
+    ``init_value``) linear to ``peak_value`` over ``warmup_steps``, then a
+    cosine to ``end_value`` at ``decay_steps`` (counted from step 0, warmup
+    included), flat after it."""
+    alpha = 0.0 if peak_value == 0 else end_value / peak_value
+    cos_steps = decay_steps - warmup_steps
+
+    def sched(step: int) -> float:
+        if step < warmup_steps:  # never at warmup_steps <= 0
+            return init_value + (peak_value - init_value) * step / warmup_steps
+        if cos_steps <= 0:
+            return peak_value
+        count = min(step - warmup_steps, cos_steps)
+        return peak_value * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * count / cos_steps))
+                             + alpha)
 
     return sched
 
@@ -236,6 +260,23 @@ def adamw_with_freezing(model: nn.Module, lr_schedule: Callable[[int], float], *
         wd_schedule=wd_cosine_anneal(weight_decay, weight_decay_end, total_steps)
         if anneal else None,
         b1=b1, b2=b2, eps=eps, grad_clip=grad_clip)
+
+
+def ema_decay_schedule(optimization_step: int, *, decay: float = 0.9999,
+                       min_decay: float = 0.0, update_after_step: int = 0,
+                       use_ema_warmup: bool = False, inv_gamma: float = 1.0,
+                       power: float = 2.0 / 3.0) -> float:
+    """open-muse EMAModel.get_decay (RAR/modules/ema_model.py:95-109), the
+    JAX package's ``ema_decay_schedule``. ``optimization_step`` counts the
+    updates including this one (a trainer with ``step`` updates done passes
+    ``step + 1``). With s = step - update_after_step - 1: 0 while s <= 0
+    (the EMA copies the parameters); else (1 + s) / (10 + s), or with
+    warmup 1 - (1 + s / inv_gamma)^-power, clipped to [min_decay, decay]."""
+    s = max(0, optimization_step - update_after_step - 1)
+    if s <= 0:
+        return 0.0
+    cur = 1.0 - (1.0 + s / inv_gamma) ** (-power) if use_ema_warmup else (1.0 + s) / (10.0 + s)
+    return min(max(cur, min_decay), decay)
 
 
 @torch.no_grad()

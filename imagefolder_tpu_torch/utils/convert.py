@@ -12,9 +12,12 @@ layout), and ``dinodisc_state_dict_from_flax`` mirrors the flax DinoDisc
 tree (the JAX package exports no discriminator): ``dino.*`` in the ViT
 layout, the heads, and the ``spectral`` collection's ``u`` and ``sigma`` as
 buffers. ``rar_state_dict_from_flax`` writes the reference RAR layout of
-``export_rar``. ``flax_path`` names the flax path of a port parameter,
-which the trainers' optimizer labels read. They cover the ported slice
-only.
+``export_rar``; ``maskgit_state_dict_from_flax`` upstream UViTBert's layout
+for the ``uvit`` trunk (the inverse of ``convert_maskgit_uvit``) and the
+same block layout for ``bert``. ``flax_path`` names the flax path of a port
+parameter, and ``var_key_map``, ``rar_key_map`` and ``maskgit_key_map`` map
+each parameter to its flax path, which the trainers' optimizer labels read.
+They cover the ported slice only.
 
 One gap is filled: a Phi that the nearest-tick mapping never picks (e.g.
 ``phi_2`` of K = 4 with ``v_patch_nums=(1, 2, 3)``) was never called in flax
@@ -32,13 +35,14 @@ import re
 import numpy as np
 import torch
 
+from imagefolder_tpu_torch.models.maskgit import MaskGITConfig
 from imagefolder_tpu_torch.models.tokenizer import ModelArgs, check_slice
 from imagefolder_tpu_torch.models.var import VARConfig
 
 __all__ = ["vqmodel_state_dict_from_flax", "multiscale_vq_state_dict_from_flax",
            "lpips_state_dict_from_flax", "dinodisc_state_dict_from_flax", "flax_path",
-           "var_key_map", "var_state_dict_from_flax", "rar_state_dict_from_flax",
-           "to_torch"]
+           "var_key_map", "var_state_dict_from_flax", "rar_key_map", "rar_state_dict_from_flax",
+           "maskgit_key_map", "maskgit_state_dict_from_flax", "to_torch"]
 
 
 def _put_linear(sd: dict, key: str, p: Mapping):
@@ -213,47 +217,54 @@ def flax_path(name: str) -> str:
     return "/".join(parts)
 
 
+def _map_linear(m: dict, key: str, path: str, bias: bool = True):
+    m[f"{key}.weight"] = (f"{path}/kernel", True)
+    if bias:
+        m[f"{key}.bias"] = (f"{path}/bias", False)
+
+
+def _map_ln(m: dict, key: str, path: str):
+    m[f"{key}.weight"] = (f"{path}/scale", False)
+    m[f"{key}.bias"] = (f"{path}/bias", False)
+
+
 def var_key_map(cfg: VARConfig) -> Dict[str, Tuple[str, bool]]:
     """Each parameter of the port's VAR -> (its flax path "a/b/leaf", whether
     the flax array is the transpose: Dense kernels are (in, out))."""
     m: Dict[str, Tuple[str, bool]] = {}
-
-    def linear(key: str, path: str):
-        m[f"{key}.weight"] = (f"{path}/kernel", True)
-        m[f"{key}.bias"] = (f"{path}/bias", False)
-
-    linear("word_embed", "word_embed")
+    _map_linear(m, "word_embed", "word_embed")
     for key in ("class_emb", "lvl_embed"):
         m[f"{key}.weight"] = (key, False)
     m["pos_start"] = ("pos_start", False)
     m["pos_1LC"] = ("pos_1LC", False)
-    linear("head_nm.ada_lin.1", "head_nm/ada_lin")
-    linear("head", "head")
+    _map_linear(m, "head_nm.ada_lin.1", "head_nm/ada_lin")
+    _map_linear(m, "head", "head")
     if cfg.p_drop > 0:
         m["empty_emb.weight"] = ("empty_emb", False)
     if cfg.shared_aln:
-        linear("shared_ada_lin.1", "shared_ada_lin")
+        _map_linear(m, "shared_ada_lin.1", "shared_ada_lin")
     for i in range(cfg.depth):
         g, f = f"blocks.{i}.", f"block_{i}/"
         m[g + "attn.mat_qkv.weight"] = (f + "attn/mat_qkv/kernel", True)
         m[g + "attn.q_bias"] = (f + "attn/q_bias", False)
         m[g + "attn.v_bias"] = (f + "attn/v_bias", False)
-        linear(g + "attn.proj", f + "attn/proj")
-        linear(g + "ffn.fc1", f + "ffn/fc1")
-        linear(g + "ffn.fc2", f + "ffn/fc2")
+        _map_linear(m, g + "attn.proj", f + "attn/proj")
+        _map_linear(m, g + "ffn.fc1", f + "ffn/fc1")
+        _map_linear(m, g + "ffn.fc2", f + "ffn/fc2")
         if cfg.attn_l2_norm:
             m[g + "attn.scale_mul_1H11"] = (f + "attn/scale_mul", False)
         if cfg.shared_aln:
             m[g + "ada_gss"] = (f + "ada_gss", False)
         else:
-            linear(g + "ada_lin.1", f + "ada_lin")
+            _map_linear(m, g + "ada_lin.1", f + "ada_lin")
     return m
 
 
-def var_state_dict_from_flax(params: Mapping, cfg: VARConfig) -> dict:
-    """flax VAR params -> {name: fp32 CPU tensor} for the port's VAR."""
+def _from_key_map(params: Mapping, key_map: Dict[str, Tuple[str, bool]]) -> dict:
+    """flax params -> {name: fp32 CPU tensor} through a key map (port name
+    -> (flax path, transposed))."""
     sd: dict = {}
-    for key, (path, transposed) in var_key_map(cfg).items():
+    for key, (path, transposed) in key_map.items():
         leaf = params
         for part in path.split("/"):
             leaf = leaf[part]
@@ -262,27 +273,77 @@ def var_state_dict_from_flax(params: Mapping, cfg: VARConfig) -> dict:
     return to_torch(sd)
 
 
-def rar_state_dict_from_flax(params: Mapping) -> dict:
-    """flax RAR params -> {name: fp32 CPU tensor} in the reference RAR layout
-    (``BaseModel.save_pretrained_weight``, RAR/modules/base_model.py:52-81),
-    the layout ``export_rar`` writes, for the port's ``RAR``."""
-    sd: dict = {}
-    for name in ("cls_token", "pos_embed", "target_aware_pos_embed", "timesteps_embeddings"):
-        sd[name] = np.asarray(params[name])
-    sd["embeddings.weight"] = np.asarray(params["embeddings"])
-    _put_linear(sd, "adaln_before_head.adaLN_modulation.1", params["final_ada"])
-    _put_linear(sd, "lm_head", params["lm_head"])
-    i = 0
-    while f"block_{i}" in params:
-        b, g = params[f"block_{i}"], f"blocks.{i}."
-        _put_linear(sd, g + "adaLN_modulation.1", b["adaLN"])
-        _put_ln(sd, g + "norm1", b["norm1"])
-        _put_ln(sd, g + "norm2", b["norm2"])
+def var_state_dict_from_flax(params: Mapping, cfg: VARConfig) -> dict:
+    """flax VAR params -> {name: fp32 CPU tensor} for the port's VAR."""
+    return _from_key_map(params, var_key_map(cfg))
+
+
+def rar_key_map(depth: int) -> Dict[str, Tuple[str, bool]]:
+    """Each parameter of the port's RAR (the reference layout,
+    ``BaseModel.save_pretrained_weight``, RAR/modules/base_model.py:52-81,
+    that ``export_rar`` writes) -> (its flax path, transposed)."""
+    m: Dict[str, Tuple[str, bool]] = {
+        name: (name, False)
+        for name in ("cls_token", "pos_embed", "target_aware_pos_embed", "timesteps_embeddings")}
+    m["embeddings.weight"] = ("embeddings", False)
+    _map_linear(m, "adaln_before_head.adaLN_modulation.1", "final_ada")
+    _map_linear(m, "lm_head", "lm_head")
+    for i in range(depth):
+        g, f = f"blocks.{i}.", f"block_{i}/"
+        _map_linear(m, g + "adaLN_modulation.1", f + "adaLN")
+        _map_ln(m, g + "norm1", f + "norm1")
+        _map_ln(m, g + "norm2", f + "norm2")
         for name in ("qkv", "proj"):
-            _put_linear(sd, f"{g}attn.{name}", b["attn"][name])
+            _map_linear(m, f"{g}attn.{name}", f"{f}attn/{name}")
         for name in ("q_norm", "k_norm"):
-            _put_ln(sd, f"{g}attn.{name}", b["attn"][name])
+            _map_ln(m, f"{g}attn.{name}", f"{f}attn/{name}")
         for name in ("fc1", "fc2"):
-            _put_linear(sd, f"{g}mlp.{name}", b[name])
-        i += 1
-    return to_torch(sd)
+            _map_linear(m, f"{g}mlp.{name}", f + name)
+    return m
+
+
+def rar_state_dict_from_flax(params: Mapping) -> dict:
+    """flax RAR params -> {name: fp32 CPU tensor} in the reference RAR layout,
+    the layout ``export_rar`` writes, for the port's ``RAR``."""
+    depth = sum(1 for key in params if key.startswith("block_"))
+    return _from_key_map(params, rar_key_map(depth))
+
+
+def maskgit_key_map(cfg: MaskGITConfig) -> Dict[str, Tuple[str, bool]]:
+    """Each parameter of the port's MaskGIT -> (its flax path, transposed).
+    ``uvit``: upstream UViTBert's layout, the inverse of
+    ``imagefolder_tpu/utils/convert_torch.py::convert_maskgit_uvit``;
+    ``bert``: the same block layout under ``blocks.{i}``, from the flax
+    paths of the JAX package's ImageBert stack."""
+    m: Dict[str, Tuple[str, bool]] = {"embeddings.weight": ("embeddings", False),
+                                      "pos_embed": ("pos_embed", False)}
+    _map_ln(m, "norm", "final_norm")
+    _map_linear(m, "lm_head", "lm_head")
+    uvit = cfg.arch == "uvit"
+
+    def block(key: str, path: str, skip: bool = False):
+        if skip:
+            _map_linear(m, f"{key}.skip_linear", f"{path}/skip_linear")
+        _map_ln(m, f"{key}.norm1", f"{path}/norm1")
+        _map_ln(m, f"{key}.norm2", f"{path}/norm2")
+        _map_linear(m, f"{key}.attn.qkv", f"{path}/qkv", bias=not uvit)
+        _map_linear(m, f"{key}.attn.proj", f"{path}/proj")
+        _map_linear(m, f"{key}.mlp.fc1", f"{path}/fc1")
+        _map_linear(m, f"{key}.mlp.fc2", f"{path}/fc2")
+
+    if uvit:
+        for i in range(cfg.depth // 2):
+            block(f"in_blocks.{i}", f"in_block_{i}")
+        block("mid_block", "mid_block")
+        for i in range(cfg.depth // 2):
+            block(f"out_blocks.{i}", f"out_block_{i}", skip=True)
+    else:
+        for i in range(cfg.depth):
+            block(f"blocks.{i}", f"block_{i}")
+    return m
+
+
+def maskgit_state_dict_from_flax(params: Mapping, cfg: MaskGITConfig) -> dict:
+    """flax MaskGIT params -> {name: fp32 CPU tensor} for the port's
+    ``MaskGIT`` of config ``cfg``, loaded with ``strict=True``."""
+    return _from_key_map(params, maskgit_key_map(cfg))

@@ -15,8 +15,9 @@ the card's: each gradient within 2e-2 of the JAX result's max abs.
 
 Also here: the map's plain version against a brute-force scan of the bias,
 and the check's teeth: the model with one non-blank tile wrongly skipped
-must fail the bound. #5 also runs at head dim 48 (RAR-B's 768 / 16), which
-the kernel zero-pads to its 64-wide tiles: the model pads the same way.
+must fail the bound. #5 also runs at head dim 48 (RAR-B's 768 / 16) and at
+32 and 40, which the kernel zero-pads to its 64-wide tiles: the model pads
+the same way.
 """
 
 import numpy as np
@@ -146,6 +147,19 @@ def test_model_matches_pallas_qblk_bwd_at_head_dim_48(bias_kind):
     48-wide inputs, bf16, within the card's bound; the gradients come back
     48 wide."""
     args, want = _qblk_case(bias_kind, seed=3, hd=48)
+    got = sm90_model(*args)
+    assert all(x.dtype == torch.bfloat16 and x.shape == args[0].shape for x in got)
+    assert _worst(got, want) <= TOL
+
+
+@pytest.mark.parametrize("hd", [32, 40])
+@pytest.mark.parametrize("bias_kind", ["none", "block_causal"])
+def test_model_matches_pallas_qblk_bwd_at_head_dims_32_and_40(bias_kind, hd):
+    """#5 at head dims 32 and 40, which the card runs on the head-dim-48
+    code: the model on tiles zero-padded to 64 against
+    ``_fused_attention_qblk_bwd`` in interpret mode on the narrow inputs,
+    within the card's bound; the gradients come back hd wide."""
+    args, want = _qblk_case(bias_kind, seed=3, hd=hd)
     got = sm90_model(*args)
     assert all(x.dtype == torch.bfloat16 and x.shape == args[0].shape for x in got)
     assert _worst(got, want) <= TOL

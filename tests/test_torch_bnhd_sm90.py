@@ -19,10 +19,11 @@ JAX gradient's max abs.
 Also here: the check's teeth (the forward model with one key tile dropped
 must fail it), and the CPU dispatch of ``fused_attention_lse`` and of the
 autograd forward, which on the CPU launch nothing and save no o and lse.
-The pair also runs at head dim 48 (RAR-B's 768 / 16), zero-padded to the
-64-wide tiles as the kernel pads it; the checks the BNHD kernels make
-before any launch (``_kernel_operands``) take 48 and 64 and refuse other
-widths.
+The pair also runs at head dim 48 (RAR-B's 768 / 16) and at 32 and 40
+(which the card runs on the head-dim-48 code), zero-padded to the 64-wide
+tiles as the kernel pads it; the checks the BNHD kernels make before any
+launch (``_kernel_operands``) take every multiple of 8 up to 64 and refuse
+other widths.
 """
 
 import numpy as np
@@ -152,6 +153,24 @@ def test_fwd_model_matches_pallas_at_head_dim_48(name):
     assert (lse - want).abs().max().item() <= LSE_TOL * want.abs().max().item()
 
 
+@pytest.mark.parametrize("hd", [32, 40])
+@pytest.mark.parametrize("name", ["decode 81 x 147", "block-causal L=165"])
+def test_fwd_model_matches_pallas_at_head_dims_32_and_40(name, hd):
+    """#3 at head dims 32 and 40, which the card runs on the head-dim-48
+    code (the width read at run time): the model on tiles zero-padded to 64
+    against the Pallas ``fused_attention`` in interpret mode on the narrow
+    inputs, within chip_smoke.py's bf16 forward check; its lse against the
+    plain lse."""
+    q, k, v, bias = _fwd_case(name, hd=hd)
+    scale = 1.0 / np.sqrt(hd)
+    tq, tk, tv, tb = _torch(q, k, v, bias)
+    got, lse = fwd_sm90_model(tq, tk, tv, tb, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    cs._fwd_check(f"#3 model {name}, hd {hd}", got, _jax_fwd(q, k, v, bias, scale), hd=hd)
+    want = pt_attn.attention_lse_reference(tq, tk, tb, scale)
+    assert (lse - want).abs().max().item() <= LSE_TOL * want.abs().max().item()
+
+
 @pytest.mark.parametrize("name,drop", [("decode 81 x 147", 2), ("decode 81 x 147", 0),
                                        ("block-causal L=165", 1), ("Lq=1", 1)])
 def test_fwd_model_with_a_dropped_tile_fails(name, drop):
@@ -205,6 +224,15 @@ def test_bwd_model_on_the_new_forward_matches_pallas_at_head_dim_48(bias_kind):
     block-causal pyramid and with no bias): the models on zero-padded tiles
     against ``_fused_attention_bwd_impl`` on the 48-wide inputs."""
     _check_bwd_on_fwd_model(bias_kind, 48)
+
+
+@pytest.mark.parametrize("hd", [32, 40])
+@pytest.mark.parametrize("bias_kind", ["none", "block_causal"])
+def test_bwd_model_on_the_new_forward_matches_pallas_at_head_dims_32_and_40(bias_kind, hd):
+    """#6 at head dims 32 and 40 (the head-dim-48 code at run time): the
+    models on zero-padded tiles against ``_fused_attention_bwd_impl`` on
+    the narrow inputs."""
+    _check_bwd_on_fwd_model(bias_kind, hd)
 
 
 def _check_bwd_on_fwd_model(bias_kind, hd):
@@ -281,20 +309,23 @@ def test_copy_ready_agrees_with_the_kernel_alignment(view):
     assert all(s % 8 == 0 for s in pt_attn._strides(got, (0, 1, 2)))
 
 
-@pytest.mark.parametrize("hd", [48, 64, 40, 80])
+@pytest.mark.parametrize("hd", [48, 64, 40, 80, 16, 32, 56, 44, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_operands_take_head_dims_48_and_64(hd, dtype):
-    """The checks every BNHD kernel (#3-#6) makes before it launches: head
-    dims 48 and 64 pass (the bias cast to fp32), any other width raises
-    NotImplementedError naming the built widths. They come before any
-    launch, so CPU tensors reach them."""
+    """The checks every BNHD kernel (#3-#6) makes before it launches: every
+    head dim that is a multiple of 8 up to 64 passes (48 and 64 among them;
+    the bias cast to fp32), any other width (past 64, or not a multiple of
+    8) raises NotImplementedError naming the widths taken. They come before
+    any launch, so CPU tensors reach them."""
     q, k, v = (torch.zeros((2, 5, 3, hd), dtype=dtype) for _ in range(3))
     bias = torch.zeros((1, 1, 5, 5), dtype=torch.bfloat16)
-    if hd in (48, 64):
+    if hd % 8 == 0 and hd <= 64:
         *qkv, b = pt_attn._kernel_operands(q, k, v, bias, "fused_attention")
         assert all(x is y for x, y in zip(qkv, (q, k, v))) and b.dtype == torch.float32
         return
-    with pytest.raises(NotImplementedError, match=r"head dims \(48, 64\), got " + str(hd)):
+    with pytest.raises(NotImplementedError,
+                       match=r"multiples of 8 up to 64 \(8, 16, 24, 32, 40, 48, 56, 64\), "
+                             r"got " + str(hd)):
         pt_attn._kernel_operands(q, k, v, bias, "fused_attention")
     for call in (pt_attn._fused_attention_cuda, pt_attn._fused_attention_qblk_cuda):
         with pytest.raises(NotImplementedError, match="head dims"):

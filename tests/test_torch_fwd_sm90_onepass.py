@@ -24,8 +24,9 @@ tile unless it is blank for both) against a brute-force scan of VAR's 512
 px bias; the bf16 dispatch of #1 and #4 through ``_copy_ready`` (a view off
 16 bytes reaches the kernel as an aligned copy) with the map's scratch
 passed exactly for a square bias; and ``chip_profile.py``'s attribution of
-the new instantiations. #4 also runs at head dim 48 (the BNHD kernels take
-RAR-B's 768 / 16), zero-padded to the 64-wide tiles as the kernel pads it.
+the new instantiations. #4 also runs at head dims 48 (RAR-B's 768 / 16),
+32 and 40 (the BNHD kernels take every multiple of 8 up to 64), zero-padded
+to the 64-wide tiles as the kernel pads it.
 """
 
 import numpy as np
@@ -205,6 +206,23 @@ def test_model_matches_pallas_qblk_at_head_dim_48(name):
     got, lse = onepass_model(_bf(q), _bf(k), _bf(v), tb, 1.0, blank)
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     cs._fwd_check(f"#4 model {name}, hd 48", got, _jax_qblk(q, k, v, bias, 1.0), hd=48)
+    _check_lse(lse, _bf(q), _bf(k), tb, 1.0)
+
+
+@pytest.mark.parametrize("hd", [32, 40])
+@pytest.mark.parametrize("name", ["block-causal L=165", "ragged L=130"])
+def test_model_matches_pallas_qblk_at_head_dims_32_and_40(name, hd):
+    """#4 at head dims 32 and 40 (the head-dim-48 code at run time): the
+    one-pass model on tiles zero-padded to 64, skipping the tiles the map
+    blanks, against ``_fused_attention_qblk_fwd`` in interpret mode on the
+    narrow inputs, within chip_smoke.py's bf16 forward check; its lse
+    against the plain lse."""
+    q, k, v, bias = _qblk_case(name, hd=hd)
+    tb = _bias(bias)
+    blank = None if tb is None else pt_attn.blank_tile_map_reference(tb)
+    got, lse = onepass_model(_bf(q), _bf(k), _bf(v), tb, 1.0, blank)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    cs._fwd_check(f"#4 model {name}, hd {hd}", got, _jax_qblk(q, k, v, bias, 1.0), hd=hd)
     _check_lse(lse, _bf(q), _bf(k), tb, 1.0)
 
 
