@@ -68,8 +68,15 @@ exit; no failure is caught):
      with the same training masks on both sides; two flagship GAN
      ``TokenizerTrainer`` steps (every metric, every trainable gradient of
      the generator and the disc heads, the updated parameters, with the same
-     random draws on both sides); a code or token may differ only at a
-     near-tie, and the card then goes on from the CPU's choice;
+     random draws on both sides); ``configs/RobustTok.yaml`` through the
+     port's loader at full width (single-scale VQ, the CLIP detail teacher,
+     RobustTok's perturbation with its draws given to both sides): two
+     ``TokenizerTrainer`` steps held the same way, with the perturbed codes
+     and the nearest-code lists in lockstep, then two micro-steps with
+     ``grad_accum_steps=2``; one step each with ``disc_type`` patchgan and
+     stylegan (ViT-S tokenizer), and ``reinit_disc_heads`` on DinoDisc; a
+     code or token may differ only at a near-tie, and the card then goes on
+     from the CPU's choice;
   5. main paths in bf16, timed with CUDA events (a warm-up call, then
      median, min and max), each with every launch counter set to 0 just
      before its timed calls and read just after: at B=64 the VQ-4096 round
@@ -84,8 +91,11 @@ exit; no failure is caught):
      configurations ``var_sample`` (cfg 1.5, top-k 900, top-p 0.96; at 256 px
      decoded by bench.py's sample-leg tokenizer, ViT-S), ``img_to_idxBl``,
      the teacher-forcing ``VAR.forward``, ``VARTrainer.train_step`` (B=16 at
-     512 px) and ``eval_step``, and the 512 px round trip; and the flagship
-     GAN ``TokenizerTrainer.train_step``;
+     512 px) and ``eval_step``, and the 512 px round trip; the flagship
+     GAN ``TokenizerTrainer.train_step``; and ``RobustTok train_step``
+     (``configs/RobustTok.yaml`` as the loader gives it, 64 images a
+     micro-step with ``grad_accum_steps=2``, at epoch 80 of the anneal
+     window), with the perturbed samples checked;
   6. times: each kernel (#2, #5 and #6 as training calls them, with the
      forward's saved output and lse, #6 through autograd; #1, #3 and #4
      also with the lse store on, #3 as the train step's autograd runs its
@@ -109,6 +119,7 @@ CPU tests (tests/test_torch_*.py).
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import re
@@ -123,13 +134,15 @@ import torch.nn.functional as F
 
 from imagefolder_tpu_torch.losses.diffaug import draw_aug
 from imagefolder_tpu_torch.losses.discriminators import draw_crop
+from imagefolder_tpu_torch.losses.discriminators import DinoDisc
 from imagefolder_tpu_torch.models import build_maskgit, build_rar, build_vae_var
 from imagefolder_tpu_torch.models import maskgit as maskgit_mod
 from imagefolder_tpu_torch.models import rar as rar_mod
+from imagefolder_tpu_torch.models import tokenizer as tokenizer_mod
 from imagefolder_tpu_torch.models.tokenizer import ModelArgs, VQModel
 from imagefolder_tpu_torch.models.var import build_attn_bias
 from imagefolder_tpu_torch.models.vit import LayerScale, set_fused_sublayers
-from imagefolder_tpu_torch.ops import quantize
+from imagefolder_tpu_torch.ops import perturb, quantize
 from imagefolder_tpu_torch.ops.cuda import _build
 from imagefolder_tpu_torch.ops.cuda import attention as attn
 from imagefolder_tpu_torch.ops.cuda import block
@@ -138,8 +151,9 @@ from imagefolder_tpu_torch.train import var_train
 from imagefolder_tpu_torch.train.rar_train import (MaskGITTrainer, RARTrainConfig, RARTrainer,
                                                    get_rar_random_ratio)
 from imagefolder_tpu_torch.train.recipes import flagship_gan_recipe
-from imagefolder_tpu_torch.train.tokenizer_train import TokenizerTrainer
+from imagefolder_tpu_torch.train.tokenizer_train import TokenizerTrainer, get_random_ratio
 from imagefolder_tpu_torch.train.var_train import VARTrainConfig, VARTrainer
+from imagefolder_tpu_torch.utils.config import load_tokenizer_config
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -327,10 +341,15 @@ def bound_ms(nbytes: float, ops: float, dtype: torch.dtype) -> tuple[float, str]
 
 # ------------------------------- phases -------------------------------- #
 
+CARD = ""  # nvidia-smi's "name, power limit" of the card, set by phase_device
+
+
 def phase_device():
+    global CARD
     line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    CARD = line
     print(line)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)}; {torch.cuda.device_count()} card(s)")
@@ -2067,13 +2086,15 @@ ZERO_GRAD_TOL = 1e-4  # of the max abs gradient of the same conv's weight
 
 
 def _grad_errs(what: str, named_cpu, params_card, trainable: list,
-               zero_grad: str = ZERO_GRAD) -> tuple:
+               zero_grad: str = ZERO_GRAD, by_weight: str = r"^$") -> tuple:
     """Each trainable parameter's gradient, card against CPU: the max abs
     error over the CPU gradient's max abs. Every trainable parameter must
     have a gradient (AdamW would skip one that has none, optax decays it). A
     gradient that is zero in exact arithmetic (names matching ``zero_grad``,
     each a bias) is held, on both sides, to ``ZERO_GRAD_TOL`` of its
-    weight's gradient instead."""
+    weight's gradient instead; one whose terms cancel to a small share
+    (names matching ``by_weight``, each a bias) is divided by its weight's
+    gradient's max abs where that is larger."""
     named_cpu = list(named_cpu)
     trainable = {id(p) for p in trainable}
     weight_max = {n: p.grad.abs().max().item() for n, p in named_cpu
@@ -2094,8 +2115,10 @@ def _grad_errs(what: str, named_cpu, params_card, trainable: list,
             _check(f"[model] {what} {name} (zero in exact arithmetic)", zero[name],
                    ZERO_GRAD_TOL)
             continue
-        errs[name] = _max_err(p_card.grad, p_cpu.grad) / max(
-            p_cpu.grad.abs().max().item(), 1e-30)
+        scale = p_cpu.grad.abs().max().item()
+        if re.fullmatch(by_weight, name):
+            scale = max(scale, weight_max[name[:-len("bias")] + "weight"])
+        errs[name] = _max_err(p_card.grad, p_cpu.grad) / max(scale, 1e-30)
     return errs, zero
 
 
@@ -2179,6 +2202,266 @@ def phase_model_gan(dev):
           f"{kink_flips} relu, leaky-relu or max-pool elements took the CPU's branch, max "
           f"near-tie gap {kink_gap:.3e} (<= {KINK_NEAR_TIE:g} of the tensor's max abs)")
     _check("[model] GAN step updated parameters", step_err, MODEL_TOL)
+
+
+ROBUSTTOK_YAML = ROOT / "configs" / "RobustTok.yaml"
+
+
+def _dist_gap(args, want, got, diff):
+    """``quantize._nearest_code(flat, emb)`` or ``perturb._nearest_codes(flat,
+    emb, k)``: the fp64 distance gap between the CPU's and the card's code."""
+    flat, emb = args[0].double(), args[1].double()
+    x = flat[diff.nonzero()[:, 0]]
+    return (((x - emb[want]) ** 2).sum(-1) - ((x - emb[got]) ** 2).sum(-1)).abs()
+
+
+def robusttok_draws(batch: int, px: int, tokens: int, gen: torch.Generator) -> dict:
+    """Every random draw of one RobustTok ``TokenizerTrainer.train_step``,
+    made on the CPU: the perturbation's two uniforms, the three DiffAug
+    calls and the disc's crop-or-resize (a single scale draws no dropout)."""
+    cpu = torch.device("cpu")
+    return {"perturb": perturb.draw_perturbation(batch * tokens, gen, cpu),
+            **{k: draw_aug(batch, gen, cpu) for k in ("aug_g", "aug_f", "aug_r")},
+            "crop": draw_crop(px, gen, cpu)}
+
+
+class PerturbRecorder:
+    """Wraps the tokenizer's ``add_perturbation`` and keeps, per call, how
+    many tokens of each sample it moved to another code: the rows that
+    differ from the quantizer's output (a token that keeps its nearest code
+    gets a bit-equal row, as both compute z + sg(e - z) the same way)."""
+
+    def __enter__(self):
+        self.orig, self.moved = tokenizer_mod.add_perturbation, []
+
+        def record(z, z_q, *args, **kwargs):
+            out = self.orig(z, z_q, *args, **kwargs)
+            self.moved.append((out.detach() != z_q.detach()).any(-1).flatten(1).sum(1).cpu())
+            return out
+
+        tokenizer_mod.add_perturbation = record
+        return self
+
+    def __exit__(self, *exc):
+        tokenizer_mod.add_perturbation = self.orig
+
+
+def _trainer_pair(mcfg, tcfg, dev, gen):
+    """A trainer on the CPU with LayerScale raised, and one on the card with
+    the same weights."""
+    tr_cpu = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED),
+                              device="cpu")
+    _excite_layerscale(tr_cpu.model, gen)
+    tr_cpu.sync_ema()
+    tr_card = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED),
+                               device=dev)
+    for name in ("model", "lpips", "disc"):
+        getattr(tr_card, name).load_state_dict(getattr(tr_cpu, name).state_dict())
+    tr_card.sync_ema()
+    return tr_cpu, tr_card
+
+
+def _lockstep_step(tr_cpu, tr_card, x, dev, draws, kw, lookups):
+    """One ``train_step`` on the CPU and then on the card with the same
+    draws, each ``Lockstep`` in ``lookups`` and the piecewise-linear ops
+    (``KinkLockstep``) in lockstep; returns both metrics and the kink
+    lockstep."""
+    kinks = KinkLockstep(KINK_NEAR_TIE)
+
+    def cpu():
+        return tr_cpu.train_step(x, draws=draws, **kw)
+
+    def card():
+        return tr_card.train_step(x.to(dev), draws=_to(draws, dev), **kw)
+
+    for ls in lookups:
+        cpu, card = (lambda f=cpu, ls=ls: ls.on_cpu(f)), (lambda f=card, ls=ls: ls.on_card(f))
+    with kinks.record():
+        m_cpu = cpu()
+    with kinks.replay():
+        m_card = card()
+    if kinks.calls != len(kinks.branches):
+        raise AssertionError(f"[model] the card made {kinks.calls} piecewise-linear calls, "
+                             f"the CPU {len(kinks.branches)}")
+    torch.cuda.synchronize()
+    if sorted(m_cpu) != sorted(m_card):
+        raise AssertionError(f"[model] train step metrics {sorted(m_card)}")
+    return m_cpu, m_card, kinks
+
+
+def _check_step_metrics(what: str, m_cpu: dict, m_card: dict) -> str:
+    for k, want in m_cpu.items():
+        _check(f"[model] {what} {k}", _max_err(m_card[k], want) / max(want.abs().max().item(), 1.0),
+               MODEL_TOL)
+    worst = max(m_cpu, key=lambda k: _max_err(m_card[k], m_cpu[k]))
+    return f"worst metric {worst} abs err {_max_err(m_card[worst], m_cpu[worst]):.3e}"
+
+
+def _state_err(a: torch.nn.Module, b: torch.nn.Module) -> float:
+    return max(_max_err(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
+
+
+def phase_model_robusttok(dev):
+    """``configs/RobustTok.yaml`` at full width through the port's loader, in
+    fp32 (``mixed_precision=none``) at B=2 with TF32 off, card against CPU
+    from the same weights, every draw made once on the CPU and given to both
+    sides (the perturbation's uniforms included). Two steps with alpha 1,
+    beta 0.5 (so that one of the two samples is perturbed: floor(2 beta))
+    and delta_ratio 0.75, held as ``phase_model_gan`` holds the flagship's:
+    every metric (``detail_loss`` included), every trainable gradient after
+    the first step, the parameters after the second; ``SingleVQ``'s codes
+    and the perturbation's nearest-code lists in lockstep (equal but at
+    counted near ties, and the card goes on from the CPU's). Then two
+    micro-steps with ``grad_accum_steps=2`` and ``lr_scheduler: none``:
+    after the first the card's parameters are bit-unchanged, after the
+    second they equal the CPU's. Returns the card trainer of the first
+    pair."""
+    mcfg, tcfg, _ = load_tokenizer_config(str(ROBUSTTOK_YAML), {"mixed_precision": "none"})
+    gen = torch.Generator().manual_seed(SEED + 21)
+    tr_cpu, tr_card = _trainer_pair(mcfg, tcfg, dev, gen)
+    px, nl = mcfg.image_size, mcfg.num_latent_tokens
+    x = torch.rand((2, px, px, 3), generator=gen) * 2 - 1
+    kw = dict(alpha=1.0, beta=0.5, delta_ratio=0.75)
+    shown, codes_eq, codes_n, tops_eq, tops_n, flips, gap = [], 0, 0, 0, 0, 0, 0.0
+    for step in range(2):
+        draws = robusttok_draws(2, px, nl, gen)
+        if draws["crop"] is not None:  # above 224 px: the crop, then the area resize
+            draws["crop"] = (torch.tensor(step == 0), *draws["crop"][1:])
+        codes = Lockstep(quantize, "_nearest_code", _dist_gap, NEAR_TIE)
+        tops = Lockstep(perturb, "_nearest_codes", _dist_gap, NEAR_TIE)
+        with PerturbRecorder() as rec:
+            m_cpu, m_card, kinks = _lockstep_step(tr_cpu, tr_card, x, dev, draws, kw,
+                                                  (codes, tops))
+        moved = rec.moved[0]  # the CPU's call, then the card's from the CPU's lists
+        if not (moved[0] > 0 and moved[1] == 0 and torch.equal(rec.moved[1], moved)):
+            raise AssertionError(f"[model] RobustTok perturbation moved {moved.tolist()} tokens "
+                                 f"per sample on the CPU, {rec.moved[1].tolist()} on the card; "
+                                 "want the same, some in sample 0 and none in sample 1")
+        codes_eq, codes_n = codes_eq + codes.compared - codes.flips, codes_n + codes.compared
+        tops_eq, tops_n = tops_eq + tops.compared - tops.flips, tops_n + tops.compared
+        flips, gap = flips + kinks.flips, max(gap, kinks.max_gap, codes.max_gap, tops.max_gap)
+        shown.append(f"step {step}: " + ", ".join(
+            f"{k} {m_cpu[k].item():.6f}" for k in ("gen_loss", "detail_loss", "sem_loss",
+                                                   "disc_loss", "grad_norm"))
+            + f", {int(moved[0])} of {nl} tokens of sample 0 perturbed, "
+            + _check_step_metrics(f"RobustTok step {step}", m_cpu, m_card))
+        if step == 0:
+            g_errs, _ = _grad_errs("generator", tr_cpu.model.named_parameters(),
+                                   tr_card.model.parameters(), tr_cpu.gen_opt.params)
+            d_errs, _ = _grad_errs("disc", tr_cpu.disc.named_parameters(),
+                                   tr_card.disc.parameters(), tr_cpu.disc_opt.params)
+    step_err = max(_state_err(tr_cpu.model, tr_card.model), _state_err(tr_cpu.disc, tr_card.disc))
+    print("[model] RobustTok.yaml fp32 B=2 card vs CPU (alpha 1, beta 0.5, delta_ratio 0.75): "
+          + "; ".join(shown) + f" (tol {MODEL_TOL:g} of max(|value|, 1))")
+    for what, errs in (("generator", g_errs), ("disc heads", d_errs)):
+        worst = max(errs, key=errs.get)
+        print(f"[model] RobustTok step {what}: {len(errs)} parameter gradients within "
+              f"{errs[worst]:.3e} of their max abs (worst {worst}, median "
+              f"{statistics.median(errs.values()):.3e}; tol {MODEL_TOL:g})")
+        _check(f"[model] RobustTok step {what} gradient of {worst}", errs[worst], MODEL_TOL)
+    print(f"[model] RobustTok after two steps: parameters and spectral state max abs diff "
+          f"{step_err:.3e} (tol {MODEL_TOL:g}); SingleVQ codes {codes_eq}/{codes_n} equal, "
+          f"perturbation nearest-code lists {tops_eq}/{tops_n} equal; {flips} relu, leaky-relu "
+          f"or max-pool elements took the CPU's branch; max near-tie gap {gap:.3e}")
+    _check("[model] RobustTok updated parameters", step_err, MODEL_TOL)
+
+    acc_cfg = dataclasses.replace(tcfg, grad_accum_steps=2, lr_scheduler="none")
+    a_cpu, a_card = _trainer_pair(mcfg, acc_cfg, dev, gen)
+    before = [p.detach().clone() for p in a_card.model.parameters()]
+    for step in range(2):
+        draws = robusttok_draws(2, px, nl, gen)
+        codes = Lockstep(quantize, "_nearest_code", _dist_gap, NEAR_TIE)
+        tops = Lockstep(perturb, "_nearest_codes", _dist_gap, NEAR_TIE)
+        m_cpu, m_card, _ = _lockstep_step(a_cpu, a_card, x if step == 0 else x.flip(1), dev,
+                                          draws, kw, (codes, tops))
+        _check_step_metrics(f"RobustTok micro-step {step}", m_cpu, m_card)
+        if step == 0 and not all(torch.equal(a, p) for a, p in zip(before,
+                                                                   a_card.model.parameters())):
+            raise AssertionError("[model] grad_accum_steps=2: the first micro-step moved a "
+                                 "parameter")
+    moved = sum(not torch.equal(a, p) for a, p in zip(before, a_card.model.parameters()))
+    acc_err = max(_state_err(a_cpu.model, a_card.model), _state_err(a_cpu.disc, a_card.disc))
+    if a_card.gen_opt.count != 1 or a_card.disc_opt.count != 1 or not moved:
+        raise AssertionError(f"[model] grad_accum_steps=2: {a_card.gen_opt.count} generator "
+                             f"updates, {moved} parameter tensors moved after two micro-steps")
+    print(f"[model] RobustTok grad_accum_steps=2, lr_scheduler none: after micro-step 1 every "
+          f"card parameter bit-unchanged; after micro-step 2 one update each, {moved} "
+          f"parameter tensors moved, card vs CPU max abs diff {acc_err:.3e} (tol {MODEL_TOL:g})")
+    _check("[model] RobustTok accumulated update", acc_err, MODEL_TOL)
+    return tr_card
+
+
+def phase_model_disc_types(dev, dino_trainer: TokenizerTrainer):
+    """One ``TokenizerTrainer`` step (a generator and a disc update) with
+    ``disc_type`` patchgan and stylegan, card against CPU in fp32 at B=2 and
+    256 px, the tokenizer at the smallest ViT preset the port has (ViT-S,
+    12 blocks), the same draws on both sides and the codes and the
+    piecewise-linear branches in lockstep: every metric, every trainable
+    gradient of the generator and of the discriminator, and the
+    discriminator's state after the step (PatchGAN's running statistics).
+    The CPU's convs take PyTorch's native path: oneDNN's fp32 conv weight
+    gradients are TF32-like on some CPUs. Then ``reinit_disc_heads`` on the
+    card's RobustTok trainer (DinoDisc): the trunk bit-unchanged, every head
+    kernel drawn afresh, the spectral state kept and the disc optimizer
+    empty."""
+    vit_s = "vit_small_patch14_dinov2.lvd142m"
+    for kind in ("patchgan", "stylegan"):
+        mcfg, tcfg = flagship_gan_recipe(
+            2, margs_overrides={"dtype_str": "float32", "encoder_model": vit_s,
+                                "decoder_model": vit_s},
+            tcfg_overrides={"loss_dtype": "float32", "disc_type": kind})
+        gen = torch.Generator().manual_seed(SEED + 22)
+        with torch.backends.mkldnn.flags(enabled=False):
+            tr_cpu, tr_card = _trainer_pair(mcfg, tcfg, dev, gen)
+            px = mcfg.image_size
+            x = torch.rand((2, px, px, 3), generator=gen) * 2 - 1
+            codes = Lockstep(quantize, "_codebook_lookup", _code_gap, NEAR_TIE)
+            m_cpu, m_card, kinks = _lockstep_step(tr_cpu, tr_card, x, dev, gan_draws(2, px, gen),
+                                                  {}, (codes,))
+        shown = _check_step_metrics(f"{kind} step", m_cpu, m_card)
+        g_errs, _ = _grad_errs("generator", tr_cpu.model.named_parameters(),
+                               tr_card.model.parameters(), tr_cpu.gen_opt.params)
+        # conv_out's bias: each logit inside the hinge margin adds +-1 / N,
+        # the real and fake ones cancel, and LeCam's small share is left
+        d_errs, _ = _grad_errs(kind, tr_cpu.disc.named_parameters(),
+                               tr_card.disc.parameters(), tr_cpu.disc_opt.params,
+                               by_weight=r"conv_out\.bias")
+        state_err = _state_err(tr_cpu.disc, tr_card.disc)
+        worst_g, worst_d = max(g_errs, key=g_errs.get), max(d_errs, key=d_errs.get)
+        print(f"[model] disc_type={kind} step fp32 B=2 card vs CPU (ViT-S tokenizer): "
+              f"disc_loss {m_cpu['disc_loss'].item():.6f}, gen_adv_loss "
+              f"{m_cpu['gen_adv_loss'].item():.6f}, {shown}; {len(g_errs)} generator gradients "
+              f"within {g_errs[worst_g]:.3e} of their max abs (worst {worst_g}), {len(d_errs)} "
+              f"{kind} gradients within {d_errs[worst_d]:.3e} (worst {worst_d}); {kind} state "
+              f"after the step max abs diff {state_err:.3e} (tol {MODEL_TOL:g}); codes "
+              f"{codes.compared - codes.flips}/{codes.compared} equal, {kinks.flips} leaky-relu "
+              f"elements took the CPU's branch")
+        _check(f"[model] {kind} generator gradient of {worst_g}", g_errs[worst_g], MODEL_TOL)
+        _check(f"[model] {kind} gradient of {worst_d}", d_errs[worst_d], MODEL_TOL)
+        _check(f"[model] {kind} state", state_err, MODEL_TOL)
+        del tr_cpu, tr_card
+
+    tr = dino_trainer
+    params = {n: p.detach().clone() for n, p in tr.disc.named_parameters()}
+    buffers = {n: b.clone() for n, b in tr.disc.named_buffers()}
+    tr.reinit_disc_heads(torch.Generator().manual_seed(SEED + 23))
+    fresh = dict(DinoDisc(tr.tcfg.dino_depth,
+                          generator=torch.Generator().manual_seed(SEED + 23)).named_parameters())
+    heads = 0
+    for n, p in tr.disc.named_parameters():
+        if n.startswith("dino."):
+            ok = torch.equal(p, params[n])
+        else:
+            ok = torch.equal(p.cpu(), fresh[n]) and (p.ndim < 2 or not torch.equal(p, params[n]))
+            heads += 1
+        if not ok:
+            raise AssertionError(f"[model] reinit_disc_heads: {n}")
+    if not all(torch.equal(b, buffers[n]) for n, b in tr.disc.named_buffers()) or (
+            tr.disc_opt.count or tr.disc_opt.opt.state):
+        raise AssertionError("[model] reinit_disc_heads: the spectral state moved or the disc "
+                             "optimizer is not empty")
+    print(f"[model] reinit_disc_heads (DinoDisc, on the card): trunk bit-unchanged, {heads} head "
+          "parameters drawn afresh, spectral state kept, disc optimizer empty")
 
 
 def time_calls(path: str, fn, iters: int, per_call: dict, dev) -> dict:
@@ -2589,6 +2872,22 @@ def gan_launches(tr: TokenizerTrainer) -> dict:
             "codebook_argmin": cfg.product_quant * len(cfg.v_patch_nums)}
 
 
+def robusttok_launches(tr: TokenizerTrainer) -> dict:
+    """Kernel launches of one RobustTok ``train_step`` (a micro-step), from
+    the code: #1 in the encoder and decoder (again in the backward with
+    remat), both teachers (DINOv2 and CLIP), DinoDisc in the generator pass
+    and on the fake and real images; #2 as in ``gan_launches``; no #9 (a
+    single-scale VQ takes its own argmin)."""
+    m, cfg = tr.model, tr.model_cfg
+    enc, dec = len(m.encoder.model.blocks), len(m.decoder.model.blocks)
+    sem, det = len(m.semantic_model.blocks), len(m.detail_model.blocks)
+    disc = len(tr.disc.dino.blocks)
+    disc_bwd = max(tr.disc.kd) + 1 if tr.disc.kd else 0
+    remat = 2 if cfg.remat else 1
+    return {"attention_qkv_fwd": remat * (enc + dec) + sem + det + 3 * disc,
+            "attention_qkv_bwd": enc + dec + 2 * disc_bwd}
+
+
 def main_gan_paths(dev) -> dict:
     """``TokenizerTrainer.train_step`` of the flagship GAN recipe at B=64,
     bf16 activations and a bf16 loss stack (``bench.py``'s train leg), from
@@ -2620,6 +2919,63 @@ def main_gan_paths(dev) -> dict:
             + f"; {sum(changed.values())} trainable parameter tensors changed over 11 steps, "
             f"{frozen} frozen ones (teacher, VGG, DinoDisc trunk) unchanged")
     return {"GAN train_step": r}
+
+
+def main_robusttok_paths(dev) -> dict:
+    """``RobustTok train_step``: ``TokenizerTrainer.train_step`` on
+    ``configs/RobustTok.yaml`` as the port's loader gives it (full width,
+    bf16 activations and loss stack, the loader's remat), 64 images per
+    micro-step with ``grad_accum_steps=2``, at epoch 80 inside the anneal
+    window (ratio 0.75: alpha 0.75, beta 0.1, delta_ratio 0.75, so that
+    floor(64 x 0.1) = 6 samples a micro-batch are perturbed), its draws from
+    a card generator. Held: the exact launches (``robusttok_launches``),
+    finite metrics, every trainable parameter changed over the 11
+    micro-steps and every frozen one (both teachers, the VGG, DinoDisc's
+    trunk) bit-unchanged; then, on one more micro-step, the perturbation
+    moved tokens in each of the first 6 samples and in no other."""
+    mcfg, tcfg, run = load_tokenizer_config(str(ROBUSTTOK_YAML))
+    tcfg = dataclasses.replace(tcfg, grad_accum_steps=2)
+    epoch = 80
+    ratio = get_random_ratio(run.anneal_start, run.anneal_end, run.end_ratio, epoch)
+    kw = dict(epoch=epoch, alpha=run.alpha * ratio, beta=run.beta, delta_ratio=ratio)
+    tr = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    px = mcfg.image_size
+    x = torch.rand((BATCH, px, px, 3), generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev) * 2 - 1
+    named = [*(("model." + n, p) for n, p in tr.model.named_parameters()),
+             *(("lpips." + n, p) for n, p in tr.lpips.named_parameters()),
+             *(("disc." + n, p) for n, p in tr.disc.named_parameters())]
+    before = {n: p.detach().clone() for n, p in named}
+    per_call = robusttok_launches(tr)
+    r = time_calls("RobustTok train_step", lambda: tr.train_step(x, **kw), 10, per_call, dev)
+    updates = tr.gen_opt.count
+    m = {k: v.float().mean().item() for k, v in r["out"].items()}
+    changed = {n: not torch.equal(before[n], p) for n, p in named}
+    trainable = {n: p.requires_grad for n, p in named}
+    if not (all(math.isfinite(v) for v in m.values()) and changed == trainable):
+        bad = sorted(n for n in changed if changed[n] != trainable[n])
+        raise AssertionError(f"[main] RobustTok train_step metrics {m}; changed != trainable at "
+                             f"{bad[:10]} ({len(bad)})")
+    del before
+    n_pert = math.floor(BATCH * run.beta)
+    with PerturbRecorder() as rec:
+        tr.train_step(x, **kw)
+    moved = rec.moved[0]
+    if not (bool((moved[:n_pert] > 0).all()) and not bool(moved[n_pert:].any())):
+        raise AssertionError(f"[main] RobustTok perturbation moved {moved.tolist()} tokens per "
+                             f"sample; want some in each of the first {n_pert}, none after")
+    _report(f"RobustTok TokenizerTrainer.train_step (configs/RobustTok.yaml, grad_accum_steps=2, "
+            f"epoch {epoch})", r, BATCH,
+            ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+            + f"; {sum(changed.values())} trainable parameter tensors changed over 11 micro-steps "
+            f"({updates} updates), {sum(not t for t in trainable.values())} frozen ones "
+            f"(both teachers, VGG, DinoDisc trunk) unchanged; perturbation moved "
+            f"{moved[:n_pert].tolist()} of {mcfg.num_latent_tokens} tokens in samples 0-"
+            f"{n_pert - 1} and none in the other {BATCH - n_pert}; {CARD}")
+    print(f"[main] RobustTok train_step: {r['ms']:.3f} ms per micro-step of {BATCH} images, "
+          f"{BATCH / r['ms'] * 1e3:.1f} img/s, peak {r['peak'] / 2**30:.2f} GiB, remat "
+          f"{mcfg.remat}; {CARD}")
+    return {"RobustTok train_step": r}
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -3196,6 +3552,8 @@ def main(argv: list[str]) -> int:
         lap(f"model {name}")
     phase_model_gan(dev)
     lap("model GAN step")
+    phase_model_disc_types(dev, phase_model_robusttok(dev))
+    lap("model RobustTok step and disc types")
     paths = {**main_round_trip(dev), **main_rar_paths(dev), **main_rar_train(dev),
              **main_mlp_probe(dev)}
     lap("round trips, RAR sampling and training, MLP probe")
@@ -3206,6 +3564,8 @@ def main(argv: list[str]) -> int:
                   **main_train_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256),
                   **main_gan_paths(dev)})
     lap("main paths at 256 px")
+    paths.update(main_robusttok_paths(dev))
+    lap("RobustTok train step")
     paths.update({**main_var_paths(dev, msvr512_margs("bfloat16"), "512 ", LAUNCHES_512),
                   **main_train_paths(dev, msvr512_margs("bfloat16"), "512 ", LAUNCHES_512,
                                      TRAIN_BATCH_512)})

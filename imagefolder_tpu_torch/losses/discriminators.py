@@ -1,6 +1,7 @@
-"""DinoDisc, the flagship discriminator (counterpart of
-``imagefolder_tpu/losses/discriminators.py:36-168``; reference
-``discriminator_dino.py``).
+"""The discriminators (counterpart of ``imagefolder_tpu/losses/
+discriminators.py``): DinoDisc, the flagship (reference
+``discriminator_dino.py``), and the PatchGAN and StyleGAN convnets that
+``disc_type`` selects (``discriminator_{patchgan,stylegan}.py``).
 
 A frozen DINO ViT-S/16 trunk at 224 px (``init_values=None``: no
 LayerScale, the residual stream in the trunk's dtype) whose readouts at
@@ -17,7 +18,16 @@ v; sigma is differentiable in the kernel). Only a call with
 ``update_stats=True`` (the discriminator's own pass) stores the new ``u``
 and ``sigma``; the generator's pass leaves them. The circular conv1d is one
 fp32 matmul over the gathered k-token neighbourhoods, so it never takes
-cuDNN's TF32 path. PatchGAN and StyleGAN are not ported.
+cuDNN's TF32 path.
+
+``PatchGANDiscriminator`` and ``StyleGANDiscriminator`` take NHWC images and
+run in fp32, as the JAX modules (which take no dtype) do; their convs are
+``F.conv2d``, exact fp32 on the card while
+``torch.backends.cudnn.allow_tf32`` is False. Their parameters keep the
+flax modules' names (``conv0``, ``bn1``, ``res_8``, ``fc1``, ...), each a
+torch-layout ``weight`` and ``bias``, so ``flax_path`` reads them. PatchGAN's
+BatchNorm is flax's (momentum 0.9 on the running statistics, the biased
+batch variance as E[x^2] - E[x]^2, eps 1e-5).
 """
 
 from __future__ import annotations
@@ -31,9 +41,10 @@ from torch import nn
 
 from imagefolder_tpu_torch.models.vit import ViTBackbone
 from imagefolder_tpu_torch.ops.resize import resize
-from imagefolder_tpu_torch.utils.init import linear_kaiming_uniform_
+from imagefolder_tpu_torch.utils.init import lecun_normal_, linear_kaiming_uniform_, normal_
 
-__all__ = ["DinoDisc", "BatchNormLocal", "SpectralNormConv1d", "draw_crop"]
+__all__ = ["DinoDisc", "BatchNormLocal", "SpectralNormConv1d", "draw_crop",
+           "PatchGANDiscriminator", "StyleGANDiscriminator"]
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -198,3 +209,141 @@ class DinoDisc(nn.Module):
                 acts.append(tf[:, 1:] + tf[:, :1])
         return torch.cat([head(a, update_stats=update_stats)
                           for head, a in zip(self.heads, acts)], dim=1)
+
+
+class _Conv(nn.Module):
+    """A flax ``nn.Conv`` on NCHW activations: ``weight`` (out, in, k, k) with
+    ``init`` ("normal": N(0, 0.02); "kaiming": U(+-1/sqrt(fan_in))), a zero
+    ``bias`` unless ``bias=False``, fp32 ``F.conv2d``."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0, *,
+                 init: str = "kaiming", bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        w = torch.empty(cout, cin, k, k)
+        if init == "normal":
+            normal_(w, 0.02, generator)
+        else:
+            linear_kaiming_uniform_(w, cin * k * k, generator)
+        self.weight = nn.Parameter(w)
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class _BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over NCHW's (N, H, W) per channel, in fp32:
+    ``scale`` (here ``weight``) drawn N(0, 0.02) as the JAX module draws it.
+    In training the batch statistics normalise, and ``update_stats`` keeps
+    them in the running buffers; otherwise the running statistics
+    normalise."""
+
+    def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(normal_(torch.empty(c), 0.02, generator))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor, *, train: bool, update_stats: bool) -> torch.Tensor:
+        if train:
+            mean = x.mean(dim=(0, 2, 3))
+            var = (x.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+            if update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                    self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
+class PatchGANDiscriminator(nn.Module):
+    """The Pix2Pix NLayer discriminator (discriminator_patchgan.py:8-68):
+    conv0 (4x4, stride 2) and LeakyReLU(0.2), then ``n_layers`` of conv (4x4,
+    stride 2 but the last 1, no bias), BatchNorm and LeakyReLU, then
+    conv_out to one logit per patch. NHWC images -> (B, H', W', 1) fp32
+    logits. ``train`` normalises with the batch statistics (the trainer's
+    setting in both passes), ``update_stats`` keeps them."""
+
+    def __init__(self, ndf: int = 64, n_layers: int = 3, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_layers = n_layers
+        self.conv0 = _Conv(3, ndf, 4, 2, 1, init="normal", generator=generator)
+        nf = 1
+        for n in range(1, n_layers + 1):
+            nf_prev, nf = nf, min(2 ** n, 8)
+            self.add_module(f"conv{n}", _Conv(ndf * nf_prev, ndf * nf, 4,
+                                              2 if n < n_layers else 1, 1, init="normal",
+                                              bias=False, generator=generator))
+            self.add_module(f"bn{n}", _BatchNorm(ndf * nf, generator=generator))
+        self.conv_out = _Conv(ndf * nf, 1, 4, 1, 1, init="normal", generator=generator)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                update_stats: bool = False) -> torch.Tensor:
+        x = F.leaky_relu(self.conv0(x.float().permute(0, 3, 1, 2)), 0.2)
+        for n in range(1, self.n_layers + 1):
+            x = getattr(self, f"conv{n}")(x)
+            x = getattr(self, f"bn{n}")(x, train=train, update_stats=update_stats)
+            x = F.leaky_relu(x, 0.2)
+        return self.conv_out(x).permute(0, 2, 3, 1)
+
+
+def _blur(x: torch.Tensor) -> torch.Tensor:
+    """The normalised [1, 2, 1] blur (discriminator_stylegan.py:83-91) per
+    channel of NCHW activations, reflect-padded."""
+    f = torch.tensor([1.0, 2.0, 1.0], device=x.device)
+    k = (f[:, None] * f[None, :]) / 16.0
+    c = x.shape[1]
+    return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), k.expand(c, 1, 3, 3), groups=c)
+
+
+class StyleGANDiscriminator(nn.Module):
+    """The StyleGAN2-style discriminator (discriminator_stylegan.py:13-54):
+    conv_in (3x3) and LeakyReLU(0.2); per resolution from ``image_size``
+    down to 8, a residual block (res_i: 1x1 stride 2; c1_i, c2_i: 3x3 with
+    LeakyReLU; blur; down_i: 3x3 stride 2; the sum over sqrt 2); final_conv
+    (3x3) and LeakyReLU, flattened in NHWC order, fc1 (LeakyReLU) and fc2.
+    NHWC images -> (B, 1) fp32 logits; it keeps no state."""
+
+    def __init__(self, image_size: int = 256, channel_multiplier: int = 1, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cm = channel_multiplier
+        ch = {4: 512, 8: 512, 16: 512, 32: 512, 64: 256 * cm, 128: 128 * cm, 256: 64 * cm,
+              512: 32 * cm, 1024: 16 * cm}
+        self.log_size = int(math.log2(image_size))
+        in_ch = ch[image_size]
+        self.conv_in = _Conv(3, in_ch, 3, 1, 1, generator=generator)
+        for i in range(self.log_size, 2, -1):
+            out_ch = ch[2 ** (i - 1)]
+            self.add_module(f"res_{i}", _Conv(in_ch, out_ch, 1, 2, 0, generator=generator))
+            self.add_module(f"c1_{i}", _Conv(in_ch, out_ch, 3, 1, 1, generator=generator))
+            self.add_module(f"c2_{i}", _Conv(out_ch, out_ch, 3, 1, 1, generator=generator))
+            self.add_module(f"down_{i}", _Conv(out_ch, out_ch, 3, 2, 1, generator=generator))
+            in_ch = out_ch
+        self.final_conv = _Conv(in_ch, ch[4], 3, 1, 1, generator=generator)
+        self.fc1 = nn.Linear(ch[4] * 16, ch[4])
+        self.fc2 = nn.Linear(ch[4], 1)
+        for fc in (self.fc1, self.fc2):  # flax Dense: lecun normal kernel, zero bias
+            lecun_normal_(fc.weight, fc.in_features, generator)
+            nn.init.zeros_(fc.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.leaky_relu(self.conv_in(x.float().permute(0, 3, 1, 2)), 0.2)
+        for i in range(self.log_size, 2, -1):
+            res = getattr(self, f"res_{i}")(x)
+            h = F.leaky_relu(getattr(self, f"c1_{i}")(x), 0.2)
+            h = F.leaky_relu(getattr(self, f"c2_{i}")(h), 0.2)
+            h = getattr(self, f"down_{i}")(_blur(h))
+            x = (h + res) * (1.0 / math.sqrt(2.0))
+        x = F.leaky_relu(self.final_conv(x), 0.2)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return self.fc2(F.leaky_relu(self.fc1(x), 0.2))

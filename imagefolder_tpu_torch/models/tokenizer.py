@@ -13,16 +13,17 @@ in the JAX package. ``quant_conv`` and ``post_quant_conv`` are 1x1 convs in
 the upstream state dict and are applied as channel-last linear maps in fp32.
 
 The training forward (``forward``, xqgan_model.py:268-365) runs the
-multi-scale quantizers' training calls (dropout, losses, hits), decodes
-with the pre-last activation for the adaptive GAN weight, and with
-``semantic_guide="dinov2"`` adds the InfoNCE ``sem_loss`` against the frozen
-DINOv2 teacher (``semantic_model``, the encoder's preset, run under
-``torch.no_grad``), as ``TokenizerOut``.
+quantizers' training calls (the multi-scale ones with quantizer dropout;
+losses, hits), applies RobustTok's latent perturbation to a single branch
+(``perturb_delta_max`` > 0, after the vq and commit losses), decodes with
+the pre-last activation for the adaptive GAN weight, and adds the InfoNCE
+``sem_loss`` against the frozen DINOv2 teacher (``semantic_model``, the
+encoder's preset; ``semantic_guide="dinov2"``) and ``detail_loss`` against
+the frozen CLIP ViT-B/16 teacher (``detail_model``; any ``detail_guide``
+but ``"none"``), each run under ``torch.no_grad``, as ``TokenizerOut``.
 
 Outside the ported slice (raise ``NotImplementedError``): cnn encoders and
-decoders, LFQ/BSQ quantizers, the single-scale VQ's training call, the CLIP
-detail teacher (``detail_guide``), RobustTok's latent perturbation
-(``perturb_delta_max``), LoRA, RoPE, learned latent pos embeds and
+decoders, LFQ/BSQ quantizers, LoRA, RoPE, learned latent pos embeds and
 non-linear ToPixel heads.
 """
 
@@ -32,6 +33,7 @@ import dataclasses
 import math
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -43,6 +45,7 @@ from imagefolder_tpu_torch.models.vit import (
     ViTBackbone,
     _backbone_kwargs,
 )
+from imagefolder_tpu_torch.ops.perturb import add_perturbation
 from imagefolder_tpu_torch.ops.quantize import MultiScaleVQ, QuantOut, SingleVQ
 from imagefolder_tpu_torch.utils.init import linear_kaiming_uniform_
 
@@ -123,8 +126,6 @@ def check_slice(cfg: ModelArgs):
         "cnn encoder/decoder": cfg.enc_type != "dinov2" or cfg.dec_type != "dinov2",
         "LFQ quantizer": cfg.lfq,
         f"semantic_guide={cfg.semantic_guide!r}": cfg.semantic_guide not in ("none", "dinov2"),
-        "the CLIP detail teacher (detail_guide)": cfg.detail_guide != "none",
-        "RobustTok latent perturbation (perturb_delta_max)": cfg.perturb_delta_max > 0,
         "abs_pos_embed=False": not cfg.abs_pos_embed,
         "LoRA tuning": {cfg.enc_tuning_method, cfg.dec_tuning_method} - {"full", "frozen"},
         f"to_pixel={cfg.to_pixel!r}": cfg.to_pixel != "linear",
@@ -204,13 +205,25 @@ class VQModel(nn.Module):
             self.semantic_model = ViTBackbone(
                 **_backbone_kwargs(cfg.encoder_model, cfg.image_size, 16, dt),
                 generator=generator).requires_grad_(False)
+        if cfg.detail_guide != "none":
+            # the reference builds a CLIP-B/16 teacher for any value but
+            # 'none' (xqgan_model.py:209) and projects its 768-wide feature
+            # through the shared quant_conv, so the encoder must be 768 wide
+            if self.encoder.embed_dim != 768:
+                raise ValueError("detail_guide requires a 768-dim encoder (vit_base_*): the "
+                                 "shared quant_conv projects both encoder tokens and CLIP "
+                                 "teacher features (reference xqgan_model.py:344)")
+            self.detail_model = ViTBackbone(
+                **_backbone_kwargs("vit_base_patch16_clip_224.openai", cfg.image_size, 16, dt),
+                generator=generator).requires_grad_(False)
         self.to(device)
 
     def _make_quantizer(self, generator):
         cfg = self.config
         if len(cfg.v_patch_nums) == 1:
             return SingleVQ(cfg.codebook_size, cfg.codebook_embed_dim,
-                            cfg.codebook_l2_norm, generator=generator)
+                            cfg.codebook_l2_norm, beta=cfg.commit_loss_beta,
+                            generator=generator)
         # the JAX package builds the multi-scale VQ with a cosine search always
         return MultiScaleVQ(cfg.codebook_size, cfg.codebook_embed_dim,
                             tuple(cfg.v_patch_nums), using_znorm=True,
@@ -253,20 +266,26 @@ class VQModel(nn.Module):
         return clip_loss(f1, f2, scale)
 
     def forward(self, x: torch.Tensor, *, train: bool = False, epoch: int = 0,
+                alpha: float = 0.0, beta: float = 0.0, delta_ratio: float = 1.0,
                 generator: Optional[torch.Generator] = None,
-                dropout_n: Optional[torch.Tensor] = None) -> TokenizerOut:
+                dropout_n: Optional[torch.Tensor] = None,
+                perturb: Optional[tuple] = None) -> TokenizerOut:
         """Training forward (xqgan_model.py:268-365) of NHWC images in
-        [-1, 1]. With ``train``, the quantizer dropout draws one
+        [-1, 1]. With ``train``: a multi-scale quantizer's dropout draws one
         randint(start_drop, S + 1) per sample from ``generator`` (on the
-        images' device), unless ``dropout_n`` (B,) gives it, and the decoder
-        also returns its pre-last activation."""
+        images' device), unless ``dropout_n`` (B,) gives it (one scale draws
+        nothing); with ``perturb_delta_max`` > 0 and one branch, RobustTok's
+        perturbation (``alpha``, ``beta``, and the top-k budget annealed to
+        ``delta_ratio * perturb_delta_max``) replaces the branch's quantized
+        latents after its vq and commit losses, before the decoder and both
+        guide losses read them, with its two uniform draws from
+        ``generator`` unless ``perturb`` gives them (``ops/perturb.py``);
+        and the decoder also returns its pre-last activation."""
         cfg = self.config
         b = x.shape[0]
         h_P = self.encode(x)
         sn = len(cfg.v_patch_nums)
-        if sn == 1:
-            raise NotImplementedError("the single-scale VQ's training call is not ported")
-        if train and dropout_n is None:
+        if train and dropout_n is None and sn > 1:
             dropout_n = torch.randint(cfg.start_drop, sn + 1, (b,), generator=generator,
                                       device=x.device)
         outs: List[QuantOut] = [qz(h_P[:, i], dropout_n=dropout_n, train=train)
@@ -278,24 +297,40 @@ class VQModel(nn.Module):
         if p > 1:
             dependency_loss = cfg.dependency_loss_weight * _orthogonal_cosine_loss(
                 quant_list[0].mean(dim=(1, 2)), quant_list[-1].mean(dim=(1, 2)))
+        elif cfg.perturb_delta_max > 0 and train:
+            # the annealed budget in fp32, as the JAX step's traced product
+            delta_eff = float(np.float32(delta_ratio) * np.float32(cfg.perturb_delta_max))
+            quant_list[0] = add_perturbation(
+                h_P[:, 0], quant_list[0], self.quantizers[0].codebook, alpha=alpha,
+                beta=beta, delta=cfg.perturb_delta_max, delta_eff=delta_eff,
+                generator=generator, codebook_norm=cfg.codebook_l2_norm, draws=perturb)
         quant = torch.cat(quant_list, dim=-1)
         dec, pre_last = self.decode(quant, return_prelast=True) if train else (
             self.decode(quant), None)
-        sem_loss = zero
+        n_drop = int(b * cfg.codebook_drop)
+        sem_loss = detail_loss = zero
         if cfg.semantic_guide == "dinov2":
             with torch.no_grad():
                 tokens = self.semantic_model(self._teacher_input(x))
             z_s = tokens[:, 0] if cfg.guide_type_1 == "class" else tokens[:, 1:].mean(dim=1)
             z_s = self.quant_conv(z_s)
             z_q = quant_list[-1].mean(dim=(1, 2))
-            n_drop = int(b * cfg.codebook_drop)
             sem_loss = self._guide_loss(z_s[n_drop:], z_q[n_drop:], cfg.sem_loss_scale,
                                         epoch) * cfg.sem_loss_weight
+        if cfg.detail_guide != "none":
+            # the reference asserts guide_type_2 == 'patch' (xqgan_model.py:336):
+            # the mean of the patch tokens
+            with torch.no_grad():
+                tokens = self.detail_model(self._teacher_input(x))
+            z_d = self.quant_conv(tokens[:, 1:].mean(dim=1))
+            z_q = quant_list[0].mean(dim=(1, 2))
+            detail_loss = self._guide_loss(z_d[n_drop:], z_q[n_drop:], cfg.detail_loss_scale,
+                                           epoch) * cfg.detail_loss_weight
         return TokenizerOut(
             dec=dec, vq_loss=sum(o.vq_loss for o in outs) / p,
             commit_loss=sum(o.commit_loss for o in outs) / p,
             entropy_loss=sum(o.entropy_loss for o in outs) / p, sem_loss=sem_loss,
-            detail_loss=zero, dependency_loss=dependency_loss,
+            detail_loss=detail_loss, dependency_loss=dependency_loss,
             hits_PSV=torch.stack([o.hits_SV for o in outs]), pre_last=pre_last)
 
     def _branch_fhats(self, x, v_patch_nums=None) -> List[List[torch.Tensor]]:

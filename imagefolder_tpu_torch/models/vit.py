@@ -3,8 +3,9 @@
 
 Ported: the ``Block`` with LayerScale (DINOv2: the sublayer path, fp32
 residual, composed or, after ``set_fused_sublayers``, fused) and without
-it (DinoDisc's ViT-S trunk: the composed path, the residual in the
-activation dtype), ``ViTBackbone`` with its pos embed
+it (DinoDisc's ViT-S trunk and the CLIP ViT-B/16 detail teacher: the
+composed path, the residual in the activation dtype), ``ViTBackbone`` (with
+CLIP's ``norm_pre`` when ``pre_norm``) with its pos embed
 resampled to any square latent grid (``bicubic_aa``, as timm) and optional
 per-block activation checkpointing (``remat``), the ``linear`` ``ToPixel``
 head, and ``LatentEncoder`` (product quantization included) /
@@ -158,7 +159,9 @@ class PatchEmbed(nn.Module):
 
 
 class ViTBackbone(nn.Module):
-    """Patch embed + cls token + pos embed + pre-norm blocks + final norm.
+    """Patch embed + cls token + pos embed + pre-norm blocks + final norm;
+    ``pre_norm`` adds CLIP's ``norm_pre`` after the pos embed, in the
+    activation dtype.
 
     ``patch_embed=False`` builds the decoder's backbone, which never embeds
     patches and so has no ``patch_embed`` parameters (as in flax)."""
@@ -170,8 +173,6 @@ class ViTBackbone(nn.Module):
                  patch_embed: bool = True, remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if pre_norm:
-            raise NotImplementedError("pre_norm backbones (the CLIP teacher) are not ported")
         self.remat = remat
         self.patch_size = patch_size
         self.embed_dim = embed_dim
@@ -189,6 +190,8 @@ class ViTBackbone(nn.Module):
             Block(embed_dim, num_heads, mlp_ratio, init_values, dtype, generator=generator)
             for _ in range(depth))
         self.norm = LayerNorm(embed_dim, dtype)
+        # CLIP's LayerNorm before the blocks (timm norm_pre)
+        self.norm_pre = LayerNorm(embed_dim, dtype) if pre_norm else None
 
     def patchify(self, img: torch.Tensor) -> torch.Tensor:
         """NHWC image -> (B, N, D) patch tokens in the activation dtype. The
@@ -226,10 +229,13 @@ class ViTBackbone(nn.Module):
 
     def run_blocks(self, x: torch.Tensor,
                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The blocks and the final norm. With ``remat`` and gradients on,
-        each block keeps only its input and recomputes its activations in
-        the backward (the JAX package's ``nn.remat`` per block)."""
+        """``norm_pre`` (when the backbone has one), the blocks and the final
+        norm. With ``remat`` and gradients on, each block keeps only its
+        input and recomputes its activations in the backward (the JAX
+        package's ``nn.remat`` per block)."""
         x = x.to(self.dtype)
+        if self.norm_pre is not None:
+            x = self.norm_pre(x)
         recompute = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             x = checkpoint(blk, x, mask, use_reentrant=False) if recompute else blk(x, mask)

@@ -13,14 +13,16 @@
   (``QuantOut``); ``update_usage_ema`` and ``usage_percent`` turn the hits
   into the trainer's codebook-usage metrics.
 
+``SingleVQ``'s training ``forward`` (xqgan_model.py:722-790) returns the
+same ``QuantOut``: the vq and commit losses, straight-through ``f_hat``, one
+row of hit counts and an entropy loss of 0; it has no quantizer dropout.
+
 The z.e products, the resizes and the Phi convs are PyTorch fp32 matmuls,
 exact fp32 as long as ``torch.backends.cuda.matmul.allow_tf32`` stays False
 (PyTorch's default): TF32 would flip near-tied codes. ``Phi`` is written as
 a matmul over the 3x3 neighbourhood rather than a conv, because cuDNN runs
 fp32 convs in TF32 by default (``torch.backends.cudnn.allow_tf32``). The
-training ``__call__`` paths (losses, hit counts, quantizer dropout,
-straight-through) of ``SingleVQ`` are not ported, nor is the LFQ/BSQ
-quantizer.
+LFQ/BSQ quantizer is not ported.
 """
 
 from __future__ import annotations
@@ -373,15 +375,25 @@ class MultiScaleVQ(nn.Module):
         return self._lookup(idx)
 
 
+def _nearest_code(flat_NC: torch.Tensor, emb_VC: torch.Tensor) -> torch.Tensor:
+    """``SingleVQ``'s search: the argmin of the fp32 |z|^2 + |e|^2 - 2 z.e
+    over the (normalised) rows, first occurrence on ties."""
+    d = (flat_NC.square().sum(dim=-1, keepdim=True) + emb_VC.square().sum(dim=-1)
+         - 2.0 * flat_NC @ emb_VC.T)
+    return torch.argmin(d, dim=-1)
+
+
 class SingleVQ(nn.Module):
-    """State dict: ``embedding.weight`` (V, C) and the upstream flat (V,)
-    ``ema_vocab_hit_SV`` usage buffer."""
+    """The single-scale VQ (reference VectorQuantizer, xqgan_model.py:722):
+    a cosine codebook when ``codebook_norm``, straight-through on the
+    (normalised) latent. State dict: ``embedding.weight`` (V, C) and the
+    upstream flat (V,) ``ema_vocab_hit_SV`` usage buffer."""
 
     def __init__(self, vocab_size: int, z_channels: int, codebook_norm: bool = True, *,
-                 generator: Optional[torch.Generator] = None):
+                 beta: float = 0.25, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.vocab_size, self.z_channels = vocab_size, z_channels
-        self.codebook_norm = codebook_norm
+        self.codebook_norm, self.beta = codebook_norm, beta
         self.embedding = skip_init(nn.Embedding, vocab_size, z_channels)
         with torch.no_grad():
             w = uniform_(self.embedding.weight, -1.0 / vocab_size, 1.0 / vocab_size,
@@ -390,9 +402,35 @@ class SingleVQ(nn.Module):
                 w.copy_(_l2n(w))
         self.register_buffer("ema_vocab_hit_SV", torch.zeros(vocab_size))
 
+    @property
+    def codebook(self) -> torch.Tensor:
+        return self.embedding.weight
+
     def _normed_codebook(self) -> torch.Tensor:
         w = self.embedding.weight.float()
         return _l2n(w) if self.codebook_norm else w
+
+    def _nearest(self, flat: torch.Tensor) -> torch.Tensor:
+        return _nearest_code(flat.detach(), self._normed_codebook().detach())
+
+    def forward(self, z_BHWC: torch.Tensor, *, dropout_n: Optional[torch.Tensor] = None,
+                train: bool = False) -> QuantOut:
+        """Training call: the nearest codes of the (normalised) fp32
+        latents, commit_loss = beta * mean((sg(z_q) - z)^2) (gradient to the
+        encoder), vq_loss = mean((z_q - sg(z))^2) (gradient to the codebook),
+        ``f_hat`` = z + sg(z_q - z) in the input's dtype, and this batch's
+        hits as a (1, V) row. ``dropout_n`` and ``train`` change nothing (one
+        scale has nothing to drop)."""
+        z = z_BHWC.float()
+        if self.codebook_norm:
+            z = _l2n(z)
+        idx = self._nearest(z.reshape(-1, self.z_channels))
+        hits = torch.bincount(idx, minlength=self.vocab_size).float()[None]
+        z_q = self.embed(idx).reshape(z.shape)
+        commit = self.beta * (z_q.detach() - z).square().mean()
+        vq = (z_q - z.detach()).square().mean()
+        z_q = z + (z_q - z).detach()
+        return QuantOut(z_q.to(z_BHWC.dtype), vq, commit, torch.zeros((), device=z.device), hits)
 
     def f_to_idxBl_or_fhat(self, z_BHWC: torch.Tensor, to_fhat: bool,
                            v_patch_nums: Optional[Sequence[int]] = None
@@ -402,11 +440,7 @@ class SingleVQ(nn.Module):
         z = z_BHWC.detach().float()
         if self.codebook_norm:
             z = _l2n(z)
-        flat = z.reshape(-1, self.z_channels)
-        emb = self._normed_codebook()
-        d = (flat.square().sum(dim=-1, keepdim=True) + emb.square().sum(dim=-1)
-             - 2.0 * flat @ emb.T)
-        idx = torch.argmin(d, dim=-1)
+        idx = self._nearest(z.reshape(-1, self.z_channels))
         if not to_fhat:
             return [idx.reshape(z.shape[0], -1)]
         return [self.embed(idx).reshape(z.shape)]

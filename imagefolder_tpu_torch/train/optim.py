@@ -10,7 +10,8 @@
   ``tokenizer_frozen_predicate`` and ``disc_frozen_predicate`` the frozen
   labels (the trainers turn ``requires_grad`` off there);
 - ``adamw_with_freezing``: ``torch.optim.AdamW`` over a decay and a no-decay
-  group, with the schedules and optax's global-norm clip;
+  group, with the schedules, optax's global-norm clip and ``optax.MultiSteps``'
+  gradient accumulation;
 - ``warmup_cosine_decay_schedule``: optax's, for the RAR and MaskGIT
   trainers;
 - ``ema_update`` and ``ema_decay_schedule`` (open-muse's EMA decay).
@@ -19,8 +20,7 @@ optax's chain is clip_by_global_norm -> scale_by_adam -> (+ wd * p) ->
 scale_by_learning_rate(lr(count)), count from 0. AdamW's decoupled decay
 p (1 - lr wd) followed by p - lr adam is the same update. Freezing is
 PyTorch's: a parameter with ``requires_grad`` False never enters the
-optimizer. The per-group lr/wd scales and gradient accumulation are not
-ported.
+optimizer. The per-group lr/wd scales are not ported.
 """
 
 from __future__ import annotations
@@ -181,19 +181,35 @@ def var_flax_paths(var: VAR) -> Dict[str, str]:
     return {name: path for name, (path, _) in var_key_map(var.config).items()}
 
 
+def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    # summed in fp64: PyTorch's fp32 norm on the CPU drifts by 1e-4 to 1e-3
+    # relative over a tensor of millions of entries (VAR-d16's head)
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g, dtype=torch.float64) for g in grads])).float()
+
+
 class ScheduledAdamW:
     """``torch.optim.AdamW`` over named parameters split by ``no_decay``,
-    with lr (and wd) set from their schedules at every step and the
+    with lr (and wd) set from their schedules at every update and the
     gradients clipped to one global norm first.
 
-    ``step()`` returns the global norm of the gradients before the clip, a
-    0-d tensor on their device, and makes no host sync: the clip factor stays
-    on the device, and the schedules are host floats of the step count."""
+    With ``accum_steps`` k > 1 it is ``optax.MultiSteps``: each ``step()``
+    folds this micro-step's gradients into their running mean (acc + (g -
+    acc) / (n + 1), the n-th since the last update, kept in ``acc``), and
+    only every k-th clips that mean and updates; the others leave the
+    parameters bit-unchanged. ``count`` (the schedules' step) counts
+    updates, ``mini_step`` the micro-steps since the last one.
+
+    ``step()`` returns the global norm of this micro-step's gradients before
+    the clip, a 0-d tensor on their device, and makes no host sync: the clip
+    factor stays on the device, and the schedules are host floats of the
+    update count."""
 
     def __init__(self, named_params: Iterable, lr_schedule: Callable[[int], float], *,
                  no_decay: Callable[[str], bool], weight_decay: float = 0.0,
                  wd_schedule: Optional[Callable[[int], float]] = None, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8, grad_clip: float = 0.0):
+                 b2: float = 0.999, eps: float = 1e-8, grad_clip: float = 0.0,
+                 accum_steps: int = 1):
         decay, plain = [], []
         for name, p in named_params:
             if p.requires_grad:
@@ -205,22 +221,37 @@ class ScheduledAdamW:
             [{"params": decay, "weight_decay": weight_decay},
              {"params": plain, "weight_decay": 0.0}],
             lr=lr_schedule(0), betas=(b1, b2), eps=eps)
-        self.count = 0
+        self.accum_steps = accum_steps
+        self.acc: Optional[List[torch.Tensor]] = None
+        self.count = self.mini_step = 0
 
     def zero_grad(self):
         self.opt.zero_grad(set_to_none=True)
 
     def step(self) -> torch.Tensor:
         grads = [p.grad for p in self.params if p.grad is not None]
-        # summed in fp64: PyTorch's fp32 norm on the CPU drifts by 1e-4 to
-        # 1e-3 relative over a tensor of millions of entries (VAR-d16's head)
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g, dtype=torch.float64) for g in grads])).float()
+        norm = _global_norm(grads)
+        if self.accum_steps > 1:
+            # optax gives a parameter without a gradient a zero one
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+            if self.acc is None:
+                self.acc = [torch.zeros_like(p) for p in self.params]
+            n = self.mini_step
+            torch._foreach_add_(self.acc, torch._foreach_div(
+                torch._foreach_sub(grads, self.acc), float(n + 1)))
+            self.mini_step = (n + 1) % self.accum_steps
+            if self.mini_step:
+                return norm
+            for p, a in zip(self.params, self.acc):
+                p.grad = a.clone()
+            torch._foreach_zero_(self.acc)
+            grads = [p.grad for p in self.params]
         if self.grad_clip > 0:
             # optax clip_by_global_norm: g * max / |g| only where |g| >= max,
             # with no epsilon (clip_grad_norm_ divides by |g| + 1e-6)
-            factor = torch.where(norm < self.grad_clip, torch.ones_like(norm),
-                                 self.grad_clip / norm)
+            clip_norm = norm if self.accum_steps == 1 else _global_norm(grads)
+            factor = torch.where(clip_norm < self.grad_clip, torch.ones_like(clip_norm),
+                                 self.grad_clip / clip_norm)
             torch._foreach_mul_(grads, factor)
         decay, plain = self.opt.param_groups
         decay["lr"] = plain["lr"] = self.lr_schedule(self.count)
@@ -230,11 +261,13 @@ class ScheduledAdamW:
         return norm
 
     def state_dict(self) -> dict:
-        return {"opt": self.opt.state_dict(), "count": self.count}
+        return {"opt": self.opt.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "acc": self.acc}
 
     def load_state_dict(self, state: dict):
         self.opt.load_state_dict(state["opt"])
         self.count = state["count"]
+        self.mini_step, self.acc = state["mini_step"], state["acc"]
 
 
 def adamw_with_freezing(model: nn.Module, lr_schedule: Callable[[int], float], *,
@@ -242,13 +275,16 @@ def adamw_with_freezing(model: nn.Module, lr_schedule: Callable[[int], float], *
                         grad_clip: float = 0.0, eps: float = 1e-8,
                         weight_decay_end: Optional[float] = None,
                         total_steps: Optional[int] = None,
-                        paths: Optional[Dict[str, str]] = None) -> ScheduledAdamW:
+                        paths: Optional[Dict[str, str]] = None,
+                        grad_accum_steps: int = 1) -> ScheduledAdamW:
     """AdamW over ``model``'s trainable parameters, as the JAX package's
     ``adamw_with_freezing`` builds it: no decay where ``no_decay_predicate``
     says so of the parameter's flax path (``paths[name]``; the name itself
     when no map is given), wd annealed by cosine to ``weight_decay_end``
-    over ``total_steps`` when that differs from ``weight_decay``, and one
-    global-norm clip over every trainable gradient when ``grad_clip > 0``."""
+    over ``total_steps`` when that differs from ``weight_decay``, one
+    global-norm clip over every trainable gradient when ``grad_clip > 0``,
+    and with ``grad_accum_steps`` > 1 an update every that many micro-steps
+    on their mean gradient (``optax.MultiSteps``)."""
     paths = paths or {}
     anneal = weight_decay_end is not None and weight_decay_end != weight_decay
     if anneal and not total_steps:
@@ -259,7 +295,7 @@ def adamw_with_freezing(model: nn.Module, lr_schedule: Callable[[int], float], *
         weight_decay=weight_decay,
         wd_schedule=wd_cosine_anneal(weight_decay, weight_decay_end, total_steps)
         if anneal else None,
-        b1=b1, b2=b2, eps=eps, grad_clip=grad_clip)
+        b1=b1, b2=b2, eps=eps, grad_clip=grad_clip, accum_steps=grad_accum_steps)
 
 
 def ema_decay_schedule(optimization_step: int, *, decay: float = 0.9999,

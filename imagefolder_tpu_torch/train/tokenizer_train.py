@@ -5,24 +5,32 @@
 One ``train_step`` is the generator update and then the discriminator
 update, as in the JAX package's jitted step:
 - generator: the tokenizer's training forward (quantizer dropout, vq and
-  commit losses, the semantic teacher's InfoNCE), L2 reconstruction, LPIPS,
-  DiffAug and DinoDisc on the reconstruction, the hinge generator loss, the
-  adaptive disc weight from the gradients of nll and g_adv at the decoder's
-  last layer, one backward into the tokenizer's parameters only (the
-  reference's frozen-disc generator pass; the JAX package cuts the path with
-  ``stop_gradient``), and the clipped AdamW and the EMA copy;
-- discriminator: DiffAug'd detached reconstructions and real images through
-  DinoDisc with its spectral-norm state updated (the real call starts from
-  the u the fake call saved), hinge loss plus LeCam against the updated
-  EMAs, and its own clipped AdamW;
+  commit losses, RobustTok's latent perturbation, the semantic and detail
+  teachers' InfoNCE), L2 reconstruction, LPIPS, the discriminator on the
+  reconstruction (DinoDisc after DiffAug; PatchGAN and StyleGAN on it as it
+  is), the hinge generator loss, the adaptive disc weight from the
+  gradients of nll and g_adv at the decoder's last layer, one backward into
+  the tokenizer's parameters only (the reference's frozen-disc generator
+  pass; the JAX package cuts the path with ``stop_gradient``), and the
+  clipped AdamW and the EMA copy;
+- discriminator: the detached reconstructions and the real images through
+  the discriminator with its state updated (DinoDisc's spectral-norm u,
+  PatchGAN's running statistics; the real call starts from what the fake
+  call saved), hinge loss plus LeCam against the updated EMAs, and its own
+  clipped AdamW;
 - bookkeeping: the codebook-usage EMA and the per-scale usage percentages.
+With ``grad_accum_steps`` k > 1 each call is a micro-step: both optimizers
+update every k-th call, on the mean gradient (``optax.MultiSteps``), while
+the step count, the LeCam and usage EMAs, the discriminator's state and the
+parameter EMA move at every call.
 On the card every ViT attention runs kernel #1 forward and kernel #2
-backward (``attention_qkv``), and every codebook lookup kernel #9.
+backward (``attention_qkv``), and every multi-scale codebook lookup kernel
+#9.
 
 State lives in the modules, the optimizers and a few attributes (the LeCam
 EMAs as 0-d tensors, the usage EMA, the host step counts); nothing in a
-step synchronises with the host. Gradient accumulation, PatchGAN/StyleGAN,
-``reinit_disc_heads`` and RobustTok's annealing are not ported.
+step synchronises with the host. ``get_random_ratio`` is RobustTok's
+annealing of alpha and the top-k budget over epochs (the CLI's).
 """
 
 from __future__ import annotations
@@ -34,7 +42,12 @@ import torch
 from torch import nn
 
 from imagefolder_tpu_torch.losses.diffaug import diff_aug
-from imagefolder_tpu_torch.losses.discriminators import DinoDisc, draw_crop
+from imagefolder_tpu_torch.losses.discriminators import (
+    DinoDisc,
+    PatchGANDiscriminator,
+    StyleGANDiscriminator,
+    draw_crop,
+)
 from imagefolder_tpu_torch.losses.gan import (
     D_LOSSES,
     G_LOSSES,
@@ -56,7 +69,7 @@ from imagefolder_tpu_torch.train.optim import (
     tokenizer_frozen_predicate,
 )
 
-__all__ = ["TokenizerTrainConfig", "TokenizerTrainer"]
+__all__ = ["TokenizerTrainConfig", "TokenizerTrainer", "get_random_ratio"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -101,6 +114,34 @@ class TokenizerTrainConfig:
     loss_dtype: str = "float32"
 
 
+def get_random_ratio(anneal_start: int, anneal_end: int, end_ratio: float,
+                     epoch: int) -> float:
+    """RobustTok's annealing ratio (xqgan_train.py:62-68, the JAX package's
+    ``scripts/train_tokenizer.py``): 1 before ``anneal_start`` (or with no
+    window), then linear from 1 down by ``end_ratio`` over the window, and
+    ``end_ratio`` after ``anneal_end``. The training loop passes
+    alpha * ratio as ``alpha`` and the ratio as ``delta_ratio``."""
+    if epoch < anneal_start or anneal_end <= anneal_start:
+        return 1.0
+    if epoch > anneal_end:
+        return end_ratio
+    return 1.0 - (epoch - anneal_start) / (anneal_end - anneal_start) * end_ratio
+
+
+def _make_disc(tcfg: TokenizerTrainConfig, loss_dtype: torch.dtype,
+               generator: Optional[torch.Generator]) -> nn.Module:
+    """``disc_type``'s discriminator (the JAX trainer's dispatch), drawn
+    from ``generator``; PatchGAN and StyleGAN run in fp32 whatever the loss
+    stack's dtype, as the JAX modules do."""
+    if tcfg.disc_type == "dinodisc":
+        return DinoDisc(tcfg.dino_depth, dtype=loss_dtype, generator=generator)
+    if tcfg.disc_type == "patchgan":
+        return PatchGANDiscriminator(generator=generator)
+    if tcfg.disc_type == "stylegan":
+        return StyleGANDiscriminator(tcfg.image_size, generator=generator)
+    raise ValueError(f"unknown disc_type {tcfg.disc_type!r}")
+
+
 def _last_layer_kernel(model_cfg: ModelArgs, model: VQModel) -> torch.Tensor:
     """The decoder's last-layer weight, the anchor of the adaptive disc
     weight (reference get_last_layer): the ``linear`` ToPixel head's."""
@@ -117,55 +158,51 @@ def _freeze(module: nn.Module, paths: Dict[str, str], frozen) -> None:
 
 
 class TokenizerTrainer:
-    """Owns the ``VQModel``, the frozen ``LPIPS`` and the ``DinoDisc``, both
-    optimizers, the EMA copy of the tokenizer's parameters, the LeCam EMAs,
-    the (P, S, V) codebook-usage EMA, ``record_hit`` and ``step``.
+    """Owns the ``VQModel``, the frozen ``LPIPS`` and the discriminator
+    (``disc_type``: DinoDisc, PatchGAN or StyleGAN), both optimizers, the EMA
+    copy of the tokenizer's parameters, the LeCam EMAs, the (P, S, V)
+    codebook-usage EMA, ``record_hit`` and ``step``.
 
     ``generator`` (a CPU generator) draws every parameter, so that each
     device gets the same weights, and seeds the training draws, which come
     from a generator on ``device`` (the card unless the caller asks for the
-    CPU). Frozen parameters (the semantic teacher, the VGG, DinoDisc's trunk,
-    and a Phi that no scale applies) have ``requires_grad`` False and stay
-    out of the optimizers."""
+    CPU). Frozen parameters (the semantic and detail teachers, the VGG,
+    DinoDisc's trunk, and a Phi that no scale applies) have
+    ``requires_grad`` False and stay out of the optimizers."""
 
     def __init__(self, model_cfg: ModelArgs, tcfg: TokenizerTrainConfig, *,
                  generator: Optional[torch.Generator] = None,
                  device: torch.device | str = "cuda"):
-        if tcfg.disc_type != "dinodisc":
-            raise NotImplementedError(f"disc_type={tcfg.disc_type!r} is not ported")
-        if tcfg.grad_accum_steps != 1:
-            raise NotImplementedError("gradient accumulation is not ported")
         self.model_cfg, self.tcfg = model_cfg, tcfg
         self.device = torch.device(device)
         loss_dtype = _DTYPES[tcfg.loss_dtype]
         self.model = VQModel(model_cfg, generator=generator, device=device)
         self.lpips = LPIPS(loss_dtype, generator=generator).to(device)
-        self.disc = DinoDisc(tcfg.dino_depth, dtype=loss_dtype, generator=generator).to(device)
+        self.disc = _make_disc(tcfg, loss_dtype, generator).to(device)
         self.rng = torch.Generator(device=self.device)
         self.rng.manual_seed(int(torch.randint(2 ** 62, (), generator=generator)))
 
-        g_paths, d_paths = module_flax_paths(self.model), module_flax_paths(self.disc)
+        g_paths = module_flax_paths(self.model)
         _freeze(self.model, g_paths, tokenizer_frozen_predicate(model_cfg))
         for qz in self.model.quantizers:  # a Phi that no scale applies has no gradient
-            for i, phi in enumerate(qz.quant_resi or ()):
+            for i, phi in enumerate(getattr(qz, "quant_resi", None) or ()):
                 if i not in qz.phis_used():
                     phi.requires_grad_(False)
-        _freeze(self.disc, d_paths, disc_frozen_predicate)
+        _freeze(self.disc, module_flax_paths(self.disc), disc_frozen_predicate)
 
         total = tcfg.epochs * tcfg.steps_per_epoch
         if tcfg.lr_scheduler == "cosine":
             g_sched = cosine_with_warmup(tcfg.lr, tcfg.steps_per_epoch, total, tcfg.min_lr)
-            d_sched = cosine_with_warmup(
+            self.d_sched = cosine_with_warmup(
                 tcfg.disc_lr, int(0.02 * tcfg.epochs) * tcfg.steps_per_epoch,
                 max(total - tcfg.disc_start, 1), tcfg.min_lr)
         else:
-            g_sched, d_sched = (lambda s: tcfg.lr), (lambda s: tcfg.disc_lr)
+            g_sched, self.d_sched = (lambda s: tcfg.lr), (lambda s: tcfg.disc_lr)
         self.gen_opt = adamw_with_freezing(
             self.model, g_sched, weight_decay=tcfg.weight_decay, b1=tcfg.beta1,
-            b2=tcfg.beta2, grad_clip=tcfg.max_grad_norm, paths=g_paths)
-        self.disc_opt = adamw_with_freezing(
-            self.disc, d_sched, weight_decay=tcfg.disc_weight_decay, b1=tcfg.beta1,
-            b2=tcfg.beta2, grad_clip=tcfg.max_grad_norm, paths=d_paths)
+            b2=tcfg.beta2, grad_clip=tcfg.max_grad_norm, paths=g_paths,
+            grad_accum_steps=tcfg.grad_accum_steps)
+        self.disc_opt = self._make_disc_opt()
         self.d_loss = D_LOSSES[tcfg.disc_loss]
         self.g_loss = G_LOSSES[tcfg.gen_loss]
 
@@ -177,6 +214,29 @@ class TokenizerTrainer:
         self.record_hit = 0
         self.step = 0
 
+    def _make_disc_opt(self):
+        return adamw_with_freezing(
+            self.disc, self.d_sched, weight_decay=self.tcfg.disc_weight_decay,
+            b1=self.tcfg.beta1, b2=self.tcfg.beta2, grad_clip=self.tcfg.max_grad_norm,
+            paths=module_flax_paths(self.disc), grad_accum_steps=self.tcfg.grad_accum_steps)
+
+    def reinit_disc_heads(self, generator: Optional[torch.Generator] = None):
+        """Periodic discriminator re-initialisation (reference DinoDisc.reinit,
+        discriminator_dino.py:219-234; xqgan_train.py:436): parameters drawn
+        afresh from ``generator`` (a CPU generator) as at construction,
+        DinoDisc keeping its frozen ``dino`` trunk and any other
+        discriminator re-initialised whole, and a fresh disc optimizer (no
+        moments, the schedule from step 0). The discriminator's state
+        (spectral-norm u and sigma, BatchNorm running statistics) is kept, as
+        the JAX trainer keeps ``disc_vars``."""
+        fresh = _make_disc(self.tcfg, _DTYPES[self.tcfg.loss_dtype], generator)
+        fresh_params = dict(fresh.named_parameters())
+        with torch.no_grad():
+            for name, p in self.disc.named_parameters():
+                if not (isinstance(self.disc, DinoDisc) and name.startswith("dino.")):
+                    p.copy_(fresh_params[name])
+        self.disc_opt = self._make_disc_opt()
+
     def sync_ema(self):
         """Set the EMA copy to the current parameters (as at initialisation;
         call it after loading weights)."""
@@ -184,44 +244,64 @@ class TokenizerTrainer:
             self.ema_params = [p.detach().clone() for p in self.model.parameters()]
 
     def _aug(self, x: torch.Tensor, fade_blur: float, draws: Optional[dict]) -> torch.Tensor:
+        """DiffAug before DinoDisc; the other discriminators see the images
+        as they are (the JAX trainer's ``_aug``)."""
+        if not isinstance(self.disc, DinoDisc):
+            return x
         return diff_aug(x, self.rng, self.tcfg.aug_prob, self.tcfg.aug_cutout, fade_blur,
                         draws=draws)
 
+    def _disc_apply(self, x: torch.Tensor, crop, update_stats: bool) -> torch.Tensor:
+        """The discriminator in training mode (the JAX trainer's
+        ``_disc_apply``: batch statistics in both passes), keeping its new
+        state only with ``update_stats``."""
+        if isinstance(self.disc, DinoDisc):
+            return self.disc(x, crop, update_stats=update_stats)
+        if isinstance(self.disc, PatchGANDiscriminator):
+            return self.disc(x, train=True, update_stats=update_stats)
+        return self.disc(x)  # StyleGAN keeps no state
+
     def train_step(self, imgs: torch.Tensor, *, epoch: int = 0, fade_blur: float = 0.0,
-                   alpha: float = 0.0, beta: float = 0.0, delta_ratio: float = 0.0,
+                   alpha: float = 0.0, beta: float = 0.0, delta_ratio: float = 1.0,
                    draws: Optional[dict] = None) -> Dict[str, torch.Tensor]:
-        """One generator and one discriminator update on (B, H, W, 3) images
-        in [-1, 1] on the trainer's device. Returns the JAX package's metrics
-        (0-d tensors, and the (P, S) ``codebook_usage_per_scale``) plus
-        ``grad_norm`` and ``disc_grad_norm``, the two optimizers' gradient
-        norms before the clip; nothing is read back to the host.
+        """One generator and one discriminator update (or, with gradient
+        accumulation, one micro-step of each) on (B, H, W, 3) images in
+        [-1, 1] on the trainer's device. ``alpha``, ``beta`` and
+        ``delta_ratio`` are RobustTok's perturbation settings for this step
+        (``get_random_ratio``; used when ``perturb_delta_max`` > 0). Returns
+        the JAX package's metrics (0-d tensors, and the (P, S)
+        ``codebook_usage_per_scale``) plus ``grad_norm`` and
+        ``disc_grad_norm``, the global norms of this call's gradients of the
+        two optimizers' parameters before any clip; nothing is read back to
+        the host.
 
         ``draws`` (a test hook) replaces the step's random draws:
-        ``dropout_n`` (B,), the DiffAug uniforms of the generator pass, the
-        fake and the real images (``aug_g``, ``aug_f``, ``aug_r``, each as
-        ``diffaug.draw_aug`` makes them) and the disc's crop-or-resize
-        (``crop``, as ``discriminators.draw_crop``). ``alpha``, ``beta`` and
-        ``delta_ratio`` (RobustTok annealing) must be 0."""
-        if alpha or beta or delta_ratio:
-            raise NotImplementedError("RobustTok annealing (alpha, beta, delta_ratio) is not "
-                                      "ported")
+        ``dropout_n`` (B,), the perturbation's two uniforms (``perturb``, as
+        ``ops.perturb.draw_perturbation`` makes them), the DiffAug uniforms
+        of the generator pass, the fake and the real images (``aug_g``,
+        ``aug_f``, ``aug_r``, each as ``diffaug.draw_aug`` makes them) and
+        DinoDisc's crop-or-resize (``crop``, as ``discriminators.draw_crop``)."""
         tcfg, mcfg = self.tcfg, self.model_cfg
         draws = draws or {}
         dev = imgs.device
         disc_w = adopt_weight(tcfg.disc_weight, self.step + 1, tcfg.disc_start)
-        crop = draws["crop"] if "crop" in draws else draw_crop(imgs.shape[1], self.rng, dev)
+        crop = None
+        if isinstance(self.disc, DinoDisc):
+            crop = draws["crop"] if "crop" in draws else draw_crop(imgs.shape[1], self.rng, dev)
         use_lpips, use_disc = bool(tcfg.perceptual_weight), bool(tcfg.disc_weight)
         zero = torch.zeros((), device=dev)
 
         # ---------------- generator ---------------- #
-        out = self.model(imgs, train=True, epoch=epoch, generator=self.rng,
-                         dropout_n=draws.get("dropout_n"))
+        out = self.model(imgs, train=True, epoch=epoch, alpha=alpha, beta=beta,
+                         delta_ratio=delta_ratio, generator=self.rng,
+                         dropout_n=draws.get("dropout_n"), perturb=draws.get("perturb"))
         dec = out.dec.float()
         rec = ((imgs - dec).square() if tcfg.rec_loss == "l2" else (imgs - dec).abs()).mean()
         perc = self.lpips(imgs, dec).mean() if use_lpips else zero
         g_adv = zero
         if use_disc:
-            logits_fake = self.disc(self._aug(dec, fade_blur, draws.get("aug_g")), crop)
+            logits_fake = self._disc_apply(self._aug(dec, fade_blur, draws.get("aug_g")), crop,
+                                           update_stats=False)
             g_adv = self.g_loss(logits_fake)
         nll = tcfg.rec_weight * rec + tcfg.perceptual_weight * perc
         d_weight = torch.ones((), device=dev)
@@ -250,8 +330,8 @@ class TokenizerTrainer:
             dec_sg = out.dec.detach().float()
             fake = self._aug(dec_sg, fade_blur, draws.get("aug_f"))
             real = self._aug(imgs, fade_blur, draws.get("aug_r"))
-            logits_fake = self.disc(fake, crop, update_stats=True)
-            logits_real = self.disc(real, crop, update_stats=True)
+            logits_fake = self._disc_apply(fake, crop, update_stats=True)
+            logits_real = self._disc_apply(real, crop, update_stats=True)
             base = self.d_loss(logits_real, logits_fake)
             if tcfg.lecam_loss_weight:
                 # the EMA is updated first, then regularised against

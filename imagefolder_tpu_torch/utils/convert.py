@@ -1,7 +1,7 @@
 """JAX-package parameters -> the port's state dicts, with numpy only.
 
 ``vqmodel_state_dict_from_flax`` takes the JAX package's ``VQModel`` params
-(the frozen ``semantic_model`` teacher included) and
+(the frozen ``semantic_model`` and ``detail_model`` teachers included) and
 ``var_state_dict_from_flax`` its ``VAR`` params (nested dicts of arrays,
 e.g. ``jax.tree_util.tree_map(np.asarray, params)``) and return the upstream
 torch layout that ``imagefolder_tpu/utils/convert_torch.py::export_vqmodel``
@@ -64,6 +64,8 @@ def _put_vit_backbone(sd: dict, p: Mapping, prefix: str):
     sd[f"{prefix}pos_embed"] = np.asarray(p["pos_embed"])
     if "norm" in p:  # DinoDisc's trunk never applies (or creates) it
         _put_ln(sd, f"{prefix}norm", p["norm"])
+    if "norm_pre" in p:  # CLIP's
+        _put_ln(sd, f"{prefix}norm_pre", p["norm_pre"])
     i = 0
     while f"block_{i}" in p:
         b = p[f"block_{i}"]
@@ -136,8 +138,9 @@ def vqmodel_state_dict_from_flax(params: Mapping, margs: ModelArgs) -> dict:
         else:  # single-scale VQ keeps a flat (V,) hit buffer
             sd[f"{prefix}embedding.weight"] = np.asarray(q["codebook"])
             sd[f"{prefix}ema_vocab_hit_SV"] = np.zeros(margs.codebook_size, np.float32)
-    if "semantic_model" in params:
-        _put_vit_backbone(sd, params["semantic_model"], "semantic_model.")
+    for teacher in ("semantic_model", "detail_model"):
+        if teacher in params:
+            _put_vit_backbone(sd, params[teacher], f"{teacher}.")
     return to_torch(sd)
 
 
@@ -206,14 +209,15 @@ _PATH_RULES = [
 
 
 def flax_path(name: str) -> str:
-    """The flax path ("a/b/leaf") of a port parameter of ``VQModel`` or
-    ``DinoDisc``, as its converter above reads it."""
+    """The flax path ("a/b/leaf") of a port parameter of ``VQModel`` or a
+    discriminator, as its converter reads it."""
     for pat, rep in _PATH_RULES:
         name = re.sub(pat, rep, name)
     parts = name.split(".")
     if parts[-1] == "weight":
         parent = parts[-2] if len(parts) > 1 else ""
-        parts[-1] = "scale" if "norm" in parent or parent.endswith("_bn") else "kernel"
+        bn = parent.endswith("_bn") or re.fullmatch(r"bn\d+", parent)  # DinoDisc's, PatchGAN's
+        parts[-1] = "scale" if "norm" in parent or bn else "kernel"
     return "/".join(parts)
 
 

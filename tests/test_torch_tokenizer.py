@@ -150,12 +150,12 @@ def test_round_trip_bf16_dtype_flow():
 
 
 # multi-scale VQ, product quantization, latent grids other than the patch
-# grid and the DINOv2 semantic teacher are ported now; their places in the
-# list hold other unported options
+# grid, the DINOv2 semantic teacher, the CLIP detail teacher and RobustTok's
+# perturbation are ported now (tests/test_torch_robusttok.py); their places
+# in the list hold other unported options
 @pytest.mark.parametrize("override", [
     dict(enc_type="cnn"), dict(dec_type="cnn"), dict(lfq=True),
-    dict(v_patch_nums=(1, 2, 4), lfq=True), dict(perturb_delta_max=4),
-    dict(detail_guide="clip"), dict(abs_pos_embed=False),
+    dict(v_patch_nums=(1, 2, 4), lfq=True), dict(abs_pos_embed=False),
     dict(enc_tuning_method="lat_lora"), dict(to_pixel="siren"),
     dict(dec_tuning_method="lora"),
 ])

@@ -412,18 +412,6 @@ def test_cpu_train_step_launches_no_kernel():
     assert tr.model.semantic_model.blocks[0].attn.qkv.weight.grad is None
 
 
-@pytest.mark.parametrize("override,kw", [
-    (dict(disc_type="patchgan"), {}), (dict(grad_accum_steps=2), {}),
-    ({}, dict(alpha=0.1)), ({}, dict(delta_ratio=0.5)),
-])
-def test_unported_options_raise(override, kw):
-    (_, _), (pm, pt) = _recipes()
-    pt = dataclasses.replace(pt, **override)
-    with pytest.raises(NotImplementedError):
-        tr = TokenizerTrainer(pm, pt, device="cpu")
-        tr.train_step(torch.zeros((B, PX, PX, 3)), **kw)
-
-
 def test_config_fields_match_jax():
     assert [(f.name, f.default) for f in dataclasses.fields(TokenizerTrainConfig)] == [
         (f.name, f.default) for f in dataclasses.fields(jax_tt.TokenizerTrainConfig)]

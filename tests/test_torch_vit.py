@@ -121,8 +121,7 @@ def test_decoder_backbone_has_no_patch_embed(fp32_models):
 
 
 def test_unported_backbone_options_raise():
-    with pytest.raises(NotImplementedError):
-        pt_vit.ViTBackbone(embed_dim=64, depth=1, num_heads=2, pre_norm=True)
+    # pre_norm (the CLIP teacher) is ported: tests/test_torch_robusttok.py
     with pytest.raises(NotImplementedError):  # LoRA tuning
         pt_vit.LatentEncoder(TINY, IMG, 16, num_latent_tokens=16, tuning_method="lora")
     with pytest.raises(NotImplementedError):  # learned latent pos embeds
