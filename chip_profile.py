@@ -92,7 +92,7 @@ from imagefolder_tpu_torch.ops.quantize import update_usage_ema, usage_percent
 from imagefolder_tpu_torch.train import var_train
 from imagefolder_tpu_torch.train.optim import ema_update
 from imagefolder_tpu_torch.train.recipes import flagship_gan_recipe
-from imagefolder_tpu_torch.train.tokenizer_train import TokenizerTrainer, _last_layer_kernel
+from imagefolder_tpu_torch.train.tokenizer_train import TokenizerTrainer
 
 CALLS = 2
 # kernel name pattern -> kind, first match wins
@@ -251,7 +251,7 @@ def gan_phases(tr: TokenizerTrainer, x: torch.Tensor) -> list:
 
     def adaptive_weight():
         s["nll"] = tcfg.rec_weight * s["rec"] + tcfg.perceptual_weight * s["perc"]
-        w_last = _last_layer_kernel(cfg, m)
+        w_last = m.last_layer
         g_nll, = torch.autograd.grad(s["nll"], w_last, retain_graph=True)
         g_g, = torch.autograd.grad(s["g_adv"], w_last, retain_graph=True)
         s["d_weight"] = adaptive_disc_weight(g_nll, g_g)

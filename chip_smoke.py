@@ -50,7 +50,10 @@ exit; no failure is caught):
      at head dim 48 through the same checks (RAR-B's (64, 258, 16, 48)
      under the causal mask, #4/#5 past the single-block budget); #3 and #6
      at MaskGIT-B's (64, 257, 16, 48) without a bias; #3-#6 at head dims
-     32 and 40, and 44, 80 and 128 refused with no launch;
+     32 and 40; #3-#6 at head dims 72-128 (RAR-XL's (64, 258, 16, 80),
+     RAR-XXL's 88, and 72, 96, 128: the kD = 128 kernels) and at 36 and
+     100 (zero-padded by the wrapper), through the same checks, and 136
+     and 256 refused with no launch;
   4. models, card against CPU in fp32 from one seed: the VQ-4096 ViT-B
      tokenizer at B=2, then its decode and round trip with the fused
      sublayers on the card; RAR-B at full width with CFG, B=2, the same
@@ -74,9 +77,17 @@ exit; no failure is caught):
      ``TokenizerTrainer`` steps held the same way, with the perturbed codes
      and the nearest-code lists in lockstep, then two micro-steps with
      ``grad_accum_steps=2``; one step each with ``disc_type`` patchgan and
-     stylegan (ViT-S tokenizer), and ``reinit_disc_heads`` on DinoDisc; a
-     code or token may differ only at a near-tie, and the card then goes on
-     from the CPU's choice;
+     stylegan (ViT-S tokenizer), and ``reinit_disc_heads`` on DinoDisc;
+     RAR-XL's width (1280, 16 heads of 80) at 2 blocks: the training
+     forward, loss and every gradient; both MSBR YAMLs built through the
+     loader, MSBR10P2-4096 (BSQ) with VAR-d16 as the MSVR checks with LFQ's
+     sign bits in lockstep, and one step of its YAML (both teachers,
+     DinoDisc, epoch 80); one step each of VQ-4096.yaml with LoRA
+     (lat_lora/lora: every frozen parameter bit-unchanged on both sides),
+     learned latent pos embeds, the conv head and the siren head, and the
+     CNN tokenizer's round trip and step (B=1); a code, sign bit or token
+     may differ only at a near-tie, and the card then goes on from the
+     CPU's choice;
   5. main paths in bf16, timed with CUDA events (a warm-up call, then
      median, min and max), each with every launch counter set to 0 just
      before its timed calls and read just after: at B=64 the VQ-4096 round
@@ -95,13 +106,22 @@ exit; no failure is caught):
      GAN ``TokenizerTrainer.train_step``; and ``RobustTok train_step``
      (``configs/RobustTok.yaml`` as the loader gives it, 64 images a
      micro-step with ``grad_accum_steps=2``, at epoch 80 of the anneal
-     window), with the perturbed samples checked;
+     window), with the perturbed samples checked; RAR-XL's width at 8
+     blocks (``rar-xl train fwd+bwd``); MSBR10P2-4096's tokenizer train step
+     (``msbr train_step``, epoch 80) and round trip, and ``var_sample``,
+     ``img_to_idxBl``, ``VAR.forward`` and VAR's train and eval steps on its
+     codes (``var msbr ...``);
+     the train step and round trip of VQ-4096.yaml with LoRA, latent pos
+     embeds, the conv head and the siren head, and of the CNN tokenizer
+     (its train step at B=16), each trainable parameter moved and each
+     frozen one unchanged;
   6. times: each kernel (#2, #5 and #6 as training calls them, with the
      forward's saved output and lse, #6 through autograd; #1, #3 and #4
      also with the lse store on, #3 as the train step's autograd runs its
      forward; #3 at the last 256 px sampling stage, teacher forcing, the
      512 px last sampling stage, RAR-B's teacher forcing and MaskGIT-B's
-     shape; #6 also at RAR-B's and MaskGIT-B's training shapes; #9 at every
+     shape; #6 also at RAR-B's and MaskGIT-B's training shapes; #3 and #6
+     at RAR-XL's and RAR-XXL's (64, 258, 16, 80 | 88); #9 at every
      scale of both encodes, each a CUDA
      graph of 20 calls, with its sums per encode),
      its plain version (order plain, kernel, kernel,
@@ -363,6 +383,8 @@ def phase_build():
     secs = time.perf_counter() - t0
     print(f"[build] {path.relative_to(ROOT)} {'built' if fresh else 'found'} "
           f"and loaded in {secs:.2f} s")
+    for line in _build.compile_seconds():
+        print(f"[build] nvcc seconds {line}")
     for line in _build.ptxas_report():
         print(f"[build] ptxas {line}")
 
@@ -1077,8 +1099,7 @@ def kernels_maskgit_and_narrow_heads(dev):
     v, dbias on, fp32, bf16 autograd), and #4 and #5 at head dim 32 past
     the single-block budget (L = 2100 under an encoder mask, ragged 2049
     without a bias, fp32, #4 bit-equal with and without its blank-tile map,
-    bf16 autograd); and heads of 44, 80 and 128 refused by #3-#6 with no
-    launch."""
+    bf16 autograd)."""
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(SEED + MASKGIT_SEQ)
 
@@ -1124,9 +1145,90 @@ def kernels_maskgit_and_narrow_heads(dev):
         ("ragged L=2049, no bias", *qblk[1][1:4], None, False),
         ("L=2100 fp32, dbias on", *qblk[2][1:4], mask, True)], hd, gen)
     _autograd_hd("#4/#5", ("QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES"), *qblk[0][1:4], mask, gen)
-    # other widths are refused before any launch
+
+
+RARXL_HEADS, RARXL_HD = 16, 80  # RAR-XL: 1280 wide, 16 heads of 80
+RARXXL_HD = 88                  # RAR-XXL: 1408 / 16
+WIDE_HDS = (72, 96, 128)        # with 80 and 88: the widths the kD = 128 code runs
+UNALIGNED_HDS = (36, 100)       # not multiples of 8: zero-padded to 40 and 104 first
+
+
+def kernels_wide_heads(dev):
+    """#3-#6 at head widths past 64 (the kD = 128 instantiations) and at
+    widths that are not a multiple of 8 (the wrapper's zero padding): #3 and
+    #6 at RAR-XL's (64, 258, 16, 80) and RAR-XXL's 88 under the causal mask
+    and without a bias, bf16 (dbias off: the two-kernel backward; on) and
+    fp32, and through bf16 autograd (one launch each); at 72, 96, 128, 36
+    and 100 the edge cases of 48's and 64's (cross length, streamed k and
+    v, Lq = 1, a per-(B, H) bias, strided and unaligned views, ragged L);
+    #4 and #5 past the single-block budget at 80, 128 and 100 (L = 2100
+    under an encoder mask, ragged 2049 without a bias, fp32, #4 bit-equal
+    with and without its blank-tile map, bf16 autograd); then heads of 136
+    and 256 refused by #3-#6 with no launch."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 128)
+
+    def bnhd(b, lq, lk, h, dtype, hd):
+        return _bnhd(gen, b, lq, lk, h, dtype, dev, l2=False, hd=hd)
+
+    rar = (RAR_SEQ, RAR_SEQ, RARXL_HEADS)
+    causal = _causal(RAR_SEQ, dev)
+    for hd in (RARXL_HD, RARXXL_HD):
+        _fwd_cases_hd("#3", attn.fused_attention, attn.fused_attention_reference, [
+            ("RAR-XL/XXL teacher forcing", *bnhd(BATCH, *rar, bf16, hd), causal),
+            ("RAR-XL/XXL, no bias", *bnhd(BATCH, *rar, bf16, hd), None),
+            ("RAR-XL/XXL fp32", *bnhd(2, *rar, f32, hd), causal)], hd)
+        _bwd_cases_hd("#6", attn.fused_attention_bwd, attn.fused_attention_bwd_reference, [
+            ("RAR-XL/XXL training, dbias off", *bnhd(BATCH, *rar, bf16, hd), causal, False),
+            ("RAR-XL/XXL training, no bias", *bnhd(BATCH, *rar, bf16, hd), None, False),
+            ("RAR-XL/XXL training, dbias on", *bnhd(8, *rar, bf16, hd), causal, True),
+            ("RAR-XL/XXL training fp32", *bnhd(2, *rar, f32, hd), causal, True)], hd, gen)
+        _autograd_hd("#3/#6", ("FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES"),
+                     *bnhd(BATCH, *rar, bf16, hd), causal, gen)
+    small = _causal(130, dev)
+    for hd in WIDE_HDS + UNALIGNED_HDS:
+        qkv = torch.randn((4, 30, 3, 4, hd), generator=gen, device=dev).bfloat16()
+        wide = torch.randn((3, 40, 4, hd + 1), generator=gen, device=dev).bfloat16()
+        per_bh = torch.randn((2, 4, 37, 45), generator=gen, device=dev)
+        per_bh[..., 5:9] = float("-inf")
+        _fwd_cases_hd("#3", attn.fused_attention, attn.fused_attention_reference, [
+            ("L=130, causal", *bnhd(4, 130, 130, 4, bf16, hd), small),
+            ("L=130, no bias", *bnhd(4, 130, 130, 4, bf16, hd), None),
+            ("L=130 fp32, causal", *bnhd(2, 130, 130, 4, f32, hd), small),
+            ("cross length 37 x 77", *bnhd(3, 37, 77, 4, bf16, hd), None),
+            ("streamed k, v: 100 x 700", *bnhd(4, 100, 700, 4, bf16, hd), None),
+            ("Lq=1", *bnhd(5, 1, 2, 4, bf16, hd), None),
+            ("per-(B,H) bias", *bnhd(2, 37, 45, 4, bf16, hd), per_bh),
+            ("strided qkv views", *qkv.unbind(2), build_attn_bias((1, 2, 3, 4)).to(dev)),
+            ("unaligned rows", wide[:, :21, :, :hd], wide[..., :hd], wide[..., 1:], None)], hd)
+        _bwd_cases_hd("#6", attn.fused_attention_bwd, attn.fused_attention_bwd_reference, [
+            ("L=130, causal, dbias off", *bnhd(4, 130, 130, 4, bf16, hd), small, False),
+            ("L=130, no bias", *bnhd(4, 130, 130, 4, bf16, hd), None, False),
+            ("L=130, causal, dbias on", *bnhd(4, 130, 130, 4, bf16, hd), small, True),
+            ("ragged L=1", *bnhd(3, 1, 1, 4, bf16, hd), None, False),
+            ("ragged L=37 fp32", *bnhd(3, 37, 37, 4, f32, hd), None, False),
+            ("strided qkv views", *qkv.unbind(2), build_attn_bias((1, 2, 3, 4)).to(dev), True)],
+            hd, gen)
+        _autograd_hd("#3/#6", ("FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES"),
+                     *bnhd(4, 130, 130, 4, bf16, hd), small, gen)
+    mask = encoder_mask(2100, 700, dev, 64)
+    for hd in (RARXL_HD, 128, UNALIGNED_HDS[1]):
+        qblk = [("L=2100, encoder mask", *bnhd(2, 2100, 2100, 4, bf16, hd), mask),
+                ("ragged L=2049, no bias", *bnhd(2, 2049, 2049, 4, bf16, hd), None),
+                ("L=2100 fp32, encoder mask", *bnhd(1, 2100, 2100, 4, f32, hd), mask)]
+        _fwd_cases_hd("#4", attn.fused_attention_qblk, attn.fused_attention_qblk_reference,
+                      qblk, hd)
+        _blank_map_bit_equal(qblk[0][0], *qblk[0][1:], hd)
+        _bwd_cases_hd("#5", attn.fused_attention_qblk_bwd,
+                      attn.fused_attention_qblk_bwd_reference, [
+            ("L=2100, encoder mask, dbias off", *qblk[0][1:4], mask, False),
+            ("ragged L=2049, no bias", *qblk[1][1:4], None, False),
+            ("L=2100 fp32, dbias on", *qblk[2][1:4], mask, True)], hd, gen)
+        _autograd_hd("#4/#5", ("QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES"), *qblk[0][1:4], mask, gen)
+        del qblk
+    # wider heads are refused before any launch
     reset_counts()
-    for hd in (44, 80, 128):
+    for hd in (136, 256):
         q, k, v = bnhd(2, 70, 70, 2, bf16, hd)
         for num, fn in (("#3", attn.fused_attention), ("#4", attn.fused_attention_qblk)):
             _expect_refusal(f"{num} hd {hd}", NotImplementedError, lambda: fn(q, k, v))
@@ -1512,9 +1614,17 @@ def _gumbel_gap(args, want, got, diff):
 RAR_SAMPLING = dict(guidance_scale=16.0, guidance_scale_pow=2.75, randomize_temperature=1.0)
 
 
+# depth cuts of card-vs-CPU checks whose CPU side set the script's time:
+# RAR-B's 256-step CFG sampling, the RARTrainer steps and MaskGIT-B's
+# checks (both trunks, the trainer step) at 8 of their 24 blocks, and the 512
+# px VAR checks with VAR-d16 cut to 4 blocks (the timed paths keep 24 and 16)
+CHECK_RAR_DEPTH = 8
+CHECK_VAR_DEPTH_512 = 4
+
+
 def phase_model_rar(dev, vq_cpu: VQModel, vq_card: VQModel):
-    """RAR-B at full width (768 wide, 24 deep, 16 heads, 256 tokens, 4096
-    codes) in fp32, B=2 with CFG at ``configs/generator/robustTok-rar.yaml``'s
+    """RAR-B at full width (768 wide, 16 heads, 256 tokens, 4096 codes; 8 of
+    its 24 blocks, ``CHECK_RAR_DEPTH``) in fp32, B=2 with CFG at ``configs/generator/robustTok-rar.yaml``'s
     settings, card against the same weights on the CPU, with the Gumbel noise
     drawn once on the CPU and handed to both: every pick equal except at a
     near-tie (the card then goes on from the CPU's pick), the CFG logits of
@@ -1522,7 +1632,8 @@ def phase_model_rar(dev, vq_cpu: VQModel, vq_card: VQModel):
     tokenizer of ``phase_model_vq``, fused sublayers on the card against
     the composed path on the CPU."""
     gen = torch.Generator().manual_seed(SEED + 10)
-    rar_cpu = build_rar(vq_cpu.config, generator=gen, device="cpu").eval()
+    rar_cpu = build_rar(vq_cpu.config, depth=CHECK_RAR_DEPTH, generator=gen,
+                        device="cpu").eval()
     _excite_adaln(rar_cpu, gen)
     rar_card = copy.deepcopy(rar_cpu).to(dev)
     cfg = rar_cpu.config
@@ -1654,8 +1765,9 @@ def _remask_gap(args, want, got, diff):
 
 
 def phase_model_maskgit(dev):
-    """MaskGIT-B at full width (768 wide, depth 24, 16 heads of 48, 256
-    tokens, 4096 codes) with each trunk, ``bert`` and ``uvit`` (25 blocks),
+    """MaskGIT-B at full width (768 wide, 16 heads of 48, 256 tokens, 4096
+    codes; 8 of its 24 blocks, ``CHECK_RAR_DEPTH``) with each trunk,
+    ``bert`` and ``uvit`` (9 blocks),
     in fp32 at B=2, card against the same weights on the CPU: the logits of
     a partly masked input, conditioned and with every condition dropped;
     then ``maskgit_generate``'s tokens at its defaults with the same Gumbel
@@ -1665,7 +1777,8 @@ def phase_model_maskgit(dev):
     margs = bench_margs("float32")
     for i, arch in enumerate(("bert", "uvit")):
         gen = torch.Generator().manual_seed(SEED + 20 + i)
-        cpu = build_maskgit(margs, arch=arch, generator=gen, device="cpu").eval()
+        cpu = build_maskgit(margs, arch=arch, depth=CHECK_RAR_DEPTH, generator=gen,
+                            device="cpu").eval()
         card = copy.deepcopy(cpu).to(dev)
         cfg, blocks = cpu.config, _maskgit_blocks(cpu.config)
         l, v = cfg.image_seq_len, cfg.codebook_size
@@ -1712,7 +1825,7 @@ def phase_model_maskgit(dev):
 
 
 def phase_model_maskgit_train(dev):
-    """One ``MaskGITTrainer`` step of MaskGIT-B (bert) in fp32 at B=2, card
+    """One ``MaskGITTrainer`` step of MaskGIT-B (bert; 8 of 24 blocks) in fp32 at B=2, card
     against CPU from the same weights with the same masking draws (t,
     scores) and condition drop, at ``total_steps`` 10 (no warmup: the step
     runs at the peak lr, 2e-4): loss, every parameter's gradient (max abs
@@ -1721,7 +1834,8 @@ def phase_model_maskgit_train(dev):
     sides) and the updated parameters. One #3 and one #6 launch per block
     (fp32: the FMA forward, the two-kernel backward)."""
     gen = torch.Generator().manual_seed(SEED + 22)
-    cpu = build_maskgit(bench_margs("float32"), generator=gen, device="cpu")
+    cpu = build_maskgit(bench_margs("float32"), depth=CHECK_RAR_DEPTH, generator=gen,
+                        device="cpu")
     card = copy.deepcopy(cpu).to(dev)
     cfg = cpu.config
     l = cfg.image_seq_len
@@ -1769,7 +1883,7 @@ def phase_model_maskgit_train(dev):
 
 
 def phase_model_rar_trainer(dev):
-    """Two ``RARTrainer`` steps of RAR-B in fp32 at B=2, card against CPU
+    """Two ``RARTrainer`` steps of RAR-B (8 of 24 blocks) in fp32 at B=2, card against CPU
     from the same weights (AdaLN drawn at random) with the same condition
     drops and orders (one raster, one random), at a warmup of 1 step (the
     first at lr 0, the second at the peak, 4e-4) with AdamW, the clip at 1
@@ -1778,7 +1892,7 @@ def phase_model_rar_trainer(dev):
     to ZERO_GRAD_TOL) after each step, then the parameters and the EMA. One
     #3 and one #6 launch per block and step."""
     gen = torch.Generator().manual_seed(SEED + 23)
-    cpu = build_rar(bench_margs("float32"), generator=gen, device="cpu")
+    cpu = build_rar(bench_margs("float32"), depth=CHECK_RAR_DEPTH, generator=gen, device="cpu")
     _excite_adaln(cpu, gen)
     card = copy.deepcopy(cpu).to(dev)
     cfg = cpu.config
@@ -1890,27 +2004,34 @@ def _logit_gap(args, want, got, diff):
     return (lg.gather(-1, want[:, None]) - lg.gather(-1, got[:, None])).abs()[:, 0]
 
 
-def phase_model_var(dev, margs: ModelArgs, name: str):
-    """A multi-scale tokenizer with VAR-d16 in fp32 at B=2,
+def _code_lockstep():
+    """The multi-scale VQ's codes (``_codebook_lookup``) in lockstep."""
+    return Lockstep(quantize, "_codebook_lookup", _code_gap, NEAR_TIE)
+
+
+def phase_model_var(dev, margs: ModelArgs, name: str, lockstep=_code_lockstep,
+                    var_depth: int = VAR_DEPTH):
+    """A multi-scale tokenizer with VAR (d16, or ``var_depth`` blocks) in fp32 at B=2,
     card against the same weights on the CPU: the encoder's latents,
     ``img_to_idxBl``'s codes per scale, the round trip image, the VAR input,
-    ``VAR.forward`` logits and greedy ``var_sample`` tokens and images."""
+    ``VAR.forward`` logits and greedy ``var_sample`` tokens and images. The
+    codes go in ``lockstep()`` (VQ's lookups, or LFQ's sign bits)."""
     gen = torch.Generator().manual_seed(SEED)
-    vae_cpu, var_cpu = build_vae_var(margs, VAR_DEPTH, generator=gen, device="cpu")
+    vae_cpu, var_cpu = build_vae_var(margs, var_depth, generator=gen, device="cpu")
     _excite_layerscale(vae_cpu, gen)
     vae_cpu.eval()
     var_cpu.eval()
     vae_card, var_card = copy.deepcopy(vae_cpu).to(dev), copy.deepcopy(var_cpu).to(dev)
     x = torch.rand((2, margs.image_size, margs.image_size, 3), generator=gen) * 2 - 1
     label = torch.tensor([207, 980])
-    codes = Lockstep(quantize, "_codebook_lookup", _code_gap, NEAR_TIE)
+    codes = lockstep()
     picks = Lockstep(var_train, "sample_with_top_k_top_p", _logit_gap, LOGIT_NEAR_TIE)
     errs = {}
     with torch.inference_mode():
         errs["latents"] = _max_err(vae_cpu.encode(x), vae_card.encode(x.to(dev)))
         idx_cpu = codes.on_cpu(lambda: vae_cpu.img_to_idxBl(x))
         idx_card = codes.on_card(lambda: vae_card.img_to_idxBl(x.to(dev)))
-        rec = Lockstep(quantize, "_codebook_lookup", _code_gap, NEAR_TIE)
+        rec = lockstep()
         errs["round trip image"] = _max_err(
             rec.on_cpu(lambda: vae_cpu.img_to_reconstructed_img(x)),
             rec.on_card(lambda: vae_card.img_to_reconstructed_img(x.to(dev))))
@@ -1941,7 +2062,7 @@ def phase_model_var(dev, margs: ModelArgs, name: str):
     return (vae_cpu, var_cpu), (vae_card, var_card)
 
 
-def phase_model_train(dev, cpu_models, card_models, name: str):
+def phase_model_train(dev, cpu_models, card_models, name: str, lockstep=_code_lockstep):
     """One VARTrainer step of a tokenizer with VAR in fp32 at B=2, card
     against CPU from the same weights (those of ``phase_model_var``): the
     loss, every parameter's gradient (max abs error over that gradient's max
@@ -1963,7 +2084,7 @@ def phase_model_train(dev, cpu_models, card_models, name: str):
     masks_card = {k: v.to(dev) if torch.is_tensor(v) else
                   [None if t is None else tuple(m.to(dev) for m in t) for t in v]
                   for k, v in masks.items()}
-    codes = Lockstep(quantize, "_codebook_lookup", _code_gap, NEAR_TIE)
+    codes = lockstep()
     loss_cpu = codes.on_cpu(lambda: tr_cpu.loss_and_backward(x, label, masks=masks))[0]
     loss_card = codes.on_card(lambda: tr_card.loss_and_backward(
         x.to(dev), label.to(dev), masks=masks_card))[0]
@@ -2247,11 +2368,12 @@ class PerturbRecorder:
 
 
 def _trainer_pair(mcfg, tcfg, dev, gen):
-    """A trainer on the CPU with LayerScale raised, and one on the card with
-    the same weights."""
+    """A trainer on the CPU with LayerScale raised (and LoRA B factors drawn,
+    where there are any), and one on the card with the same weights."""
     tr_cpu = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED),
                               device="cpu")
     _excite_layerscale(tr_cpu.model, gen)
+    _excite_lora(tr_cpu.model, gen)
     tr_cpu.sync_ema()
     tr_card = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED),
                                device=dev)
@@ -2462,6 +2584,277 @@ def phase_model_disc_types(dev, dino_trainer: TokenizerTrainer):
                              "optimizer is not empty")
     print(f"[model] reinit_disc_heads (DinoDisc, on the card): trunk bit-unchanged, {heads} head "
           "parameters drawn afresh, spectral state kept, disc optimizer empty")
+
+
+# ------------------------- tokenizer variants ------------------------- #
+
+MSBR_YAMLS = (ROOT / "configs" / "MSBR10P2-4096.yaml", ROOT / "configs" / "MSBR10P2-16384.yaml")
+VQ_YAML = ROOT / "configs" / "VQ-4096.yaml"
+SIGN_TIE = 1e-6  # |x| under which an LFQ sign bit may differ card against CPU
+MSBR_EPOCH = 80  # past the YAML's disc_epoch_start 64: DinoDisc and LeCam live
+# the variants' fp32 step checks: the teachers and DinoDisc are the
+# flagship's and RobustTok's checks; these take PatchGAN, and no teacher
+LIGHT = {"mixed_precision": "none", "semantic_guide": "none", "detail_guide": "none",
+         "disc_type": "patchgan"}
+# scripts/e2e_pipeline.py's tokenizer overrides (:211-219)
+E2E_CNN = {"enc_type": "cnn", "dec_type": "cnn", "vq_model": "VQ-16",
+           "semantic_guide": "none", "detail_guide": "none", "disc_type": "patchgan"}
+VARIANTS = {  # name -> ModelArgs fields set on VQ-4096.yaml's (to_pixel is no YAML key)
+    "lora": {"enc_tuning_method": "lat_lora", "dec_tuning_method": "lora"},
+    "latent pos": {"abs_pos_embed": False},
+    "topixel conv": {"to_pixel": "conv"},
+    "topixel siren": {"to_pixel": "siren"},
+}
+
+
+def _sign_gap(args, want, got, diff):
+    """``quantize._sign_bits(rest)``: |x| of each flipped bit."""
+    return args[0].detach().double().cpu()[diff].abs()
+
+
+def _sign_lockstep():
+    """LFQ's sign bits in lockstep: equal but where |x| < SIGN_TIE."""
+    return Lockstep(quantize, "_sign_bits", _sign_gap, SIGN_TIE)
+
+
+def _single_vq_lockstep():
+    return Lockstep(quantize, "_nearest_code", _dist_gap, NEAR_TIE)
+
+
+def load_yaml(path: Path, overrides=None):
+    """(ModelArgs, TokenizerTrainConfig) of a YAML through the port's
+    loader. A weight decay that PyYAML reads as a string (the MSBR YAMLs'
+    ``5e-5``; the JAX loader leaves it so too) becomes a float."""
+    mcfg, tcfg, _ = load_tokenizer_config(str(path), overrides)
+    return mcfg, dataclasses.replace(tcfg, weight_decay=float(tcfg.weight_decay))
+
+
+def msbr_margs(dtype_str: str) -> ModelArgs:
+    """configs/MSBR10P2-4096.yaml's tokenizer at inference, through the
+    port's loader: two PQ branches of 121 latents, ten scales of BSQ
+    (12 bits, l2-normed, soft entropy 0.1), DINOv2 ViT-B/16 encoder and
+    decoder, 256 px. The teachers feed only training losses and are left
+    out, as ``msvr_margs`` leaves them."""
+    mcfg, _ = load_yaml(MSBR_YAMLS[0])
+    return dataclasses.replace(mcfg, dtype_str=dtype_str, semantic_guide="none",
+                               detail_guide="none")
+
+
+def _excite_lora(model: torch.nn.Module, gen: torch.Generator):
+    """The LoRA B factors start at 0, which leaves the A factors without a
+    gradient: draw them (on the CPU, from ``gen``) so that both carry one."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".lora_b." in name:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+
+
+def _step_check(dev, what: str, mcfg, tcfg, lockstep, kw=None, zero_grad=ZERO_GRAD,
+                frozen: bool = False, batch: int = 2):
+    """One ``TokenizerTrainer`` step in fp32 at ``batch`` (a generator and a disc
+    update), card against CPU from the same weights (LayerScale raised, LoRA
+    B factors drawn) and the same draws, the codes in ``lockstep()`` and the
+    piecewise-linear branches in ``KinkLockstep``: every metric, every
+    trainable gradient of the generator (``zero_grad``: those 0 in exact
+    arithmetic) and of the disc, and the state after the step. With
+    ``frozen`` (a step that moves: ``lr_scheduler`` none), every frozen
+    parameter bit-unchanged on both sides and every trainable one moved.
+    The CPU's convs take PyTorch's native path."""
+    gen = torch.Generator().manual_seed(SEED + 41)
+    with torch.backends.mkldnn.flags(enabled=False):
+        tr_cpu, tr_card = _trainer_pair(mcfg, tcfg, dev, gen)
+        before = {n: p.detach().clone() for n, p in tr_cpu.model.named_parameters()}
+        px = mcfg.image_size
+        x = torch.rand((batch, px, px, 3), generator=gen) * 2 - 1
+        codes = lockstep()
+        m_cpu, m_card, kinks = _lockstep_step(tr_cpu, tr_card, x, dev, gan_draws(batch, px, gen),
+                                              kw or {}, (codes,))
+    shown = _check_step_metrics(what, m_cpu, m_card)
+    g_errs, g_zero = _grad_errs(f"{what} generator", tr_cpu.model.named_parameters(),
+                                tr_card.model.parameters(), tr_cpu.gen_opt.params, zero_grad)
+    d_errs, _ = _grad_errs(f"{what} disc", tr_cpu.disc.named_parameters(),
+                           tr_card.disc.parameters(), tr_cpu.disc_opt.params,
+                           by_weight=r"conv_out\.bias")
+    state_err = max(_state_err(tr_cpu.model, tr_card.model), _state_err(tr_cpu.disc, tr_card.disc))
+    worst_g, worst_d = max(g_errs, key=g_errs.get), max(d_errs, key=d_errs.get)
+    note = ""
+    if frozen:
+        n_frozen = n_moved = 0
+        for tr in (tr_cpu, tr_card):
+            for n, p in tr.model.named_parameters():
+                same = torch.equal(p.detach().cpu(), before[n])
+                if p.requires_grad == same:
+                    raise AssertionError(f"[model] {what}: {n} is "
+                                         f"{'trainable' if p.requires_grad else 'frozen'} "
+                                         f"and {'unchanged' if same else 'moved'}")
+                n_frozen, n_moved = n_frozen + same, n_moved + (not same)
+        note = (f"; {n_frozen // 2} frozen parameter tensors bit-unchanged and {n_moved // 2} "
+                "trainable ones moved, on both sides")
+    head = f"{mcfg.dec_type} decoder" + (f", {mcfg.to_pixel} head" if mcfg.dec_type == "dinov2"
+                                         else "")
+    print(f"[model] {what} ({head}) fp32 B={batch} card vs CPU: gen_loss {m_cpu['gen_loss'].item():.6f}, "
+          f"disc_adaptive_weight {m_cpu['disc_adaptive_weight'].item():.6f}, entropy_loss "
+          f"{m_cpu['entropy_loss'].item():.6f}, {shown}; {len(g_errs)} generator gradients "
+          f"within {g_errs[worst_g]:.3e} of their max abs (worst {worst_g}, median "
+          f"{statistics.median(g_errs.values()):.3e}), {len(g_zero)} zero in exact arithmetic, "
+          f"{len(d_errs)} disc gradients within {d_errs[worst_d]:.3e} (worst {worst_d}); state "
+          f"after the step max abs diff {state_err:.3e} (tol {MODEL_TOL:g}); codes "
+          f"{codes.compared - codes.flips}/{codes.compared} equal (max near-tie gap "
+          f"{codes.max_gap:.3e}), {kinks.flips} piecewise-linear elements took the CPU's "
+          f"branch" + note)
+    _check(f"[model] {what} generator gradient of {worst_g}", g_errs[worst_g], MODEL_TOL)
+    _check(f"[model] {what} disc gradient of {worst_d}", d_errs[worst_d], MODEL_TOL)
+    _check(f"[model] {what} state after the step", state_err, MODEL_TOL)
+
+
+def phase_model_msbr(dev):
+    """The MSBR (BSQ) slice: both MSBR YAMLs build through the port's loader
+    (the -16384 one on the card: its codes are 14 bits, in [0, 16384));
+    MSBR10P2-4096 with VAR-d16 card against CPU as the MSVR checks
+    (``phase_model_var``, ``phase_model_train``) with LFQ's sign bits in
+    lockstep; and one ``TokenizerTrainer`` step of MSBR10P2-4096.yaml as it
+    stands (DINOv2 and CLIP teachers, DinoDisc, LeCam; fp32, B=2, epoch 80).
+    Returns nothing: the models are freed."""
+    m16, _ = load_yaml(MSBR_YAMLS[1])
+    vae16 = VQModel(dataclasses.replace(m16, dtype_str="float32", semantic_guide="none",
+                                        detail_guide="none"),
+                    generator=torch.Generator().manual_seed(SEED), device=dev).eval()
+    x = torch.rand((2, 256, 256, 3), generator=torch.Generator().manual_seed(SEED)) * 2 - 1
+    with torch.inference_mode():
+        idx = vae16.img_to_idxBl(x.to(dev))
+    top = max(int(i.max()) for b in idx for i in b)
+    if not (m16.lfq and m16.codebook_size == 2 ** 14 and 0 <= min(int(i.min()) for b in idx
+                                                                   for i in b) and top < 2 ** 14):
+        raise AssertionError(f"[model] MSBR10P2-16384: codes up to {top}")
+    print(f"[model] MSBR10P2-16384.yaml built through the port's loader: BSQ of "
+          f"{m16.codebook_embed_dim} bits, codes of 2 branches x {len(m16.v_patch_nums)} scales "
+          f"in [0, {top}]")
+    del vae16, idx
+    name = "MSBR10P2-4096 + VAR-d16"
+    phase_model_train(dev, *phase_model_var(dev, msbr_margs("float32"), name, _sign_lockstep),
+                      name, _sign_lockstep)
+    mcfg, tcfg = load_yaml(MSBR_YAMLS[0], {"mixed_precision": "none"})
+    _step_check(dev, "MSBR10P2-4096.yaml step (epoch 80)", mcfg, tcfg, _sign_lockstep,
+                kw={"epoch": MSBR_EPOCH})
+
+
+def phase_model_variants(dev):
+    """LoRA finetuning (``enc_tuning_method=lat_lora``, ``dec_tuning_method=
+    lora``, rank 8: a step that moves, with every frozen parameter
+    bit-unchanged), learned latent pos embeds and the conv and siren ToPixel
+    heads (the adaptive weight anchored at each head's last layer), each one
+    ``_step_check`` of configs/VQ-4096.yaml with its overrides (``LIGHT``);
+    then the identity head's round trip (its anchor refused), and the CNN
+    tokenizer (the e2e pipeline's overrides) at B=1 (its CPU
+    side is the slowest of the script's checks): the round trip card against
+    CPU and one step (its attention's k biases 0 in exact arithmetic)."""
+    for name, over in VARIANTS.items():
+        extra = {"lr_scheduler": "none"} if name == "lora" else {}
+        mcfg, tcfg = load_yaml(VQ_YAML, {**LIGHT, **extra})
+        _step_check(dev, f"{name} step", dataclasses.replace(mcfg, **over), tcfg,
+                    _single_vq_lockstep, frozen=name == "lora")
+    _identity_round_trip_check(dev)
+    mcfg, tcfg = load_yaml(VQ_YAML, {"mixed_precision": "none", **E2E_CNN})
+    gen = torch.Generator().manual_seed(SEED + 43)
+    with torch.backends.mkldnn.flags(enabled=False):
+        cpu = VQModel(mcfg, generator=torch.Generator().manual_seed(SEED), device="cpu").eval()
+        card = copy.deepcopy(cpu).to(dev)
+        x = torch.rand((1, 256, 256, 3), generator=gen) * 2 - 1
+        codes = _single_vq_lockstep()
+        with torch.inference_mode():
+            want = codes.on_cpu(lambda: cpu.img_to_reconstructed_img(x))
+            got = codes.on_card(lambda: card.img_to_reconstructed_img(x.to(dev)))
+    err = _max_err(got, want)
+    print(f"[model] CNN tokenizer (VQ-4096.yaml, e2e overrides: ch 128, ch_mult "
+          f"{tuple(mcfg.encoder_ch_mult)}, z {mcfg.z_channels}, 16 x 16 latents) round trip "
+          f"fp32 B=1 card vs CPU: max abs err {err:.3e} (tol {MODEL_TOL:g}); codes "
+          f"{codes.compared - codes.flips}/{codes.compared} equal")
+    _check("[model] CNN round trip", err, MODEL_TOL)
+    del cpu, card
+    _step_check(dev, "CNN step", mcfg, tcfg, _single_vq_lockstep,
+                zero_grad=r"(encoder|decoder)\..*\.k\.bias", batch=1)
+
+
+def _identity_margs(dtype_str: str) -> ModelArgs:
+    """VQ-4096.yaml's tokenizer (no teachers) with the ``identity`` head:
+    its round trip returns the decoder's image tokens."""
+    mcfg, _ = load_yaml(VQ_YAML, {"semantic_guide": "none", "detail_guide": "none"})
+    return dataclasses.replace(mcfg, to_pixel="identity", dtype_str=dtype_str)
+
+
+def _identity_round_trip_check(dev):
+    """The ``identity`` head's round trip in fp32 at B=2, card against CPU
+    (the decoder's (B, 256, 768) image tokens, clamped as every round trip
+    is), and its adaptive-weight anchor refused on the card, as the JAX
+    trainer refuses it."""
+    cpu = VQModel(_identity_margs("float32"), generator=torch.Generator().manual_seed(SEED),
+                  device="cpu").eval()
+    card = copy.deepcopy(cpu).to(dev)
+    x = torch.rand((2, 256, 256, 3), generator=torch.Generator().manual_seed(SEED + 46)) * 2 - 1
+    codes = _single_vq_lockstep()
+    with torch.inference_mode():
+        want = codes.on_cpu(lambda: cpu.img_to_reconstructed_img(x))
+        got = codes.on_card(lambda: card.img_to_reconstructed_img(x.to(dev)))
+    err = _max_err(got, want)
+    if tuple(got.shape) != (2, 256, 768):
+        raise AssertionError(f"[model] identity head round trip {tuple(got.shape)}")
+    try:
+        card.last_layer
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("[model] the identity head's adaptive-weight anchor not refused")
+    print(f"[model] topixel identity round trip fp32 B=2 card vs CPU: tokens {tuple(got.shape)}, "
+          f"max abs err {err:.3e} (tol {MODEL_TOL:g}); codes {codes.compared - codes.flips}/"
+          f"{codes.compared} equal; the anchor refused ({refusal})")
+    _check("[model] identity head round trip", err, MODEL_TOL)
+
+
+RARXL_DEPTH_CHECK = 2   # blocks of the fp32 card-vs-CPU check
+RARXL_DEPTH = 8         # blocks of the timed path (RAR-XL has 32): depth cut for time
+
+
+def phase_model_rar_xl(dev):
+    """RAR-XL's width (1280 wide, 16 heads of 80: the kD = 128 kernels) at
+    ``RARXL_DEPTH_CHECK`` blocks in fp32, B=2: the teacher-forcing forward,
+    ``ar_loss`` and its backward, card against CPU (logits, loss, every
+    gradient; the k_norm biases to ZERO_GRAD_TOL of their weights'), one #3
+    and one #6 launch per block."""
+    gen = torch.Generator().manual_seed(SEED + 44)
+    rar_cpu = build_rar(bench_margs("float32"), hidden=1280, heads=RARXL_HEADS,
+                        depth=RARXL_DEPTH_CHECK, generator=gen, device="cpu")
+    _excite_adaln(rar_cpu, gen)
+    rar_card = copy.deepcopy(rar_cpu).to(dev)
+    cfg = rar_cpu.config
+    batch = _rar_batch(cfg, 2, gen)
+
+    def run(model, device):
+        logits, labels = model(*(t.to(device) for t in batch))
+        loss, _ = rar_mod.ar_loss(logits, labels)
+        loss.backward()
+        return logits.detach(), loss.detach()
+
+    reset_counts()
+    logits_card, loss_card = run(rar_card, dev)
+    torch.cuda.synchronize()
+    check_launches("[model] RAR-XL training fp32", 1, {"fused_attention_fwd": cfg.depth,
+                                                       "fused_attention_bwd": cfg.depth})
+    logits_cpu, loss_cpu = run(rar_cpu, "cpu")
+    grad_errs, zero = _grad_errs("RAR-XL training", rar_cpu.named_parameters(),
+                                 rar_card.parameters(), list(rar_cpu.parameters()),
+                                 RAR_ZERO_GRAD)
+    worst = max(grad_errs, key=grad_errs.get)
+    errs = {"logits": _max_err(logits_card, logits_cpu) / logits_cpu.abs().max().item(),
+            "loss": abs(loss_card.item() - loss_cpu.item()) / abs(loss_cpu.item()),
+            f"gradient of {worst}": grad_errs[worst]}
+    shown = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    print(f"[model] RAR-XL width (1280, 16 heads of 80), {cfg.depth} blocks, training fp32 B=2 "
+          f"card vs CPU (relative): {shown} (tol {MODEL_TOL:g}; {len(grad_errs)} parameter "
+          f"gradients, median {statistics.median(grad_errs.values()):.3e}; {len(zero)} k_norm "
+          f"biases at most {max(zero.values()):.3e} of their weights'); loss "
+          f"{loss_cpu.item():.6f}")
+    for k, v in errs.items():
+        _check(f"[model] RAR-XL training {k}", v, MODEL_TOL)
 
 
 def time_calls(path: str, fn, iters: int, per_call: dict, dev) -> dict:
@@ -2978,6 +3371,149 @@ def main_robusttok_paths(dev) -> dict:
     return {"RobustTok train_step": r}
 
 
+CNN_TRAIN_BATCH = 16  # the CNN's 256 x 256 x 128 activations: a batch that fits with room
+
+
+def _light_launches(tr: TokenizerTrainer) -> dict:
+    """Launches of one ``train_step`` of a ViT tokenizer with no teacher and
+    the PatchGAN disc: #1 in the encoder and decoder (again in the backward
+    with remat), #2 in their backward; a CNN side launches none."""
+    m = tr.model
+    vits = [len(s.model.blocks) for s in (m.encoder, m.decoder) if hasattr(s, "model")]
+    remat = 2 if tr.model_cfg.remat else 1
+    return {"attention_qkv_fwd": remat * sum(vits), "attention_qkv_bwd": sum(vits)}
+
+
+def _main_step(dev, path: str, mcfg, tcfg, batch: int, launches, kw=None) -> dict:
+    """``TokenizerTrainer.train_step`` in bf16 (activations and loss stack)
+    at ``batch`` from seeded weights and draws on the card, at the YAML's lr
+    without its warm-up (``lr_scheduler`` none: a warm-up's first steps
+    move a weight of 1 by less than its fp32 ulp): exact launches
+    (``launches(trainer)``), finite metrics, every trainable parameter of
+    the tokenizer and the disc moved after the timed steps and every frozen
+    one bit-unchanged; then the round trip of the trained tokenizer at
+    B=64, timed with its launches (#1 in every ViT block, none on a CNN
+    side)."""
+    iters = 5
+    mcfg = dataclasses.replace(mcfg, dtype_str="bfloat16")
+    tcfg = dataclasses.replace(tcfg, loss_dtype="bfloat16", lr_scheduler="none")
+    tr = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    _excite_lora(tr.model, torch.Generator().manual_seed(SEED))
+    px = mcfg.image_size
+    x = torch.rand((BATCH, px, px, 3), generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev) * 2 - 1
+    named = [*(("model." + n, p) for n, p in tr.model.named_parameters()),
+             *(("disc." + n, p) for n, p in tr.disc.named_parameters())]
+    before = {n: p.detach().clone() for n, p in named}
+    xb = x[:batch]
+    r = time_calls(path, lambda: tr.train_step(xb, **(kw or {})), iters, launches(tr), dev)
+    m = {k: v.float().mean().item() for k, v in r.pop("out").items()}
+    changed = {n: not torch.equal(before[n], p) for n, p in named}
+    trainable = {n: p.requires_grad for n, p in named}
+    if not (all(math.isfinite(v) for v in m.values()) and changed == trainable):
+        bad = sorted(n for n in changed if changed[n] != trainable[n])
+        raise AssertionError(f"[main] {path} metrics {m}; changed != trainable at {bad[:10]} "
+                             f"({len(bad)})")
+    del before
+    _report(f"{path} (TokenizerTrainer.train_step)", r, batch,
+            ", ".join(f"{k} {m[k]:.4f}" for k in ("gen_loss", "disc_loss", "entropy_loss",
+                                                 "disc_adaptive_weight", "grad_norm"))
+            + f"; {sum(changed.values())} trainable parameter tensors moved over "
+            f"{iters + 1} steps, {sum(not t for t in trainable.values())} frozen ones unchanged")
+    out = {path: r}
+    vit = {"attention_qkv_fwd": sum(len(s.model.blocks) for s in (tr.model.encoder,
+                                                                  tr.model.decoder)
+                                    if hasattr(s, "model"))}
+    model = tr.model.eval()
+    name = path.replace("train_step", "round trip")
+    with torch.inference_mode():
+        out[name] = r = time_calls(name, lambda: model.img_to_reconstructed_img(x), iters,
+                                   {k: v for k, v in vit.items() if v}, dev)
+    y = r.pop("out")
+    if not bool(torch.isfinite(y).all()) or (
+            tuple(y.shape) != (BATCH, px, px, 3) or y.abs().max().item() > 1.0):
+        raise AssertionError(f"[main] {name} output {tuple(y.shape)} malformed")
+    _report(name, r, BATCH, f"images {tuple(y.shape)} in [{y.min().item():.3f}, "
+                            f"{y.max().item():.3f}]")
+    return out
+
+
+def main_msbr_paths(dev) -> dict:
+    """The BSQ slice in bf16 at B=64: the tokenizer's train step of
+    MSBR10P2-4096.yaml as it stands at epoch 80 (both teachers, DinoDisc,
+    LeCam; ``msbr train_step``) and its round trip (``msbr round trip``);
+    ``var_sample``, ``img_to_idxBl`` and ``VAR.forward`` of VAR-d16 on its
+    codes, and VAR's train and eval steps (``var msbr ...``,
+    ``LAUNCHES_MSBR``)."""
+    out = _main_step(dev, "msbr train_step", *load_yaml(MSBR_YAMLS[0]), BATCH,
+                     robusttok_launches, {"epoch": MSBR_EPOCH})
+    out.update({**main_var_paths(dev, msbr_margs("bfloat16"), "var msbr ", LAUNCHES_MSBR),
+                **main_train_paths(dev, msbr_margs("bfloat16"), "var msbr ", LAUNCHES_MSBR)})
+    return out
+
+
+def main_variant_paths(dev) -> dict:
+    """LoRA finetuning, learned latent pos embeds and the conv and siren
+    heads in bf16 at B=64: each a train step of configs/VQ-4096.yaml with
+    its overrides (both teachers and DinoDisc, as the YAML has them) and the
+    round trip; the CNN tokenizer's train step at ``CNN_TRAIN_BATCH`` and
+    round trip at B=64 (PatchGAN; no attention kernel on its path); the
+    identity head's round trip (the decoder's image tokens) at B=64."""
+    out = {}
+    mcfg, tcfg = load_yaml(VQ_YAML)
+    for name, over in VARIANTS.items():
+        out.update(_main_step(dev, f"{name} train_step", dataclasses.replace(mcfg, **over), tcfg,
+                              BATCH, robusttok_launches))
+    mcfg, tcfg = load_yaml(VQ_YAML, E2E_CNN)
+    out.update(_main_step(dev, "cnn train_step", mcfg, tcfg, CNN_TRAIN_BATCH, _light_launches))
+    model = VQModel(_identity_margs("bfloat16"), generator=torch.Generator().manual_seed(SEED),
+                    device=dev).eval()
+    x = torch.rand((BATCH, 256, 256, 3), generator=torch.Generator(device=dev).manual_seed(SEED),
+                   device=dev) * 2 - 1
+    with torch.inference_mode():
+        out["topixel identity round trip"] = r = time_calls(
+            "topixel identity round trip", lambda: model.img_to_reconstructed_img(x), 5,
+            {"attention_qkv_fwd": 2 * VIT_DEPTH}, dev)
+    y = r.pop("out")
+    if tuple(y.shape) != (BATCH, 256, 768) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"[main] topixel identity round trip output {tuple(y.shape)}")
+    _report("topixel identity round trip", r, BATCH, f"image tokens {tuple(y.shape)}")
+    return out
+
+
+def main_rar_xl_train(dev) -> dict:
+    """RAR-XL's training forward and backward at B=64 in bf16 (``rar-xl
+    train fwd+bwd``) at RAR-XL's width (1280, 16 heads of 80) and
+    ``RARXL_DEPTH`` blocks: one #3 launch with the lse store and one #6
+    launch (the two-kernel backward at kD = 128) per block; every
+    parameter gets a finite gradient."""
+    gen = torch.Generator().manual_seed(SEED + 45)
+    rar = build_rar(bench_margs("bfloat16"), hidden=1280, heads=RARXL_HEADS, depth=RARXL_DEPTH,
+                    dtype_str="bfloat16", generator=gen, device="cpu")
+    _excite_adaln(rar, gen)
+    rar.to(dev)
+    cfg = rar.config
+    ids, cond, orders = (t.to(dev) for t in _rar_batch(cfg, BATCH, gen))
+
+    def step():
+        rar.zero_grad(set_to_none=True)
+        loss, _ = rar_mod.ar_loss(*rar(ids, cond, orders))
+        loss.backward()
+        return loss.detach()
+
+    r = time_calls("rar-xl train fwd+bwd", step, 5, {"fused_attention_fwd": cfg.depth,
+                                                    "fused_attention_bwd": cfg.depth}, dev)
+    loss = r.pop("out")
+    bad = [n for n, p in rar.named_parameters() if p.grad is None or
+           not bool(torch.isfinite(p.grad).all())]
+    if not bool(torch.isfinite(loss)) or bad:
+        raise AssertionError(f"[main] rar-xl train fwd+bwd: loss {loss.item()}, parameters "
+                             f"without a finite gradient {bad[:5]}")
+    _report(f"RAR-XL width, {cfg.depth} blocks: train forward + ar_loss + backward (hd 80)", r,
+            BATCH, f"loss {loss.item():.4f}, every parameter's gradient finite")
+    return {"rar-xl train fwd+bwd": r}
+
+
 def _time_ms(fn, reps: int = 20) -> float:
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     fn()
@@ -3142,42 +3678,45 @@ def times_bnhd_bwd(dev, gen) -> dict:
         f"q, k, v, g {tuple(q.shape)}", library_call="SDPA backward")
 
 
-def _times_bnhd_fwd_hd48(dev, gen, what: str, seq: int, causal: bool) -> dict:
-    """#3 at head dim 48, (64, seq, 16, 48) bf16 at scale 1/sqrt(48), under
-    the causal mask or with no bias, with the lse store off and on (on: the
-    forward as a training step's autograd runs it)."""
+def _times_bnhd_fwd_at(dev, gen, what: str, seq: int, causal: bool,
+                       hd: int = RAR_HD) -> dict:
+    """#3 at head dim ``hd`` (48 by default), (64, seq, 16, hd) bf16 at scale
+    1/sqrt(hd), under the causal mask or with no bias, with the lse store off
+    and on (on: the forward as a training step's autograd runs it)."""
     bf16 = torch.bfloat16
     bias = _causal(seq, dev) if causal else None
-    q, k, v = _bnhd(gen, BATCH, seq, seq, RAR_HEADS, bf16, dev, l2=False, hd=RAR_HD)
-    scale = 1.0 / math.sqrt(RAR_HD)
+    q, k, v = _bnhd(gen, BATCH, seq, seq, RAR_HEADS, bf16, dev, l2=False, hd=hd)
+    scale = 1.0 / math.sqrt(hd)
     pairs = int(torch.isfinite(bias).sum()) if causal else seq * seq
     rec = _time_kernel(
-        f"#3 fused_attention, {what} (hd 48)",
+        f"#3 fused_attention, {what} (hd {hd})",
         lambda: attn.fused_attention(q, k, v, bias, scale),
         lambda: attn.fused_attention_reference(q, k, v, bias, scale),
         lambda: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=None if bias is None else bias.to(bf16), scale=scale),
         4 * q.numel() * 2 + (bias.numel() * 4 if causal else 0),
-        4 * BATCH * RAR_HEADS * pairs * RAR_HD, bf16,
+        4 * BATCH * RAR_HEADS * pairs * hd, bf16,
         f"q, k, v {tuple(q.shape)}, bias {'none' if bias is None else tuple(bias.shape)}",
         library_call="SDPA")
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    _time_lse(f"#3 fused_attention, {what} (hd 48)",
+    _time_lse(f"#3 fused_attention, {what} (hd {hd})",
               lambda: attn.fused_attention(q, k, v, bias, scale),
               lambda: attn.fused_attention(qg, kg, vg, bias, scale), rec)
     return rec
 
 
-def _times_bnhd_bwd_hd48(dev, gen, what: str, seq: int, causal: bool) -> dict:
-    """#6 at head dim 48, (64, seq, 16, 48) bf16 under the causal mask or
-    with no bias, no dbias, through autograd with #3's saved output and lse
-    (prep, main and dq kernels timed), as the library call is SDPA's
-    backward through autograd."""
+def _times_bnhd_bwd_at(dev, gen, what: str, seq: int, causal: bool,
+                       hd: int = RAR_HD) -> dict:
+    """#6 at head dim ``hd`` (48 by default), (64, seq, 16, hd) bf16 under
+    the causal mask or with no bias, no dbias, through autograd with #3's
+    saved output and lse (at 48: prep, main and dq kernels timed; past 64
+    the two-kernel design, which reads neither), as the library call is
+    SDPA's backward through autograd."""
     bf16 = torch.bfloat16
     bias = _causal(seq, dev) if causal else None
-    q, k, v = _bnhd(gen, BATCH, seq, seq, RAR_HEADS, bf16, dev, l2=False, hd=RAR_HD)
-    scale = 1.0 / math.sqrt(RAR_HD)
+    q, k, v = _bnhd(gen, BATCH, seq, seq, RAR_HEADS, bf16, dev, l2=False, hd=hd)
+    scale = 1.0 / math.sqrt(hd)
     g = torch.randn(q.shape, generator=gen, device=dev).to(bf16)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     out = attn.fused_attention(qg, kg, vg, bias, scale)
@@ -3186,34 +3725,54 @@ def _times_bnhd_bwd_hd48(dev, gen, what: str, seq: int, causal: bool) -> dict:
         lq, lk, lv, attn_mask=None if bias is None else bias.to(bf16), scale=scale)
     pairs = int(torch.isfinite(bias).sum()) if causal else seq * seq
     return _time_kernel(
-        f"#6 fused_attention backward, {what} (hd 48)",
+        f"#6 fused_attention backward, {what} (hd {hd})",
         lambda: torch.autograd.grad(out, (qg, kg, vg), g, retain_graph=True),
         lambda: attn.fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias=False),
         lambda: torch.autograd.grad(lib_out, (lq, lk, lv), g.transpose(1, 2), retain_graph=True),
         7 * q.numel() * 2 + (bias.numel() * 4 if causal else 0),
-        5 * 2 * BATCH * RAR_HEADS * pairs * RAR_HD, bf16,
+        5 * 2 * BATCH * RAR_HEADS * pairs * hd, bf16,
         f"q, k, v, g {tuple(q.shape)}", library_call="SDPA backward")
 
 
 def times_bnhd_fwd_hd48(dev, gen) -> dict:
     """#3 at RAR-B's teacher forcing, (64, 258, 16, 48) under the causal mask."""
-    return _times_bnhd_fwd_hd48(dev, gen, "RAR-B teacher forcing", RAR_SEQ, True)
+    return _times_bnhd_fwd_at(dev, gen, "RAR-B teacher forcing", RAR_SEQ, True)
 
 
 def times_bnhd_bwd_hd48(dev, gen) -> dict:
     """#6 at RAR-B's training shape, (64, 258, 16, 48) under the causal mask."""
-    return _times_bnhd_bwd_hd48(dev, gen, "RAR-B training", RAR_SEQ, True)
+    return _times_bnhd_bwd_at(dev, gen, "RAR-B training", RAR_SEQ, True)
 
 
 def times_bnhd_fwd_maskgit(dev, gen) -> dict:
     """#3 at MaskGIT-B's shape, (64, 257, 16, 48) with no bias: each forward
     of sampling and of the training step."""
-    return _times_bnhd_fwd_hd48(dev, gen, "MaskGIT-B", MASKGIT_SEQ, False)
+    return _times_bnhd_fwd_at(dev, gen, "MaskGIT-B", MASKGIT_SEQ, False)
 
 
 def times_bnhd_bwd_maskgit(dev, gen) -> dict:
     """#6 at MaskGIT-B's training shape, (64, 257, 16, 48) with no bias."""
-    return _times_bnhd_bwd_hd48(dev, gen, "MaskGIT-B training", MASKGIT_SEQ, False)
+    return _times_bnhd_bwd_at(dev, gen, "MaskGIT-B training", MASKGIT_SEQ, False)
+
+
+def times_bnhd_fwd_rarxl(dev, gen) -> dict:
+    """#3 at RAR-XL's teacher forcing, (64, 258, 16, 80) under the causal mask."""
+    return _times_bnhd_fwd_at(dev, gen, "RAR-XL teacher forcing", RAR_SEQ, True, RARXL_HD)
+
+
+def times_bnhd_bwd_rarxl(dev, gen) -> dict:
+    """#6 at RAR-XL's training shape, (64, 258, 16, 80) under the causal mask."""
+    return _times_bnhd_bwd_at(dev, gen, "RAR-XL training", RAR_SEQ, True, RARXL_HD)
+
+
+def times_bnhd_fwd_rarxxl(dev, gen) -> dict:
+    """#3 at RAR-XXL's teacher forcing, (64, 258, 16, 88) under the causal mask."""
+    return _times_bnhd_fwd_at(dev, gen, "RAR-XXL teacher forcing", RAR_SEQ, True, RARXXL_HD)
+
+
+def times_bnhd_bwd_rarxxl(dev, gen) -> dict:
+    """#6 at RAR-XXL's training shape, (64, 258, 16, 88) under the causal mask."""
+    return _times_bnhd_bwd_at(dev, gen, "RAR-XXL training", RAR_SEQ, True, RARXXL_HD)
 
 
 def times_qblk_fwd(dev, gen) -> dict:
@@ -3367,10 +3926,18 @@ TIMES = {"attention_qkv_fwd": times_qkv_fwd, "attention_qkv_bwd": times_qkv_bwd,
          "fused_attention_fwd_hd48": times_bnhd_fwd_hd48,
          "fused_attention_bwd_hd48": times_bnhd_bwd_hd48,
          "fused_attention_fwd_maskgit": times_bnhd_fwd_maskgit,
-         "fused_attention_bwd_maskgit": times_bnhd_bwd_maskgit}
-# records timed at head dim 48, filed with their kernel's record under
-# "shapes" in the kernels line
+         "fused_attention_bwd_maskgit": times_bnhd_bwd_maskgit,
+         "fused_attention_fwd_rarxl": times_bnhd_fwd_rarxl,
+         "fused_attention_bwd_rarxl": times_bnhd_bwd_rarxl,
+         "fused_attention_fwd_rarxxl": times_bnhd_fwd_rarxxl,
+         "fused_attention_bwd_rarxxl": times_bnhd_bwd_rarxxl}
+# records timed at head dims 48, 80 and 88, filed with their kernel's
+# record under "shapes" in the kernels line
 SHAPE_TIMES = {
+    "fused_attention_fwd_rarxl": ("fused_attention_fwd", "RAR-XL teacher forcing, hd 80"),
+    "fused_attention_bwd_rarxl": ("fused_attention_bwd", "RAR-XL training, hd 80"),
+    "fused_attention_fwd_rarxxl": ("fused_attention_fwd", "RAR-XXL teacher forcing, hd 88"),
+    "fused_attention_bwd_rarxxl": ("fused_attention_bwd", "RAR-XXL training, hd 88"),
     "fused_attention_fwd_hd48": ("fused_attention_fwd", "RAR-B teacher forcing, hd 48"),
     "fused_attention_bwd_hd48": ("fused_attention_bwd", "RAR-B training, hd 48"),
     "fused_attention_fwd_maskgit": ("fused_attention_fwd", "MaskGIT-B, no bias, hd 48"),
@@ -3495,6 +4062,17 @@ LAUNCHES_512 = {
 }
 TRAIN_BATCH_512 = 16  # the train step at L = 2240 peaks at 52 GiB of the 80 GB card
 
+# launches per call of the VAR paths on MSBR10P2-4096: as LAUNCHES_256, with
+# no #9 (LFQ takes sign bits and searches no codebook)
+LAUNCHES_MSBR = {
+    "var_sample": {"fused_attention_fwd": VAR_DEPTH * len(PNS), "attention_qkv_fwd": VIT_DEPTH},
+    "img_to_idxBl": {"attention_qkv_fwd": VIT_DEPTH},
+    "VAR.forward": {"fused_attention_fwd": VAR_DEPTH},
+    "train_step": {"attention_qkv_fwd": VIT_DEPTH, "fused_attention_fwd": VAR_DEPTH,
+                   "fused_attention_bwd": VAR_DEPTH},
+    "eval_step": {"attention_qkv_fwd": VIT_DEPTH, "fused_attention_fwd": VAR_DEPTH},
+}
+
 
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
@@ -3535,6 +4113,7 @@ def main(argv: list[str]) -> int:
     kernels_bwd_pieces(dev)
     kernels_hd48(dev)
     kernels_maskgit_and_narrow_heads(dev)
+    kernels_wide_heads(dev)
     lap("kernels")
     vq_models = phase_model_vq(dev)
     lap("model VQ-4096")
@@ -3542,21 +4121,28 @@ def main(argv: list[str]) -> int:
     del vq_models
     phase_model_rar_train(dev)
     lap("model RAR-B")
+    phase_model_rar_xl(dev)
+    lap("model RAR-XL width")
     phase_model_maskgit(dev)
     phase_model_maskgit_train(dev)
     phase_model_rar_trainer(dev)
     lap("model MaskGIT-B and the trainers")
-    for margs, name in ((msvr_margs("float32"), "MSVR10P2-4096 + VAR-d16"),
-                        (msvr512_margs("float32"), "MSVR10P2-4096-512 + VAR-d16")):
-        phase_model_train(dev, *phase_model_var(dev, margs, name), name)
+    for margs, name, depth in ((msvr_margs("float32"), "MSVR10P2-4096 + VAR-d16", VAR_DEPTH),
+                               (msvr512_margs("float32"), "MSVR10P2-4096-512 + VAR (4 blocks)",
+                                CHECK_VAR_DEPTH_512)):
+        phase_model_train(dev, *phase_model_var(dev, margs, name, var_depth=depth), name)
         lap(f"model {name}")
     phase_model_gan(dev)
     lap("model GAN step")
     phase_model_disc_types(dev, phase_model_robusttok(dev))
     lap("model RobustTok step and disc types")
+    phase_model_msbr(dev)
+    lap("model MSBR (BSQ) with VAR-d16, MSBR step")
+    phase_model_variants(dev)
+    lap("model LoRA, latent pos, conv and siren heads, CNN")
     paths = {**main_round_trip(dev), **main_rar_paths(dev), **main_rar_train(dev),
-             **main_mlp_probe(dev)}
-    lap("round trips, RAR sampling and training, MLP probe")
+             **main_rar_xl_train(dev), **main_mlp_probe(dev)}
+    lap("round trips, RAR sampling and training (RAR-B, RAR-XL width), MLP probe")
     paths.update({**main_maskgit_paths(dev), **main_rar_train_step(dev)})
     lap("MaskGIT sampling and training, RAR train step")
     paths.update({**main_var_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256,
@@ -3566,6 +4152,10 @@ def main(argv: list[str]) -> int:
     lap("main paths at 256 px")
     paths.update(main_robusttok_paths(dev))
     lap("RobustTok train step")
+    paths.update(main_msbr_paths(dev))
+    lap("MSBR (BSQ) paths with VAR-d16")
+    paths.update(main_variant_paths(dev))
+    lap("LoRA, latent pos, conv and siren heads, CNN paths")
     paths.update({**main_var_paths(dev, msvr512_margs("bfloat16"), "512 ", LAUNCHES_512),
                   **main_train_paths(dev, msvr512_margs("bfloat16"), "512 ", LAUNCHES_512,
                                      TRAIN_BATCH_512)})

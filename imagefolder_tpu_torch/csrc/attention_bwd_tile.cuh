@@ -33,11 +33,14 @@
 // FMA kernels with two threads per row (each owns 32 of the 64 columns,
 // interleaved so that the pair reads two banks), with the same two-kernel
 // split. Masked tiles are not skipped, and nothing is pipelined.
-// Head dim kD: 64, or 48 for #5 and #6, and at run time st.hd, any multiple
-// of 8 up to kD (#5 and #6 run hd <= 48 under kD = 48 and 56 under 64). The
-// bf16 kernels run a narrower head on zero-padded 64-wide tiles
-// (mma_tile.cuh) and store its hd columns; the fp32 kernels hold kD columns,
-// zero past hd, and store hd.
+// Head dim kD: 64, or 48 and 128 for #5 and #6, and at run time st.hd, any
+// multiple of 8 up to kD (#5 and #6 run hd <= 48 under kD = 48, 56 under 64
+// and 72-128 under 128). The bf16 kernels run a narrower head on
+// zero-padded 64-wide tiles, and a head of 72-128 on 128-wide ones
+// (mma_tile.cuh: tile_width), and store its hd columns; the fp32 kernels
+// hold kD columns, zero past hd, and store hd. At kD = 128 kernel A stages
+// q and g through the k tile's buffer, which keeps its two 128-wide tiles
+// within the 48 KB of static shared memory (three would not fit).
 
 #pragma once
 
@@ -65,8 +68,8 @@ struct BwdStrides {
 
 // a warp's 16 accumulator rows (row_lo, row_hi per thread) times `mul`,
 // rounded to bf16, into the output rows of (b, h): their first st.hd columns
-template <int kD>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[kHd / 8][4],
+template <int kD, int kW = tile_width(kD)>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[kW / 8][4],
                                            int b, int h, int n, const BwdStrides& st,
                                            int row_lo, int row_hi, float mul) {
   bf16* dst = out + b * st.ob + h * st.oh + (threadIdx.x & 3) * 2;
@@ -97,9 +100,13 @@ __global__ void __launch_bounds__(kWarps * 32)
                             const float* __restrict__ bias, bf16* __restrict__ dq,
                             float* __restrict__ dbias, float* __restrict__ stats, int n,
                             int heads, float scale, BwdStrides st) {
-  __shared__ __align__(16) bf16 sa[kRows][kLd];  // the q tile, then the g tile
-  __shared__ __align__(16) bf16 sk[kRows][kLd];
-  __shared__ __align__(16) bf16 sv[kRows][kLd];
+  constexpr int kW = tile_width(kD);
+  __shared__ __align__(16) bf16 sk[kRows][kW + 8];
+  __shared__ __align__(16) bf16 sv[kRows][kW + 8];
+  // the q tile, then the g tile: its own buffer up to 64 wide, k's past it
+  __shared__ __align__(16) bf16 sa_own[kW > kHd ? 1 : kRows][kW + 8];
+  bf16 (*sa)[kW + 8] = sa_own;
+  if (kW > kHd) sa = sk;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -110,14 +117,14 @@ __global__ void __launch_bounds__(kWarps * 32)
   const bf16* kp = k + b * st.kb + h * st.kh;
   const bf16* vp = v + b * st.vb + h * st.vh;
 
-  uint32_t qf[kHd / 16][4], gf[kHd / 16][4];
+  uint32_t qf[kW / 16][4], gf[kW / 16][4];
   load_tile<kVec, kD>(sa, q + b * st.qb + h * st.qh, q0, n, st.ql, st.hd);
   __syncthreads();
-  load_a(qf, sa);
+  load_a<kW>(qf, sa);
   __syncthreads();
   load_tile<kVec, kD>(sa, g + b * st.gb + h * st.gh, q0, n, st.gl, st.hd);
   __syncthreads();
-  load_a(gf, sa);
+  load_a<kW>(gf, sa);
 
   const int row_lo = q0 + warp * 16 + (lane >> 2);
   const int row_hi = row_lo + 8;
@@ -130,7 +137,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     __syncthreads();
     load_tile<kVec, kD>(sk, kp, k0, n, st.kl, st.hd);
     __syncthreads();
-    tile_scores<kBias>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
+    tile_scores<kBias, false, kW>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
     float mx[2] = {kBwdNegInf, kBwdNegInf};
 #pragma unroll
     for (int nt = 0; nt < kRows / 8; ++nt)
@@ -165,8 +172,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     load_tile<kVec, kD>(sk, kp, k0, n, st.kl, st.hd);
     load_tile<kVec, kD>(sv, vp, k0, n, st.vl, st.hd);
     __syncthreads();
-    tile_scores<kBias>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
-    mma_abt(dp, gf, sv);
+    tile_scores<kBias, false, kW>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
+    mma_abt<kW>(dp, gf, sv);
 #pragma unroll
     for (int nt = 0; nt < kRows / 8; ++nt)
 #pragma unroll
@@ -177,16 +184,16 @@ __global__ void __launch_bounds__(kWarps * 32)
   delta[1] = quad_sum(delta[1]);
 
   // pass 3: dq = bf16(ds) k, accumulated over the k tiles
-  float acc[kHd / 8][4];
+  float acc[kW / 8][4];
 #pragma unroll
-  for (int i = 0; i < kHd / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < kW / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   for (int k0 = 0; k0 < n; k0 += kRows) {
     __syncthreads();
     load_tile<kVec, kD>(sk, kp, k0, n, st.kl, st.hd);
     load_tile<kVec, kD>(sv, vp, k0, n, st.vl, st.hd);
     __syncthreads();
-    tile_scores<kBias>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
-    mma_abt(dp, gf, sv);
+    tile_scores<kBias, false, kW>(s, qf, sk, bias, st.bq, row_lo, row_hi, k0, n, n, scale);
+    mma_abt<kW>(dp, gf, sv);
 #pragma unroll
     for (int nt = 0; nt < kRows / 8; ++nt) {
 #pragma unroll
@@ -205,7 +212,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     uint32_t dsf[kRows / 16][4];
     pack_a(dsf, s);
-    mma_ab(acc, dsf, sk);
+    mma_ab<kW>(acc, dsf, sk);
   }
   store_rows<kD>(dq, acc, b, h, n, st, row_lo, row_hi, scale);
 
@@ -234,8 +241,9 @@ __global__ void __launch_bounds__(kWarps * 32)
                               const float* __restrict__ stats, bf16* __restrict__ dk,
                               bf16* __restrict__ dv, int n, int heads, float scale,
                               BwdStrides st) {
-  __shared__ __align__(16) bf16 sq[kRows][kLd];  // the k tile, then q tiles
-  __shared__ __align__(16) bf16 sg[kRows][kLd];  // the v tile, then g tiles
+  constexpr int kW = tile_width(kD);
+  __shared__ __align__(16) bf16 sq[kRows][kW + 8];  // the k tile, then q tiles
+  __shared__ __align__(16) bf16 sg[kRows][kW + 8];  // the v tile, then g tiles
   __shared__ float sm[kRows], sl[kRows], sd[kRows];
 
   const int lane = threadIdx.x & 31;
@@ -249,18 +257,18 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int64_t plane = static_cast<int64_t>(gridDim.z) * heads * n;
   const float* row_stats = stats + (static_cast<int64_t>(b) * heads + h) * n;
 
-  uint32_t kf[kHd / 16][4], vf[kHd / 16][4];
+  uint32_t kf[kW / 16][4], vf[kW / 16][4];
   load_tile<kVec, kD>(sq, k + b * st.kb + h * st.kh, k0, n, st.kl, st.hd);
   load_tile<kVec, kD>(sg, v + b * st.vb + h * st.vh, k0, n, st.vl, st.hd);
   __syncthreads();
-  load_a(kf, sq);
-  load_a(vf, sg);
+  load_a<kW>(kf, sq);
+  load_a<kW>(vf, sg);
 
   const int row_lo = k0 + warp * 16 + (lane >> 2);  // key rows
   const int row_hi = row_lo + 8;
-  float dk_acc[kHd / 8][4], dv_acc[kHd / 8][4];
+  float dk_acc[kW / 8][4], dv_acc[kW / 8][4];
 #pragma unroll
-  for (int i = 0; i < kHd / 8; ++i) {
+  for (int i = 0; i < kW / 8; ++i) {
     dk_acc[i][0] = dk_acc[i][1] = dk_acc[i][2] = dk_acc[i][3] = 0.f;
     dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
   }
@@ -277,8 +285,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     __syncthreads();
     // transposed scores: rows are keys, columns queries
-    tile_scores<kBias, true>(s, kf, sq, bias, st.bq, row_lo, row_hi, q0, n, n, scale);
-    mma_abt(dp, vf, sg);  // dp^T = v g^T
+    tile_scores<kBias, true, kW>(s, kf, sq, bias, st.bq, row_lo, row_hi, q0, n, n, scale);
+    mma_abt<kW>(dp, vf, sg);  // dp^T = v g^T
 #pragma unroll
     for (int nt = 0; nt < kRows / 8; ++nt) {
 #pragma unroll
@@ -291,9 +299,9 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     uint32_t af[kRows / 16][4];
     pack_a(af, s);
-    mma_ab(dv_acc, af, sg);
+    mma_ab<kW>(dv_acc, af, sg);
     pack_a(af, dp);
-    mma_ab(dk_acc, af, sq);
+    mma_ab<kW>(dk_acc, af, sq);
   }
   store_rows<kD>(dk, dk_acc, b, h, n, st, row_lo, row_hi, scale);
   store_rows<kD>(dv, dv_acc, b, h, n, st, row_lo, row_hi, 1.f);

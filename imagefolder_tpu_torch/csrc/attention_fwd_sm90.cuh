@@ -96,13 +96,21 @@
 // encoder's packed q view spans 453 M elements over 64 images). #3 computes
 // the blank tiles of its bias (5 of 25 at VAR's L = 286; the decode has
 // none).
-// Head dim: kD = 64 (VAR, every ViT) or 48 (#3 and #4 only: RAR-B, MaskGIT-B
-// at 768 / 16), and at run time st.hd, any multiple of 8 up to kD (#3 and
-// #4 run hd <= 48 under kD = 48 and 56 under 64). A narrower head keeps the
-// 64-wide tiles (wgmma_tile.cuh): its rows are copied into hd / 8 chunks
-// and the rest zero-filled, S = Q K^T runs kD / 16 K-steps (3 instead of 4
-// at kD = 48), P V computes the zero columns of V past hd, and only hd
-// columns are stored.
+// Head dim: kD = 64 (VAR, every ViT), 48 or 128 (#3 and #4 only: RAR-B,
+// MaskGIT-B at 768 / 16; RAR-XL's 80 and RAR-XXL's 88), and at run time
+// st.hd, any multiple of 8 up to kD (#3 and #4 run hd <= 48 under kD = 48,
+// 56 under 64 and 72-128 under 128). A narrower head keeps the 64-wide
+// tiles (wgmma_tile.cuh): its rows are copied into hd / 8 chunks and the
+// rest zero-filled, S = Q K^T runs kD / 16 K-steps (3 instead of 4 at
+// kD = 48), P V computes the zero columns of V past hd, and only hd columns
+// are stored. At kD = 128 each q, k and v tile is two such 64-wide tiles
+// side by side in shared memory (columns 0-63, then 64-127 from the next
+// 8 KB), each a 128-byte swizzle atom a row: S = Q K^T runs 8 K-steps, four
+// over each half, and O is two 64 x 64 accumulators, each P V against one
+// half of V. That doubles the shared memory (one block an SM: 161 KB
+// streamed, 193 KB resident) and O's registers, so the kD = 128
+// instantiations run one block of two warpgroups per SM. Widths 72-120 run
+// the 128 code over zero-filled columns; no branch guards a wgmma.
 
 #pragma once
 
@@ -131,9 +139,59 @@ constexpr int kFwdSlots = 4;       // streamed: k/v slots of the ring
 constexpr int kResidentTiles = 5;  // resident: up to five key tiles (Lk <= 320)
 constexpr float kLn2 = 0.6931471805599453f;
 
-// dynamic shared memory for the q tiles and `slots` k/v pairs; +1024 to align
-constexpr int fwd_smem_bytes(int slots) {
-  return (kFwdWG + 2 * slots) * kTileBytes + 1024;
+// 64-wide tiles side by side that hold one row block of a head of kD: 1,
+// or 2 past 64
+__host__ __device__ constexpr int head_tiles(int kD) { return kD > kHd ? 2 : 1; }
+
+// dynamic shared memory for the q tiles and `slots` k/v pairs at head dim
+// kD; +1024 to align
+constexpr int fwd_smem_bytes(int slots, int kD = kHd) {
+  return (kFwdWG + 2 * slots) * head_tiles(kD) * kTileBytes + 1024;
+}
+
+// rows [row0, row0 + 64) x hd values of one head's slice into the
+// head_tiles(kD) 64-wide tiles at `dst` (the second at dst + kTileBytes
+// holds columns 64 to hd); zero past n and hd. kN threads share the copy.
+template <int kN, int kD>
+__device__ __forceinline__ void load_head_async(uint32_t dst, const bf16* src, int row0, int n,
+                                                int64_t ld, int tid, int hd) {
+  if constexpr (kD <= kHd) {
+    load_tile_async<kN, kD>(dst, src, row0, n, ld, tid, hd);
+  } else {
+    load_tile_async<kN, kHd>(dst, src, row0, n, ld, tid, hd < kHd ? hd : kHd);
+    load_tile_async<kN, kHd>(dst + kTileBytes, src + kHd, row0, n, ld, tid,
+                             hd > kHd ? hd - kHd : 0);
+  }
+}
+
+// the A fragments of a q tile of head dim kD (one set per 64-wide half)
+template <int kD>
+__device__ __forceinline__ void head_to_a(uint32_t (&qf)[head_tiles(kD)][4][4], uint32_t sq) {
+#pragma unroll
+  for (int hh = 0; hh < head_tiles(kD); ++hh) tile_to_a(qf[hh], sq + hh * kTileBytes);
+}
+
+// O (+)= P V for one 64-key tile: P the A fragments, V the head_tiles(kD)
+// MN-major tiles at sv, one 64 x 64 accumulator per half; issued and
+// waited for
+template <int kD>
+__device__ __forceinline__ void pv_tile(float (&o)[head_tiles(kD)][32], uint32_t (&pf)[4][4],
+                                        uint32_t sv) {
+  fence_frag(pf);
+#pragma unroll
+  for (int hh = 0; hh < head_tiles(kD); ++hh) fence_acc(o[hh]);
+  wgmma_fence();
+#pragma unroll
+  for (int hh = 0; hh < head_tiles(kD); ++hh)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // O += P V over the keys
+      wgmma_rs<1>(o[hh], pf[kk], tile_desc(sv + hh * kTileBytes + kk * 2048), 1);
+  wgmma_commit();
+  fence_frag(pf);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int hh = 0; hh < head_tiles(kD); ++hh) fence_acc(o[hh]);
+  fence_frag(pf);
 }
 
 // cp.async.wait_group with a count known at run time (at most kResidentTiles)
@@ -149,16 +207,20 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
 }
 
 // S = Q K^T over one 64-key tile into x (qf the A fragments, sk the
-// swizzled k tile), over a head dim of kD (kD / 16 K-steps), issued and
-// waited for. Element i of a thread's accumulator sits at row q0 + row_lo +
-// 8 ((i >> 1) & 1) and column k0 + 8 (i >> 2) + 2 t4 + (i & 1).
+// swizzled k tile or tiles), over a head dim of kD (kD / 16 K-steps, four
+// per 64-wide half), issued and waited for. Element i of a thread's
+// accumulator sits at row q0 + row_lo + 8 ((i >> 1) & 1) and column k0 +
+// 8 (i >> 2) + 2 t4 + (i & 1).
 template <int kD>
-__device__ __forceinline__ void score_tile(float (&x)[32], const uint32_t (&qf)[4][4],
+__device__ __forceinline__ void score_tile(float (&x)[32],
+                                           const uint32_t (&qf)[head_tiles(kD)][4][4],
                                            uint32_t sk) {
   fence_acc(x);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) wgmma_rs<0>(x, qf[kk], tile_desc(sk + kk * 32), kk);
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_rs<0>(x, qf[kk >> 2][kk & 3],
+                tile_desc(sk + (kk >> 2) * kTileBytes + (kk & 3) * 32), kk);
   wgmma_commit();
   wgmma_wait<0>();
   fence_acc(x);
@@ -203,16 +265,18 @@ __device__ __forceinline__ float row_max(const float (&x)[32], int r) {
 // kFwdWG warpgroups per (b, h, 64 kFwdWG q rows), each owning 64 q rows and
 // sharing the block's k/v tiles, at head dim kD; see the header comment.
 template <int kId, int kD, bool kBias, bool kLse, bool kResident>
-__global__ void __launch_bounds__(kFwdThreads, 2)
+__global__ void __launch_bounds__(kFwdThreads, head_tiles(kD) > 1 ? 1 : 2)
     attn_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const float* __restrict__ bias,
                          bf16* __restrict__ out, float* __restrict__ lse, int lq, int lk,
                          int heads, float scale, FwdStrides st) {
+  constexpr int kH = head_tiles(kD);
+  constexpr int kOpBytes = kH * kTileBytes;  // one q, k or v row block
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const int wg = threadIdx.x / kThreads;  // this thread's warpgroup
-  const uint32_t sq = ((raw + 1023) & ~1023u) + wg * kTileBytes;  // its q tile
-  const uint32_t skv = ((raw + 1023) & ~1023u) + kFwdWG * kTileBytes;  // slot s: k, then v
+  const uint32_t sq = ((raw + 1023) & ~1023u) + wg * kOpBytes;  // its q tile
+  const uint32_t skv = ((raw + 1023) & ~1023u) + kFwdWG * kOpBytes;  // slot s: k, then v
 
   const int nt = (lk + kTile - 1) / kTile;
   const int q0 = (blockIdx.x * kFwdWG + wg) * kTile, h = blockIdx.y, b = blockIdx.z;
@@ -228,20 +292,20 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   // item it < nt is pass 1 over key tile it, item nt + j pass 2 over tile j
   auto slot = [&](int it) -> uint32_t {
     const int s = kResident ? (it < nt ? it : it - nt) : it % kFwdSlots;
-    return skv + 2 * s * kTileBytes;
+    return skv + 2 * s * kOpBytes;
   };
   auto load_k = [&](uint32_t dst, int j) {
-    load_tile_async<kFwdThreads, kD>(dst, kp, j * kTile, lk, st.kl, threadIdx.x, st.hd);
+    load_head_async<kFwdThreads, kD>(dst, kp, j * kTile, lk, st.kl, threadIdx.x, st.hd);
   };
   auto load_v = [&](uint32_t dst, int j) {
-    load_tile_async<kFwdThreads, kD>(dst + kTileBytes, vp, j * kTile, lk, st.vl, threadIdx.x,
+    load_head_async<kFwdThreads, kD>(dst + kOpBytes, vp, j * kTile, lk, st.vl, threadIdx.x,
                                      st.hd);
   };
   auto load_item = [&](int it) {  // streamed: k (pass 1), or k and v (pass 2)
     load_k(slot(it), it < nt ? it : it - nt);
     if (it >= nt) load_v(slot(it), it - nt);
   };
-  load_tile_async<kThreads, kD>(sq, q + b * st.qb + h * st.qh, q0, lq, st.ql,
+  load_head_async<kThreads, kD>(sq, q + b * st.qb + h * st.qh, q0, lq, st.ql,
                                 threadIdx.x % kThreads, st.hd);
   if (kResident) {
     for (int j = 0; j < nt; ++j) {  // group j: k tile j (group 0 also q)
@@ -279,12 +343,14 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   };
 
   // pass 1: m and this thread's share of l, online, in base 2
-  uint32_t qf[4][4];
+  uint32_t qf[kH][4][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int it = 0; it < nt; ++it) {
     begin_item(it);
     if (!active) continue;
-    if (it == 0) tile_to_a(qf, sq);
+    // a 128-wide head reads q's fragments from shared memory for each tile,
+    // as the one-pass kernel does (see there); 48 and 64 load them once
+    if (kH > 1 || it == 0) head_to_a<kD>(qf, sq);
     float x[32];
     score_tile<kD>(x, qf, slot(it));
     // a full tile without a bias at a positive scale keeps the raw scores:
@@ -328,14 +394,17 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   }
 
   // pass 2: O += bf16(exp(S - m) / l) V, p normalised before its rounding
-  float o[32];
+  float o[kH][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int hh = 0; hh < kH; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[hh][i] = 0.f;
   for (int it = nt; it < 2 * nt; ++it) {
     begin_item(it);
     if (!active) continue;
     const uint32_t sk = slot(it);
     const int k0 = (it - nt) * kTile;
+    if (kH > 1) head_to_a<kD>(qf, sq);
     float x[32];
     score_tile<kD>(x, qf, sk);
     if (!kBias && k0 + kTile <= lk) {  // a full tile without a bias: one FFMA per score
@@ -348,17 +417,7 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
     }
     uint32_t pf[4][4];
     acc_to_a(pf, x);
-    fence_frag(pf);
-    fence_acc(o);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // O += P V over the keys
-      wgmma_rs<1>(o, pf[kk], tile_desc(sk + kTileBytes + kk * 2048), 1);
-    wgmma_commit();
-    fence_frag(pf);
-    wgmma_wait<0>();
-    fence_acc(o);
-    fence_frag(pf);
+    pv_tile<kD>(o, pf, sk + kOpBytes);
   }
   cp_async_wait<0>();
   if (!active) return;
@@ -366,12 +425,16 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   const int64_t ldo = static_cast<int64_t>(heads) * st.hd;
   bf16* dst = out + (static_cast<int64_t>(b) * lq * heads + h) * st.hd + 2 * t4;
 #pragma unroll
-  for (int i = 0; i < kD / 2; i += 2) {  // columns 8 (i >> 2) + 2 t4 (+ 1) < kD
-    const int row = q0 + row_lo + 8 * ((i >> 1) & 1);
-    if (row < lq && 8 * (i >> 2) + 2 * t4 < st.hd)
-      *reinterpret_cast<__nv_bfloat162*>(dst + row * ldo + 8 * (i >> 2)) =
-          __floats2bfloat162_rn(o[i], o[i + 1]);
-  }
+  for (int hh = 0; hh < kH; ++hh)
+#pragma unroll
+    for (int i = 0; i < (kD < kHd ? kD : kHd) / 2; i += 2) {
+      // columns 64 hh + 8 (i >> 2) + 2 t4 (+ 1) < kD
+      const int row = q0 + row_lo + 8 * ((i >> 1) & 1);
+      const int col = hh * kHd + 8 * (i >> 2);
+      if (row < lq && col + 2 * t4 < st.hd)
+        *reinterpret_cast<__nv_bfloat162*>(dst + row * ldo + col) =
+            __floats2bfloat162_rn(o[hh][i], o[hh][i + 1]);
+    }
 }
 
 // Every base pointer of q, k and v, and every stride of an axis longer
@@ -392,7 +455,7 @@ void launch_fwd_sm90(const bf16* q, const bf16* k, const bf16* v, const float* b
                      float* lse, int batch, int lq, int lk, int heads, const FwdStrides& st,
                      float scale, cudaStream_t stm) {
   const int nt = (lk + kTile - 1) / kTile;
-  const int smem = fwd_smem_bytes(kResident ? nt : kFwdSlots);
+  const int smem = fwd_smem_bytes(kResident ? nt : kFwdSlots, kD);
   cudaFuncSetAttribute(attn_fwd_sm90_kernel<kId, kD, kBias, kLse, kResident>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid((lq + kFwdWG * kTile - 1) / (kFwdWG * kTile), heads, batch);
@@ -438,22 +501,24 @@ constexpr int kListShift = 24;  // a tile list entry: key tile | flags << kListS
 // null: every key tile; else the (nt, nt) blank-tile map, then the map of
 // all-zero bias tiles (lq == lk).
 template <int kId, int kD, bool kBias, bool kLse>
-__global__ void __launch_bounds__(kFwdThreads, 2)
+__global__ void __launch_bounds__(kFwdThreads, head_tiles(kD) > 1 ? 1 : 2)
     attn_fwd_onepass_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const float* __restrict__ bias,
                             const uint8_t* __restrict__ blank, bf16* __restrict__ out,
                             float* __restrict__ lse, int lq, int lk, int heads, float scale,
                             FwdStrides st) {
+  constexpr int kH = head_tiles(kD);
+  constexpr int kOpBytes = kH * kTileBytes;  // one q, k or v row block
   extern __shared__ uint8_t smem_raw[];
   __shared__ int warp_count[kFwdThreads / 32];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t tiles = (raw + 1023) & ~1023u;
   const int wg = threadIdx.x / kThreads;  // this thread's warpgroup
-  const uint32_t sq = tiles + wg * kTileBytes;  // its q tile
-  const uint32_t skv = tiles + kFwdWG * kTileBytes;  // slot s: k, then v
+  const uint32_t sq = tiles + wg * kOpBytes;  // its q tile
+  const uint32_t skv = tiles + kFwdWG * kOpBytes;  // slot s: k, then v
   // the block's list of key tiles, after the ring
   int* list = reinterpret_cast<int*>(smem_raw + (tiles - raw) +
-                                     (kFwdWG + 2 * kFwdSlots) * kTileBytes);
+                                     (kFwdWG + 2 * kFwdSlots) * kOpBytes);
 
   const int nt = (lk + kTile - 1) / kTile;
   const int q0 = (blockIdx.x * kFwdWG + wg) * kTile, h = blockIdx.y, b = blockIdx.z;
@@ -503,14 +568,14 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
     }
   }
   auto tile_of = [&](int it) { return blank ? list[it] & ((1 << kListShift) - 1) : it; };
-  auto slot = [&](int it) -> uint32_t { return skv + 2 * (it % kFwdSlots) * kTileBytes; };
+  auto slot = [&](int it) -> uint32_t { return skv + 2 * (it % kFwdSlots) * kOpBytes; };
   auto load_item = [&](int it) {  // k and v of the item's key tile
     const int j = tile_of(it);
-    load_tile_async<kFwdThreads, kD>(slot(it), kp, j * kTile, lk, st.kl, threadIdx.x, st.hd);
-    load_tile_async<kFwdThreads, kD>(slot(it) + kTileBytes, vp, j * kTile, lk, st.vl,
+    load_head_async<kFwdThreads, kD>(slot(it), kp, j * kTile, lk, st.kl, threadIdx.x, st.hd);
+    load_head_async<kFwdThreads, kD>(slot(it) + kOpBytes, vp, j * kTile, lk, st.vl,
                                      threadIdx.x, st.hd);
   };
-  load_tile_async<kThreads, kD>(sq, q + b * st.qb + h * st.qh, q0, lq, st.ql,
+  load_head_async<kThreads, kD>(sq, q + b * st.qb + h * st.qh, q0, lq, st.ql,
                                 threadIdx.x % kThreads, st.hd);
 #pragma unroll
   for (int i = 0; i < kFwdSlots - 1; ++i) {  // group i: item i (group 0 also q)
@@ -519,9 +584,11 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   }
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's share
-  float o[32];
+  float o[kH][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int hh = 0; hh < kH; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[hh][i] = 0.f;
   for (int it = 0; it < items; ++it) {
     // wait for item it; start item it + kFwdSlots - 1 into the slot that
     // item it - 1 has left (every thread is past it)
@@ -541,8 +608,8 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
     // second key tile on, with no diagnostic from ptxas. Four ldmatrix a
     // tile cost nothing measurable (nor did Q read by the product from
     // shared memory instead: PERF.md)
-    uint32_t qf[4][4];
-    tile_to_a(qf, sq);
+    uint32_t qf[kH][4][4];
+    head_to_a<kD>(qf, sq);
     float x[32];
     score_tile<kD>(x, qf, sk);
     // a full tile without a bias at a positive scale keeps the raw scores:
@@ -569,7 +636,8 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
     }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int hh = 0; hh < kH; ++hh) o[hh][i] *= alpha[(i >> 1) & 1];
       x[i] = fast_exp2(fmaf(x[i], sx, -mu[(i >> 1) & 1]));
       lt[(i >> 1) & 1][(i >> 2) & 1] += x[i];
     }
@@ -577,17 +645,7 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
     for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], lt[r][0] + lt[r][1]);
     uint32_t pf[4][4];
     acc_to_a(pf, x);
-    fence_frag(pf);
-    fence_acc(o);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // O += P V over the keys
-      wgmma_rs<1>(o, pf[kk], tile_desc(sk + kTileBytes + kk * 2048), 1);
-    wgmma_commit();
-    fence_frag(pf);
-    wgmma_wait<0>();
-    fence_acc(o);
-    fence_frag(pf);
+    pv_tile<kD>(o, pf, sk + kOpBytes);
   }
   cp_async_wait<0>();
   if (!active) return;
@@ -608,13 +666,17 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
   const int64_t ldo = static_cast<int64_t>(heads) * st.hd;
   bf16* dst = out + (static_cast<int64_t>(b) * lq * heads + h) * st.hd + 2 * t4;
 #pragma unroll
-  for (int i = 0; i < kD / 2; i += 2) {  // columns 8 (i >> 2) + 2 t4 (+ 1) < kD
-    const int r = (i >> 1) & 1;
-    const int row = q0 + row_lo + 8 * r;
-    if (row < lq && 8 * (i >> 2) + 2 * t4 < st.hd)
-      *reinterpret_cast<__nv_bfloat162*>(dst + row * ldo + 8 * (i >> 2)) =
-          __floats2bfloat162_rn(o[i] / l[r], o[i + 1] / l[r]);
-  }
+  for (int hh = 0; hh < kH; ++hh)
+#pragma unroll
+    for (int i = 0; i < (kD < kHd ? kD : kHd) / 2; i += 2) {
+      // columns 64 hh + 8 (i >> 2) + 2 t4 (+ 1) < kD
+      const int r = (i >> 1) & 1;
+      const int row = q0 + row_lo + 8 * r;
+      const int col = hh * kHd + 8 * (i >> 2);
+      if (row < lq && col + 2 * t4 < st.hd)
+        *reinterpret_cast<__nv_bfloat162*>(dst + row * ldo + col) =
+            __floats2bfloat162_rn(o[hh][i] / l[r], o[hh][i + 1] / l[r]);
+    }
 }
 
 template <int kId, int kD, bool kBias, bool kLse>
@@ -622,7 +684,8 @@ void launch_fwd_onepass(const bf16* q, const bf16* k, const bf16* v, const float
                         const uint8_t* blank, bf16* out, float* lse, int batch, int lq, int lk,
                         int heads, const FwdStrides& st, float scale, cudaStream_t stm) {
   const int nt = (lk + kTile - 1) / kTile;
-  const int smem = fwd_smem_bytes(kFwdSlots) + (blank ? nt : 0) * static_cast<int>(sizeof(int));
+  const int smem =
+      fwd_smem_bytes(kFwdSlots, kD) + (blank ? nt : 0) * static_cast<int>(sizeof(int));
   cudaFuncSetAttribute(attn_fwd_onepass_kernel<kId, kD, kBias, kLse>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid((lq + kFwdWG * kTile - 1) / (kFwdWG * kTile), heads, batch);

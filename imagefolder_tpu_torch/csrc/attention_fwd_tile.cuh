@@ -12,8 +12,9 @@
 // The output is contiguous (B, Lq, H * hd), head h at columns h*hd: the
 // (B, N, C) that the packed kernel's out projection reads, and the
 // (B, Lq, H, hd) of a BNHD call. hd (st.hd) is 64, or for #4 alone any
-// multiple of 8 up to 64, run under kD = 48 up to 48 and kD = 64 past it
-// (the packed #1 and #7 serve the ViTs, whose heads are all 64 wide).
+// multiple of 8 up to 128, run under kD = 48 up to 48, kD = 64 at 56 and
+// 64 and kD = 128 past it (the packed #1 and #7 serve the ViTs, whose
+// heads are all 64 wide).
 //
 // bf16 runs the one-pass wgmma kernel of attention_fwd_sm90.cuh (its
 // design, its bound and the blank-tile map are described there). This file
@@ -46,7 +47,8 @@ constexpr float kFwdNegInf = -INFINITY;
 using FwdStrides = sm90::FwdStrides;
 
 // fp32: one thread per q row, 64 rows per block, 32-row k/v tiles in shared
-// memory read by broadcast; q and o stay in registers.
+// memory read by broadcast; q and o stay in registers. Past a 64-wide head
+// the loops over a tile's keys are not unrolled (see attention_bnhd_fwd.cuh).
 constexpr int kFwdF32Tile = 32;
 
 template <int kId, int kD, bool kBias, bool kLse>
@@ -87,7 +89,7 @@ __global__ void __launch_bounds__(kRows)
 
     float s[kFwdF32Tile];
     float mx = kFwdNegInf;
-#pragma unroll
+#pragma unroll(kD > kHd ? 1 : kFwdF32Tile)
     for (int j = 0; j < kFwdF32Tile; ++j) {
       float acc = 0.f;
 #pragma unroll
@@ -106,7 +108,7 @@ __global__ void __launch_bounds__(kRows)
     l *= alpha;
 #pragma unroll
     for (int d = 0; d < kD; ++d) o[d] *= alpha;
-#pragma unroll
+#pragma unroll(kD > kHd ? 1 : kFwdF32Tile)
     for (int j = 0; j < kFwdF32Tile; ++j) {
       const float p = expf(s[j] - mu);
       l += p;

@@ -35,15 +35,21 @@
 #include "attention_bwd_sm90.cuh"
 #include "attention_fwd_tile.cuh"
 
-// hd <= 48: the kD = 48 instantiations, compiled apart (attention_qblk_hd48.cu)
+// hd <= 48 and 72-128: the kD = 48 and 128 instantiations, compiled apart
+// (attention_qblk_hd48.cu, attention_qblk_hd128.cu)
+int attention_qblk_fwd_hd128(const void* q, const void* k, const void* v, const void* bias,
+                             const uint8_t* map, void* out, float* lse, int batch, int lq,
+                             int lk, int heads, const int64_t* qs, const int64_t* ks,
+                             const int64_t* vs, int64_t bias_row_stride, float scale,
+                             int is_bf16, int hd, cudaStream_t stm);
 int attention_qblk_fwd_hd48(const void* q, const void* k, const void* v, const void* bias,
                             const uint8_t* map, void* out, float* lse, int batch, int lq,
                             int lk, int heads, const int64_t* qs, const int64_t* ks,
                             const int64_t* vs, int64_t bias_row_stride, float scale,
                             int is_bf16, int hd, cudaStream_t stm);
 
-// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 64 (run
-// under the kD = 48 kernels up to 48), each with its own
+// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 128
+// (run under the kD = 48 kernels up to 48, 64 at 56 and 64, 128 past 64), each with its own
 // batch, row and head strides in elements (qs, ks, vs = {batch, row, head};
 // the head-dim stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32
 // (Lq, Lk) shared by every batch and head, row stride bias_row_stride
@@ -60,7 +66,7 @@ extern "C" int attention_qblk_fwd(const void* q, const void* k, const void* v,
                                   int lq, int lk, int heads, const int64_t* qs,
                                   const int64_t* ks, const int64_t* vs, int64_t bias_row_stride,
                                   float scale, int is_bf16, int hd, void* stream) {
-  if (hd < 8 || hd > 64 || hd % 8) return cudaErrorInvalidValue;
+  if (hd < 8 || hd > 128 || hd % 8) return cudaErrorInvalidValue;
   const FwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
                       0, 0, bias ? bias_row_stride : 0, hd};
   const cudaStream_t stm = static_cast<cudaStream_t>(stream);
@@ -72,6 +78,9 @@ extern "C" int attention_qblk_fwd(const void* q, const void* k, const void* v,
     if (err) return err;
   }
   float* lp = static_cast<float*>(lse);
+  if (hd > 64)
+    return attention_qblk_fwd_hd128(q, k, v, bias, map, out, lp, batch, lq, lk, heads, qs, ks,
+                                    vs, bias_row_stride, scale, is_bf16, hd, stm);
   if (hd <= 48)
     return attention_qblk_fwd_hd48(q, k, v, bias, map, out, lp, batch, lq, lk, heads, qs, ks, vs,
                                    bias_row_stride, scale, is_bf16, hd, stm);

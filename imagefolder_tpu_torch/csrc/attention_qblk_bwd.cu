@@ -42,6 +42,13 @@
 
 #include "attention_bwd_sm90.cuh"
 
+// hd 72-128: the kD = 128 instantiations, compiled apart (attention_qblk_bwd_hd128.cu)
+int attention_qblk_bwd_hd128(const void* q, const void* k, const void* v, const void* g,
+                             const void* bias, void* dq, void* dk, void* dv, void* dbias, void* stats,
+                             int batch, int n, int heads, const int64_t* qs, const int64_t* ks,
+                             const int64_t* vs, const int64_t* gs, int64_t bias_row_stride,
+                             float scale, int is_bf16, int hd, cudaStream_t stm);
+
 namespace {
 
 template <int kD>
@@ -62,8 +69,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, const
 
 }  // namespace
 
-// q, k, v and g (B, L, H, hd), hd a multiple of 8 up to 64 (run under the
-// kD = 48 kernels up to 48), each with its own batch, row and
+// q, k, v and g (B, L, H, hd), hd a multiple of 8 up to 128 (run under the
+// kD = 48 kernels up to 48, 64 at 56 and 64, and 128 past 64: there every
+// call, bf16 too, takes the two-kernel design of attention_bwd_tile.cuh, and
+// o, lse and blank go unused, work being its 3 * B * H * L scratch), each
+// with its own batch, row and
 // head strides in elements (qs, ks, vs, gs = {batch, row, head}; the head-dim
 // stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32 (L, L)
 // shared by every batch and head, row stride bias_row_stride (column stride
@@ -84,7 +94,11 @@ extern "C" int attention_qblk_bwd(const void* q, const void* k, const void* v,
                                   const int64_t* gs, const int64_t* os,
                                   int64_t bias_row_stride, float scale, int is_bf16, int hd,
                                   void* stream) {
-  if (hd < 8 || hd > 64 || hd % 8) return cudaErrorInvalidValue;
+  if (hd < 8 || hd > 128 || hd % 8) return cudaErrorInvalidValue;
+  if (hd > 64)
+    return attention_qblk_bwd_hd128(q, k, v, g, bias, dq, dk, dv, dbias, work, batch, n, heads,
+                                    qs, ks, vs, gs, bias_row_stride, scale, is_bf16, hd,
+                                    static_cast<cudaStream_t>(stream));
   const int64_t ol = static_cast<int64_t>(heads) * hd;
   const BwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
                       gs[0], gs[1], gs[2], n * ol, ol, hd, bias ? bias_row_stride : 0, hd};

@@ -18,7 +18,8 @@ activation dtype.
 
 Attention: the training forward (causal mask) goes through the
 ``dot_product_attention`` router (#3 on the card, backward #6, which take
-RAR-B's head dim 768 / 16 = 48 and every other multiple of 8 up to 64).
+RAR-B's head dim 768 / 16 = 48, RAR-XL's 80 and every other width up to
+128).
 The KV-cached decode is plain PyTorch attention over the written prefix of
 each block's cache, as the JAX package's decode is XLA's
 ``jax.nn.dot_product_attention`` and no kernel of its own: fp32 scores and

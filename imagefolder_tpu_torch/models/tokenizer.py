@@ -1,9 +1,11 @@
 """XQ-GAN tokenizer (counterpart of ``imagefolder_tpu/models/tokenizer.py``).
 
 encoder -> quant_conv (1x1) -> P quantizer branches -> post_quant_conv (1x1)
--> decoder, with DINOv2 ViT encoder and decoder. A single ``v_patch_nums``
+-> decoder, with DINOv2 ViT or VQGAN CNN encoders and decoders, in any pair
+(``enc_type``, ``dec_type``; ``models/cnn.py``). A single ``v_patch_nums``
 entry builds the single-scale VQ (the round trip); more build the
-multi-scale residual VQ that VAR's tokenizers use, with the VAR interface
+multi-scale residual VQ that VAR's tokenizers use or, with ``lfq``, the
+multi-scale LFQ/BSQ quantizer of the MSBR recipes, with the VAR interface
 (``img_to_idxBl``, ``idxBl_to_var_input``, ``get_next_autoregressive_input``,
 ``embed_branch``, ``soft_embed_branch``, ``fhat_to_img``). ``product_quant``
 > 1 splits the latents into P branches, each with its own quantizer
@@ -20,11 +22,13 @@ the pre-last activation for the adaptive GAN weight, and adds the InfoNCE
 ``sem_loss`` against the frozen DINOv2 teacher (``semantic_model``, the
 encoder's preset; ``semantic_guide="dinov2"``) and ``detail_loss`` against
 the frozen CLIP ViT-B/16 teacher (``detail_model``; any ``detail_guide``
-but ``"none"``), each run under ``torch.no_grad``, as ``TokenizerOut``.
-
-Outside the ported slice (raise ``NotImplementedError``): cnn encoders and
-decoders, LFQ/BSQ quantizers, LoRA, RoPE, learned latent pos embeds and
-non-linear ToPixel heads.
+but ``"none"``), each run under ``torch.no_grad``, as ``TokenizerOut``. A
+CNN encoder's semantic guide projects the teacher's feature through
+``sem_linear`` and holds it against the pre-quant latents, as the JAX
+package does. LoRA and lat_lora finetuning (``enc_tuning_method``,
+``dec_tuning_method``, ``lora_rank``), learned latent pos embeds
+(``abs_pos_embed=False``) and the ``conv``, ``siren`` and ``identity``
+ToPixel heads are the ViT's (``models/vit.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagefolder_tpu_torch.losses.clip_loss import clip_loss
+from imagefolder_tpu_torch.models.cnn import Decoder as CNNDecoder
+from imagefolder_tpu_torch.models.cnn import Encoder as CNNEncoder
 from imagefolder_tpu_torch.models.vit import (
     LatentDecoder,
     LatentEncoder,
@@ -46,8 +52,8 @@ from imagefolder_tpu_torch.models.vit import (
     _backbone_kwargs,
 )
 from imagefolder_tpu_torch.ops.perturb import add_perturbation
-from imagefolder_tpu_torch.ops.quantize import MultiScaleVQ, QuantOut, SingleVQ
-from imagefolder_tpu_torch.utils.init import linear_kaiming_uniform_
+from imagefolder_tpu_torch.ops.quantize import MultiScaleLFQ, MultiScaleVQ, QuantOut, SingleVQ
+from imagefolder_tpu_torch.utils.init import linear, linear_kaiming_uniform_
 
 __all__ = ["ModelArgs", "VQModel", "TokenizerOut", "check_slice"]
 
@@ -121,14 +127,17 @@ class ModelArgs:
 
 
 def check_slice(cfg: ModelArgs):
-    """Raise NotImplementedError for a configuration outside the port."""
+    """Raise NotImplementedError for a configuration the port does not
+    build: an encoder, decoder, tuning method or ToPixel head that the JAX
+    package does not have either, or a semantic guide it does not run."""
     unported = {
-        "cnn encoder/decoder": cfg.enc_type != "dinov2" or cfg.dec_type != "dinov2",
-        "LFQ quantizer": cfg.lfq,
+        f"enc_type={cfg.enc_type!r}": cfg.enc_type not in ("cnn", "dinov2"),
+        f"dec_type={cfg.dec_type!r}": cfg.dec_type not in ("cnn", "dinov2"),
         f"semantic_guide={cfg.semantic_guide!r}": cfg.semantic_guide not in ("none", "dinov2"),
-        "abs_pos_embed=False": not cfg.abs_pos_embed,
-        "LoRA tuning": {cfg.enc_tuning_method, cfg.dec_tuning_method} - {"full", "frozen"},
-        f"to_pixel={cfg.to_pixel!r}": cfg.to_pixel != "linear",
+        "tuning method": {cfg.enc_tuning_method, cfg.dec_tuning_method}
+        - {"full", "frozen", "lora", "lat_lora"},
+        f"to_pixel={cfg.to_pixel!r}": cfg.to_pixel not in ("linear", "conv", "siren",
+                                                           "identity"),
     }
     for what, hit in unported.items():
         if hit:
@@ -185,17 +194,32 @@ class VQModel(nn.Module):
         cfg = self.config = config
         self.grid = math.isqrt(cfg.num_latent_tokens)
         dt = cfg.dtype
-        self.encoder = LatentEncoder(
-            cfg.encoder_model, cfg.image_size, 16, cfg.total_latent_tokens,
-            cfg.product_quant, cfg.abs_pos_embed, cfg.enc_tuning_method,
-            cfg.enc_use_attn_mask, dt, remat=cfg.remat, generator=generator)
-        self.quant_conv = Conv1x1(self.encoder.embed_dim, cfg.codebook_embed_dim, generator)
-        self.decoder = LatentDecoder(
-            cfg.decoder_model, cfg.image_size, 16, cfg.num_latent_tokens,
-            cfg.abs_pos_embed, cfg.to_pixel, cfg.dec_tuning_method,
-            dtype=dt, remat=cfg.remat, generator=generator)
-        self.post_quant_conv = Conv1x1(cfg.codebook_embed_dim * cfg.product_quant,
-                                       self.decoder.embed_dim, generator)
+        if cfg.enc_type == "cnn":
+            self.encoder = CNNEncoder(ch_mult=tuple(cfg.encoder_ch_mult),
+                                      z_channels=cfg.z_channels, dropout=cfg.dropout_p,
+                                      dtype=dt, generator=generator)
+            enc_dim = cfg.z_channels
+        else:
+            self.encoder = LatentEncoder(
+                cfg.encoder_model, cfg.image_size, 16, cfg.total_latent_tokens,
+                cfg.product_quant, cfg.abs_pos_embed, cfg.enc_tuning_method,
+                cfg.enc_use_attn_mask, dt, remat=cfg.remat, lora_rank=cfg.lora_rank,
+                generator=generator)
+            enc_dim = self.encoder.embed_dim
+        self.quant_conv = Conv1x1(enc_dim, cfg.codebook_embed_dim, generator)
+        if cfg.dec_type == "cnn":
+            self.decoder = CNNDecoder(ch_mult=tuple(cfg.decoder_ch_mult),
+                                      z_channels=cfg.z_channels, dropout=cfg.dropout_p,
+                                      dtype=dt, generator=generator)
+            dec_dim = cfg.z_channels
+        else:
+            self.decoder = LatentDecoder(
+                cfg.decoder_model, cfg.image_size, 16, cfg.num_latent_tokens,
+                cfg.abs_pos_embed, cfg.to_pixel, cfg.dec_tuning_method,
+                dtype=dt, remat=cfg.remat, lora_rank=cfg.lora_rank, generator=generator)
+            dec_dim = self.decoder.embed_dim
+        self.post_quant_conv = Conv1x1(cfg.codebook_embed_dim * cfg.product_quant, dec_dim,
+                                       generator)
         quantizers = [self._make_quantizer(generator) for _ in range(cfg.product_quant)]
         if cfg.product_quant > 1:
             self.quantizes = nn.ModuleList(quantizers)
@@ -205,11 +229,14 @@ class VQModel(nn.Module):
             self.semantic_model = ViTBackbone(
                 **_backbone_kwargs(cfg.encoder_model, cfg.image_size, 16, dt),
                 generator=generator).requires_grad_(False)
+            if cfg.enc_type == "cnn":  # its feature to the latent width
+                self.sem_linear = linear(self.semantic_model.embed_dim,
+                                         cfg.codebook_embed_dim, generator)
         if cfg.detail_guide != "none":
             # the reference builds a CLIP-B/16 teacher for any value but
             # 'none' (xqgan_model.py:209) and projects its 768-wide feature
             # through the shared quant_conv, so the encoder must be 768 wide
-            if self.encoder.embed_dim != 768:
+            if enc_dim != 768:
                 raise ValueError("detail_guide requires a 768-dim encoder (vit_base_*): the "
                                  "shared quant_conv projects both encoder tokens and CLIP "
                                  "teacher features (reference xqgan_model.py:344)")
@@ -224,6 +251,13 @@ class VQModel(nn.Module):
             return SingleVQ(cfg.codebook_size, cfg.codebook_embed_dim,
                             cfg.codebook_l2_norm, beta=cfg.commit_loss_beta,
                             generator=generator)
+        if cfg.lfq:  # BSQ when the codebook is l2-normed
+            return MultiScaleLFQ(cfg.codebook_size, cfg.codebook_embed_dim,
+                                 tuple(cfg.v_patch_nums), using_znorm=cfg.codebook_l2_norm,
+                                 share_quant_resi=cfg.share_quant_resi,
+                                 codebook_drop=cfg.codebook_drop, scale=cfg.scale,
+                                 entropy_weight=cfg.entropy_loss_ratio,
+                                 soft_entropy=cfg.soft_entropy, generator=generator)
         # the JAX package builds the multi-scale VQ with a cosine search always
         return MultiScaleVQ(cfg.codebook_size, cfg.codebook_embed_dim,
                             tuple(cfg.v_patch_nums), using_znorm=True,
@@ -237,16 +271,40 @@ class VQModel(nn.Module):
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC image -> pre-quant latent grids (B, P, g, g, C_codebook), fp32."""
         cfg = self.config
-        h = self.quant_conv(self.encoder(x))  # (B, P*g*g, C)
         g = self.grid
+        if cfg.enc_type == "cnn":
+            h = self.encoder(x)  # (B, g, g, z)
+            if h.shape[1] != g:
+                raise ValueError(
+                    f"encoder output grid {h.shape[1]}x{h.shape[2]} != "
+                    f"sqrt(num_latent_tokens)={g}: check image_size ({cfg.image_size}) "
+                    f"against encoder_ch_mult's downsampling "
+                    f"(f{2 ** (len(cfg.encoder_ch_mult) - 1)})")
+            return self.quant_conv(h)[:, None]  # one branch
+        h = self.quant_conv(self.encoder(x))  # (B, P*g*g, C)
         return h.reshape(h.shape[0], cfg.product_quant, g, g, cfg.codebook_embed_dim)
 
     def decode(self, quant: torch.Tensor, return_prelast: bool = False):
         """Quantized latents (B, g, g, P*C) -> image NHWC (unclamped); with
         ``return_prelast`` also the decoder's pre-last activation."""
         q = self.post_quant_conv(quant)
+        if self.config.dec_type == "cnn":
+            return self.decoder(q, return_prelast=return_prelast)
         b, g1, g2, d = q.shape
         return self.decoder(q.reshape(b, g1 * g2, d), return_prelast=return_prelast)
+
+    @property
+    def last_layer(self) -> torch.Tensor:
+        """The decoder's last-layer weight, the adaptive GAN weight's anchor
+        (reference ``get_last_layer``): the CNN decoder's ``conv_out``, or the
+        ToPixel head's; the ``identity`` head has none and raises."""
+        w = self.decoder.last_layer if self.config.dec_type == "cnn" \
+            else self.decoder.to_pixel.last_layer
+        if w is None:
+            raise NotImplementedError(
+                f"adaptive disc weight needs a last layer; to_pixel="
+                f"{self.config.to_pixel!r} has none")
+        return w
 
     def _teacher_input(self, x: torch.Tensor) -> torch.Tensor:
         """[-1, 1] -> ImageNet-normalised (xqgan_model.py:172-173, 304)."""
@@ -313,8 +371,12 @@ class VQModel(nn.Module):
             with torch.no_grad():
                 tokens = self.semantic_model(self._teacher_input(x))
             z_s = tokens[:, 0] if cfg.guide_type_1 == "class" else tokens[:, 1:].mean(dim=1)
-            z_s = self.quant_conv(z_s)
-            z_q = quant_list[-1].mean(dim=(1, 2))
+            if cfg.enc_type == "cnn":
+                z_s = F.linear(z_s.float(), self.sem_linear.weight, self.sem_linear.bias)
+                z_q = h_P[:, 0].mean(dim=(1, 2))
+            else:
+                z_s = self.quant_conv(z_s)
+                z_q = quant_list[-1].mean(dim=(1, 2))
             sem_loss = self._guide_loss(z_s[n_drop:], z_q[n_drop:], cfg.sem_loss_scale,
                                         epoch) * cfg.sem_loss_weight
         if cfg.detail_guide != "none":
@@ -378,14 +440,19 @@ class VQModel(nn.Module):
         return self.decode(f_hat).clamp(-1.0, 1.0)
 
     def embed_branch(self, i: int, idx: torch.Tensor, si: Optional[int] = None):
-        """Codes of branch i -> their embeddings (``si`` matters to LFQ only)."""
-        return self.quantizers[i].embed(idx)
+        """Codes of branch i -> their embeddings (``si``, the scale, matters
+        to LFQ only: its codes are +-scale**si bits)."""
+        return self.quantizers[i].embed(idx, si)
 
     def soft_embed_branch(self, i: int, probs: torch.Tensor) -> torch.Tensor:
         """``more_smooth`` mixture embedding: a (B, l, V) code distribution
         times branch i's codebook (L2-normalised for a normed single-scale
-        VQ) instead of a hard lookup."""
+        VQ) instead of a hard lookup. LFQ/BSQ has no dense codebook and
+        raises, as in the JAX package."""
         qz = self.quantizers[i]
+        if isinstance(qz, MultiScaleLFQ):
+            raise NotImplementedError("more_smooth requires a dense VQ codebook; LFQ/BSQ "
+                                      "has none")
         cb = qz.embedding.weight.float()
         if getattr(qz, "codebook_norm", False):
             cb = cb / (torch.linalg.vector_norm(cb, dim=-1, keepdim=True) + 1e-12)

@@ -4,19 +4,28 @@
 Ported: the ``Block`` with LayerScale (DINOv2: the sublayer path, fp32
 residual, composed or, after ``set_fused_sublayers``, fused) and without
 it (DinoDisc's ViT-S trunk and the CLIP ViT-B/16 detail teacher: the
-composed path, the residual in the activation dtype), ``ViTBackbone`` (with
-CLIP's ``norm_pre`` when ``pre_norm``) with its pos embed
-resampled to any square latent grid (``bicubic_aa``, as timm) and optional
-per-block activation checkpointing (``remat``), the ``linear`` ``ToPixel``
-head, and ``LatentEncoder`` (product quantization included) /
-``LatentDecoder`` (with the pre-last activation for the adaptive GAN weight)
-with absolute position embeddings. Module and parameter names follow the upstream torch layout that
+composed path, the residual in the activation dtype), with LoRA adapters
+(``LoRALinear``: XQ-GAN's ``lora`` finetuning on the MLP, ``lat_lora`` also
+on qkv and proj with latent-only deltas; such a block never fuses),
+``ViTBackbone`` (with CLIP's ``norm_pre`` when ``pre_norm``) with its pos
+embed resampled to any square latent grid (``bicubic_aa``, as timm) and
+optional per-block activation checkpointing (``remat``), the ``ToPixel``
+heads (``linear``, ``conv``, ``siren``, ``identity``), and
+``LatentEncoder`` (product quantization included; the attention mask that
+``lat_lora`` forces) / ``LatentDecoder`` (with the pre-last activation for
+the adaptive GAN weight), with absolute position embeddings or, with
+``abs_pos_embed=False``, learned ``latent_pos_embed``. Module and parameter
+names follow the upstream torch layout that
 ``imagefolder_tpu/utils/convert_torch.py::export_vqmodel`` writes, so its
-state dicts load with ``strict=True``. Public functions keep the JAX
-package's NHWC / token-major layouts.
+state dicts load with ``strict=True``; the LoRA adapters and the conv and
+siren heads, which it does not export, are named after their flax modules
+(``lora_a``, ``lora_b``, ``deconv``, ``sine1``, ``sine2``). Public functions
+keep the JAX package's NHWC / token-major layouts. RoPE blocks, which no
+``ModelArgs`` field reaches, are not ported.
 
-The decoder keeps the reference quirk: its latent stream gets an extra cls
-token, so its block input length is ``num_patches + 1 + num_latent + 1``.
+The decoder keeps the reference quirk: with absolute position embeddings
+its latent stream gets an extra cls token, so its block input length is
+``num_patches + 1 + num_latent + 1``.
 """
 
 from __future__ import annotations
@@ -34,9 +43,10 @@ from imagefolder_tpu_torch.ops.activations import gelu_exact
 from imagefolder_tpu_torch.ops.cuda.attention import attention_qkv
 from imagefolder_tpu_torch.ops.cuda.block import attn_sublayer, dense, mlp_sublayer
 from imagefolder_tpu_torch.ops.resize import resize
-from imagefolder_tpu_torch.utils.init import lecun_normal_, linear, normal_, trunc_normal_
+from imagefolder_tpu_torch.utils.init import (lecun_normal_, linear, normal_, trunc_normal_,
+                                              uniform_)
 
-__all__ = ["ViTBackbone", "LatentEncoder", "LatentDecoder", "ToPixel",
+__all__ = ["ViTBackbone", "LatentEncoder", "LatentDecoder", "ToPixel", "LoRALinear",
            "VIT_PRESETS", "set_fused_sublayers"]
 
 # timm dinov2 model presets (vision_transformer.py:2895-2925)
@@ -69,23 +79,71 @@ class LayerScale(nn.Module):
         self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
 
 
-class Attention(nn.Module):
-    """Parameters of the fused-qkv attention; the math is ``attn_sublayer``."""
+_LORA_ALPHA = 8.0  # LoRADense's lora_alpha
 
-    def __init__(self, dim: int, generator: Optional[torch.Generator] = None):
+
+class LoRALinear(nn.Module):
+    """The JAX package's ``LoRADense``: the frozen base Linear (``weight``,
+    ``bias``, the flax Dense init) plus, with ``rank`` > 0, a low-rank
+    adapter y += (x A^T) B^T * (_LORA_ALPHA / rank), A (``lora_a``,
+    N(0, 0.02)) and B (``lora_b``, zeros) fp32 parameters used in the
+    activation dtype, as a flax Dense(dtype) uses them. ``latent_tokens`` > 0
+    keeps the delta on the last ``latent_tokens`` sequence positions only
+    (``lat_lora``: the image tokens stay the frozen trunk's)."""
+
+    def __init__(self, din: int, dout: int, rank: int = 0, latent_tokens: int = 0,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.qkv = linear(dim, 3 * dim, generator)
-        self.proj = linear(dim, dim, generator)
+        base = linear(din, dout, generator)
+        self.weight, self.bias = base.weight, base.bias
+        self.rank, self.latent_tokens = rank, latent_tokens
+        if rank > 0:
+            self.lora_a = skip_init(nn.Linear, din, rank, bias=False)
+            normal_(self.lora_a.weight, 0.02, generator)
+            self.lora_b = skip_init(nn.Linear, rank, dout, bias=False)
+            nn.init.zeros_(self.lora_b.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = dense(x, self.weight, self.bias)
+        if self.rank == 0:
+            return y
+        act = x.dtype
+        delta = F.linear(F.linear(x, self.lora_a.weight.to(act)), self.lora_b.weight.to(act))
+        delta = delta * (_LORA_ALPHA / self.rank)
+        if self.latent_tokens > 0:
+            n = x.shape[-2]
+            pos = torch.arange(n, device=x.device)[:, None]
+            delta = torch.where(pos >= n - self.latent_tokens, delta, torch.zeros_like(delta))
+        return y + delta
+
+
+class Attention(nn.Module):
+    """Parameters of the fused-qkv attention; the math is ``attn_sublayer``
+    (or, with adapters or no LayerScale, ``Block._composed``). ``rank`` > 0 puts LoRA
+    adapters on qkv and proj (``lat_lora``)."""
+
+    def __init__(self, dim: int, generator: Optional[torch.Generator] = None,
+                 rank: int = 0, latent_tokens: int = 0):
+        super().__init__()
+        self.qkv = LoRALinear(dim, 3 * dim, rank, latent_tokens=latent_tokens,
+                              generator=generator)
+        self.proj = LoRALinear(dim, dim, rank, latent_tokens=latent_tokens,
+                               generator=generator)
 
 
 class Mlp(nn.Module):
-    """Parameters of the MLP; the math is ``mlp_sublayer``."""
+    """Parameters of the MLP; the math is ``mlp_sublayer`` (or, with
+    adapters or no LayerScale, ``Block._composed``). ``rank`` > 0 puts LoRA adapters on
+    fc1 and fc2."""
 
     def __init__(self, dim: int, hidden: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, rank: int = 0,
+                 latent_tokens: int = 0):
         super().__init__()
-        self.fc1 = linear(dim, hidden, generator)
-        self.fc2 = linear(hidden, dim, generator)
+        self.fc1 = LoRALinear(dim, hidden, rank, latent_tokens=latent_tokens,
+                              generator=generator)
+        self.fc2 = LoRALinear(hidden, dim, rank, latent_tokens=latent_tokens,
+                              generator=generator)
 
 
 class Block(nn.Module):
@@ -95,37 +153,50 @@ class Block(nn.Module):
     to the fused kernels (#7, #8; see ``set_fused_sublayers``); without it
     (``init_values=None``, DinoDisc's trunk) it is the JAX composed path,
     ``x + h`` in the activation dtype, the block has no ``ls1``/``ls2``, and
-    it never fuses."""
+    it never fuses. ``lora_rank`` > 0 adds LoRA adapters to the MLP (and,
+    with ``lat_lora``, to qkv and proj, their deltas on the last
+    ``lora_latent_tokens`` positions only); such a block runs the JAX
+    package's composed module path and never fuses either."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  init_values: Optional[float] = 1e-5,
                  dtype: torch.dtype = torch.float32, *,
-                 fuse_attn: bool = False, fuse_mlp: bool = False,
+                 fuse_attn: bool = False, fuse_mlp: bool = False, lora_rank: int = 0,
+                 lat_lora: bool = False, lora_latent_tokens: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if init_values is None and (fuse_attn or fuse_mlp):
-            raise ValueError("a Block without LayerScale never fuses its sublayers")
+        if (init_values is None or lora_rank > 0) and (fuse_attn or fuse_mlp):
+            raise ValueError("a Block without LayerScale or with LoRA never fuses its "
+                             "sublayers")
         self.num_heads = num_heads
+        self.lora_rank = lora_rank
         self.fuse_attn, self.fuse_mlp = fuse_attn, fuse_mlp
+        lat = lora_latent_tokens if lat_lora else 0
         self.norm1 = LayerNorm(dim, dtype)
-        self.attn = Attention(dim, generator)
+        self.attn = Attention(dim, generator, lora_rank if lat_lora else 0, lat)
         self.norm2 = LayerNorm(dim, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), generator)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), generator, lora_rank, lat)
         if init_values is None:
             self.ls1 = self.ls2 = None
         else:
             self.ls1 = LayerScale(dim, init_values)
             self.ls2 = LayerScale(dim, init_values)
 
+    def _composed(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The JAX package's composed module path (``Attention``, ``Mlp`` of
+        ``LoRADense``s): each sublayer's output, times its LayerScale when
+        the block has one (fp32), added to the residual stream."""
+        h = self.attn.proj(attention_qkv(self.attn.qkv(self.norm1(x)), self.num_heads,
+                                         bias=mask))
+        x = x + (h if self.ls1 is None else h * self.ls1.gamma)
+        h = self.mlp.fc2(gelu_exact(self.mlp.fc1(self.norm2(x))))
+        return x + (h if self.ls2 is None else h * self.ls2.gamma)
+
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.lora_rank > 0 or self.ls1 is None:
+            return self._composed(x, mask)
         a, m = self.attn, self.mlp
-        if self.ls1 is None:
-            o = attention_qkv(dense(self.norm1(x), a.qkv.weight, a.qkv.bias), self.num_heads,
-                              bias=mask)
-            x = x + dense(o, a.proj.weight, a.proj.bias)
-            h = gelu_exact(dense(self.norm2(x), m.fc1.weight, m.fc1.bias))
-            return x + dense(h, m.fc2.weight, m.fc2.bias)
         x = attn_sublayer(self.norm1(x), x, a.qkv.weight, a.qkv.bias,
                           a.proj.weight, a.proj.bias, self.ls1.gamma,
                           self.num_heads, mask=mask, fused=self.fuse_attn)
@@ -139,9 +210,10 @@ def set_fused_sublayers(module: nn.Module, attn: bool, mlp: bool) -> int:
     composed path: the explicit, per-model counterpart of the JAX package's
     ``IMGF_FUSE_ATTN`` / ``IMGF_FUSE_MLP`` (off by default, as there). The
     attention fuses only where the JAX router would: no mask and N * N within
-    the single-block budget. Blocks without LayerScale never fuse. Returns
-    the number of blocks set."""
-    blocks = [b for b in module.modules() if isinstance(b, Block) and b.ls1 is not None]
+    the single-block budget. Blocks without LayerScale or with LoRA adapters
+    never fuse (as in the JAX package). Returns the number of blocks set."""
+    blocks = [b for b in module.modules()
+              if isinstance(b, Block) and b.ls1 is not None and b.lora_rank == 0]
     for b in blocks:
         b.fuse_attn, b.fuse_mlp = bool(attn), bool(mlp)
     return len(blocks)
@@ -170,7 +242,8 @@ class ViTBackbone(nn.Module):
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
                  mlp_ratio: float = 4.0, init_values: Optional[float] = 1e-5,
                  pre_norm: bool = False, dtype: torch.dtype = torch.float32, *,
-                 patch_embed: bool = True, remat: bool = False,
+                 patch_embed: bool = True, remat: bool = False, lora_rank: int = 0,
+                 lat_lora: bool = False, lora_latent_tokens: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.remat = remat
@@ -187,7 +260,9 @@ class ViTBackbone(nn.Module):
         self.pos_embed = nn.Parameter(
             trunc_normal_(torch.empty(1, 1 + self.num_patches, embed_dim), 0.02, generator))
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, init_values, dtype, generator=generator)
+            Block(embed_dim, num_heads, mlp_ratio, init_values, dtype, lora_rank=lora_rank,
+                  lat_lora=lat_lora, lora_latent_tokens=lora_latent_tokens,
+                  generator=generator)
             for _ in range(depth))
         self.norm = LayerNorm(embed_dim, dtype)
         # CLIP's LayerNorm before the blocks (timm norm_pre)
@@ -263,55 +338,71 @@ def _latent_grid(num_latent_tokens: int) -> int:
     return g
 
 
-def _check_tuning(tuning_method: str):
-    if tuning_method not in ("full", "frozen"):
-        raise NotImplementedError(f"tuning_method={tuning_method!r} (LoRA) is not ported")
+def _lora_rank(tuning_method: str, lora_rank: int) -> int:
+    """The adapters' rank under a tuning method (0: none)."""
+    if tuning_method not in ("full", "frozen", "lora", "lat_lora"):
+        raise NotImplementedError(f"tuning_method={tuning_method!r}")
+    return lora_rank if tuning_method in ("lora", "lat_lora") else 0
 
 
 class LatentEncoder(nn.Module):
     """ViT over [cls, patches, latent tokens]; returns the trailing latent
     tokens (B, nl, D) in the activation dtype. ``num_latent_tokens`` is the
-    total over the ``product_quant`` branches: each branch's latents get the
-    pos embed resampled to their own square grid and a level embedding of
-    their own (ids 1..P; 0 for cls and patches). ``use_attn_mask`` adds the
-    shared -inf bias that keeps prefix and image tokens from attending to the
-    latents."""
+    total over the ``product_quant`` branches. With ``abs_pos_embed`` each
+    branch's latents get the pos embed resampled to their own square grid
+    and a level embedding of their own (ids 1..P; 0 for cls and patches);
+    without it the latents get the learned ``latent_pos_embed`` instead.
+    ``use_attn_mask`` (forced by ``lat_lora``) adds the shared -inf bias that
+    keeps prefix and image tokens from attending to the latents.
+    ``tuning_method`` 'lora' or 'lat_lora' gives the trunk's blocks LoRA
+    adapters of ``lora_rank`` (what gets trained is the optimizer's
+    labels' business, as in the JAX package)."""
 
     def __init__(self, model_name: str = "vit_base_patch14_dinov2.lvd142m",
                  img_size: int = 256, patch_size: int = 16,
                  num_latent_tokens: int = 256, product_quant: int = 1,
                  abs_pos_embed: bool = True, tuning_method: str = "full",
                  use_attn_mask: bool = False, dtype: torch.dtype = torch.float32, *,
-                 remat: bool = False, generator: Optional[torch.Generator] = None):
+                 remat: bool = False, lora_rank: int = 0,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not abs_pos_embed:
-            raise NotImplementedError("abs_pos_embed=False is not ported")
-        _check_tuning(tuning_method)
+        rank = _lora_rank(tuning_method, lora_rank)
         if num_latent_tokens % product_quant:
             raise ValueError(f"{num_latent_tokens} latents over {product_quant} branches")
         self.branch_grid = _latent_grid(num_latent_tokens // product_quant)
         self.num_latent_tokens = num_latent_tokens
         self.product_quant = product_quant
-        self.use_attn_mask = use_attn_mask
+        self.abs_pos_embed = abs_pos_embed
+        self.use_attn_mask = use_attn_mask or tuning_method == "lat_lora"
         self.model = ViTBackbone(**_backbone_kwargs(model_name, img_size, patch_size, dtype),
-                                 remat=remat, generator=generator)
+                                 remat=remat, lora_rank=rank,
+                                 lat_lora=tuning_method == "lat_lora",
+                                 lora_latent_tokens=num_latent_tokens, generator=generator)
         d = self.embed_dim = self.model.embed_dim
         self.latent_tokens = nn.Parameter(
             normal_(torch.empty(1, num_latent_tokens, d), 1e-6, generator))
-        self.lvl_embed = skip_init(nn.Embedding, 1 + product_quant, d)
-        trunc_normal_(self.lvl_embed.weight, math.sqrt(1 / d / 3), generator)
+        if abs_pos_embed:
+            self.lvl_embed = skip_init(nn.Embedding, 1 + product_quant, d)
+            trunc_normal_(self.lvl_embed.weight, math.sqrt(1 / d / 3), generator)
+        else:
+            self.latent_pos_embed = nn.Parameter(
+                trunc_normal_(torch.empty(1, num_latent_tokens, d), 0.02, generator))
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         m = self.model
         nl = self.num_latent_tokens
         g = self.branch_grid
-        lvl = self.lvl_embed.weight.float()
-        x = m.pos_embed_tokens(m.patchify(img)) + lvl[0]  # (B, 1+N, D) fp32
+        x = m.pos_embed_tokens(m.patchify(img))  # (B, 1+N, D) fp32
         z = self.latent_tokens.float().expand(img.shape[0], -1, -1)
-        pieces = [x]
-        for i, zi in enumerate(z.chunk(self.product_quant, dim=1)):
-            pieces.append(m.pos_embed_tokens(zi, grid_hw=(g, g), keep_cls=False) + lvl[i + 1])
-        x = torch.cat(pieces, dim=1)
+        if self.abs_pos_embed:
+            lvl = self.lvl_embed.weight.float()
+            pieces = [x + lvl[0]]
+            for i, zi in enumerate(z.chunk(self.product_quant, dim=1)):
+                pieces.append(m.pos_embed_tokens(zi, grid_hw=(g, g), keep_cls=False)
+                              + lvl[i + 1])
+            x = torch.cat(pieces, dim=1)
+        else:
+            x = torch.cat([x, z + self.latent_pos_embed.float()], dim=1)
         mask = None
         if self.use_attn_mask:
             total = x.shape[1]
@@ -323,22 +414,66 @@ class LatentEncoder(nn.Module):
 
 
 class ToPixel(nn.Module):
-    """``linear`` patch->pixel head: Linear(D, C*p*p) in fp32, then
-    unpatchify to NHWC."""
+    """Patch -> pixel head (dino_enc/to_pixel.py:36-94), NHWC fp32 out:
+    - ``linear``: Linear(D, C p p) in fp32, then unpatchify;
+    - ``conv``: ConvTranspose2d(D, C, p, stride p), which with stride equal
+      to its kernel is a per-patch projection: one einsum on the torch-layout
+      (D, C, p, p) weight (``deconv``), fp32;
+    - ``siren``: two SineLayers with omega 30 (``sine1`` D -> 2D, ``sine2``
+      2D -> (img / p) p C), with the reference's raw channel-major
+      ``view(B, C, S, S)`` of the output, not a patchwise one;
+    - ``identity``: the tokens unchanged.
+    ``last_layer`` is the weight that anchors the adaptive GAN weight
+    (reference ``get_last_layer``); ``identity`` has none."""
 
     def __init__(self, embed_dim: int, img_size: int = 256, patch_size: int = 16,
                  channels: int = 3, mode: str = "linear", *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if mode != "linear":
-            raise NotImplementedError(f"to_pixel mode {mode!r} is not ported")
+        if mode not in ("linear", "conv", "siren", "identity"):
+            raise NotImplementedError(f"to_pixel mode {mode!r}")
+        self.mode = mode
         self.img_size, self.patch_size, self.channels = img_size, patch_size, channels
-        self.model = linear(embed_dim, channels * patch_size * patch_size, generator)
+        d, p = embed_dim, patch_size
+        if mode == "linear":
+            self.model = linear(d, channels * p * p, generator)
+        elif mode == "conv":  # torch ConvTranspose2d's default init, fan_in = C p p
+            bound = 1.0 / math.sqrt(channels * p * p)
+            self.deconv = nn.Module()
+            self.deconv.weight = nn.Parameter(
+                uniform_(torch.empty(d, channels, p, p), -bound, bound, generator))
+            self.deconv.bias = nn.Parameter(
+                uniform_(torch.empty(channels), -bound, bound, generator))
+        elif mode == "siren":
+            f2 = (img_size // p) * p * channels
+            self.sine1 = skip_init(nn.Linear, d, 2 * d)
+            uniform_(self.sine1.weight, -1.0 / d, 1.0 / d, generator)
+            uniform_(self.sine1.bias, -1.0 / math.sqrt(d), 1.0 / math.sqrt(d), generator)
+            self.sine2 = skip_init(nn.Linear, 2 * d, f2)
+            w_bound = math.sqrt(6.0 / (2 * d)) / 30.0
+            uniform_(self.sine2.weight, -w_bound, w_bound, generator)
+            uniform_(self.sine2.bias, -1.0 / math.sqrt(2 * d), 1.0 / math.sqrt(2 * d), generator)
+
+    @property
+    def last_layer(self) -> Optional[torch.Tensor]:
+        return {"linear": lambda: self.model.weight, "conv": lambda: self.deconv.weight,
+                "siren": lambda: self.sine2.weight, "identity": lambda: None}[self.mode]()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, L, D)
         p = self.patch_size
         hw = self.img_size // p
-        b = x.shape[0]
+        b, l, d = x.shape
+        if self.mode == "identity":
+            return x
+        if self.mode == "conv":
+            y = torch.einsum("bhwd,dcij->bhiwjc", x.float().reshape(b, hw, hw, d),
+                             self.deconv.weight.float())
+            return y.reshape(b, hw * p, hw * p, self.channels) + self.deconv.bias.float()
+        if self.mode == "siren":
+            h = torch.sin(30.0 * F.linear(x.float(), self.sine1.weight, self.sine1.bias))
+            y = torch.sin(30.0 * F.linear(h, self.sine2.weight, self.sine2.bias))
+            s = p * math.isqrt(l)
+            return y.reshape(b, self.channels, s, s).permute(0, 2, 3, 1)
         x = F.linear(x.float(), self.model.weight, self.model.bias)
         x = x.reshape(b, hw, hw, p, p, self.channels).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(b, hw * p, hw * p, self.channels)
@@ -346,28 +481,41 @@ class ToPixel(nn.Module):
 
 class LatentDecoder(nn.Module):
     """Mask tokens at the image positions + quantized latents (B, nl, D);
-    returns unpatchified pixels (B, H, W, C) in fp32, and with
-    ``return_prelast`` also the pre-last activation (the ToPixel head's
-    input, (B, N, D) in the activation dtype)."""
+    returns the ``to_pixel`` head's output (unpatchified pixels (B, H, W, C)
+    in fp32, or the tokens for ``identity``), and with ``return_prelast``
+    also the pre-last activation (the head's input, (B, N, D) in the
+    activation dtype). With ``abs_pos_embed`` the latents get the pos embed
+    resampled to their grid (with the extra cls token) and the level
+    embeddings; without it, the learned ``latent_pos_embed``. 'lora' and
+    'lat_lora' tuning give the trunk's blocks adapters of ``lora_rank``,
+    latent-only under 'lat_lora' (the latent stream and, with absolute
+    position embeddings, its cls token)."""
 
     def __init__(self, model_name: str = "vit_base_patch14_dinov2.lvd142m",
                  img_size: int = 256, patch_size: int = 16,
                  num_latent_tokens: int = 256, abs_pos_embed: bool = True,
                  to_pixel: str = "linear", tuning_method: str = "full",
                  out_channels: int = 3, dtype: torch.dtype = torch.float32, *,
-                 remat: bool = False, generator: Optional[torch.Generator] = None):
+                 remat: bool = False, lora_rank: int = 0,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not abs_pos_embed:
-            raise NotImplementedError("abs_pos_embed=False is not ported")
-        _check_tuning(tuning_method)
+        rank = _lora_rank(tuning_method, lora_rank)
         self.grid = _latent_grid(num_latent_tokens)
         self.num_latent_tokens = num_latent_tokens
+        self.abs_pos_embed = abs_pos_embed
         self.model = ViTBackbone(**_backbone_kwargs(model_name, img_size, patch_size, dtype),
-                                 patch_embed=False, remat=remat, generator=generator)
+                                 patch_embed=False, remat=remat, lora_rank=rank,
+                                 lat_lora=tuning_method == "lat_lora",
+                                 lora_latent_tokens=num_latent_tokens + int(abs_pos_embed),
+                                 generator=generator)
         d = self.embed_dim = self.model.embed_dim
         self.mask_token = nn.Parameter(normal_(torch.empty(1, 1, d), 1e-6, generator))
-        self.lvl_embed = skip_init(nn.Embedding, 2, d)
-        trunc_normal_(self.lvl_embed.weight, math.sqrt(1 / d / 3), generator)
+        if abs_pos_embed:
+            self.lvl_embed = skip_init(nn.Embedding, 2, d)
+            trunc_normal_(self.lvl_embed.weight, math.sqrt(1 / d / 3), generator)
+        else:
+            self.latent_pos_embed = nn.Parameter(
+                trunc_normal_(torch.empty(1, num_latent_tokens, d), 0.02, generator))
         self.to_pixel = ToPixel(d, img_size, patch_size, out_channels, to_pixel,
                                 generator=generator)
 
@@ -375,10 +523,13 @@ class LatentDecoder(nn.Module):
         m = self.model
         x = self.mask_token.float().expand(z.shape[0], m.num_patches, -1)
         x = m.pos_embed_tokens(x)  # (B, 1+N, D)
-        # reference quirk: cls is prepended to the latent stream and kept
-        z = m.pos_embed_tokens(z.float(), grid_hw=(self.grid, self.grid), keep_cls=True)
-        lvl = self.lvl_embed.weight.float()
-        x = torch.cat([x + lvl[0], z + lvl[1]], dim=1)
+        if self.abs_pos_embed:
+            # reference quirk: cls is prepended to the latent stream and kept
+            z = m.pos_embed_tokens(z.float(), grid_hw=(self.grid, self.grid), keep_cls=True)
+            lvl = self.lvl_embed.weight.float()
+            x = torch.cat([x + lvl[0], z + lvl[1]], dim=1)
+        else:
+            x = torch.cat([x, z.float() + self.latent_pos_embed.float()], dim=1)
         x = m.run_blocks(x)[:, 1:m.num_patches + 1]  # image-position outputs
         out = self.to_pixel(x)
         return (out, x) if return_prelast else out

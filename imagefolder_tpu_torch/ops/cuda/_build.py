@@ -6,8 +6,9 @@ call, from the sources in the package only, into ``imagefolder_tpu_torch/_build/
 under a name keyed by a hash of the sources and the flags; a later process
 with the same sources loads it without building. Each ``.cu`` compiles in an
 nvcc process of its own, all started together, and one more links them.
-ptxas's report of each kernel's registers, shared memory and spills is kept
-beside the library (``ptxas_report``).
+ptxas's report of each kernel's registers, shared memory and spills, and
+each source's compile time, are kept beside the library (``ptxas_report``,
+``compile_seconds``).
 """
 
 from __future__ import annotations
@@ -19,9 +20,11 @@ import os
 import re
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build", "load_library", "ptxas_report"]
+__all__ = ["NVCC_FLAGS", "build", "compile_seconds", "load_library", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
@@ -68,15 +71,33 @@ def build() -> Path:
         cmds.append([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(objs[-1])])
     tmp = _BUILD / f"{tag}.so.tmp"
     try:
+        t0 = time.perf_counter()
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True) for c in cmds]
-        outputs = [proc.communicate()[0] for proc in procs]  # wait for every one
-        for cmd, proc, output in zip(cmds, procs, outputs):
-            _finish(cmd, output, proc.returncode)
+        # one reader thread a process, so that a full pipe never stalls an
+        # nvcc, and each source's wall time from the common start
+        outputs, seconds = [""] * len(procs), [0.0] * len(procs)
+
+        def wait(i: int):
+            outputs[i] = procs[i].communicate()[0]
+            seconds[i] = time.perf_counter() - t0
+
+        threads = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+        for t in threads:
+            t.start()
+        for t in threads:  # wait for every one
+            t.join()
+        failed = [(cmd, proc.returncode, output)
+                  for cmd, proc, output in zip(cmds, procs, outputs) if proc.returncode]
+        if failed:  # every failing source's report, not only the first
+            raise RuntimeError("\n".join(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{output}"
+                                          for cmd, rc, output in failed))
         link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
         done = subprocess.run(link, capture_output=True, text=True)
         _finish(link, done.stdout + done.stderr, done.returncode)
         out.with_suffix(".ptxas.txt").write_text("".join(outputs))
+        out.with_suffix(".seconds.txt").write_text("".join(
+            f"{Path(c[c.index('-c') + 1]).name} {t:.1f}\n" for c, t in zip(cmds, seconds)))
         os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     finally:
         for f in (*objs, tmp):
@@ -107,6 +128,17 @@ def _kernel_name(mangled: str) -> str:
                     for t in re.findall(r"L([bi]\d+)E", targs.group(1))]
             return f"{ident}<{', '.join(args)}>"
     return mangled
+
+
+def compile_seconds() -> list[str]:
+    """Each source's nvcc wall time in seconds from the build's common
+    start ("name seconds"), slowest first; empty if this process found the
+    library already built."""
+    path = library_path().with_suffix(".seconds.txt")
+    if not path.exists():
+        return []
+    rows = [line.split() for line in path.read_text().splitlines() if line]
+    return [f"{n} {t}" for n, t in sorted(rows, key=lambda r: -float(r[1]))]
 
 
 def ptxas_report() -> list[str]:

@@ -44,9 +44,15 @@ the plain version of lse), skips the 64 x 64 tiles that a bias blanks
 (``blank_tile_map``, plain version ``blank_tile_map_reference``); dk and dv
 come from a kernel per 64 keys, dq from one per 64 q rows. fp32 backwards,
 calls that ask for dbias, and #6 at L = 1 keep ``csrc/attention_bwd_tile.cuh``.
-The BNHD kernels (#3-#6) take every head width that is a multiple of 8 up
-to 64 (48 for RAR-B and MaskGIT-B); the packed pair (#1, #2), which only
-the ViTs call, takes 64. Other widths raise.
+The BNHD kernels (#3-#6) take every head width up to 128: 48 for RAR-B and
+MaskGIT-B, 80 and 88 for RAR-XL and RAR-XXL. A width that is not a multiple
+of 8 is zero-padded to the next one before the launch (the scale stays the
+true width's; zero columns of q and k change no score, those of v give
+output columns that are cut away, and the gradients are cut back to the true
+width). Widths of 72-128 run the kD = 128 instantiations (in bf16 the
+forwards on 128-wide wgmma tiles, every backward on the two-kernel design
+of ``csrc/attention_bwd_tile.cuh``). Wider heads raise. The packed pair
+(#1, #2), which only the ViTs call, takes 64.
 Each dispatches on the tensor's device only: a CPU tensor goes to its
 ``*_reference``, the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel or raises.
@@ -60,6 +66,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from imagefolder_tpu_torch.ops.cuda import _build
 
@@ -87,11 +94,14 @@ QBLK_BWD_LAUNCHES = 0
 
 # head widths: the packed pair #1/#2 (and #7's attention step) serve the
 # ViTs, every preset of which has heads of 64; the BNHD kernels #3-#6 take
-# every multiple of 8 up to 64 (48: RAR-B and MaskGIT-B, 768 / 16), a
-# narrower head zero-padded to the 64-wide tiles on the card (compiled at
-# 48 and 64; up to 48 runs under 48's). Other widths raise.
+# every width up to _BNHD_MAX_HEAD_DIM (48: RAR-B and MaskGIT-B, 768 / 16;
+# 80 and 88: RAR-XL and RAR-XXL), compiled at 48, 64 and 128: a width runs
+# under the smallest of them that holds it, zero-padded to its tiles on the
+# card, and one that is not a multiple of 8 is first zero-padded to one by
+# the wrapper. Wider heads raise.
 _HEAD_DIM = 64
-_BNHD_HEAD_DIMS = tuple(range(8, 65, 8))
+_BNHD_MAX_HEAD_DIM = 128
+_SM90_BWD_MAX_HEAD_DIM = 64  # the wgmma backward's widest; past it the two-kernel design
 _TILE = 64  # q rows and keys per tile of the bf16 backward (#2, #5, #6) and its blank map
 
 # Score elements Lq * Lk per (batch, head) up to which the JAX package runs
@@ -233,30 +243,45 @@ def _strides(t: torch.Tensor, dims) -> ctypes.Array:
     return (ctypes.c_int64 * 3)(*(t.stride(d) if t.shape[d] != 1 else 0 for d in dims))
 
 
+def _pad_head(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """``t`` with its last axis zero-padded to ``hd`` (itself if it is that wide)."""
+    return t if t.shape[-1] == hd else F.pad(t, (0, hd - t.shape[-1]))
+
+
 def _kernel_operands(q, k, v, bias, what: str):
     """The checks the BNHD kernels (#3-#6) make: q, k and v all bf16 or all
-    fp32, a head dim in ``_BNHD_HEAD_DIMS``, one device, unit last strides (a view is copied
-    only if its last stride is not 1), the bias cast to fp32. Every check
-    comes before any launch."""
+    fp32, a head dim up to ``_BNHD_MAX_HEAD_DIM``, one device, unit last
+    strides (a view is copied only if its last stride is not 1), the bias
+    cast to fp32. Every check comes before any launch. A head dim that is
+    not a multiple of 8 comes back zero-padded to the next one (the caller
+    cuts its results back)."""
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"{what} kernel takes q, k, v all bf16 or all fp32; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[-1] not in _BNHD_HEAD_DIMS:
+    if q.shape[-1] > _BNHD_MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"{what} kernel takes head dims that are multiples of 8 up to 64 "
-            f"({', '.join(map(str, _BNHD_HEAD_DIMS))}), got {q.shape[-1]}")
+            f"{what} kernel takes head dims up to {_BNHD_MAX_HEAD_DIM} (one that is not a "
+            f"multiple of 8 zero-padded to one), got {q.shape[-1]}")
     if not (k.device == v.device == q.device and (bias is None or bias.device == q.device)):
         raise ValueError("q, k, v and bias must be on the same device")
     if 0 in (*q.shape, k.shape[1]):
         raise ValueError(f"{what} needs non-empty inputs; got {tuple(q.shape)}, "
                          f"Lk={k.shape[1]}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    hd = -(-q.shape[-1] // 8) * 8
+    q, k, v = (_pad_head(t, hd) for t in (q, k, v))
     if bias is not None:
         bias = bias.to(torch.float32)
         if bias.stride(-1) != 1:
             bias = bias.contiguous()
     return q, k, v, bias
+
+
+def _cut_head(hd: int, *ts: Optional[torch.Tensor]):
+    """Each tensor cut back to its first ``hd`` columns, contiguous (None
+    stays None; a tensor ``hd`` wide is returned as it is)."""
+    return tuple(t if t is None or t.shape[-1] == hd else t[..., :hd].contiguous() for t in ts)
 
 
 def _copy_ready(t: torch.Tensor) -> torch.Tensor:
@@ -274,6 +299,7 @@ def _fused_attention_cuda(q, k, v, bias, scale, want_lse: bool = False):
     log-sum-exp, fp32 (B, H, Lq), for the backward: returns (out, lse)."""
     global FUSED_LAUNCHES
     _check_bnhd(q, k, v, bias)
+    hd0 = q.shape[-1]
     q, k, v, bias = _kernel_operands(q, k, v, bias, "fused_attention")
     if q.dtype == torch.bfloat16:
         q, k, v = (_copy_ready(t) for t in (q, k, v))
@@ -289,6 +315,7 @@ def _fused_attention_cuda(q, k, v, bias, scale, want_lse: bool = False):
             _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)), bs,
             float(scale), int(q.dtype == torch.bfloat16), hd)
     FUSED_LAUNCHES += 1
+    out, = _cut_head(hd0, out)
     return (out, lse) if want_lse else out
 
 
@@ -356,12 +383,13 @@ def _bwd_operands(q, k, v, bias, g, what: str):
         raise TypeError(f"g must be {q.dtype} on {q.device}; got {g.dtype} on {g.device}")
     if g.stride(-1) != 1:
         g = g.contiguous()
-    return q, k, v, bias, g, bias_dtype
+    return q, k, v, bias, _pad_head(g, q.shape[-1]), bias_dtype
 
 
 def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, lse=None):
     global FUSED_BWD_LAUNCHES
     what = "fused_attention backward"
+    hd0 = q.shape[-1]
     q, k, v, bias, g, bias_dtype = _bwd_operands(q, k, v, bias, g, what)
     b, l, h, hd = q.shape
     dbias = None
@@ -371,12 +399,14 @@ def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, lse=N
     # L = 1 every p is 1 and dq, dk are exactly 0, as the two-kernel design
     # gives them; p from lse (1 - 1e-7) and delta from o leave ~1e-7 of |dp|
     # in ds there, so that call keeps the two-kernel design (as dbias does)
-    sm90 = q.dtype == torch.bfloat16 and dbias is None and l > 1
+    sm90 = q.dtype == torch.bfloat16 and dbias is None and l > 1 \
+        and hd <= _SM90_BWD_MAX_HEAD_DIM
     blank = None
     if sm90:
         q, k, v, g = (_copy_ready(t) for t in (q, k, v, g))
         if o is None or lse is None:  # a direct call: the forward gives them (counted as #3)
             o, lse = _fused_attention_cuda(q, k, v, bias, scale, want_lse=True)
+        o = _pad_head(o, hd)  # the forward's columns past hd0 are exact zeros
         _check_o_lse(what, q, o, lse)
         o = _copy_ready(o) if o.stride(-1) == 1 else o.contiguous()
         lse = lse.contiguous()
@@ -397,7 +427,7 @@ def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, lse=N
     FUSED_BWD_LAUNCHES += 1
     if dbias is not None:
         dbias = dbias[None, None].to(bias_dtype)
-    return dq, dk, dv, dbias
+    return (*_cut_head(hd0, dq, dk, dv), dbias)
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -538,6 +568,7 @@ def _fused_attention_qblk_cuda(q, k, v, bias, scale, want_lse: bool = False,
     computed (for the checks: the output is the same, bit for bit)."""
     global QBLK_LAUNCHES
     _check_qblk(q, k, v, bias)
+    hd0 = q.shape[-1]
     q, k, v, bias = _kernel_operands(q, k, v, bias, "fused_attention_qblk")
     bf16 = q.dtype == torch.bfloat16
     if bf16:  # the wgmma kernel's 16-byte copies
@@ -554,6 +585,7 @@ def _fused_attention_qblk_cuda(q, k, v, bias, scale, want_lse: bool = False,
             h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)),
             row_stride, float(scale), int(bf16), hd)
     QBLK_LAUNCHES += 1
+    out, = _cut_head(hd0, out)
     return (out, lse) if want_lse else out
 
 
@@ -728,18 +760,20 @@ def _qblk_bwd_kernel():
 def _fused_attention_qblk_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, lse=None):
     global QBLK_BWD_LAUNCHES
     what = "fused_attention_qblk backward"
+    hd0 = q.shape[-1]
     q, k, v, bias, g, bias_dtype = _bwd_operands(q, k, v, bias, g, what)
     b, l, h, hd = q.shape
     dbias = None
     if bias is not None and need_dbias:
         dbias = torch.zeros((l, l), dtype=torch.float32, device=q.device)
     # bf16 without dbias: the wgmma kernel on the forward's o and lse
-    sm90 = q.dtype == torch.bfloat16 and dbias is None
+    sm90 = q.dtype == torch.bfloat16 and dbias is None and hd <= _SM90_BWD_MAX_HEAD_DIM
     blank = None
     if sm90:
         q, k, v, g = (_copy_ready(t) for t in (q, k, v, g))
         if o is None or lse is None:  # a direct call: the forward gives them (counted as #4)
             o, lse = _fused_attention_qblk_cuda(q, k, v, bias, scale, want_lse=True)
+        o = _pad_head(o, hd)  # the forward's columns past hd0 are exact zeros
         _check_o_lse(what, q, o, lse)
         o = _copy_ready(o) if o.stride(-1) == 1 else o.contiguous()
         lse = lse.contiguous()
@@ -760,7 +794,7 @@ def _fused_attention_qblk_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, 
     QBLK_BWD_LAUNCHES += 1
     if dbias is not None:
         dbias = dbias[None, None].to(bias_dtype)
-    return dq, dk, dv, dbias
+    return (*_cut_head(hd0, dq, dk, dv), dbias)
 
 
 def fused_attention_qblk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -21,8 +21,17 @@ The z.e products, the resizes and the Phi convs are PyTorch fp32 matmuls,
 exact fp32 as long as ``torch.backends.cuda.matmul.allow_tf32`` stays False
 (PyTorch's default): TF32 would flip near-tied codes. ``Phi`` is written as
 a matmul over the 3x3 neighbourhood rather than a conv, because cuDNN runs
-fp32 convs in TF32 by default (``torch.backends.cudnn.allow_tf32``). The
-LFQ/BSQ quantizer is not ported.
+fp32 convs in TF32 by default (``torch.backends.cudnn.allow_tf32``).
+
+- ``MultiScaleLFQ``: the lookup-free quantizer (LFQ) and, with
+  ``using_znorm``, binary spherical quantization (BSQ) of the MSBR recipes.
+  A code is the latent's sign bits, scaled by ``scale**si`` (divided by
+  sqrt(Cvae) under BSQ), so no codebook is searched and no kernel runs: the
+  residual pyramid, the Phi bank, quantizer dropout and the VAR interface
+  are the multi-scale VQ's, and the entropy loss is the soft per-bit one
+  (the default) or MagViT's logits entropy over the full 2**Cvae codebook,
+  a plain product left to ``torch.matmul`` as the JAX package leaves it to
+  XLA.
 """
 
 from __future__ import annotations
@@ -41,8 +50,8 @@ from imagefolder_tpu_torch.ops.cuda.codebook import codebook_argmin
 from imagefolder_tpu_torch.ops.resize import resize
 from imagefolder_tpu_torch.utils.init import uniform_
 
-__all__ = ["SingleVQ", "MultiScaleVQ", "Phi", "phi_index", "QuantOut", "update_usage_ema",
-           "usage_percent"]
+__all__ = ["SingleVQ", "MultiScaleVQ", "MultiScaleLFQ", "Phi", "phi_index", "QuantOut",
+           "update_usage_ema", "usage_percent"]
 
 
 def _l2n(x: torch.Tensor) -> torch.Tensor:
@@ -248,6 +257,11 @@ class MultiScaleVQ(nn.Module):
     def _lookup(self, idx: torch.Tensor) -> torch.Tensor:
         return self.embedding.weight.float()[idx]
 
+    def _scale_codes(self, idx: torch.Tensor, si: int) -> torch.Tensor:
+        """Scale ``si``'s codes -> their values (the codebook's rows; LFQ's
+        depend on the scale)."""
+        return self._lookup(idx)
+
     def phis_used(self) -> set:
         """Indices of the Phis that some scale applies (all of them unless
         the nearest-tick mapping skips one, e.g. phi_2 of K = 4 over three
@@ -350,7 +364,7 @@ class MultiScaleVQ(nn.Module):
         pn_next = self.v_patch_nums[0]
         stop = sn - 1 if prog_si < 0 else min(prog_si, sn - 1)
         for si in range(stop):
-            h = self._lookup(gt_ms_idx_Bl[si]).reshape(b, pn_next, pn_next, self.Cvae)
+            h = self._scale_codes(gt_ms_idx_Bl[si], si).reshape(b, pn_next, pn_next, self.Cvae)
             f_hat = f_hat + self.apply_phi(si, sn, resize(h, (hh, hh), "bicubic"))
             pn_next = self.v_patch_nums[si + 1]
             nxt = resize(f_hat, (pn_next, pn_next), "area")
@@ -371,8 +385,212 @@ class MultiScaleVQ(nn.Module):
         f_hat = f_hat + self.apply_phi(si, sn, h_BHWC)
         return f_hat, f_hat
 
-    def embed(self, idx: torch.Tensor) -> torch.Tensor:
+    def embed(self, idx: torch.Tensor, si: Optional[int] = None) -> torch.Tensor:
+        """Codes -> their codebook rows; ``si`` (LFQ's scale) is ignored."""
         return self._lookup(idx)
+
+
+def _sign_bits(rest: torch.Tensor) -> torch.Tensor:
+    """LFQ's code of a pooled residual: its sign bits (> 0), one per channel.
+    An entry within rounding of 0 may take either bit on another device."""
+    return rest > 0
+
+
+def _entropy(probs: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    return -(probs * torch.log(probs + eps)).sum(dim=-1)
+
+
+class MultiScaleLFQ(nn.Module):
+    """Multi-scale lookup-free quantizer / BSQ (reference LFQ,
+    lookup_free_quantize.py:83). Per scale the residual is area-pooled, its
+    sign bits are the code (bit c is 2**c of the index), the code map is
+    +-``scaler(si)`` per bit, bicubic-upsampled and put through the scale's
+    Phi, as ``MultiScaleVQ`` puts its codewords. With ``using_znorm`` (BSQ)
+    the latents are L2-normalised first and the scaler divided by
+    sqrt(Cvae). The codebook is implicit (``2**Cvae`` codes), so the state
+    dict holds only the Phi convs under ``quant_resi.*``, and there is no
+    usage buffer (the JAX exporter writes none for LFQ)."""
+
+    def __init__(self, codebook_size: int, Cvae: int, v_patch_nums: Sequence[int],
+                 using_znorm: bool = False, beta: float = 0.25, quant_resi: float = 0.5,
+                 share_quant_resi: int = 4, default_qresi_counts: int = 0,
+                 codebook_drop: float = 0.0, scale: float = 1.0, entropy_weight: float = 0.1,
+                 soft_entropy: bool = True, sample_minimization_weight: float = 1.0,
+                 batch_maximization_weight: float = 1.0, entropy_temperature: float = 0.01, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if 2 ** Cvae != codebook_size:
+            raise ValueError(f"LFQ's vocabulary is 2**Cvae = {2 ** Cvae}; got {codebook_size}")
+        self.vocab_size = self.codebook_size = codebook_size
+        self.Cvae = Cvae
+        self.v_patch_nums = tuple(v_patch_nums)
+        self.using_znorm = using_znorm
+        self.beta, self.codebook_drop, self.scale = beta, codebook_drop, scale
+        self.entropy_weight, self.soft_entropy = entropy_weight, soft_entropy
+        self.sample_minimization_weight = sample_minimization_weight
+        self.batch_maximization_weight = batch_maximization_weight
+        self.entropy_temperature = entropy_temperature
+        self.quant_resi = _phi_bank(Cvae, len(self.v_patch_nums), quant_resi,
+                                    share_quant_resi, default_qresi_counts, generator)
+
+    apply_phi = MultiScaleVQ.apply_phi
+    phis_used = MultiScaleVQ.phis_used
+
+    def scaler(self, si: int) -> float:
+        """A bit's magnitude at scale ``si``: scale**si, / sqrt(Cvae) under BSQ."""
+        s = self.scale ** si
+        return s / math.sqrt(self.Cvae) if self.using_znorm else s
+
+    def _index_dtype(self) -> torch.dtype:
+        return torch.int64 if self.Cvae > 31 else torch.int32
+
+    def bits_to_indices(self, bits: torch.Tensor) -> torch.Tensor:
+        """(..., Cvae) bools -> indices, bit c weighing 2**c (int32 for
+        Cvae <= 31, else int64, as the JAX package)."""
+        dt = self._index_dtype()
+        weights = 2 ** torch.arange(self.Cvae, dtype=dt, device=bits.device)
+        return (bits.to(dt) * weights).sum(dim=-1, dtype=dt)
+
+    def indices_to_bits(self, idx: torch.Tensor, si: Optional[int] = None) -> torch.Tensor:
+        """Indices -> (..., Cvae) bools, or with ``si`` the fp32 code values
+        +-``scaler(si)``."""
+        mask = 2 ** torch.arange(self.Cvae, dtype=torch.int64, device=idx.device)
+        bits = (idx.long()[..., None] & mask) != 0
+        if si is None:
+            return bits
+        s = self.scaler(si)
+        return torch.where(bits, s, -s).float()
+
+    def _full_codebook(self, device) -> torch.Tensor:
+        """Every code's +-1 bits, (2**Cvae, Cvae) fp32."""
+        idx = torch.arange(self.vocab_size, device=device)
+        return self.indices_to_bits(idx).float() * 2.0 - 1.0
+
+    def _soft_entropy_loss(self, z: torch.Tensor, si: int, sample_mask: torch.Tensor):
+        """The analytic per-bit entropy and the per-bit codebook entropy
+        (lookup_free_quantize.py:283-300), with the samples weighted by
+        ``sample_mask`` (B,): the JAX package's intended semantics, not
+        upstream's int-mask indexing. z: (B, hw, 1, C)."""
+        w = sample_mask.float()
+        denom = w.sum().clamp_min(1.0)
+        p = torch.sigmoid(-4.0 * z * self.scaler(si))
+        prob = torch.stack([p, 1.0 - p], dim=-1)  # (B, hw, 1, C, 2)
+        ent = _entropy(prob).sum(dim=-1)  # (B, hw, 1)
+        per_sample = (ent * w[:, None, None]).sum() / (denom * ent.shape[1] * ent.shape[2])
+        avg_prob = (prob * w[:, None, None, None, None]).sum(dim=(0, 1)) / (
+            denom * prob.shape[1])
+        return per_sample, _entropy(avg_prob).sum()
+
+    def _hard_entropy_loss(self, z: torch.Tensor, codebook: torch.Tensor,
+                           sample_mask: torch.Tensor) -> torch.Tensor:
+        """MagViT's logits entropy (lookup_free_quantize.py:41-79), the
+        samples weighted by ``sample_mask``: logits 2 z . code over the full
+        codebook (a plain product), at temperature ``entropy_temperature``."""
+        logits = 2.0 * torch.matmul(z, codebook.T)  # (B, hw, 1, V)
+        t = self.entropy_temperature
+        probs = torch.softmax(logits / t, dim=-1)
+        log_probs = torch.log_softmax(logits / t + 1e-5, dim=-1)
+        w = sample_mask.float()
+        denom = w.sum().clamp_min(1.0)
+        avg_probs = (probs * w[:, None, None, None]).sum(dim=0) / denom
+        avg_probs = avg_probs.mean(dim=(0, 1))
+        avg_entropy = -(avg_probs * torch.log(avg_probs + 1e-5)).sum()
+        sample_ent = -(probs * log_probs).sum(dim=-1)
+        sample_entropy = (sample_ent * w[:, None, None]).sum() / (
+            denom * sample_ent.shape[1] * sample_ent.shape[2])
+        return (self.sample_minimization_weight * sample_entropy
+                - self.batch_maximization_weight * avg_entropy)
+
+    def _normed(self, f_BHWC: torch.Tensor) -> torch.Tensor:
+        f = f_BHWC.float()
+        return _l2n(f) if self.using_znorm else f
+
+    def _code_map(self, rest: torch.Tensor, si: int, sn: int, hw: tuple):
+        """The pooled residual's bits -> (indices (N,) as int64, PyTorch's
+        index type, and the code map through the scale's Phi at full size)."""
+        c = self.Cvae
+        bits = _sign_bits(rest)
+        idx = self.bits_to_indices(bits.reshape(-1, c)).long()
+        s = self.scaler(si)
+        h = torch.where(bits, s, -s).float()
+        if si != sn - 1:
+            h = resize(h, hw, "bicubic")
+        return idx, self.apply_phi(si, sn, h)
+
+    def forward(self, f_BHWC: torch.Tensor, *, dropout_n: Optional[torch.Tensor] = None,
+                train: bool = False) -> QuantOut:
+        """Training forward: per scale the sign-bit code of the pooled
+        residual (no gradient) through its Phi, added to f_hat under each
+        sample's dropout mask; the entropy loss of the residual f - sg(f_hat)
+        (with the encoder's gradient) weighted by ``entropy_weight``; vq_loss,
+        commit_loss and entropy_loss each divided by S (unlike
+        ``MultiScaleVQ``'s commit_loss). f_hat comes back straight-through."""
+        f = self._normed(f_BHWC)
+        b, hh, ww, c = f.shape
+        sn = len(self.v_patch_nums)
+        f_no_grad = f.detach()
+        f_rest = f_no_grad
+        f_hat = torch.zeros_like(f_no_grad)
+        n_q = _n_quantizers(b, sn, self.codebook_drop, dropout_n, train, f.device)
+        zero = torch.zeros((), device=f.device)
+        vq_loss, commit_loss, entropy_loss = zero, zero, zero
+        base_codebook = None if self.soft_entropy else self._full_codebook(f.device)
+        hits = []
+        for si, pn in enumerate(self.v_patch_nums):
+            rest = f_rest if (si == sn - 1 and pn == hh) else resize(f_rest, (pn, pn), "area")
+            idx, h = self._code_map(rest, si, sn, (hh, ww))
+            hits.append(torch.bincount(idx, minlength=self.vocab_size).float())
+            x = (f - f_hat.detach()).reshape(b, hh * ww, 1, c)
+            mask_b = (si < n_q).float()
+            mask = mask_b[:, None, None, None]
+            ratio = mask.mean()
+            f_hat = f_hat + h * mask
+            f_rest = (f_rest - h).detach()
+            if self.soft_entropy:
+                per_sample, codebook_ent = self._soft_entropy_loss(x, si, mask_b)
+                ent_aux = (self.sample_minimization_weight * per_sample
+                           - self.batch_maximization_weight * codebook_ent)
+            else:
+                ent_aux = self._hard_entropy_loss(x, base_codebook * self.scaler(si), mask_b)
+            vq_loss = vq_loss + ((f_hat - f_no_grad).square() * mask).mean() / ratio
+            commit_loss = commit_loss + ((f_hat.detach() - f).square() * mask).mean() * (
+                self.beta / ratio)
+            entropy_loss = entropy_loss + ent_aux * (self.entropy_weight / ratio)
+        f_hat = f_hat.detach() - f_no_grad + f
+        return QuantOut(f_hat.to(f_BHWC.dtype), vq_loss / sn, commit_loss / sn,
+                        entropy_loss / sn, torch.stack(hits))
+
+    @torch.no_grad()
+    def f_to_idxBl_or_fhat(self, f_BHWC: torch.Tensor, to_fhat: bool,
+                           v_patch_nums: Optional[Sequence[int]] = None
+                           ) -> List[torch.Tensor]:
+        """Greedy multi-scale encode: per scale the cumulative f_hat
+        (B, H, W, C) when ``to_fhat``, else the indices (B, pn*pn)."""
+        f = self._normed(f_BHWC.detach())
+        b, hh, ww, c = f.shape
+        pns = tuple(v_patch_nums or self.v_patch_nums)
+        sn = len(pns)
+        f_rest, f_hat = f, torch.zeros_like(f)
+        out = []
+        for si, pn in enumerate(pns):
+            rest = f_rest if (si == sn - 1 and pn == hh) else resize(f_rest, (pn, pn), "area")
+            idx, h = self._code_map(rest, si, sn, (hh, ww))
+            f_hat = f_hat + h
+            f_rest = f_rest - h
+            out.append(f_hat if to_fhat else idx.reshape(b, pn * pn))
+        return out
+
+    def _scale_codes(self, idx: torch.Tensor, si: int) -> torch.Tensor:
+        return self.indices_to_bits(idx, si)
+
+    # VAR's teacher-forcing input and decode stage: the multi-scale VQ's, on
+    # the codes' +-scaler(si) values
+    idxBl_to_var_input = MultiScaleVQ.idxBl_to_var_input
+    get_next_autoregressive_input = MultiScaleVQ.get_next_autoregressive_input
+
+    def embed(self, idx: torch.Tensor, si: Optional[int] = None) -> torch.Tensor:
+        """Codes -> their +-``scaler(si)`` values (the last scale's by default)."""
+        return self.indices_to_bits(idx, len(self.v_patch_nums) - 1 if si is None else si)
 
 
 def _nearest_code(flat_NC: torch.Tensor, emb_VC: torch.Tensor) -> torch.Tensor:
@@ -445,6 +663,7 @@ class SingleVQ(nn.Module):
             return [idx.reshape(z.shape[0], -1)]
         return [self.embed(idx).reshape(z.shape)]
 
-    def embed(self, idx: torch.Tensor) -> torch.Tensor:
+    def embed(self, idx: torch.Tensor, si: Optional[int] = None) -> torch.Tensor:
+        """Codes -> their (normalised) codebook rows; ``si`` is ignored."""
         z_q = self.embedding.weight.float()[idx]
         return _l2n(z_q) if self.codebook_norm else z_q

@@ -142,15 +142,6 @@ def _make_disc(tcfg: TokenizerTrainConfig, loss_dtype: torch.dtype,
     raise ValueError(f"unknown disc_type {tcfg.disc_type!r}")
 
 
-def _last_layer_kernel(model_cfg: ModelArgs, model: VQModel) -> torch.Tensor:
-    """The decoder's last-layer weight, the anchor of the adaptive disc
-    weight (reference get_last_layer): the ``linear`` ToPixel head's."""
-    if model_cfg.to_pixel != "linear":
-        raise NotImplementedError(
-            f"adaptive disc weight needs the linear ToPixel head; got {model_cfg.to_pixel!r}")
-    return model.decoder.to_pixel.model.weight
-
-
 def _freeze(module: nn.Module, paths: Dict[str, str], frozen) -> None:
     for name, p in module.named_parameters():
         if frozen(paths[name]):
@@ -306,7 +297,9 @@ class TokenizerTrainer:
         nll = tcfg.rec_weight * rec + tcfg.perceptual_weight * perc
         d_weight = torch.ones((), device=dev)
         if tcfg.disc_adaptive_weight and use_disc:
-            w_last = _last_layer_kernel(mcfg, self.model)
+            # the decoder's last layer (reference get_last_layer); the
+            # identity head has none and raises, as in the JAX trainer
+            w_last = self.model.last_layer
             g_nll, = torch.autograd.grad(nll, w_last, retain_graph=True)
             g_g, = torch.autograd.grad(g_adv, w_last, retain_graph=True)
             d_weight = adaptive_disc_weight(g_nll, g_g)

@@ -19,6 +19,14 @@ parameter, and ``var_key_map``, ``rar_key_map`` and ``maskgit_key_map`` map
 each parameter to its flax path, which the trainers' optimizer labels read.
 They cover the ported slice only.
 
+The tokenizer converter covers every ``ModelArgs`` the port builds: the
+CNN encoder and decoder in the layout of ``export_cnn_encoder`` /
+``export_cnn_decoder``, the LFQ/BSQ quantizer's Phi bank (its only state,
+as ``convert_lfq`` reads it; no usage buffer), learned ``latent_pos_embed``
+and a CNN encoder's ``sem_linear``. LoRA adapters and the ``conv`` and
+``siren`` ToPixel heads have no JAX exporter; their flax parameters are
+carried by the port's tests.
+
 One gap is filled: a Phi that the nearest-tick mapping never picks (e.g.
 ``phi_2`` of K = 4 with ``v_patch_nums=(1, 2, 3)``) was never called in flax
 and has no params, while the port's Phi bank, like upstream's, holds all K.
@@ -40,6 +48,8 @@ from imagefolder_tpu_torch.models.tokenizer import ModelArgs, check_slice
 from imagefolder_tpu_torch.models.var import VARConfig
 
 __all__ = ["vqmodel_state_dict_from_flax", "multiscale_vq_state_dict_from_flax",
+           "phi_bank_state_dict_from_flax", "cnn_encoder_state_dict_from_flax",
+           "cnn_decoder_state_dict_from_flax",
            "lpips_state_dict_from_flax", "dinodisc_state_dict_from_flax", "flax_path",
            "var_key_map", "var_state_dict_from_flax", "rar_key_map", "rar_state_dict_from_flax",
            "maskgit_key_map", "maskgit_state_dict_from_flax", "to_torch"]
@@ -72,8 +82,9 @@ def _put_vit_backbone(sd: dict, p: Mapping, prefix: str):
         g = f"{prefix}blocks.{i}."
         _put_ln(sd, g + "norm1", b["norm1"])
         _put_ln(sd, g + "norm2", b["norm2"])
-        _put_linear(sd, g + "attn.qkv", b["attn"]["qkv"])
-        _put_linear(sd, g + "attn.proj", b["attn"]["proj"])
+        for name in ("qkv", "proj"):  # under lat_lora a LoRADense: its base Dense
+            dense = b["attn"][name]
+            _put_linear(sd, g + f"attn.{name}", dense.get("base", dense))
         _put_linear(sd, g + "mlp.fc1", b["mlp"]["fc1"]["base"])
         _put_linear(sd, g + "mlp.fc2", b["mlp"]["fc2"]["base"])
         if "ls1" in b:  # blocks without LayerScale have none
@@ -92,7 +103,18 @@ def multiscale_vq_state_dict_from_flax(params: Mapping, num_scales: int,
     cb = np.asarray(params["codebook"])
     sd = {f"{prefix}embedding.weight": cb,
           f"{prefix}ema_vocab_hit_SV": np.zeros((num_scales, cb.shape[0]), np.float32)}
-    share, c = share_quant_resi, cb.shape[1]
+    sd.update(phi_bank_state_dict_from_flax(params, num_scales, share_quant_resi, cb.shape[1],
+                                            prefix))
+    return sd
+
+
+def phi_bank_state_dict_from_flax(params: Mapping, num_scales: int, share_quant_resi: int,
+                                  c: int, prefix: str = "") -> dict:
+    """A multi-scale quantizer's flax ``phi_bank`` as the port's Phi convs
+    under ``quant_resi.*``: all of a ``MultiScaleLFQ``'s state. Phis without
+    flax params get zeros (see the module note)."""
+    sd: dict = {}
+    share = share_quant_resi
     k = {0: num_scales, 1: 1}.get(share, share)
     bank = params.get("phi_bank", {})
     for i in range(k):
@@ -112,27 +134,116 @@ def to_torch(sd: dict) -> dict:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
+def _put_conv(sd: dict, key: str, p: Mapping):
+    sd[f"{key}.weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
+    sd[f"{key}.bias"] = np.asarray(p["bias"])
+
+
+def _put_gn(sd: dict, key: str, p: Mapping):
+    _put_ln(sd, key, p["norm"])
+
+
+def _put_res_block(sd: dict, key: str, p: Mapping):
+    _put_gn(sd, f"{key}.norm1", p["norm1"])
+    _put_conv(sd, f"{key}.conv1", p["conv1"])
+    _put_gn(sd, f"{key}.norm2", p["norm2"])
+    _put_conv(sd, f"{key}.conv2", p["conv2"])
+    if "nin_shortcut" in p:
+        _put_conv(sd, f"{key}.nin_shortcut", p["nin_shortcut"])
+
+
+def _put_attn_block(sd: dict, key: str, p: Mapping):
+    _put_gn(sd, f"{key}.norm", p["norm"])
+    for n in ("q", "k", "v", "proj_out"):
+        _put_conv(sd, f"{key}.{n}", p[n])
+
+
+def cnn_encoder_state_dict_from_flax(p: Mapping, prefix: str = "encoder.",
+                                     ch_mult=(1, 1, 2, 2, 4), num_res_blocks: int = 2) -> dict:
+    """The flax CNN ``Encoder``'s params in the layout of the JAX package's
+    ``export_cnn_encoder`` (numpy arrays)."""
+    sd: dict = {}
+    n = len(ch_mult)
+    _put_conv(sd, f"{prefix}conv_in", p["conv_in"])
+    for i in range(n):
+        for j in range(num_res_blocks):
+            _put_res_block(sd, f"{prefix}conv_blocks.{i}.res.{j}", p[f"res_{i}_{j}"])
+            if i == n - 1:
+                _put_attn_block(sd, f"{prefix}conv_blocks.{i}.attn.{j}", p[f"attn_{i}_{j}"])
+        if i != n - 1:
+            _put_conv(sd, f"{prefix}conv_blocks.{i}.downsample.conv", p[f"down_{i}"]["conv"])
+    _put_res_block(sd, f"{prefix}mid.0", p["mid_res_0"])
+    _put_attn_block(sd, f"{prefix}mid.1", p["mid_attn"])
+    _put_res_block(sd, f"{prefix}mid.2", p["mid_res_1"])
+    _put_gn(sd, f"{prefix}norm_out", p["norm_out"])
+    _put_conv(sd, f"{prefix}conv_out", p["conv_out"])
+    return sd
+
+
+def cnn_decoder_state_dict_from_flax(p: Mapping, prefix: str = "decoder.",
+                                     ch_mult=(1, 1, 2, 2, 4), num_res_blocks: int = 2) -> dict:
+    """The flax CNN ``Decoder``'s params in the layout of the JAX package's
+    ``export_cnn_decoder`` (numpy arrays)."""
+    sd: dict = {}
+    n = len(ch_mult)
+    _put_conv(sd, f"{prefix}conv_in", p["conv_in"])
+    _put_res_block(sd, f"{prefix}mid.0", p["mid_res_0"])
+    _put_attn_block(sd, f"{prefix}mid.1", p["mid_attn"])
+    _put_res_block(sd, f"{prefix}mid.2", p["mid_res_1"])
+    for li, i_level in enumerate(reversed(range(n))):
+        for j in range(num_res_blocks + 1):
+            _put_res_block(sd, f"{prefix}conv_blocks.{li}.res.{j}", p[f"res_{li}_{j}"])
+            if i_level == n - 1:
+                _put_attn_block(sd, f"{prefix}conv_blocks.{li}.attn.{j}", p[f"attn_{li}_{j}"])
+        if li != n - 1:
+            _put_conv(sd, f"{prefix}conv_blocks.{li}.upsample.conv", p[f"up_{li}"]["conv"])
+    _put_gn(sd, f"{prefix}norm_out", p["norm_out"])
+    _put_conv(sd, f"{prefix}conv_out", p["conv_out"])
+    return sd
+
+
 def vqmodel_state_dict_from_flax(params: Mapping, margs: ModelArgs) -> dict:
-    """flax VQModel params -> {name: fp32 CPU tensor} for the port's VQModel."""
+    """flax VQModel params -> {name: fp32 CPU tensor} for the port's VQModel.
+    A ViT's LoRA adapters and ``conv``/``siren`` ToPixel heads are not
+    carried (the JAX package exports none): their port state comes from
+    elsewhere."""
     check_slice(margs)
     sd: dict = {}
     for name in ("quant_conv", "post_quant_conv"):  # Dense -> 1x1 conv
         sd[f"{name}.weight"] = np.asarray(params[name]["kernel"]).T[:, :, None, None]
         sd[f"{name}.bias"] = np.asarray(params[name]["bias"])
     enc, dec = params["encoder"], params["decoder"]
-    _put_vit_backbone(sd, enc["model"], "encoder.model.")
-    sd["encoder.latent_tokens"] = np.asarray(enc["latent_tokens"])
-    sd["encoder.lvl_embed.weight"] = np.asarray(enc["lvl_embed"])
-    _put_vit_backbone(sd, dec["model"], "decoder.model.")
-    sd["decoder.mask_token"] = np.asarray(dec["mask_token"])
-    sd["decoder.lvl_embed.weight"] = np.asarray(dec["lvl_embed"])
-    _put_linear(sd, "decoder.to_pixel.model", dec["to_pixel"]["proj"])
+    if margs.enc_type == "cnn":
+        sd.update(cnn_encoder_state_dict_from_flax(enc, "encoder.",
+                                                   tuple(margs.encoder_ch_mult)))
+    else:
+        _put_vit_backbone(sd, enc["model"], "encoder.model.")
+        sd["encoder.latent_tokens"] = np.asarray(enc["latent_tokens"])
+        for name in ("lvl_embed", "latent_pos_embed"):
+            if name in enc:
+                sd[f"encoder.{name}" + (".weight" if name == "lvl_embed" else "")] = \
+                    np.asarray(enc[name])
+    if margs.dec_type == "cnn":
+        sd.update(cnn_decoder_state_dict_from_flax(dec, "decoder.",
+                                                   tuple(margs.decoder_ch_mult)))
+    else:
+        _put_vit_backbone(sd, dec["model"], "decoder.model.")
+        sd["decoder.mask_token"] = np.asarray(dec["mask_token"])
+        for name in ("lvl_embed", "latent_pos_embed"):
+            if name in dec:
+                sd[f"decoder.{name}" + (".weight" if name == "lvl_embed" else "")] = \
+                    np.asarray(dec[name])
+        if "proj" in dec["to_pixel"]:
+            _put_linear(sd, "decoder.to_pixel.model", dec["to_pixel"]["proj"])
     n_scales = len(margs.v_patch_nums)
     pq = margs.product_quant
     for i in range(pq):
         q = params[f"quantize_{i}" if pq > 1 else "quantize"]
         prefix = f"quantizes.{i}." if pq > 1 else "quantize."
-        if n_scales > 1:
+        if margs.lfq and n_scales > 1:
+            sd.update(phi_bank_state_dict_from_flax(q, n_scales, margs.share_quant_resi,
+                                                    margs.codebook_embed_dim, prefix))
+        elif n_scales > 1:
             sd.update(multiscale_vq_state_dict_from_flax(q, n_scales, margs.share_quant_resi,
                                                          prefix))
         else:  # single-scale VQ keeps a flat (V,) hit buffer
@@ -141,6 +252,8 @@ def vqmodel_state_dict_from_flax(params: Mapping, margs: ModelArgs) -> dict:
     for teacher in ("semantic_model", "detail_model"):
         if teacher in params:
             _put_vit_backbone(sd, params[teacher], f"{teacher}.")
+    if "sem_linear" in params:
+        _put_linear(sd, "sem_linear", params["sem_linear"])
     return to_torch(sd)
 
 
@@ -195,7 +308,7 @@ _PATH_RULES = [
     (r"quant_resi\.qresi_ls\.(\d+)\.", r"phi_bank.phi_\1.Conv_0."),
     (r"quant_resi\.qresi\.", "phi_bank.phi_0.Conv_0."),
     (r"quant_resi\.(\d+)\.", r"phi_bank.phi_\1.Conv_0."),
-    (r"blocks\.(\d+)\.", r"block_\1."),
+    (r"\bblocks\.(\d+)\.", r"block_\1."),
     (r"mlp\.(fc\d)\.", r"mlp.\1.base."),
     (r"(ls\d)\.gamma$", r"\1"),
     (r"patch_embed\.proj\.", "patch_embed."),
@@ -205,6 +318,7 @@ _PATH_RULES = [
     (r"\b(b\d)\.conv\.", r"\1.\1_conv."),
     (r"\b(b\d)\.bn\.", r"\1.\1_bn."),
     (r"\bout\.(weight|bias)$", r"out_conv.\1"),
+    (r"\.base\.lora_", ".lora_"),  # a LoRA adapter sits beside its base Dense
 ]
 
 

@@ -26,6 +26,7 @@ from imagefolder_tpu.ops.pallas.attention import attention_qkv as jax_attention_
 from imagefolder_tpu_torch.ops import activations as pt_act
 from imagefolder_tpu_torch.ops.cuda import attention as pt_attn
 from imagefolder_tpu_torch.ops.cuda import block as pt_block
+from tests._torch_parity import one_torch_thread  # noqa: F401
 
 
 def _shared_mask(n, nl):

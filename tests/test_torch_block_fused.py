@@ -32,6 +32,8 @@ from imagefolder_tpu_torch.models import vit as pt_vit
 from imagefolder_tpu_torch.models.tokenizer import ModelArgs, VQModel
 from imagefolder_tpu_torch.ops.cuda import attention as pt_attn
 from imagefolder_tpu_torch.ops.cuda import block as pt_block
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 B, N, C, HEADS, HID = 2, 20, 64, 4, 256
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}

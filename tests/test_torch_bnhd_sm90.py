@@ -22,8 +22,8 @@ autograd forward, which on the CPU launch nothing and save no o and lse.
 The pair also runs at head dim 48 (RAR-B's 768 / 16) and at 32 and 40
 (which the card runs on the head-dim-48 code), zero-padded to the 64-wide
 tiles as the kernel pads it; the checks the BNHD kernels make before any
-launch (``_kernel_operands``) take every multiple of 8 up to 64 and refuse
-other widths.
+launch (``_kernel_operands``) take every width up to 128 (zero-padding
+one that is not a multiple of 8) and refuse wider heads.
 """
 
 import numpy as np
@@ -37,6 +37,8 @@ from imagefolder_tpu.ops.pallas import attention as jax_attn
 from imagefolder_tpu_torch.models.var import build_attn_bias
 from imagefolder_tpu_torch.ops.cuda import attention as pt_attn
 from test_torch_attention_bwd_sm90 import pad_head, sm90_model
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 HD = 64
 TILE = 64
@@ -309,23 +311,29 @@ def test_copy_ready_agrees_with_the_kernel_alignment(view):
     assert all(s % 8 == 0 for s in pt_attn._strides(got, (0, 1, 2)))
 
 
-@pytest.mark.parametrize("hd", [48, 64, 40, 80, 16, 32, 56, 44, 128])
+@pytest.mark.parametrize("hd", [48, 64, 40, 80, 16, 32, 56, 44, 128, 36, 100, 136, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_operands_take_head_dims_48_and_64(hd, dtype):
     """The checks every BNHD kernel (#3-#6) makes before it launches: every
-    head dim that is a multiple of 8 up to 64 passes (48 and 64 among them;
-    the bias cast to fp32), any other width (past 64, or not a multiple of
-    8) raises NotImplementedError naming the widths taken. They come before
-    any launch, so CPU tensors reach them."""
-    q, k, v = (torch.zeros((2, 5, 3, hd), dtype=dtype) for _ in range(3))
+    head dim up to 128 passes (48 and 64 among them; the bias cast to
+    fp32), a multiple of 8 as it is and any other zero-padded to the next
+    multiple of 8; a wider head raises NotImplementedError naming the
+    widest taken. They come before any launch, so CPU tensors reach them."""
+    q, k, v = (torch.randn((2, 5, 3, hd)).to(dtype) for _ in range(3))
     bias = torch.zeros((1, 1, 5, 5), dtype=torch.bfloat16)
-    if hd % 8 == 0 and hd <= 64:
+    if hd <= 128:
         *qkv, b = pt_attn._kernel_operands(q, k, v, bias, "fused_attention")
-        assert all(x is y for x, y in zip(qkv, (q, k, v))) and b.dtype == torch.float32
+        assert b.dtype == torch.float32
+        if hd % 8 == 0:
+            assert all(x is y for x, y in zip(qkv, (q, k, v)))
+            return
+        for x, y in zip(qkv, (q, k, v)):
+            assert x.shape[-1] == -(-hd // 8) * 8
+            assert torch.equal(x[..., :hd], y) and not x[..., hd:].any()
         return
     with pytest.raises(NotImplementedError,
-                       match=r"multiples of 8 up to 64 \(8, 16, 24, 32, 40, 48, 56, 64\), "
-                             r"got " + str(hd)):
+                       match=r"head dims up to 128 \(one that is not a multiple of 8 "
+                             r"zero-padded to one\), got " + str(hd)):
         pt_attn._kernel_operands(q, k, v, bias, "fused_attention")
     for call in (pt_attn._fused_attention_cuda, pt_attn._fused_attention_qblk_cuda):
         with pytest.raises(NotImplementedError, match="head dims"):

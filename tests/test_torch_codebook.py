@@ -26,6 +26,7 @@ from imagefolder_tpu.ops import quantize as jax_quantize
 from imagefolder_tpu.ops.pallas.codebook import codebook_argmin as jax_codebook_argmin
 from imagefolder_tpu_torch.ops import quantize as pt_quantize
 from imagefolder_tpu_torch.ops.cuda import codebook as pt_codebook
+from tests._torch_parity import one_torch_thread  # noqa: F401
 
 
 def _data(n, v, c, seed=0, normed=False):

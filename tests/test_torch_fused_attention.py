@@ -27,6 +27,8 @@ from imagefolder_tpu.ops.pallas.attention import dot_product_attention as jax_dp
 from imagefolder_tpu.ops.pallas.attention import fused_attention as jax_fused_attention
 from imagefolder_tpu_torch.models.var import build_attn_bias
 from imagefolder_tpu_torch.ops.cuda import attention as pt_attn
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 HD = 64

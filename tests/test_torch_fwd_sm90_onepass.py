@@ -41,6 +41,8 @@ from imagefolder_tpu.ops.pallas import attention as jax_attn
 from imagefolder_tpu_torch.models.var import build_attn_bias
 from imagefolder_tpu_torch.ops.cuda import attention as pt_attn
 from test_torch_attention_bwd_sm90 import pad_head
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 HD = 64
 TILE = 64

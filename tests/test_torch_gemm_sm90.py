@@ -46,6 +46,8 @@ from imagefolder_tpu.ops.activations import gelu_exact as jax_gelu_exact
 from imagefolder_tpu.ops.pallas.block import _attn_sublayer_fused, _mlp_sublayer_fused
 from imagefolder_tpu_torch.ops.activations import gelu_exact
 from test_torch_fwd_sm90_onepass import onepass_model
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 HEADER = Path(__file__).resolve().parents[1] / "imagefolder_tpu_torch/csrc/gemm_epilogue.cuh"
 BM, BK = 128, 64       # the block's output rows; the k-tile

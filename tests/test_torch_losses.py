@@ -43,6 +43,7 @@ from imagefolder_tpu_torch.utils.convert import (
     dinodisc_state_dict_from_flax,
     lpips_state_dict_from_flax,
 )
+from tests._torch_parity import one_torch_thread  # noqa: F401
 
 
 def _np(t):

@@ -45,6 +45,8 @@ from imagefolder_tpu_torch.models.maskgit import (MaskGITConfig, mask_input_toke
                                                   maskgit_generate, mlm_loss)
 from imagefolder_tpu_torch.train.rar_train import MaskGITTrainer
 from imagefolder_tpu_torch.utils.convert import maskgit_state_dict_from_flax
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 TINY = dict(seq_len=16, codebook_size=32, hidden=96, depth=2, heads=2, num_classes=10)
 B, L, V = 2, 16, 32

@@ -26,6 +26,8 @@ from imagefolder_tpu.train import optim as jax_optim
 from imagefolder_tpu_torch.models.var import VAR as PtVAR
 from imagefolder_tpu_torch.models.var import VARConfig as PtVARConfig
 from imagefolder_tpu_torch.train import optim
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 SCHEDS = ["cos", "lin", "lin0", "lin00", "lin0.3", "exp", "const"]
 

@@ -25,6 +25,8 @@ import jax.numpy as jnp
 from imagefolder_tpu.ops.pallas import attention as jax_attn
 from imagefolder_tpu_torch.models.var import build_attn_bias
 from imagefolder_tpu_torch.ops.cuda import attention as pt_attn
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 HD = 64
 L = 89

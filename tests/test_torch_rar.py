@@ -35,6 +35,8 @@ from imagefolder_tpu.utils.convert_torch import export_rar
 from imagefolder_tpu_torch.models import build_rar
 from imagefolder_tpu_torch.models.rar import RARConfig, ar_loss, rar_generate
 from imagefolder_tpu_torch.utils.convert import rar_state_dict_from_flax
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 TINY = dict(seq_len=16, codebook_size=32, hidden=64, depth=2, heads=4, num_classes=10)
 TINY48 = dict(TINY, hidden=96, heads=2, depth=1)  # RAR-B's head dim, 48

@@ -46,6 +46,8 @@ from imagefolder_tpu_torch.train.rar_train import (RARTrainConfig, RARTrainer,
                                                    get_rar_random_ratio)
 from imagefolder_tpu_torch.utils.convert import rar_key_map, rar_state_dict_from_flax
 from test_torch_rar import _excite_adaln
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 TINY = dict(seq_len=16, codebook_size=32, hidden=64, depth=2, heads=4, num_classes=10)
 B, L, V = 2, 16, 32

@@ -87,6 +87,7 @@ from test_torch_tokenizer_train import (
     _np,
     _tree_np,
 )
+from tests._torch_parity import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = "tiny_robusttok_vit"
@@ -114,16 +115,6 @@ def tiny_preset():
             mp.setitem(presets, TINY, TINY_PRESET)
             mp.setitem(presets, CLIP, CLIP_PRESET)
         yield
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny shapes here gain nothing from PyTorch's thread pool, which
-    spins against the other test workers when the cores are shared."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _close(got, want, rel, msg=""):

@@ -18,6 +18,8 @@ import torch
 import chip_smoke as cs
 from imagefolder_tpu_torch.models.var import build_attn_bias
 from imagefolder_tpu_torch.ops.cuda import attention as attn
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 TILE = 64
 

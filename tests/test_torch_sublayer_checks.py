@@ -26,6 +26,8 @@ import torch
 import chip_smoke as cs
 from imagefolder_tpu_torch.ops.activations import gelu_exact
 from imagefolder_tpu_torch.ops.cuda import block
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 K_STEP, ROW_TILE, KV_TILE = 64, 128, 64
 

@@ -26,6 +26,8 @@ from imagefolder_tpu_torch.models import vit as pt_vit
 from imagefolder_tpu_torch.models.tokenizer import ModelArgs as PtArgs
 from imagefolder_tpu_torch.models.tokenizer import VQModel as PtVQModel
 from imagefolder_tpu_torch.utils.convert import vqmodel_state_dict_from_flax
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 TINY = "tiny_test_vit"
 TINY_PRESET = dict(embed_dim=64, depth=2, num_heads=2)
@@ -149,19 +151,34 @@ def test_round_trip_bf16_dtype_flow():
     assert (got_tok.numpy() == want_tok).mean() >= 0.8
 
 
-# multi-scale VQ, product quantization, latent grids other than the patch
-# grid, the DINOv2 semantic teacher, the CLIP detail teacher and RobustTok's
-# perturbation are ported now (tests/test_torch_robusttok.py); their places
-# in the list hold other unported options
-@pytest.mark.parametrize("override", [
-    dict(enc_type="cnn"), dict(dec_type="cnn"), dict(lfq=True),
-    dict(v_patch_nums=(1, 2, 4), lfq=True), dict(abs_pos_embed=False),
+# every option the JAX package's ModelArgs reaches is ported now (the CNN
+# sides, LFQ/BSQ, learned latent pos embeds, LoRA and lat_lora, the conv,
+# siren and identity heads: tests/test_torch_{cnn,lfq,lora,topixel}.py);
+# what still raises is what the JAX package does not build either
+VARIANTS = [
+    dict(enc_type="cnn"), dict(dec_type="cnn"), dict(lfq=True, codebook_embed_dim=6),
+    dict(v_patch_nums=(1, 2, 4), lfq=True, codebook_embed_dim=6), dict(abs_pos_embed=False),
     dict(enc_tuning_method="lat_lora"), dict(to_pixel="siren"),
     dict(dec_tuning_method="lora"),
+]
+
+
+@pytest.mark.parametrize("override", [
+    dict(enc_type="vit"), dict(dec_type="stylegan"), dict(semantic_guide="clip"),
+    dict(enc_tuning_method="prefix"), dict(dec_tuning_method="adapter"),
+    dict(to_pixel="mlp"), dict(enc_type="cnn", dec_type="vit"), dict(to_pixel="deconv"),
 ])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError):
         PtVQModel(_margs(PtArgs, **override), device="cpu")
+
+
+@pytest.mark.parametrize("override", VARIANTS)
+def test_variant_options_build(override):
+    """The options that raised before the variants were ported now build."""
+    model = PtVQModel(_margs(PtArgs, **override), device="cpu")
+    for key, value in override.items():
+        assert getattr(model.config, key) == value
 
 
 def test_port_never_imports_jax():

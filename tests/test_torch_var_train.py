@@ -50,6 +50,8 @@ from imagefolder_tpu_torch.utils.convert import (
     var_state_dict_from_flax,
     vqmodel_state_dict_from_flax,
 )
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 TINY = "tiny_test_vit"
 TINY_PRESET = dict(embed_dim=64, depth=2, num_heads=2)

@@ -21,6 +21,8 @@ from imagefolder_tpu_torch.models import vit as pt_vit
 from imagefolder_tpu_torch.models.tokenizer import ModelArgs as PtArgs
 from imagefolder_tpu_torch.models.tokenizer import VQModel as PtVQModel
 from imagefolder_tpu_torch.utils.convert import vqmodel_state_dict_from_flax
+from tests._torch_parity import one_torch_thread  # noqa: F401
+
 
 TINY = "tiny_test_vit"
 TINY_PRESET = dict(embed_dim=64, depth=2, num_heads=2)
@@ -121,13 +123,21 @@ def test_decoder_backbone_has_no_patch_embed(fp32_models):
 
 
 def test_unported_backbone_options_raise():
-    # pre_norm (the CLIP teacher) is ported: tests/test_torch_robusttok.py
-    with pytest.raises(NotImplementedError):  # LoRA tuning
-        pt_vit.LatentEncoder(TINY, IMG, 16, num_latent_tokens=16, tuning_method="lora")
-    with pytest.raises(NotImplementedError):  # learned latent pos embeds
-        pt_vit.LatentEncoder(TINY, IMG, 16, num_latent_tokens=64, abs_pos_embed=False)
+    # pre_norm (the CLIP teacher) is ported: tests/test_torch_robusttok.py;
+    # LoRA, learned latent pos embeds and the conv, siren and identity heads
+    # too (tests/test_torch_lora.py, tests/test_torch_topixel.py): what
+    # raises is what the JAX package does not build either
+    with pytest.raises(NotImplementedError):  # no such tuning method
+        pt_vit.LatentEncoder(TINY, IMG, 16, num_latent_tokens=16, tuning_method="prefix")
     with pytest.raises(NotImplementedError):
-        pt_vit.LatentDecoder(TINY, IMG, 16, num_latent_tokens=16, to_pixel="conv")
+        pt_vit.LatentDecoder(TINY, IMG, 16, num_latent_tokens=16, tuning_method="adapter")
+    with pytest.raises(NotImplementedError):  # no such head
+        pt_vit.LatentDecoder(TINY, IMG, 16, num_latent_tokens=16, to_pixel="mlp")
+    enc = pt_vit.LatentEncoder(TINY, IMG, 16, num_latent_tokens=64, abs_pos_embed=False,
+                               tuning_method="lora")
+    assert enc.latent_pos_embed.shape == (1, 64, 64) and not hasattr(enc, "lvl_embed")
+    dec = pt_vit.LatentDecoder(TINY, IMG, 16, num_latent_tokens=16, to_pixel="conv")
+    assert dec.to_pixel.last_layer.shape == (64, 3, 16, 16)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
