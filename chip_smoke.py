@@ -4,15 +4,17 @@
     python3 chip_smoke.py times [KERNEL ...]
     python3 chip_smoke.py outputs FILE
     python3 chip_smoke.py same FILE FILE
+    python3 chip_smoke.py cli
 
-With ``times``, only phases 1, 2 and 6 run, for the kernel records named
+With ``times``, only phases 1, 2 and 7 run, for the kernel records named
 (``TIMES``' keys; all by default), and the last line is their JSON.
 ``outputs`` saves #3-#6's
-results at head dims 48 and 64 from a fixed seed, and ``same`` compares two
+results at head dims 48, 64, 80 and 128 from a fixed seed, and ``same`` compares two
 such files bit for bit (run each ``outputs`` from its own checkout). To
 compare two commits in one chip call, unpack each into a gitignored
 directory, copy this script into each, and run it there in the order
 parent, change, change, parent: each imports the package beside it.
+``cli`` runs phases 1, 2 and 6 alone.
 
 Phases, each printing what it found (any failure ends the run with a non-zero
 exit; no failure is caught):
@@ -52,9 +54,14 @@ exit; no failure is caught):
      at MaskGIT-B's (64, 257, 16, 48) without a bias; #3-#6 at head dims
      32 and 40; #3-#6 at head dims 72-128 (RAR-XL's (64, 258, 16, 80),
      RAR-XXL's 88, and 72, 96, 128: the kD = 128 kernels) and at 36 and
-     100 (zero-padded by the wrapper), through the same checks, and 136
-     and 256 refused with no launch;
-  4. models, card against CPU in fp32 from one seed: the VQ-4096 ViT-B
+     100 (zero-padded by the wrapper), through the same checks; #3-#6 at
+     160 and 256 (the kD = 256 kernels) and the unaligned 250, fp32 and
+     bf16, with one bf16 autograd launch each way, and 264 and 512 refused
+     with no launch;
+  4. models, card against CPU in fp32 from one seed (the RobustTok,
+     disc-type, MSBR, variant and 512 px tokenizer checks with their ViTs
+     at 4 of 12 blocks and DinoDisc at 6, ``check_depth_cut``: a depth cut
+     for time): the VQ-4096 ViT-B
      tokenizer at B=2, then its decode and round trip with the fused
      sublayers on the card; RAR-B at full width with CFG, B=2, the same
      Gumbel noise on both sides, and its tokens decoded by that tokenizer
@@ -115,13 +122,26 @@ exit; no failure is caught):
      embeds, the conv head and the siren head, and of the CNN tokenizer
      (its train step at B=16), each trainable parameter moved and each
      frozen one unchanged;
-  6. times: each kernel (#2, #5 and #6 as training calls them, with the
+  6. the tokenizer's CLIs from their ``main(argv)`` in a temporary
+     directory of 128 train and 32 val PNGs (256 px, seed 0) with a seeded
+     Inception: ``train_tokenizer`` on configs/RobustTok.yaml at B=64 for 4
+     steps (2 epochs, the discriminator on from epoch 1, a checkpoint, the
+     best by val rFID over one batch and a recon grid every 2 steps), each
+     step's launches (#1 84, #2 48) and time; its exact resume at B=8 (2
+     steps, stop, ``--resume`` to 4, against 4 straight, every tensor
+     compared); ``eval_reconstruction`` on the trained checkpoint card
+     against CPU in fp32 over 8 images (PSNR, SSIM, pool3; codes in
+     lockstep), with ``--perturb`` over 32, and on MSVR10P2-4096.yaml from
+     a ``hub``-written weight file (#9 20 a batch); ``evaluate_fid`` on two
+     npz batches of 64;
+  7. times: each kernel (#2, #5 and #6 as training calls them, with the
      forward's saved output and lse, #6 through autograd; #1, #3 and #4
      also with the lse store on, #3 as the train step's autograd runs its
      forward; #3 at the last 256 px sampling stage, teacher forcing, the
      512 px last sampling stage, RAR-B's teacher forcing and MaskGIT-B's
      shape; #6 also at RAR-B's and MaskGIT-B's training shapes; #3 and #6
-     at RAR-XL's and RAR-XXL's (64, 258, 16, 80 | 88); #9 at every
+     at RAR-XL's and RAR-XXL's (64, 258, 16, 80 | 88) and at head dim 256,
+     (16, 258, 4, 256); #9 at every
      scale of both encodes, each a CUDA
      graph of 20 calls, with its sums per encode),
      its plain version (order plain, kernel, kernel,
@@ -138,6 +158,7 @@ CPU tests (tests/test_torch_*.py).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -159,6 +180,7 @@ from imagefolder_tpu_torch.models import build_maskgit, build_rar, build_vae_var
 from imagefolder_tpu_torch.models import maskgit as maskgit_mod
 from imagefolder_tpu_torch.models import rar as rar_mod
 from imagefolder_tpu_torch.models import tokenizer as tokenizer_mod
+from imagefolder_tpu_torch.models import vit as vit_mod
 from imagefolder_tpu_torch.models.tokenizer import ModelArgs, VQModel
 from imagefolder_tpu_torch.models.var import build_attn_bias
 from imagefolder_tpu_torch.models.vit import LayerScale, set_fused_sublayers
@@ -1163,8 +1185,8 @@ def kernels_wide_heads(dev):
     v, Lq = 1, a per-(B, H) bias, strided and unaligned views, ragged L);
     #4 and #5 past the single-block budget at 80, 128 and 100 (L = 2100
     under an encoder mask, ragged 2049 without a bias, fp32, #4 bit-equal
-    with and without its blank-tile map, bf16 autograd); then heads of 136
-    and 256 refused by #3-#6 with no launch."""
+    with and without its blank-tile map, bf16 autograd). Heads of 136-256
+    are ``kernels_hd256``'s."""
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(SEED + 128)
 
@@ -1226,9 +1248,76 @@ def kernels_wide_heads(dev):
             ("L=2100 fp32, dbias on", *qblk[2][1:4], mask, True)], hd, gen)
         _autograd_hd("#4/#5", ("QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES"), *qblk[0][1:4], mask, gen)
         del qblk
+
+
+
+HD256 = 256                    # a generator of hidden 1024 over 4 heads
+HD256_BATCH, HD256_HEADS = 16, 4
+HD256_HDS = (160, HD256)       # multiples of 8 that the kD = 256 kernels run
+HD256_UNALIGNED = 250          # zero-padded to 256 by the wrapper
+TOO_WIDE_HDS = (264, 512)      # past the widest instantiation: refused
+
+
+def kernels_hd256(dev):
+    """#3-#6 at head widths 136-256 (the kD = 256 FMA kernels of
+    csrc/attention_wide.cuh), against their plain versions: at 160 and 256,
+    #3 and #6 at (16, 258, 4, hd) under the causal mask and without a bias,
+    bf16 (dbias off and on) and fp32, cross length, Lq = 1, a per-(B, H)
+    bias, strided qkv views, ragged L; #4 and #5 past the single-block
+    budget (L = 2100 under an encoder mask, ragged 2049 without a bias, fp32
+    with dbias); one bf16 autograd launch each way through each router; at
+    the unaligned 250 (zero-padded to 256) the same through a smaller set;
+    then heads of 264 and 512 refused by #3-#6 with no launch."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 256)
+
+    def bnhd(b, lq, lk, h, dtype, hd):
+        return _bnhd(gen, b, lq, lk, h, dtype, dev, l2=False, hd=hd)
+
+    rar = (RAR_SEQ, RAR_SEQ, HD256_HEADS)
+    causal = _causal(RAR_SEQ, dev)
+    mask = encoder_mask(2100, 700, dev, 64)
+    for hd in HD256_HDS + (HD256_UNALIGNED,):
+        full = hd in HD256_HDS
+        qkv = torch.randn((2, 30, 3, 4, hd), generator=gen, device=dev).bfloat16()
+        per_bh = torch.randn((2, 4, 37, 45), generator=gen, device=dev)
+        per_bh[..., 5:9] = float("-inf")
+        fwd = [("causal L=258", *bnhd(HD256_BATCH, *rar, bf16, hd), causal),
+               ("fp32, causal L=258", *bnhd(2, *rar, f32, hd), causal)]
+        if full:
+            fwd += [("no bias L=258", *bnhd(HD256_BATCH, *rar, bf16, hd), None),
+                    ("cross length 37 x 77", *bnhd(3, 37, 77, 4, bf16, hd), None),
+                    ("Lq=1", *bnhd(5, 1, 2, 4, bf16, hd), None),
+                    ("per-(B,H) bias", *bnhd(2, 37, 45, 4, bf16, hd), per_bh),
+                    ("strided qkv views", *qkv.unbind(2), build_attn_bias((1, 2, 3, 4)).to(dev))]
+        _fwd_cases_hd("#3", attn.fused_attention, attn.fused_attention_reference, fwd, hd)
+        bwd = [("causal L=258, dbias off", *bnhd(HD256_BATCH, *rar, bf16, hd), causal, False),
+               ("fp32, causal L=258, dbias on", *bnhd(2, *rar, f32, hd), causal, True)]
+        if full:
+            bwd += [("no bias L=258", *bnhd(HD256_BATCH, *rar, bf16, hd), None, False),
+                    ("causal L=258, dbias on", *bnhd(4, *rar, bf16, hd), causal, True),
+                    ("ragged L=37 fp32", *bnhd(3, 37, 37, 4, f32, hd), None, False),
+                    ("strided qkv views", *qkv.unbind(2), build_attn_bias((1, 2, 3, 4)).to(dev),
+                     True)]
+        _bwd_cases_hd("#6", attn.fused_attention_bwd, attn.fused_attention_bwd_reference, bwd,
+                      hd, gen)
+        _autograd_hd("#3/#6", ("FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES"),
+                     *bnhd(HD256_BATCH, *rar, bf16, hd), causal, gen)
+        qblk = [("L=2100, encoder mask", *bnhd(1, 2100, 2100, 2, bf16, hd), mask),
+                ("L=2100 fp32, encoder mask", *bnhd(1, 2100, 2100, 2, f32, hd), mask)]
+        if full:
+            qblk.append(("ragged L=2049, no bias", *bnhd(1, 2049, 2049, 2, bf16, hd), None))
+        _fwd_cases_hd("#4", attn.fused_attention_qblk, attn.fused_attention_qblk_reference,
+                      qblk, hd)
+        _bwd_cases_hd("#5", attn.fused_attention_qblk_bwd,
+                      attn.fused_attention_qblk_bwd_reference,
+                      [(name + (", dbias on" if q.dtype == f32 else ", dbias off"), q, k, v, b,
+                        q.dtype == f32) for name, q, k, v, b in qblk], hd, gen)
+        _autograd_hd("#4/#5", ("QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES"), *qblk[0][1:4], mask, gen)
+        del qblk, fwd, bwd
     # wider heads are refused before any launch
     reset_counts()
-    for hd in (136, 256):
+    for hd in TOO_WIDE_HDS:
         q, k, v = bnhd(2, 70, 70, 2, bf16, hd)
         for num, fn in (("#3", attn.fused_attention), ("#4", attn.fused_attention_qblk)):
             _expect_refusal(f"{num} hd {hd}", NotImplementedError, lambda: fn(q, k, v))
@@ -1620,6 +1709,37 @@ RAR_SAMPLING = dict(guidance_scale=16.0, guidance_scale_pow=2.75, randomize_temp
 # px VAR checks with VAR-d16 cut to 4 blocks (the timed paths keep 24 and 16)
 CHECK_RAR_DEPTH = 8
 CHECK_VAR_DEPTH_512 = 4
+# and the tokenizers' ViTs (DINOv2 ViT-S and ViT-B, CLIP
+# ViT-B/16) at 4 of their 12 blocks and DinoDisc's trunk at 6 of 12 (heads
+# at blocks 2 and 5 stay) in the fp32 RobustTok, disc-type, MSBR, variant
+# and 512 px tokenizer checks (the bf16 paths and the CLI phase run all 12)
+CHECK_TOK_DEPTH = 4
+CHECK_DINO_DEPTH = 6
+CUT_PRESETS = ("vit_small_patch14_dinov2.lvd142m", "vit_base_patch14_dinov2.lvd142m",
+               "vit_base_patch16_clip_224.openai")
+
+
+@contextlib.contextmanager
+def check_depth_cut():
+    """While in use, the tokenizers' ViT presets at ``CHECK_TOK_DEPTH``
+    blocks and the loaded YAMLs' DinoDisc at ``CHECK_DINO_DEPTH``: a depth
+    cut for time of fp32 card-vs-CPU checks, whose CPU side set the
+    script's time; the widths stay."""
+    global load_tokenizer_config
+    saved, load = {n: vit_mod.VIT_PRESETS[n] for n in CUT_PRESETS}, load_tokenizer_config
+
+    def load_cut(*a, **k):
+        mcfg, tcfg, run = load(*a, **k)
+        return mcfg, dataclasses.replace(tcfg, dino_depth=CHECK_DINO_DEPTH), run
+
+    for n in CUT_PRESETS:
+        vit_mod.VIT_PRESETS[n] = {**saved[n], "depth": CHECK_TOK_DEPTH}
+    load_tokenizer_config = load_cut
+    try:
+        yield
+    finally:
+        vit_mod.VIT_PRESETS.update(saved)
+        load_tokenizer_config = load
 
 
 def phase_model_rar(dev, vq_cpu: VQModel, vq_card: VQModel):
@@ -3679,13 +3799,13 @@ def times_bnhd_bwd(dev, gen) -> dict:
 
 
 def _times_bnhd_fwd_at(dev, gen, what: str, seq: int, causal: bool,
-                       hd: int = RAR_HD) -> dict:
-    """#3 at head dim ``hd`` (48 by default), (64, seq, 16, hd) bf16 at scale
+                       hd: int = RAR_HD, batch: int = BATCH, heads: int = RAR_HEADS) -> dict:
+    """#3 at head dim ``hd`` (48 by default), (batch, seq, heads, hd) bf16 at scale
     1/sqrt(hd), under the causal mask or with no bias, with the lse store off
     and on (on: the forward as a training step's autograd runs it)."""
     bf16 = torch.bfloat16
     bias = _causal(seq, dev) if causal else None
-    q, k, v = _bnhd(gen, BATCH, seq, seq, RAR_HEADS, bf16, dev, l2=False, hd=hd)
+    q, k, v = _bnhd(gen, batch, seq, seq, heads, bf16, dev, l2=False, hd=hd)
     scale = 1.0 / math.sqrt(hd)
     pairs = int(torch.isfinite(bias).sum()) if causal else seq * seq
     rec = _time_kernel(
@@ -3696,7 +3816,7 @@ def _times_bnhd_fwd_at(dev, gen, what: str, seq: int, causal: bool,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=None if bias is None else bias.to(bf16), scale=scale),
         4 * q.numel() * 2 + (bias.numel() * 4 if causal else 0),
-        4 * BATCH * RAR_HEADS * pairs * hd, bf16,
+        4 * batch * heads * pairs * hd, bf16,
         f"q, k, v {tuple(q.shape)}, bias {'none' if bias is None else tuple(bias.shape)}",
         library_call="SDPA")
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -3707,15 +3827,15 @@ def _times_bnhd_fwd_at(dev, gen, what: str, seq: int, causal: bool,
 
 
 def _times_bnhd_bwd_at(dev, gen, what: str, seq: int, causal: bool,
-                       hd: int = RAR_HD) -> dict:
-    """#6 at head dim ``hd`` (48 by default), (64, seq, 16, hd) bf16 under
+                       hd: int = RAR_HD, batch: int = BATCH, heads: int = RAR_HEADS) -> dict:
+    """#6 at head dim ``hd`` (48 by default), (batch, seq, heads, hd) bf16 under
     the causal mask or with no bias, no dbias, through autograd with #3's
     saved output and lse (at 48: prep, main and dq kernels timed; past 64
     the two-kernel design, which reads neither), as the library call is
     SDPA's backward through autograd."""
     bf16 = torch.bfloat16
     bias = _causal(seq, dev) if causal else None
-    q, k, v = _bnhd(gen, BATCH, seq, seq, RAR_HEADS, bf16, dev, l2=False, hd=hd)
+    q, k, v = _bnhd(gen, batch, seq, seq, heads, bf16, dev, l2=False, hd=hd)
     scale = 1.0 / math.sqrt(hd)
     g = torch.randn(q.shape, generator=gen, device=dev).to(bf16)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -3730,7 +3850,7 @@ def _times_bnhd_bwd_at(dev, gen, what: str, seq: int, causal: bool,
         lambda: attn.fused_attention_bwd_reference(q, k, v, bias, g, scale, need_dbias=False),
         lambda: torch.autograd.grad(lib_out, (lq, lk, lv), g.transpose(1, 2), retain_graph=True),
         7 * q.numel() * 2 + (bias.numel() * 4 if causal else 0),
-        5 * 2 * BATCH * RAR_HEADS * pairs * hd, bf16,
+        5 * 2 * batch * heads * pairs * hd, bf16,
         f"q, k, v, g {tuple(q.shape)}", library_call="SDPA backward")
 
 
@@ -3773,6 +3893,19 @@ def times_bnhd_fwd_rarxxl(dev, gen) -> dict:
 def times_bnhd_bwd_rarxxl(dev, gen) -> dict:
     """#6 at RAR-XXL's training shape, (64, 258, 16, 88) under the causal mask."""
     return _times_bnhd_bwd_at(dev, gen, "RAR-XXL training", RAR_SEQ, True, RARXXL_HD)
+
+
+def times_bnhd_fwd_hd256(dev, gen) -> dict:
+    """#3 at head dim 256 (a generator of hidden 1024 over 4 heads), (16,
+    258, 4, 256) under the causal mask: the kD = 256 FMA kernel."""
+    return _times_bnhd_fwd_at(dev, gen, "hidden 1024 / 4 heads", RAR_SEQ, True, HD256,
+                              HD256_BATCH, HD256_HEADS)
+
+
+def times_bnhd_bwd_hd256(dev, gen) -> dict:
+    """#6 at head dim 256, (16, 258, 4, 256) under the causal mask."""
+    return _times_bnhd_bwd_at(dev, gen, "hidden 1024 / 4 heads", RAR_SEQ, True, HD256,
+                              HD256_BATCH, HD256_HEADS)
 
 
 def times_qblk_fwd(dev, gen) -> dict:
@@ -3930,8 +4063,10 @@ TIMES = {"attention_qkv_fwd": times_qkv_fwd, "attention_qkv_bwd": times_qkv_bwd,
          "fused_attention_fwd_rarxl": times_bnhd_fwd_rarxl,
          "fused_attention_bwd_rarxl": times_bnhd_bwd_rarxl,
          "fused_attention_fwd_rarxxl": times_bnhd_fwd_rarxxl,
-         "fused_attention_bwd_rarxxl": times_bnhd_bwd_rarxxl}
-# records timed at head dims 48, 80 and 88, filed with their kernel's
+         "fused_attention_bwd_rarxxl": times_bnhd_bwd_rarxxl,
+         "fused_attention_fwd_hd256": times_bnhd_fwd_hd256,
+         "fused_attention_bwd_hd256": times_bnhd_bwd_hd256}
+# records timed at head dims 48, 80, 88 and 256, filed with their kernel's
 # record under "shapes" in the kernels line
 SHAPE_TIMES = {
     "fused_attention_fwd_rarxl": ("fused_attention_fwd", "RAR-XL teacher forcing, hd 80"),
@@ -3941,7 +4076,9 @@ SHAPE_TIMES = {
     "fused_attention_fwd_hd48": ("fused_attention_fwd", "RAR-B teacher forcing, hd 48"),
     "fused_attention_bwd_hd48": ("fused_attention_bwd", "RAR-B training, hd 48"),
     "fused_attention_fwd_maskgit": ("fused_attention_fwd", "MaskGIT-B, no bias, hd 48"),
-    "fused_attention_bwd_maskgit": ("fused_attention_bwd", "MaskGIT-B training, no bias, hd 48")}
+    "fused_attention_bwd_maskgit": ("fused_attention_bwd", "MaskGIT-B training, no bias, hd 48"),
+    "fused_attention_fwd_hd256": ("fused_attention_fwd", "hidden 1024 / 4 heads, hd 256"),
+    "fused_attention_bwd_hd256": ("fused_attention_bwd", "hidden 1024 / 4 heads training, hd 256")}
 
 
 def phase_times(dev, names=tuple(TIMES)) -> dict:
@@ -3951,8 +4088,11 @@ def phase_times(dev, names=tuple(TIMES)) -> dict:
     return {name: TIMES[name](dev, gen) for name in names}
 
 
+SAME_HDS = (48, 64, 80, 128)  # the widths whose results ``same`` holds bit for bit
+
+
 def phase_outputs(dev, path: str):
-    """Every BNHD kernel (#3-#6) at head dims 48 and 64 on inputs from a
+    """Every BNHD kernel (#3-#6) at head dims 48, 64, 80 and 128 on inputs from a
     fixed seed, saved to ``path``: #3 with and without the causal mask and
     its lse, #6 on the wgmma backward (o and lse from #3), with dbias (its
     dq, dk and dv: dbias is summed by atomicAdd in no fixed order) and in
@@ -3961,7 +4101,7 @@ def phase_outputs(dev, path: str):
     the kernels' results bit for bit as they were."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 4864)
     out = {}
-    for hd in (48, 64):
+    for hd in SAME_HDS:
         scale = 1.0 / math.sqrt(hd)
         for dtype in (torch.bfloat16, torch.float32):
             tag = f"hd {hd} {str(dtype)[6:]}"
@@ -3985,7 +4125,7 @@ def phase_outputs(dev, path: str):
             out[f"#5 {tag}"] = attn.fused_attention_qblk_bwd(q, k, v, mask, g, scale, False)[:3]
     torch.cuda.synchronize()
     torch.save(_to(out, torch.device("cpu")), path)
-    print(f"[outputs] {len(out)} results at head dims 48 and 64 saved to {path}")
+    print(f"[outputs] {len(out)} results at head dims {SAME_HDS} saved to {path}")
 
 
 def phase_same(a: str, b: str) -> int:
@@ -4003,6 +4143,395 @@ def phase_same(a: str, b: str) -> int:
     print(f"[same] {len(ra) - len(differ)} of {len(ra)} results bit-equal"
           + (f"; differ: {differ}" if differ else ""))
     return 1 if differ else 0
+
+
+# ------------------------------ CLI paths ------------------------------- #
+
+CLI_TRAIN_PNGS, CLI_VAL_PNGS = 128, 32   # 2 steps an epoch at B=64
+CLI_RESUME_BATCH = 8                      # the exact-resume check, on the first 16 PNGs
+CLI_COMPARE_IMAGES = 8                    # eval_reconstruction card against CPU
+CLI_FID_IMAGES = 64                       # each evaluate_fid npz batch
+MSVR_YAML = ROOT / "configs" / "MSVR10P2-4096.yaml"
+RESUME_TOL = 1e-5                         # of a tensor's max abs, where not bit-equal
+# the CLI runs' shared settings: 2 epochs of 2 steps, the discriminator on
+# from epoch 1, a checkpoint (and the best by rFID over one val batch) and a
+# recon grid every 2 steps
+CLI_TRAIN_OVERRIDES = ["epochs=2", "disc_epoch_start=1", "ckpt_every=2", "vis_every=2",
+                       "log_every=2"]
+
+
+def _write_pngs(root: Path, n: int, seed: int, px: int = 256):
+    """n seeded px x px RGB PNGs in two class folders: smooth colour fields
+    with noise, so that a reconstruction has structure to keep."""
+    from PIL import Image
+
+    g = torch.Generator().manual_seed(seed)
+    for i in range(n):
+        d = root / f"class_{i % 2}"
+        d.mkdir(parents=True, exist_ok=True)
+        low = torch.rand((3, 4, 4), generator=g)[None]
+        img = F.interpolate(low, size=(px, px), mode="bilinear", align_corners=False)[0]
+        img = (img + 0.1 * torch.randn((3, px, px), generator=g)).clamp(0, 1)
+        Image.fromarray((img.permute(1, 2, 0) * 255).to(torch.uint8).numpy()).save(
+            d / f"{i:04d}.png")
+
+
+class StepRecorder:
+    """Wraps ``TokenizerTrainer.train_step`` while in use: every call runs
+    with the launch counters set to 0 just before and read just after, and
+    is timed between CUDA events (synchronised, so that the next call's
+    counts are its own)."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __enter__(self):
+        orig = self.orig = TokenizerTrainer.train_step
+
+        def step(tr, *a, **k):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            reset_counts()
+            start.record()
+            out = orig(tr, *a, **k)
+            end.record()
+            torch.cuda.synchronize()
+            self.steps.append((read_counts(), start.elapsed_time(end), robusttok_launches(tr)))
+            return out
+
+        TokenizerTrainer.train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        TokenizerTrainer.train_step = self.orig
+
+
+class _Stop(Exception):
+    pass
+
+
+def _cli_train(dev, root: Path, inception: Path) -> dict:
+    """``train_tokenizer.main`` on configs/RobustTok.yaml at B=64 for 4
+    steps from the PNG folder: each step's launches exactly RobustTok's
+    (#1 84, #2 48), its time; checkpoints at steps 2 and 4, the best by the
+    val rFID (one val batch of 32, the seeded Inception), the recon grids."""
+    from imagefolder_tpu_torch.scripts import train_tokenizer
+
+    out = root / "train_out"
+    argv = ["--config", str(ROBUSTTOK_YAML), "--inception_ckpt", str(inception),
+            "--val_batch_size", str(CLI_VAL_PNGS), "--val_batches", "1",
+            f"data_path={root / 'train'}", f"val_data_path={root / 'val'}",
+            f"cloud_save_path={out}", f"global_batch_size={BATCH}", *CLI_TRAIN_OVERRIDES]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with StepRecorder() as rec:
+        r = train_tokenizer.main(argv)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i, (got, _, want) in enumerate(rec.steps):
+        full = {k: want.get(k, 0) for k in COUNTERS}
+        if got != full:
+            raise AssertionError(f"[cli] train_tokenizer step {i}: launches {got}, want {full}")
+    grids = sorted(p.name for p in (out / "vis").iterdir())
+    vals = r["val"]
+    if not (r["step"] == 4 and r["ckpt"].steps() == [2, 4] and (out / "best.pt").exists()
+            and grids == ["recon_0000002.png", "recon_0000004.png"]
+            and [v[:2] for v in vals] == [(2, "val_rfid"), (4, "val_rfid")]
+            and all(math.isfinite(v[2]) for v in vals)):
+        raise AssertionError(f"[cli] train_tokenizer wrote steps {r['ckpt'].steps()}, grids "
+                             f"{grids}, validations {vals}")
+    m = {k: v.float().mean().item() for k, v in r["metrics"].items()}
+    if not all(math.isfinite(v) for v in m.values()) or m["disc_weight"] <= 0:
+        raise AssertionError(f"[cli] train_tokenizer last metrics {m}")
+    ms = [t for _, t, _ in rec.steps]
+    warm = statistics.median(ms[1:])  # the first step pays the first calls' set-up
+    per_step = {k: v for k, v in rec.steps[0][0].items() if v}
+    print(f"[cli] train_tokenizer RobustTok.yaml B={BATCH}, {len(ms)} steps: {secs:.1f} s in "
+          f"main (the trainer built, {CLI_TRAIN_PNGS} PNGs decoded by 8 workers, 2 val rFIDs, "
+          f"2 grids, 3 checkpoints); steps {', '.join(f'{t:.1f}' for t in ms)} ms (median "
+          f"after the first {warm:.1f} ms, {BATCH / warm * 1e3:.1f} img/s); "
+          f"peak {peak / 2**30:.2f} GiB allocated; launches per step {per_step}; val rFID "
+          f"{', '.join(f'{v[2]:.3f}' for v in vals)} (seeded Inception: plumbing, not a number "
+          f"to report); last gen_loss {m['gen_loss']:.4f}, disc_loss {m['disc_loss']:.4f}; "
+          f"{CARD}")
+    totals = {k: sum(s[0][k] for s in rec.steps) for k in COUNTERS}
+    del r
+    return {"cli train_tokenizer": {"launches": totals, "ms": warm, "peak": peak}}
+
+
+def _cli_resume(dev, root: Path) -> None:
+    """Exact resume on the card at B=8 over the first 16 PNGs (2 steps an
+    epoch): a run stopped after its step-2 checkpoint and resumed with
+    ``--resume`` against the straight 4-step run, under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: every
+    parameter, the EMA, the discriminator's state, both optimizers' state
+    and the last metrics bit-equal, or within RESUME_TOL of each tensor's
+    max abs where an op has no deterministic kernel (PyTorch warns which)."""
+    import shutil
+    import warnings
+
+    from imagefolder_tpu_torch.scripts import train_tokenizer
+
+    sub = root / "train16" / "class_0"
+    sub.mkdir(parents=True)
+    for p in sorted((root / "train").rglob("*.png"))[:16]:
+        shutil.copy(p, sub / p.name)
+
+    def argv(out, *extra):
+        return ["--config", str(ROBUSTTOK_YAML), *extra, f"data_path={root / 'train16'}",
+                f"cloud_save_path={out}", f"global_batch_size={CLI_RESUME_BATCH}",
+                "save_best=false", *CLI_TRAIN_OVERRIDES[:3], "vis_every=0", "log_every=100"]
+
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    orig = TokenizerTrainer.train_step
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            want = train_tokenizer.main(argv(root / "straight"))
+
+            def stop_at_2(tr, *a, **k):
+                if tr.step == 2:
+                    raise _Stop
+                return orig(tr, *a, **k)
+
+            TokenizerTrainer.train_step = stop_at_2
+            try:
+                train_tokenizer.main(argv(root / "resumed"))
+            except _Stop:
+                pass
+            TokenizerTrainer.train_step = orig
+            got = train_tokenizer.main(argv(root / "resumed", "--resume"))
+            secs = time.perf_counter() - t0
+            for run in ("straight", "resumed"):
+                shutil.rmtree(root / run)
+    finally:
+        TokenizerTrainer.train_step = orig
+        torch.use_deterministic_algorithms(det)
+    a, b = want["trainer"], got["trainer"]
+    pairs = [*(("model." + n, p, q) for (n, p), q in zip(a.model.state_dict().items(),
+                                                           b.model.state_dict().values())),
+             *(("disc." + n, p, q) for (n, p), q in zip(a.disc.state_dict().items(),
+                                                          b.disc.state_dict().values())),
+             *((f"ema.{i}", p, q) for i, (p, q) in enumerate(zip(a.ema_params, b.ema_params))),
+             *((f"metric.{k}", v, got["metrics"][k]) for k, v in want["metrics"].items())]
+    for tag, oa, ob in (("gen_opt", a.gen_opt, b.gen_opt), ("disc_opt", a.disc_opt, b.disc_opt)):
+        sa, sb = oa.opt.state_dict()["state"], ob.opt.state_dict()["state"]
+        pairs += [(f"{tag}.{i}.{n}", sa[i][n], sb[i][n]) for i in sa
+                  for n in ("exp_avg", "exp_avg_sq")]
+        if oa.count != ob.count:
+            raise AssertionError(f"[cli] resume: {tag} counts {oa.count} and {ob.count}")
+    equal = sum(torch.equal(p, q) for _, p, q in pairs)
+    errs = {n: ((p.float() - q.float()).abs().max() / p.float().abs().max().clamp_min(1e-30)
+                ).item() for n, p, q in pairs if not torch.equal(p, q)}
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    if got["step"] != 4 or [h["step"] for h in got["history"]] != [2, 3]:
+        raise AssertionError(f"[cli] resume ran steps {[h['step'] for h in got['history']]}")
+    worst = max(errs, key=errs.get) if errs else None
+    print(f"[cli] exact resume B={CLI_RESUME_BATCH} (2 steps, stop, --resume to 4, against 4 "
+          f"straight; three runs in {secs:.1f} s): {equal} of {len(pairs)} tensors "
+          + ("bit-equal" if not errs else
+             f"bit-equal, the rest within {errs[worst]:.3e} of their max abs (worst {worst}; "
+             f"tol {RESUME_TOL:g}), as ops without a deterministic CUDA kernel ran: {nondet}")
+          + f"; {CARD}")
+    if errs:
+        _check(f"[cli] resume {worst}", errs[worst], RESUME_TOL)
+    del want, got, a, b
+
+
+class Clock:
+    """Adds up the card time of every call of ``owner.name`` while in use
+    (synchronised around each call) and the images it took (its second
+    positional argument: ``InceptionV3.forward(model, x)``,
+    ``VQModel.img_to_reconstructed_img(model, x)``, ``rec_perturbed(model,
+    x, ...)``)."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.orig = owner, name, getattr(owner, name)
+        self.secs, self.images = 0.0, 0
+
+    def __enter__(self):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = self.orig(*a, **k)
+            torch.cuda.synchronize()
+            self.secs += time.perf_counter() - t
+            self.images += a[1].shape[0]
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def _inception_clock() -> Clock:
+    from imagefolder_tpu_torch.eval.inception import InceptionV3
+
+    return Clock(InceptionV3, "forward")
+
+
+def _cli_eval_card(dev, path: str, argv: list, batches: int, per_batch: dict, images: int,
+                   lockstep=None) -> tuple:
+    """``eval_reconstruction.main`` on the card with the counters set to 0
+    just before and read just after, its time, Inception's share, its peak."""
+    from imagefolder_tpu_torch.scripts import eval_reconstruction
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    rec_owner, rec_name = ((eval_reconstruction, "rec_perturbed") if "--perturb" in argv
+                           else (VQModel, "img_to_reconstructed_img"))
+    with _inception_clock() as incep, Clock(rec_owner, rec_name) as rec:
+        run = (lambda: eval_reconstruction.main(argv))
+        out = lockstep.on_card(run) if lockstep is not None else run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = check_launches(f"cli {path}", batches, per_batch)
+    peak = torch.cuda.max_memory_allocated(dev)
+    work = rec.secs + incep.secs
+    share = (f", Inception {incep.secs * 1e3:.1f} ms ({incep.images} images: "
+             f"{incep.secs / work * 100:.1f}% of the two)" if incep.images else "")
+    print(f"[cli] {path}: {images} images in {secs:.2f} s of main (the model's build and load "
+          f"included); the reconstructions {rec.secs * 1e3:.1f} ms ({images / rec.secs:.1f} "
+          f"img/s){share}; peak {peak / 2**30:.2f} GiB "
+          f"allocated; launches {dict((k, v) for k, v in launches.items() if v)}; PSNR "
+          f"{out['psnr']:.4f}, SSIM {out['ssim']:.4f}"
+          + "".join(f", {k} {out[k]:.4f}" for k in ("rfid", "pfid") if k in out) + f"; {CARD}")
+    if not (out["images"] == images and math.isfinite(out["psnr"])
+            and math.isfinite(out["ssim"])):
+        raise AssertionError(f"[cli] {path}: {out['images']} images, PSNR {out['psnr']}")
+    return out, {"launches": launches, "s": secs, "peak": peak, "rec_s": rec.secs,
+                 "inception_s": incep.secs}
+
+
+def _cli_eval(dev, root: Path, inception: Path) -> dict:
+    """``eval_reconstruction.main``: on the trained checkpoint (its EMA) in
+    fp32, on the card against ``device="cpu"`` over 8 val images with the
+    codes in lockstep (PSNR, SSIM within 1e-4, both image sets' pool3
+    within 1e-3 of their max), then with ``--perturb`` on the card over the
+    32 val images (#1 36 a batch: ``encode`` and ``_branch_fhats`` each
+    encode); and on MSVR10P2-4096.yaml with a weight file that
+    ``hub.save_pretrained_weight`` wrote from a seeded model (#1 24, #9 20 a
+    batch)."""
+    from imagefolder_tpu_torch.scripts import eval_reconstruction
+    from imagefolder_tpu_torch.utils import hub
+
+    ckpt = root / "train_out" / "ckpts" / "step_00000004.pt"
+    base = ["--config", str(ROBUSTTOK_YAML), "--vq_ckpt", str(ckpt), "--val_data",
+            str(root / "val"), "--inception_ckpt", str(inception)]
+    cmp = base + ["--batch_size", str(CLI_COMPARE_IMAGES), "--max_images",
+                  str(CLI_COMPARE_IMAGES)]
+    codes = _single_vq_lockstep()
+    t0 = time.perf_counter()
+    cpu = codes.on_cpu(lambda: eval_reconstruction.main(cmp, device="cpu"))
+    cpu_secs = time.perf_counter() - t0
+    vit = {"attention_qkv_fwd": 2 * VIT_DEPTH}
+    card, plain = _cli_eval_card(dev, "eval_reconstruction", cmp, 1, vit, CLI_COMPARE_IMAGES,
+                                 codes)
+    errs = {k: abs(card[k] - cpu[k]) for k in ("psnr", "ssim")}
+    feats = {k: _max_err(torch.from_numpy(card[k]), torch.from_numpy(cpu[k]))
+             / float(abs(cpu[k]).max()) for k in ("feats_real", "feats_fake")}
+    print(f"[cli] eval_reconstruction card vs CPU ({cpu_secs:.1f} s on the CPU), fp32, "
+          f"{CLI_COMPARE_IMAGES} images: PSNR {card['psnr']:.6f} vs {cpu['psnr']:.6f}, SSIM "
+          f"{card['ssim']:.6f} vs {cpu['ssim']:.6f} (tol 1e-4); pool3 of the images "
+          f"{feats['feats_real']:.3e} and of the reconstructions {feats['feats_fake']:.3e} of "
+          f"their max (tol 1e-3); rFID {card['rfid']:.4f} vs {cpu['rfid']:.4f}; SingleVQ codes "
+          f"{codes.compared - codes.flips}/{codes.compared} equal (max near-tie gap "
+          f"{codes.max_gap:.3e})")
+    for k, e in errs.items():
+        _check(f"[cli] eval_reconstruction {k} card vs CPU", e, 1e-4)
+    for k, e in feats.items():
+        _check(f"[cli] eval_reconstruction {k} card vs CPU", e, 1e-3)
+    per = ["--batch_size", str(CLI_VAL_PNGS), "--perturb", "1.0", "0.1", "100"]
+    _, perturbed = _cli_eval_card(dev, "eval_reconstruction --perturb", base + per, 1,
+                                  {"attention_qkv_fwd": 3 * VIT_DEPTH}, CLI_VAL_PNGS)
+    mcfg, _, _ = load_tokenizer_config(str(MSVR_YAML), {"dtype_str": "float32"})
+    weights = hub.save_pretrained_weight(
+        root / "msvr.safetensors",
+        VQModel(mcfg, generator=torch.Generator().manual_seed(SEED), device="cpu"))
+    _, msvr = _cli_eval_card(
+        dev, "eval_reconstruction MSVR10P2-4096", ["--config", str(MSVR_YAML), "--vq_ckpt",
+                                                   str(weights), "--val_data", str(root / "val"),
+                                                   "--batch_size", str(CLI_VAL_PNGS)],
+        1, {"attention_qkv_fwd": 2 * VIT_DEPTH, "codebook_argmin": 2 * len(PNS)}, CLI_VAL_PNGS)
+    return {"cli eval_reconstruction": plain, "cli eval_reconstruction --perturb": perturbed,
+            "cli eval_reconstruction MSVR10P2-4096": msvr}
+
+
+def _cli_fid(dev, root: Path, inception: Path) -> dict:
+    """``evaluate_fid.main`` on two seeded npz batches of 64 uint8 images
+    (256 px) with the seeded Inception: the five metrics finite, precision
+    and recall in [0, 1]."""
+    import contextlib
+    import io
+
+    from imagefolder_tpu_torch.scripts import evaluate_fid
+
+    import numpy as np
+
+    g = torch.Generator().manual_seed(SEED + 7)
+    for name in ("ref", "sample"):
+        low = torch.rand((CLI_FID_IMAGES, 3, 8, 8), generator=g)
+        img = F.interpolate(low, size=(256, 256), mode="bilinear", align_corners=False)
+        np.savez(root / f"{name}.npz",
+                 arr_0=(img.permute(0, 2, 3, 1) * 255).to(torch.uint8).numpy())
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with _inception_clock() as clock, contextlib.redirect_stderr(io.StringIO()) as err:
+        m = evaluate_fid.main([str(root / "ref.npz"), str(root / "sample.npz"),
+                               "--inception_ckpt", str(inception), "--batch_size", "64"])
+    secs = time.perf_counter() - t0
+    launches = check_launches("cli evaluate_fid", 1, {})
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not (all(math.isfinite(v) for v in m.values()) and 0 <= m["precision"] <= 1
+            and 0 <= m["recall"] <= 1 and "NOT been validated" in err.getvalue()):
+        raise AssertionError(f"[cli] evaluate_fid metrics {m}; stderr {err.getvalue()!r}")
+    n = 2 * CLI_FID_IMAGES
+    print(f"[cli] evaluate_fid: {n} images in {secs:.2f} s of main, Inception "
+          f"{clock.secs * 1e3:.1f} ms of it ({n / clock.secs:.1f} img/s; the rest is the npz "
+          f"reads and the host's statistics: two 2048-wide sqrtm); peak "
+          f"{peak / 2**30:.2f} GiB allocated; no kernel of this port launched (Inception runs "
+          f"cuDNN); " + ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+          + f" (seeded Inception: plumbing, not numbers to report); {CARD}")
+    return {"cli evaluate_fid": {"launches": launches, "s": secs, "peak": peak}}
+
+
+def main_cli_paths(dev) -> dict:
+    """The tokenizer's CLIs on the card from the shell's entry points
+    (``main(argv)``), in a temporary directory: 128 train and 32 val PNGs
+    (256 px, seed 0) and a seeded Inception ``.pth``; then
+    ``train_tokenizer`` (``_cli_train``), its exact resume
+    (``_cli_resume``), ``eval_reconstruction`` (``_cli_eval``) and
+    ``evaluate_fid`` (``_cli_fid``)."""
+    import tempfile
+
+    from imagefolder_tpu_torch.eval.inception import InceptionV3
+
+    with tempfile.TemporaryDirectory(prefix="imagefolder_cli_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        _write_pngs(root / "train", CLI_TRAIN_PNGS, SEED)
+        _write_pngs(root / "val", CLI_VAL_PNGS, SEED + 1)
+        inception = root / "pt_inception_seed0.pth"
+        torch.save(InceptionV3(generator=torch.Generator().manual_seed(SEED),
+                               device="cpu").state_dict(), inception)
+        print(f"[cli] {CLI_TRAIN_PNGS} train and {CLI_VAL_PNGS} val PNGs and a seeded "
+              f"Inception written in {time.perf_counter() - t0:.1f} s")
+        paths = _cli_train(dev, root, inception)
+        # checkpoints are gigabytes: keep only the one evaluated below
+        for old in ("best.pt", "ckpts/step_00000002.pt"):
+            (root / "train_out" / old).unlink()
+        _cli_resume(dev, root)
+        paths.update(_cli_eval(dev, root, inception))
+        paths.update(_cli_fid(dev, root, inception))
+    return paths
 
 
 KERNELS = {
@@ -4079,8 +4608,8 @@ def main(argv: list[str]) -> int:
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
     if argv and not ((argv[0] == "times" and set(argv[1:]) <= set(TIMES))
                      or (argv[0] == "outputs" and len(argv) == 2)
-                     or (argv[0] == "same" and len(argv) == 3)):
-        raise SystemExit("usage: chip_smoke.py [outputs FILE | same FILE FILE | "
+                     or (argv[0] == "same" and len(argv) == 3) or argv == ["cli"]):
+        raise SystemExit("usage: chip_smoke.py [outputs FILE | same FILE FILE | cli | "
                          f"times [{' '.join(TIMES)} ...]]")
     if argv[:1] == ["same"]:
         return phase_same(*argv[1:])
@@ -4100,6 +4629,10 @@ def main(argv: list[str]) -> int:
     if argv[:1] == ["outputs"]:
         phase_outputs(dev, argv[1])
         return 0
+    if argv == ["cli"]:  # the CLI paths alone
+        main_cli_paths(dev)
+        lap("CLI paths")
+        return 0
     if argv:  # the times phase alone, for the kernels named (all by default)
         times = phase_times(dev, argv[1:] or tuple(TIMES))
         print(json.dumps({"times": times}))
@@ -4114,6 +4647,7 @@ def main(argv: list[str]) -> int:
     kernels_hd48(dev)
     kernels_maskgit_and_narrow_heads(dev)
     kernels_wide_heads(dev)
+    kernels_hd256(dev)
     lap("kernels")
     vq_models = phase_model_vq(dev)
     lap("model VQ-4096")
@@ -4127,19 +4661,25 @@ def main(argv: list[str]) -> int:
     phase_model_maskgit_train(dev)
     phase_model_rar_trainer(dev)
     lap("model MaskGIT-B and the trainers")
-    for margs, name, depth in ((msvr_margs("float32"), "MSVR10P2-4096 + VAR-d16", VAR_DEPTH),
-                               (msvr512_margs("float32"), "MSVR10P2-4096-512 + VAR (4 blocks)",
-                                CHECK_VAR_DEPTH_512)):
-        phase_model_train(dev, *phase_model_var(dev, margs, name, var_depth=depth), name)
+    for margs, name, depth, cut in (
+            (msvr_margs, "MSVR10P2-4096 + VAR-d16", VAR_DEPTH, contextlib.nullcontext),
+            (msvr512_margs, "MSVR10P2-4096-512 (4 ViT blocks) + VAR (4 blocks)",
+             CHECK_VAR_DEPTH_512, check_depth_cut)):
+        with cut():
+            phase_model_train(dev, *phase_model_var(dev, margs("float32"), name,
+                                                    var_depth=depth), name)
         lap(f"model {name}")
     phase_model_gan(dev)
     lap("model GAN step")
-    phase_model_disc_types(dev, phase_model_robusttok(dev))
-    lap("model RobustTok step and disc types")
-    phase_model_msbr(dev)
-    lap("model MSBR (BSQ) with VAR-d16, MSBR step")
-    phase_model_variants(dev)
-    lap("model LoRA, latent pos, conv and siren heads, CNN")
+    with check_depth_cut():
+        phase_model_disc_types(dev, phase_model_robusttok(dev))
+    lap("model RobustTok step and disc types (4 ViT blocks, DinoDisc 6)")
+    with check_depth_cut():
+        phase_model_msbr(dev)
+    lap("model MSBR (BSQ) with VAR-d16, MSBR step (4 ViT blocks)")
+    with check_depth_cut():
+        phase_model_variants(dev)
+    lap("model LoRA, latent pos, conv and siren heads, CNN (4 ViT blocks)")
     paths = {**main_round_trip(dev), **main_rar_paths(dev), **main_rar_train(dev),
              **main_rar_xl_train(dev), **main_mlp_probe(dev)}
     lap("round trips, RAR sampling and training (RAR-B, RAR-XL width), MLP probe")
@@ -4160,6 +4700,8 @@ def main(argv: list[str]) -> int:
                   **main_train_paths(dev, msvr512_margs("bfloat16"), "512 ", LAUNCHES_512,
                                      TRAIN_BATCH_512)})
     lap("main paths at 512 px")
+    paths.update(main_cli_paths(dev))
+    lap("CLI paths: train_tokenizer, its resume, eval_reconstruction, evaluate_fid")
     times = phase_times(dev)
     for key, (name, label) in SHAPE_TIMES.items():
         times[name].setdefault("shapes", {})[label] = times.pop(key)

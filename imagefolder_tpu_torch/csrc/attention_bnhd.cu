@@ -36,7 +36,9 @@
 // 8 up to 64 runs under those two at run time (st.hd): up to 48 under kD =
 // 48, 56 under 64, its columns past hd zero in every tile and never stored.
 // Heads of 72-128 (RAR-XL's 80, RAR-XXL's 88) run the kD = 128
-// instantiations, compiled apart (attention_bnhd_hd128.cu).
+// instantiations, compiled apart (attention_bnhd_hd128.cu), and heads of
+// 136-256 the kD = 256 FMA kernel of attention_wide.cuh, in fp32 and bf16
+// (attention_bnhd_hd256.cu).
 
 #include "attention_bnhd_fwd.cuh"
 
@@ -46,8 +48,14 @@ int attention_bnhd_fwd_hd128(const void* q, const void* k, const void* v, const 
                              const int64_t* qs, const int64_t* ks, const int64_t* vs,
                              const int64_t* bs, float scale, int is_bf16, int hd,
                              cudaStream_t stm);
+// hd 136-256: the kD = 256 kernel of attention_wide.cuh (attention_bnhd_hd256.cu)
+int attention_bnhd_fwd_hd256(const void* q, const void* k, const void* v, const void* bias,
+                             void* out, void* lse, int batch, int lq, int lk, int heads,
+                             const int64_t* qs, const int64_t* ks, const int64_t* vs,
+                             const int64_t* bs, float scale, int is_bf16, int hd,
+                             cudaStream_t stm);
 
-// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 128,
+// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 256,
 // each with its own batch, row and head strides in elements (qs, ks, vs =
 // {batch, row, head}; the head-dim stride is 1), all fp32 or all bf16
 // (is_bf16); bias null or fp32 with strides bs = {batch, head, row} (column
@@ -63,8 +71,11 @@ extern "C" int attention_bnhd_fwd(const void* q, const void* k, const void* v,
                                   const int64_t* bs, float scale, int is_bf16, int hd,
                                   void* stream) {
   if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || (lse && !is_bf16) || hd < 8 ||
-      hd > 128 || hd % 8)
+      hd > 256 || hd % 8)
     return cudaErrorInvalidValue;
+  if (hd > 128)
+    return attention_bnhd_fwd_hd256(q, k, v, bias, out, lse, batch, lq, lk, heads, qs, ks, vs,
+                                    bs, scale, is_bf16, hd, static_cast<cudaStream_t>(stream));
   if (hd > 64)
     return attention_bnhd_fwd_hd128(q, k, v, bias, out, lse, batch, lq, lk, heads, qs, ks, vs,
                                     bs, scale, is_bf16, hd, static_cast<cudaStream_t>(stream));

@@ -38,6 +38,12 @@ int attention_bnhd_bwd_hd128(const void* q, const void* k, const void* v, const 
                              int batch, int n, int heads, const int64_t* qs, const int64_t* ks,
                              const int64_t* vs, const int64_t* gs, int64_t bias_row_stride,
                              float scale, int is_bf16, int hd, cudaStream_t stm);
+// hd 136-256: the kD = 256 kernels of attention_wide.cuh (attention_bnhd_bwd_hd256.cu)
+int attention_bnhd_bwd_hd256(const void* q, const void* k, const void* v, const void* g,
+                             const void* bias, void* dq, void* dk, void* dv, void* dbias, void* stats,
+                             int batch, int n, int heads, const int64_t* qs, const int64_t* ks,
+                             const int64_t* vs, const int64_t* gs, int64_t bias_row_stride,
+                             float scale, int is_bf16, int hd, cudaStream_t stm);
 
 namespace {
 
@@ -59,10 +65,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, const
 
 }  // namespace
 
-// q, k, v and g (B, L, H, hd), hd a multiple of 8 up to 128 (run under the
-// kD = 48 kernels up to 48, 64 at 56 and 64, and 128 past 64: there every
-// call, bf16 too, takes the two-kernel design of attention_bwd_tile.cuh, and
-// o, lse and blank go unused, work being its 3 * B * H * L scratch), each
+// q, k, v and g (B, L, H, hd), hd a multiple of 8 up to 256 (run under the
+// kD = 48 kernels up to 48, 64 at 56 and 64, 128 at 72-128 and 256 past
+// 128: past 64 every call, bf16 too, takes a two-kernel design, that of
+// attention_bwd_tile.cuh up to 128 and that of attention_wide.cuh past it,
+// and o, lse and blank go unused, work being its 3 * B * H * L scratch), each
 // with its own batch, row and
 // head strides in elements (qs, ks, vs, gs = {batch, row, head}; the head-dim
 // stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32 (L, L)
@@ -84,7 +91,11 @@ extern "C" int attention_bnhd_bwd(const void* q, const void* k, const void* v,
                                   const int64_t* gs, const int64_t* os,
                                   int64_t bias_row_stride, float scale, int is_bf16, int hd,
                                   void* stream) {
-  if (hd < 8 || hd > 128 || hd % 8) return cudaErrorInvalidValue;
+  if (hd < 8 || hd > 256 || hd % 8) return cudaErrorInvalidValue;
+  if (hd > 128)
+    return attention_bnhd_bwd_hd256(q, k, v, g, bias, dq, dk, dv, dbias, work, batch, n, heads,
+                                    qs, ks, vs, gs, bias_row_stride, scale, is_bf16, hd,
+                                    static_cast<cudaStream_t>(stream));
   if (hd > 64)
     return attention_bnhd_bwd_hd128(q, k, v, g, bias, dq, dk, dv, dbias, work, batch, n, heads,
                                     qs, ks, vs, gs, bias_row_stride, scale, is_bf16, hd,

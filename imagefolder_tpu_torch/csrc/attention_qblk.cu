@@ -47,9 +47,16 @@ int attention_qblk_fwd_hd48(const void* q, const void* k, const void* v, const v
                             int lk, int heads, const int64_t* qs, const int64_t* ks,
                             const int64_t* vs, int64_t bias_row_stride, float scale,
                             int is_bf16, int hd, cudaStream_t stm);
+// hd 136-256: the kD = 256 kernel of attention_wide.cuh (attention_qblk_hd256.cu)
+int attention_qblk_fwd_hd256(const void* q, const void* k, const void* v, const void* bias,
+                             void* out, float* lse, int batch, int lq, int lk, int heads,
+                             const int64_t* qs, const int64_t* ks, const int64_t* vs,
+                             int64_t bias_row_stride, float scale, int is_bf16, int hd,
+                             cudaStream_t stm);
 
-// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 128
-// (run under the kD = 48 kernels up to 48, 64 at 56 and 64, 128 past 64), each with its own
+// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 256
+// (run under the kD = 48 kernels up to 48, 64 at 56 and 64, 128 at 72-128,
+// and past 128 the kD = 256 kernel of attention_wide.cuh, which takes no map), each with its own
 // batch, row and head strides in elements (qs, ks, vs = {batch, row, head};
 // the head-dim stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32
 // (Lq, Lk) shared by every batch and head, row stride bias_row_stride
@@ -66,11 +73,15 @@ extern "C" int attention_qblk_fwd(const void* q, const void* k, const void* v,
                                   int lq, int lk, int heads, const int64_t* qs,
                                   const int64_t* ks, const int64_t* vs, int64_t bias_row_stride,
                                   float scale, int is_bf16, int hd, void* stream) {
-  if (hd < 8 || hd > 128 || hd % 8) return cudaErrorInvalidValue;
+  if (hd < 8 || hd > 256 || hd % 8) return cudaErrorInvalidValue;
   const FwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
                       0, 0, bias ? bias_row_stride : 0, hd};
   const cudaStream_t stm = static_cast<cudaStream_t>(stream);
   uint8_t* map = static_cast<uint8_t*>(blank);
+  if (map && (!bias || lq != lk || !is_bf16)) return cudaErrorInvalidValue;
+  if (hd > 128)
+    return attention_qblk_fwd_hd256(q, k, v, bias, out, static_cast<float*>(lse), batch, lq, lk,
+                                    heads, qs, ks, vs, bias_row_stride, scale, is_bf16, hd, stm);
   if (map) {
     if (!bias || lq != lk || !is_bf16) return cudaErrorInvalidValue;
     const int err = sm90::launch_blank_tile_map<4>(static_cast<const float*>(bias), map, lq,

@@ -44,14 +44,17 @@ the plain version of lse), skips the 64 x 64 tiles that a bias blanks
 (``blank_tile_map``, plain version ``blank_tile_map_reference``); dk and dv
 come from a kernel per 64 keys, dq from one per 64 q rows. fp32 backwards,
 calls that ask for dbias, and #6 at L = 1 keep ``csrc/attention_bwd_tile.cuh``.
-The BNHD kernels (#3-#6) take every head width up to 128: 48 for RAR-B and
-MaskGIT-B, 80 and 88 for RAR-XL and RAR-XXL. A width that is not a multiple
+The BNHD kernels (#3-#6) take every head width up to 256: 48 for RAR-B and
+MaskGIT-B, 80 and 88 for RAR-XL and RAR-XXL, 256 for a generator of hidden
+1024 over 4 heads. A width that is not a multiple
 of 8 is zero-padded to the next one before the launch (the scale stays the
 true width's; zero columns of q and k change no score, those of v give
 output columns that are cut away, and the gradients are cut back to the true
 width). Widths of 72-128 run the kD = 128 instantiations (in bf16 the
 forwards on 128-wide wgmma tiles, every backward on the two-kernel design
-of ``csrc/attention_bwd_tile.cuh``). Wider heads raise. The packed pair
+of ``csrc/attention_bwd_tile.cuh``), widths of 136-256 the kD = 256 FMA
+kernels of ``csrc/attention_wide.cuh`` (fp32 and bf16, eight threads a row).
+Wider heads raise. The packed pair
 (#1, #2), which only the ViTs call, takes 64.
 Each dispatches on the tensor's device only: a CPU tensor goes to its
 ``*_reference``, the plain PyTorch version; a CUDA tensor launches the
@@ -95,12 +98,12 @@ QBLK_BWD_LAUNCHES = 0
 # head widths: the packed pair #1/#2 (and #7's attention step) serve the
 # ViTs, every preset of which has heads of 64; the BNHD kernels #3-#6 take
 # every width up to _BNHD_MAX_HEAD_DIM (48: RAR-B and MaskGIT-B, 768 / 16;
-# 80 and 88: RAR-XL and RAR-XXL), compiled at 48, 64 and 128: a width runs
+# 80 and 88: RAR-XL and RAR-XXL), compiled at 48, 64, 128 and 256: a width runs
 # under the smallest of them that holds it, zero-padded to its tiles on the
 # card, and one that is not a multiple of 8 is first zero-padded to one by
 # the wrapper. Wider heads raise.
 _HEAD_DIM = 64
-_BNHD_MAX_HEAD_DIM = 128
+_BNHD_MAX_HEAD_DIM = 256
 _SM90_BWD_MAX_HEAD_DIM = 64  # the wgmma backward's widest; past it the two-kernel design
 _TILE = 64  # q rows and keys per tile of the bf16 backward (#2, #5, #6) and its blank map
 

@@ -7,7 +7,10 @@ matrices reproduce ``F.interpolate``'s ``area``, ``bicubic``
 (align_corners=False, antialias=False), legacy ``nearest`` and antialiased
 ``bicubic`` (the timm pos-embed resampling path), so code indices match the
 JAX package's. The builders are a copy of the JAX package's numpy code: the
-port imports nothing of that package.
+port imports nothing of that package. ``bilinear_aa`` is
+``jax.image.resize``'s ``bilinear`` (a half-pixel triangle filter,
+widened when it shrinks), which the JAX package's InceptionV3 resizes
+with.
 
 Inputs are NHWC (or HWC), as in the JAX package.
 """
@@ -104,9 +107,27 @@ def _bicubic_aa_matrix(out_size: int, in_size: int) -> np.ndarray:
     return m
 
 
+def _bilinear_aa_matrix(out_size: int, in_size: int) -> np.ndarray:
+    """``jax.image.resize(..., "bilinear")`` (``scale_and_translate`` with
+    the triangle kernel, antialiased): each output sample at (o + 0.5) *
+    in / out - 0.5 weighs the input samples by 1 - |d| / k, k = max(in /
+    out, 1), the weights normalised to sum 1."""
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(out_size) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[:, None] - np.arange(in_size)[None, :]) / kernel_scale
+    w = np.maximum(0.0, 1.0 - x)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[:, None], w, 0.0)
+
+
 _MODES = {
     "bicubic": _bicubic_matrix,
     "bicubic_aa": _bicubic_aa_matrix,
+    "bilinear_aa": _bilinear_aa_matrix,
     "area": _area_matrix,
     "nearest": _nearest_matrix,
 }

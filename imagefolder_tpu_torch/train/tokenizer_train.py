@@ -234,6 +234,48 @@ class TokenizerTrainer:
         if self.tcfg.ema:
             self.ema_params = [p.detach().clone() for p in self.model.parameters()]
 
+    def ema_state_dict(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The EMA copy as a ``VQModel`` state dict (the model's buffers
+        with the EMA parameters), as upstream checkpoints keep it under
+        "ema"; None without an EMA."""
+        if self.ema_params is None:
+            return None
+        sd = self.model.state_dict()
+        for (name, _), e in zip(self.model.named_parameters(), self.ema_params):
+            sd[name] = e
+        return sd
+
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs to continue bit for bit: the
+        model, its EMA copy, the discriminator with its state (spectral u
+        and sigma, running statistics), both optimizers with their
+        schedules' counts and accumulators, the LeCam and codebook-usage
+        EMAs, ``record_hit``, ``step`` and the device generator's state."""
+        return {"model": self.model.state_dict(), "ema": self.ema_state_dict(),
+                "disc": self.disc.state_dict(), "gen_opt": self.gen_opt.state_dict(),
+                "disc_opt": self.disc_opt.state_dict(), "lecam": tuple(self.lecam),
+                "usage_ema": self.usage_ema, "record_hit": self.record_hit,
+                "step": self.step, "rng": self.rng.get_state()}
+
+    def load_state_dict(self, state: dict):
+        """Restore ``state_dict()``'s state (tensors from any device)."""
+        dev = self.device
+        self.model.load_state_dict(state["model"], strict=True)
+        self.disc.load_state_dict(state["disc"], strict=True)
+        if self.tcfg.ema:
+            ema = state["ema"]
+            self.ema_params = [ema[name].detach().to(dev).clone()
+                               for name, _ in self.model.named_parameters()]
+        for opt, key in ((self.gen_opt, "gen_opt"), (self.disc_opt, "disc_opt")):
+            st = dict(state[key])
+            if st["acc"] is not None:
+                st["acc"] = [a.to(dev) for a in st["acc"]]
+            opt.load_state_dict(st)
+        self.lecam = LeCamState(*(t.to(dev) for t in state["lecam"]))
+        self.usage_ema = state["usage_ema"].to(dev)
+        self.record_hit, self.step = state["record_hit"], state["step"]
+        self.rng.set_state(state["rng"].cpu())
+
     def _aug(self, x: torch.Tensor, fade_blur: float, draws: Optional[dict]) -> torch.Tensor:
         """DiffAug before DinoDisc; the other discriminators see the images
         as they are (the JAX trainer's ``_aug``)."""
