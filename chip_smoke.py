@@ -9,12 +9,13 @@
 With ``times``, only phases 1, 2 and 7 run, for the kernel records named
 (``TIMES``' keys; all by default), and the last line is their JSON.
 ``outputs`` saves #3-#6's
-results at head dims 48, 64, 80 and 128 from a fixed seed, and ``same`` compares two
+results at head dims 48, 64, 80, 128 and 256 from a fixed seed, and ``same`` compares two
 such files bit for bit (run each ``outputs`` from its own checkout). To
 compare two commits in one chip call, unpack each into a gitignored
 directory, copy this script into each, and run it there in the order
 parent, change, change, parent: each imports the package beside it.
-``cli`` runs phases 1, 2 and 6 alone.
+``cli`` runs phases 1, 2 and 6 alone (the tokenizer's and the generators'
+CLIs).
 
 Phases, each printing what it found (any failure ends the run with a non-zero
 exit; no failure is caught):
@@ -55,13 +56,20 @@ exit; no failure is caught):
      32 and 40; #3-#6 at head dims 72-128 (RAR-XL's (64, 258, 16, 80),
      RAR-XXL's 88, and 72, 96, 128: the kD = 128 kernels) and at 36 and
      100 (zero-padded by the wrapper), through the same checks; #3-#6 at
-     160 and 256 (the kD = 256 kernels) and the unaligned 250, fp32 and
-     bf16, with one bf16 autograd launch each way, and 264 and 512 refused
-     with no launch;
-  4. models, card against CPU in fp32 from one seed (the RobustTok,
-     disc-type, MSBR, variant and 512 px tokenizer checks with their ViTs
-     at 4 of 12 blocks and DinoDisc at 6, ``check_depth_cut``: a depth cut
-     for time): the VQ-4096 ViT-B
+     160 and 256 (the kD = 256 kernels) and the unaligned 250, and at 264
+     and 512 (kD = 512) and the unaligned 1000 (kD = 1024), fp32 and bf16,
+     with one bf16 autograd launch each way, and 1032 (past the cap of
+     1024) refused with no launch; #9 at code widths 12, 14, 24, 40 and 100
+     (run by the instantiations at 16, 16, 32, 64 and 128, which zero-fill
+     the tiles past C), one launch a call, 129 refused, an instantiation
+     that is not the wrapper's pick refused by the C entry, and one
+     MSVR10P2-4096 encode at codebook_embed_dim=12 card against CPU;
+  4. models, card against CPU in fp32 from one seed (every tokenizer
+     check, VQ-4096, MSVR10P2-4096 at 256 and 512 px, the flagship GAN
+     step, RobustTok, the disc types, MSBR and the variants, with their ViTs
+     at 2 of 12 blocks and DinoDisc at 6, ``check_depth_cut``: a depth cut
+     for time, widths kept; RAR-B and MaskGIT-B at 4 of 24, VAR-d16 at 2 of
+     16): the VQ-4096 ViT-B
      tokenizer at B=2, then its decode and round trip with the fused
      sublayers on the card; RAR-B at full width with CFG, B=2, the same
      Gumbel noise on both sides, and its tokens decoded by that tokenizer
@@ -127,23 +135,44 @@ exit; no failure is caught):
      Inception: ``train_tokenizer`` on configs/RobustTok.yaml at B=64 for 4
      steps (2 epochs, the discriminator on from epoch 1, a checkpoint, the
      best by val rFID over one batch and a recon grid every 2 steps), each
-     step's launches (#1 84, #2 48) and time; its exact resume at B=8 (2
-     steps, stop, ``--resume`` to 4, against 4 straight, every tensor
-     compared); ``eval_reconstruction`` on the trained checkpoint card
-     against CPU in fp32 over 8 images (PSNR, SSIM, pool3; codes in
-     lockstep), with ``--perturb`` over 32, and on MSVR10P2-4096.yaml from
-     a ``hub``-written weight file (#9 20 a batch); ``evaluate_fid`` on two
-     npz batches of 64;
+     step's launches (#1 84, #2 48) and time; then, with the ViTs at 2 of
+     12 blocks (``check_depth_cut``: a depth cut for time), its exact
+     resume at B=8 (2 steps, stop, ``--resume`` to 4, against 4 straight,
+     every tensor compared), ``eval_reconstruction`` on that resume's
+     checkpoint card against CPU in fp32 over 8 images (PSNR, SSIM, pool3;
+     codes in lockstep) and ``pretokenize --crop_mode ten_crop`` over 8
+     PNGs card against CPU (the CPU's run in a thread beside the resume);
+     at full depth again ``eval_reconstruction`` on the trained checkpoint
+     over 32, with ``--perturb``, and on MSVR10P2-4096.yaml from a
+     ``hub``-written weight file (#9 20 a batch); ``evaluate_fid`` on two
+     npz batches of 64 (in a process of its own, beside the checks at 2
+     blocks: its host ``sqrtm`` take ~10-24 s each); then the generator CLIs in the same directory:
+     ``export_weights`` of the trained checkpoint's EMA (``.safetensors``,
+     read by the later CLIs), ``pretokenize`` of the 128 PNGs from it
+     (center + flip, B=64, fp32; #1 a block a batch); ``train_rar`` RAR-B
+     on that JSONL at B=64 for 4 steps (checkpoints at 2 and 4, an EMA
+     preview at 4; #3 24, #6 24 a step) and its exact resume at RAR-B's
+     width over CHECK_RAR_DEPTH blocks; ``train_rar --model maskgit``
+     (MaskGIT-B, 2 steps, a preview); ``sample_rar`` of 64 from each; then
+     ``train_var`` on MSVR10P2-4096 (a ``hub`` weight file of
+     a seeded tokenizer) with VAR-d16 at B=64 for 4 steps with
+     ``--eval_every 2`` over the val PNGs (#1 12, #9 20, #3 16, #6 16 a
+     step) and its exact resume (VAR-d16's width over CHECK_VAR_DEPTH
+     blocks); ``sample_var`` of 64, then with ``--ref_npz`` through the
+     seeded Inception (in a process of its own, beside the resume); and
+     ``export_weights`` of RAR (``.bin``) and VAR
+     (``--hf``), each written file loaded back with strict=True and compared
+     tensor for tensor;
   7. times: each kernel (#2, #5 and #6 as training calls them, with the
      forward's saved output and lse, #6 through autograd; #1, #3 and #4
      also with the lse store on, #3 as the train step's autograd runs its
      forward; #3 at the last 256 px sampling stage, teacher forcing, the
      512 px last sampling stage, RAR-B's teacher forcing and MaskGIT-B's
      shape; #6 also at RAR-B's and MaskGIT-B's training shapes; #3 and #6
-     at RAR-XL's and RAR-XXL's (64, 258, 16, 80 | 88) and at head dim 256,
-     (16, 258, 4, 256); #9 at every
-     scale of both encodes, each a CUDA
-     graph of 20 calls, with its sums per encode),
+     at RAR-XL's and RAR-XXL's (64, 258, 16, 80 | 88) and at head dims 256
+     and 512, (16, 258, 4, 256) and (16, 258, 2, 512); #9 at every scale of
+     both encodes and at C = 12 (run at 16), each a CUDA graph of 20
+     calls, with its sums per encode),
      its plain version (order plain, kernel, kernel,
      plain) and one PyTorch library call computing the same function (for
      #2, #5 and #6, the backward of ``scaled_dot_product_attention``; for #7
@@ -161,7 +190,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
+import os
 import math
 import re
 import statistics
@@ -170,6 +201,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -394,7 +426,8 @@ def phase_device():
     CARD = line
     print(line)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"{torch.cuda.get_device_name(0)}; {torch.cuda.device_count()} card(s)")
+          f"{torch.cuda.get_device_name(0)}; {torch.cuda.device_count()} card(s); host "
+          f"{os.cpu_count()} CPUs, torch {torch.get_num_threads()} threads")
 
 
 def phase_build():
@@ -1255,46 +1288,51 @@ HD256 = 256                    # a generator of hidden 1024 over 4 heads
 HD256_BATCH, HD256_HEADS = 16, 4
 HD256_HDS = (160, HD256)       # multiples of 8 that the kD = 256 kernels run
 HD256_UNALIGNED = 250          # zero-padded to 256 by the wrapper
-TOO_WIDE_HDS = (264, 512)      # past the widest instantiation: refused
+# the kD = 512 and 1024 kernels: 264 and 512 (hidden 1024 over 2 heads), and
+# the unaligned 1000 (zero-padded to 1000, run under 1024)
+WIDER_HDS = (264, 512)
+WIDER_UNALIGNED = 1000
+WIDER_BATCH, WIDER_HEADS = 4, 2
+TOO_WIDE_HD = 1032             # past the widest instantiation (1024): refused
 
 
-def kernels_hd256(dev):
-    """#3-#6 at head widths 136-256 (the kD = 256 FMA kernels of
-    csrc/attention_wide.cuh), against their plain versions: at 160 and 256,
-    #3 and #6 at (16, 258, 4, hd) under the causal mask and without a bias,
-    bf16 (dbias off and on) and fp32, cross length, Lq = 1, a per-(B, H)
-    bias, strided qkv views, ragged L; #4 and #5 past the single-block
-    budget (L = 2100 under an encoder mask, ragged 2049 without a bias, fp32
-    with dbias); one bf16 autograd launch each way through each router; at
-    the unaligned 250 (zero-padded to 256) the same through a smaller set;
-    then heads of 264 and 512 refused by #3-#6 with no launch."""
+def _kernels_wide(dev, full_hds, unaligned, batch, heads, what):
+    """#3-#6 against their plain versions at each head width of ``full_hds``
+    (every case) and at ``unaligned`` (a smaller set): #3 and #6 at (batch,
+    258, heads, hd) under the causal mask and without a bias, bf16 (dbias
+    off and on) and fp32, cross length, Lq = 1, a per-(B, H) bias, strided
+    qkv views, ragged L; #4 and #5 past the single-block budget (L = 2100
+    under an encoder mask, ragged 2049 without a bias, fp32 with dbias); one
+    bf16 autograd launch each way through each router."""
     bf16, f32 = torch.bfloat16, torch.float32
-    gen = torch.Generator(device=dev).manual_seed(SEED + 256)
+    gen = torch.Generator(device=dev).manual_seed(SEED + full_hds[-1])
 
     def bnhd(b, lq, lk, h, dtype, hd):
         return _bnhd(gen, b, lq, lk, h, dtype, dev, l2=False, hd=hd)
 
-    rar = (RAR_SEQ, RAR_SEQ, HD256_HEADS)
+    rar = (RAR_SEQ, RAR_SEQ, heads)
     causal = _causal(RAR_SEQ, dev)
     mask = encoder_mask(2100, 700, dev, 64)
-    for hd in HD256_HDS + (HD256_UNALIGNED,):
-        full = hd in HD256_HDS
+    for hd in full_hds + (unaligned,):
+        full = hd in full_hds
+        print(f"[kernels] {what}: head dim {hd} runs the kD = {attn.bnhd_kernel_width(hd)} "
+              "kernels")
         qkv = torch.randn((2, 30, 3, 4, hd), generator=gen, device=dev).bfloat16()
         per_bh = torch.randn((2, 4, 37, 45), generator=gen, device=dev)
         per_bh[..., 5:9] = float("-inf")
-        fwd = [("causal L=258", *bnhd(HD256_BATCH, *rar, bf16, hd), causal),
+        fwd = [("causal L=258", *bnhd(batch, *rar, bf16, hd), causal),
                ("fp32, causal L=258", *bnhd(2, *rar, f32, hd), causal)]
         if full:
-            fwd += [("no bias L=258", *bnhd(HD256_BATCH, *rar, bf16, hd), None),
+            fwd += [("no bias L=258", *bnhd(batch, *rar, bf16, hd), None),
                     ("cross length 37 x 77", *bnhd(3, 37, 77, 4, bf16, hd), None),
                     ("Lq=1", *bnhd(5, 1, 2, 4, bf16, hd), None),
                     ("per-(B,H) bias", *bnhd(2, 37, 45, 4, bf16, hd), per_bh),
                     ("strided qkv views", *qkv.unbind(2), build_attn_bias((1, 2, 3, 4)).to(dev))]
         _fwd_cases_hd("#3", attn.fused_attention, attn.fused_attention_reference, fwd, hd)
-        bwd = [("causal L=258, dbias off", *bnhd(HD256_BATCH, *rar, bf16, hd), causal, False),
+        bwd = [("causal L=258, dbias off", *bnhd(batch, *rar, bf16, hd), causal, False),
                ("fp32, causal L=258, dbias on", *bnhd(2, *rar, f32, hd), causal, True)]
         if full:
-            bwd += [("no bias L=258", *bnhd(HD256_BATCH, *rar, bf16, hd), None, False),
+            bwd += [("no bias L=258", *bnhd(batch, *rar, bf16, hd), None, False),
                     ("causal L=258, dbias on", *bnhd(4, *rar, bf16, hd), causal, True),
                     ("ragged L=37 fp32", *bnhd(3, 37, 37, 4, f32, hd), None, False),
                     ("strided qkv views", *qkv.unbind(2), build_attn_bias((1, 2, 3, 4)).to(dev),
@@ -1302,7 +1340,7 @@ def kernels_hd256(dev):
         _bwd_cases_hd("#6", attn.fused_attention_bwd, attn.fused_attention_bwd_reference, bwd,
                       hd, gen)
         _autograd_hd("#3/#6", ("FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES"),
-                     *bnhd(HD256_BATCH, *rar, bf16, hd), causal, gen)
+                     *bnhd(batch, *rar, bf16, hd), causal, gen)
         qblk = [("L=2100, encoder mask", *bnhd(1, 2100, 2100, 2, bf16, hd), mask),
                 ("L=2100 fp32, encoder mask", *bnhd(1, 2100, 2100, 2, f32, hd), mask)]
         if full:
@@ -1315,15 +1353,45 @@ def kernels_hd256(dev):
                         q.dtype == f32) for name, q, k, v, b in qblk], hd, gen)
         _autograd_hd("#4/#5", ("QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES"), *qblk[0][1:4], mask, gen)
         del qblk, fwd, bwd
-    # wider heads are refused before any launch
+
+
+def kernels_hd256(dev):
+    """#3-#6 at head widths 136-256 (the kD = 256 FMA kernels of
+    csrc/attention_wide.cuh) through ``_kernels_wide``: 160 and 256 at
+    (16, 258, 4, hd), the unaligned 250 (zero-padded to 256)."""
+    _kernels_wide(dev, HD256_HDS, HD256_UNALIGNED, HD256_BATCH, HD256_HEADS, "kD = 256")
+
+
+def kernels_wider_heads(dev):
+    """#3-#6 at head widths 264-1024 (the kD = 512 and 1024 FMA kernels)
+    through ``_kernels_wide``: 264 and 512 at (4, 258, 2, hd), the unaligned
+    1000; then a head of TOO_WIDE_HD refused by #3-#6 with no launch, and a
+    head of 264 refused by each C entry when it is handed the kD = 256
+    instantiation in place of ``bnhd_kernel_width``'s 512."""
+    _kernels_wide(dev, WIDER_HDS, WIDER_UNALIGNED, WIDER_BATCH, WIDER_HEADS, "kD = 512, 1024")
+    gen = torch.Generator(device=dev).manual_seed(SEED + TOO_WIDE_HD)
     reset_counts()
-    for hd in TOO_WIDE_HDS:
-        q, k, v = bnhd(2, 70, 70, 2, bf16, hd)
-        for num, fn in (("#3", attn.fused_attention), ("#4", attn.fused_attention_qblk)):
-            _expect_refusal(f"{num} hd {hd}", NotImplementedError, lambda: fn(q, k, v))
-        for num, fn in (("#6", attn.fused_attention_bwd), ("#5", attn.fused_attention_qblk_bwd)):
-            _expect_refusal(f"{num} hd {hd}", NotImplementedError,
-                            lambda: fn(q, k, v, None, q, need_dbias=False))
+    q, k, v = _bnhd(gen, 2, 70, 70, 2, torch.bfloat16, dev, l2=False, hd=TOO_WIDE_HD)
+    for num, fn in (("#3", attn.fused_attention), ("#4", attn.fused_attention_qblk)):
+        _expect_refusal(f"{num} hd {TOO_WIDE_HD}", NotImplementedError, lambda: fn(q, k, v),
+                        "up to 1024")
+    for num, fn in (("#6", attn.fused_attention_bwd), ("#5", attn.fused_attention_qblk_bwd)):
+        _expect_refusal(f"{num} hd {TOO_WIDE_HD}", NotImplementedError,
+                        lambda: fn(q, k, v, None, q, need_dbias=False), "up to 1024")
+    q, k, v = _bnhd(gen, 2, 70, 70, 2, torch.bfloat16, dev, l2=False, hd=WIDER_HDS[0])
+    pick = attn.bnhd_kernel_width
+    attn.bnhd_kernel_width = lambda hd: 256  # not the smallest that holds 264
+    try:
+        for num, fn in (("#3", lambda: attn.fused_attention(q, k, v)),
+                        ("#4", lambda: attn.fused_attention_qblk(q, k, v)),
+                        ("#6", lambda: attn.fused_attention_bwd(q, k, v, None, q,
+                                                                need_dbias=False)),
+                        ("#5", lambda: attn.fused_attention_qblk_bwd(q, k, v, None, q,
+                                                                     need_dbias=False))):
+            _expect_refusal(f"{num} hd {WIDER_HDS[0]} at kD = 256", RuntimeError, fn,
+                            "CUDA error")
+    finally:
+        attn.bnhd_kernel_width = pick
     check_launches("[kernels] refused head dims", 1, {})
 
 
@@ -1407,6 +1475,76 @@ def kernels_codebook(dev) -> float:
     return main_gap
 
 
+PADDED_CODE_WIDTHS = (12, 14, 24, 40, 100)  # run at 16, 16, 32, 64, 128
+CODE_WIDTH_ENCODE = 12                      # MSVR10P2-4096 with codebook_embed_dim=12
+
+
+def kernels_codebook_widths(dev):
+    """#9 at code widths the kernel is not compiled for, each run by the
+    next compiled one (``codebook.kernel_width``), whose tile loads
+    zero-fill the columns past C: at every C of PADDED_CODE_WIDTHS, both
+    scores, at a 256 px scale's N and at N below a row tile, indices
+    against the plain version on the same operands (equal but at
+    near-ties), one launch a call; past 128 refused with no launch, and an
+    instantiation other than ``kernel_width``'s refused by the C entry.
+    Then one multi-scale encode of MSVR10P2-4096 with codebook_embed_dim=12
+    (ViT-B at CHECK_TOK_DEPTH blocks: ``check_depth_cut``) card against CPU
+    in fp32, its codes in lockstep."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    for c in PADDED_CODE_WIDTHS:
+        for n, maximize in ((BATCH * 11 * 11, True), (BATCH * 11 * 11, False), (5, True)):
+            x = torch.randn((n, c), generator=gen, device=dev)
+            cb = torch.randn((4096, c), generator=gen, device=dev)
+            if maximize:
+                x, cb = _l2n(x), _l2n(cb)
+            reset_counts()
+            got = codebook.codebook_argmin(x, cb, maximize)
+            torch.cuda.synchronize()
+            check_launches(f"[kernels] #9 C={c}", 1, {"codebook_argmin": 1})
+            want = codebook.codebook_argmin_reference(x, cb, maximize)
+            diff = (got != want).nonzero()[:, 0]
+            gap = _score_gap(x[diff], cb, maximize, got[diff], want[diff]).max().item() \
+                if diff.numel() else 0.0
+            print(f"[kernels] #9 C={c} (run at {codebook.kernel_width(c)}) x ({n}, {c}) "
+                  f"codebook (4096, {c}) maximize={maximize!s:5s}: {n - diff.numel()}/{n} "
+                  f"equal, max fp64 score gap {gap:.3e} (near-tie <= {NEAR_TIE:g})")
+            _check(f"[kernels] #9 C={c} score gap", gap, NEAR_TIE)
+    reset_counts()
+    x = torch.randn((8, 129), device=dev)
+    _expect_refusal("#9 C=129", NotImplementedError,
+                    lambda: codebook.codebook_argmin(x, x), "up to 128")
+    x = torch.randn((8, 12), device=dev)
+    pick = codebook.kernel_width
+    codebook.kernel_width = lambda c: 32  # not the smallest that holds 12
+    try:
+        _expect_refusal("#9 C=12 at the instantiation of 32", RuntimeError,
+                        lambda: codebook.codebook_argmin(x, x), "CUDA error")
+    finally:
+        codebook.kernel_width = pick
+    check_launches("[kernels] #9 refused width", 1, {})
+    margs = dataclasses.replace(msvr_margs("float32"), codebook_embed_dim=CODE_WIDTH_ENCODE)
+    with check_depth_cut():
+        cpu = VQModel(margs, generator=torch.Generator().manual_seed(SEED), device="cpu").eval()
+    card = copy.deepcopy(cpu).to(dev)
+    x = torch.rand((2, 256, 256, 3), generator=torch.Generator().manual_seed(SEED)) * 2 - 1
+    codes = _code_lockstep()
+    with torch.inference_mode():
+        idx_cpu = codes.on_cpu(lambda: cpu.img_to_idxBl(x))
+        reset_counts()
+        idx_card = codes.on_card(lambda: card.img_to_idxBl(x.to(dev)))
+        torch.cuda.synchronize()
+    check_launches("[kernels] #9 C=12 encode", 1, {"codebook_argmin": 2 * len(PNS),
+                                                    "attention_qkv_fwd": CHECK_TOK_DEPTH})
+    equal = sum(int(torch.equal(a, b.cpu())) for pa, pb in zip(idx_cpu, idx_card)
+                for a, b in zip(pa, pb))
+    print(f"[kernels] #9 MSVR10P2-4096 codebook_embed_dim={CODE_WIDTH_ENCODE} (run at "
+          f"{codebook.kernel_width(CODE_WIDTH_ENCODE)}), fp32 B=2 img_to_idxBl card vs CPU: "
+          f"codes {codes.compared - codes.flips}/{codes.compared} equal over {len(codes.calls)} "
+          f"lookups ({equal} of {2 * len(PNS)} scale maps identical), max near-tie gap "
+          f"{codes.max_gap:.3e}; {CARD}")
+    del cpu, card
+
+
 def _sublayer_operands(gen, b, n, c, hidden, dtype, dev, res=torch.float32):
     """xn (B, N, C) in ``dtype``, the residual stream in ``res`` (or zeros
     when ``res`` is None), and one sublayer's parameters in the (out, in)
@@ -1464,11 +1602,13 @@ def _sublayer_check(what: str, got: torch.Tensor, want: torch.Tensor, res: torch
     return err, f"(per element {worst:.3f} of ls (2^-6 |y| + 2^-6 RMS(row)))"
 
 
-def _expect_refusal(what: str, exc: type, fn):
+def _expect_refusal(what: str, exc: type, fn, match: str = ""):
     try:
         fn()
     except exc as e:
         print(f"[kernels] {what}: refused ({type(e).__name__}: {e})")
+        if match not in str(e):
+            raise AssertionError(f"[kernels] {what}: the refusal does not name {match!r}")
         return
     raise AssertionError(f"[kernels] {what}: not refused")
 
@@ -1703,20 +1843,28 @@ def _gumbel_gap(args, want, got, diff):
 RAR_SAMPLING = dict(guidance_scale=16.0, guidance_scale_pow=2.75, randomize_temperature=1.0)
 
 
-# depth cuts of card-vs-CPU checks whose CPU side set the script's time:
-# RAR-B's 256-step CFG sampling, the RARTrainer steps and MaskGIT-B's
-# checks (both trunks, the trainer step) at 8 of their 24 blocks, and the 512
-# px VAR checks with VAR-d16 cut to 4 blocks (the timed paths keep 24 and 16)
-CHECK_RAR_DEPTH = 8
-CHECK_VAR_DEPTH_512 = 4
-# and the tokenizers' ViTs (DINOv2 ViT-S and ViT-B, CLIP
-# ViT-B/16) at 4 of their 12 blocks and DinoDisc's trunk at 6 of 12 (heads
-# at blocks 2 and 5 stay) in the fp32 RobustTok, disc-type, MSBR, variant
-# and 512 px tokenizer checks (the bf16 paths and the CLI phase run all 12)
-CHECK_TOK_DEPTH = 4
+# depth cuts of card-vs-CPU checks whose CPU side set the script's time,
+# widths kept (the timed main paths and CLIs run every block): RAR-B's
+# 256-step CFG sampling, the RARTrainer steps, MaskGIT-B's checks (both
+# trunks, the trainer step) and train_rar's resume at 4 of their 24 blocks;
+# VAR-d16 at 2 of its 16 blocks in every fp32 VAR check (256 and 512 px,
+# MSVR and MSBR) and in train_var's resume;
+CHECK_RAR_DEPTH = 4
+CHECK_VAR_DEPTH = 2
+# and the tokenizers' ViTs (DINOv2 ViT-S and ViT-B, CLIP ViT-B/16) at 2 of
+# their 12 blocks and DinoDisc's trunk at 6 of 12 (heads at blocks 2 and 5
+# stay) in the fp32 tokenizer checks, the tokenizer CLI's resume, and the
+# eval_reconstruction and ten-crop pretokenize comparisons
+CHECK_TOK_DEPTH = 2
 CHECK_DINO_DEPTH = 6
 CUT_PRESETS = ("vit_small_patch14_dinov2.lvd142m", "vit_base_patch14_dinov2.lvd142m",
                "vit_base_patch16_clip_224.openai")
+
+
+def vit_depth() -> int:
+    """Blocks of a DINOv2 ViT-B built now: 12, or CHECK_TOK_DEPTH inside
+    ``check_depth_cut``."""
+    return vit_mod.VIT_PRESETS["vit_base_patch14_dinov2.lvd142m"]["depth"]
 
 
 @contextlib.contextmanager
@@ -1743,10 +1891,11 @@ def check_depth_cut():
 
 
 def phase_model_rar(dev, vq_cpu: VQModel, vq_card: VQModel):
-    """RAR-B at full width (768 wide, 16 heads, 256 tokens, 4096 codes; 8 of
-    its 24 blocks, ``CHECK_RAR_DEPTH``) in fp32, B=2 with CFG at ``configs/generator/robustTok-rar.yaml``'s
-    settings, card against the same weights on the CPU, with the Gumbel noise
-    drawn once on the CPU and handed to both: every pick equal except at a
+    """RAR-B at full width (768 wide, 16 heads, 256 tokens, 4096 codes;
+    ``CHECK_RAR_DEPTH`` of its 24 blocks) in fp32, B=2 with CFG at
+    ``configs/generator/robustTok-rar.yaml``'s settings, card against the
+    same weights on the CPU, with the Gumbel noise drawn once on the CPU and
+    handed to both: every pick equal except at a
     near-tie (the card then goes on from the CPU's pick), the CFG logits of
     the first and the last step; then the tokens decoded by the RobustTok
     tokenizer of ``phase_model_vq``, fused sublayers on the card against
@@ -1886,7 +2035,7 @@ def _remask_gap(args, want, got, diff):
 
 def phase_model_maskgit(dev):
     """MaskGIT-B at full width (768 wide, 16 heads of 48, 256 tokens, 4096
-    codes; 8 of its 24 blocks, ``CHECK_RAR_DEPTH``) with each trunk,
+    codes; CHECK_RAR_DEPTH of its 24 blocks) with each trunk,
     ``bert`` and ``uvit`` (9 blocks),
     in fp32 at B=2, card against the same weights on the CPU: the logits of
     a partly masked input, conditioned and with every condition dropped;
@@ -1945,8 +2094,8 @@ def phase_model_maskgit(dev):
 
 
 def phase_model_maskgit_train(dev):
-    """One ``MaskGITTrainer`` step of MaskGIT-B (bert; 8 of 24 blocks) in fp32 at B=2, card
-    against CPU from the same weights with the same masking draws (t,
+    """One ``MaskGITTrainer`` step of MaskGIT-B (bert; CHECK_RAR_DEPTH of 24
+    blocks) in fp32 at B=2, card against CPU from the same weights with the same masking draws (t,
     scores) and condition drop, at ``total_steps`` 10 (no warmup: the step
     runs at the peak lr, 2e-4): loss, every parameter's gradient (max abs
     error over the CPU's max abs; the key third of each qkv bias, 0 in
@@ -2003,10 +2152,11 @@ def phase_model_maskgit_train(dev):
 
 
 def phase_model_rar_trainer(dev):
-    """Two ``RARTrainer`` steps of RAR-B (8 of 24 blocks) in fp32 at B=2, card against CPU
-    from the same weights (AdaLN drawn at random) with the same condition
-    drops and orders (one raster, one random), at a warmup of 1 step (the
-    first at lr 0, the second at the peak, 4e-4) with AdamW, the clip at 1
+    """Two ``RARTrainer`` steps of RAR-B (CHECK_RAR_DEPTH of 24 blocks) in
+    fp32 at B=2, card against CPU from the same weights (AdaLN drawn at
+    random) with the same condition drops and orders (one raster, one
+    random), at a warmup of 1 step (the first at lr 0, the second at the
+    peak, 4e-4) with AdamW, the clip at 1
     and the EMA: loss, ``correct_tokens`` (within one token's share),
     ``grad_norm`` and every parameter's clipped gradient (k_norm's biases
     to ZERO_GRAD_TOL) after each step, then the parameters and the EMA. One
@@ -2111,7 +2261,7 @@ class Lockstep:
 
 def _code_gap(args, want, got, diff):
     """_codebook_lookup(rest_NC, codebook_VC, znorm): fp64 score gap."""
-    rest, cb, znorm = args
+    rest, cb, znorm = args[:3]
     if znorm:
         rest, cb = _l2n(rest.double()), _l2n(cb.double())
     return _score_gap(rest[diff], cb, znorm, want, got)
@@ -2130,8 +2280,8 @@ def _code_lockstep():
 
 
 def phase_model_var(dev, margs: ModelArgs, name: str, lockstep=_code_lockstep,
-                    var_depth: int = VAR_DEPTH):
-    """A multi-scale tokenizer with VAR (d16, or ``var_depth`` blocks) in fp32 at B=2,
+                    var_depth: int = CHECK_VAR_DEPTH):
+    """A multi-scale tokenizer with VAR (d16's width, ``var_depth`` blocks) in fp32 at B=2,
     card against the same weights on the CPU: the encoder's latents,
     ``img_to_idxBl``'s codes per scale, the round trip image, the VAR input,
     ``VAR.forward`` logits and greedy ``var_sample`` tokens and images. The
@@ -2366,7 +2516,8 @@ def _grad_errs(what: str, named_cpu, params_card, trainable: list,
 def phase_model_gan(dev):
     """Two ``TokenizerTrainer`` steps of the flagship GAN recipe in fp32 at
     B=2 (MSVR10P2-4096 with the DINOv2 ViT-B teacher, LPIPS VGG16, DinoDisc
-    ViT-S/16 at depth 12, remat on), card against CPU from the same weights,
+    ViT-S/16 at ``CHECK_DINO_DEPTH`` of its 12 blocks, remat on; run under
+    ``check_depth_cut``), card against CPU from the same weights,
     with every random draw made once on the CPU and given to both sides
     (``train_step(draws=...)``; the first step takes the disc's crop, the
     second its area resize). Held: every metric (loss terms, ``gen_loss``,
@@ -2378,7 +2529,8 @@ def phase_model_gan(dev):
     The codes go in lockstep as in ``phase_model_var``, and the branches of
     the piecewise-linear ops as ``KinkLockstep`` says."""
     mcfg, tcfg = flagship_gan_recipe(2, margs_overrides={"dtype_str": "float32"},
-                                     tcfg_overrides={"loss_dtype": "float32"})
+                                     tcfg_overrides={"loss_dtype": "float32",
+                                                     "dino_depth": CHECK_DINO_DEPTH})
     gen = torch.Generator().manual_seed(SEED + 4)
     tr_cpu = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED),
                               device="cpu")
@@ -2635,9 +2787,10 @@ def phase_model_robusttok(dev):
 
 def phase_model_disc_types(dev, dino_trainer: TokenizerTrainer):
     """One ``TokenizerTrainer`` step (a generator and a disc update) with
-    ``disc_type`` patchgan and stylegan, card against CPU in fp32 at B=2 and
-    256 px, the tokenizer at the smallest ViT preset the port has (ViT-S,
-    12 blocks), the same draws on both sides and the codes and the
+    ``disc_type`` patchgan and stylegan, card against CPU in fp32 at
+    B=2 and 256 px, the tokenizer at the smallest ViT preset
+    the port has (ViT-S; its blocks cut by ``check_depth_cut``), the same
+    draws on both sides and the codes and the
     piecewise-linear branches in lockstep: every metric, every trainable
     gradient of the generator and of the discriminator, and the
     discriminator's state after the step (PatchGAN's running statistics).
@@ -2658,8 +2811,9 @@ def phase_model_disc_types(dev, dino_trainer: TokenizerTrainer):
             px = mcfg.image_size
             x = torch.rand((2, px, px, 3), generator=gen) * 2 - 1
             codes = Lockstep(quantize, "_codebook_lookup", _code_gap, NEAR_TIE)
-            m_cpu, m_card, kinks = _lockstep_step(tr_cpu, tr_card, x, dev, gan_draws(2, px, gen),
-                                                  {}, (codes,))
+            m_cpu, m_card, kinks = _lockstep_step(tr_cpu, tr_card, x, dev,
+                                                  gan_draws(2, px, gen), {},
+                                                  (codes,))
         shown = _check_step_metrics(f"{kind} step", m_cpu, m_card)
         g_errs, _ = _grad_errs("generator", tr_cpu.model.named_parameters(),
                                tr_card.model.parameters(), tr_cpu.gen_opt.params)
@@ -2670,7 +2824,8 @@ def phase_model_disc_types(dev, dino_trainer: TokenizerTrainer):
                                by_weight=r"conv_out\.bias")
         state_err = _state_err(tr_cpu.disc, tr_card.disc)
         worst_g, worst_d = max(g_errs, key=g_errs.get), max(d_errs, key=d_errs.get)
-        print(f"[model] disc_type={kind} step fp32 B=2 card vs CPU (ViT-S tokenizer): "
+        print(f"[model] disc_type={kind} step fp32 B=2 card vs CPU (ViT-S "
+              f"tokenizer): "
               f"disc_loss {m_cpu['disc_loss'].item():.6f}, gen_adv_loss "
               f"{m_cpu['gen_adv_loss'].item():.6f}, {shown}; {len(g_errs)} generator gradients "
               f"within {g_errs[worst_g]:.3e} of their max abs (worst {worst_g}), {len(d_errs)} "
@@ -2812,7 +2967,8 @@ def _step_check(dev, what: str, mcfg, tcfg, lockstep, kw=None, zero_grad=ZERO_GR
                 "trainable ones moved, on both sides")
     head = f"{mcfg.dec_type} decoder" + (f", {mcfg.to_pixel} head" if mcfg.dec_type == "dinov2"
                                          else "")
-    print(f"[model] {what} ({head}) fp32 B={batch} card vs CPU: gen_loss {m_cpu['gen_loss'].item():.6f}, "
+    print(f"[model] {what} ({head}) fp32 B={batch} card vs CPU: gen_loss "
+          f"{m_cpu['gen_loss'].item():.6f}, "
           f"disc_adaptive_weight {m_cpu['disc_adaptive_weight'].item():.6f}, entropy_loss "
           f"{m_cpu['entropy_loss'].item():.6f}, {shown}; {len(g_errs)} generator gradients "
           f"within {g_errs[worst_g]:.3e} of their max abs (worst {worst_g}, median "
@@ -2850,7 +3006,7 @@ def phase_model_msbr(dev):
           f"{m16.codebook_embed_dim} bits, codes of 2 branches x {len(m16.v_patch_nums)} scales "
           f"in [0, {top}]")
     del vae16, idx
-    name = "MSBR10P2-4096 + VAR-d16"
+    name = f"MSBR10P2-4096 + VAR-d16 width ({CHECK_VAR_DEPTH} blocks)"
     phase_model_train(dev, *phase_model_var(dev, msbr_margs("float32"), name, _sign_lockstep),
                       name, _sign_lockstep)
     mcfg, tcfg = load_yaml(MSBR_YAMLS[0], {"mixed_precision": "none"})
@@ -3087,12 +3243,13 @@ def main_rar_paths(dev) -> dict:
 
     out = {}
     with torch.inference_mode():
+        # one call after the warm-up (host-bound, ~7 s each): cut for time
         out["rar sample"] = r = time_calls("rar sample", lambda: vae.decode_tokens(generate()),
-                                           3, decode, dev)
+                                           1, decode, dev)
         _check_images("rar sample", r.pop("out"), BATCH, margs.image_size)
         _report("RAR-B rar_generate + fused decode_tokens (CFG 16, pow 2.75)", r, BATCH,
                 "images in [-1, 1]")
-        out["rar generate"] = r = time_calls("rar generate", generate, 2, {}, dev)
+        out["rar generate"] = r = time_calls("rar generate", generate, 1, {}, dev)
         tok = r.pop("out")
         if tuple(tok.shape) != (BATCH, rar.config.image_seq_len) or not (
                 0 <= int(tok.min()) and int(tok.max()) < rar.config.codebook_size):
@@ -3254,6 +3411,7 @@ def main_var_paths(dev, margs: ModelArgs, tag: str, per_call: dict,
     ``per_call`` launches; results keyed ``tag + path``. ``var_sample``
     decodes through a tokenizer of ``sample_margs`` when given (bench.py's
     sample leg, whose VAR has the same vocabulary and Cvae)."""
+    iters = 5 if tag == "512 " else 10  # the 512 px paths at 5 calls: cut for time
     pns = tuple(margs.v_patch_nums)
     vae, var = build_vae_var(margs, VAR_DEPTH, dtype_str="bfloat16",
                              generator=torch.Generator().manual_seed(SEED), device=dev)
@@ -3270,7 +3428,7 @@ def main_var_paths(dev, margs: ModelArgs, tag: str, per_call: dict,
         x = torch.rand((BATCH, px, px, 3), generator=gen, device=dev) * 2 - 1
         with torch.inference_mode():
             out[tag + "round trip"] = r = time_calls(
-                tag + "round trip", lambda: vae.img_to_reconstructed_img(x), 10,
+                tag + "round trip", lambda: vae.img_to_reconstructed_img(x), iters,
                 per_call["round trip"], dev)
         y = r["out"]
         if tuple(y.shape) != (BATCH, px, px, 3) or not (
@@ -3297,7 +3455,7 @@ def main_var_paths(dev, margs: ModelArgs, tag: str, per_call: dict,
     x = torch.rand((BATCH, px, px, 3), generator=gen, device=dev) * 2 - 1
     with torch.inference_mode():
         out[tag + "img_to_idxBl"] = r = time_calls(
-            tag + "img_to_idxBl", lambda: vae.img_to_idxBl(x), 10, per_call["img_to_idxBl"],
+            tag + "img_to_idxBl", lambda: vae.img_to_idxBl(x), iters, per_call["img_to_idxBl"],
             dev)
         idx = r["out"]
         shapes = [[tuple(i.shape) for i in b] for b in idx]
@@ -3311,7 +3469,7 @@ def main_var_paths(dev, margs: ModelArgs, tag: str, per_call: dict,
 
         x_in = vae.idxBl_to_var_input(idx)
         out[tag + "VAR.forward"] = r = time_calls(
-            tag + "VAR.forward", lambda: var(labels, x_in), 10, per_call["VAR.forward"], dev)
+            tag + "VAR.forward", lambda: var(labels, x_in), iters, per_call["VAR.forward"], dev)
         logits = r["out"]
         if tuple(logits.shape) != (BATCH, var.config.L, var.config.vocab_size) or not bool(
                 torch.isfinite(logits).all()):
@@ -3329,6 +3487,7 @@ def main_train_paths(dev, margs: ModelArgs, tag: str, per_call: dict,
     a multi-scale tokenizer with VAR-d16 in bf16, ``VARTrainConfig()``
     defaults, the training masks drawn from a seeded generator on the card;
     each checked against its ``per_call`` launches."""
+    iters = 5 if tag == "512 " else 10  # the 512 px paths at 5 calls: cut for time
     vae, var = build_vae_var(margs, VAR_DEPTH, dtype_str="bfloat16",
                              generator=torch.Generator().manual_seed(SEED), device=dev)
     tr = VARTrainer(vae, var, VARTrainConfig(),
@@ -3341,7 +3500,7 @@ def main_train_paths(dev, margs: ModelArgs, tag: str, per_call: dict,
     before = [p.detach().clone() for p in var.parameters()]
     xt, lt = x[:train_batch], labels[:train_batch]
     out[tag + "train_step"] = r = time_calls(
-        tag + "train_step", lambda: tr.train_step(xt, lt), 10, per_call["train_step"], dev)
+        tag + "train_step", lambda: tr.train_step(xt, lt), iters, per_call["train_step"], dev)
     m = {k: v.item() for k, v in r.pop("out").items()}
     # every parameter with a gradient moves; empty_emb has none while token
     # dropout is off (p_drop_factor 0), and is in the no-decay group
@@ -3356,7 +3515,7 @@ def main_train_paths(dev, margs: ModelArgs, tag: str, per_call: dict,
             "each one that has a gradient")
     del before
     out[tag + "eval_step"] = r = time_calls(
-        tag + "eval_step", lambda: tr.eval_step(x, labels), 10, per_call["eval_step"], dev)
+        tag + "eval_step", lambda: tr.eval_step(x, labels), iters, per_call["eval_step"], dev)
     ev = r.pop("out")
     if sorted(ev) != ["L_mean", "L_tail", "acc_mean", "acc_tail"] or not all(
             tuple(t.shape) == (BATCH,) and bool(torch.isfinite(t).all()) for t in ev.values()):
@@ -3417,7 +3576,7 @@ def main_gan_paths(dev) -> dict:
              *(("lpips." + n, p) for n, p in tr.lpips.named_parameters()),
              *(("disc." + n, p) for n, p in tr.disc.named_parameters())]
     before = {n: p.detach().clone() for n, p in named}
-    r = time_calls("GAN train_step", lambda: tr.train_step(x), 10, gan_launches(tr), dev)
+    r = time_calls("GAN train_step", lambda: tr.train_step(x), 5, gan_launches(tr), dev)
     m = {k: v.float().mean().item() for k, v in r["out"].items()}
     changed = {n: not torch.equal(before[n], p) for n, p in named}
     trainable = {n: p.requires_grad for n, p in named}
@@ -3460,7 +3619,7 @@ def main_robusttok_paths(dev) -> dict:
              *(("disc." + n, p) for n, p in tr.disc.named_parameters())]
     before = {n: p.detach().clone() for n, p in named}
     per_call = robusttok_launches(tr)
-    r = time_calls("RobustTok train_step", lambda: tr.train_step(x, **kw), 10, per_call, dev)
+    r = time_calls("RobustTok train_step", lambda: tr.train_step(x, **kw), 5, per_call, dev)
     updates = tr.gen_opt.count
     m = {k: v.float().mean().item() for k, v in r["out"].items()}
     changed = {n: not torch.equal(before[n], p) for n, p in named}
@@ -3514,7 +3673,7 @@ def _main_step(dev, path: str, mcfg, tcfg, batch: int, launches, kw=None) -> dic
     one bit-unchanged; then the round trip of the trained tokenizer at
     B=64, timed with its launches (#1 in every ViT block, none on a CNN
     side)."""
-    iters = 5
+    iters = 3
     mcfg = dataclasses.replace(mcfg, dtype_str="bfloat16")
     tcfg = dataclasses.replace(tcfg, loss_dtype="bfloat16", lr_scheduler="none")
     tr = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED), device=dev)
@@ -3668,7 +3827,7 @@ def _time_graph_ms(fn, reps: int = 20) -> float:
 
 
 def _time_kernel(name: str, kernel, plain, library, nbytes: float, ops: float,
-                 dtype: torch.dtype, shape: str, reps: int = 20,
+                 dtype: torch.dtype, shape: str, reps: int = 10,
                  library_call: str = "one PyTorch call", timer=_time_ms) -> dict:
     """Kernel and plain version in the order plain, kernel, kernel, plain;
     then the library call (``library_call`` says what it is; None where no
@@ -3689,7 +3848,7 @@ def _time_kernel(name: str, kernel, plain, library, nbytes: float, ops: float,
             "bound_ms": b_ms, "bound_by": by}
 
 
-def _time_lse(name: str, off, on, rec: dict, reps: int = 20):
+def _time_lse(name: str, off, on, rec: dict, reps: int = 10):
     """A forward with its lse store off and on, in the order off, on, on,
     off; both means go into the kernel's record (``ms`` stays the off
     time, from ``_time_kernel``). Not in inference mode: ``on`` may be the
@@ -3908,6 +4067,22 @@ def times_bnhd_bwd_hd256(dev, gen) -> dict:
                               HD256_BATCH, HD256_HEADS)
 
 
+HD512_BATCH, HD512_HEADS = 16, 2  # a generator of hidden 1024 over 2 heads
+
+
+def times_bnhd_fwd_hd512(dev, gen) -> dict:
+    """#3 at head dim 512 (hidden 1024 over 2 heads), (16, 258, 2, 512)
+    under the causal mask: the kD = 512 FMA kernel."""
+    return _times_bnhd_fwd_at(dev, gen, "hidden 1024 / 2 heads", RAR_SEQ, True, 512,
+                              HD512_BATCH, HD512_HEADS)
+
+
+def times_bnhd_bwd_hd512(dev, gen) -> dict:
+    """#6 at head dim 512, (16, 258, 2, 512) under the causal mask."""
+    return _times_bnhd_bwd_at(dev, gen, "hidden 1024 / 2 heads", RAR_SEQ, True, 512,
+                              HD512_BATCH, HD512_HEADS)
+
+
 def times_qblk_fwd(dev, gen) -> dict:
     """#4 at VAR's 512 px teacher forcing under the block-causal bias (the
     kernel's record, and the lse store's cost), then the decoder's and the
@@ -4051,6 +4226,23 @@ def times_codebook(dev, gen) -> dict:
     return {**shapes[f"pn={PNS[-1]}"], "shapes": shapes, "encodes": encodes}
 
 
+def times_codebook_c12(dev, gen) -> dict:
+    """#9 at code width 12 (run at 16, the tiles zero-filled past 12) at the
+    last 256 px scale's N = 7744 against a 4096 x 12 codebook, cosine
+    search, as CUDA graphs of 20 calls; the bound counts the true operands."""
+    vsz, c, n = 4096, CODE_WIDTH_ENCODE, BATCH * PNS[-1] ** 2
+    cb = _l2n(torch.randn((vsz, c), generator=gen, device=dev))
+    x = _l2n(torch.randn((n, c), generator=gen, device=dev))
+    return _time_kernel(
+        f"#9 codebook_argmin, C={c} run at {codebook.kernel_width(c)}",
+        lambda: codebook.codebook_argmin(x, cb, True),
+        lambda: codebook.codebook_argmin_reference(x, cb, True),
+        lambda: torch.argmax(x @ cb.T, dim=-1),
+        (n * c + vsz * c) * 4 + n * 8, 2 * n * vsz * c, torch.float32,
+        f"x ({n}, {c}) codebook ({vsz}, {c})", library_call="x @ e.T, argmax",
+        timer=_time_graph_ms)
+
+
 TIMES = {"attention_qkv_fwd": times_qkv_fwd, "attention_qkv_bwd": times_qkv_bwd,
          "fused_attention_fwd": times_bnhd_fwd, "fused_attention_bwd": times_bnhd_bwd,
          "fused_attention_qblk_fwd": times_qblk_fwd, "fused_attention_qblk_bwd": times_qblk_bwd,
@@ -4065,9 +4257,12 @@ TIMES = {"attention_qkv_fwd": times_qkv_fwd, "attention_qkv_bwd": times_qkv_bwd,
          "fused_attention_fwd_rarxxl": times_bnhd_fwd_rarxxl,
          "fused_attention_bwd_rarxxl": times_bnhd_bwd_rarxxl,
          "fused_attention_fwd_hd256": times_bnhd_fwd_hd256,
-         "fused_attention_bwd_hd256": times_bnhd_bwd_hd256}
-# records timed at head dims 48, 80, 88 and 256, filed with their kernel's
-# record under "shapes" in the kernels line
+         "fused_attention_bwd_hd256": times_bnhd_bwd_hd256,
+         "fused_attention_fwd_hd512": times_bnhd_fwd_hd512,
+         "fused_attention_bwd_hd512": times_bnhd_bwd_hd512,
+         "codebook_argmin_c12": times_codebook_c12}
+# records timed at head dims 48, 80, 88, 256 and 512, and #9 at C = 12,
+# filed with their kernel's record under "shapes" in the kernels line
 SHAPE_TIMES = {
     "fused_attention_fwd_rarxl": ("fused_attention_fwd", "RAR-XL teacher forcing, hd 80"),
     "fused_attention_bwd_rarxl": ("fused_attention_bwd", "RAR-XL training, hd 80"),
@@ -4078,7 +4273,10 @@ SHAPE_TIMES = {
     "fused_attention_fwd_maskgit": ("fused_attention_fwd", "MaskGIT-B, no bias, hd 48"),
     "fused_attention_bwd_maskgit": ("fused_attention_bwd", "MaskGIT-B training, no bias, hd 48"),
     "fused_attention_fwd_hd256": ("fused_attention_fwd", "hidden 1024 / 4 heads, hd 256"),
-    "fused_attention_bwd_hd256": ("fused_attention_bwd", "hidden 1024 / 4 heads training, hd 256")}
+    "fused_attention_bwd_hd256": ("fused_attention_bwd", "hidden 1024 / 4 heads training, hd 256"),
+    "fused_attention_fwd_hd512": ("fused_attention_fwd", "hidden 1024 / 2 heads, hd 512"),
+    "fused_attention_bwd_hd512": ("fused_attention_bwd", "hidden 1024 / 2 heads training, hd 512"),
+    "codebook_argmin_c12": ("codebook_argmin", "C=12 run at 16, pn=11")}
 
 
 def phase_times(dev, names=tuple(TIMES)) -> dict:
@@ -4088,11 +4286,11 @@ def phase_times(dev, names=tuple(TIMES)) -> dict:
     return {name: TIMES[name](dev, gen) for name in names}
 
 
-SAME_HDS = (48, 64, 80, 128)  # the widths whose results ``same`` holds bit for bit
+SAME_HDS = (48, 64, 80, 128, 256)  # the widths whose results ``same`` holds bit for bit
 
 
 def phase_outputs(dev, path: str):
-    """Every BNHD kernel (#3-#6) at head dims 48, 64, 80 and 128 on inputs from a
+    """Every BNHD kernel (#3-#6) at head dims 48, 64, 80, 128 and 256 on inputs from a
     fixed seed, saved to ``path``: #3 with and without the causal mask and
     its lse, #6 on the wgmma backward (o and lse from #3), with dbias (its
     dq, dk and dv: dbias is summed by atomicAdd in no fixed order) and in
@@ -4212,9 +4410,10 @@ class _Stop(Exception):
 
 def _cli_train(dev, root: Path, inception: Path) -> dict:
     """``train_tokenizer.main`` on configs/RobustTok.yaml at B=64 for 4
-    steps from the PNG folder: each step's launches exactly RobustTok's
-    (#1 84, #2 48), its time; checkpoints at steps 2 and 4, the best by the
-    val rFID (one val batch of 32, the seeded Inception), the recon grids."""
+    steps from the PNG folder, at full depth: each step's launches exactly
+    RobustTok's (#1 84, #2 48), its time; checkpoints at steps 2 and 4, the
+    best by the val rFID (one val batch of 32, the seeded Inception), the
+    recon grids."""
     from imagefolder_tpu_torch.scripts import train_tokenizer
 
     out = root / "train_out"
@@ -4246,7 +4445,8 @@ def _cli_train(dev, root: Path, inception: Path) -> dict:
     ms = [t for _, t, _ in rec.steps]
     warm = statistics.median(ms[1:])  # the first step pays the first calls' set-up
     per_step = {k: v for k, v in rec.steps[0][0].items() if v}
-    print(f"[cli] train_tokenizer RobustTok.yaml B={BATCH}, {len(ms)} steps: {secs:.1f} s in "
+    print(f"[cli] train_tokenizer RobustTok.yaml (ViTs at {vit_depth()} of 12 blocks) B={BATCH}, "
+          f"{len(ms)} steps: {secs:.1f} s in "
           f"main (the trainer built, {CLI_TRAIN_PNGS} PNGs decoded by 8 workers, 2 val rFIDs, "
           f"2 grids, 3 checkpoints); steps {', '.join(f'{t:.1f}' for t in ms)} ms (median "
           f"after the first {warm:.1f} ms, {BATCH / warm * 1e3:.1f} img/s); "
@@ -4259,14 +4459,17 @@ def _cli_train(dev, root: Path, inception: Path) -> dict:
     return {"cli train_tokenizer": {"launches": totals, "ms": warm, "peak": peak}}
 
 
-def _cli_resume(dev, root: Path) -> None:
+def _cli_resume(dev, root: Path) -> Path:
     """Exact resume on the card at B=8 over the first 16 PNGs (2 steps an
-    epoch): a run stopped after its step-2 checkpoint and resumed with
-    ``--resume`` against the straight 4-step run, under
+    epoch), run under ``check_depth_cut`` (the ViTs at CHECK_TOK_DEPTH
+    blocks, full width): a run stopped after its step-2 checkpoint and
+    resumed with ``--resume`` against the straight 4-step run, under
     ``torch.use_deterministic_algorithms(True, warn_only=True)``: every
     parameter, the EMA, the discriminator's state, both optimizers' state
     and the last metrics bit-equal, or within RESUME_TOL of each tensor's
-    max abs where an op has no deterministic kernel (PyTorch warns which)."""
+    max abs where an op has no deterministic kernel (PyTorch warns which).
+    Returns the straight run's step-4 checkpoint (at that depth), which
+    the eval_reconstruction comparison reads."""
     import shutil
     import warnings
 
@@ -4304,6 +4507,8 @@ def _cli_resume(dev, root: Path) -> None:
             TokenizerTrainer.train_step = orig
             got = train_tokenizer.main(argv(root / "resumed", "--resume"))
             secs = time.perf_counter() - t0
+            kept = root / "resume_step4.pt"
+            (root / "straight" / "ckpts" / "step_00000004.pt").rename(kept)
             for run in ("straight", "resumed"):
                 shutil.rmtree(root / run)
     finally:
@@ -4330,7 +4535,8 @@ def _cli_resume(dev, root: Path) -> None:
     if got["step"] != 4 or [h["step"] for h in got["history"]] != [2, 3]:
         raise AssertionError(f"[cli] resume ran steps {[h['step'] for h in got['history']]}")
     worst = max(errs, key=errs.get) if errs else None
-    print(f"[cli] exact resume B={CLI_RESUME_BATCH} (2 steps, stop, --resume to 4, against 4 "
+    print(f"[cli] exact resume B={CLI_RESUME_BATCH}, ViTs at {CHECK_TOK_DEPTH} of 12 blocks "
+          f"(2 steps, stop, --resume to 4, against 4 "
           f"straight; three runs in {secs:.1f} s): {equal} of {len(pairs)} tensors "
           + ("bit-equal" if not errs else
              f"bit-equal, the rest within {errs[worst]:.3e} of their max abs (worst {worst}; "
@@ -4339,6 +4545,7 @@ def _cli_resume(dev, root: Path) -> None:
     if errs:
         _check(f"[cli] resume {worst}", errs[worst], RESUME_TOL)
     del want, got, a, b
+    return kept
 
 
 class Clock:
@@ -4375,8 +4582,8 @@ def _inception_clock() -> Clock:
     return Clock(InceptionV3, "forward")
 
 
-def _cli_eval_card(dev, path: str, argv: list, batches: int, per_batch: dict, images: int,
-                   lockstep=None) -> tuple:
+def _cli_eval_card(dev, path: str, argv: list, batches: int, per_batch: dict,
+                   images: int) -> tuple:
     """``eval_reconstruction.main`` on the card with the counters set to 0
     just before and read just after, its time, Inception's share, its peak."""
     from imagefolder_tpu_torch.scripts import eval_reconstruction
@@ -4388,8 +4595,7 @@ def _cli_eval_card(dev, path: str, argv: list, batches: int, per_batch: dict, im
     rec_owner, rec_name = ((eval_reconstruction, "rec_perturbed") if "--perturb" in argv
                            else (VQModel, "img_to_reconstructed_img"))
     with _inception_clock() as incep, Clock(rec_owner, rec_name) as rec:
-        run = (lambda: eval_reconstruction.main(argv))
-        out = lockstep.on_card(run) if lockstep is not None else run()
+        out = eval_reconstruction.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = check_launches(f"cli {path}", batches, per_batch)
@@ -4410,58 +4616,72 @@ def _cli_eval_card(dev, path: str, argv: list, batches: int, per_batch: dict, im
                  "inception_s": incep.secs}
 
 
-def _cli_eval(dev, root: Path, inception: Path) -> dict:
-    """``eval_reconstruction.main``: on the trained checkpoint (its EMA) in
-    fp32, on the card against ``device="cpu"`` over 8 val images with the
-    codes in lockstep (PSNR, SSIM within 1e-4, both image sets' pool3
-    within 1e-3 of their max), then with ``--perturb`` on the card over the
-    32 val images (#1 36 a batch: ``encode`` and ``_branch_fhats`` each
-    encode); and on MSVR10P2-4096.yaml with a weight file that
-    ``hub.save_pretrained_weight`` wrote from a seeded model (#1 24, #9 20 a
-    batch)."""
+def _cli_eval_compare(root: Path, inception: Path, ckpt: Path) -> None:
+    """``eval_reconstruction.main`` card against ``device="cpu"`` in fp32
+    on the checkpoint ``ckpt`` (its EMA; a fp32 check for the depth cut that
+    its caller applies) over 8 val images with the codes in lockstep: PSNR
+    and SSIM within 1e-4, both image sets' pool3 within 1e-3 of their max."""
     from imagefolder_tpu_torch.scripts import eval_reconstruction
-    from imagefolder_tpu_torch.utils import hub
 
-    ckpt = root / "train_out" / "ckpts" / "step_00000004.pt"
-    base = ["--config", str(ROBUSTTOK_YAML), "--vq_ckpt", str(ckpt), "--val_data",
-            str(root / "val"), "--inception_ckpt", str(inception)]
-    cmp = base + ["--batch_size", str(CLI_COMPARE_IMAGES), "--max_images",
-                  str(CLI_COMPARE_IMAGES)]
+    cmp = ["--config", str(ROBUSTTOK_YAML), "--vq_ckpt", str(ckpt), "--val_data",
+           str(root / "val"), "--inception_ckpt", str(inception), "--batch_size",
+           str(CLI_COMPARE_IMAGES), "--max_images", str(CLI_COMPARE_IMAGES)]
     codes = _single_vq_lockstep()
     t0 = time.perf_counter()
     cpu = codes.on_cpu(lambda: eval_reconstruction.main(cmp, device="cpu"))
     cpu_secs = time.perf_counter() - t0
-    vit = {"attention_qkv_fwd": 2 * VIT_DEPTH}
-    card, plain = _cli_eval_card(dev, "eval_reconstruction", cmp, 1, vit, CLI_COMPARE_IMAGES,
-                                 codes)
+    card = codes.on_card(lambda: eval_reconstruction.main(cmp))
     errs = {k: abs(card[k] - cpu[k]) for k in ("psnr", "ssim")}
     feats = {k: _max_err(torch.from_numpy(card[k]), torch.from_numpy(cpu[k]))
              / float(abs(cpu[k]).max()) for k in ("feats_real", "feats_fake")}
-    print(f"[cli] eval_reconstruction card vs CPU ({cpu_secs:.1f} s on the CPU), fp32, "
-          f"{CLI_COMPARE_IMAGES} images: PSNR {card['psnr']:.6f} vs {cpu['psnr']:.6f}, SSIM "
-          f"{card['ssim']:.6f} vs {cpu['ssim']:.6f} (tol 1e-4); pool3 of the images "
-          f"{feats['feats_real']:.3e} and of the reconstructions {feats['feats_fake']:.3e} of "
-          f"their max (tol 1e-3); rFID {card['rfid']:.4f} vs {cpu['rfid']:.4f}; SingleVQ codes "
+    print(f"[cli] eval_reconstruction card vs CPU (ViTs at {vit_depth()} of 12 blocks; "
+          f"{cpu_secs:.1f} s on the CPU), fp32, {CLI_COMPARE_IMAGES} images: PSNR "
+          f"{card['psnr']:.6f} vs {cpu['psnr']:.6f}, SSIM {card['ssim']:.6f} vs "
+          f"{cpu['ssim']:.6f} (tol 1e-4); pool3 of the images {feats['feats_real']:.3e} and of "
+          f"the reconstructions {feats['feats_fake']:.3e} of their max (tol 1e-3); rFID "
+          f"{card['rfid']:.4f} vs {cpu['rfid']:.4f}; SingleVQ codes "
           f"{codes.compared - codes.flips}/{codes.compared} equal (max near-tie gap "
           f"{codes.max_gap:.3e})")
     for k, e in errs.items():
         _check(f"[cli] eval_reconstruction {k} card vs CPU", e, 1e-4)
     for k, e in feats.items():
         _check(f"[cli] eval_reconstruction {k} card vs CPU", e, 1e-3)
-    per = ["--batch_size", str(CLI_VAL_PNGS), "--perturb", "1.0", "0.1", "100"]
-    _, perturbed = _cli_eval_card(dev, "eval_reconstruction --perturb", base + per, 1,
-                                  {"attention_qkv_fwd": 3 * VIT_DEPTH}, CLI_VAL_PNGS)
-    mcfg, _, _ = load_tokenizer_config(str(MSVR_YAML), {"dtype_str": "float32"})
-    weights = hub.save_pretrained_weight(
-        root / "msvr.safetensors",
-        VQModel(mcfg, generator=torch.Generator().manual_seed(SEED), device="cpu"))
-    _, msvr = _cli_eval_card(
+
+
+def _cli_eval(dev, root: Path, inception: Path, ckpt: Path, msvr: Path) -> dict:
+    """``eval_reconstruction.main`` on the card at full depth: on the
+    trained checkpoint ``ckpt`` (its EMA) over the 32 val images, PSNR and
+    SSIM (#1 24 a batch; no Inception: each FID costs the host a 2048-wide
+    ``sqrtm``, and the comparison and the next run take one), then with
+    ``--perturb`` and the seeded Inception (pfid; #1 36 a batch: ``encode``
+    and ``_branch_fhats`` each encode); and on MSVR10P2-4096.yaml with the
+    weight file ``msvr`` that ``hub.save_pretrained_weight`` wrote from a
+    seeded model (#1 24, #9 20 a batch)."""
+    base = ["--config", str(ROBUSTTOK_YAML), "--vq_ckpt", str(ckpt), "--val_data",
+            str(root / "val"), "--batch_size", str(CLI_VAL_PNGS)]
+    _, plain = _cli_eval_card(dev, "eval_reconstruction", base, 1,
+                              {"attention_qkv_fwd": 2 * vit_depth()}, CLI_VAL_PNGS)
+    _, perturbed = _cli_eval_card(dev, "eval_reconstruction --perturb",
+                                  base + ["--inception_ckpt", str(inception), "--perturb", "1.0",
+                                          "0.1", "100"], 1,
+                                  {"attention_qkv_fwd": 3 * vit_depth()}, CLI_VAL_PNGS)
+    _, msvr_rec = _cli_eval_card(
         dev, "eval_reconstruction MSVR10P2-4096", ["--config", str(MSVR_YAML), "--vq_ckpt",
-                                                   str(weights), "--val_data", str(root / "val"),
+                                                   str(msvr), "--val_data", str(root / "val"),
                                                    "--batch_size", str(CLI_VAL_PNGS)],
-        1, {"attention_qkv_fwd": 2 * VIT_DEPTH, "codebook_argmin": 2 * len(PNS)}, CLI_VAL_PNGS)
+        1, {"attention_qkv_fwd": 2 * vit_depth(), "codebook_argmin": 2 * len(PNS)}, CLI_VAL_PNGS)
     return {"cli eval_reconstruction": plain, "cli eval_reconstruction --perturb": perturbed,
-            "cli eval_reconstruction MSVR10P2-4096": msvr}
+            "cli eval_reconstruction MSVR10P2-4096": msvr_rec}
+
+
+def _seeded_weights(path: Path, yaml_path: Path) -> Path:
+    """A weight file that ``hub.save_pretrained_weight`` writes from a
+    tokenizer of ``yaml_path`` drawn from SEED (at the depth in force)."""
+    from imagefolder_tpu_torch.utils import hub
+
+    mcfg, _, _ = load_tokenizer_config(str(yaml_path), {"dtype_str": "float32"})
+    return hub.save_pretrained_weight(
+        path, VQModel(mcfg, generator=torch.Generator().manual_seed(SEED), device="cpu"))
 
 
 def _cli_fid(dev, root: Path, inception: Path) -> dict:
@@ -4504,17 +4724,31 @@ def _cli_fid(dev, root: Path, inception: Path) -> dict:
 
 
 def main_cli_paths(dev) -> dict:
-    """The tokenizer's CLIs on the card from the shell's entry points
-    (``main(argv)``), in a temporary directory: 128 train and 32 val PNGs
-    (256 px, seed 0) and a seeded Inception ``.pth``; then
-    ``train_tokenizer`` (``_cli_train``), its exact resume
-    (``_cli_resume``), ``eval_reconstruction`` (``_cli_eval``) and
-    ``evaluate_fid`` (``_cli_fid``)."""
+    """The tokenizer's and the generators' CLIs on the card from the shell's
+    entry points (``main(argv)``), in a temporary directory: 128 train and
+    32 val PNGs (256 px, seed 0) and a seeded Inception ``.pth``. At full
+    depth: ``train_tokenizer`` (``_cli_train``), ``eval_reconstruction``
+    (``_cli_eval``), ``evaluate_fid`` (``_cli_fid``), ``pretokenize`` and the
+    RAR and MaskGIT CLIs (``_gen_pretokenize``, ``_gen_rar``), the VAR CLIs
+    (``_gen_var``) and ``export_weights`` (``_gen_export``). Under
+    ``check_depth_cut`` (the tokenizers' ViTs at CHECK_TOK_DEPTH of their 12
+    blocks, widths kept: a depth cut for time of the checks whose CPU side
+    or three runs set the phase's time): the exact resume
+    (``_cli_resume``), ``eval_reconstruction`` card against CPU
+    (``_cli_eval_compare``) and ``pretokenize --crop_mode ten_crop`` card
+    against CPU (``_TenCrop``)."""
     import tempfile
 
     from imagefolder_tpu_torch.eval.inception import InceptionV3
 
-    with tempfile.TemporaryDirectory(prefix="imagefolder_cli_") as tmp:
+    start = time.perf_counter()
+
+    def lap(what: str):
+        print(f"[time] cli: {what} done at {time.perf_counter() - start:.1f} s of the phase; "
+              f"{saves.report()}")
+
+    with tempfile.TemporaryDirectory(prefix="imagefolder_cli_") as tmp, \
+            _SaveLoadClock() as saves:
         root = Path(tmp)
         t0 = time.perf_counter()
         _write_pngs(root / "train", CLI_TRAIN_PNGS, SEED)
@@ -4524,14 +4758,590 @@ def main_cli_paths(dev) -> dict:
                                device="cpu").state_dict(), inception)
         print(f"[cli] {CLI_TRAIN_PNGS} train and {CLI_VAL_PNGS} val PNGs and a seeded "
               f"Inception written in {time.perf_counter() - t0:.1f} s")
+        (root / "gen").mkdir()
         paths = _cli_train(dev, root, inception)
+        lap("train_tokenizer")
         # checkpoints are gigabytes: keep only the one evaluated below
         for old in ("best.pt", "ckpts/step_00000002.pt"):
             (root / "train_out" / old).unlink()
-        _cli_resume(dev, root)
-        paths.update(_cli_eval(dev, root, inception))
-        paths.update(_cli_fid(dev, root, inception))
+        ckpt = root / "train_out" / "ckpts" / "step_00000004.pt"
+        # evaluate_fid (two host sqrtm) in a process of its own, beside the checks
+        with _Child("evaluate_fid", root, inception) as fid, check_depth_cut():
+            ten_crop = _TenCrop(root, _seeded_weights(root / "gen" / "robusttok_cut.safetensors",
+                                                      ROBUSTTOK_YAML))
+            cut_ckpt = _cli_resume(dev, root)
+            lap("the resume")
+            _cli_eval_compare(root, inception, cut_ckpt)
+            ten_crop.finish()  # the CPU thread builds its tokenizer under this cut
+            cut_ckpt.unlink()
+            lap("the eval_reconstruction and ten-crop comparisons")
+            paths.update(fid.finish())
+        lap("evaluate_fid (its process joined)")
+        msvr = _seeded_weights(root / "gen" / "msvr_full.safetensors", MSVR_YAML)
+        paths.update(_cli_eval(dev, root, inception, ckpt, msvr))
+        lap("eval_reconstruction")
+        gen, tok = _gen_pretokenize(dev, root, ckpt)
+        paths.update(gen)
+        lap("export_weights vqmodel, pretokenize")
+        rar_paths, rar_ckpt = _gen_rar(dev, root, tok, root / "gen" / "toks.jsonl")
+        paths.update(rar_paths)
+        lap("train_rar, its resume, MaskGIT, sample_rar")
+        var_paths, var_ckpt = _gen_var(dev, root, inception, msvr)
+        paths.update(var_paths)
+        lap("train_var, its resume, sample_var")
+        _gen_export(root, rar_ckpt, var_ckpt)
+        lap("export_weights rar, var")
     return paths
+
+
+class _SaveLoadClock:
+    """While in use, the seconds and bytes of every ``torch.save`` and
+    ``torch.load`` (the CLIs' checkpoints and ``.bin`` files), for the
+    CLI phase's breakdown."""
+
+    def __enter__(self):
+        self.orig = torch.save, torch.load
+        self.n, self.secs = [0, 0], [0.0, 0.0]
+
+        def clocked(i, fn):
+            def call(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.n[i] += 1
+                    self.secs[i] += time.perf_counter() - t
+            return call
+
+        torch.save, torch.load = clocked(0, self.orig[0]), clocked(1, self.orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        torch.save, torch.load = self.orig
+
+    def report(self) -> str:
+        return (f"torch.save {self.n[0]} calls {self.secs[0]:.1f} s, torch.load {self.n[1]} "
+                f"calls {self.secs[1]:.1f} s so far")
+
+# ---------------- the generator CLIs ---------------- #
+
+GEN_STEPS = 4                 # train_rar and train_var: 2 epochs of 2 steps at B=64
+TEN_CROP_PNGS = 8             # pretokenize --crop_mode ten_crop, card against CPU
+GEN_SAMPLES = 64              # each sampler's npz
+RAR_STEP = {"fused_attention_fwd": 24, "fused_attention_bwd": 24}  # RAR-B and MaskGIT-B
+
+
+class CallRecorder:
+    """Wraps ``owner.name`` while in use: every call runs with the launch
+    counters set to 0 just before and read just after, timed between CUDA
+    events (synchronised, so that the next call's counts are its own)."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.orig = owner, name, getattr(owner, name)
+        self.calls = []
+
+    def __enter__(self):
+        orig = self.orig
+
+        def call(*a, **k):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            reset_counts()
+            start.record()
+            out = orig(*a, **k)
+            end.record()
+            torch.cuda.synchronize()
+            self.calls.append((read_counts(), start.elapsed_time(end)))
+            return out
+
+        setattr(self.owner, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def _gen_main(path: str, fn, per_call: dict, owner=None, name: str = "train_step",
+              batch: int = BATCH, what: str = "steps"):
+    """``fn()`` (a CLI's ``main``) on the card: its seconds and peak memory,
+    and, with ``owner``, every call of ``owner.name`` held to ``per_call``
+    launches and timed; else the whole call held to ``per_call``. Prints the
+    path's line; returns (fn's result, the path's record)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    if owner is None:
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = check_launches(f"gen-cli {path}", 1, per_call)
+        ms = []
+    else:
+        with CallRecorder(owner, name) as rec:
+            out = fn()
+        secs = time.perf_counter() - t0
+        want = {k: per_call.get(k, 0) for k in COUNTERS}
+        for i, (got, _) in enumerate(rec.calls):
+            if got != want:
+                raise AssertionError(f"[gen-cli] {path} {what[:-1]} {i}: launches {got}, "
+                                     f"want {want}")
+        if not rec.calls:
+            raise AssertionError(f"[gen-cli] {path}: no {name} call")
+        launches = {k: sum(c[0][k] for c in rec.calls) for k in COUNTERS}
+        ms = [t for _, t in rec.calls]
+    peak = torch.cuda.max_memory_allocated()
+    shown = ""
+    med = None
+    if ms:
+        warm = ms[1:] or ms  # the first call pays its first kernels' set-up
+        med = statistics.median(warm)
+        shown = (f"; {what} {', '.join(f'{t:.1f}' for t in ms)} ms (after the first: median "
+                 f"{med:.1f}, min {min(warm):.1f}, max {max(warm):.1f}; {batch / med * 1e3:.1f} "
+                 f"img/s)")
+    print(f"[gen-cli] {path}: {secs:.1f} s in main{shown}; peak {peak / 2**30:.2f} GiB "
+          f"allocated; launches {dict((k, v) for k, v in launches.items() if v)}"
+          + (" per call" if ms else "") + f"; {CARD}")
+    return out, {"launches": launches, "s": secs, "ms": med, "steps_ms": ms, "peak": peak}
+
+
+def _export_check(kind: str, src: Path, dst: Path, extra: list, build) -> Path:
+    """``export_weights --kind kind`` of ``src`` to ``dst``: the written file
+    loaded back into ``build()`` with strict=True, every tensor equal to the
+    source's. Returns the weight file written."""
+    from imagefolder_tpu_torch.scripts import export_weights
+    from imagefolder_tpu_torch.scripts._cli import checkpoint_weights
+    from imagefolder_tpu_torch.utils.hub import load_state_dict_file
+
+    t0 = time.perf_counter()
+    export_weights.main(["--kind", kind, "--ckpt", str(src), "--out", str(dst), *extra])
+    secs = time.perf_counter() - t0
+    written = dst / "model.safetensors" if dst.is_dir() else dst
+    sd = load_state_dict_file(written)
+    model = build()
+    model.load_state_dict(sd, strict=True)
+    want = checkpoint_weights(src, use_ema="--use_ema" in extra)
+    back = model.state_dict()
+    bad = [k for k, v in want.items() if not torch.equal(back[k], v)]
+    if bad or set(back) != set(want):
+        raise AssertionError(f"[gen-cli] export_weights {kind}: {bad[:3]}")
+    note = f", config.json {json.loads((dst / 'config.json').read_text())}" if dst.is_dir() else ""
+    print(f"[gen-cli] export_weights --kind {kind} {' '.join(extra)} -> {written.name}: "
+          f"{secs:.1f} s, {len(sd)} tensors loaded back with strict=True, all equal to the "
+          f"source's{note}")
+    return written
+
+
+def _gen_pretokenize(dev, root: Path, ckpt: Path) -> tuple:
+    """``export_weights --kind vqmodel --use_ema`` of the trained RobustTok
+    checkpoint (its EMA as a 1 GB weight file, which the generator CLIs read
+    in place of the 4.3 GB checkpoint: the same weights; the checkpoint is
+    deleted after); then ``pretokenize`` (center + flip) from that file over
+    the 128 train PNGs at B=64, fp32 (#1 12 a batch, 4 batches). Returns
+    (paths, the weight file)."""
+    from imagefolder_tpu_torch.scripts import pretokenize
+
+    mcfg, _, _ = load_tokenizer_config(str(ROBUSTTOK_YAML))
+    weights = _export_check("vqmodel", ckpt, root / "gen" / "robusttok.safetensors",
+                            ["--config", str(ROBUSTTOK_YAML), "--use_ema"],
+                            lambda: VQModel(mcfg, device="cpu"))
+    ckpt.unlink()  # 4.3 GB: nothing reads it after this
+    out = root / "gen" / "toks.jsonl"
+    r, rec = _gen_main("pretokenize", lambda: pretokenize.main(
+        ["--config", str(ROBUSTTOK_YAML), "--batch_size", str(BATCH), "--vq_ckpt", str(weights),
+         "--data_path", str(root / "train"), "--output", str(out)]),
+        {"attention_qkv_fwd": vit_depth()}, VQModel, "encode_to_tokens", what="batches")
+    rows = [json.loads(line) for line in out.read_text().splitlines()]
+    if not (r["rows"] == len(rows) == 2 * CLI_TRAIN_PNGS and r["batches"] == 4
+            and all(len(x["tokens"]) == 256 and 0 <= min(x["tokens"]) and max(x["tokens"]) < 4096
+                    for x in rows)):
+        raise AssertionError(f"[gen-cli] pretokenize wrote {len(rows)} rows, {r}")
+    return {"cli pretokenize": rec}, weights
+
+
+class _TenCrop:
+    """``pretokenize --crop_mode ten_crop`` over 8 train PNGs in fp32 from the
+    RobustTok weight file ``weights``, card against CPU: the CPU's run in a
+    thread of its own (started here, so that its host work overlaps the
+    card's next checks), the card's at once. ``finish()`` joins and
+    compares the two JSONL files: equal, or else the two runs are made
+    again in lockstep (SingleVQ's codes replayed, ``_single_vq_lockstep``),
+    where only near-ties may differ."""
+
+    def __init__(self, root: Path, weights: Path):
+        import shutil
+        import threading
+
+        from imagefolder_tpu_torch.scripts import pretokenize
+
+        sub = root / "train8" / "class_0"
+        sub.mkdir(parents=True)
+        for p in sorted((root / "train").rglob("*.png"))[:TEN_CROP_PNGS]:
+            shutil.copy(p, sub / p.name)
+        argv = ["--config", str(ROBUSTTOK_YAML), "--batch_size", str(BATCH), "--vq_ckpt",
+                str(weights), "--data_path", str(root / "train8"), "--crop_mode", "ten_crop"]
+        self.root, self.argv, self.error, self.cpu_secs = root, argv, None, 0.0
+        self.cpu_out, self.card_out = root / "gen" / "tc_cpu.jsonl", root / "gen" / "tc.jsonl"
+
+        def cpu_run():
+            try:
+                t0 = time.perf_counter()
+                pretokenize.main([*argv, "--output", str(self.cpu_out)], device="cpu")
+                self.cpu_secs = time.perf_counter() - t0
+            except BaseException as e:  # re-raised by finish() on the main thread
+                self.error = e
+
+        self.thread = threading.Thread(target=cpu_run, daemon=True)
+        self.thread.start()
+        pretokenize.main([*argv, "--output", str(self.card_out)])
+
+    def finish(self):
+        from imagefolder_tpu_torch.scripts import pretokenize
+
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        a, b = self.cpu_out.read_text(), self.card_out.read_text()
+        rows = len(a.splitlines())
+        if rows != 10 * TEN_CROP_PNGS:
+            raise AssertionError(f"[gen-cli] pretokenize ten_crop wrote {rows} rows")
+        tokens = sum(len(json.loads(line)["tokens"]) for line in a.splitlines())
+        note = f"{tokens}/{tokens} equal"
+        if a != b:  # then hold the differences to near-ties, in lockstep
+            codes = _single_vq_lockstep()
+            codes.on_cpu(lambda: pretokenize.main([*self.argv, "--output", str(self.cpu_out)],
+                                                  device="cpu"))
+            codes.on_card(lambda: pretokenize.main([*self.argv, "--output",
+                                                    str(self.card_out)]))
+            note = (f"{codes.compared - codes.flips}/{codes.compared} equal in lockstep (max "
+                    f"near-tie gap {codes.max_gap:.3e}, tol {NEAR_TIE:g})")
+        print(f"[gen-cli] pretokenize --crop_mode ten_crop, {TEN_CROP_PNGS} PNGs "
+              f"({10 * TEN_CROP_PNGS} crops) card vs CPU (ViTs at {vit_depth()} of 12 blocks; "
+              f"{self.cpu_secs:.1f} s on the CPU, in a thread beside the card's checks), fp32: "
+              f"tokens {note}")
+
+
+def _rar_tensors(tr) -> dict:
+    out = {f"model.{k}": v for k, v in tr.rar.state_dict().items()}
+    out.update({f"ema.{k}": v for k, v in tr.ema_state_dict().items()})
+    for i, st in tr.opt.opt.state_dict()["state"].items():
+        out.update({f"opt.{i}.{k}": v for k, v in st.items() if torch.is_tensor(v)})
+    return out
+
+
+def _var_tensors(tr) -> dict:
+    out = {f"model.{k}": v for k, v in tr.var.state_dict().items()}
+    for i, st in tr.opt.opt.state_dict()["state"].items():
+        out.update({f"opt.{i}.{k}": v for k, v in st.items() if torch.is_tensor(v)})
+    return out
+
+
+def _resume_check(what: str, run, stop, tensors, count, tmp_root: Path) -> None:
+    """Exact resume on the card: ``run(out)`` straight, then stopped by
+    ``stop`` (a context that raises _Stop after the step-2 checkpoint) and
+    run again (the CLI resumes), under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: every
+    tensor of ``tensors(trainer)`` and the last metrics bit-equal, or within
+    RESUME_TOL of the tensor's max abs where an op had no deterministic
+    kernel (PyTorch warns which)."""
+    import shutil
+    import tempfile
+    import warnings
+
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    tmp = Path(tempfile.mkdtemp(prefix="resume_", dir=tmp_root))
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            want = run(tmp / "straight")
+            with stop():
+                try:
+                    run(tmp / "resumed")
+                except _Stop:
+                    pass
+            got = run(tmp / "resumed")
+            secs = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(det)
+        shutil.rmtree(tmp)
+    a, b = tensors(want["trainer"]), tensors(got["trainer"])
+    if set(a) != set(b) or count(want["trainer"]) != count(got["trainer"]):
+        raise AssertionError(f"[gen-cli] {what} resume: the trainers differ in shape")
+    pairs = [(k, a[k], b[k]) for k in a]
+    pairs += [(f"metric.{k}", v, got["metrics"][k]) for k, v in want["metrics"].items()]
+    equal = sum(torch.equal(p, q) for _, p, q in pairs)
+    errs = {n: ((p.float() - q.float()).abs().max() / p.float().abs().max().clamp_min(1e-30)
+                ).item() for n, p, q in pairs if not torch.equal(p, q)}
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    worst = max(errs, key=errs.get) if errs else None
+    print(f"[gen-cli] {what} exact resume (2 steps, stop, rerun to {GEN_STEPS}, against "
+          f"{GEN_STEPS} straight; three runs in {secs:.1f} s): {equal} of {len(pairs)} tensors "
+          + ("bit-equal" if not errs else
+             f"bit-equal, the rest within {errs[worst]:.3e} of their max abs (worst {worst}; "
+             f"tol {RESUME_TOL:g}), as ops without a deterministic CUDA kernel ran: {nondet}")
+          + f"; {CARD}")
+    if errs:
+        _check(f"[gen-cli] {what} resume {worst}", errs[worst], RESUME_TOL)
+
+
+@contextlib.contextmanager
+def _stop_after(owner, count):
+    """While in use, ``owner.train_step`` raises _Stop once ``count(trainer)``
+    reaches 2."""
+    orig = owner.train_step
+
+    def step(tr, *a, **k):
+        if count(tr) == 2:
+            raise _Stop
+        return orig(tr, *a, **k)
+
+    owner.train_step = step
+    try:
+        yield
+    finally:
+        owner.train_step = orig
+
+
+def _gen_rar(dev, root: Path, tok_weights: Path, jsonl: Path) -> dict:
+    """``train_rar`` RAR-B (768 wide, 24 blocks, 16 heads of 48) at B=64 for 4
+    steps on the JSONL, checkpoints at 2 and 4, an EMA preview at 4 (#3 24
+    with lse and #6 24 a step); its exact resume at RAR-B's width over
+    CHECK_RAR_DEPTH blocks without previews; ``train_rar --model maskgit``
+    (MaskGIT-B, bert) for 2 steps with a preview at 2; then ``sample_rar``
+    of each (64 samples, B=64): RAR-B with CFG 16 and the bf16 cache, then
+    the RobustTok decode (#1 12); MaskGIT (#3 384, then #1 12)."""
+    from imagefolder_tpu_torch.scripts import sample_rar, train_rar
+
+    tok = ["--config", str(ROBUSTTOK_YAML), "--vq_ckpt", str(tok_weights)]
+    common = ["--jsonl", str(jsonl), "--batch_size", str(BATCH), "--log_every", "2"]
+    out = root / "gen" / "rar"
+    r, rec = _gen_main("train_rar RAR-B", lambda: train_rar.main(
+        [*common, *tok, "--total_steps", str(GEN_STEPS), "--ckpt_every", "2",
+         "--generate_every", str(GEN_STEPS), "--output", str(out)]), RAR_STEP, RARTrainer)
+    if not (r["ckpt"].steps() == [2, GEN_STEPS] and len(r["previews"]) == 1
+            and r["previews"][0].exists()
+            and all(math.isfinite(float(v)) for v in r["metrics"].values())):
+        raise AssertionError(f"[gen-cli] train_rar: checkpoints {r['ckpt'].steps()}, previews "
+                             f"{r['previews']}, metrics {r['metrics']}")
+    paths = {"cli train_rar": rec}
+    rar_ckpt = out / "ckpts" / f"step_{GEN_STEPS:08d}.pt"
+    (out / "ckpts" / "step_00000002.pt").unlink()
+    del r
+
+    def rar_run(o):
+        return train_rar.main([*common, "--depth", str(CHECK_RAR_DEPTH), "--total_steps",
+                               str(GEN_STEPS), "--ckpt_every", "2", "--output", str(o)])
+
+    _resume_check(f"train_rar RAR-B width, {CHECK_RAR_DEPTH} of 24 blocks", rar_run,
+                  lambda: _stop_after(RARTrainer, lambda tr: tr.step), _rar_tensors,
+                  lambda tr: tr.step, root / "gen")
+    mg_out = root / "gen" / "maskgit"
+    r, paths["cli train_rar --model maskgit"] = _gen_main(
+        "train_rar --model maskgit MaskGIT-B", lambda: train_rar.main(
+            [*common, *tok, "--model", "maskgit", "--total_steps", "2", "--ckpt_every", "2",
+             "--generate_every", "2", "--output", str(mg_out)]), RAR_STEP, MaskGITTrainer)
+    if not (r["ckpt"].steps() == [2] and len(r["previews"]) == 1 and r["previews"][0].exists()):
+        raise AssertionError(f"[gen-cli] train_rar --model maskgit: {r['ckpt'].steps()}")
+    del r
+    mg_ckpt = mg_out / "ckpts" / "step_00000002.pt"
+    for model, path, per in (
+            ("rar", rar_ckpt, {"attention_qkv_fwd": vit_depth()}),
+            ("maskgit", mg_ckpt, {"attention_qkv_fwd": vit_depth(),
+                                  "fused_attention_fwd": 2 * MASKGIT_STEPS * 24})):
+        npz = root / "gen" / f"{model}.npz"
+        s, paths[f"cli sample_rar {model}"] = _gen_main(
+            f"sample_rar --model {model}", lambda: sample_rar.main(
+                [*tok, "--rar_ckpt", str(path), "--model", model, "--num_samples",
+                 str(GEN_SAMPLES), "--batch_size", str(BATCH), "--output", str(npz)]), per,
+            batch=GEN_SAMPLES)
+        arr = np.load(npz)["arr_0"]
+        if not (arr.shape == (GEN_SAMPLES, 256, 256, 3) and arr.dtype == np.uint8
+                and np.array_equal(arr, s["samples"]) and arr.std() > 0):
+            raise AssertionError(f"[gen-cli] sample_rar {model}: {arr.shape} {arr.dtype}")
+    mg_ckpt.unlink()
+    return paths, rar_ckpt
+
+
+def _msvr_yaml(root: Path) -> Path:
+    """configs/MSVR10P2-4096.yaml with the PNG tree as its data and val
+    splits (train_var reads them from the YAML, as the JAX CLI does)."""
+    import yaml
+
+    cfg = yaml.safe_load(MSVR_YAML.read_text())
+    cfg.update(data_path=str(root / "train"), val_data_path=str(root / "val"))
+    path = root / "gen" / "msvr.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def _gen_var(dev, root: Path, inception: Path, weights: Path) -> dict:
+    """``train_var`` on MSVR10P2-4096 (``weights``: a weight file of a seeded
+    full-depth tokenizer, written through ``hub``) with VAR-d16 at B=64 for 4 steps (2
+    epochs), ``--eval_every 2`` over the 32 val PNGs (``var_eval_ep``, the
+    CFG preview, ``best.pt``), its checkpoint at the end (#1 12, #9 20, #3
+    16, #6 16 a step); its exact resume at VAR-d16's width over
+    CHECK_VAR_DEPTH blocks with a seeded tokenizer file at CHECK_TOK_DEPTH
+    (``check_depth_cut``), without evals; ``sample_var`` of 64 samples
+    at B=64 (#3 160, #1 12), then again with ``--ref_npz`` (the
+    evaluate_fid reference batch) through the seeded Inception."""
+    from imagefolder_tpu_torch.scripts import sample_var, train_var
+
+    cfg = _msvr_yaml(root)
+    common = ["--config", str(cfg), "--depth", str(VAR_DEPTH), "--batch_size", str(BATCH),
+              "--epochs", str(GEN_STEPS // 2), "--log_every", "2"]
+    out = root / "gen" / "var"
+    # the run's checkpoint at its end only (the resume below checks one mid-run)
+    r, rec = _gen_main("train_var MSVR10P2-4096 + VAR-d16", lambda: train_var.main(
+        [*common, "--vq_ckpt", str(weights), "--ckpt_every", "1000", "--eval_every", "2",
+         "--val_batches", "1", "--output", str(out)]), LAUNCHES_256["train_step"], VARTrainer)
+    evs = r["evals"]
+    if not (r["step"] == GEN_STEPS and r["ckpt"].steps() == [GEN_STEPS]
+            and [s for s, _ in evs] == [2, 4] and len(r["previews"]) == 2
+            and (out / "best.pt").exists()
+            and all(math.isfinite(v) for _, e in evs for v in e.values())):
+        raise AssertionError(f"[gen-cli] train_var: {r['ckpt'].steps()}, evals {evs}")
+    print(f"[gen-cli] train_var evals: " + "; ".join(
+        f"step {s}: L_mean {e['val_L_mean']:.4f}, L_tail {e['val_L_tail']:.4f}, acc "
+        f"{e['val_acc_mean']:.2f}/{e['val_acc_tail']:.2f} over {e['val_tot']}" for s, e in evs))
+    paths = {"cli train_var": rec}
+    var_ckpt = out / "ckpts" / f"step_{GEN_STEPS:08d}.pt"
+    (out / "best.pt").unlink()
+    del r
+    # sample_var --ref_npz (its FID: two host sqrtm) in a process of its own,
+    # beside the resume and sample_var
+    with _Child("sample_var_ref", root, inception, weights, var_ckpt) as ref:
+        # the resume at full width on fewer blocks: the tokenizer at
+        # CHECK_TOK_DEPTH blocks (a seeded weight file of that depth), VAR-d16's
+        # 1024-wide blocks at CHECK_VAR_DEPTH of 16
+        import imagefolder_tpu_torch.models as models_mod
+
+        with check_depth_cut():
+            cut = _seeded_weights(root / "gen" / "msvr_cut.safetensors", MSVR_YAML)
+        var_config = models_mod.VARConfig
+
+        def var_run(o):
+            models_mod.VARConfig = lambda **kw: var_config(**{**kw, "depth": CHECK_VAR_DEPTH})
+            try:
+                with check_depth_cut():
+                    return train_var.main([*common, "--vq_ckpt", str(cut), "--ckpt_every", "2",
+                                           "--val_data_path", "", "--output", str(o)])
+            finally:
+                models_mod.VARConfig = var_config
+
+        _resume_check(f"train_var VAR-d16 width, {CHECK_VAR_DEPTH} of 16 blocks (tokenizer "
+                      f"{CHECK_TOK_DEPTH} of 12)", var_run,
+                      lambda: _stop_after(VARTrainer, lambda tr: tr.opt.count), _var_tensors,
+                      lambda tr: tr.opt.count, root / "gen")
+        base = ["--config", str(cfg), "--vq_ckpt", str(weights), "--var_ckpt", str(var_ckpt),
+                "--num_samples", str(GEN_SAMPLES), "--batch_size", str(BATCH)]
+        per = LAUNCHES_256["var_sample"]
+        npz = root / "gen" / "var.npz"
+        s, paths["cli sample_var"] = _gen_main("sample_var", lambda: sample_var.main(
+            [*base, "--output", str(npz)]), per, batch=GEN_SAMPLES)
+        arr = np.load(npz)["arr_0"]
+        if not (arr.shape == (GEN_SAMPLES, 256, 256, 3) and arr.dtype == np.uint8
+                and arr.std() > 0):
+            raise AssertionError(f"[gen-cli] sample_var: {arr.shape} {arr.dtype}")
+        paths.update(ref.finish())
+    return paths, var_ckpt
+
+
+def _sample_var_ref(dev, root: Path, inception: Path, weights: Path, var_ckpt: Path) -> dict:
+    """``sample_var`` of 64 samples at B=64 (#3 160, #1 12) with
+    ``--ref_npz`` (the evaluate_fid reference batch) through the seeded
+    Inception: the five metrics finite."""
+    from imagefolder_tpu_torch.scripts import sample_var
+
+    base = ["--config", str(root / "gen" / "msvr.yaml"), "--vq_ckpt", str(weights),
+            "--var_ckpt", str(var_ckpt), "--num_samples", str(GEN_SAMPLES), "--batch_size",
+            str(BATCH), "--output", str(root / "gen" / "var2.npz"), "--ref_npz",
+            str(root / "ref.npz"), "--inception_ckpt", str(inception)]
+    with contextlib.redirect_stderr(io.StringIO()):  # the unvalidated-Inception warning
+        s, rec = _gen_main("sample_var --ref_npz", lambda: sample_var.main(base),
+                           LAUNCHES_256["var_sample"], batch=GEN_SAMPLES)
+    m = s["metrics"]
+    if not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"[gen-cli] sample_var --ref_npz metrics {m}")
+    print("[gen-cli] sample_var --ref_npz: " + ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+          + " (seeded Inception: plumbing, not numbers to report)")
+    return {"cli sample_var --ref_npz": rec}
+
+
+class _Child:
+    """``CHILD_TASKS[name](dev, *paths)`` in a Python process of its own on
+    the card (``child_main``), started here and run beside what the caller
+    does next: its own launch counters, so that each side's counts stay its
+    own. This process first hands the card its cached free memory (the
+    caching allocator keeps a step's peak, up to 61 GiB, reserved). Its
+    output goes to ``paths[0] / f"{name}.log"`` (a file, so that it never
+    waits for a reader). ``finish()`` waits for it, prints its lines and
+    returns the paths' records of its CHILD_RESULT line; a failure in it
+    fails the script. Leaving the ``with`` block stops it if it still runs."""
+
+    def __init__(self, name: str, *paths: Path):
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                "sys.exit(chip_smoke.child_main(sys.argv[1:]))")
+        self.name, self.log = name, paths[0] / f"{name}.log"
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", code, name, CARD, *map(str, paths)], stdout=out,
+                stderr=subprocess.STDOUT, cwd=ROOT)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self) -> dict:
+        rc = self.proc.wait()
+        lines = self.log.read_text().splitlines()
+        result = [ln for ln in lines if ln.startswith(CHILD_RESULT)]
+        print("\n".join(ln for ln in lines if not ln.startswith(CHILD_RESULT)))
+        if rc != 0 or len(result) != 1:
+            raise AssertionError(f"[cli] {self.name} in its own process failed (exit {rc})")
+        return json.loads(result[0][len(CHILD_RESULT):])
+
+
+CHILD_RESULT = "[child-result] "
+
+
+def child_main(argv: list) -> int:
+    """The entry of a ``_Child``: argv = [task, the card's line, paths...];
+    prints the task's records as JSON on a CHILD_RESULT line."""
+    global CARD
+    name, CARD, *paths = argv
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = CHILD_TASKS[name](dev, *map(Path, paths))
+    print(CHILD_RESULT + json.dumps(rec), flush=True)
+    return 0
+
+
+CHILD_TASKS = {"evaluate_fid": _cli_fid, "sample_var_ref": _sample_var_ref}
+
+
+def _gen_export(root: Path, rar_ckpt: Path, var_ckpt: Path) -> None:
+    """``export_weights`` of the generators (the tokenizer's is in
+    ``_gen_pretokenize``): RAR-B's checkpoint (its EMA) to ``.bin`` and
+    VAR-d16's to an HF directory, each loaded back with strict=True and
+    compared with its source tensor for tensor (``_export_check``)."""
+    mcfg, _, _ = load_tokenizer_config(str(MSVR_YAML))
+    _export_check("rar", rar_ckpt, root / "gen" / "rar-b.bin", ["--use_ema"],
+                  lambda: build_rar(seq_len=256, codebook_size=4096, device="cpu"))
+    _export_check("var", var_ckpt, root / "gen" / "var_hf", ["--hf"],
+                  lambda: build_vae_var(mcfg, VAR_DEPTH, device="cpu")[1])
 
 
 KERNELS = {
@@ -4648,9 +5458,12 @@ def main(argv: list[str]) -> int:
     kernels_maskgit_and_narrow_heads(dev)
     kernels_wide_heads(dev)
     kernels_hd256(dev)
+    kernels_wider_heads(dev)
+    kernels_codebook_widths(dev)
     lap("kernels")
-    vq_models = phase_model_vq(dev)
-    lap("model VQ-4096")
+    with check_depth_cut():
+        vq_models = phase_model_vq(dev)
+    lap(f"model VQ-4096 ({CHECK_TOK_DEPTH} ViT blocks)")
     phase_model_rar(dev, *vq_models)
     del vq_models
     phase_model_rar_train(dev)
@@ -4661,25 +5474,25 @@ def main(argv: list[str]) -> int:
     phase_model_maskgit_train(dev)
     phase_model_rar_trainer(dev)
     lap("model MaskGIT-B and the trainers")
-    for margs, name, depth, cut in (
-            (msvr_margs, "MSVR10P2-4096 + VAR-d16", VAR_DEPTH, contextlib.nullcontext),
-            (msvr512_margs, "MSVR10P2-4096-512 (4 ViT blocks) + VAR (4 blocks)",
-             CHECK_VAR_DEPTH_512, check_depth_cut)):
-        with cut():
-            phase_model_train(dev, *phase_model_var(dev, margs("float32"), name,
-                                                    var_depth=depth), name)
+    for margs, px in ((msvr_margs, ""), (msvr512_margs, "-512")):
+        name = (f"MSVR10P2-4096{px} ({CHECK_TOK_DEPTH} ViT blocks) + VAR-d16 width "
+                f"({CHECK_VAR_DEPTH} blocks)")
+        with check_depth_cut():
+            phase_model_train(dev, *phase_model_var(dev, margs("float32"), name), name)
         lap(f"model {name}")
-    phase_model_gan(dev)
-    lap("model GAN step")
+    with check_depth_cut():
+        phase_model_gan(dev)
+    lap(f"model GAN step ({CHECK_TOK_DEPTH} ViT blocks, DinoDisc {CHECK_DINO_DEPTH})")
     with check_depth_cut():
         phase_model_disc_types(dev, phase_model_robusttok(dev))
-    lap("model RobustTok step and disc types (4 ViT blocks, DinoDisc 6)")
+    lap(f"model RobustTok step and disc types ({CHECK_TOK_DEPTH} ViT blocks, DinoDisc "
+        f"{CHECK_DINO_DEPTH})")
     with check_depth_cut():
         phase_model_msbr(dev)
-    lap("model MSBR (BSQ) with VAR-d16, MSBR step (4 ViT blocks)")
+    lap(f"model MSBR (BSQ) with VAR-d16, MSBR step ({CHECK_TOK_DEPTH} ViT blocks)")
     with check_depth_cut():
         phase_model_variants(dev)
-    lap("model LoRA, latent pos, conv and siren heads, CNN (4 ViT blocks)")
+    lap(f"model LoRA, latent pos, conv and siren heads, CNN ({CHECK_TOK_DEPTH} ViT blocks)")
     paths = {**main_round_trip(dev), **main_rar_paths(dev), **main_rar_train(dev),
              **main_rar_xl_train(dev), **main_mlp_probe(dev)}
     lap("round trips, RAR sampling and training (RAR-B, RAR-XL width), MLP probe")

@@ -37,10 +37,11 @@
 // 48, 56 under 64, its columns past hd zero in every tile and never stored.
 // Heads of 72-128 (RAR-XL's 80, RAR-XXL's 88) run the kD = 128
 // instantiations, compiled apart (attention_bnhd_hd128.cu), and heads of
-// 136-256 the kD = 256 FMA kernel of attention_wide.cuh, in fp32 and bf16
-// (attention_bnhd_hd256.cu).
+// 136-1024 the kD = 256, 512 and 1024 FMA kernels of attention_wide.cuh, in
+// fp32 and bf16 (attention_bnhd_hd{256,512,1024}.cu).
 
 #include "attention_bnhd_fwd.cuh"
+#include "attention_widths.cuh"
 
 // hd 72-128: the kD = 128 instantiations, with the entry's own arguments
 int attention_bnhd_fwd_hd128(const void* q, const void* k, const void* v, const void* bias,
@@ -54,8 +55,20 @@ int attention_bnhd_fwd_hd256(const void* q, const void* k, const void* v, const 
                              const int64_t* qs, const int64_t* ks, const int64_t* vs,
                              const int64_t* bs, float scale, int is_bf16, int hd,
                              cudaStream_t stm);
+// hd 264-512: the kD = 512 kernel of attention_wide.cuh (attention_bnhd_hd512.cu)
+int attention_bnhd_fwd_hd512(const void* q, const void* k, const void* v, const void* bias,
+                             void* out, void* lse, int batch, int lq, int lk, int heads,
+                             const int64_t* qs, const int64_t* ks, const int64_t* vs,
+                             const int64_t* bs, float scale, int is_bf16, int hd,
+                             cudaStream_t stm);
+// hd 520-1024: the kD = 1024 kernel of attention_wide.cuh (attention_bnhd_hd1024.cu)
+int attention_bnhd_fwd_hd1024(const void* q, const void* k, const void* v, const void* bias,
+                              void* out, void* lse, int batch, int lq, int lk, int heads,
+                              const int64_t* qs, const int64_t* ks, const int64_t* vs,
+                              const int64_t* bs, float scale, int is_bf16, int hd,
+                              cudaStream_t stm);
 
-// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 256,
+// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 1024,
 // each with its own batch, row and head strides in elements (qs, ks, vs =
 // {batch, row, head}; the head-dim stride is 1), all fp32 or all bf16
 // (is_bf16); bias null or fp32 with strides bs = {batch, head, row} (column
@@ -64,26 +77,31 @@ int attention_bnhd_fwd_hd256(const void* q, const void* k, const void* v, const 
 // (#6). bf16 needs every base pointer and q/k/v stride on a 16-byte
 // boundary. Launches on `stream` and returns cudaGetLastError() as an int
 // (0 = launched; cudaErrorInvalidValue for another head dim).
+// kd: the instantiation the wrapper chose for hd, checked by bnhd_width_ok
+// (attention_widths.cuh).
 extern "C" int attention_bnhd_fwd(const void* q, const void* k, const void* v,
                                   const void* bias, void* out, void* lse, int batch, int lq,
                                   int lk, int heads, const int64_t* qs,
                                   const int64_t* ks, const int64_t* vs,
                                   const int64_t* bs, float scale, int is_bf16, int hd,
-                                  void* stream) {
-  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || (lse && !is_bf16) || hd < 8 ||
-      hd > 256 || hd % 8)
+                                  int kd, void* stream) {
+  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || (lse && !is_bf16) ||
+      !bnhd_width_ok(hd, kd))
     return cudaErrorInvalidValue;
-  if (hd > 128)
-    return attention_bnhd_fwd_hd256(q, k, v, bias, out, lse, batch, lq, lk, heads, qs, ks, vs,
+  if (kd > 128)
+    return (kd == 1024  ? attention_bnhd_fwd_hd1024
+            : kd == 512 ? attention_bnhd_fwd_hd512
+                        : attention_bnhd_fwd_hd256)(
+        q, k, v, bias, out, lse, batch, lq, lk, heads, qs, ks, vs,
                                     bs, scale, is_bf16, hd, static_cast<cudaStream_t>(stream));
-  if (hd > 64)
+  if (kd == 128)
     return attention_bnhd_fwd_hd128(q, k, v, bias, out, lse, batch, lq, lk, heads, qs, ks, vs,
                                     bs, scale, is_bf16, hd, static_cast<cudaStream_t>(stream));
   Strides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
              bias ? bs[0] : 0, bias ? bs[1] : 0, bias ? bs[2] : 0, hd};
   cudaStream_t stm = static_cast<cudaStream_t>(stream);
   const float* bp = static_cast<const float*>(bias);
-  return hd <= 48 ? launch_bnhd_fwd<48>(q, k, v, bp, out, lse, batch, lq, lk, heads, st, scale,
+  return kd == 48 ? launch_bnhd_fwd<48>(q, k, v, bp, out, lse, batch, lq, lk, heads, st, scale,
                                         is_bf16, stm)
                   : launch_bnhd_fwd<64>(q, k, v, bp, out, lse, batch, lq, lk, heads, st, scale,
                                         is_bf16, stm);

@@ -31,6 +31,7 @@
 // at tile grain the design runs seven products over 20 of the 25 tiles.
 
 #include "attention_bwd_sm90.cuh"
+#include "attention_widths.cuh"
 
 // hd 72-128: the kD = 128 instantiations, compiled apart (attention_bnhd_bwd_hd128.cu)
 int attention_bnhd_bwd_hd128(const void* q, const void* k, const void* v, const void* g,
@@ -44,6 +45,18 @@ int attention_bnhd_bwd_hd256(const void* q, const void* k, const void* v, const 
                              int batch, int n, int heads, const int64_t* qs, const int64_t* ks,
                              const int64_t* vs, const int64_t* gs, int64_t bias_row_stride,
                              float scale, int is_bf16, int hd, cudaStream_t stm);
+// hd 264-512: the kD = 512 kernels of attention_wide.cuh (attention_bnhd_bwd_hd512.cu)
+int attention_bnhd_bwd_hd512(const void* q, const void* k, const void* v, const void* g,
+                             const void* bias, void* dq, void* dk, void* dv, void* dbias, void* stats,
+                             int batch, int n, int heads, const int64_t* qs, const int64_t* ks,
+                             const int64_t* vs, const int64_t* gs, int64_t bias_row_stride,
+                             float scale, int is_bf16, int hd, cudaStream_t stm);
+// hd 520-1024: the kD = 1024 kernels of attention_wide.cuh (attention_bnhd_bwd_hd1024.cu)
+int attention_bnhd_bwd_hd1024(const void* q, const void* k, const void* v, const void* g,
+                              const void* bias, void* dq, void* dk, void* dv, void* dbias, void* stats,
+                              int batch, int n, int heads, const int64_t* qs, const int64_t* ks,
+                              const int64_t* vs, const int64_t* gs, int64_t bias_row_stride,
+                              float scale, int is_bf16, int hd, cudaStream_t stm);
 
 namespace {
 
@@ -65,9 +78,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, const
 
 }  // namespace
 
-// q, k, v and g (B, L, H, hd), hd a multiple of 8 up to 256 (run under the
-// kD = 48 kernels up to 48, 64 at 56 and 64, 128 at 72-128 and 256 past
-// 128: past 64 every call, bf16 too, takes a two-kernel design, that of
+// q, k, v and g (B, L, H, hd), hd a multiple of 8 up to 1024 (run under the
+// kD = 48 kernels up to 48, 64 at 56 and 64, 128 at 72-128 and 256 at 136-256, 512 at
+// 264-512 and 1024 past 512: past 64 every call, bf16 too, takes a two-kernel design, that of
 // attention_bwd_tile.cuh up to 128 and that of attention_wide.cuh past it,
 // and o, lse and blank go unused, work being its 3 * B * H * L scratch), each
 // with its own batch, row and
@@ -83,6 +96,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, const
 // unused, work an fp32 scratch of 3 * B * H * L; kernels A and B of
 // attention_bwd_tile.cuh. Launches on `stream` and returns cudaGetLastError()
 // as an int (0 = all launched; cudaErrorInvalidValue for another head dim).
+// kd: the instantiation the wrapper chose for hd, checked by bnhd_width_ok
+// (attention_widths.cuh).
 extern "C" int attention_bnhd_bwd(const void* q, const void* k, const void* v,
                                   const void* g, const void* o, const void* lse,
                                   const void* bias, void* dq, void* dk, void* dv, void* dbias,
@@ -90,13 +105,16 @@ extern "C" int attention_bnhd_bwd(const void* q, const void* k, const void* v,
                                   const int64_t* qs, const int64_t* ks, const int64_t* vs,
                                   const int64_t* gs, const int64_t* os,
                                   int64_t bias_row_stride, float scale, int is_bf16, int hd,
-                                  void* stream) {
-  if (hd < 8 || hd > 256 || hd % 8) return cudaErrorInvalidValue;
-  if (hd > 128)
-    return attention_bnhd_bwd_hd256(q, k, v, g, bias, dq, dk, dv, dbias, work, batch, n, heads,
+                                  int kd, void* stream) {
+  if (!bnhd_width_ok(hd, kd)) return cudaErrorInvalidValue;
+  if (kd > 128)
+    return (kd == 1024  ? attention_bnhd_bwd_hd1024
+            : kd == 512 ? attention_bnhd_bwd_hd512
+                        : attention_bnhd_bwd_hd256)(
+        q, k, v, g, bias, dq, dk, dv, dbias, work, batch, n, heads,
                                     qs, ks, vs, gs, bias_row_stride, scale, is_bf16, hd,
                                     static_cast<cudaStream_t>(stream));
-  if (hd > 64)
+  if (kd == 128)
     return attention_bnhd_bwd_hd128(q, k, v, g, bias, dq, dk, dv, dbias, work, batch, n, heads,
                                     qs, ks, vs, gs, bias_row_stride, scale, is_bf16, hd,
                                     static_cast<cudaStream_t>(stream));
@@ -104,7 +122,7 @@ extern "C" int attention_bnhd_bwd(const void* q, const void* k, const void* v,
   const BwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
                       gs[0], gs[1], gs[2], n * ol, ol, hd, bias ? bias_row_stride : 0, hd};
   const cudaStream_t stm = static_cast<cudaStream_t>(stream);
-  return hd <= 48 ? launch_bwd<48>(q, k, v, g, o, os, lse, bias, dq, dk, dv, dbias, work, blank,
+  return kd == 48 ? launch_bwd<48>(q, k, v, g, o, os, lse, bias, dq, dk, dv, dbias, work, blank,
                                    batch, n, heads, st, scale, is_bf16, stm)
                   : launch_bwd<64>(q, k, v, g, o, os, lse, bias, dq, dk, dv, dbias, work, blank,
                                    batch, n, heads, st, scale, is_bf16, stm);

@@ -16,6 +16,6 @@ int attention_bnhd_bwd_hd256(const void* q, const void* k, const void* v, const 
   const int64_t ol = static_cast<int64_t>(heads) * hd;
   const BwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
                       gs[0], gs[1], gs[2], n * ol, ol, hd, bias ? bias_row_stride : 0, hd};
-  return wide::launch_bwd<6>(q, k, v, g, bias, dq, dk, dv, dbias, stats, batch, n, heads, st,
+  return wide::launch_bwd<6, 256>(q, k, v, g, bias, dq, dk, dv, dbias, stats, batch, n, heads, st,
                              scale, is_bf16, stm);
 }

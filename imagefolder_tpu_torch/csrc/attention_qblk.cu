@@ -34,6 +34,7 @@
 
 #include "attention_bwd_sm90.cuh"
 #include "attention_fwd_tile.cuh"
+#include "attention_widths.cuh"
 
 // hd <= 48 and 72-128: the kD = 48 and 128 instantiations, compiled apart
 // (attention_qblk_hd48.cu, attention_qblk_hd128.cu)
@@ -53,10 +54,23 @@ int attention_qblk_fwd_hd256(const void* q, const void* k, const void* v, const 
                              const int64_t* qs, const int64_t* ks, const int64_t* vs,
                              int64_t bias_row_stride, float scale, int is_bf16, int hd,
                              cudaStream_t stm);
+// hd 264-512: the kD = 512 kernel of attention_wide.cuh (attention_qblk_hd512.cu)
+int attention_qblk_fwd_hd512(const void* q, const void* k, const void* v, const void* bias,
+                             void* out, float* lse, int batch, int lq, int lk, int heads,
+                             const int64_t* qs, const int64_t* ks, const int64_t* vs,
+                             int64_t bias_row_stride, float scale, int is_bf16, int hd,
+                             cudaStream_t stm);
+// hd 520-1024: the kD = 1024 kernel of attention_wide.cuh (attention_qblk_hd1024.cu)
+int attention_qblk_fwd_hd1024(const void* q, const void* k, const void* v, const void* bias,
+                              void* out, float* lse, int batch, int lq, int lk, int heads,
+                              const int64_t* qs, const int64_t* ks, const int64_t* vs,
+                              int64_t bias_row_stride, float scale, int is_bf16, int hd,
+                              cudaStream_t stm);
 
-// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 256
+// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 1024
 // (run under the kD = 48 kernels up to 48, 64 at 56 and 64, 128 at 72-128,
-// and past 128 the kD = 256 kernel of attention_wide.cuh, which takes no map), each with its own
+// and past 128 the kD = 256, 512 and 1024 kernels of attention_wide.cuh, which
+// take no map), each with its own
 // batch, row and head strides in elements (qs, ks, vs = {batch, row, head};
 // the head-dim stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32
 // (Lq, Lk) shared by every batch and head, row stride bias_row_stride
@@ -68,19 +82,24 @@ int attention_qblk_fwd_hd256(const void* q, const void* k, const void* v, const 
 // backward (#5). bf16 needs every base pointer and stride of q, k and v on
 // a 16-byte boundary. Launches on `stream` and returns cudaGetLastError()
 // as an int (0 = launched; cudaErrorInvalidValue for another head dim).
+// kd: the instantiation the wrapper chose for hd, checked by bnhd_width_ok
+// (attention_widths.cuh).
 extern "C" int attention_qblk_fwd(const void* q, const void* k, const void* v,
                                   const void* bias, void* blank, void* out, void* lse, int batch,
                                   int lq, int lk, int heads, const int64_t* qs,
                                   const int64_t* ks, const int64_t* vs, int64_t bias_row_stride,
-                                  float scale, int is_bf16, int hd, void* stream) {
-  if (hd < 8 || hd > 256 || hd % 8) return cudaErrorInvalidValue;
+                                  float scale, int is_bf16, int hd, int kd, void* stream) {
+  if (!bnhd_width_ok(hd, kd)) return cudaErrorInvalidValue;
   const FwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
                       0, 0, bias ? bias_row_stride : 0, hd};
   const cudaStream_t stm = static_cast<cudaStream_t>(stream);
   uint8_t* map = static_cast<uint8_t*>(blank);
   if (map && (!bias || lq != lk || !is_bf16)) return cudaErrorInvalidValue;
-  if (hd > 128)
-    return attention_qblk_fwd_hd256(q, k, v, bias, out, static_cast<float*>(lse), batch, lq, lk,
+  if (kd > 128)
+    return (kd == 1024  ? attention_qblk_fwd_hd1024
+            : kd == 512 ? attention_qblk_fwd_hd512
+                        : attention_qblk_fwd_hd256)(
+        q, k, v, bias, out, static_cast<float*>(lse), batch, lq, lk,
                                     heads, qs, ks, vs, bias_row_stride, scale, is_bf16, hd, stm);
   if (map) {
     if (!bias || lq != lk || !is_bf16) return cudaErrorInvalidValue;
@@ -89,10 +108,10 @@ extern "C" int attention_qblk_fwd(const void* q, const void* k, const void* v,
     if (err) return err;
   }
   float* lp = static_cast<float*>(lse);
-  if (hd > 64)
+  if (kd == 128)
     return attention_qblk_fwd_hd128(q, k, v, bias, map, out, lp, batch, lq, lk, heads, qs, ks,
                                     vs, bias_row_stride, scale, is_bf16, hd, stm);
-  if (hd <= 48)
+  if (kd == 48)
     return attention_qblk_fwd_hd48(q, k, v, bias, map, out, lp, batch, lq, lk, heads, qs, ks, vs,
                                    bias_row_stride, scale, is_bf16, hd, stm);
   return launch_attention_fwd<4, 64>(q, k, v, bias, map, out, batch, lq, lk, heads, st, scale,

@@ -52,7 +52,13 @@
 // Padded codes (v >= V, or past a rank's range) are never compared; rows
 // >= N are never stored. The scores never reach device memory: the output is
 // N int64 indices. One block an SM (128 accumulators a thread; 94 KB of
-// shared memory at C = 32).
+// shared memory at C = 32). Compiled at CK = 8, 16, 32, 64 and 128; a call
+// at a true width c <= CK (the wrapper passes both) reads rows c floats
+// apart and zero-fills the tiles' columns c..CK-1 as it loads them (zero
+// columns change neither |e|^2 nor x.e), with 16-byte copies when c is a
+// multiple of 4 and 4-byte copies otherwise; the products stop at c rounded
+// up to 4. At CK = 128 one code tile is in flight at a time (199 KB of
+// shared memory), not two.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -96,25 +102,61 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // bank groups
 constexpr int kPad = 4;
 
-// dynamic shared memory: x [kRows][C + kPad], two code tiles
-// [kCodes][C + kPad] and their two rows of |e|^2
-template <int C>
+// code tiles in flight: two (double-buffered) up to CK = 64; at CK = 128
+// two would take 332 KB, past the 227 KB an SM has, so one, loaded after the
+// last one's products
+template <int CK>
+__host__ __device__ constexpr int stages() {
+  return CK <= 64 ? 2 : 1;
+}
+
+// dynamic shared memory: x [kRows][CK + kPad], stages() code tiles
+// [kCodes][CK + kPad] and their rows of |e|^2
+template <int CK>
 constexpr int smem_bytes() {
-  return (kRows * (C + kPad) + 2 * kCodes * (C + kPad) + 2 * kCodes) * 4;
+  return (kRows * (CK + kPad) + stages<CK>() * kCodes * (CK + kPad) + stages<CK>() * kCodes) *
+         4;
+}
+
+// Rows [row0, row0 + rows) of the (count, c) matrix src (rows c floats
+// apart) into a [rows][P] shared tile, columns c..CK-1 and rows at or past
+// `count` zero-filled: 16-byte copies when c is a multiple of 4 (then every
+// row starts on a 16-byte boundary), 4-byte copies otherwise; consecutive
+// threads copy consecutive chunks of a row.
+template <int CK, int P>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int row0,
+                                          int rows, int count, int c, int tid) {
+  if (c % 4 == 0) {
+    for (int i = tid; i < rows * CK / 4; i += kThreads) {
+      const int r = i / (CK / 4), q = i % (CK / 4);
+      const bool in = row0 + r < count && 4 * q < c;
+      cp_async16(dst + r * P + 4 * q, src + (in ? static_cast<int64_t>(row0 + r) * c + 4 * q : 0),
+                 in);
+    }
+  } else {
+    for (int i = tid; i < rows * CK; i += kThreads) {
+      const int r = i / CK, k = i % CK;
+      const bool in = row0 + r < count && k < c;
+      cp_async4(dst + r * P + k, src + (in ? static_cast<int64_t>(row0 + r) * c + k : 0), in);
+    }
+  }
 }
 
 // One block: row tile blockIdx.y against code range `rank` (its cluster
-// rank, blockIdx.x) of v_per codes; see the header comment.
-template <int C, bool kNorms>
+// rank, blockIdx.x) of v_per codes, at true code width c <= CK; see the
+// header comment.
+template <int CK, bool kNorms>
 __global__ void __launch_bounds__(kThreads, 1)
     codebook_argmin_kernel(const float* __restrict__ x, const float* __restrict__ cb,
                            const float* __restrict__ e2, int64_t* __restrict__ out, int n,
-                           int v, int v_per) {
-  constexpr int P = C + kPad;  // row pitch of the tiles, in floats
+                           int v, int c, int v_per) {
+  constexpr int P = CK + kPad;  // row pitch of the tiles, in floats
+  constexpr int S = stages<CK>();
+  const int c4 = (c + 3) / 4 * 4;  // the products' columns: past c they are zeros
   extern __shared__ float4 smem4[];
   float* sx = reinterpret_cast<float*>(smem4);  // [kRows][P]
-  float* se = sx + kRows * P;                   // [2][kCodes][P]
-  float* sb = se + 2 * kCodes * P;              // [2][kCodes]
+  float* se = sx + kRows * P;                   // [S][kCodes][P]
+  float* sb = se + S * kCodes * P;              // [S][kCodes]
   __shared__ float rbest[kRows];                // this block's per-row result
   __shared__ int rarg[kRows];
 
@@ -128,26 +170,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;  // rows ty + 16 i, codes tx + 16 j
 
-  // x and code tile t, row-major: consecutive threads copy consecutive
-  // 16-byte chunks of device memory
-  for (int i = tid; i < kRows * C / 4; i += kThreads) {
-    const int r = i / (C / 4), q = i % (C / 4);
-    const bool in = row0 + r < n;
-    cp_async16(sx + r * P + 4 * q, x + (in ? static_cast<int64_t>(row0 + r) * C + 4 * q : 0),
-               in);
-  }
+  // x and code tile t, row-major
+  load_rows<CK, P>(sx, x, row0, kRows, n, c, tid);
   auto load_tile = [&](int t) {
-    float* dst = se + (t & 1) * kCodes * P;
     const int v0 = vbeg + t * kCodes;
-    for (int i = tid; i < kCodes * C / 4; i += kThreads) {
-      const int j = i / (C / 4), q = i % (C / 4);
-      const bool in = v0 + j < vend;
-      cp_async16(dst + j * P + 4 * q, cb + (in ? static_cast<int64_t>(v0 + j) * C + 4 * q : 0),
-                 in);
-    }
+    load_rows<CK, P>(se + (t % S) * kCodes * P, cb, v0, kCodes, vend, c, tid);
     if (kNorms) {
       const bool in = v0 + tid < vend;  // kCodes == kThreads: one each
-      cp_async4(sb + (t & 1) * kCodes + tid, e2 + (in ? v0 + tid : 0), in);
+      cp_async4(sb + (t % S) * kCodes + tid, e2 + (in ? v0 + tid : 0), in);
     }
   };
   if (ntiles > 0) load_tile(0);
@@ -162,13 +192,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) load_tile(t + 1);  // into the buffer tile t - 1 has left
-    cp_async_commit();
-    cp_async_wait1();  // tile t (and x) landed
+    if (S == 2) {
+      if (t + 1 < ntiles) load_tile(t + 1);  // into the buffer tile t - 1 has left
+      cp_async_commit();
+      cp_async_wait1();  // tile t (and x) landed
+    } else {
+      if (t > 0) load_tile(t);  // into the one buffer, which tile t - 1 has left
+      cp_async_commit();
+      cp_async_wait_all();
+    }
     __syncthreads();
 
     const float* xs = sx + ty * P;
-    const float* es = se + (t & 1) * kCodes * P + tx * P;
+    const float* es = se + (t % S) * kCodes * P + tx * P;
     float acc[8][16];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -176,13 +212,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
     // four c at a time, each accumulator's sum still taken over c in order
 #pragma unroll 1
-    for (int c = 0; c < C; c += 4) {
+    for (int k = 0; k < c4; k += 4) {
       float4 xv[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) xv[i] = *reinterpret_cast<const float4*>(xs + 16 * i * P + c);
+      for (int i = 0; i < 8; ++i) xv[i] = *reinterpret_cast<const float4*>(xs + 16 * i * P + k);
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const float4 ev = *reinterpret_cast<const float4*>(es + 16 * j * P + c);
+        const float4 ev = *reinterpret_cast<const float4*>(es + 16 * j * P + k);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           acc[i][j] = fmaf(xv[i].x, ev.x, acc[i][j]);
@@ -200,7 +236,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = 0; j < 16; ++j) {
       const int jj = tx + 16 * j;
       if (v0 + jj < vend) {
-        const float base = kNorms ? sb[(t & 1) * kCodes + jj] : 0.f;
+        const float base = kNorms ? sb[(t % S) * kCodes + jj] : 0.f;
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const float d = base - 2.f * acc[i][j];
@@ -211,7 +247,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
-    __syncthreads();  // every thread is done with buffer t & 1
+    __syncthreads();  // every thread is done with buffer t % S
   }
   cp_async_wait_all();  // a rank with no codes still copied x
 
@@ -262,13 +298,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // The launch of one call: row tile y, cluster rank x, as many clusters of
 // `split` blocks as row tiles
-template <int C, bool kNorms>
+template <int CK, bool kNorms>
 cudaLaunchConfig_t launch_config(int split, int row_tiles, cudaStream_t st,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, row_tiles);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem_bytes<C>();
+  cfg.dynamicSmemBytes = smem_bytes<CK>();
   cfg.stream = st;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = split;
@@ -281,15 +317,15 @@ cudaLaunchConfig_t launch_config(int split, int row_tiles, cudaStream_t st,
 
 // Clusters of s = 1, 2, 4, 8 blocks that fit the card at once, read once
 // per instantiation
-template <int C, bool kNorms>
+template <int CK, bool kNorms>
 int max_clusters(int s) {
   static int known[4] = {0, 0, 0, 0};
   const int k = s == 1 ? 0 : s == 2 ? 1 : s == 4 ? 2 : 3;
   if (!known[k]) {
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = launch_config<C, kNorms>(s, 1, nullptr, &attr);
+    const cudaLaunchConfig_t cfg = launch_config<CK, kNorms>(s, 1, nullptr, &attr);
     int n = 0;
-    cudaOccupancyMaxActiveClusters(&n, codebook_argmin_kernel<C, kNorms>, &cfg);
+    cudaOccupancyMaxActiveClusters(&n, codebook_argmin_kernel<CK, kNorms>, &cfg);
     known[k] = n > 0 ? n : 1;
   }
   return known[k];
@@ -300,14 +336,14 @@ int max_clusters(int s) {
 // S)) tiles, and the row tiles' clusters run in ceil(row tiles /
 // max_clusters(S)) waves. Ties go to the smaller S (less merging, fewer
 // copies of x).
-template <int C, bool kNorms>
+template <int CK, bool kNorms>
 int split_for(int n, int v) {
   const int64_t tiles = (n + kRows - 1) / kRows;
   int best = 1;
   int64_t best_cost = INT64_MAX;
   for (int s = 1; s <= kMaxSplit && (s == 1 || (s / 2) * kCodes < v); s *= 2) {
     const int64_t per_block = (v + static_cast<int64_t>(s) * kCodes - 1) / (s * kCodes);
-    const int64_t fit = max_clusters<C, kNorms>(s);
+    const int64_t fit = max_clusters<CK, kNorms>(s);
     const int64_t cost = per_block * ((tiles + fit - 1) / fit);
     if (cost < best_cost) {
       best = s;
@@ -319,68 +355,75 @@ int split_for(int n, int v) {
 
 // split_for with the kernel's shared-memory attribute set, which the
 // occupancy query and the launch need
-template <int C, bool kNorms>
+template <int CK, bool kNorms>
 int split_of(int n, int v) {
-  cudaFuncSetAttribute(codebook_argmin_kernel<C, kNorms>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<C>());
-  return split_for<C, kNorms>(n, v);
+  cudaFuncSetAttribute(codebook_argmin_kernel<CK, kNorms>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<CK>());
+  return split_for<CK, kNorms>(n, v);
 }
 
-template <int C, bool kNorms>
-int launch(const float* x, const float* cb, const float* e2, int64_t* out, int n, int v,
+template <int CK, bool kNorms>
+int launch(const float* x, const float* cb, const float* e2, int64_t* out, int n, int v, int c,
            cudaStream_t st) {
-  const int split = split_of<C, kNorms>(n, v);
+  const int split = split_of<CK, kNorms>(n, v);
   const int v_per = ((v + split - 1) / split + kCodes - 1) / kCodes * kCodes;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      launch_config<C, kNorms>(split, (n + kRows - 1) / kRows, st, &attr);
-  return static_cast<int>(
-      cudaLaunchKernelEx(&cfg, codebook_argmin_kernel<C, kNorms>, x, cb, e2, out, n, v, v_per));
+      launch_config<CK, kNorms>(split, (n + kRows - 1) / kRows, st, &attr);
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, codebook_argmin_kernel<CK, kNorms>, x, cb,
+                                             e2, out, n, v, c, v_per));
 }
 
-template <int C>
+template <int CK>
 int launch_c(const float* x, const float* cb, const float* e2, int64_t* out, int n, int v,
-             cudaStream_t st) {
-  return e2 ? launch<C, true>(x, cb, e2, out, n, v, st)
-            : launch<C, false>(x, cb, e2, out, n, v, st);
+             int c, cudaStream_t st) {
+  return e2 ? launch<CK, true>(x, cb, e2, out, n, v, c, st)
+            : launch<CK, false>(x, cb, e2, out, n, v, c, st);
 }
 
 }  // namespace
 
-// x (N, C) and codebook (V, C) fp32 contiguous; e2 (V,) fp32 with |e_v|^2,
-// or null for `maximize` (scores -2 x.e); out (N,) int64. C in {8, 16, 32,
-// 64}; N up to 65535 row tiles of 128. Launches on `stream` and returns the
-// launch's error, then cudaGetLastError(), as an int (0 = launched).
+// x (N, c) and codebook (V, c) fp32 contiguous on 16-byte boundaries; e2
+// (V,) fp32 with |e_v|^2, or null for `maximize` (scores -2 x.e); out (N,)
+// int64. ck: the instantiation the wrapper chose (ops/cuda/codebook.py,
+// kernel_width), the smallest of 8, 16, 32, 64 and 128 that holds c, which
+// is checked here; N up to 65535 row tiles of 128. Launches on `stream` and
+// returns the launch's error, then cudaGetLastError(), as an int (0 =
+// launched; cudaErrorInvalidValue for another ck or c).
 extern "C" int codebook_argmin(const void* x, const void* codebook,
-                               const void* e2, void* out, int n, int v, int c,
+                               const void* e2, void* out, int n, int v, int c, int ck,
                                void* stream) {
-  if (n <= 0 || v <= 0 || (n + kRows - 1) / kRows > 65535) return cudaErrorInvalidValue;
+  if (n <= 0 || v <= 0 || (n + kRows - 1) / kRows > 65535 || c < 1 || c > ck ||
+      (ck > 8 && 2 * c <= ck))
+    return cudaErrorInvalidValue;
   const float* xp = static_cast<const float*>(x);
   const float* cp = static_cast<const float*>(codebook);
   const float* ep = static_cast<const float*>(e2);
   int64_t* op = static_cast<int64_t*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err;
-  switch (c) {
-    case 8: err = launch_c<8>(xp, cp, ep, op, n, v, st); break;
-    case 16: err = launch_c<16>(xp, cp, ep, op, n, v, st); break;
-    case 32: err = launch_c<32>(xp, cp, ep, op, n, v, st); break;
-    case 64: err = launch_c<64>(xp, cp, ep, op, n, v, st); break;
+  switch (ck) {
+    case 8: err = launch_c<8>(xp, cp, ep, op, n, v, c, st); break;
+    case 16: err = launch_c<16>(xp, cp, ep, op, n, v, c, st); break;
+    case 32: err = launch_c<32>(xp, cp, ep, op, n, v, c, st); break;
+    case 64: err = launch_c<64>(xp, cp, ep, op, n, v, c, st); break;
+    case 128: err = launch_c<128>(xp, cp, ep, op, n, v, c, st); break;
     default: return cudaErrorInvalidValue;
   }
   return err ? err : static_cast<int>(cudaGetLastError());
 }
 
-// The split S that a call of codebook_argmin for n rows of a v-code book of
-// width c (norms: with |e|^2, i.e. not maximize) takes on the current
-// device, for the checks; 0 for a width the kernel is not built for.
-extern "C" int codebook_argmin_split(int n, int v, int c, int norms) {
+// The split S that a call of codebook_argmin for n rows of a v-code book at
+// instantiation ck (norms: with |e|^2, i.e. not maximize) takes on the
+// current device, for the checks; 0 for a width the kernel is not built for.
+extern "C" int codebook_argmin_split(int n, int v, int ck, int norms) {
   if (n <= 0 || v <= 0) return 0;
-  switch (c) {
+  switch (ck) {
     case 8: return norms ? split_of<8, true>(n, v) : split_of<8, false>(n, v);
     case 16: return norms ? split_of<16, true>(n, v) : split_of<16, false>(n, v);
     case 32: return norms ? split_of<32, true>(n, v) : split_of<32, false>(n, v);
     case 64: return norms ? split_of<64, true>(n, v) : split_of<64, false>(n, v);
+    case 128: return norms ? split_of<128, true>(n, v) : split_of<128, false>(n, v);
     default: return 0;
   }
 }

@@ -122,7 +122,8 @@ def var_eval_ep(eval_step: Callable, loader: Iterable, batch_size: int,
     """VAR validation epoch: ``eval_step(imgs, labels)`` takes one padded
     numpy batch and returns a dict of (B,) per-sample vectors (numpy arrays
     or tensors, e.g. ``VARTrainer.eval_step`` on tensors made from them);
-    each is summed over the real rows and divided by the sample count."""
+    each is summed over the real rows and, over every process, divided by
+    the global sample count."""
     sums = {k: 0.0 for k in ("L_mean", "L_tail", "acc_mean", "acc_tail")}
     tot = 0
     for i, b in enumerate(loader):
@@ -137,5 +138,10 @@ def var_eval_ep(eval_step: Callable, loader: Iterable, batch_size: int,
                 val = val.detach().cpu().numpy()
             sums[k] += float(np.sum(np.asarray(val)[:n]))
         tot += n
-    denom = max(tot, 1)
-    return {"val_" + k: v / denom for k, v in sums.items()} | {"val_tot": tot}
+    # the sums over every process's shard, divided by the global count (the
+    # reference's allreduced stats / tot)
+    row = np.asarray([sums[k] for k in sums] + [tot], np.float64)
+    if process_count() > 1:
+        row = np.sum(process_allgather(row), axis=0)
+    denom = max(row[-1], 1.0)
+    return {"val_" + k: row[j] / denom for j, k in enumerate(sums)} | {"val_tot": int(row[-1])}

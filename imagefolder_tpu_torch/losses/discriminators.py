@@ -41,6 +41,8 @@ from torch import nn
 
 from imagefolder_tpu_torch.models.vit import ViTBackbone
 from imagefolder_tpu_torch.ops.resize import resize
+from imagefolder_tpu_torch.parallel.dist import (all_gather_batch, global_batch_rows, global_mean,
+                                                 own_rows)
 from imagefolder_tpu_torch.utils.init import lecun_normal_, linear_kaiming_uniform_, normal_
 
 __all__ = ["DinoDisc", "BatchNormLocal", "SpectralNormConv1d", "draw_crop",
@@ -53,7 +55,10 @@ _IMAGENET_STD = (0.229, 0.224, 0.225)
 class BatchNormLocal(nn.Module):
     """Virtual-batch norm (discriminator_dino.py:127-154) on (B, L, C):
     statistics per channel over each group of ``virtual_bs`` samples and
-    the tokens, fp32, biased variance."""
+    the tokens, fp32, biased variance. The groups split the global batch
+    (``parallel/dist.py``): where a group straddles two processes' shards,
+    every process gathers the batch, normalises it whole and keeps its own
+    rows."""
 
     def __init__(self, c: int, virtual_bs: int = 8, eps: float = 1e-6):
         super().__init__()
@@ -61,13 +66,20 @@ class BatchNormLocal(nn.Module):
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _norm(self, x: torch.Tensor, group: int) -> torch.Tensor:
         b, l, c = x.shape
-        g = -(-b // self.virtual_bs)
-        xg = x.float().reshape(g, -1, l, c)
+        xg = x.float().reshape(b // group, group, l, c)
         var, mean = torch.var_mean(xg, dim=(1, 2), keepdim=True, correction=0)
         xg = (xg - mean) / torch.sqrt(var + self.eps)
         return (xg * self.weight + self.bias).reshape(b, l, c)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        rows = global_batch_rows(b)[1]
+        group = rows // -(-rows // self.virtual_bs)
+        if b % group:
+            return own_rows(self._norm(all_gather_batch(x), group), b)
+        return self._norm(x, group)
 
 
 class SpectralNormConv1d(nn.Module):
@@ -250,9 +262,9 @@ class _BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x: torch.Tensor, *, train: bool, update_stats: bool) -> torch.Tensor:
-        if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = (x.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+        if train:  # the global batch's statistics (parallel/dist.py)
+            mean = global_mean(x.mean(dim=(0, 2, 3)))
+            var = (global_mean(x.square().mean(dim=(0, 2, 3))) - mean.square()).clamp_min(0.0)
             if update_stats:
                 with torch.no_grad():
                     m = self.momentum

@@ -12,6 +12,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from imagefolder_tpu_torch.parallel.dist import global_mean
+
 __all__ = ["hinge_d_loss", "vanilla_d_loss", "non_saturating_d_loss", "hinge_gen_loss",
            "non_saturating_gen_loss", "adopt_weight", "LeCamState", "lecam_update",
            "lecam_reg", "adaptive_disc_weight", "D_LOSSES", "G_LOSSES"]
@@ -68,8 +70,10 @@ class LeCamState(NamedTuple):
 
 
 def lecam_update(state: LeCamState, logits_real, logits_fake, decay: float = 0.999):
-    return LeCamState(state.logits_real_ema * decay + logits_real.mean() * (1 - decay),
-                      state.logits_fake_ema * decay + logits_fake.mean() * (1 - decay))
+    """The EMAs of the logits' means over the global batch."""
+    return LeCamState(
+        state.logits_real_ema * decay + global_mean(logits_real.mean()) * (1 - decay),
+        state.logits_fake_ema * decay + global_mean(logits_fake.mean()) * (1 - decay))
 
 
 def lecam_reg(logits_real, logits_fake, state: LeCamState):

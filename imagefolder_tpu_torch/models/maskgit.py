@@ -54,6 +54,7 @@ from torch.nn.utils import skip_init
 from imagefolder_tpu_torch.ops.activations import gelu_exact
 from imagefolder_tpu_torch.ops.cuda.attention import dot_product_attention
 from imagefolder_tpu_torch.ops.cuda.block import dense
+from imagefolder_tpu_torch.parallel.dist import global_sum
 from imagefolder_tpu_torch.utils.init import linear, trunc_normal_
 
 __all__ = ["MaskGITConfig", "MaskGITBlock", "MaskGIT", "mask_input_tokens", "mlm_loss",
@@ -259,12 +260,13 @@ def mlm_loss(logits: torch.Tensor, targets: torch.Tensor, masks: torch.Tensor,
              loss_weight_unmasked: float = 0.1):
     """Reference MLMLoss (``RAR/modules/losses.py:355-373``): cross-entropy
     weighted 1 at masked positions and ``loss_weight_unmasked`` elsewhere,
-    and the accuracy on the masked positions, averaged over samples."""
+    and the accuracy on the masked positions, averaged over samples. The
+    weighted mean is the global batch's (``parallel/dist.py``)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     w = masks.float()
     lw = (1.0 - w) * loss_weight_unmasked + w
-    loss = (nll * lw).sum() / (lw.sum() + 1e-8)
+    loss = global_sum((nll * lw).sum()) / (global_sum(lw.sum()) + 1e-8)
     correct = ((logits.argmax(-1) == targets).float() * w).sum(1) / (w.sum(1) + 1e-8)
     return loss, correct.mean()
 

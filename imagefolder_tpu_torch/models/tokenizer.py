@@ -53,6 +53,7 @@ from imagefolder_tpu_torch.models.vit import (
 )
 from imagefolder_tpu_torch.ops.perturb import add_perturbation
 from imagefolder_tpu_torch.ops.quantize import MultiScaleLFQ, MultiScaleVQ, QuantOut, SingleVQ
+from imagefolder_tpu_torch.parallel.dist import all_gather_batch, global_batch_rows
 from imagefolder_tpu_torch.utils.init import linear, linear_kaiming_uniform_
 
 __all__ = ["ModelArgs", "VQModel", "TokenizerOut", "check_slice"]
@@ -365,7 +366,9 @@ class VQModel(nn.Module):
         quant = torch.cat(quant_list, dim=-1)
         dec, pre_last = self.decode(quant, return_prelast=True) if train else (
             self.decode(quant), None)
-        n_drop = int(b * cfg.codebook_drop)
+        # the guides' InfoNCE contrasts the global batch (the reference
+        # all-gathers its features), less its first int(B codebook_drop)
+        n_drop = int(global_batch_rows(b)[1] * cfg.codebook_drop)
         sem_loss = detail_loss = zero
         if cfg.semantic_guide == "dinov2":
             with torch.no_grad():
@@ -377,6 +380,7 @@ class VQModel(nn.Module):
             else:
                 z_s = self.quant_conv(z_s)
                 z_q = quant_list[-1].mean(dim=(1, 2))
+            z_s, z_q = all_gather_batch(z_s), all_gather_batch(z_q)
             sem_loss = self._guide_loss(z_s[n_drop:], z_q[n_drop:], cfg.sem_loss_scale,
                                         epoch) * cfg.sem_loss_weight
         if cfg.detail_guide != "none":
@@ -386,6 +390,7 @@ class VQModel(nn.Module):
                 tokens = self.detail_model(self._teacher_input(x))
             z_d = self.quant_conv(tokens[:, 1:].mean(dim=1))
             z_q = quant_list[0].mean(dim=(1, 2))
+            z_d, z_q = all_gather_batch(z_d), all_gather_batch(z_q)
             detail_loss = self._guide_loss(z_d[n_drop:], z_q[n_drop:], cfg.detail_loss_scale,
                                            epoch) * cfg.detail_loss_weight
         return TokenizerOut(

@@ -44,18 +44,19 @@ the plain version of lse), skips the 64 x 64 tiles that a bias blanks
 (``blank_tile_map``, plain version ``blank_tile_map_reference``); dk and dv
 come from a kernel per 64 keys, dq from one per 64 q rows. fp32 backwards,
 calls that ask for dbias, and #6 at L = 1 keep ``csrc/attention_bwd_tile.cuh``.
-The BNHD kernels (#3-#6) take every head width up to 256: 48 for RAR-B and
-MaskGIT-B, 80 and 88 for RAR-XL and RAR-XXL, 256 for a generator of hidden
-1024 over 4 heads. A width that is not a multiple
+The BNHD kernels (#3-#6) take every head width up to 1024: 48 for RAR-B and
+MaskGIT-B, 80 and 88 for RAR-XL and RAR-XXL, 256 and 512 for a generator of
+hidden 1024 over 4 and 2 heads. A width that is not a multiple
 of 8 is zero-padded to the next one before the launch (the scale stays the
 true width's; zero columns of q and k change no score, those of v give
 output columns that are cut away, and the gradients are cut back to the true
 width). Widths of 72-128 run the kD = 128 instantiations (in bf16 the
 forwards on 128-wide wgmma tiles, every backward on the two-kernel design
-of ``csrc/attention_bwd_tile.cuh``), widths of 136-256 the kD = 256 FMA
-kernels of ``csrc/attention_wide.cuh`` (fp32 and bf16, eight threads a row).
-Wider heads raise. The packed pair
-(#1, #2), which only the ViTs call, takes 64.
+of ``csrc/attention_bwd_tile.cuh``), widths of 136-1024 the kD = 256, 512
+and 1024 FMA kernels of ``csrc/attention_wide.cuh`` (fp32 and bf16, kD / 32
+threads a row; the wrapper picks which with ``bnhd_kernel_width`` and
+passes it to the C entry, which checks it). Wider heads raise before any
+launch. The packed pair (#1, #2), which only the ViTs call, takes 64.
 Each dispatches on the tensor's device only: a CPU tensor goes to its
 ``*_reference``, the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel or raises.
@@ -73,7 +74,7 @@ import torch.nn.functional as F
 
 from imagefolder_tpu_torch.ops.cuda import _build
 
-__all__ = ["attention_qkv", "attention_qkv_reference", "attention_qkv_bwd",
+__all__ = ["bnhd_kernel_width", "attention_qkv", "attention_qkv_reference", "attention_qkv_bwd",
            "attention_qkv_bwd_reference", "fused_attention",
            "fused_attention_reference", "fused_attention_bwd",
            "fused_attention_bwd_reference", "fused_attention_qblk",
@@ -98,12 +99,15 @@ QBLK_BWD_LAUNCHES = 0
 # head widths: the packed pair #1/#2 (and #7's attention step) serve the
 # ViTs, every preset of which has heads of 64; the BNHD kernels #3-#6 take
 # every width up to _BNHD_MAX_HEAD_DIM (48: RAR-B and MaskGIT-B, 768 / 16;
-# 80 and 88: RAR-XL and RAR-XXL), compiled at 48, 64, 128 and 256: a width runs
-# under the smallest of them that holds it, zero-padded to its tiles on the
-# card, and one that is not a multiple of 8 is first zero-padded to one by
-# the wrapper. Wider heads raise.
+# 80 and 88: RAR-XL and RAR-XXL; 512: hidden 1024 over 2 heads), compiled at
+# _BNHD_WIDTHS: a width runs under the smallest of them that holds it
+# (bnhd_kernel_width, passed to the C entries, which check it), zero-padded
+# to its tiles on the card, and one that is not a multiple of 8 is first
+# zero-padded to one by the wrapper. Wider heads raise before any launch:
+# past 1024 a row of the FMA kernels would need more than a warp's threads.
 _HEAD_DIM = 64
-_BNHD_MAX_HEAD_DIM = 256
+_BNHD_WIDTHS = (48, 64, 128, 256, 512, 1024)
+_BNHD_MAX_HEAD_DIM = _BNHD_WIDTHS[-1]
 _SM90_BWD_MAX_HEAD_DIM = 64  # the wgmma backward's widest; past it the two-kernel design
 _TILE = 64  # q rows and keys per tile of the bf16 backward (#2, #5, #6) and its blank map
 
@@ -231,7 +235,7 @@ def _fused_kernel():
     fn = _build.load_library().attention_bnhd_fwd
     i64p = ctypes.POINTER(ctypes.c_int64)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [i64p] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -249,6 +253,20 @@ def _strides(t: torch.Tensor, dims) -> ctypes.Array:
 def _pad_head(t: torch.Tensor, hd: int) -> torch.Tensor:
     """``t`` with its last axis zero-padded to ``hd`` (itself if it is that wide)."""
     return t if t.shape[-1] == hd else F.pad(t, (0, hd - t.shape[-1]))
+
+
+def bnhd_kernel_width(hd: int) -> int:
+    """The kD instantiation of #3-#6 that a head of width ``hd`` runs under on
+    the card, which each wrapper passes to its C entry (and the entry checks,
+    ``csrc/attention_widths.cuh``): the smallest of ``_BNHD_WIDTHS`` that
+    holds it, 56 under 64. Past ``_BNHD_MAX_HEAD_DIM`` it raises, naming the
+    cap."""
+    if hd < 1:
+        raise ValueError(f"head dim must be positive, got {hd}")
+    if hd > _BNHD_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"the BNHD kernels take head dims up to {_BNHD_MAX_HEAD_DIM}, got {hd}")
+    return next(w for w in _BNHD_WIDTHS if -(-hd // 8) * 8 <= w)
 
 
 def _kernel_operands(q, k, v, bias, what: str):
@@ -316,7 +334,7 @@ def _fused_attention_cuda(q, k, v, bias, scale, want_lse: bool = False):
     _launch("fused_attention", _fused_kernel, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _ptr(bias), out.data_ptr(), _ptr(lse), b, lq, lk, h,
             _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)), bs,
-            float(scale), int(q.dtype == torch.bfloat16), hd)
+            float(scale), int(q.dtype == torch.bfloat16), hd, bnhd_kernel_width(hd))
     FUSED_LAUNCHES += 1
     out, = _cut_head(hd0, out)
     return (out, lse) if want_lse else out
@@ -370,7 +388,8 @@ def _bnhd_bwd_kernel():
     fn = _build.load_library().attention_bnhd_bwd
     i64p = ctypes.POINTER(ctypes.c_int64)
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [i64p] * 5 + [
-        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -426,7 +445,7 @@ def _fused_attention_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, lse=N
             _ptr(blank), b, l, h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)),
             _strides(v, (0, 1, 2)), _strides(g, (0, 1, 2)),
             _strides(o, (0, 1, 2)) if sm90 else None, row_stride, float(scale),
-            int(q.dtype == torch.bfloat16), hd)
+            int(q.dtype == torch.bfloat16), hd, bnhd_kernel_width(hd))
     FUSED_BWD_LAUNCHES += 1
     if dbias is not None:
         dbias = dbias[None, None].to(bias_dtype)
@@ -556,7 +575,8 @@ def _qblk_kernel():
     fn = _build.load_library().attention_qblk_fwd
     i64p = ctypes.POINTER(ctypes.c_int64)
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [i64p] * 3 + [
-        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -586,7 +606,7 @@ def _fused_attention_qblk_cuda(q, k, v, bias, scale, want_lse: bool = False,
     _launch("fused_attention_qblk", _qblk_kernel, q.device, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _ptr(bias), _ptr(blank), out.data_ptr(), _ptr(lse), b, lq, k.shape[1],
             h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)), _strides(v, (0, 1, 2)),
-            row_stride, float(scale), int(bf16), hd)
+            row_stride, float(scale), int(bf16), hd, bnhd_kernel_width(hd))
     QBLK_LAUNCHES += 1
     out, = _cut_head(hd0, out)
     return (out, lse) if want_lse else out
@@ -755,7 +775,8 @@ def _qblk_bwd_kernel():
     fn = _build.load_library().attention_qblk_bwd
     i64p = ctypes.POINTER(ctypes.c_int64)
     fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [i64p] * 5 + [
-        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -793,7 +814,7 @@ def _fused_attention_qblk_bwd_cuda(q, k, v, bias, g, scale, need_dbias, o=None, 
             _ptr(blank), b, l, h, _strides(q, (0, 1, 2)), _strides(k, (0, 1, 2)),
             _strides(v, (0, 1, 2)), _strides(g, (0, 1, 2)),
             _strides(o, (0, 1, 2)) if sm90 else None, row_stride, float(scale),
-            int(q.dtype == torch.bfloat16), hd)
+            int(q.dtype == torch.bfloat16), hd, bnhd_kernel_width(hd))
     QBLK_BWD_LAUNCHES += 1
     if dbias is not None:
         dbias = dbias[None, None].to(bias_dtype)

@@ -4,6 +4,11 @@
 ``codebook_argmin`` dispatches on the tensor's device only: a CPU tensor goes
 to ``codebook_argmin_reference``, the plain PyTorch version; a CUDA tensor
 launches the hand-written kernel in ``csrc/codebook_argmin.cu`` or raises.
+The kernel is compiled at the code widths ``WIDTHS``; the wrapper picks the
+smallest that holds the true width C (``kernel_width``) and passes both, and
+the kernel zero-fills its tiles' columns past C as it loads them (zero
+columns change neither |e|^2 nor x.e, so the indices are those of the
+search at C). A width past the widest raises before any launch.
 """
 
 from __future__ import annotations
@@ -15,13 +20,26 @@ import torch
 
 from imagefolder_tpu_torch.ops.cuda import _build
 
-__all__ = ["codebook_argmin", "codebook_argmin_reference", "code_ranges", "LAUNCHES",
-           "WIDTHS"]
+__all__ = ["codebook_argmin", "codebook_argmin_reference", "code_ranges", "kernel_width",
+           "LAUNCHES", "WIDTHS"]
 
 # kernel launches since the counter was last reset (a caller sets it to 0)
 LAUNCHES = 0
 
-WIDTHS = (8, 16, 32, 64)  # code widths C the kernel is compiled for
+# code widths C the kernel is compiled for; 128 holds every codebook_embed_dim
+# of the shipped configs and the ModelArgs defaults
+WIDTHS = (8, 16, 32, 64, 128)
+
+
+def kernel_width(c: int) -> int:
+    """The compiled width that a search at code width ``c`` runs at, which
+    the wrapper passes to the kernel's entry (and the entry checks): the
+    smallest of ``WIDTHS`` that holds it; past the widest it raises."""
+    if c > WIDTHS[-1]:
+        raise NotImplementedError(
+            f"codebook_argmin kernel takes code widths up to {WIDTHS[-1]}, got {c}")
+    return next(w for w in WIDTHS if c <= w)
+
 
 
 def _check(x: torch.Tensor, codebook: torch.Tensor):
@@ -57,7 +75,7 @@ def _ready(t: torch.Tensor) -> torch.Tensor:
 def _kernel():
     fn = _build.load_library().codebook_argmin
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -68,8 +86,7 @@ def _codebook_argmin_cuda(x, codebook, maximize):
     if codebook.device != x.device:
         raise ValueError("x and codebook must be on the same device")
     n, c = x.shape
-    if c not in WIDTHS:
-        raise NotImplementedError(f"codebook_argmin kernel is built for C in {WIDTHS}, got {c}")
+    w = kernel_width(c)
     x, cb = _ready(x), _ready(codebook)
     e2 = None if maximize else cb.square().sum(dim=-1)
     out = torch.empty((n,), dtype=torch.int64, device=x.device)
@@ -78,7 +95,7 @@ def _codebook_argmin_cuda(x, codebook, maximize):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(x.data_ptr(), cb.data_ptr(), None if e2 is None else e2.data_ptr(),
-                        out.data_ptr(), n, cb.shape[0], c, stream)
+                        out.data_ptr(), n, cb.shape[0], c, w, stream)
     if err != 0:
         raise RuntimeError(f"codebook_argmin kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -90,7 +107,9 @@ def codebook_argmin(x: torch.Tensor, codebook: torch.Tensor,
     """Nearest codebook index per row: argmin_v |x - e_v|^2 (computed as
     |e_v|^2 - 2 x.e_v), or argmax_v x.e_v with ``maximize`` (callers pass
     L2-normalised rows for a cosine search). x (N, C), codebook (V, C), both
-    cast to fp32; ties go to the lowest index. Returns (N,) int64."""
+    cast to fp32 (on the card searched by the instantiation at
+    ``kernel_width(C)``, over zero columns past C); ties go to the lowest
+    index. Returns (N,) int64."""
     if x.device.type == "cpu":
         return codebook_argmin_reference(x, codebook, maximize)
     if x.device.type != "cuda":
@@ -110,7 +129,5 @@ def code_ranges(n: int, v: int, c: int, maximize: bool) -> int:
     """The number of code ranges (the cluster size) the card's kernel splits
     a (v, c) codebook into for n rows, as it picks it on the current CUDA
     device; for the checks, which plant codes on the ranges' boundaries."""
-    if c not in WIDTHS:
-        raise NotImplementedError(f"codebook_argmin kernel is built for C in {WIDTHS}, got {c}")
     with torch.cuda.device(torch.cuda.current_device()):
-        return _split_entry()(n, v, c, int(not maximize))
+        return _split_entry()(n, v, kernel_width(c), int(not maximize))

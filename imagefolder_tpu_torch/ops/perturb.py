@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from imagefolder_tpu_torch.parallel.dist import global_batch_rows
+
 __all__ = ["add_perturbation", "draw_perturbation"]
 
 
@@ -84,7 +86,10 @@ def add_perturbation(z_BHWC: torch.Tensor, z_q_BHWC: torch.Tensor, codebook_VC: 
     if codebook_norm:
         pq = _l2n(pq)
     pq = z + (pq.reshape(z.shape) - z).detach()
-    n_pert = math.floor(float(np.float32(b) * np.float32(beta)))
+    # the first floor(B beta) samples of the global batch, of which this
+    # process holds rows r0 to r0 + b (parallel/dist.py)
+    r0, rows = global_batch_rows(b)
+    n_pert = min(max(math.floor(float(np.float32(rows) * np.float32(beta))) - r0, 0), b)
     if n_pert <= 0:
         return z_q_BHWC
     return torch.cat([pq[:n_pert].to(z_q_BHWC.dtype), z_q_BHWC[n_pert:]], dim=0)

@@ -48,6 +48,7 @@ from torch.nn.utils import skip_init
 
 from imagefolder_tpu_torch.ops.cuda.codebook import codebook_argmin
 from imagefolder_tpu_torch.ops.resize import resize
+from imagefolder_tpu_torch.parallel.dist import global_batch_rows, global_mean, global_sum
 from imagefolder_tpu_torch.utils.init import uniform_
 
 __all__ = ["SingleVQ", "MultiScaleVQ", "MultiScaleLFQ", "Phi", "phi_index", "QuantOut",
@@ -76,11 +77,13 @@ def _n_quantizers(batch: int, num_scales: int, codebook_drop: float,
                   device: torch.device) -> torch.Tensor:
     """Per-sample active-scale count (quant.py:79-86), fp32 (B,).
     ``dropout_n`` is the shared randint(start_drop, S + 1) draw; only the
-    first ``int(B * codebook_drop)`` samples adopt it."""
+    first ``int(B * codebook_drop)`` samples of the global batch adopt it
+    (``parallel/dist.py``: this process's rows start at r0)."""
     full = torch.full((batch,), float(num_scales + 1), device=device)
     if not train or dropout_n is None or codebook_drop <= 0.0:
         return full
-    keep = torch.arange(batch, device=device) >= int(batch * codebook_drop)
+    r0, rows = global_batch_rows(batch)
+    keep = torch.arange(r0, r0 + batch, device=device) >= int(rows * codebook_drop)
     return torch.where(keep, full, dropout_n.to(device=device, dtype=torch.float32))
 
 
@@ -302,7 +305,7 @@ class MultiScaleVQ(nn.Module):
                 h = resize(h, (hh, ww), "bicubic")
             h = self.apply_phi(si, sn, h)
             mask = (si < n_q).float()[:, None, None, None]
-            ratio = mask.mean()
+            ratio = global_mean(mask.mean())  # the global batch's share
             f_hat = f_hat + h * mask
             f_rest = (f_rest - h).detach()
             vq_loss = vq_loss + ((f_hat - f_no_grad).square() * mask).mean() / ratio
@@ -472,12 +475,13 @@ class MultiScaleLFQ(nn.Module):
         ``sample_mask`` (B,): the JAX package's intended semantics, not
         upstream's int-mask indexing. z: (B, hw, 1, C)."""
         w = sample_mask.float()
-        denom = w.sum().clamp_min(1.0)
+        denom = global_sum(w.sum()).clamp_min(1.0)  # sums over the global batch
         p = torch.sigmoid(-4.0 * z * self.scaler(si))
         prob = torch.stack([p, 1.0 - p], dim=-1)  # (B, hw, 1, C, 2)
         ent = _entropy(prob).sum(dim=-1)  # (B, hw, 1)
-        per_sample = (ent * w[:, None, None]).sum() / (denom * ent.shape[1] * ent.shape[2])
-        avg_prob = (prob * w[:, None, None, None, None]).sum(dim=(0, 1)) / (
+        per_sample = global_sum((ent * w[:, None, None]).sum()) / (
+            denom * ent.shape[1] * ent.shape[2])
+        avg_prob = global_sum((prob * w[:, None, None, None, None]).sum(dim=(0, 1))) / (
             denom * prob.shape[1])
         return per_sample, _entropy(avg_prob).sum()
 
@@ -491,12 +495,12 @@ class MultiScaleLFQ(nn.Module):
         probs = torch.softmax(logits / t, dim=-1)
         log_probs = torch.log_softmax(logits / t + 1e-5, dim=-1)
         w = sample_mask.float()
-        denom = w.sum().clamp_min(1.0)
-        avg_probs = (probs * w[:, None, None, None]).sum(dim=0) / denom
+        denom = global_sum(w.sum()).clamp_min(1.0)  # sums over the global batch
+        avg_probs = global_sum((probs * w[:, None, None, None]).sum(dim=0)) / denom
         avg_probs = avg_probs.mean(dim=(0, 1))
         avg_entropy = -(avg_probs * torch.log(avg_probs + 1e-5)).sum()
         sample_ent = -(probs * log_probs).sum(dim=-1)
-        sample_entropy = (sample_ent * w[:, None, None]).sum() / (
+        sample_entropy = global_sum((sample_ent * w[:, None, None]).sum()) / (
             denom * sample_ent.shape[1] * sample_ent.shape[2])
         return (self.sample_minimization_weight * sample_entropy
                 - self.batch_maximization_weight * avg_entropy)
@@ -543,7 +547,7 @@ class MultiScaleLFQ(nn.Module):
             x = (f - f_hat.detach()).reshape(b, hh * ww, 1, c)
             mask_b = (si < n_q).float()
             mask = mask_b[:, None, None, None]
-            ratio = mask.mean()
+            ratio = global_mean(mask.mean())  # the global batch's share
             f_hat = f_hat + h * mask
             f_rest = (f_rest - h).detach()
             if self.soft_entropy:

@@ -9,19 +9,34 @@ from explicit arguments (``--coordinator host:port --num_processes N
 no group and the helpers below are single-process no-ops. The backend is
 NCCL when the card is there and gloo on the CPU. The device mesh and the
 FSDP and TP sharding rules of the JAX module are not part of this layer.
+
+Data parallelism (what the JAX package's sharded jit gives its trainers):
+every process holds the same parameters and steps on its own equal shard
+of the global batch, process p holding rows [p b, (p + 1) b) of it. The
+global loss is the mean over processes of each process's loss, so a
+trainer averages its gradients over the group (``all_reduce_mean_``) after
+the backward and before the clip, and each statistic of the batch is taken
+over the global batch: ``global_sum`` and ``global_mean`` of a small tensor
+and ``all_gather_batch`` of per-sample rows. The three are differentiable:
+their backwards add up what every process's loss asks of this process's
+input (an all-reduce of the incoming gradient), which, once the gradients
+are averaged, gives the gradient of the global loss. In a world of one
+each returns its input.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 __all__ = ["init_distributed", "add_distributed_args", "init_from_args", "process_index",
-           "process_count", "is_primary", "sync_global_devices", "process_allgather"]
+           "process_count", "is_primary", "sync_global_devices", "process_allgather",
+           "all_reduce_mean_", "global_sum", "global_mean", "all_gather_batch",
+           "global_metrics", "global_batch_rows", "own_rows"]
 
 
 def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
@@ -97,3 +112,110 @@ def process_allgather(arr) -> np.ndarray:
     out = [torch.empty_like(t) for _ in range(process_count())]
     dist.all_gather(out, t)
     return torch.stack(out).cpu().numpy()
+
+
+def all_reduce_mean_(tensors: List[torch.Tensor]) -> None:
+    """Each tensor of ``tensors`` (gradients) replaced in place by its mean
+    over the processes, as one flat all-reduce per dtype (the tensors are
+    packed into one buffer, reduced, and unpacked)."""
+    if process_count() == 1 or not tensors:
+        return
+    p = process_count()
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        dist.all_reduce(flat)
+        flat.div_(p)
+        off = 0
+        for t in group:
+            n = t.numel()
+            t.copy_(flat[off:off + n].view_as(t))
+            off += n
+
+
+class _GlobalSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = x.detach().clone()
+        dist.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g)
+        return g
+
+
+class _GatherBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(process_count())]
+        dist.all_gather(parts, x)
+        ctx.rows = x.shape[0]
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g)
+        i = process_index() * ctx.rows
+        return g[i:i + ctx.rows]
+
+
+def global_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the processes (a batch's hit counts, a sum of
+    weights); differentiable (module docstring)."""
+    return x if process_count() == 1 else _GlobalSum.apply(x)
+
+
+def global_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over the processes: a mean over each process's
+    equal shard becomes the mean over the global batch; differentiable."""
+    return x if process_count() == 1 else _GlobalSum.apply(x) / process_count()
+
+
+def all_gather_batch(x: torch.Tensor) -> torch.Tensor:
+    """Every process's ``x`` (rows of one shard of the batch, one shape on
+    every process) concatenated along dim 0 in process order: the rows of
+    the global batch. Differentiable (module docstring)."""
+    return x if process_count() == 1 else _GatherBatch.apply(x)
+
+
+def global_metrics(metrics: dict) -> dict:
+    """A dict of tensors (a step's metrics, each a mean over this process's
+    shard) as their means over the processes, in one all-reduce; the dict
+    itself in a world of one. Without gradient."""
+    if process_count() == 1 or not metrics:
+        return metrics
+    keys = list(metrics)
+    flat = torch.cat([metrics[k].detach().float().reshape(-1) for k in keys])
+    dist.all_reduce(flat)
+    flat /= process_count()
+    out, off = {}, 0
+    for k in keys:
+        t = metrics[k]
+        out[k] = flat[off:off + t.numel()].view(t.shape).to(t.dtype)
+        off += t.numel()
+    return out
+
+
+def global_batch_rows(local_rows: int) -> tuple:
+    """(first row of this process's shard in the global batch, the global
+    batch's rows), for a process holding ``local_rows`` of an equal
+    sharding."""
+    return process_index() * local_rows, process_count() * local_rows
+
+
+def own_rows(x, local_rows: int):
+    """This process's ``local_rows`` rows of ``x``, a tensor over the global
+    batch (a random draw made for the whole batch, so that every process's
+    generator stays in step and the draws are those of one process on the
+    global batch); ``x`` itself in a world of one."""
+    if process_count() == 1:
+        return x
+    i = process_index() * local_rows
+    return x[i:i + local_rows]

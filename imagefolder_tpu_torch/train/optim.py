@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from imagefolder_tpu_torch.models.var import VAR
+from imagefolder_tpu_torch.parallel.dist import all_reduce_mean_
 from imagefolder_tpu_torch.utils.convert import flax_path, var_key_map
 
 __all__ = ["lr_wd_annealing", "wd_cosine_anneal", "cosine_with_warmup",
@@ -200,6 +201,12 @@ class ScheduledAdamW:
     parameters bit-unchanged. ``count`` (the schedules' step) counts
     updates, ``mini_step`` the micro-steps since the last one.
 
+    In a multi-process run (``parallel/dist.py``) the gradients are averaged
+    over the processes before the norm and the clip, so that every process
+    clips the same norm and takes the same step; with accumulation the
+    running mean is averaged once, at the update, and a micro-step between
+    updates returns the norm of this process's own gradients.
+
     ``step()`` returns the global norm of this micro-step's gradients before
     the clip, a 0-d tensor on their device, and makes no host sync: the clip
     factor stays on the device, and the schedules are host floats of the
@@ -230,6 +237,8 @@ class ScheduledAdamW:
 
     def step(self) -> torch.Tensor:
         grads = [p.grad for p in self.params if p.grad is not None]
+        if self.accum_steps == 1:
+            all_reduce_mean_(grads)
         norm = _global_norm(grads)
         if self.accum_steps > 1:
             # optax gives a parameter without a gradient a zero one
@@ -246,6 +255,7 @@ class ScheduledAdamW:
                 p.grad = a.clone()
             torch._foreach_zero_(self.acc)
             grads = [p.grad for p in self.params]
+            all_reduce_mean_(grads)
         if self.grad_clip > 0:
             # optax clip_by_global_norm: g * max / |g| only where |g| >= max,
             # with no epsilon (clip_grad_norm_ divides by |g| + 1e-6)

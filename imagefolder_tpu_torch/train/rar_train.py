@@ -17,6 +17,10 @@ clip) on ``warmup_cosine_decay_schedule(0, 2e-4, total // 20, total)``.
 
 Every random draw comes from the ``generator`` passed to a step, or, where
 a test replays another trainer's draws, from the arguments that name it.
+In a multi-process run (``parallel/dist.py``) each draw is made for the
+global batch and sliced to this process's rows, the gradients are averaged
+over the processes before the clip, MaskGIT's loss weights are summed over
+the global batch, and the metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 
 from imagefolder_tpu_torch.models.maskgit import MaskGIT, mask_input_tokens, mlm_loss
 from imagefolder_tpu_torch.models.rar import RAR, ar_loss
+from imagefolder_tpu_torch.parallel.dist import global_batch_rows, global_metrics, own_rows
 from imagefolder_tpu_torch.train.optim import (ScheduledAdamW, adamw_with_freezing,
                                                ema_decay_schedule, ema_update,
                                                warmup_cosine_decay_schedule)
@@ -98,9 +103,14 @@ class RARTrainer:
         model's device: ``loss``, ``correct_tokens`` and ``grad_norm`` (the
         global norm before the clip)."""
         rar, tc = self.rar, self.tcfg
+        b = tokens.shape[0]
+        rows = global_batch_rows(b)[1]
+        if rows != b and drop is None and tc.class_label_dropout > 0 and generator is not None:
+            drop = own_rows(torch.rand((rows,), generator=generator, device=tokens.device)
+                            < tc.class_label_dropout, b)
         cond = rar.preprocess_condition(labels, generator, tc.class_label_dropout, drop)
         if orders is None:
-            orders = rar.sample_orders(tokens.shape[0], random_ratio, generator)
+            orders = own_rows(rar.sample_orders(rows, random_ratio, generator), b)
         logits, shuffled = rar(tokens, cond, orders=orders)
         loss, acc = ar_loss(logits, shuffled)
         self.opt.zero_grad()
@@ -116,17 +126,30 @@ class RARTrainer:
                 inv_gamma=tc.ema_inv_gamma, power=tc.ema_power)
             ema_update(self.ema, [p.detach() for p in rar.parameters()], decay)
         self.step += 1
-        return dict(loss=loss.detach(), correct_tokens=acc.detach(), grad_norm=gnorm)
+        return dict(**global_metrics(dict(loss=loss.detach(), correct_tokens=acc.detach())),
+                    grad_norm=gnorm)
+
+    def ema_state_dict(self) -> dict:
+        """The EMA copy as a ``RAR`` state dict (the model's buffers with the
+        EMA parameters): the weights the zoo's RAR checkpoints hold."""
+        sd = self.rar.state_dict()
+        for (name, _), e in zip(self.rar.named_parameters(), self.ema):
+            sd[name] = e.clone()
+        return sd
 
     def state_dict(self) -> dict:
         return {"model": self.rar.state_dict(), "opt": self.opt.state_dict(),
-                "ema": [e.clone() for e in self.ema], "step": self.step}
+                "ema": self.ema_state_dict(), "step": self.step}
 
     def load_state_dict(self, state: dict):
+        """Restore ``state_dict()``'s state (tensors from any device)."""
         self.rar.load_state_dict(state["model"])
-        self.opt.load_state_dict(state["opt"])
-        for e, s in zip(self.ema, state["ema"]):
-            e.copy_(s)
+        st = dict(state["opt"])
+        if st["acc"] is not None:
+            st["acc"] = [a.to(self.ema[0].device) for a in st["acc"]]
+        self.opt.load_state_dict(st)
+        for (name, _), e in zip(self.rar.named_parameters(), self.ema):
+            e.copy_(state["ema"][name])
         self.step = state["step"]
 
 
@@ -160,6 +183,17 @@ class MaskGITTrainer:
         given. Returns 0-d tensors on the model's device: ``loss``,
         ``correct_tokens`` (on the masked positions) and ``grad_norm``."""
         model = self.model
+        b, l = tokens.shape
+        rows = global_batch_rows(b)[1]
+        if rows != b:  # the draws of one process on the global batch, in its order
+            dev = tokens.device
+            if t is None:
+                t = own_rows(torch.rand((rows,), generator=generator, device=dev), b)
+            if scores is None:
+                scores = own_rows(torch.rand((rows, l), generator=generator, device=dev), b)
+            if drop is None and generator is not None:
+                drop = own_rows(torch.rand((rows,), generator=generator, device=dev)
+                                < MASKGIT_COND_DROP, b)
         masked, masks = mask_input_tokens(tokens, model.config.mask_token_id, generator,
                                           t=t, scores=scores)
         logits = model(masked, labels, cond_drop_prob=MASKGIT_COND_DROP, generator=generator,
@@ -168,7 +202,8 @@ class MaskGITTrainer:
         self.opt.zero_grad()
         loss.backward()
         gnorm = self.opt.step()
-        return dict(loss=loss.detach(), correct_tokens=acc.detach(), grad_norm=gnorm)
+        return dict(**global_metrics(dict(loss=loss.detach(), correct_tokens=acc.detach())),
+                    grad_norm=gnorm)
 
     def state_dict(self) -> dict:
         return {"model": self.model.state_dict(), "opt": self.opt.state_dict()}

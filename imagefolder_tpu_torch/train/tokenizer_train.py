@@ -27,6 +27,17 @@ On the card every ViT attention runs kernel #1 forward and kernel #2
 backward (``attention_qkv``), and every multi-scale codebook lookup kernel
 #9.
 
+In a multi-process run (``parallel/dist.py``: one process per card, each
+with an equal shard of the global batch) every process holds the same
+state and takes the same step: the gradients of both optimizers and the
+adaptive weight's last-layer gradients are averaged over the processes,
+each batch statistic (the hit counts, the LeCam means, the quantizers'
+active shares and LFQ's batch entropy, the guides' InfoNCE, the
+discriminators' batch norms) is taken over the global batch, the metrics
+are the global batch's, and every random draw is made for the global batch
+from the shared generator and sliced to this process's rows, so that the
+run takes the steps one process would take on the whole batch.
+
 State lives in the modules, the optimizers and a few attributes (the LeCam
 EMAs as 0-d tensors, the usage EMA, the host step counts); nothing in a
 step synchronises with the host. ``get_random_ratio`` is RobustTok's
@@ -41,7 +52,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from imagefolder_tpu_torch.losses.diffaug import diff_aug
+from imagefolder_tpu_torch.losses.diffaug import diff_aug, draw_aug
 from imagefolder_tpu_torch.losses.discriminators import (
     DinoDisc,
     PatchGANDiscriminator,
@@ -59,7 +70,11 @@ from imagefolder_tpu_torch.losses.gan import (
 )
 from imagefolder_tpu_torch.losses.lpips import LPIPS
 from imagefolder_tpu_torch.models.tokenizer import ModelArgs, VQModel
+from imagefolder_tpu_torch.ops.perturb import draw_perturbation
 from imagefolder_tpu_torch.ops.quantize import update_usage_ema, usage_percent
+from imagefolder_tpu_torch.parallel.dist import (all_reduce_mean_, global_batch_rows,
+                                                 global_metrics, global_sum, own_rows,
+                                                 process_count)
 from imagefolder_tpu_torch.train.optim import (
     adamw_with_freezing,
     cosine_with_warmup,
@@ -294,6 +309,35 @@ class TokenizerTrainer:
             return self.disc(x, train=True, update_stats=update_stats)
         return self.disc(x)  # StyleGAN keeps no state
 
+    def _global_draws(self, imgs: torch.Tensor, draws: dict, use_disc: bool) -> dict:
+        """In a multi-process run, each draw of the step that ``draws`` does
+        not give, made from ``rng`` for the global batch in the order one
+        process makes them (the crop, the quantizer dropout, the
+        perturbation's uniforms, the three DiffAug calls) and sliced to
+        this process's rows; ``draws`` as it is in a world of one."""
+        if process_count() == 1:
+            return draws
+        tcfg, mcfg, rng, dev = self.tcfg, self.model_cfg, self.rng, imgs.device
+        b = imgs.shape[0]
+        r0, rows = global_batch_rows(b)
+        if isinstance(self.disc, DinoDisc) and "crop" not in draws:
+            draws["crop"] = draw_crop(imgs.shape[1], rng, dev)
+        sn = len(mcfg.v_patch_nums)
+        if sn > 1 and "dropout_n" not in draws:
+            draws["dropout_n"] = own_rows(
+                torch.randint(mcfg.start_drop, sn + 1, (rows,), generator=rng, device=dev), b)
+        if mcfg.product_quant == 1 and mcfg.perturb_delta_max > 0 and "perturb" not in draws:
+            t = mcfg.v_patch_nums[-1] ** 2  # tokens a sample
+            draws["perturb"] = tuple(u[r0 * t:(r0 + b) * t]
+                                     for u in draw_perturbation(rows * t, rng, dev))
+        if use_disc and isinstance(self.disc, DinoDisc) and tcfg.aug_prob >= 1e-6:
+            for k in ("aug_g", "aug_f", "aug_r"):
+                if k not in draws:
+                    d = draw_aug(rows, rng, dev)
+                    draws[k] = {n: v if n == "gates" else tuple(own_rows(u, b) for u in v)
+                                for n, v in d.items()}
+        return draws
+
     def train_step(self, imgs: torch.Tensor, *, epoch: int = 0, fade_blur: float = 0.0,
                    alpha: float = 0.0, beta: float = 0.0, delta_ratio: float = 1.0,
                    draws: Optional[dict] = None) -> Dict[str, torch.Tensor]:
@@ -315,13 +359,13 @@ class TokenizerTrainer:
         ``aug_f``, ``aug_r``, each as ``diffaug.draw_aug`` makes them) and
         DinoDisc's crop-or-resize (``crop``, as ``discriminators.draw_crop``)."""
         tcfg, mcfg = self.tcfg, self.model_cfg
-        draws = draws or {}
         dev = imgs.device
+        use_lpips, use_disc = bool(tcfg.perceptual_weight), bool(tcfg.disc_weight)
+        draws = self._global_draws(imgs, dict(draws or {}), use_disc)
         disc_w = adopt_weight(tcfg.disc_weight, self.step + 1, tcfg.disc_start)
         crop = None
         if isinstance(self.disc, DinoDisc):
             crop = draws["crop"] if "crop" in draws else draw_crop(imgs.shape[1], self.rng, dev)
-        use_lpips, use_disc = bool(tcfg.perceptual_weight), bool(tcfg.disc_weight)
         zero = torch.zeros((), device=dev)
 
         # ---------------- generator ---------------- #
@@ -344,6 +388,7 @@ class TokenizerTrainer:
             w_last = self.model.last_layer
             g_nll, = torch.autograd.grad(nll, w_last, retain_graph=True)
             g_g, = torch.autograd.grad(g_adv, w_last, retain_graph=True)
+            all_reduce_mean_([g_nll, g_g])  # the global batch's gradients
             d_weight = adaptive_disc_weight(g_nll, g_g)
         loss = (nll + d_weight * disc_w * g_adv
                 + tcfg.codebook_weight * (out.vq_loss + out.commit_loss + out.entropy_loss)
@@ -357,7 +402,7 @@ class TokenizerTrainer:
                        vq_loss=out.vq_loss, commit_loss=out.commit_loss,
                        entropy_loss=out.entropy_loss, sem_loss=out.sem_loss,
                        detail_loss=out.detail_loss, dependency_loss=out.dependency_loss,
-                       disc_adaptive_weight=d_weight, gen_loss=loss, grad_norm=grad_norm)
+                       disc_adaptive_weight=d_weight, gen_loss=loss)
         metrics = {k: v.detach() for k, v in metrics.items()}
 
         # ---------------- discriminator ---------------- #
@@ -383,15 +428,19 @@ class TokenizerTrainer:
             disc_grad_norm = self.disc_opt.step()
             self.lecam = new_lecam
             metrics.update(disc_loss=d_loss.detach(), logits_real=logits_real.detach().mean(),
-                           logits_fake=logits_fake.detach().mean(),
-                           disc_grad_norm=disc_grad_norm)
+                           logits_fake=logits_fake.detach().mean())
         else:
             metrics.update(disc_loss=zero, logits_real=zero, logits_fake=zero)
+        metrics = global_metrics(metrics)  # the global batch's means
+        metrics["grad_norm"] = grad_norm
+        if use_disc:
+            metrics["disc_grad_norm"] = disc_grad_norm
 
         # ---------------- bookkeeping ---------------- #
-        self.usage_ema, self.record_hit = update_usage_ema(self.usage_ema, out.hits_PSV,
-                                                           self.record_hit)
-        usage_ps = usage_percent(self.usage_ema, float(imgs.shape[0] * mcfg.num_latent_tokens),
+        self.usage_ema, self.record_hit = update_usage_ema(
+            self.usage_ema, global_sum(out.hits_PSV), self.record_hit)
+        rows = global_batch_rows(imgs.shape[0])[1]
+        usage_ps = usage_percent(self.usage_ema, float(rows * mcfg.num_latent_tokens),
                                  mcfg.codebook_size)
         metrics.update(codebook_usage=usage_ps.mean(), codebook_usage_per_scale=usage_ps,
                        disc_weight=torch.full((), float(disc_w), device=dev))

@@ -8,8 +8,11 @@ teacher-forcing input -> VAR's training forward (class dropout, token
 dropout, drop path) -> per-PQ-branch cross entropy (trainer.py:122-147) ->
 backward (the attention's through the BNHD backward kernel on the card) ->
 clipped AdamW on the lr/wd schedule, and the EMA copy when asked for.
-State lives in the modules and the optimizer (``state_dict()`` of each); the
-checkpoint format is not ported yet.
+``VARTrainer.state_dict()`` holds what a resumed run needs (the CLI's
+checkpoints, ``utils/ckpt.py``). In a multi-process run
+(``parallel/dist.py``) the gradients are averaged over the processes before
+the clip, the training masks are drawn for the global batch and sliced to
+this process's rows, and the metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import torch.nn.functional as F
 from imagefolder_tpu_torch.models.tokenizer import VQModel
 from imagefolder_tpu_torch.models.var import VAR
 from imagefolder_tpu_torch.ops.sampling import gumbel, gumbel_softmax, sample_with_top_k_top_p
+from imagefolder_tpu_torch.parallel.dist import (global_batch_rows, global_metrics, own_rows,
+                                                 process_count)
 from imagefolder_tpu_torch.train.optim import (
     adamw_with_freezing,
     ema_update,
@@ -32,6 +37,19 @@ from imagefolder_tpu_torch.train.optim import (
 )
 
 __all__ = ["VARTrainConfig", "ProgressiveController", "VARTrainer", "var_sample"]
+
+
+def _own_masks(masks: dict, b: int) -> dict:
+    """``VAR.draw_masks``' masks for the global batch cut to this process's
+    ``b`` rows (``parallel/dist.py``); token dropout's rate is one draw
+    for the whole batch."""
+    out = dict(masks)
+    for k in ("class_drop", "token_keep"):
+        if k in out:
+            out[k] = own_rows(out[k], b)
+    out["drop_path"] = [None if m is None else tuple(own_rows(t, b) for t in m)
+                        for m in masks["drop_path"]]
+    return out
 
 
 @dataclasses.dataclass
@@ -184,6 +202,10 @@ class VARTrainer:
         ``masks``: VAR's training masks (``VAR.draw_masks``), a test hook."""
         gt_BL, x_in = self._codes(imgs, prog_si)
         self.var.train()
+        if masks is None and process_count() > 1:
+            masks = _own_masks(self.var.draw_masks(
+                global_batch_rows(imgs.shape[0])[1], prog_si, self.tcfg.p_drop_factor,
+                self.generator), imgs.shape[0])
         logits = self.var(labels, x_in, prog_si, train=True,
                           p_drop_factor=self.tcfg.p_drop_factor, generator=self.generator,
                           masks=masks)
@@ -205,7 +227,28 @@ class VARTrainer:
         gnorm = self.opt.step()
         if self.ema_var is not None:
             ema_update(list(self.ema_var.parameters()), list(self.var.parameters()))
-        return {"loss": loss, "acc_mean": acc, "acc_tail": tail, "grad_norm": gnorm}
+        return {**global_metrics({"loss": loss, "acc_mean": acc, "acc_tail": tail}),
+                "grad_norm": gnorm}
+
+    def state_dict(self) -> dict:
+        """What a resumed run needs to continue bit for bit: VAR's
+        parameters, the optimizer with its schedule counts, the EMA copy
+        (with ``tcfg.ema``) and the training generator's state."""
+        return {"model": self.var.state_dict(), "opt": self.opt.state_dict(),
+                "ema": None if self.ema_var is None else self.ema_var.state_dict(),
+                "rng": None if self.generator is None else self.generator.get_state()}
+
+    def load_state_dict(self, state: dict):
+        """Restore ``state_dict()``'s state (tensors from any device)."""
+        self.var.load_state_dict(state["model"])
+        st = dict(state["opt"])
+        if st["acc"] is not None:
+            st["acc"] = [a.to(self.var.pos_1LC.device) for a in st["acc"]]
+        self.opt.load_state_dict(st)
+        if self.ema_var is not None:
+            self.ema_var.load_state_dict(state["ema"])
+        if self.generator is not None and state["rng"] is not None:
+            self.generator.set_state(state["rng"].cpu())
 
     @torch.no_grad()
     def eval_step(self, imgs: torch.Tensor, labels: torch.Tensor,

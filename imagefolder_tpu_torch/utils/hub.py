@@ -60,7 +60,7 @@ def load_state_dict_file(path) -> dict:
     sd = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(sd, dict):
         for k in ("ema", "model", "state_dict"):
-            if k in sd:
+            if sd.get(k) is not None:  # a checkpoint without an EMA keeps "ema": None
                 sd = sd[k]
                 break
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}

@@ -51,24 +51,33 @@ def flatten_metrics(metrics: dict) -> dict:
 
 def create_logger(log_dir: Optional[str] = None, name: str = "imagefolder_tpu_torch"):
     """Primary-process file and stream logger (reference
-    utils/logger.py:32-46); the other processes log nothing."""
+    utils/logger.py:32-46); the other processes log nothing. A later call
+    with another ``log_dir`` (a second CLI run in the same process) moves
+    the file handler to that directory's ``log.txt``."""
     logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
     logger.propagate = False
-    if logger.handlers:
+    if not is_primary():
+        if not logger.handlers:
+            logger.addHandler(logging.NullHandler())
         return logger
     fmt = logging.Formatter("[%(asctime)s] %(message)s", datefmt="%Y-%m-%d %H:%M:%S")
-    if is_primary():
+    files = [h for h in logger.handlers if isinstance(h, logging.FileHandler)]
+    if not any(type(h) is logging.StreamHandler for h in logger.handlers):
         sh = logging.StreamHandler(sys.stdout)
         sh.setFormatter(fmt)
         logger.addHandler(sh)
-        if log_dir:
-            Path(log_dir).mkdir(parents=True, exist_ok=True)
-            fh = logging.FileHandler(Path(log_dir) / "log.txt")
+    if log_dir:
+        path = (Path(log_dir) / "log.txt").absolute()
+        for h in files:
+            if Path(h.baseFilename) != path:
+                logger.removeHandler(h)
+                h.close()
+        if not any(Path(h.baseFilename) == path for h in files):
+            path.parent.mkdir(parents=True, exist_ok=True)
+            fh = logging.FileHandler(path)
             fh.setFormatter(fmt)
             logger.addHandler(fh)
-    else:
-        logger.addHandler(logging.NullHandler())
     return logger
 
 

@@ -312,17 +312,17 @@ def test_copy_ready_agrees_with_the_kernel_alignment(view):
 
 
 @pytest.mark.parametrize("hd", [48, 64, 40, 80, 16, 32, 56, 44, 128, 36, 100, 136, 256, 250,
-                                264])
+                                264, 1032])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_operands_take_head_dims_48_and_64(hd, dtype):
     """The checks every BNHD kernel (#3-#6) makes before it launches: every
-    head dim up to 256 passes (48 and 64 among them; the bias cast to
+    head dim up to 1024 passes (48 and 64 among them; the bias cast to
     fp32), a multiple of 8 as it is and any other zero-padded to the next
     multiple of 8; a wider head raises NotImplementedError naming the
     widest taken. They come before any launch, so CPU tensors reach them."""
     q, k, v = (torch.randn((2, 5, 3, hd)).to(dtype) for _ in range(3))
     bias = torch.zeros((1, 1, 5, 5), dtype=torch.bfloat16)
-    if hd <= 256:
+    if hd <= 1024:
         *qkv, b = pt_attn._kernel_operands(q, k, v, bias, "fused_attention")
         assert b.dtype == torch.float32
         if hd % 8 == 0:
@@ -333,7 +333,7 @@ def test_kernel_operands_take_head_dims_48_and_64(hd, dtype):
             assert torch.equal(x[..., :hd], y) and not x[..., hd:].any()
         return
     with pytest.raises(NotImplementedError,
-                       match=r"head dims up to 256 \(one that is not a multiple of 8 "
+                       match=r"head dims up to 1024 \(one that is not a multiple of 8 "
                              r"zero-padded to one\), got " + str(hd)):
         pt_attn._kernel_operands(q, k, v, bias, "fused_attention")
     for call in (pt_attn._fused_attention_cuda, pt_attn._fused_attention_qblk_cuda):

@@ -6,7 +6,7 @@ package's at 136, 200 and 256: the forward against ``fused_attention``
 Pallas backward ``_fused_attention_bwd_impl`` (interpret mode, what the
 JAX router's custom VJP runs on the TPU) and against ``jax.vjp`` of the
 JAX router (XLA on the CPU); the unaligned 250
-zero-padded to 256 before a launch; and widths above 256 refused by every
+zero-padded to 256 before a launch; and widths above 1024 refused by every
 wrapper before any launch.
 
 Tolerances: fp32, 1e-5 of the JAX result's max abs (as
@@ -74,9 +74,9 @@ def test_unaligned_width_is_padded_to_256():
         assert torch.equal(x[..., :250], y) and not x[..., 250:].any()
 
 
-@pytest.mark.parametrize("hd", [257, 264, 512])
+@pytest.mark.parametrize("hd", [1025, 1032, 2048])
 def test_wider_heads_raise_before_any_launch(hd):
-    """Every wrapper's CUDA path refuses a head above 256 in its checks,
+    """Every wrapper's CUDA path refuses a head above 1024 in its checks,
     which come before the library is loaded or a kernel launched (so CPU
     tensors reach them), and no launch is counted."""
     q, k, v = (torch.ones((1, 5, 2, hd)) for _ in range(3))
@@ -84,9 +84,9 @@ def test_wider_heads_raise_before_any_launch(hd):
     names = ("FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES", "QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES")
     before = [getattr(pt_attn, n) for n in names]
     for call in (pt_attn._fused_attention_cuda, pt_attn._fused_attention_qblk_cuda):
-        with pytest.raises(NotImplementedError, match=f"head dims up to 256.*got {hd}"):
+        with pytest.raises(NotImplementedError, match=f"head dims up to 1024.*got {hd}"):
             call(q, k, v, bias, 1.0)
     for call in (pt_attn._fused_attention_bwd_cuda, pt_attn._fused_attention_qblk_bwd_cuda):
-        with pytest.raises(NotImplementedError, match=f"head dims up to 256.*got {hd}"):
+        with pytest.raises(NotImplementedError, match=f"head dims up to 1024.*got {hd}"):
             call(q, k, v, bias, q, 1.0, False)
     assert [getattr(pt_attn, n) for n in names] == before

@@ -13,8 +13,8 @@ padding the wrapper does before a launch on the card.
   true width's scale, cut back by ``_cut_head``, equals the plain attention
   of the unpadded inputs, forward and backward (the gradient's padded
   columns are exact zeros, dbias unchanged), as do both autograd paths;
-- ``_kernel_operands`` takes every width from 1 to 256 (the multiples of 8
-  as they are) and raises NotImplementedError above 256, before any launch.
+- ``_kernel_operands`` takes every width from 1 to 1024 (the multiples of 8
+  as they are) and raises NotImplementedError above 1024, before any launch.
 
 Tolerances: fp32 within 1e-5 of the JAX kernels; the padded plain versions
 within 1e-6 of the unpadded ones (zero columns add exact zeros; only the
@@ -137,13 +137,14 @@ def test_padding_wrapper_is_exact(hd, qblk):
 
 
 @pytest.mark.parametrize("hd", [1, 7, 8, 44, 64, 72, 80, 88, 120, 127, 128, 129, 136, 256,
-                                200, 250, 257, 264, 512])
+                                200, 250, 257, 264, 512, 1000, 1024, 1025, 2048])
 def test_kernel_operands_take_every_width_up_to_128(hd):
-    """Every width up to 256 passes (the kD = 128 code past 64, the kD = 256
-    code past 128), zero-padded to a multiple of 8; a wider head raises."""
+    """Every width up to 1024 passes (the kD = 128 code past 64, the kD =
+    256, 512 and 1024 codes past 128), zero-padded to a multiple of 8; a
+    wider head raises."""
     q, k, v = (torch.ones((1, 3, 2, hd)) for _ in range(3))
-    if hd > 256:
-        with pytest.raises(NotImplementedError, match=f"head dims up to 256.*got {hd}"):
+    if hd > 1024:
+        with pytest.raises(NotImplementedError, match=f"head dims up to 1024.*got {hd}"):
             pt_attn._kernel_operands(q, k, v, None, "fused_attention")
         for call in (pt_attn._fused_attention_cuda, pt_attn._fused_attention_qblk_cuda):
             with pytest.raises(NotImplementedError, match="head dims"):
