@@ -8,14 +8,14 @@
 
 With ``times``, only phases 1, 2 and 7 run, for the kernel records named
 (``TIMES``' keys; all by default), and the last line is their JSON.
-``outputs`` saves #3-#6's
-results at head dims 48, 64, 80, 128 and 256 from a fixed seed, and ``same`` compares two
+``outputs`` saves #9's results at code widths 8-128 and #3-#6's
+results at head dims 48-1024 from a fixed seed, and ``same`` compares two
 such files bit for bit (run each ``outputs`` from its own checkout). To
 compare two commits in one chip call, unpack each into a gitignored
 directory, copy this script into each, and run it there in the order
 parent, change, change, parent: each imports the package beside it.
 ``cli`` runs phases 1, 2 and 6 alone (the tokenizer's and the generators'
-CLIs).
+CLIs, after the VQ-4096 round trip, whose rate ``bench_loader`` targets).
 
 Phases, each printing what it found (any failure ends the run with a non-zero
 exit; no failure is caught):
@@ -58,12 +58,19 @@ exit; no failure is caught):
      100 (zero-padded by the wrapper), through the same checks; #3-#6 at
      160 and 256 (the kD = 256 kernels) and the unaligned 250, and at 264
      and 512 (kD = 512) and the unaligned 1000 (kD = 1024), fp32 and bf16,
-     with one bf16 autograd launch each way, and 1032 (past the cap of
-     1024) refused with no launch; #9 at code widths 12, 14, 24, 40 and 100
+     with one bf16 autograd launch each way; #3-#6 at 1032 and 2048 (the
+     segmented kernels, 1024 columns a segment) at L = 70, and a wrong kD
+     refused by each C entry; #9 at code widths 12, 14, 24, 40 and 100
      (run by the instantiations at 16, 16, 32, 64 and 128, which zero-fill
-     the tiles past C), one launch a call, 129 refused, an instantiation
-     that is not the wrapper's pick refused by the C entry, and one
-     MSVR10P2-4096 encode at codebook_embed_dim=12 card against CPU;
+     the tiles past C) and at 130, 192 and 256 (the instantiation of 128 in
+     chunks of 128), one launch a call, an instantiation that is not the
+     wrapper's pick refused by the C entry, and one MSVR10P2-4096 encode at
+     codebook_embed_dim=12 card against CPU; ``e2e_pipeline`` runs beside
+     phases 2-4 in a process of its own (``_Child``, started before the
+     build, its stages after the first held until the library is built;
+     its nine stages each a CLI in a process of its own, at its widths
+     with epochs and steps cut, ``E2E_ARGS``), and phase 4 ends by joining
+     it and checking ``summary.json``'s fields;
   4. models, card against CPU in fp32 from one seed (every tokenizer
      check, VQ-4096, MSVR10P2-4096 at 256 and 512 px, the flagship GAN
      step, RobustTok, the disc types, MSBR and the variants, with their ViTs
@@ -100,16 +107,19 @@ exit; no failure is caught):
      DinoDisc, epoch 80); one step each of VQ-4096.yaml with LoRA
      (lat_lora/lora: every frozen parameter bit-unchanged on both sides),
      learned latent pos embeds, the conv head and the siren head, and the
-     CNN tokenizer's round trip and step (B=1); a code, sign bit or token
-     may differ only at a near-tie, and the card then goes on from the
-     CPU's choice;
+     CNN tokenizer's round trip and step (B=1); the ViT-B/16 decoder with
+     RoPE blocks and with ``cond_latent`` (pixels, pre-last activation,
+     every gradient); a code, sign bit or token may differ only at a
+     near-tie, and the card then goes on from the CPU's choice;
   5. main paths in bf16, timed with CUDA events (a warm-up call, then
      median, min and max), each with every launch counter set to 0 just
      before its timed calls and read just after: at B=64 the VQ-4096 round
      trip, composed and then fused (``round trip fused``); RAR sampling
      (``rar sample``: ``rar_generate`` with CFG and the fused RobustTok
      decode; then the generator and the decode alone); RAR-B's training
-     forward and backward (``rar train fwd+bwd``); MaskGIT-B sampling
+     forward and backward (``rar train fwd+bwd``); the ViT-B/16 RoPE
+     decoder's forward (``rope decode``, #3 12) and forward and backward
+     (``rope train fwd+bwd``, #3 12, #6 12); MaskGIT-B sampling
      (``maskgit sample``: ``maskgit_generate`` at its defaults and the fused
      RobustTok decode), ``maskgit train step`` and ``rar train step`` (the
      whole trainer steps); the MLP probe (12
@@ -162,7 +172,11 @@ exit; no failure is caught):
      seeded Inception (in a process of its own, beside the resume); and
      ``export_weights`` of RAR (``.bin``) and VAR
      (``--hf``), each written file loaded back with strict=True and compared
-     tensor for tensor;
+     tensor for tensor; ``linear_probe`` on the trained checkpoint at full
+     depth (4 steps at B=64, #1 12 a batch) and its features card against
+     CPU at the cut depth; ``convert_to_wds`` of the PNGs,
+     ``WebDatasetReader``'s val batches against the ImageFolder val
+     loader's, and ``bench_loader`` against this run's round-trip rate;
   7. times: each kernel (#2, #5 and #6 as training calls them, with the
      forward's saved output and lse, #6 through autograd; #1, #3 and #4
      also with the lse store on, #3 as the train step's autograd runs its
@@ -170,9 +184,10 @@ exit; no failure is caught):
      512 px last sampling stage, RAR-B's teacher forcing and MaskGIT-B's
      shape; #6 also at RAR-B's and MaskGIT-B's training shapes; #3 and #6
      at RAR-XL's and RAR-XXL's (64, 258, 16, 80 | 88) and at head dims 256
-     and 512, (16, 258, 4, 256) and (16, 258, 2, 512); #9 at every scale of
-     both encodes and at C = 12 (run at 16), each a CUDA graph of 20
-     calls, with its sums per encode),
+     and 512, (16, 258, 4, 256) and (16, 258, 2, 512), and at 2048, (4,
+     258, 2, 2048); #9 at every scale of both encodes and at C = 12 (run at
+     16) and 256 (in chunks of 128), each a CUDA graph of 20 calls, with
+     its sums per encode),
      its plain version (order plain, kernel, kernel,
      plain) and one PyTorch library call computing the same function (for
      #2, #5 and #6, the backward of ``scaled_dot_product_attention``; for #7
@@ -195,9 +210,11 @@ import json
 import os
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -205,6 +222,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from imagefolder_tpu_torch.data.imagenet import make_dataloader
 from imagefolder_tpu_torch.losses.diffaug import draw_aug
 from imagefolder_tpu_torch.losses.discriminators import draw_crop
 from imagefolder_tpu_torch.losses.discriminators import DinoDisc
@@ -1293,7 +1311,10 @@ HD256_UNALIGNED = 250          # zero-padded to 256 by the wrapper
 WIDER_HDS = (264, 512)
 WIDER_UNALIGNED = 1000
 WIDER_BATCH, WIDER_HEADS = 4, 2
-TOO_WIDE_HD = 1032             # past the widest instantiation (1024): refused
+# past the widest instantiation (1024): the segmented kernels, 1024 columns
+# a segment, at a small L (their work grows with the square of the segments)
+WIDEST_HDS = (1032, 2048)
+WIDEST_SEQ = 70
 
 
 def _kernels_wide(dev, full_hds, unaligned, batch, heads, what):
@@ -1362,25 +1383,15 @@ def kernels_hd256(dev):
     _kernels_wide(dev, HD256_HDS, HD256_UNALIGNED, HD256_BATCH, HD256_HEADS, "kD = 256")
 
 
-def kernels_wider_heads(dev):
-    """#3-#6 at head widths 264-1024 (the kD = 512 and 1024 FMA kernels)
-    through ``_kernels_wide``: 264 and 512 at (4, 258, 2, hd), the unaligned
-    1000; then a head of TOO_WIDE_HD refused by #3-#6 with no launch, and a
-    head of 264 refused by each C entry when it is handed the kD = 256
-    instantiation in place of ``bnhd_kernel_width``'s 512."""
-    _kernels_wide(dev, WIDER_HDS, WIDER_UNALIGNED, WIDER_BATCH, WIDER_HEADS, "kD = 512, 1024")
-    gen = torch.Generator(device=dev).manual_seed(SEED + TOO_WIDE_HD)
+def _refused_picks(dev, hd: int, kd: int):
+    """A head of ``hd`` refused by each C entry of #3-#6 when the wrapper
+    hands it the instantiation ``kd`` in place of ``bnhd_kernel_width``'s,
+    with no launch counted."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + hd)
     reset_counts()
-    q, k, v = _bnhd(gen, 2, 70, 70, 2, torch.bfloat16, dev, l2=False, hd=TOO_WIDE_HD)
-    for num, fn in (("#3", attn.fused_attention), ("#4", attn.fused_attention_qblk)):
-        _expect_refusal(f"{num} hd {TOO_WIDE_HD}", NotImplementedError, lambda: fn(q, k, v),
-                        "up to 1024")
-    for num, fn in (("#6", attn.fused_attention_bwd), ("#5", attn.fused_attention_qblk_bwd)):
-        _expect_refusal(f"{num} hd {TOO_WIDE_HD}", NotImplementedError,
-                        lambda: fn(q, k, v, None, q, need_dbias=False), "up to 1024")
-    q, k, v = _bnhd(gen, 2, 70, 70, 2, torch.bfloat16, dev, l2=False, hd=WIDER_HDS[0])
+    q, k, v = _bnhd(gen, 2, 70, 70, 2, torch.bfloat16, dev, l2=False, hd=hd)
     pick = attn.bnhd_kernel_width
-    attn.bnhd_kernel_width = lambda hd: 256  # not the smallest that holds 264
+    attn.bnhd_kernel_width = lambda _: kd  # not the smallest that holds hd
     try:
         for num, fn in (("#3", lambda: attn.fused_attention(q, k, v)),
                         ("#4", lambda: attn.fused_attention_qblk(q, k, v)),
@@ -1388,11 +1399,71 @@ def kernels_wider_heads(dev):
                                                                 need_dbias=False)),
                         ("#5", lambda: attn.fused_attention_qblk_bwd(q, k, v, None, q,
                                                                      need_dbias=False))):
-            _expect_refusal(f"{num} hd {WIDER_HDS[0]} at kD = 256", RuntimeError, fn,
-                            "CUDA error")
+            _expect_refusal(f"{num} hd {hd} at kD = {kd}", RuntimeError, fn, "CUDA error")
     finally:
         attn.bnhd_kernel_width = pick
     check_launches("[kernels] refused head dims", 1, {})
+
+
+def kernels_wider_heads(dev):
+    """#3-#6 at head widths 264-1024 (the kD = 512 and 1024 FMA kernels)
+    through ``_kernels_wide``: 264 and 512 at (4, 258, 2, hd), the unaligned
+    1000; then a head of 264 refused by each C entry when it is handed the
+    kD = 256 instantiation in place of ``bnhd_kernel_width``'s 512."""
+    _kernels_wide(dev, WIDER_HDS, WIDER_UNALIGNED, WIDER_BATCH, WIDER_HEADS, "kD = 512, 1024")
+    _refused_picks(dev, WIDER_HDS[0], 256)
+
+
+def kernels_widest_heads(dev):
+    """#3-#6 at head widths past 1024 (the segmented kernels of
+    csrc/attention_wide.cuh) against their plain versions at L =
+    WIDEST_SEQ: at 1032 (two segments, the second 8 columns wide) and 2048
+    (two full ones), #3 and #6 under the causal mask and without a bias,
+    bf16 (dbias off and on) and fp32, cross length, Lq = 1, a per-(B, H)
+    bias, ragged L; #4 and #5 called directly under an encoder mask, bf16
+    and fp32 with dbias; one bf16 autograd launch each way through the
+    router (#3/#6). Then a head of 1032 refused by each C entry when it is
+    handed the kD = 1024 instantiation in place of 2048."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + WIDEST_HDS[-1])
+    n = WIDEST_SEQ
+    causal = _causal(n, dev)
+    mask = encoder_mask(n, 20, dev, 16)
+    for hd in WIDEST_HDS:
+        print(f"[kernels] segmented: head dim {hd} runs kD = {attn.bnhd_kernel_width(hd)} "
+              f"({attn.bnhd_kernel_width(hd) // 1024} segments of 1024)")
+
+        def bnhd(b, lq, lk, h, dtype):
+            return _bnhd(gen, b, lq, lk, h, dtype, dev, l2=False, hd=hd)
+
+        per_bh = torch.randn((2, 2, 37, 45), generator=gen, device=dev)
+        per_bh[..., 5:9] = float("-inf")
+        fwd = [(f"causal L={n}", *bnhd(2, n, n, 2, bf16), causal),
+               (f"fp32, causal L={n}", *bnhd(2, n, n, 2, f32), causal),
+               (f"no bias L={n}", *bnhd(2, n, n, 2, bf16), None),
+               ("cross length 37 x 77", *bnhd(2, 37, 77, 2, bf16), None),
+               ("Lq=1", *bnhd(3, 1, 2, 2, bf16), None),
+               ("per-(B,H) bias", *bnhd(2, 37, 45, 2, bf16), per_bh)]
+        _fwd_cases_hd("#3", attn.fused_attention, attn.fused_attention_reference, fwd, hd)
+        bwd = [(f"causal L={n}, dbias off", *bnhd(2, n, n, 2, bf16), causal, False),
+               (f"fp32, causal L={n}, dbias on", *bnhd(2, n, n, 2, f32), causal, True),
+               (f"no bias L={n}", *bnhd(2, n, n, 2, bf16), None, False),
+               (f"causal L={n}, dbias on", *bnhd(2, n, n, 2, bf16), causal, True),
+               ("ragged L=37 fp32", *bnhd(2, 37, 37, 2, f32), None, False)]
+        _bwd_cases_hd("#6", attn.fused_attention_bwd, attn.fused_attention_bwd_reference, bwd,
+                      hd, gen)
+        _autograd_hd("#3/#6", ("FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES"),
+                     *bnhd(2, n, n, 2, bf16), causal, gen)
+        qblk = [(f"L={n}, encoder mask", *bnhd(2, n, n, 2, bf16), mask),
+                (f"L={n} fp32, encoder mask", *bnhd(2, n, n, 2, f32), mask)]
+        _fwd_cases_hd("#4", attn.fused_attention_qblk, attn.fused_attention_qblk_reference,
+                      qblk, hd)
+        _bwd_cases_hd("#5", attn.fused_attention_qblk_bwd,
+                      attn.fused_attention_qblk_bwd_reference,
+                      [(name + (", dbias on" if q.dtype == f32 else ", dbias off"), q, k, v, b,
+                        q.dtype == f32) for name, q, k, v, b in qblk], hd, gen)
+        del fwd, bwd, qblk
+    _refused_picks(dev, WIDEST_HDS[0], 1024)
 
 
 def _score_gap(x: torch.Tensor, cb: torch.Tensor, maximize: bool, a: torch.Tensor,
@@ -1476,6 +1547,7 @@ def kernels_codebook(dev) -> float:
 
 
 PADDED_CODE_WIDTHS = (12, 14, 24, 40, 100)  # run at 16, 16, 32, 64, 128
+WIDE_CODE_WIDTHS = (130, 192, 256)          # run at 128 in chunks of 128
 CODE_WIDTH_ENCODE = 12                      # MSVR10P2-4096 with codebook_embed_dim=12
 
 
@@ -1485,13 +1557,14 @@ def kernels_codebook_widths(dev):
     zero-fill the columns past C: at every C of PADDED_CODE_WIDTHS, both
     scores, at a 256 px scale's N and at N below a row tile, indices
     against the plain version on the same operands (equal but at
-    near-ties), one launch a call; past 128 refused with no launch, and an
+    near-ties), one launch a call; the same at WIDE_CODE_WIDTHS, which the
+    instantiation of 128 walks in chunks of 128 columns; and an
     instantiation other than ``kernel_width``'s refused by the C entry.
     Then one multi-scale encode of MSVR10P2-4096 with codebook_embed_dim=12
     (ViT-B at CHECK_TOK_DEPTH blocks: ``check_depth_cut``) card against CPU
     in fp32, its codes in lockstep."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
-    for c in PADDED_CODE_WIDTHS:
+    for c in PADDED_CODE_WIDTHS + WIDE_CODE_WIDTHS:
         for n, maximize in ((BATCH * 11 * 11, True), (BATCH * 11 * 11, False), (5, True)):
             x = torch.randn((n, c), generator=gen, device=dev)
             cb = torch.randn((4096, c), generator=gen, device=dev)
@@ -1510,9 +1583,6 @@ def kernels_codebook_widths(dev):
                   f"equal, max fp64 score gap {gap:.3e} (near-tie <= {NEAR_TIE:g})")
             _check(f"[kernels] #9 C={c} score gap", gap, NEAR_TIE)
     reset_counts()
-    x = torch.randn((8, 129), device=dev)
-    _expect_refusal("#9 C=129", NotImplementedError,
-                    lambda: codebook.codebook_argmin(x, x), "up to 128")
     x = torch.randn((8, 12), device=dev)
     pick = codebook.kernel_width
     codebook.kernel_width = lambda c: 32  # not the smallest that holds 12
@@ -3375,6 +3445,107 @@ def _check_metrics(path: str, metrics: dict, model: torch.nn.Module):
 MLP_PROBE = (BATCH * 513, 768, 3072, 12)  # scripts/perf.py:29-33: B*L rows, D, HID; 12 layers
 
 
+ROPE_MODEL = "vit_base_patch14_dinov2.lvd142m"  # ViT-B/16 at 256 px, 256 latents
+
+
+def _rope_decoder(dtype: torch.dtype, seed: int, device, **kw) -> vit_mod.LatentDecoder:
+    """The ViT-B/16 latent decoder at 256 px over 256 latents (the depth in
+    force), seeded, with LayerScale raised to O(1) so that every block
+    counts; ``kw``: ``use_rope``, ``cond_latent``, ``abs_pos_embed``."""
+    gen = torch.Generator().manual_seed(seed)
+    dec = vit_mod.LatentDecoder(ROPE_MODEL, 256, 16, 256, dtype=dtype, generator=gen,
+                                **kw)
+    _excite_layerscale(dec, gen)
+    return dec.to(device)
+
+
+ROPE_CHECKS = {"rope": dict(use_rope=True, abs_pos_embed=False),
+               "cond_latent": dict(cond_latent=True, abs_pos_embed=True)}
+
+
+def phase_model_rope(dev):
+    """The ViT-B/16 decoder with RoPE blocks (``use_rope``,
+    ``abs_pos_embed=False``) and with ``cond_latent`` in fp32 at B=2, card
+    against the same weights on the CPU, at the depth in force (the
+    caller's ``check_depth_cut``): the pixels, the pre-last activation and,
+    through one backward of a fixed weighting of both, the latents' and
+    every parameter's gradient, each within 1e-3 of its max (the RoPE
+    path's #3 and #6 at head dim 64 in fp32)."""
+    for kind, kw in ROPE_CHECKS.items():
+        cpu = _rope_decoder(torch.float32, SEED + 31, "cpu", **kw)
+        card = copy.deepcopy(cpu).to(dev)
+        g = torch.Generator().manual_seed(SEED + 32)
+        z = torch.randn((2, 256, cpu.embed_dim), generator=g)
+        w = torch.randn((2, 256, 256, 3), generator=g)
+        w_pre = torch.randn((2, 256, cpu.embed_dim), generator=g)
+        errs = {}
+        grads = []
+        for i, (model, device) in enumerate(((cpu, "cpu"), (card, dev))):
+            zz = z.detach().to(device).requires_grad_()
+            out, pre = model(zz, return_prelast=True)
+            ((out * w.to(device)).sum() + (pre.float() * w_pre.to(device)).sum()).backward()
+            grads.append({"z": zz.grad, **{n: p.grad for n, p in model.named_parameters()
+                                           if p.grad is not None}})
+            if i == 0:
+                ref = out.detach(), pre.detach()
+            else:
+                errs["pixels"] = _max_err(out, ref[0]) / ref[0].abs().max().item()
+                errs["pre-last"] = _max_err(pre, ref[1]) / ref[1].abs().max().item()
+        if set(grads[0]) != set(grads[1]):
+            raise AssertionError(f"[model] {kind} decoder: gradients of different parameters")
+        gerr = max(_max_err(grads[1][n], grads[0][n]) / max(grads[0][n].abs().max().item(),
+                                                            1e-30) for n in grads[0])
+        print(f"[model] ViT-B/16 decoder, {kind} ({vit_depth()} of 12 blocks), fp32 B=2 card "
+              f"vs CPU: pixels {errs['pixels']:.3e}, pre-last {errs['pre-last']:.3e}, "
+              f"{len(grads[0])} gradients (the latents' and every parameter's) within "
+              f"{gerr:.3e} of their max (tol 1e-3); {CARD}")
+        for what, e in {**errs, "gradients": gerr}.items():
+            _check(f"[model] {kind} decoder {what} card vs CPU", e, 1e-3)
+        del cpu, card, grads
+
+
+def main_rope_paths(dev) -> dict:
+    """The ViT-B/16 decoder with RoPE blocks at full depth in bf16, B=64
+    (256 latents, so L = 1 + 256 + 256 = 513 under the single-block
+    budget): ``rope decode`` (the decoder's forward: #3 12 a call) and
+    ``rope train fwd+bwd`` (the forward with the lse stored and the backward
+    of the pixels' mean square, the gradients set to None before each call:
+    #3 12 and #6 12 a call); every parameter the RoPE path reads (all but
+    the pos embed, which it never adds) gets a finite gradient."""
+    dec = _rope_decoder(torch.bfloat16, SEED + 33, dev, use_rope=True, abs_pos_embed=False)
+    depth = len(dec.model.blocks)
+    z = torch.randn((BATCH, 256, dec.embed_dim), generator=torch.Generator(device=dev)
+                    .manual_seed(SEED), device=dev)
+    out = {}
+    with torch.inference_mode():
+        out["rope decode"] = r = time_calls("rope decode", lambda: dec(z), 5,
+                                            {"fused_attention_fwd": depth}, dev)
+        y = r.pop("out")
+    if tuple(y.shape) != (BATCH, 256, 256, 3) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"[main] rope decode output {tuple(y.shape)} not finite")
+    _report("ViT-B/16 RoPE decoder forward (hd 64, L 513)", r, BATCH, "pixels finite")
+
+    def step():
+        dec.zero_grad(set_to_none=True)
+        loss = dec(z).float().square().mean()
+        loss.backward()
+        return loss.detach()
+
+    out["rope train fwd+bwd"] = r = time_calls(
+        "rope train fwd+bwd", step, 5, {"fused_attention_fwd": depth,
+                                        "fused_attention_bwd": depth}, dev)
+    loss = r.pop("out")
+    unread = {n for n, p in dec.named_parameters() if p.grad is None}
+    bad = [n for n, p in dec.named_parameters()
+           if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+    if unread != {"model.pos_embed"} or bad or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"[main] rope train fwd+bwd: loss {loss.item()}, without a "
+                             f"gradient {sorted(unread)}, not finite {bad[:5]}")
+    _report("ViT-B/16 RoPE decoder forward + backward (hd 64, L 513)", r, BATCH,
+            f"loss {loss.item():.4f}, every parameter it reads with a finite gradient")
+    return out
+
+
 def main_mlp_probe(dev) -> dict:
     """scripts/perf.py's MLP probe on the fused kernel: 12 chained #10 calls
     over (B*L, D) = (32832, 768) bf16 rows, hidden 3072, the weights N(0,
@@ -4243,6 +4414,39 @@ def times_codebook_c12(dev, gen) -> dict:
         timer=_time_graph_ms)
 
 
+def times_codebook_c256(dev, gen) -> dict:
+    """#9 at code width 256 (the instantiation of 128 in two chunks) at the
+    last 256 px scale's N = 7744 against a 4096 x 256 codebook, cosine
+    search, as CUDA graphs of 20 calls."""
+    vsz, c, n = 4096, 256, BATCH * PNS[-1] ** 2
+    cb = _l2n(torch.randn((vsz, c), generator=gen, device=dev))
+    x = _l2n(torch.randn((n, c), generator=gen, device=dev))
+    return _time_kernel(
+        f"#9 codebook_argmin, C={c} run at {codebook.kernel_width(c)} in chunks",
+        lambda: codebook.codebook_argmin(x, cb, True),
+        lambda: codebook.codebook_argmin_reference(x, cb, True),
+        lambda: torch.argmax(x @ cb.T, dim=-1),
+        (n * c + vsz * c) * 4 + n * 8, 2 * n * vsz * c, torch.float32,
+        f"x ({n}, {c}) codebook ({vsz}, {c})", library_call="x @ e.T, argmax",
+        timer=_time_graph_ms)
+
+
+HD2048_BATCH, HD2048_HEADS = 4, 2  # a head past 1024: two segments
+
+
+def times_bnhd_fwd_hd2048(dev, gen) -> dict:
+    """#3 at head dim 2048, (4, 258, 2, 2048) under the causal mask: the
+    segmented kernel, two segments."""
+    return _times_bnhd_fwd_at(dev, gen, "two 1024-column segments", RAR_SEQ, True, 2048,
+                              HD2048_BATCH, HD2048_HEADS)
+
+
+def times_bnhd_bwd_hd2048(dev, gen) -> dict:
+    """#6 at head dim 2048, (4, 258, 2, 2048) under the causal mask."""
+    return _times_bnhd_bwd_at(dev, gen, "two 1024-column segments", RAR_SEQ, True, 2048,
+                              HD2048_BATCH, HD2048_HEADS)
+
+
 TIMES = {"attention_qkv_fwd": times_qkv_fwd, "attention_qkv_bwd": times_qkv_bwd,
          "fused_attention_fwd": times_bnhd_fwd, "fused_attention_bwd": times_bnhd_bwd,
          "fused_attention_qblk_fwd": times_qblk_fwd, "fused_attention_qblk_bwd": times_qblk_bwd,
@@ -4260,8 +4464,12 @@ TIMES = {"attention_qkv_fwd": times_qkv_fwd, "attention_qkv_bwd": times_qkv_bwd,
          "fused_attention_bwd_hd256": times_bnhd_bwd_hd256,
          "fused_attention_fwd_hd512": times_bnhd_fwd_hd512,
          "fused_attention_bwd_hd512": times_bnhd_bwd_hd512,
-         "codebook_argmin_c12": times_codebook_c12}
-# records timed at head dims 48, 80, 88, 256 and 512, and #9 at C = 12,
+         "codebook_argmin_c12": times_codebook_c12,
+         "fused_attention_fwd_hd2048": times_bnhd_fwd_hd2048,
+         "fused_attention_bwd_hd2048": times_bnhd_bwd_hd2048,
+         "codebook_argmin_c256": times_codebook_c256}
+# records timed at head dims 48, 80, 88, 256, 512 and 2048, and #9 at C = 12
+# and 256,
 # filed with their kernel's record under "shapes" in the kernels line
 SHAPE_TIMES = {
     "fused_attention_fwd_rarxl": ("fused_attention_fwd", "RAR-XL teacher forcing, hd 80"),
@@ -4276,7 +4484,10 @@ SHAPE_TIMES = {
     "fused_attention_bwd_hd256": ("fused_attention_bwd", "hidden 1024 / 4 heads training, hd 256"),
     "fused_attention_fwd_hd512": ("fused_attention_fwd", "hidden 1024 / 2 heads, hd 512"),
     "fused_attention_bwd_hd512": ("fused_attention_bwd", "hidden 1024 / 2 heads training, hd 512"),
-    "codebook_argmin_c12": ("codebook_argmin", "C=12 run at 16, pn=11")}
+    "codebook_argmin_c12": ("codebook_argmin", "C=12 run at 16, pn=11"),
+    "fused_attention_fwd_hd2048": ("fused_attention_fwd", "two segments, hd 2048"),
+    "fused_attention_bwd_hd2048": ("fused_attention_bwd", "two segments training, hd 2048"),
+    "codebook_argmin_c256": ("codebook_argmin", "C=256 run at 128 in chunks, pn=11")}
 
 
 def phase_times(dev, names=tuple(TIMES)) -> dict:
@@ -4286,19 +4497,30 @@ def phase_times(dev, names=tuple(TIMES)) -> dict:
     return {name: TIMES[name](dev, gen) for name in names}
 
 
-SAME_HDS = (48, 64, 80, 128, 256)  # the widths whose results ``same`` holds bit for bit
+# the widths whose results ``same`` holds bit for bit: head dims of #3-#6
+# and code widths of #9
+SAME_HDS = (48, 64, 80, 128, 256, 512, 1024)
+SAME_CODE_WIDTHS = (8, 12, 16, 32, 64, 100, 128)
 
 
 def phase_outputs(dev, path: str):
-    """Every BNHD kernel (#3-#6) at head dims 48, 64, 80, 128 and 256 on inputs from a
-    fixed seed, saved to ``path``: #3 with and without the causal mask and
-    its lse, #6 on the wgmma backward (o and lse from #3), with dbias (its
-    dq, dk and dv: dbias is summed by atomicAdd in no fixed order) and in
-    fp32, #4 and #5 past the single-block budget under an encoder mask.
-    Two checkouts' files compared by ``same`` show whether a change left
-    the kernels' results bit for bit as they were."""
+    """#9 at code widths SAME_CODE_WIDTHS (both scores, at a 256 px scale's
+    N and below a row tile) and every BNHD kernel (#3-#6) at head dims
+    SAME_HDS on inputs from a fixed seed, saved to ``path``: #3 with and
+    without the causal mask and its lse, #6 on the wgmma backward (o and
+    lse from #3), with dbias (its dq, dk and dv: dbias is summed by
+    atomicAdd in no fixed order) and in fp32, #4 and #5 past the
+    single-block budget under an encoder mask. Two checkouts' files
+    compared by ``same`` show whether a change left the kernels' results
+    bit for bit as they were."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 4864)
     out = {}
+    for c in SAME_CODE_WIDTHS:
+        cb = torch.randn((4096, c), generator=gen, device=dev)
+        for n in (BATCH * 11 * 11, 5):
+            x = torch.randn((n, c), generator=gen, device=dev)
+            out[f"#9 C={c} N={n} l2"] = codebook.codebook_argmin(x, cb, False)
+            out[f"#9 C={c} N={n} cosine"] = codebook.codebook_argmin(_l2n(x), _l2n(cb), True)
     for hd in SAME_HDS:
         scale = 1.0 / math.sqrt(hd)
         for dtype in (torch.bfloat16, torch.float32):
@@ -4323,7 +4545,8 @@ def phase_outputs(dev, path: str):
             out[f"#5 {tag}"] = attn.fused_attention_qblk_bwd(q, k, v, mask, g, scale, False)[:3]
     torch.cuda.synchronize()
     torch.save(_to(out, torch.device("cpu")), path)
-    print(f"[outputs] {len(out)} results at head dims {SAME_HDS} saved to {path}")
+    print(f"[outputs] {len(out)} results at code widths {SAME_CODE_WIDTHS} and head dims "
+          f"{SAME_HDS} saved to {path}")
 
 
 def phase_same(a: str, b: str) -> int:
@@ -4648,6 +4871,101 @@ def _cli_eval_compare(root: Path, inception: Path, ckpt: Path) -> None:
         _check(f"[cli] eval_reconstruction {k} card vs CPU", e, 1e-3)
 
 
+PROBE_STEPS = 4          # linear_probe's head: 4 Adam steps at B=64 (2 epochs of the PNGs)
+
+
+def _cli_linear_probe(root: Path, ckpt: Path) -> dict:
+    """``linear_probe.main`` on the card at full depth: the trained
+    checkpoint ``ckpt`` (its EMA) as the frozen tokenizer, PROBE_STEPS
+    steps of the head over the 128 train PNGs (2 classes) at B=64, then
+    top-1 over the 32 val PNGs; every ``img_to_sem_feat`` call (the
+    encoder and the single-scale VQ: #1 12 a batch) held to its launches and
+    timed. Prints its ACC line."""
+    from imagefolder_tpu_torch.scripts import linear_probe
+
+    r, rec = _gen_main("linear_probe RobustTok", lambda: linear_probe.main(
+        ["--config", str(ROBUSTTOK_YAML), "--vq_ckpt", str(ckpt), "--data_path",
+         str(root / "train"), "--val_data", str(root / "val"), "--batch_size", str(BATCH),
+         "--steps", str(PROBE_STEPS), "--num_classes", "2"]),
+        {"attention_qkv_fwd": VIT_DEPTH}, VQModel, "img_to_sem_feat", what="batches")
+    if not (r["total"] == CLI_VAL_PNGS and len(rec["steps_ms"]) == PROBE_STEPS + 1
+            and math.isfinite(r["loss"]) and 0.0 <= r["acc"] <= 100.0):
+        raise AssertionError(f"[gen-cli] linear_probe: {r}, {len(rec['steps_ms'])} batches")
+    print(f"[gen-cli] linear_probe: loss {r['loss']:.4f} after {r['steps']} steps, "
+          f"linear-probe ACC: {r['acc']:.2f}% ({r['total']} images); {CARD}")
+    return {"cli linear_probe": rec}
+
+
+def _cli_probe_compare(dev, root: Path, weights: Path) -> None:
+    """The linear probe's features (``linear_probe.features``: the spatial
+    mean of ``img_to_sem_feat``) card against CPU in fp32 on the seeded
+    tokenizer file ``weights`` at the depth in force (the caller's
+    ``check_depth_cut``) over 8 val PNGs, the codes in lockstep: within
+    1e-3 of their max."""
+    from imagefolder_tpu_torch.scripts import linear_probe
+    from imagefolder_tpu_torch.scripts._cli import load_tokenizer
+
+    batch = next(iter(make_dataloader(str(root / "val"), CLI_COMPARE_IMAGES, 256, train=False,
+                                      num_epochs=1, num_workers=0)))["image"]
+    codes = _single_vq_lockstep()
+    cpu_model, _, _ = load_tokenizer(str(ROBUSTTOK_YAML), str(weights), torch.device("cpu"),
+                                     "float32")
+    cpu = codes.on_cpu(lambda: linear_probe.features(cpu_model, batch))
+    del cpu_model
+    card_model, _, _ = load_tokenizer(str(ROBUSTTOK_YAML), str(weights), dev, "float32")
+    card = codes.on_card(lambda: linear_probe.features(card_model, batch.to(dev)))
+    err = _max_err(card, cpu) / cpu.abs().max().item()
+    print(f"[cli] linear_probe features card vs CPU (ViTs at {vit_depth()} of 12 blocks), fp32, "
+          f"{CLI_COMPARE_IMAGES} images: {tuple(cpu.shape)} within {err:.3e} of their max "
+          f"(tol 1e-3); SingleVQ codes {codes.compared - codes.flips}/{codes.compared} equal "
+          f"(max near-tie gap {codes.max_gap:.3e})")
+    _check("[cli] linear_probe features card vs CPU", err, 1e-3)
+
+
+WDS_PER_SHARD = 32   # convert_to_wds: the 128 train PNGs in 4 shards, the 32 val in 4 of 8
+
+
+def _cli_data(root: Path, target: float) -> None:
+    """The webdataset tools on the CLI phase's PNGs (host only): ``convert_to_wds``
+    of the train and val folders; ``WebDatasetReader``'s val batches over the
+    val shards against the ImageFolder val loader's (the same labels in the
+    same order, images within one fp32 rounding: the reader normalises in
+    fp32, the loader in fp64); ``bench_loader`` at a small ``--n`` against
+    ``target`` img/s."""
+    from imagefolder_tpu_torch.data.webdataset import WebDatasetReader
+    from imagefolder_tpu_torch.scripts import bench_loader, convert_to_wds
+
+    t0 = time.perf_counter()
+    n, shards = convert_to_wds.main(["--data_path", str(root / "train"), "--output_dir",
+                                     str(root / "wds"), "--prefix", "train",
+                                     "--samples_per_shard", str(WDS_PER_SHARD)])
+    secs = time.perf_counter() - t0
+    nv, vshards = convert_to_wds.main(["--data_path", str(root / "val"), "--output_dir",
+                                       str(root / "wds"), "--prefix", "val",
+                                       "--samples_per_shard", str(WDS_PER_SHARD // 4)])
+    if (n, shards, nv, vshards) != (CLI_TRAIN_PNGS, 4, CLI_VAL_PNGS, 4):
+        raise AssertionError(f"[data] convert_to_wds wrote {n} in {shards}, {nv} in {vshards}")
+    reader = WebDatasetReader(str(root / "wds" / "val-{000000..000003}.tar"), 256, train=False)
+    got = list(reader.batches(8, partial=True))
+    want = list(make_dataloader(str(root / "val"), 8, 256, train=False, num_epochs=1,
+                                num_workers=0, drop_remainder=False))
+    err = max(float(np.abs(g["image"] - w["image"].numpy()).max()) for g, w in zip(got, want))
+    if len(got) != len(want) or not all(
+            np.array_equal(g["label"], w["label"].numpy()) for g, w in zip(got, want)):
+        raise AssertionError("[data] WebDatasetReader's val batches are not the loader's")
+    print(f"[data] convert_to_wds: {n} train PNGs in {shards} shards in {secs:.2f} s "
+          f"({n / secs:.1f} img/s); WebDatasetReader's {len(got)} val batches against the "
+          f"ImageFolder val loader's: labels equal, images within {err:.3e} (tol 2.4e-7)")
+    _check("[data] WebDatasetReader val images against the loader's", err, 2.4e-7)
+    out = bench_loader.main(["--target", f"{target:.1f}", "--n", "64", "--keep",
+                             str(root / "bench")])
+    print(f"[data] bench_loader (host {out['host_cores']} cores): decode+crop "
+          f"{out['decode_crop_fastops_per_core']} img/s a core, loader end to end "
+          f"{out['loader_end_to_end']} img/s with {out['loader_workers']} workers; "
+          f"{out['worker_cores_needed_for_target']} cores for {target:.1f} img/s (this run's "
+          f"VQ-4096 round trip)")
+
+
 def _cli_eval(dev, root: Path, inception: Path, ckpt: Path, msvr: Path) -> dict:
     """``eval_reconstruction.main`` on the card at full depth: on the
     trained checkpoint ``ckpt`` (its EMA) over the 32 val images, PSNR and
@@ -4723,20 +5041,23 @@ def _cli_fid(dev, root: Path, inception: Path) -> dict:
     return {"cli evaluate_fid": {"launches": launches, "s": secs, "peak": peak}}
 
 
-def main_cli_paths(dev) -> dict:
+def main_cli_paths(dev, loader_target: float) -> dict:
     """The tokenizer's and the generators' CLIs on the card from the shell's
     entry points (``main(argv)``), in a temporary directory: 128 train and
     32 val PNGs (256 px, seed 0) and a seeded Inception ``.pth``. At full
     depth: ``train_tokenizer`` (``_cli_train``), ``eval_reconstruction``
     (``_cli_eval``), ``evaluate_fid`` (``_cli_fid``), ``pretokenize`` and the
     RAR and MaskGIT CLIs (``_gen_pretokenize``, ``_gen_rar``), the VAR CLIs
-    (``_gen_var``) and ``export_weights`` (``_gen_export``). Under
+    (``_gen_var``) and ``export_weights`` (``_gen_export``), ``linear_probe``
+    (``_cli_linear_probe``), and the webdataset tools on the PNGs
+    (``_cli_data``: ``bench_loader`` against ``loader_target`` img/s). Under
     ``check_depth_cut`` (the tokenizers' ViTs at CHECK_TOK_DEPTH of their 12
     blocks, widths kept: a depth cut for time of the checks whose CPU side
     or three runs set the phase's time): the exact resume
     (``_cli_resume``), ``eval_reconstruction`` card against CPU
-    (``_cli_eval_compare``) and ``pretokenize --crop_mode ten_crop`` card
-    against CPU (``_TenCrop``)."""
+    (``_cli_eval_compare``), ``pretokenize --crop_mode ten_crop`` card
+    against CPU (``_TenCrop``) and the linear probe's features card against
+    CPU (``_cli_probe_compare``)."""
     import tempfile
 
     from imagefolder_tpu_torch.eval.inception import InceptionV3
@@ -4767,19 +5088,26 @@ def main_cli_paths(dev) -> dict:
         ckpt = root / "train_out" / "ckpts" / "step_00000004.pt"
         # evaluate_fid (two host sqrtm) in a process of its own, beside the checks
         with _Child("evaluate_fid", root, inception) as fid, check_depth_cut():
-            ten_crop = _TenCrop(root, _seeded_weights(root / "gen" / "robusttok_cut.safetensors",
-                                                      ROBUSTTOK_YAML))
+            cut_weights = _seeded_weights(root / "gen" / "robusttok_cut.safetensors",
+                                          ROBUSTTOK_YAML)
+            ten_crop = _TenCrop(root, cut_weights)
             cut_ckpt = _cli_resume(dev, root)
             lap("the resume")
             _cli_eval_compare(root, inception, cut_ckpt)
             ten_crop.finish()  # the CPU thread builds its tokenizer under this cut
             cut_ckpt.unlink()
             lap("the eval_reconstruction and ten-crop comparisons")
+            _cli_probe_compare(dev, root, cut_weights)
+            lap("the linear_probe features comparison")
             paths.update(fid.finish())
         lap("evaluate_fid (its process joined)")
         msvr = _seeded_weights(root / "gen" / "msvr_full.safetensors", MSVR_YAML)
         paths.update(_cli_eval(dev, root, inception, ckpt, msvr))
         lap("eval_reconstruction")
+        paths.update(_cli_linear_probe(root, ckpt))
+        lap("linear_probe")
+        _cli_data(root, loader_target)
+        lap("convert_to_wds, WebDatasetReader, bench_loader")
         gen, tok = _gen_pretokenize(dev, root, ckpt)
         paths.update(gen)
         lap("export_weights vqmodel, pretokenize")
@@ -5274,7 +5602,9 @@ class _Child:
     """``CHILD_TASKS[name](dev, *paths)`` in a Python process of its own on
     the card (``child_main``), started here and run beside what the caller
     does next: its own launch counters, so that each side's counts stay its
-    own. This process first hands the card its cached free memory (the
+    own (a task that starts processes of its own, as ``e2e_pipeline``'s
+    stages, keeps them in the child's process group, which leaving the
+    ``with`` block stops whole). This process first hands the card its cached free memory (the
     caching allocator keeps a step's peak, up to 61 GiB, reserved). Its
     output goes to ``paths[0] / f"{name}.log"`` (a file, so that it never
     waits for a reader). ``finish()`` waits for it, prints its lines and
@@ -5289,17 +5619,17 @@ class _Child:
         code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
                 "sys.exit(chip_smoke.child_main(sys.argv[1:]))")
         self.name, self.log = name, paths[0] / f"{name}.log"
-        with open(self.log, "w") as out:
+        with open(self.log, "w") as out:  # a session of its own: its processes, one group
             self.proc = subprocess.Popen(
                 [sys.executable, "-c", code, name, CARD, *map(str, paths)], stdout=out,
-                stderr=subprocess.STDOUT, cwd=ROOT)
+                stderr=subprocess.STDOUT, cwd=ROOT, start_new_session=True)
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
         if self.proc.poll() is None:
-            self.proc.kill()
+            os.killpg(self.proc.pid, 9)  # it and every process it started
             self.proc.wait()
 
     def finish(self) -> dict:
@@ -5329,7 +5659,69 @@ def child_main(argv: list) -> int:
     return 0
 
 
-CHILD_TASKS = {"evaluate_fid": _cli_fid, "sample_var_ref": _sample_var_ref}
+# e2e_pipeline's widths (8 classes at 128 px), with its data, epochs, steps and
+# samples cut for time: 2 images a class make one step an epoch, so one
+# val rFID (a host sqrtm) in train_tok_vq and one eval in train_var
+E2E_PER_CLASS = 2
+E2E_ARGS = ["--per_class", str(E2E_PER_CLASS), "--tok_epochs", "1", "--var_epochs", "1",
+            "--rar_steps", "4", "--num_samples", "8"]
+
+
+def _e2e(dev, root: Path) -> dict:
+    """``e2e_pipeline.main`` on the card under ``root`` at its own widths
+    (8 classes of 128 px, the CNN VQ-16 tokenizers, RAR and VAR of depth
+    6), cut by E2E_ARGS: its nine stages, each a CLI in a process of its
+    own, and the fields of ``summary.json`` the JAX script asserts."""
+    from imagefolder_tpu_torch.scripts import e2e_pipeline
+
+    run_stage = e2e_pipeline.run_stage
+
+    def after_the_build(name, *args, **kwargs):
+        # the first stage (the CNN VQ tokenizer's training) launches no kernel
+        # of the port; the others wait for the parent's build of the library
+        # rather than start one of their own
+        if name != "train_tok_vq":
+            while not _build.library_path().exists():
+                time.sleep(1.0)
+        return run_stage(name, *args, **kwargs)
+
+    e2e_pipeline.run_stage = after_the_build
+    t0 = time.perf_counter()
+    summary = e2e_pipeline.main(["--workdir", str(root / "e2e"), *E2E_ARGS])
+    secs = time.perf_counter() - t0
+    on_disk = json.loads((root / "e2e" / "summary.json").read_text())
+    stages = ("train_tok_vq", "train_tok_msvq", "eval_recon_vq", "eval_recon_msvq",
+              "pretokenize", "train_rar", "sample_rar", "train_var", "sample_var")
+    if not (tuple(on_disk["stages"]) == stages and on_disk["device"] == torch.cuda.get_device_name(0)
+            and on_disk["tok_vq_val"] and on_disk["tok_msvq_val"] and on_disk["var_val"]
+            and on_disk["tok_vq_recon_grids"] and on_disk["tok_msvq_recon_grids"]
+            and on_disk["rar_previews"] and on_disk["var_previews"]
+            and on_disk["pretokenized_rows"] == 2 * 8 * E2E_PER_CLASS
+            and "recon_vq" in on_disk and "recon_msvq" in on_disk
+            and all(0.0 <= on_disk[k]["class_fidelity"] <= 1.0 for k in ("rar", "var"))):
+        raise AssertionError(f"[e2e] summary.json: {json.dumps(on_disk)[:2000]}")
+    return {"e2e pipeline": {"s": secs, "stages": summary["stages"],
+                             "rar": summary["rar"], "var": summary["var"],
+                             "recon_vq": summary["recon_vq"],
+                             "recon_msvq": summary["recon_msvq"]}}
+
+
+def _report_e2e(result: dict) -> None:
+    r = result["e2e pipeline"]
+    print(f"[e2e] e2e_pipeline ({' '.join(E2E_ARGS)}): {r['s']:.1f} s; stages "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in r["stages"].items())
+          + f"; RAR class fidelity {r['rar']['class_fidelity']:.3f}, VAR "
+          f"{r['var']['class_fidelity']:.3f} (chance 0.125); {r['recon_vq']}; "
+          f"{r['recon_msvq']}; {CARD}")
+
+
+def _round_trip_img_s(paths: dict) -> float:
+    """This run's VQ-4096 round trip rate, which ``bench_loader`` targets."""
+    return BATCH / paths["round trip"]["ms"] * 1e3
+
+
+CHILD_TASKS = {"evaluate_fid": _cli_fid, "sample_var_ref": _sample_var_ref,
+               "e2e_pipeline": _e2e}
 
 
 def _gen_export(root: Path, rar_ckpt: Path, var_ckpt: Path) -> None:
@@ -5434,68 +5826,86 @@ def main(argv: list[str]) -> int:
         print(f"[time] {what} done at {time.perf_counter() - t0:.1f} s")
 
     phase_device()
-    phase_build()
-    lap("build")
+    if argv:
+        phase_build()
+        lap("build")
     if argv[:1] == ["outputs"]:
         phase_outputs(dev, argv[1])
         return 0
-    if argv == ["cli"]:  # the CLI paths alone
-        main_cli_paths(dev)
+    if argv == ["cli"]:  # the CLI paths alone, after the round trip bench_loader targets
+        main_cli_paths(dev, _round_trip_img_s(main_round_trip(dev)))
         lap("CLI paths")
         return 0
     if argv:  # the times phase alone, for the kernels named (all by default)
         times = phase_times(dev, argv[1:] or tuple(TIMES))
         print(json.dumps({"times": times}))
         return 0
-    errs = {"attention_qkv_fwd": kernels_qkv(dev), "attention_qkv_bwd": kernels_qkv_bwd(dev),
-            "fused_attention_fwd": kernels_bnhd(dev),
-            "fused_attention_bwd": kernels_bnhd_bwd(dev),
-            "fused_attention_qblk_fwd": kernels_qblk(dev),
-            "fused_attention_qblk_bwd": kernels_qblk_bwd(dev),
-            "codebook_argmin": kernels_codebook(dev), **kernels_sublayers(dev)}
-    kernels_bwd_pieces(dev)
-    kernels_hd48(dev)
-    kernels_maskgit_and_narrow_heads(dev)
-    kernels_wide_heads(dev)
-    kernels_hd256(dev)
-    kernels_wider_heads(dev)
-    kernels_codebook_widths(dev)
-    lap("kernels")
-    with check_depth_cut():
-        vq_models = phase_model_vq(dev)
-    lap(f"model VQ-4096 ({CHECK_TOK_DEPTH} ViT blocks)")
-    phase_model_rar(dev, *vq_models)
-    del vq_models
-    phase_model_rar_train(dev)
-    lap("model RAR-B")
-    phase_model_rar_xl(dev)
-    lap("model RAR-XL width")
-    phase_model_maskgit(dev)
-    phase_model_maskgit_train(dev)
-    phase_model_rar_trainer(dev)
-    lap("model MaskGIT-B and the trainers")
-    for margs, px in ((msvr_margs, ""), (msvr512_margs, "-512")):
-        name = (f"MSVR10P2-4096{px} ({CHECK_TOK_DEPTH} ViT blocks) + VAR-d16 width "
-                f"({CHECK_VAR_DEPTH} blocks)")
+    # the end-to-end CLI workflow in a process of its own (its stages in
+    # theirs) beside the build (its first stage, which launches no kernel of
+    # the port; ``_e2e`` holds the others until the library is built) and
+    # the kernel and fp32 model checks, joined before the first timed path
+    e2e_root = Path(tempfile.mkdtemp(prefix="imagefolder_e2e_"))
+    with _Child("e2e_pipeline", e2e_root) as e2e:
+        phase_build()
+        lap("build")
+        errs = {"attention_qkv_fwd": kernels_qkv(dev), "attention_qkv_bwd": kernels_qkv_bwd(dev),
+                "fused_attention_fwd": kernels_bnhd(dev),
+                "fused_attention_bwd": kernels_bnhd_bwd(dev),
+                "fused_attention_qblk_fwd": kernels_qblk(dev),
+                "fused_attention_qblk_bwd": kernels_qblk_bwd(dev),
+                "codebook_argmin": kernels_codebook(dev), **kernels_sublayers(dev)}
+        kernels_bwd_pieces(dev)
+        kernels_hd48(dev)
+        kernels_maskgit_and_narrow_heads(dev)
+        kernels_wide_heads(dev)
+        kernels_hd256(dev)
+        kernels_wider_heads(dev)
+        kernels_widest_heads(dev)
+        kernels_codebook_widths(dev)
+        lap("kernels")
         with check_depth_cut():
-            phase_model_train(dev, *phase_model_var(dev, margs("float32"), name), name)
-        lap(f"model {name}")
-    with check_depth_cut():
-        phase_model_gan(dev)
-    lap(f"model GAN step ({CHECK_TOK_DEPTH} ViT blocks, DinoDisc {CHECK_DINO_DEPTH})")
-    with check_depth_cut():
-        phase_model_disc_types(dev, phase_model_robusttok(dev))
-    lap(f"model RobustTok step and disc types ({CHECK_TOK_DEPTH} ViT blocks, DinoDisc "
-        f"{CHECK_DINO_DEPTH})")
-    with check_depth_cut():
-        phase_model_msbr(dev)
-    lap(f"model MSBR (BSQ) with VAR-d16, MSBR step ({CHECK_TOK_DEPTH} ViT blocks)")
-    with check_depth_cut():
-        phase_model_variants(dev)
-    lap(f"model LoRA, latent pos, conv and siren heads, CNN ({CHECK_TOK_DEPTH} ViT blocks)")
+            vq_models = phase_model_vq(dev)
+        lap(f"model VQ-4096 ({CHECK_TOK_DEPTH} ViT blocks)")
+        phase_model_rar(dev, *vq_models)
+        del vq_models
+        phase_model_rar_train(dev)
+        lap("model RAR-B")
+        phase_model_rar_xl(dev)
+        lap("model RAR-XL width")
+        phase_model_maskgit(dev)
+        phase_model_maskgit_train(dev)
+        phase_model_rar_trainer(dev)
+        lap("model MaskGIT-B and the trainers")
+        for margs, px in ((msvr_margs, ""), (msvr512_margs, "-512")):
+            name = (f"MSVR10P2-4096{px} ({CHECK_TOK_DEPTH} ViT blocks) + VAR-d16 width "
+                    f"({CHECK_VAR_DEPTH} blocks)")
+            with check_depth_cut():
+                phase_model_train(dev, *phase_model_var(dev, margs("float32"), name), name)
+            lap(f"model {name}")
+        with check_depth_cut():
+            phase_model_gan(dev)
+        lap(f"model GAN step ({CHECK_TOK_DEPTH} ViT blocks, DinoDisc {CHECK_DINO_DEPTH})")
+        with check_depth_cut():
+            phase_model_disc_types(dev, phase_model_robusttok(dev))
+        lap(f"model RobustTok step and disc types ({CHECK_TOK_DEPTH} ViT blocks, DinoDisc "
+            f"{CHECK_DINO_DEPTH})")
+        with check_depth_cut():
+            phase_model_msbr(dev)
+        lap(f"model MSBR (BSQ) with VAR-d16, MSBR step ({CHECK_TOK_DEPTH} ViT blocks)")
+        with check_depth_cut():
+            phase_model_variants(dev)
+        lap(f"model LoRA, latent pos, conv and siren heads, CNN ({CHECK_TOK_DEPTH} ViT blocks)")
+        with check_depth_cut():
+            phase_model_rope(dev)
+        lap(f"model RoPE and cond_latent decoders ({CHECK_TOK_DEPTH} ViT blocks)")
+        _report_e2e(e2e.finish())
+    shutil.rmtree(e2e_root, ignore_errors=True)
+    lap("e2e_pipeline (its process joined)")
     paths = {**main_round_trip(dev), **main_rar_paths(dev), **main_rar_train(dev),
              **main_rar_xl_train(dev), **main_mlp_probe(dev)}
     lap("round trips, RAR sampling and training (RAR-B, RAR-XL width), MLP probe")
+    paths.update(main_rope_paths(dev))
+    lap("RoPE decoder paths")
     paths.update({**main_maskgit_paths(dev), **main_rar_train_step(dev)})
     lap("MaskGIT sampling and training, RAR train step")
     paths.update({**main_var_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256,
@@ -5513,8 +5923,9 @@ def main(argv: list[str]) -> int:
                   **main_train_paths(dev, msvr512_margs("bfloat16"), "512 ", LAUNCHES_512,
                                      TRAIN_BATCH_512)})
     lap("main paths at 512 px")
-    paths.update(main_cli_paths(dev))
-    lap("CLI paths: train_tokenizer, its resume, eval_reconstruction, evaluate_fid")
+    paths.update(main_cli_paths(dev, _round_trip_img_s(paths)))
+    lap("CLI paths: train_tokenizer, its resume, eval_reconstruction, evaluate_fid, "
+        "linear_probe, the data tools, the generator CLIs")
     times = phase_times(dev)
     for key, (name, label) in SHAPE_TIMES.items():
         times[name].setdefault("shapes", {})[label] = times.pop(key)

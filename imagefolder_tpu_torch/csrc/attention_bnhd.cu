@@ -68,7 +68,8 @@ int attention_bnhd_fwd_hd1024(const void* q, const void* k, const void* v, const
                               const int64_t* bs, float scale, int is_bf16, int hd,
                               cudaStream_t stm);
 
-// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 1024,
+// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 (past 1024
+// the segmented kernels of attention_wide.cuh),
 // each with its own batch, row and head strides in elements (qs, ks, vs =
 // {batch, row, head}; the head-dim stride is 1), all fp32 or all bf16
 // (is_bf16); bias null or fp32 with strides bs = {batch, head, row} (column
@@ -89,7 +90,7 @@ extern "C" int attention_bnhd_fwd(const void* q, const void* k, const void* v,
       !bnhd_width_ok(hd, kd))
     return cudaErrorInvalidValue;
   if (kd > 128)
-    return (kd == 1024  ? attention_bnhd_fwd_hd1024
+    return (kd >= 1024  ? attention_bnhd_fwd_hd1024
             : kd == 512 ? attention_bnhd_fwd_hd512
                         : attention_bnhd_fwd_hd256)(
         q, k, v, bias, out, lse, batch, lq, lk, heads, qs, ks, vs,

@@ -1,11 +1,12 @@
-// The backward #6 (attention_bnhd_bwd.cu) at head dims 520-1024, on the kD = 1024 FMA kernels
-// A and B of attention_wide.cuh, in a source of its own. Every call at
+// The backward #6 (attention_bnhd_bwd.cu) at head dims 520-1024 on the
+// kD = 1024 FMA kernels A and B of attention_wide.cuh, and past 1024 on its
+// segmented kernels, in a source of its own. Every call at
 // these widths, bf16 without dbias included, takes them: they recompute
 // the row statistics and need neither the forward's o nor its lse.
 
 #include "attention_wide.cuh"
 
-// attention_bnhd_bwd's launch for 520 <= hd <= 1024, after its checks, with
+// attention_bnhd_bwd's launch for 520 <= hd (past 1024 segmented), after its checks, with
 // the entry's own arguments (stats: its work scratch, 3 * B * H * L fp32).
 int attention_bnhd_bwd_hd1024(const void* q, const void* k, const void* v, const void* g,
                              const void* bias, void* dq, void* dk, void* dv, void* dbias,
@@ -16,6 +17,6 @@ int attention_bnhd_bwd_hd1024(const void* q, const void* k, const void* v, const
   const int64_t ol = static_cast<int64_t>(heads) * hd;
   const BwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
                       gs[0], gs[1], gs[2], n * ol, ol, hd, bias ? bias_row_stride : 0, hd};
-  return wide::launch_bwd<6, 1024>(q, k, v, g, bias, dq, dk, dv, dbias, stats, batch, n, heads, st,
+  return (hd > 1024 ? wide::launch_bwd_seg<6> : wide::launch_bwd<6, 1024>)(q, k, v, g, bias, dq, dk, dv, dbias, stats, batch, n, heads, st,
                              scale, is_bf16, stm);
 }

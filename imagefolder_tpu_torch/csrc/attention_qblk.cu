@@ -67,10 +67,10 @@ int attention_qblk_fwd_hd1024(const void* q, const void* k, const void* v, const
                               int64_t bias_row_stride, float scale, int is_bf16, int hd,
                               cudaStream_t stm);
 
-// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 up to 1024
-// (run under the kD = 48 kernels up to 48, 64 at 56 and 64, 128 at 72-128,
-// and past 128 the kD = 256, 512 and 1024 kernels of attention_wide.cuh, which
-// take no map), each with its own
+// q (B, Lq, H, hd), k and v (B, Lk, H, hd), hd a multiple of 8 (run under
+// the kD = 48 kernels up to 48, 64 at 56 and 64, 128 at 72-128, and past 128
+// the kD = 256, 512 and 1024 kernels of attention_wide.cuh and past 1024 its
+// segmented kernel, which take no map), each with its own
 // batch, row and head strides in elements (qs, ks, vs = {batch, row, head};
 // the head-dim stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32
 // (Lq, Lk) shared by every batch and head, row stride bias_row_stride
@@ -96,7 +96,7 @@ extern "C" int attention_qblk_fwd(const void* q, const void* k, const void* v,
   uint8_t* map = static_cast<uint8_t*>(blank);
   if (map && (!bias || lq != lk || !is_bf16)) return cudaErrorInvalidValue;
   if (kd > 128)
-    return (kd == 1024  ? attention_qblk_fwd_hd1024
+    return (kd >= 1024  ? attention_qblk_fwd_hd1024
             : kd == 512 ? attention_qblk_fwd_hd512
                         : attention_qblk_fwd_hd256)(
         q, k, v, bias, out, static_cast<float*>(lse), batch, lq, lk,

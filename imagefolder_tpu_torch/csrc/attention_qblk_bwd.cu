@@ -88,9 +88,10 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, const
 
 }  // namespace
 
-// q, k, v and g (B, L, H, hd), hd a multiple of 8 up to 1024 (run under the
+// q, k, v and g (B, L, H, hd), hd a multiple of 8 (run under the
 // kD = 48 kernels up to 48, 64 at 56 and 64, 128 at 72-128 and 256 at 136-256, 512 at
-// 264-512 and 1024 past 512: past 64 every call, bf16 too, takes a two-kernel design, that of
+// 264-512, 1024 at 520-1024 and its segmented kernels past 1024: past 64
+// every call, bf16 too, takes a two-kernel design, that of
 // attention_bwd_tile.cuh up to 128 and that of attention_wide.cuh past it,
 // and o, lse and blank go unused, work being its 3 * B * H * L scratch), each
 // with its own batch, row and
@@ -118,7 +119,7 @@ extern "C" int attention_qblk_bwd(const void* q, const void* k, const void* v,
                                   int kd, void* stream) {
   if (!bnhd_width_ok(hd, kd)) return cudaErrorInvalidValue;
   if (kd > 128)
-    return (kd == 1024  ? attention_qblk_bwd_hd1024
+    return (kd >= 1024  ? attention_qblk_bwd_hd1024
             : kd == 512 ? attention_qblk_bwd_hd512
                         : attention_qblk_bwd_hd256)(
         q, k, v, g, bias, dq, dk, dv, dbias, work, batch, n, heads,

@@ -19,7 +19,8 @@
 // past 48 KB). A block is 256 threads at every width, so that a thread
 // keeps the same 32 columns a vector and the same registers: 32 rows a
 // block at 256, 16 at 512, 8 at 1024. Past 1024 a row would need more than
-// a warp's threads or more columns a thread, so 1024 is the cap. Inputs of
+// a warp's threads or more columns a thread: those heads run the segmented
+// kernels at the end of this file, on kD = 1024's geometry. Inputs of
 // either type are widened to fp32 on load; the plain versions' roundings
 // to the inputs' type are made where they make them (bf16(p / l) v for #3,
 // bf16(p) v then / l for #4, bf16(p) and bf16(ds) in the backward), so
@@ -451,6 +452,391 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g, const
                                                     n, heads, st, scale, stm)
                  : launch_bwd_typed<kId, kWD, float>(q, k, v, g, bp, dq, dk, dv, dbp, sp, batch,
                                                      n, heads, st, scale, stm);
+}
+
+// ---------------------------------------------------------------------------
+// Heads past 1024: the kD = 1024 geometry (a warp a row, 8 rows a block)
+// over segments of kSeg = 1024 columns. A block owns one output segment
+// (blockIdx.x = row block * nseg + segment) and computes each score over
+// the whole head by walking q and k segment by segment: each segment's
+// partial dot product is summed over the warp (the butterfly), and the
+// segments' sums are added in order into a shared row of the tile's scores.
+// Then it forms p v, or dq, dk and dv, for its own segment only; the
+// backward's dp = g v^T is summed over every segment the same way. The
+// registers and shared memory stay those of kD = 1024 at every width; the
+// work grows with nseg^2 (each of the nseg blocks of a row walks all nseg
+// segments), a first version for widths that no main path runs. Row
+// statistics (lse, and the backward's m, l and delta) are stored by the
+// blocks of segment 0, and dbias is added by them only.
+
+constexpr int kSeg = kMaxWD;
+using SegGeo = Geo<kSeg>;
+
+// per-row scores of the current 16-row tile, summed over the segments:
+// rows of the block x the tile's rows
+struct SegScores {
+  float s[SegGeo::kRows][kWTile];
+  float d[SegGeo::kRows][kWTile];
+};
+
+template <int kId, typename T, bool kBias, bool kLse, bool kDivFirst>
+__global__ void __launch_bounds__(kWThreads)
+    attn_fwd_seg_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const float* __restrict__ bias,
+                        T* __restrict__ out, float* __restrict__ lse, int lq, int lk, int heads,
+                        float scale, sm90::FwdStrides st) {
+  constexpr int kSplit = SegGeo::kSplit;
+  float(*sk)[kSeg] = wide_tile<kSeg>(0);
+  float(*sv)[kSeg] = wide_tile<kSeg>(1);
+  __shared__ SegScores sc;
+
+  const int nseg = (st.hd + kSeg - 1) / kSeg;
+  const int os = blockIdx.x % nseg;  // the output segment
+  const int part = threadIdx.x % kSplit;
+  const int rl = threadIdx.x / kSplit;
+  const int row = blockIdx.x / nseg * SegGeo::kRows + rl;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const bool in = row < lq;
+  const int64_t r = in ? row : 0;
+  const T* qp = q + b * st.qb + h * st.qh + r * st.ql;
+  const T* kp = k + b * st.kb + h * st.kh;
+  const T* vp = v + b * st.vb + h * st.vh + os * kSeg;
+  const float* bp = kBias ? bias + b * st.bb + h * st.bh + r * st.bq : nullptr;
+
+  float qr[kCols], o[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) o[c] = 0.f;
+  float m = kWNegInf, l = 0.f;
+
+  for (int pass = 0; pass < 2; ++pass) {  // m and l; p v
+    const float mu = m == kWNegInf ? 0.f : m;
+    for (int k0 = 0; k0 < lk; k0 += kWTile) {
+      const int nj = lk - k0 < kWTile ? lk - k0 : kWTile;
+      for (int sg = 0; sg < nseg; ++sg) {
+        __syncthreads();
+        load_tile(sk, kp + sg * kSeg, k0, lk, st.kl, st.hd - sg * kSeg);
+        load_row<kSplit>(qr, qp + sg * kSeg, in, st.hd - sg * kSeg, part);
+        __syncthreads();
+#pragma unroll 1
+        for (int j = 0; j < nj; ++j) {
+          const float d = row_sum<kSplit>(part_dot<kSplit>(qr, sk[j], part));
+          if (part == 0) sc.s[rl][j] = sg == 0 ? d : sc.s[rl][j] + d;
+        }
+      }
+      __syncthreads();
+      if (pass == 1) load_tile(sv, vp, k0, lk, st.vl, st.hd - os * kSeg);
+      __syncthreads();
+#pragma unroll 1
+      for (int j = 0; j < nj; ++j) {
+        float s = sc.s[rl][j] * scale;
+        if (kBias && in) s += bp[k0 + j];
+        if (pass == 0) {
+          online(s, m, l);
+          continue;
+        }
+        float p = expf(s - mu);
+        if (kDivFirst) p /= l;
+        p = round_to<T>(p);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) o[c] = fmaf(p, sv[j][kSplit * c + part], o[c]);
+      }
+    }
+  }
+  if (!in) return;
+  const int hd = st.hd - os * kSeg;  // this segment's columns (up to kSeg)
+  T* dst = out + ((static_cast<int64_t>(b) * lq + row) * heads + h) * st.hd + os * kSeg + part;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c)
+    if (kSplit * c + part < hd) store(dst + kSplit * c, kDivFirst ? o[c] : o[c] / l);
+  if (kLse && os == 0 && part == 0)
+    lse[(static_cast<int64_t>(b) * heads + h) * lq + row] = (m == kWNegInf ? 0.f : m) + logf(l);
+}
+
+// kernel A over segments: dq's segment, and (segment 0) the row statistics
+template <int kId, typename T, bool kBias, bool kDbias>
+__global__ void __launch_bounds__(kWThreads)
+    attn_bwd_dq_seg_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ g,
+                           const float* __restrict__ bias, T* __restrict__ dq,
+                           float* __restrict__ dbias, float* __restrict__ stats, int n,
+                           int heads, float scale, BwdStrides st) {
+  constexpr int kSplit = SegGeo::kSplit;
+  float(*sk)[kSeg] = wide_tile<kSeg>(0);
+  float(*sv)[kSeg] = wide_tile<kSeg>(1);
+  __shared__ SegScores sc;
+
+  const int nseg = (st.hd + kSeg - 1) / kSeg;
+  const int os = blockIdx.x % nseg;
+  const int part = threadIdx.x % kSplit;
+  const int rl = threadIdx.x / kSplit;
+  const int row = blockIdx.x / nseg * SegGeo::kRows + rl;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const bool in = row < n;
+  const int64_t r = in ? row : 0;
+  const T* qp = q + b * st.qb + h * st.qh + r * st.ql;
+  const T* gp = g + b * st.gb + h * st.gh + r * st.gl;
+  const T* kp = k + b * st.kb + h * st.kh;
+  const T* vp = v + b * st.vb + h * st.vh;
+  const float* brow = kBias ? bias + r * st.bq : nullptr;
+
+  float qr[kCols], gr[kCols], acc[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
+  float m = kWNegInf, l = 0.f, delta = 0.f;
+  for (int pass = 0; pass < 3; ++pass) {  // m and l; delta; dq
+    const float mu = m == kWNegInf ? 0.f : m;
+    for (int k0 = 0; k0 < n; k0 += kWTile) {
+      const int nj = n - k0 < kWTile ? n - k0 : kWTile;
+      for (int sg = 0; sg < nseg; ++sg) {  // s = q k^T and dp = g v^T over the head
+        const int rest = st.hd - sg * kSeg;
+        __syncthreads();
+        load_tile(sk, kp + sg * kSeg, k0, n, st.kl, rest);
+        load_row<kSplit>(qr, qp + sg * kSeg, in, rest, part);
+        if (pass > 0) {
+          load_tile(sv, vp + sg * kSeg, k0, n, st.vl, rest);
+          load_row<kSplit>(gr, gp + sg * kSeg, in, rest, part);
+        }
+        __syncthreads();
+#pragma unroll 1
+        for (int j = 0; j < nj; ++j) {
+          const float d = row_sum<kSplit>(part_dot<kSplit>(qr, sk[j], part));
+          const float e = pass > 0 ? row_sum<kSplit>(part_dot<kSplit>(gr, sv[j], part)) : 0.f;
+          if (part == 0) {
+            sc.s[rl][j] = sg == 0 ? d : sc.s[rl][j] + d;
+            sc.d[rl][j] = sg == 0 ? e : sc.d[rl][j] + e;
+          }
+        }
+      }
+      __syncthreads();
+      if (pass == 2) load_tile(sk, kp + os * kSeg, k0, n, st.kl, st.hd - os * kSeg);
+      __syncthreads();
+#pragma unroll 1
+      for (int j = 0; j < nj; ++j) {
+        float s = sc.s[rl][j] * scale;
+        if (kBias && in) s += brow[k0 + j];
+        if (pass == 0) {
+          online(s, m, l);
+          continue;
+        }
+        const float dpv = sc.d[rl][j];
+        const float p = expf(s - mu) / l;
+        if (pass == 1) {
+          delta = fmaf(p, dpv, delta);
+          continue;
+        }
+        const float ds = p * (dpv - delta);
+        const float dsb = round_to<T>(ds);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[c] = fmaf(dsb, sk[j][kSplit * c + part], acc[c]);
+        if (kDbias && os == 0 && part == 0 && in && ds != 0.f)
+          atomicAdd(dbias + static_cast<int64_t>(row) * n + k0 + j, ds);
+      }
+    }
+  }
+  if (!in) return;
+  const int hd = st.hd - os * kSeg;
+  T* dst = dq + b * st.ob + static_cast<int64_t>(row) * st.ol + h * st.oh + os * kSeg + part;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c)
+    if (kSplit * c + part < hd) store(dst + kSplit * c, acc[c] * scale);
+  if (os == 0 && part == 0) {
+    const int64_t plane = static_cast<int64_t>(gridDim.z) * heads * n;
+    float* row_stats = stats + (static_cast<int64_t>(b) * heads + h) * n + row;
+    row_stats[0] = m == kWNegInf ? 0.f : m;
+    row_stats[plane] = l;
+    row_stats[2 * plane] = delta;
+  }
+}
+
+// kernel B over segments: dk's and dv's segment for 8 key rows, over every
+// q row
+template <int kId, typename T, bool kBias>
+__global__ void __launch_bounds__(kWThreads)
+    attn_bwd_dkdv_seg_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ g,
+                             const float* __restrict__ bias, const float* __restrict__ stats,
+                             T* __restrict__ dk, T* __restrict__ dv, int n, int heads,
+                             float scale, BwdStrides st) {
+  constexpr int kSplit = SegGeo::kSplit;
+  float(*sq)[kSeg] = wide_tile<kSeg>(0);
+  float(*sg)[kSeg] = wide_tile<kSeg>(1);
+  __shared__ SegScores sc;
+  __shared__ float sm[kWTile], sl[kWTile], sd[kWTile];
+
+  const int nseg = (st.hd + kSeg - 1) / kSeg;
+  const int os = blockIdx.x % nseg;
+  const int part = threadIdx.x % kSplit;
+  const int rl = threadIdx.x / kSplit;
+  const int row = blockIdx.x / nseg * SegGeo::kRows + rl;  // a key row
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const bool in = row < n;
+  const int64_t r = in ? row : 0;
+  const T* qp = q + b * st.qb + h * st.qh;
+  const T* gp = g + b * st.gb + h * st.gh;
+  const T* kp = k + b * st.kb + h * st.kh + r * st.kl;
+  const T* vp = v + b * st.vb + h * st.vh + r * st.vl;
+  const int64_t plane = static_cast<int64_t>(gridDim.z) * heads * n;
+  const float* row_stats = stats + (static_cast<int64_t>(b) * heads + h) * n;
+
+  float kr[kCols], vr[kCols], dka[kCols], dva[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) dka[c] = dva[c] = 0.f;
+  for (int q0 = 0; q0 < n; q0 += kWTile) {
+    const int nj = n - q0 < kWTile ? n - q0 : kWTile;
+    for (int s = 0; s < nseg; ++s) {  // s = k q^T and dp = v g^T over the head
+      const int rest = st.hd - s * kSeg;
+      __syncthreads();
+      load_tile(sq, qp + s * kSeg, q0, n, st.ql, rest);
+      load_tile(sg, gp + s * kSeg, q0, n, st.gl, rest);
+      load_row<kSplit>(kr, kp + s * kSeg, in, rest, part);
+      load_row<kSplit>(vr, vp + s * kSeg, in, rest, part);
+      __syncthreads();
+#pragma unroll 1
+      for (int j = 0; j < nj; ++j) {
+        const float d = row_sum<kSplit>(part_dot<kSplit>(kr, sq[j], part));
+        const float e = row_sum<kSplit>(part_dot<kSplit>(vr, sg[j], part));
+        if (part == 0) {
+          sc.s[rl][j] = s == 0 ? d : sc.s[rl][j] + d;
+          sc.d[rl][j] = s == 0 ? e : sc.d[rl][j] + e;
+        }
+      }
+    }
+    __syncthreads();
+    const int rest = st.hd - os * kSeg;
+    load_tile(sq, qp + os * kSeg, q0, n, st.ql, rest);
+    load_tile(sg, gp + os * kSeg, q0, n, st.gl, rest);
+    for (int i = threadIdx.x; i < kWTile; i += kWThreads) {
+      const bool qin = q0 + i < n;
+      sm[i] = qin ? row_stats[q0 + i] : 0.f;
+      sl[i] = qin ? row_stats[plane + q0 + i] : 1.f;
+      sd[i] = qin ? row_stats[2 * plane + q0 + i] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 1
+    for (int j = 0; j < nj; ++j) {  // a query
+      float s = sc.s[rl][j] * scale;
+      if (kBias && in) s += bias[static_cast<int64_t>(q0 + j) * st.bq + row];
+      const float dpv = sc.d[rl][j];
+      const float p = expf(s - sm[j]) / sl[j];
+      const float pb = round_to<T>(p);
+      const float dsb = round_to<T>(p * (dpv - sd[j]));
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        dva[c] = fmaf(pb, sg[j][kSplit * c + part], dva[c]);
+        dka[c] = fmaf(dsb, sq[j][kSplit * c + part], dka[c]);
+      }
+    }
+  }
+  if (!in) return;
+  const int hd = st.hd - os * kSeg;
+  const int64_t off =
+      b * st.ob + static_cast<int64_t>(row) * st.ol + h * st.oh + os * kSeg + part;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    if (kSplit * c + part >= hd) break;
+    store(dk + off + kSplit * c, dka[c] * scale);
+    store(dv + off + kSplit * c, dva[c]);
+  }
+}
+
+template <int kId, typename T, bool kDivFirst>
+int launch_fwd_seg_typed(const void* q, const void* k, const void* v, const float* bias,
+                         void* out, float* lse, int batch, int lq, int lk, int heads,
+                         const sm90::FwdStrides& st, float scale, cudaStream_t stm) {
+  const int nseg = (st.hd + kSeg - 1) / kSeg;
+  const dim3 grid((lq + SegGeo::kRows - 1) / SegGeo::kRows * nseg, heads, batch);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  T* op = static_cast<T*>(out);
+#define SEG_FWD(kBias, kLse)                                                                   \
+  do {                                                                                         \
+    auto* fn = attn_fwd_seg_kernel<kId, T, kBias, kLse, kDivFirst>;                            \
+    if (int err = allow_smem(fn, SegGeo::kSmem)) return err;                                   \
+    fn<<<grid, kWThreads, SegGeo::kSmem, stm>>>(qp, kp, vp, bias, op, lse, lq, lk, heads,      \
+                                                scale, st);                                    \
+  } while (0)
+  if (lse) {
+    if (bias) SEG_FWD(true, true);
+    else SEG_FWD(false, true);
+  } else {
+    if (bias) SEG_FWD(true, false);
+    else SEG_FWD(false, false);
+  }
+#undef SEG_FWD
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch_fwd for a head past kSeg (st.hd a multiple of 8): the segmented
+// forward of #3 (kId 3) or #4 (kId 4), with launch_fwd's operands
+template <int kId>
+int launch_fwd_seg(const void* q, const void* k, const void* v, const void* bias, void* out,
+                   float* lse, int batch, int lq, int lk, int heads, const sm90::FwdStrides& st,
+                   float scale, int is_bf16, cudaStream_t stm) {
+  if (batch <= 0 || lq <= 0 || lk <= 0 || heads <= 0 || st.hd <= kSeg)
+    return cudaErrorInvalidValue;
+  const float* bp = static_cast<const float*>(bias);
+  return is_bf16 ? launch_fwd_seg_typed<kId, bf16, kId == 3>(q, k, v, bp, out, lse, batch, lq,
+                                                             lk, heads, st, scale, stm)
+                 : launch_fwd_seg_typed<kId, float, kId == 3>(q, k, v, bp, out, lse, batch, lq,
+                                                              lk, heads, st, scale, stm);
+}
+
+template <int kId, typename T>
+int launch_bwd_seg_typed(const void* q, const void* k, const void* v, const void* g,
+                         const float* bias, void* dq, void* dk, void* dv, float* dbias,
+                         float* stats, int batch, int n, int heads, const BwdStrides& st,
+                         float scale, cudaStream_t stm) {
+  const int nseg = (st.hd + kSeg - 1) / kSeg;
+  const dim3 grid((n + SegGeo::kRows - 1) / SegGeo::kRows * nseg, heads, batch);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  const T* gp = static_cast<const T*>(g);
+#define SEG_DQ(kBias, kDbias)                                                                \
+  do {                                                                                       \
+    auto* fn = attn_bwd_dq_seg_kernel<kId, T, kBias, kDbias>;                                \
+    if (int err = allow_smem(fn, SegGeo::kSmem)) return err;                                 \
+    fn<<<grid, kWThreads, SegGeo::kSmem, stm>>>(qp, kp, vp, gp, bias, static_cast<T*>(dq),   \
+                                                dbias, stats, n, heads, scale, st);          \
+  } while (0)
+  if (dbias) SEG_DQ(true, true);
+  else if (bias) SEG_DQ(true, false);
+  else SEG_DQ(false, false);
+#undef SEG_DQ
+  if (cudaPeekAtLastError() != cudaSuccess) return static_cast<int>(cudaGetLastError());
+#define SEG_DKDV(kBias)                                                                      \
+  do {                                                                                       \
+    auto* fn = attn_bwd_dkdv_seg_kernel<kId, T, kBias>;                                      \
+    if (int err = allow_smem(fn, SegGeo::kSmem)) return err;                                 \
+    fn<<<grid, kWThreads, SegGeo::kSmem, stm>>>(qp, kp, vp, gp, bias, stats,                 \
+                                                static_cast<T*>(dk), static_cast<T*>(dv), n, \
+                                                heads, scale, st);                           \
+  } while (0)
+  if (bias) SEG_DKDV(true);
+  else SEG_DKDV(false);
+#undef SEG_DKDV
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch_bwd for a head past kSeg: kernel A then kernel B of #5 or #6
+// (kId) over segments, with launch_bwd's operands
+template <int kId>
+int launch_bwd_seg(const void* q, const void* k, const void* v, const void* g, const void* bias,
+                   void* dq, void* dk, void* dv, void* dbias, void* stats, int batch, int n,
+                   int heads, const BwdStrides& st, float scale, int is_bf16, cudaStream_t stm) {
+  if (batch <= 0 || n <= 0 || heads <= 0 || (dbias && !bias) || st.hd <= kSeg)
+    return cudaErrorInvalidValue;
+  const float* bp = static_cast<const float*>(bias);
+  float* dbp = static_cast<float*>(dbias);
+  float* sp = static_cast<float*>(stats);
+  return is_bf16 ? launch_bwd_seg_typed<kId, bf16>(q, k, v, g, bp, dq, dk, dv, dbp, sp, batch,
+                                                   n, heads, st, scale, stm)
+                 : launch_bwd_seg_typed<kId, float>(q, k, v, g, bp, dq, dk, dv, dbp, sp, batch,
+                                                    n, heads, st, scale, stm);
 }
 
 }  // namespace wide

@@ -2,7 +2,9 @@
 // check each of their C entries makes of the kD that the wrapper chose
 // (ops/cuda/attention.py, bnhd_kernel_width): hd, a multiple of 8 from 8 to
 // 1024, runs under the smallest of 48, 64, 128, 256, 512 and 1024 that holds
-// it, and a kD that is not that one is refused.
+// it, and a wider hd under the smallest multiple of 1024 that holds it (the
+// segmented kernels of attention_wide.cuh, 1024 columns a segment); a kD
+// that is not that one is refused.
 #pragma once
 
 inline bool bnhd_width_ok(int hd, int kd) {
@@ -12,6 +14,7 @@ inline bool bnhd_width_ok(int hd, int kd) {
                     : kd == 256  ? 128
                     : kd == 512  ? 256
                     : kd == 1024 ? 512
+                    : kd > 1024 && kd % 1024 == 0 ? kd - 1024
                                  : -1;
   return below >= 0 && hd >= 8 && hd % 8 == 0 && hd > below && hd <= kd;
 }

@@ -59,6 +59,13 @@
 // multiple of 4 and 4-byte copies otherwise; the products stop at c rounded
 // up to 4. At CK = 128 one code tile is in flight at a time (199 KB of
 // shared memory), not two.
+// Past 128 (kChunked, on the CK = 128 tiles): for each code tile the
+// block walks C in chunks of 128 columns, loading x's and the tile's
+// columns of the chunk and adding their products into the same 8 x 16
+// register tile, so that each score is still one fmaf chain over c in
+// increasing order from 0; the argmin epilogue runs once per code tile.
+// x is reloaded from L2 for every chunk of every code tile: a simple first
+// version (no shipped config passes 64).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -123,35 +130,68 @@ constexpr int smem_bytes() {
 // `count` zero-filled: 16-byte copies when c is a multiple of 4 (then every
 // row starts on a 16-byte boundary), 4-byte copies otherwise; consecutive
 // threads copy consecutive chunks of a row.
+// A chunk (kChunked) passes src at its first column, ld = C and c its
+// width.
 template <int CK, int P>
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int row0,
-                                          int rows, int count, int c, int tid) {
-  if (c % 4 == 0) {
+                                          int rows, int count, int c, int tid, int ld) {
+  if (c % 4 == 0 && ld % 4 == 0) {
     for (int i = tid; i < rows * CK / 4; i += kThreads) {
       const int r = i / (CK / 4), q = i % (CK / 4);
       const bool in = row0 + r < count && 4 * q < c;
-      cp_async16(dst + r * P + 4 * q, src + (in ? static_cast<int64_t>(row0 + r) * c + 4 * q : 0),
-                 in);
+      cp_async16(dst + r * P + 4 * q,
+                 src + (in ? static_cast<int64_t>(row0 + r) * ld + 4 * q : 0), in);
     }
   } else {
     for (int i = tid; i < rows * CK; i += kThreads) {
       const int r = i / CK, k = i % CK;
       const bool in = row0 + r < count && k < c;
-      cp_async4(dst + r * P + k, src + (in ? static_cast<int64_t>(row0 + r) * c + k : 0), in);
+      cp_async4(dst + r * P + k, src + (in ? static_cast<int64_t>(row0 + r) * ld + k : 0), in);
+    }
+  }
+}
+template <int CK, int P>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int row0,
+                                          int rows, int count, int c, int tid) {
+  load_rows<CK, P>(dst, src, row0, rows, count, c, tid, c);
+}
+
+// acc[i][j] += the products of x's rows ty + 16 i (at xs) and the tile's
+// codes tx + 16 j (at es) over the first c4 columns (a multiple of 4), four
+// c at a time, each accumulator's sum still taken over c in order
+template <int P>
+__device__ __forceinline__ void accumulate(float (&acc)[8][16], const float* xs,
+                                           const float* es, int c4) {
+#pragma unroll 1
+  for (int k = 0; k < c4; k += 4) {
+    float4 xv[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) xv[i] = *reinterpret_cast<const float4*>(xs + 16 * i * P + k);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float4 ev = *reinterpret_cast<const float4*>(es + 16 * j * P + k);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[i][j] = fmaf(xv[i].x, ev.x, acc[i][j]);
+        acc[i][j] = fmaf(xv[i].y, ev.y, acc[i][j]);
+        acc[i][j] = fmaf(xv[i].z, ev.z, acc[i][j]);
+        acc[i][j] = fmaf(xv[i].w, ev.w, acc[i][j]);
+      }
     }
   }
 }
 
 // One block: row tile blockIdx.y against code range `rank` (its cluster
-// rank, blockIdx.x) of v_per codes, at true code width c <= CK; see the
-// header comment.
-template <int CK, bool kNorms>
+// rank, blockIdx.x) of v_per codes, at true code width c <= CK, or (kChunked,
+// CK = 128) any c walked in chunks of CK; see the header comment.
+template <int CK, bool kNorms, bool kChunked = false>
 __global__ void __launch_bounds__(kThreads, 1)
     codebook_argmin_kernel(const float* __restrict__ x, const float* __restrict__ cb,
                            const float* __restrict__ e2, int64_t* __restrict__ out, int n,
                            int v, int c, int v_per) {
   constexpr int P = CK + kPad;  // row pitch of the tiles, in floats
   constexpr int S = stages<CK>();
+  static_assert(!kChunked || S == 1, "a chunked search holds one code tile");
   const int c4 = (c + 3) / 4 * 4;  // the products' columns: past c they are zeros
   extern __shared__ float4 smem4[];
   float* sx = reinterpret_cast<float*>(smem4);  // [kRows][P]
@@ -171,7 +211,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tx = tid & 15, ty = tid >> 4;  // rows ty + 16 i, codes tx + 16 j
 
   // x and code tile t, row-major
-  load_rows<CK, P>(sx, x, row0, kRows, n, c, tid);
+  if (!kChunked) load_rows<CK, P>(sx, x, row0, kRows, n, c, tid);
   auto load_tile = [&](int t) {
     const int v0 = vbeg + t * kCodes;
     load_rows<CK, P>(se + (t % S) * kCodes * P, cb, v0, kCodes, vend, c, tid);
@@ -180,7 +220,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       cp_async4(sb + (t % S) * kCodes + tid, e2 + (in ? v0 + tid : 0), in);
     }
   };
-  if (ntiles > 0) load_tile(0);
+  if (!kChunked && ntiles > 0) load_tile(0);
   cp_async_commit();  // group 0: x and tile 0
 
   float best[8];  // rows ty + 16 i
@@ -192,17 +232,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   for (int t = 0; t < ntiles; ++t) {
-    if (S == 2) {
-      if (t + 1 < ntiles) load_tile(t + 1);  // into the buffer tile t - 1 has left
-      cp_async_commit();
-      cp_async_wait1();  // tile t (and x) landed
-    } else {
-      if (t > 0) load_tile(t);  // into the one buffer, which tile t - 1 has left
-      cp_async_commit();
-      cp_async_wait_all();
-    }
-    __syncthreads();
-
     const float* xs = sx + ty * P;
     const float* es = se + (t % S) * kCodes * P + tx * P;
     float acc[8][16];
@@ -210,23 +239,36 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
-    // four c at a time, each accumulator's sum still taken over c in order
-#pragma unroll 1
-    for (int k = 0; k < c4; k += 4) {
-      float4 xv[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) xv[i] = *reinterpret_cast<const float4*>(xs + 16 * i * P + k);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float4 ev = *reinterpret_cast<const float4*>(es + 16 * j * P + k);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          acc[i][j] = fmaf(xv[i].x, ev.x, acc[i][j]);
-          acc[i][j] = fmaf(xv[i].y, ev.y, acc[i][j]);
-          acc[i][j] = fmaf(xv[i].z, ev.z, acc[i][j]);
-          acc[i][j] = fmaf(xv[i].w, ev.w, acc[i][j]);
+    if (kChunked) {
+      // chunk c0 of x and of code tile t into the one buffer of each, then
+      // its products; the next chunk's copies wait for every thread
+      const int v0 = vbeg + t * kCodes;
+      for (int c0 = 0; c0 < c; c0 += CK) {
+        const int cw = c - c0 < CK ? c - c0 : CK;
+        load_rows<CK, P>(sx, x + c0, row0, kRows, n, cw, tid, c);
+        load_rows<CK, P>(se, cb + c0, v0, kCodes, vend, cw, tid, c);
+        if (kNorms && c0 == 0) {
+          const bool in = v0 + tid < vend;
+          cp_async4(sb + tid, e2 + (in ? v0 + tid : 0), in);
         }
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        accumulate<P>(acc, xs, es, (cw + 3) / 4 * 4);
+        __syncthreads();
       }
+    } else {
+      if (S == 2) {
+        if (t + 1 < ntiles) load_tile(t + 1);  // into the buffer tile t - 1 has left
+        cp_async_commit();
+        cp_async_wait1();  // tile t (and x) landed
+      } else {
+        if (t > 0) load_tile(t);  // into the one buffer, which tile t - 1 has left
+        cp_async_commit();
+        cp_async_wait_all();
+      }
+      __syncthreads();
+      accumulate<P>(acc, xs, es, c4);
     }
 
     // this thread's codes rise with j: a strict < keeps the first of equal
@@ -298,7 +340,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // The launch of one call: row tile y, cluster rank x, as many clusters of
 // `split` blocks as row tiles
-template <int CK, bool kNorms>
+template <int CK, bool kNorms, bool kChunked>
 cudaLaunchConfig_t launch_config(int split, int row_tiles, cudaStream_t st,
                                  cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
@@ -317,15 +359,15 @@ cudaLaunchConfig_t launch_config(int split, int row_tiles, cudaStream_t st,
 
 // Clusters of s = 1, 2, 4, 8 blocks that fit the card at once, read once
 // per instantiation
-template <int CK, bool kNorms>
+template <int CK, bool kNorms, bool kChunked>
 int max_clusters(int s) {
   static int known[4] = {0, 0, 0, 0};
   const int k = s == 1 ? 0 : s == 2 ? 1 : s == 4 ? 2 : 3;
   if (!known[k]) {
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = launch_config<CK, kNorms>(s, 1, nullptr, &attr);
+    const cudaLaunchConfig_t cfg = launch_config<CK, kNorms, kChunked>(s, 1, nullptr, &attr);
     int n = 0;
-    cudaOccupancyMaxActiveClusters(&n, codebook_argmin_kernel<CK, kNorms>, &cfg);
+    cudaOccupancyMaxActiveClusters(&n, codebook_argmin_kernel<CK, kNorms, kChunked>, &cfg);
     known[k] = n > 0 ? n : 1;
   }
   return known[k];
@@ -336,14 +378,14 @@ int max_clusters(int s) {
 // S)) tiles, and the row tiles' clusters run in ceil(row tiles /
 // max_clusters(S)) waves. Ties go to the smaller S (less merging, fewer
 // copies of x).
-template <int CK, bool kNorms>
+template <int CK, bool kNorms, bool kChunked>
 int split_for(int n, int v) {
   const int64_t tiles = (n + kRows - 1) / kRows;
   int best = 1;
   int64_t best_cost = INT64_MAX;
   for (int s = 1; s <= kMaxSplit && (s == 1 || (s / 2) * kCodes < v); s *= 2) {
     const int64_t per_block = (v + static_cast<int64_t>(s) * kCodes - 1) / (s * kCodes);
-    const int64_t fit = max_clusters<CK, kNorms>(s);
+    const int64_t fit = max_clusters<CK, kNorms, kChunked>(s);
     const int64_t cost = per_block * ((tiles + fit - 1) / fit);
     if (cost < best_cost) {
       best = s;
@@ -355,30 +397,30 @@ int split_for(int n, int v) {
 
 // split_for with the kernel's shared-memory attribute set, which the
 // occupancy query and the launch need
-template <int CK, bool kNorms>
+template <int CK, bool kNorms, bool kChunked = false>
 int split_of(int n, int v) {
-  cudaFuncSetAttribute(codebook_argmin_kernel<CK, kNorms>,
+  cudaFuncSetAttribute(codebook_argmin_kernel<CK, kNorms, kChunked>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<CK>());
-  return split_for<CK, kNorms>(n, v);
+  return split_for<CK, kNorms, kChunked>(n, v);
 }
 
-template <int CK, bool kNorms>
+template <int CK, bool kNorms, bool kChunked>
 int launch(const float* x, const float* cb, const float* e2, int64_t* out, int n, int v, int c,
            cudaStream_t st) {
-  const int split = split_of<CK, kNorms>(n, v);
+  const int split = split_of<CK, kNorms, kChunked>(n, v);
   const int v_per = ((v + split - 1) / split + kCodes - 1) / kCodes * kCodes;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      launch_config<CK, kNorms>(split, (n + kRows - 1) / kRows, st, &attr);
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, codebook_argmin_kernel<CK, kNorms>, x, cb,
-                                             e2, out, n, v, c, v_per));
+      launch_config<CK, kNorms, kChunked>(split, (n + kRows - 1) / kRows, st, &attr);
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, codebook_argmin_kernel<CK, kNorms, kChunked>,
+                                             x, cb, e2, out, n, v, c, v_per));
 }
 
-template <int CK>
+template <int CK, bool kChunked = false>
 int launch_c(const float* x, const float* cb, const float* e2, int64_t* out, int n, int v,
              int c, cudaStream_t st) {
-  return e2 ? launch<CK, true>(x, cb, e2, out, n, v, c, st)
-            : launch<CK, false>(x, cb, e2, out, n, v, c, st);
+  return e2 ? launch<CK, true, kChunked>(x, cb, e2, out, n, v, c, st)
+            : launch<CK, false, kChunked>(x, cb, e2, out, n, v, c, st);
 }
 
 }  // namespace
@@ -386,15 +428,16 @@ int launch_c(const float* x, const float* cb, const float* e2, int64_t* out, int
 // x (N, c) and codebook (V, c) fp32 contiguous on 16-byte boundaries; e2
 // (V,) fp32 with |e_v|^2, or null for `maximize` (scores -2 x.e); out (N,)
 // int64. ck: the instantiation the wrapper chose (ops/cuda/codebook.py,
-// kernel_width), the smallest of 8, 16, 32, 64 and 128 that holds c, which
-// is checked here; N up to 65535 row tiles of 128. Launches on `stream` and
-// returns the launch's error, then cudaGetLastError(), as an int (0 =
-// launched; cudaErrorInvalidValue for another ck or c).
+// kernel_width), the smallest of 8, 16, 32, 64 and 128 that holds c, or 128
+// for any c past 128 (walked in chunks of 128), which is checked here; N up
+// to 65535 row tiles of 128. Launches on `stream` and returns the launch's
+// error, then cudaGetLastError(), as an int (0 = launched;
+// cudaErrorInvalidValue for another ck or c).
 extern "C" int codebook_argmin(const void* x, const void* codebook,
                                const void* e2, void* out, int n, int v, int c, int ck,
                                void* stream) {
-  if (n <= 0 || v <= 0 || (n + kRows - 1) / kRows > 65535 || c < 1 || c > ck ||
-      (ck > 8 && 2 * c <= ck))
+  if (n <= 0 || v <= 0 || (n + kRows - 1) / kRows > 65535 || c < 1 ||
+      (c > ck && ck != 128) || (ck > 8 && 2 * c <= ck))
     return cudaErrorInvalidValue;
   const float* xp = static_cast<const float*>(x);
   const float* cp = static_cast<const float*>(codebook);
@@ -407,17 +450,23 @@ extern "C" int codebook_argmin(const void* x, const void* codebook,
     case 16: err = launch_c<16>(xp, cp, ep, op, n, v, c, st); break;
     case 32: err = launch_c<32>(xp, cp, ep, op, n, v, c, st); break;
     case 64: err = launch_c<64>(xp, cp, ep, op, n, v, c, st); break;
-    case 128: err = launch_c<128>(xp, cp, ep, op, n, v, c, st); break;
+    case 128:
+      err = c > 128 ? launch_c<128, true>(xp, cp, ep, op, n, v, c, st)
+                    : launch_c<128>(xp, cp, ep, op, n, v, c, st);
+      break;
     default: return cudaErrorInvalidValue;
   }
   return err ? err : static_cast<int>(cudaGetLastError());
 }
 
-// The split S that a call of codebook_argmin for n rows of a v-code book at
-// instantiation ck (norms: with |e|^2, i.e. not maximize) takes on the
-// current device, for the checks; 0 for a width the kernel is not built for.
-extern "C" int codebook_argmin_split(int n, int v, int ck, int norms) {
+// The split S that a call of codebook_argmin for n rows of a v-code book of
+// width c at instantiation ck (norms: with |e|^2, i.e. not maximize) takes on
+// the current device, for the checks; 0 for a width the kernel is not built
+// for.
+extern "C" int codebook_argmin_split(int n, int v, int c, int ck, int norms) {
   if (n <= 0 || v <= 0) return 0;
+  if (ck == 128 && c > 128)
+    return norms ? split_of<128, true, true>(n, v) : split_of<128, false, true>(n, v);
   switch (ck) {
     case 8: return norms ? split_of<8, true>(n, v) : split_of<8, false>(n, v);
     case 16: return norms ? split_of<16, true>(n, v) : split_of<16, false>(n, v);

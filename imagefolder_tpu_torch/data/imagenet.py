@@ -141,28 +141,42 @@ class ImageFolderSource:
 
 
 class _VisitDataset(torch.utils.data.Dataset):
-    """Builds the record of a visit key (epoch, record index): the train
-    augmentation's rng is seeded from (seed, epoch, index)."""
+    """Builds the record of a visit key: a train visit (epoch, record index)
+    draws from an rng seeded from (seed, epoch, index); a val visit
+    (epoch, record index, sampler index) from the rng the JAX package's
+    grain sampler hands that visit, Philox(key=seed + sampler index), so
+    that a source that draws in val too (``data/builders.py``'s
+    ``CodeSource``) gives the JAX loader's records."""
 
-    def __init__(self, source: ImageFolderSource, seed: int):
+    def __init__(self, source, seed: int):
         self.source, self.seed = source, seed
 
     def __len__(self):
         return len(self.source)
 
     def __getitem__(self, key):
-        epoch, idx = key
-        return self.source.getitem_with_rng(idx, np.random.default_rng((self.seed, epoch, idx)))
+        if len(key) == 3:
+            _, idx, visit = key
+            rng = np.random.Generator(np.random.Philox(key=self.seed + visit))
+        else:
+            epoch, idx = key
+            rng = np.random.default_rng((self.seed, epoch, idx))
+        return self.source.getitem_with_rng(idx, rng)
 
 
 def _collate(records: list) -> dict:
-    return {"image": torch.from_numpy(np.stack([r["image"] for r in records])),
-            "label": torch.from_numpy(np.asarray([r["label"] for r in records], np.int32))}
+    """A batch of records: each field's arrays (or numpy scalars) stacked
+    into one tensor, its strings kept as a list."""
+    return {k: [r[k] for r in records] if isinstance(records[0][k], str)
+            else torch.from_numpy(np.stack([np.asarray(r[k]) for r in records]))
+            for k in records[0]}
 
 
 class ImageFolderLoader:
-    """Batches of one process's shard. Iterating gives a ``LoaderIterator``
-    from the start; ``num_epochs`` None repeats for ever."""
+    """Batches of one process's shard of ``source`` (any source with
+    ``getitem_with_rng``: ``ImageFolderSource`` or one of
+    ``data/builders.py``'s). Iterating gives a ``LoaderIterator`` from the
+    start; ``num_epochs`` None repeats for ever."""
 
     def __init__(self, source: ImageFolderSource, batch_size: int, *, train: bool, seed: int,
                  num_workers: int, num_epochs: Optional[int], shard_index: int,
@@ -174,6 +188,7 @@ class ImageFolderLoader:
         else:
             lo, hi = shard_index * n // shard_count, (shard_index + 1) * n // shard_count
         self.shard = np.arange(lo, hi)
+        self.shard_index, self.shard_count = shard_index, shard_count
         self.source, self.batch_size, self.train, self.seed = source, batch_size, train, seed
         self.num_epochs, self.drop_remainder = num_epochs, drop_remainder
         # keep every worker at a batch or more, as the JAX loader does
@@ -182,11 +197,17 @@ class ImageFolderLoader:
                          "train": train, "seed": seed}
 
     def epoch_batches(self, epoch: int) -> List[List[tuple]]:
-        """The visit keys of each batch of ``epoch``."""
+        """The visit keys of each batch of ``epoch`` (``_VisitDataset``): in
+        val the sampler index is grain's, the k-th visit of this shard
+        being k * shard_count + shard_index."""
         order = self.shard
         if self.train:
             order = order[np.random.default_rng((self.seed, epoch)).permutation(len(order))]
-        keys = [(epoch, int(i)) for i in order]
+            keys = [(epoch, int(i)) for i in order]
+        else:
+            first = epoch * len(order)
+            keys = [(epoch, int(i), (first + k) * self.shard_count + self.shard_index)
+                    for k, i in enumerate(order)]
         stop = len(keys) - len(keys) % self.batch_size if self.drop_remainder else len(keys)
         return [keys[i:i + self.batch_size] for i in range(0, stop, self.batch_size)]
 

@@ -281,7 +281,11 @@ class VQModel(nn.Module):
                     f"sqrt(num_latent_tokens)={g}: check image_size ({cfg.image_size}) "
                     f"against encoder_ch_mult's downsampling "
                     f"(f{2 ** (len(cfg.encoder_ch_mult) - 1)})")
-            return self.quant_conv(h)[:, None]  # one branch
+            # one latent: the JAX package's CNN encode has one branch, which its
+            # quantizers index as h_P[:, i], clamped to branch 0 (JAX clamps an
+            # index past the end), so with product_quant > 1 every branch
+            # quantizes the same latent
+            return self.quant_conv(h)[:, None].expand(-1, cfg.product_quant, -1, -1, -1)
         h = self.quant_conv(self.encoder(x))  # (B, P*g*g, C)
         return h.reshape(h.shape[0], cfg.product_quant, g, g, cfg.codebook_embed_dim)
 
@@ -412,6 +416,11 @@ class VQModel(nn.Module):
         if last_one:
             return self.fhat_to_img(per_scale[-1])
         return [self.fhat_to_img(f) for f in per_scale]
+
+    def img_to_sem_feat(self, x: torch.Tensor) -> torch.Tensor:
+        """The semantic (last) branch's final-scale quantized feature f_hat,
+        (B, g, g, C) (xqgan_model.py:405-426): the linear probe's input."""
+        return self._branch_fhats(x)[-1][-1]
 
     def img_to_idxBl(self, x: torch.Tensor, v_patch_nums=None) -> List[List[torch.Tensor]]:
         """Per-branch, per-scale token indices [P][S] of (B, pn*pn)."""

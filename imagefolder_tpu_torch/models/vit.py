@@ -20,8 +20,12 @@ names follow the upstream torch layout that
 state dicts load with ``strict=True``; the LoRA adapters and the conv and
 siren heads, which it does not export, are named after their flax modules
 (``lora_a``, ``lora_b``, ``deconv``, ``sine1``, ``sine2``). Public functions
-keep the JAX package's NHWC / token-major layouts. RoPE blocks, which no
-``ModelArgs`` field reaches, are not ported.
+keep the JAX package's NHWC / token-major layouts. The decoder's RoPE blocks
+(``use_rope``: ``RoPEAttention``, a mixed-2D rotary on the image tokens and a
+1D rotary on the latents, ``freqs`` and ``freqs_1d`` per block) and its
+pooled-latent conditioning of the mask tokens (``cond_latent``: upstream's
+``cl_mlp1``, ``cl_mlp2`` and ``cl_norm1``) are ported; no ``ModelArgs`` field
+reaches either, as in the JAX package.
 
 The decoder keeps the reference quirk: with absolute position embeddings
 its latent stream gets an extra cls token, so its block input length is
@@ -39,15 +43,16 @@ from torch import nn
 from torch.nn.utils import skip_init
 from torch.utils.checkpoint import checkpoint
 
+from imagefolder_tpu_torch.ops import rope
 from imagefolder_tpu_torch.ops.activations import gelu_exact
-from imagefolder_tpu_torch.ops.cuda.attention import attention_qkv
+from imagefolder_tpu_torch.ops.cuda.attention import attention_qkv, dot_product_attention
 from imagefolder_tpu_torch.ops.cuda.block import attn_sublayer, dense, mlp_sublayer
 from imagefolder_tpu_torch.ops.resize import resize
 from imagefolder_tpu_torch.utils.init import (lecun_normal_, linear, normal_, trunc_normal_,
                                               uniform_)
 
 __all__ = ["ViTBackbone", "LatentEncoder", "LatentDecoder", "ToPixel", "LoRALinear",
-           "VIT_PRESETS", "set_fused_sublayers"]
+           "RoPEAttention", "VIT_PRESETS", "set_fused_sublayers"]
 
 # timm dinov2 model presets (vision_transformer.py:2895-2925)
 VIT_PRESETS = {
@@ -131,6 +136,48 @@ class Attention(nn.Module):
                                generator=generator)
 
 
+_ROPE_THETA = 10.0  # the mixed-2D rotary's base (RoPEAttention.rope_theta)
+
+
+class RoPEAttention(nn.Module):
+    """Attention with rotary embeddings (the JAX package's ``RoPEAttention``,
+    vendored from vision_transformer.py:200-278): qkv, then a learnable
+    mixed-2D rotary (``freqs``, (2, H, hd/2)) on the ``num_image_tokens``
+    image tokens and a learnable 1D rotary (``freqs_1d``, (nl, hd/2, 2)) on
+    the trailing ``num_latent_tokens`` latents, the one prefix token (cls)
+    left as it is, then ``dot_product_attention`` (#3, or #4 past the
+    single-block budget) and proj."""
+
+    def __init__(self, dim: int, num_heads: int, num_latent_tokens: int,
+                 num_image_tokens: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        hd = dim // num_heads
+        self.num_heads, self.num_latent_tokens = num_heads, num_latent_tokens
+        self.qkv = LoRALinear(dim, 3 * dim, generator=generator)
+        self.proj = LoRALinear(dim, dim, generator=generator)
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator))
+        self.freqs = nn.Parameter(torch.from_numpy(
+            rope.init_2d_freqs(hd, num_heads, _ROPE_THETA, seed=seed)))
+        self.freqs_1d = nn.Parameter(torch.from_numpy(rope.init_1d_freqs(hd, num_latent_tokens)))
+        g = math.isqrt(num_image_tokens)
+        t_x, t_y = rope.init_t_xy(g, g)
+        self.register_buffer("t_x", torch.from_numpy(t_x), persistent=False)
+        self.register_buffer("t_y", torch.from_numpy(t_y), persistent=False)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, n, c = x.shape
+        q, k, v = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads).unbind(2)
+        cis2d = rope.compute_mixed_cis(self.freqs, self.t_x, self.t_y)
+        nl = self.num_latent_tokens
+
+        def rot(t):
+            return torch.cat([t[:, :1], rope.apply_rotary(t[:, 1:n - nl], cis2d),
+                              rope.apply_rotary(t[:, n - nl:], self.freqs_1d)], dim=1)
+
+        out = dot_product_attention(rot(q), rot(k), v, bias=mask)
+        return self.proj(out.reshape(b, n, c))
+
+
 class Mlp(nn.Module):
     """Parameters of the MLP; the math is ``mlp_sublayer`` (or, with
     adapters or no LayerScale, ``Block._composed``). ``rank`` > 0 puts LoRA adapters on
@@ -156,24 +203,34 @@ class Block(nn.Module):
     it never fuses. ``lora_rank`` > 0 adds LoRA adapters to the MLP (and,
     with ``lat_lora``, to qkv and proj, their deltas on the last
     ``lora_latent_tokens`` positions only); such a block runs the JAX
-    package's composed module path and never fuses either."""
+    package's composed module path and never fuses either. ``use_rope``
+    gives it ``RoPEAttention`` over ``num_image_tokens`` image and
+    ``num_latent_tokens`` latent tokens (no adapters on it), on the composed
+    path too (the JAX ``Block`` takes it under rope, ``vit.py:265``)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  init_values: Optional[float] = 1e-5,
                  dtype: torch.dtype = torch.float32, *,
                  fuse_attn: bool = False, fuse_mlp: bool = False, lora_rank: int = 0,
                  lat_lora: bool = False, lora_latent_tokens: int = 0,
+                 use_rope: bool = False, num_latent_tokens: int = 0,
+                 num_image_tokens: int = 256,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if (init_values is None or lora_rank > 0) and (fuse_attn or fuse_mlp):
-            raise ValueError("a Block without LayerScale or with LoRA never fuses its "
-                             "sublayers")
+        if (init_values is None or lora_rank > 0 or use_rope) and (fuse_attn or fuse_mlp):
+            raise ValueError("a Block without LayerScale, with LoRA or with RoPE never fuses "
+                             "its sublayers")
         self.num_heads = num_heads
         self.lora_rank = lora_rank
+        self.use_rope = use_rope
         self.fuse_attn, self.fuse_mlp = fuse_attn, fuse_mlp
         lat = lora_latent_tokens if lat_lora else 0
         self.norm1 = LayerNorm(dim, dtype)
-        self.attn = Attention(dim, generator, lora_rank if lat_lora else 0, lat)
+        if use_rope:
+            self.attn = RoPEAttention(dim, num_heads, num_latent_tokens, num_image_tokens,
+                                      generator=generator)
+        else:
+            self.attn = Attention(dim, generator, lora_rank if lat_lora else 0, lat)
         self.norm2 = LayerNorm(dim, dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), generator, lora_rank, lat)
         if init_values is None:
@@ -185,16 +242,20 @@ class Block(nn.Module):
     def _composed(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         """The JAX package's composed module path (``Attention``, ``Mlp`` of
         ``LoRADense``s): each sublayer's output, times its LayerScale when
-        the block has one (fp32), added to the residual stream."""
-        h = self.attn.proj(attention_qkv(self.attn.qkv(self.norm1(x)), self.num_heads,
-                                         bias=mask))
+        the block has one (fp32), added to the residual stream; under rope
+        the attention is ``RoPEAttention``."""
+        if self.use_rope:
+            h = self.attn(self.norm1(x), mask)
+        else:
+            h = self.attn.proj(attention_qkv(self.attn.qkv(self.norm1(x)), self.num_heads,
+                                             bias=mask))
         x = x + (h if self.ls1 is None else h * self.ls1.gamma)
         h = self.mlp.fc2(gelu_exact(self.mlp.fc1(self.norm2(x))))
         return x + (h if self.ls2 is None else h * self.ls2.gamma)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.lora_rank > 0 or self.ls1 is None:
+        if self.lora_rank > 0 or self.ls1 is None or self.use_rope:
             return self._composed(x, mask)
         a, m = self.attn, self.mlp
         x = attn_sublayer(self.norm1(x), x, a.qkv.weight, a.qkv.bias,
@@ -210,10 +271,11 @@ def set_fused_sublayers(module: nn.Module, attn: bool, mlp: bool) -> int:
     composed path: the explicit, per-model counterpart of the JAX package's
     ``IMGF_FUSE_ATTN`` / ``IMGF_FUSE_MLP`` (off by default, as there). The
     attention fuses only where the JAX router would: no mask and N * N within
-    the single-block budget. Blocks without LayerScale or with LoRA adapters
-    never fuse (as in the JAX package). Returns the number of blocks set."""
-    blocks = [b for b in module.modules()
-              if isinstance(b, Block) and b.ls1 is not None and b.lora_rank == 0]
+    the single-block budget. Blocks without LayerScale, with LoRA adapters
+    or with RoPE never fuse (as in the JAX package). Returns the number of
+    blocks set."""
+    blocks = [b for b in module.modules() if isinstance(b, Block) and b.ls1 is not None
+              and b.lora_rank == 0 and not b.use_rope]
     for b in blocks:
         b.fuse_attn, b.fuse_mlp = bool(attn), bool(mlp)
     return len(blocks)
@@ -236,7 +298,9 @@ class ViTBackbone(nn.Module):
     activation dtype.
 
     ``patch_embed=False`` builds the decoder's backbone, which never embeds
-    patches and so has no ``patch_embed`` parameters (as in flax)."""
+    patches and so has no ``patch_embed`` parameters (as in flax).
+    ``use_rope`` builds RoPE blocks over the patches and the trailing
+    ``num_latent_tokens`` latents."""
 
     def __init__(self, img_size: int = 256, patch_size: int = 16,
                  embed_dim: int = 768, depth: int = 12, num_heads: int = 12,
@@ -244,6 +308,7 @@ class ViTBackbone(nn.Module):
                  pre_norm: bool = False, dtype: torch.dtype = torch.float32, *,
                  patch_embed: bool = True, remat: bool = False, lora_rank: int = 0,
                  lat_lora: bool = False, lora_latent_tokens: int = 0,
+                 use_rope: bool = False, num_latent_tokens: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.remat = remat
@@ -262,7 +327,8 @@ class ViTBackbone(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, init_values, dtype, lora_rank=lora_rank,
                   lat_lora=lat_lora, lora_latent_tokens=lora_latent_tokens,
-                  generator=generator)
+                  use_rope=use_rope, num_latent_tokens=num_latent_tokens,
+                  num_image_tokens=self.num_patches, generator=generator)
             for _ in range(depth))
         self.norm = LayerNorm(embed_dim, dtype)
         # CLIP's LayerNorm before the blocks (timm norm_pre)
@@ -479,6 +545,20 @@ class ToPixel(nn.Module):
         return x.reshape(b, hw * p, hw * p, self.channels)
 
 
+class _CondMlp(nn.Module):
+    """timm ``Mlp(d, d, norm_layer=LayerNorm)``: fc1, exact GELU, LayerNorm
+    (eps 1e-6), fc2, in fp32."""
+
+    def __init__(self, d: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc1 = linear(d, d, generator)
+        self.norm = LayerNorm(d)
+        self.fc2 = linear(d, d, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.norm(gelu_exact(self.fc1(x))))
+
+
 class LatentDecoder(nn.Module):
     """Mask tokens at the image positions + quantized latents (B, nl, D);
     returns the ``to_pixel`` head's output (unpatchified pixels (B, H, W, C)
@@ -489,28 +569,43 @@ class LatentDecoder(nn.Module):
     embeddings; without it, the learned ``latent_pos_embed``. 'lora' and
     'lat_lora' tuning give the trunk's blocks adapters of ``lora_rank``,
     latent-only under 'lat_lora' (the latent stream and, with absolute
-    position embeddings, its cls token)."""
+    position embeddings, its cls token).
+
+    ``use_rope`` (``dinov2.py:333-342``): RoPE blocks, and the sequence is
+    cls, the mask tokens and the raw latents, with no positional adds (no
+    ``lvl_embed`` or ``latent_pos_embed``). ``cond_latent``
+    (``dinov2.py:323-325``; not with rope, whose path never reaches it, so
+    that flax creates no parameters for it there): the mask tokens (and cls)
+    after their pos embed are conditioned on the latents' mean through two
+    timm MLPs: x + cl_mlp2(cl_norm1(x + cl_mlp1(mean z)))."""
 
     def __init__(self, model_name: str = "vit_base_patch14_dinov2.lvd142m",
                  img_size: int = 256, patch_size: int = 16,
                  num_latent_tokens: int = 256, abs_pos_embed: bool = True,
                  to_pixel: str = "linear", tuning_method: str = "full",
                  out_channels: int = 3, dtype: torch.dtype = torch.float32, *,
-                 remat: bool = False, lora_rank: int = 0,
-                 generator: Optional[torch.Generator] = None):
+                 remat: bool = False, lora_rank: int = 0, use_rope: bool = False,
+                 cond_latent: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         rank = _lora_rank(tuning_method, lora_rank)
         self.grid = _latent_grid(num_latent_tokens)
         self.num_latent_tokens = num_latent_tokens
         self.abs_pos_embed = abs_pos_embed
+        self.use_rope = use_rope
+        self.cond_latent = cond_latent and not use_rope
         self.model = ViTBackbone(**_backbone_kwargs(model_name, img_size, patch_size, dtype),
                                  patch_embed=False, remat=remat, lora_rank=rank,
                                  lat_lora=tuning_method == "lat_lora",
-                                 lora_latent_tokens=num_latent_tokens + int(abs_pos_embed),
+                                 lora_latent_tokens=num_latent_tokens
+                                 + int(abs_pos_embed and not use_rope),
+                                 use_rope=use_rope,
+                                 num_latent_tokens=num_latent_tokens if use_rope else 0,
                                  generator=generator)
         d = self.embed_dim = self.model.embed_dim
         self.mask_token = nn.Parameter(normal_(torch.empty(1, 1, d), 1e-6, generator))
-        if abs_pos_embed:
+        if use_rope:
+            pass  # rope replaces absolute positions
+        elif abs_pos_embed:
             self.lvl_embed = skip_init(nn.Embedding, 2, d)
             trunc_normal_(self.lvl_embed.weight, math.sqrt(1 / d / 3), generator)
         else:
@@ -518,11 +613,23 @@ class LatentDecoder(nn.Module):
                 trunc_normal_(torch.empty(1, num_latent_tokens, d), 0.02, generator))
         self.to_pixel = ToPixel(d, img_size, patch_size, out_channels, to_pixel,
                                 generator=generator)
+        if self.cond_latent:
+            self.cl_mlp1 = _CondMlp(d, generator)
+            self.cl_mlp2 = _CondMlp(d, generator)
+            self.cl_norm1 = LayerNorm(d)
 
     def forward(self, z: torch.Tensor, return_prelast: bool = False):
         m = self.model
         x = self.mask_token.float().expand(z.shape[0], m.num_patches, -1)
+        if self.use_rope:
+            cls = m.cls_token.float().expand(z.shape[0], 1, -1)
+            x = m.run_blocks(torch.cat([cls, x, z.float()], dim=1))[:, 1:m.num_patches + 1]
+            out = self.to_pixel(x)
+            return (out, x) if return_prelast else out
         x = m.pos_embed_tokens(x)  # (B, 1+N, D)
+        if self.cond_latent:
+            ffn = x + self.cl_mlp1(z.float().mean(dim=1, keepdim=True))
+            x = x + self.cl_mlp2(self.cl_norm1(ffn))
         if self.abs_pos_embed:
             # reference quirk: cls is prepended to the latent stream and kept
             z = m.pos_embed_tokens(z.float(), grid_hw=(self.grid, self.grid), keep_cls=True)

@@ -44,7 +44,7 @@ the plain version of lse), skips the 64 x 64 tiles that a bias blanks
 (``blank_tile_map``, plain version ``blank_tile_map_reference``); dk and dv
 come from a kernel per 64 keys, dq from one per 64 q rows. fp32 backwards,
 calls that ask for dbias, and #6 at L = 1 keep ``csrc/attention_bwd_tile.cuh``.
-The BNHD kernels (#3-#6) take every head width up to 1024: 48 for RAR-B and
+The BNHD kernels (#3-#6) take every head width: 48 for RAR-B and
 MaskGIT-B, 80 and 88 for RAR-XL and RAR-XXL, 256 and 512 for a generator of
 hidden 1024 over 4 and 2 heads. A width that is not a multiple
 of 8 is zero-padded to the next one before the launch (the scale stays the
@@ -55,8 +55,9 @@ forwards on 128-wide wgmma tiles, every backward on the two-kernel design
 of ``csrc/attention_bwd_tile.cuh``), widths of 136-1024 the kD = 256, 512
 and 1024 FMA kernels of ``csrc/attention_wide.cuh`` (fp32 and bf16, kD / 32
 threads a row; the wrapper picks which with ``bnhd_kernel_width`` and
-passes it to the C entry, which checks it). Wider heads raise before any
-launch. The packed pair (#1, #2), which only the ViTs call, takes 64.
+passes it to the C entry, which checks it), and wider heads its segmented
+kernels: kD = 1024's geometry over 1024-column segments, a block per
+output segment that sums each score over every segment. The packed pair (#1, #2), which only the ViTs call, takes 64.
 Each dispatches on the tensor's device only: a CPU tensor goes to its
 ``*_reference``, the plain PyTorch version; a CUDA tensor launches the
 hand-written kernel or raises.
@@ -98,16 +99,17 @@ QBLK_BWD_LAUNCHES = 0
 
 # head widths: the packed pair #1/#2 (and #7's attention step) serve the
 # ViTs, every preset of which has heads of 64; the BNHD kernels #3-#6 take
-# every width up to _BNHD_MAX_HEAD_DIM (48: RAR-B and MaskGIT-B, 768 / 16;
+# every width (48: RAR-B and MaskGIT-B, 768 / 16;
 # 80 and 88: RAR-XL and RAR-XXL; 512: hidden 1024 over 2 heads), compiled at
 # _BNHD_WIDTHS: a width runs under the smallest of them that holds it
 # (bnhd_kernel_width, passed to the C entries, which check it), zero-padded
 # to its tiles on the card, and one that is not a multiple of 8 is first
-# zero-padded to one by the wrapper. Wider heads raise before any launch:
-# past 1024 a row of the FMA kernels would need more than a warp's threads.
+# zero-padded to one by the wrapper. Past 1024 a row of the FMA kernels
+# would need more than a warp's threads: wider heads run in segments of
+# _BNHD_SEGMENT columns, passed as the smallest multiple of it that holds them.
 _HEAD_DIM = 64
 _BNHD_WIDTHS = (48, 64, 128, 256, 512, 1024)
-_BNHD_MAX_HEAD_DIM = _BNHD_WIDTHS[-1]
+_BNHD_SEGMENT = _BNHD_WIDTHS[-1]
 _SM90_BWD_MAX_HEAD_DIM = 64  # the wgmma backward's widest; past it the two-kernel design
 _TILE = 64  # q rows and keys per tile of the bf16 backward (#2, #5, #6) and its blank map
 
@@ -259,19 +261,18 @@ def bnhd_kernel_width(hd: int) -> int:
     """The kD instantiation of #3-#6 that a head of width ``hd`` runs under on
     the card, which each wrapper passes to its C entry (and the entry checks,
     ``csrc/attention_widths.cuh``): the smallest of ``_BNHD_WIDTHS`` that
-    holds it, 56 under 64. Past ``_BNHD_MAX_HEAD_DIM`` it raises, naming the
-    cap."""
+    holds it, 56 under 64; past the widest, the smallest multiple of
+    ``_BNHD_SEGMENT`` that holds it (its segments)."""
     if hd < 1:
         raise ValueError(f"head dim must be positive, got {hd}")
-    if hd > _BNHD_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"the BNHD kernels take head dims up to {_BNHD_MAX_HEAD_DIM}, got {hd}")
+    if hd > _BNHD_SEGMENT:
+        return -(-hd // _BNHD_SEGMENT) * _BNHD_SEGMENT
     return next(w for w in _BNHD_WIDTHS if -(-hd // 8) * 8 <= w)
 
 
 def _kernel_operands(q, k, v, bias, what: str):
     """The checks the BNHD kernels (#3-#6) make: q, k and v all bf16 or all
-    fp32, a head dim up to ``_BNHD_MAX_HEAD_DIM``, one device, unit last
+    fp32, one device, unit last
     strides (a view is copied only if its last stride is not 1), the bias
     cast to fp32. Every check comes before any launch. A head dim that is
     not a multiple of 8 comes back zero-padded to the next one (the caller
@@ -280,10 +281,6 @@ def _kernel_operands(q, k, v, bias, what: str):
             or v.dtype != q.dtype:
         raise TypeError(f"{what} kernel takes q, k, v all bf16 or all fp32; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[-1] > _BNHD_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"{what} kernel takes head dims up to {_BNHD_MAX_HEAD_DIM} (one that is not a "
-            f"multiple of 8 zero-padded to one), got {q.shape[-1]}")
     if not (k.device == v.device == q.device and (bias is None or bias.device == q.device)):
         raise ValueError("q, k, v and bias must be on the same device")
     if 0 in (*q.shape, k.shape[1]):

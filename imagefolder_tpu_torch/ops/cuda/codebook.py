@@ -8,7 +8,9 @@ The kernel is compiled at the code widths ``WIDTHS``; the wrapper picks the
 smallest that holds the true width C (``kernel_width``) and passes both, and
 the kernel zero-fills its tiles' columns past C as it loads them (zero
 columns change neither |e|^2 nor x.e, so the indices are those of the
-search at C). A width past the widest raises before any launch.
+search at C). Past the widest, the widest walks C in chunks of its width,
+adding each chunk's products into the same accumulators (each score is
+still one fp32 chain over C in order), so every C runs on the card.
 """
 
 from __future__ import annotations
@@ -27,18 +29,19 @@ __all__ = ["codebook_argmin", "codebook_argmin_reference", "code_ranges", "kerne
 LAUNCHES = 0
 
 # code widths C the kernel is compiled for; 128 holds every codebook_embed_dim
-# of the shipped configs and the ModelArgs defaults
+# of the shipped configs and the ModelArgs defaults, and walks a wider C in
+# chunks of 128
 WIDTHS = (8, 16, 32, 64, 128)
 
 
 def kernel_width(c: int) -> int:
     """The compiled width that a search at code width ``c`` runs at, which
     the wrapper passes to the kernel's entry (and the entry checks): the
-    smallest of ``WIDTHS`` that holds it; past the widest it raises."""
-    if c > WIDTHS[-1]:
-        raise NotImplementedError(
-            f"codebook_argmin kernel takes code widths up to {WIDTHS[-1]}, got {c}")
-    return next(w for w in WIDTHS if c <= w)
+    smallest of ``WIDTHS`` that holds it, and the widest past it (in
+    chunks of its width)."""
+    if c < 1:
+        raise ValueError(f"code width must be positive, got {c}")
+    return next((w for w in WIDTHS if c <= w), WIDTHS[-1])
 
 
 
@@ -120,7 +123,7 @@ def codebook_argmin(x: torch.Tensor, codebook: torch.Tensor,
 @functools.cache
 def _split_entry():
     fn = _build.load_library().codebook_argmin_split
-    fn.argtypes = [ctypes.c_int] * 4
+    fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_int
     return fn
 
@@ -130,4 +133,4 @@ def code_ranges(n: int, v: int, c: int, maximize: bool) -> int:
     a (v, c) codebook into for n rows, as it picks it on the current CUDA
     device; for the checks, which plant codes on the ranges' boundaries."""
     with torch.cuda.device(torch.cuda.current_device()):
-        return _split_entry()(n, v, kernel_width(c), int(not maximize))
+        return _split_entry()(n, v, c, kernel_width(c), int(not maximize))

@@ -180,7 +180,7 @@ def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
                                     .astype(np.int64)).to(dev)
             imgs01 = var_sample(var, vae, lbls, torch.Generator(device=dev).manual_seed(0),
                                 cfg_scale=5.0, top_k=900, top_p=0.95)
-            grid = generation_grid(imgs01.cpu().numpy() * 2.0 - 1.0, ncol=8)
+            grid = generation_grid(imgs01.float().cpu().numpy() * 2.0 - 1.0, ncol=8)
             out = Path(args.output) / "preview" / f"gen_{step:07d}.png"
             save_png(grid, out)
             tracker.log_image("generated_images", grid, step)

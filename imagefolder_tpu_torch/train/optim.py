@@ -10,17 +10,19 @@
   ``tokenizer_frozen_predicate`` and ``disc_frozen_predicate`` the frozen
   labels (the trainers turn ``requires_grad`` off there);
 - ``adamw_with_freezing``: ``torch.optim.AdamW`` over a decay and a no-decay
-  group, with the schedules, optax's global-norm clip and ``optax.MultiSteps``'
-  gradient accumulation;
+  group and, with ``groups``, the JAX package's per-group lr and wd scales
+  (reference lr_control.py:55-60), with the schedules, optax's global-norm
+  clip and ``optax.MultiSteps``' gradient accumulation;
 - ``warmup_cosine_decay_schedule``: optax's, for the RAR and MaskGIT
   trainers;
 - ``ema_update`` and ``ema_decay_schedule`` (open-muse's EMA decay).
 
 optax's chain is clip_by_global_norm -> scale_by_adam -> (+ wd * p) ->
 scale_by_learning_rate(lr(count)), count from 0. AdamW's decoupled decay
-p (1 - lr wd) followed by p - lr adam is the same update. Freezing is
-PyTorch's: a parameter with ``requires_grad`` False never enters the
-optimizer. The per-group lr/wd scales are not ported.
+p (1 - lr wd) followed by p - lr adam is the same update, with a group's
+lr scaled by its lr_sc and its wd by its wd_sc. Freezing is PyTorch's: a
+parameter with ``requires_grad`` False never enters the optimizer (the JAX
+labels put ``frozen`` before every group).
 """
 
 from __future__ import annotations
@@ -194,6 +196,12 @@ class ScheduledAdamW:
     with lr (and wd) set from their schedules at every update and the
     gradients clipped to one global norm first.
 
+    ``groups``, {name: (predicate(parameter name), lr_sc, wd_sc)}: a
+    parameter goes to the first group whose predicate holds (in insertion
+    order, before the decay / no-decay split), and that group's lr is the
+    schedule's times lr_sc and its wd the schedule's (constant or annealed)
+    times wd_sc.
+
     With ``accum_steps`` k > 1 it is ``optax.MultiSteps``: each ``step()``
     folds this micro-step's gradients into their running mean (acc + (g -
     acc) / (n + 1), the n-th since the last update, kept in ``acc``), and
@@ -216,17 +224,24 @@ class ScheduledAdamW:
                  no_decay: Callable[[str], bool], weight_decay: float = 0.0,
                  wd_schedule: Optional[Callable[[int], float]] = None, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, grad_clip: float = 0.0,
-                 accum_steps: int = 1):
-        decay, plain = [], []
+                 accum_steps: int = 1, groups: Optional[Dict[str, tuple]] = None):
+        groups = dict(groups or {})
+        # (lr scale, wd scale) of each label: the two default groups first
+        self.scales = {"default": (1.0, 1.0), "nodecay": (1.0, 0.0),
+                       **{g: (lr_sc, wd_sc) for g, (_, lr_sc, wd_sc) in groups.items()}}
+        if len(self.scales) != 2 + len(groups):
+            raise ValueError(f"group names {list(groups)} clash with default or nodecay")
+        buckets = {label: [] for label in self.scales}
         for name, p in named_params:
             if p.requires_grad:
-                (plain if no_decay(name) else decay).append(p)
-        self.params = decay + plain
+                label = next((g for g, (pred, _, _) in groups.items() if pred(name)), None)
+                buckets[label or ("nodecay" if no_decay(name) else "default")].append(p)
+        self.params = [p for ps in buckets.values() for p in ps]
         self.lr_schedule, self.grad_clip = lr_schedule, grad_clip
         self.wd_schedule = wd_schedule or (lambda step: weight_decay)
         self.opt = torch.optim.AdamW(
-            [{"params": decay, "weight_decay": weight_decay},
-             {"params": plain, "weight_decay": 0.0}],
+            [{"params": ps, "weight_decay": weight_decay * self.scales[label][1],
+              "lr": lr_schedule(0) * self.scales[label][0]} for label, ps in buckets.items()],
             lr=lr_schedule(0), betas=(b1, b2), eps=eps)
         self.accum_steps = accum_steps
         self.acc: Optional[List[torch.Tensor]] = None
@@ -263,9 +278,9 @@ class ScheduledAdamW:
             factor = torch.where(clip_norm < self.grad_clip, torch.ones_like(clip_norm),
                                  self.grad_clip / clip_norm)
             torch._foreach_mul_(grads, factor)
-        decay, plain = self.opt.param_groups
-        decay["lr"] = plain["lr"] = self.lr_schedule(self.count)
-        decay["weight_decay"] = self.wd_schedule(self.count)
+        lr, wd = self.lr_schedule(self.count), self.wd_schedule(self.count)
+        for group, (lr_sc, wd_sc) in zip(self.opt.param_groups, self.scales.values()):
+            group["lr"], group["weight_decay"] = lr * lr_sc, wd * wd_sc
         self.opt.step()
         self.count += 1
         return norm
@@ -286,7 +301,8 @@ def adamw_with_freezing(model: nn.Module, lr_schedule: Callable[[int], float], *
                         weight_decay_end: Optional[float] = None,
                         total_steps: Optional[int] = None,
                         paths: Optional[Dict[str, str]] = None,
-                        grad_accum_steps: int = 1) -> ScheduledAdamW:
+                        grad_accum_steps: int = 1,
+                        groups: Optional[Dict[str, tuple]] = None) -> ScheduledAdamW:
     """AdamW over ``model``'s trainable parameters, as the JAX package's
     ``adamw_with_freezing`` builds it: no decay where ``no_decay_predicate``
     says so of the parameter's flax path (``paths[name]``; the name itself
@@ -294,7 +310,9 @@ def adamw_with_freezing(model: nn.Module, lr_schedule: Callable[[int], float], *
     over ``total_steps`` when that differs from ``weight_decay``, one
     global-norm clip over every trainable gradient when ``grad_clip > 0``,
     and with ``grad_accum_steps`` > 1 an update every that many micro-steps
-    on their mean gradient (``optax.MultiSteps``)."""
+    on their mean gradient (``optax.MultiSteps``). ``groups``, {name:
+    (predicate(flax path), lr_sc, wd_sc)}, scales the lr and wd of the
+    parameters its predicates pick (``ScheduledAdamW``)."""
     paths = paths or {}
     anneal = weight_decay_end is not None and weight_decay_end != weight_decay
     if anneal and not total_steps:
@@ -305,7 +323,9 @@ def adamw_with_freezing(model: nn.Module, lr_schedule: Callable[[int], float], *
         weight_decay=weight_decay,
         wd_schedule=wd_cosine_anneal(weight_decay, weight_decay_end, total_steps)
         if anneal else None,
-        b1=b1, b2=b2, eps=eps, grad_clip=grad_clip, accum_steps=grad_accum_steps)
+        b1=b1, b2=b2, eps=eps, grad_clip=grad_clip, accum_steps=grad_accum_steps,
+        groups={g: (lambda name, pred=pred: pred(paths.get(name, name)), lr_sc, wd_sc)
+                for g, (pred, lr_sc, wd_sc) in (groups or {}).items()})
 
 
 def ema_decay_schedule(optimization_step: int, *, decay: float = 0.9999,

@@ -25,7 +25,12 @@ CNN encoder and decoder in the layout of ``export_cnn_encoder`` /
 as ``convert_lfq`` reads it; no usage buffer), learned ``latent_pos_embed``
 and a CNN encoder's ``sem_linear``. LoRA adapters and the ``conv`` and
 ``siren`` ToPixel heads have no JAX exporter; their flax parameters are
-carried by the port's tests.
+carried by the port's tests. ``latent_decoder_state_dict_from_flax`` takes
+a flax ``LatentDecoder`` alone, with its RoPE blocks' ``freqs`` and
+``freqs_1d`` (the (cos, sin) pairs, under the block's ``attn``) and the
+``cond_latent`` MLPs under upstream's names (``cl_mlp1.fc1``,
+``cl_mlp1.norm``, ..., ``cl_norm1``), which no ``ModelArgs`` reaches and
+the JAX package exports nowhere.
 
 One gap is filled: a Phi that the nearest-tick mapping never picks (e.g.
 ``phi_2`` of K = 4 with ``v_patch_nums=(1, 2, 3)``) was never called in flax
@@ -48,6 +53,7 @@ from imagefolder_tpu_torch.models.tokenizer import ModelArgs, check_slice
 from imagefolder_tpu_torch.models.var import VARConfig
 
 __all__ = ["vqmodel_state_dict_from_flax", "multiscale_vq_state_dict_from_flax",
+           "latent_decoder_state_dict_from_flax",
            "phi_bank_state_dict_from_flax", "cnn_encoder_state_dict_from_flax",
            "cnn_decoder_state_dict_from_flax",
            "lpips_state_dict_from_flax", "dinodisc_state_dict_from_flax", "flax_path",
@@ -85,6 +91,9 @@ def _put_vit_backbone(sd: dict, p: Mapping, prefix: str):
         for name in ("qkv", "proj"):  # under lat_lora a LoRADense: its base Dense
             dense = b["attn"][name]
             _put_linear(sd, g + f"attn.{name}", dense.get("base", dense))
+        for name in ("freqs", "freqs_1d"):  # RoPEAttention's
+            if name in b["attn"]:
+                sd[g + f"attn.{name}"] = np.asarray(b["attn"][name])
         _put_linear(sd, g + "mlp.fc1", b["mlp"]["fc1"]["base"])
         _put_linear(sd, g + "mlp.fc2", b["mlp"]["fc2"]["base"])
         if "ls1" in b:  # blocks without LayerScale have none
@@ -202,6 +211,34 @@ def cnn_decoder_state_dict_from_flax(p: Mapping, prefix: str = "decoder.",
     return sd
 
 
+def _put_latent_decoder(sd: dict, dec: Mapping, prefix: str):
+    _put_vit_backbone(sd, dec["model"], f"{prefix}model.")
+    sd[f"{prefix}mask_token"] = np.asarray(dec["mask_token"])
+    for name in ("lvl_embed", "latent_pos_embed"):
+        if name in dec:
+            sd[f"{prefix}{name}" + (".weight" if name == "lvl_embed" else "")] = \
+                np.asarray(dec[name])
+    if "proj" in dec["to_pixel"]:
+        _put_linear(sd, f"{prefix}to_pixel.model", dec["to_pixel"]["proj"])
+    for i in (1, 2):  # cond_latent's timm Mlps
+        if f"cl_mlp{i}_fc1" in dec:
+            _put_linear(sd, f"{prefix}cl_mlp{i}.fc1", dec[f"cl_mlp{i}_fc1"])
+            _put_ln(sd, f"{prefix}cl_mlp{i}.norm", dec[f"cl_mlp{i}_norm"])
+            _put_linear(sd, f"{prefix}cl_mlp{i}.fc2", dec[f"cl_mlp{i}_fc2"])
+    if "cl_norm1" in dec:
+        _put_ln(sd, f"{prefix}cl_norm1", dec["cl_norm1"])
+
+
+def latent_decoder_state_dict_from_flax(params: Mapping) -> dict:
+    """flax ``LatentDecoder`` params (a ViT decoder alone, RoPE blocks and
+    ``cond_latent`` included) -> {name: fp32 CPU tensor} for the port's
+    ``LatentDecoder`` built with the same options (its linear head carried;
+    the conv and siren heads are not)."""
+    sd: dict = {}
+    _put_latent_decoder(sd, params, "")
+    return to_torch(sd)
+
+
 def vqmodel_state_dict_from_flax(params: Mapping, margs: ModelArgs) -> dict:
     """flax VQModel params -> {name: fp32 CPU tensor} for the port's VQModel.
     A ViT's LoRA adapters and ``conv``/``siren`` ToPixel heads are not
@@ -227,14 +264,7 @@ def vqmodel_state_dict_from_flax(params: Mapping, margs: ModelArgs) -> dict:
         sd.update(cnn_decoder_state_dict_from_flax(dec, "decoder.",
                                                    tuple(margs.decoder_ch_mult)))
     else:
-        _put_vit_backbone(sd, dec["model"], "decoder.model.")
-        sd["decoder.mask_token"] = np.asarray(dec["mask_token"])
-        for name in ("lvl_embed", "latent_pos_embed"):
-            if name in dec:
-                sd[f"decoder.{name}" + (".weight" if name == "lvl_embed" else "")] = \
-                    np.asarray(dec[name])
-        if "proj" in dec["to_pixel"]:
-            _put_linear(sd, "decoder.to_pixel.model", dec["to_pixel"]["proj"])
+        _put_latent_decoder(sd, dec, "decoder.")
     n_scales = len(margs.v_patch_nums)
     pq = margs.product_quant
     for i in range(pq):
@@ -319,6 +349,7 @@ _PATH_RULES = [
     (r"\b(b\d)\.bn\.", r"\1.\1_bn."),
     (r"\bout\.(weight|bias)$", r"out_conv.\1"),
     (r"\.base\.lora_", ".lora_"),  # a LoRA adapter sits beside its base Dense
+    (r"\bcl_mlp(\d)\.(fc\d|norm)\.", r"cl_mlp\1_\2."),
 ]
 
 

@@ -316,29 +316,17 @@ def test_copy_ready_agrees_with_the_kernel_alignment(view):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_operands_take_head_dims_48_and_64(hd, dtype):
     """The checks every BNHD kernel (#3-#6) makes before it launches: every
-    head dim up to 1024 passes (48 and 64 among them; the bias cast to
-    fp32), a multiple of 8 as it is and any other zero-padded to the next
-    multiple of 8; a wider head raises NotImplementedError naming the
-    widest taken. They come before any launch, so CPU tensors reach them."""
+    head dim passes (48 and 64 among them, and past 1024 too, for the
+    segmented kernels; the bias cast to fp32), a multiple of 8 as it is and
+    any other zero-padded to the next multiple of 8. They come before any
+    launch, so CPU tensors reach them."""
     q, k, v = (torch.randn((2, 5, 3, hd)).to(dtype) for _ in range(3))
     bias = torch.zeros((1, 1, 5, 5), dtype=torch.bfloat16)
-    if hd <= 1024:
-        *qkv, b = pt_attn._kernel_operands(q, k, v, bias, "fused_attention")
-        assert b.dtype == torch.float32
-        if hd % 8 == 0:
-            assert all(x is y for x, y in zip(qkv, (q, k, v)))
-            return
-        for x, y in zip(qkv, (q, k, v)):
-            assert x.shape[-1] == -(-hd // 8) * 8
-            assert torch.equal(x[..., :hd], y) and not x[..., hd:].any()
+    *qkv, b = pt_attn._kernel_operands(q, k, v, bias, "fused_attention")
+    assert b.dtype == torch.float32
+    if hd % 8 == 0:
+        assert all(x is y for x, y in zip(qkv, (q, k, v)))
         return
-    with pytest.raises(NotImplementedError,
-                       match=r"head dims up to 1024 \(one that is not a multiple of 8 "
-                             r"zero-padded to one\), got " + str(hd)):
-        pt_attn._kernel_operands(q, k, v, bias, "fused_attention")
-    for call in (pt_attn._fused_attention_cuda, pt_attn._fused_attention_qblk_cuda):
-        with pytest.raises(NotImplementedError, match="head dims"):
-            call(q, k, v, bias, 1.0)
-    for call in (pt_attn._fused_attention_bwd_cuda, pt_attn._fused_attention_qblk_bwd_cuda):
-        with pytest.raises(NotImplementedError, match="head dims"):
-            call(q, k, v, bias, q, 1.0, False)
+    for x, y in zip(qkv, (q, k, v)):
+        assert x.shape[-1] == -(-hd // 8) * 8
+        assert torch.equal(x[..., :hd], y) and not x[..., hd:].any()

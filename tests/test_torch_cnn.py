@@ -206,3 +206,26 @@ def test_mixed_pair_matches_jax():
         got_rec = pm.img_to_reconstructed_img(torch.from_numpy(img))
     np.testing.assert_array_equal(_np(got_idx[0][0]), np.asarray(want_idx[0][0]))
     _close(got_rec, want_rec, "round trip")
+
+
+def test_product_quant_branches_match_jax():
+    """The e2e pipeline's multi-scale CNN tokenizer (``product_quant=2``):
+    the CNN encode has one branch, which the JAX package's quantizers index
+    past its end (clamped to branch 0), so both branches quantize the same
+    latent with their own codebooks; codes per branch and scale, the round
+    trip, and the training forward's values."""
+    jm, params, pm, _, img = _models(product_quant=2, v_patch_nums=(1, 2, PX // 2))
+    want_idx = _apply(jm, params, JaxVQModel.img_to_idxBl, jnp.asarray(img))
+    want_rec = _apply(jm, params, JaxVQModel.img_to_reconstructed_img, jnp.asarray(img))
+    with torch.no_grad():
+        got_idx = pm.img_to_idxBl(torch.from_numpy(img))
+        got_rec = pm.img_to_reconstructed_img(torch.from_numpy(img))
+        got = pm(torch.from_numpy(img), train=True)
+    assert len(got_idx) == len(want_idx) == 2
+    for g_branch, w_branch in zip(got_idx, want_idx):
+        for g, w in zip(g_branch, w_branch):
+            np.testing.assert_array_equal(_np(g), np.asarray(w))
+    _close(got_rec, want_rec, "round trip")
+    want = jax.jit(lambda p, x: jm.apply({"params": p}, x, train=True))(params, jnp.asarray(img))
+    for k in ("dec", "vq_loss", "commit_loss"):
+        _close(getattr(got, k), getattr(want, k), k)

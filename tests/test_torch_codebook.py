@@ -41,7 +41,7 @@ def _data(n, v, c, seed=0, normed=False):
 
 @pytest.mark.parametrize("maximize", [False, True])
 @pytest.mark.parametrize("n,v,c", [(300, 100, 32), (37, 517, 8), (64, 4096, 32),
-                                   (9, 33, 64)])
+                                   (9, 33, 64), (70, 300, 192)])
 def test_matches_pallas_interpret(n, v, c, maximize):
     x, cb = _data(n, v, c, seed=n + v, normed=maximize)
     want = jax_codebook_argmin(jnp.asarray(x), jnp.asarray(cb), maximize=maximize,

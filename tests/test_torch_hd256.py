@@ -1,13 +1,14 @@
 """Port parity, the BNHD attention kernels (#3-#6) at head widths of 136-256
 (the kD = 256 kernels of ``csrc/attention_wide.cuh`` on the card): the
 port's router ``dot_product_attention`` on the CPU against the JAX
-package's at 136, 200 and 256: the forward against ``fused_attention``
+package's at 136, 200, 256 and 1040 (past 1024: the segmented kernels
+on the card): the forward against ``fused_attention``
 (Pallas, interpret mode), the gradients through autograd against the
 Pallas backward ``_fused_attention_bwd_impl`` (interpret mode, what the
 JAX router's custom VJP runs on the TPU) and against ``jax.vjp`` of the
 JAX router (XLA on the CPU); the unaligned 250
-zero-padded to 256 before a launch; and widths above 1024 refused by every
-wrapper before any launch.
+zero-padded to 256 before a launch; and widths above 1024 passed on by
+every wrapper with the kD of their 1024-column segments.
 
 Tolerances: fp32, 1e-5 of the JAX result's max abs (as
 ``test_torch_wide_heads.py``).
@@ -40,7 +41,7 @@ def _close(got, want, what):
                                atol=TOL * max(np.abs(want).max(), 1.0), err_msg=what)
 
 
-@pytest.mark.parametrize("hd", [136, 200, 256])
+@pytest.mark.parametrize("hd", [136, 200, 256, 1040])
 def test_router_matches_pallas_and_vjp_at_wide_heads(hd):
     """``dot_product_attention`` under VAR's block-causal bias at L = 14,
     forward and the three input gradients."""
@@ -76,17 +77,24 @@ def test_unaligned_width_is_padded_to_256():
 
 @pytest.mark.parametrize("hd", [1025, 1032, 2048])
 def test_wider_heads_raise_before_any_launch(hd):
-    """Every wrapper's CUDA path refuses a head above 1024 in its checks,
-    which come before the library is loaded or a kernel launched (so CPU
-    tensors reach them), and no launch is counted."""
-    q, k, v = (torch.ones((1, 5, 2, hd)) for _ in range(3))
-    bias = torch.zeros((1, 1, 5, 5))
-    names = ("FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES", "QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES")
-    before = [getattr(pt_attn, n) for n in names]
-    for call in (pt_attn._fused_attention_cuda, pt_attn._fused_attention_qblk_cuda):
-        with pytest.raises(NotImplementedError, match=f"head dims up to 1024.*got {hd}"):
-            call(q, k, v, bias, 1.0)
-    for call in (pt_attn._fused_attention_bwd_cuda, pt_attn._fused_attention_qblk_bwd_cuda):
-        with pytest.raises(NotImplementedError, match=f"head dims up to 1024.*got {hd}"):
-            call(q, k, v, bias, q, 1.0, False)
-    assert [getattr(pt_attn, n) for n in names] == before
+    """Heads above 1024 were refused before any launch until the segmented
+    kernels: now every wrapper's CUDA path (``_launch`` replaced by a
+    recorder, so CPU tensors reach it) passes them on, padded to a multiple
+    of 8, with the kD of their 1024-column segments, one launch each."""
+    calls = []
+    mp = pytest.MonkeyPatch()
+    mp.setattr(pt_attn, "_launch", lambda what, entry, device, *args: calls.append(args))
+    try:
+        q, k, v = (torch.ones((1, 5, 2, hd)) for _ in range(3))
+        bias = torch.zeros((1, 1, 5, 5))
+        names = ("FUSED_LAUNCHES", "FUSED_BWD_LAUNCHES", "QBLK_LAUNCHES", "QBLK_BWD_LAUNCHES")
+        before = [getattr(pt_attn, n) for n in names]
+        for call in (pt_attn._fused_attention_cuda, pt_attn._fused_attention_qblk_cuda):
+            assert call(q, k, v, bias, 1.0).shape == q.shape
+        for call in (pt_attn._fused_attention_bwd_cuda, pt_attn._fused_attention_qblk_bwd_cuda):
+            assert all(t.shape == q.shape for t in call(q, k, v, bias, q, 1.0, False)[:3])
+        assert [getattr(pt_attn, n) - b for n, b in zip(names, before)] == [1, 1, 1, 1]
+    finally:
+        mp.undo()
+    kd = -(-hd // 1024) * 1024
+    assert [args[-2:] for args in calls] == [(-(-hd // 8) * 8, kd)] * 4

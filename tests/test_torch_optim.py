@@ -4,7 +4,8 @@ against ``imagefolder_tpu/train/optim.py`` on the CPU.
 Schedules at every step of a 50-step run; the decay / no-decay label of
 every VAR parameter through the converter's key map; three clipped AdamW
 steps of ``adamw_with_freezing`` on one parameter tree from the same
-numpy-seeded gradients; the EMA update. Tolerances: schedules 1e-6 relative
+numpy-seeded gradients, and four with per-group lr and wd scales
+(``groups=``); the EMA update. Tolerances: schedules 1e-6 relative
 (JAX evaluates them in fp32, the port in fp64); parameters 1e-6 absolute
 (fp32 AdamW arithmetic in another order).
 """
@@ -141,6 +142,71 @@ def test_three_clipped_adamw_steps_match_jax(wd_end):
     restored = optim.adamw_with_freezing(_Tree(arrays), lambda s: 0.1, paths=_Tree.PATHS)
     restored.load_state_dict(opt.state_dict())
     assert restored.count == 3
+
+
+GROUPS = {
+    # a group that takes a bias and a kernel: groups come before the
+    # decay / no-decay split, so the bias is decayed at wd * 2
+    "head": (lambda path: path.startswith("dense/"), 0.1, 2.0),
+    "blocks": (lambda path: path.startswith("block_"), 3.0, 0.0),
+    "never": (lambda path: False, 5.0, 5.0),
+}
+
+
+@pytest.mark.parametrize("wd_end", [None, 0.5])
+@pytest.mark.parametrize("accum", [1, 2])
+def test_grouped_adamw_steps_match_jax(wd_end, accum):
+    """``groups=``: per-group lr and wd scales, picked in insertion order
+    before the decay split, under a constant and a cosine-annealed decay,
+    with and without accumulation, against the JAX package's labels and
+    transforms over the same gradients."""
+    rng = np.random.default_rng(5)
+    shapes = {"dense/kernel": (3, 4), "dense/bias": (3,), "final_norm/scale": (3,),
+              "block_0/w": (5, 2)}
+    arrays = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: (rng.normal(size=s) * scale).astype(np.float32) for k, s in shapes.items()}
+             for scale in (0.05, 0.8, 30.0, 0.3)]
+
+    def nest(flat):
+        out = {}
+        for k, v in flat.items():
+            a, b = k.split("/")
+            out.setdefault(a, {})[b] = jnp.asarray(v)
+        return out
+
+    sched_j = jax_optim.lr_wd_annealing("cos", 0.1, 2, 4, 0.1)
+    tx = jax_optim.adamw_with_freezing(sched_j, weight_decay=0.05, b1=0.9, b2=0.95,
+                                       grad_clip=1.0, weight_decay_end=wd_end, total_steps=4,
+                                       groups=GROUPS, grad_accum_steps=accum)
+    params = nest(arrays)
+    state = tx.init(params)
+    model = _Tree(arrays)
+    opt = optim.adamw_with_freezing(model, optim.lr_wd_annealing("cos", 0.1, 2, 4, 0.1),
+                                    weight_decay=0.05, b1=0.9, b2=0.95, grad_clip=1.0,
+                                    weight_decay_end=wd_end, total_steps=4, paths=_Tree.PATHS,
+                                    groups=GROUPS, grad_accum_steps=accum)
+    assert [len(g["params"]) for g in opt.opt.param_groups] == [0, 1, 2, 1, 0]
+    for g in grads:
+        updates, state = tx.update(nest(g), state, params)
+        params = optax.apply_updates(params, updates)
+        opt.zero_grad()
+        for name, p in model.named_parameters():
+            p.grad = torch.from_numpy(g[_Tree.PATHS[name]].copy())
+        opt.step()
+        for name, p in model.named_parameters():
+            a, b = _Tree.PATHS[name].split("/")
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(params[a][b]), rtol=0,
+                                       atol=1e-6, err_msg=name)
+    assert opt.count == 4 // accum
+
+
+def test_group_names_may_not_shadow_the_defaults():
+    model = _Tree({k: np.ones(s, np.float32) for k, s in
+                   {"dense/kernel": (3, 4), "dense/bias": (3,), "final_norm/scale": (3,),
+                    "block_0/w": (5, 2)}.items()})
+    with pytest.raises(ValueError, match="clash"):
+        optim.adamw_with_freezing(model, lambda s: 1e-3, paths=_Tree.PATHS,
+                                  groups={"nodecay": (lambda path: True, 1.0, 1.0)})
 
 
 def test_frozen_parameters_stay_out_of_the_optimizer():

@@ -139,17 +139,10 @@ def test_padding_wrapper_is_exact(hd, qblk):
 @pytest.mark.parametrize("hd", [1, 7, 8, 44, 64, 72, 80, 88, 120, 127, 128, 129, 136, 256,
                                 200, 250, 257, 264, 512, 1000, 1024, 1025, 2048])
 def test_kernel_operands_take_every_width_up_to_128(hd):
-    """Every width up to 1024 passes (the kD = 128 code past 64, the kD =
-    256, 512 and 1024 codes past 128), zero-padded to a multiple of 8; a
-    wider head raises."""
+    """Every width passes (the kD = 128 code past 64, the kD = 256, 512
+    and 1024 codes past 128, the segmented kernels past 1024), zero-padded
+    to a multiple of 8."""
     q, k, v = (torch.ones((1, 3, 2, hd)) for _ in range(3))
-    if hd > 1024:
-        with pytest.raises(NotImplementedError, match=f"head dims up to 1024.*got {hd}"):
-            pt_attn._kernel_operands(q, k, v, None, "fused_attention")
-        for call in (pt_attn._fused_attention_cuda, pt_attn._fused_attention_qblk_cuda):
-            with pytest.raises(NotImplementedError, match="head dims"):
-                call(q, k, v, None, 1.0)
-        return
     qp, kp, vp, _ = pt_attn._kernel_operands(q, k, v, None, "fused_attention")
     assert qp.shape[-1] == -(-hd // 8) * 8
     assert (qp is q) == (hd % 8 == 0)

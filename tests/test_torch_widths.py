@@ -7,12 +7,14 @@
   on operands zero-filled so gives the plain version's indices at C (zero
   columns change neither |e|^2 nor x.e), cosine and L2; the launch path
   passes the unpadded operands with (C, its width), and past 128 the width
-  is refused with the cap named. The quantizer pads nothing on the CPU.
+  goes to 128, which walks C in chunks of 128. The quantizer pads nothing
+  on the CPU.
 - #3-#6 are compiled at head widths 48, 64, 128, 256, 512 and 1024: each
   width from 1 to 1024 runs under the smallest that holds it (its multiple
   of 8; ``bnhd_kernel_width``), which each of the four wrappers passes to
-  its C entry (recorded here with ``_launch`` replaced), and a wider one is
-  refused with the cap named.
+  its C entry (recorded here with ``_launch`` replaced), and a wider one
+  runs under the smallest multiple of 1024 that holds it (the segmented
+  kernels).
 """
 
 import contextlib
@@ -46,11 +48,13 @@ def test_padded_search_equals_unpadded(c, maximize):
 
 
 def test_code_widths_map_to_the_compiled_ones():
+    """Up to 128 the smallest compiled width that holds C; past it 128,
+    which walks C in chunks of 128; a width below 1 is refused."""
     assert [codebook.kernel_width(c) for c in (1, 8, 9, 16, 17, 33, 64, 65, 128)] == \
         [8, 8, 16, 16, 32, 64, 64, 128, 128]
-    for c in (129, 256):
-        with pytest.raises(NotImplementedError, match=f"up to 128, got {c}"):
-            codebook.kernel_width(c)
+    assert [codebook.kernel_width(c) for c in (129, 256, 1000)] == [128, 128, 128]
+    with pytest.raises(ValueError, match="positive, got 0"):
+        codebook.kernel_width(0)
 
 
 def test_quantizer_pads_nothing_on_the_cpu():
@@ -64,7 +68,8 @@ def test_quantizer_pads_nothing_on_the_cpu():
 def test_codebook_launch_passes_the_true_width_and_its_kernel_width(c, monkeypatch):
     """The card's launch path, with the kernel entry replaced by a recorder:
     x and the codebook reach it unpadded (C columns), with C and
-    ``kernel_width(C)``; one launch is counted. Past 128 nothing launches."""
+    ``kernel_width(C)``; one launch is counted. Past 128 the call launches
+    at (C, 128), the chunked search."""
     calls = []
 
     def entry(*args):
@@ -82,9 +87,9 @@ def test_codebook_launch_passes_the_true_width_and_its_kernel_width(c, monkeypat
     (xp, cbp, e2, _, n, v, cc, w, _), = calls
     assert (n, v, cc, w) == (50, 70, c, codebook.kernel_width(c))
     assert xp == x.data_ptr() and cbp == cb.data_ptr() and e2 is not None
-    with pytest.raises(NotImplementedError, match="up to 128, got 129"):
-        codebook._codebook_argmin_cuda(torch.randn((5, 129)), torch.randn((7, 129)), True)
-    assert len(calls) == 1 and codebook.LAUNCHES == before + 1
+    codebook._codebook_argmin_cuda(torch.randn((5, 129)), torch.randn((7, 129)), True)
+    assert len(calls) == 2 and codebook.LAUNCHES == before + 2
+    assert calls[1][4:8] == (5, 7, 129, 128) and calls[1][2] is None  # cosine: no |e|^2
 
 
 @pytest.mark.parametrize("hd,want", [(1, 48), (8, 48), (48, 48), (56, 64), (64, 64),
@@ -97,8 +102,12 @@ def test_head_widths_route_to_the_compiled_ones(hd, want):
 
 @pytest.mark.parametrize("hd", [1025, 1032, 4096])
 def test_head_widths_past_the_cap_are_refused(hd):
-    with pytest.raises(NotImplementedError, match=f"up to 1024, got {hd}"):
-        attn.bnhd_kernel_width(hd)
+    """Past the widest FMA instantiation (1024), refused until the segmented
+    kernels: now the smallest multiple of 1024 that holds the width (its
+    segments); only a width below 1 is refused."""
+    assert attn.bnhd_kernel_width(hd) == -(-hd // 1024) * 1024
+    with pytest.raises(ValueError, match="positive, got 0"):
+        attn.bnhd_kernel_width(0)
 
 
 @pytest.mark.parametrize("hd,want", [(40, 48), (64, 64), (80, 128), (200, 256), (264, 512),
