@@ -5,6 +5,7 @@
     python3 chip_smoke.py outputs FILE
     python3 chip_smoke.py same FILE FILE
     python3 chip_smoke.py cli
+    python3 chip_smoke.py sharded
 
 With ``times``, only phases 1, 2 and 7 run, for the kernel records named
 (``TIMES``' keys; all by default), and the last line is their JSON.
@@ -16,6 +17,9 @@ directory, copy this script into each, and run it there in the order
 parent, change, change, parent: each imports the package beside it.
 ``cli`` runs phases 1, 2 and 6 alone (the tokenizer's and the generators'
 CLIs, after the VQ-4096 round trip, whose rate ``bench_loader`` targets).
+``sharded`` runs phases 1 and 2 and then the sharded steps alone (phase
+4's sharded checks, the two gloo processes among them, and phase 5's
+sharded train steps).
 
 Phases, each printing what it found (any failure ends the run with a non-zero
 exit; no failure is caught):
@@ -110,7 +114,16 @@ exit; no failure is caught):
      CNN tokenizer's round trip and step (B=1); the ViT-B/16 decoder with
      RoPE blocks and with ``cond_latent`` (pixels, pre-last activation,
      every gradient); a code, sign bit or token may differ only at a
-     near-tie, and the card then goes on from the CPU's choice;
+     near-tie, and the card then goes on from the CPU's choice; then the
+     sharded steps (``parallel/mesh.py``) against the unwrapped ones on the
+     card, fp32 at B=2 and the check depths, every parameter, gradient,
+     Adam moment, EMA and metric within 1e-6 of its max abs: one VAR-d16
+     ``VARTrainer`` step (MSVR10P2-4096) under a (1, 1) data x fsdp mesh
+     (FSDP2 by the JAX rule) and a (1, 1) data x model mesh (head-aligned
+     tensor parallelism) at a world of one over NCCL, and at (1, 2) on two
+     processes sharing the card over gloo (``_Child``, started after the
+     kernels phase and joined here); one flagship GAN step with the
+     tokenizer under a (1, 1) data x fsdp mesh;
   5. main paths in bf16, timed with CUDA events (a warm-up call, then
      median, min and max), each with every launch counter set to 0 just
      before its timed calls and read just after: at B=64 the VQ-4096 round
@@ -139,12 +152,17 @@ exit; no failure is caught):
      the train step and round trip of VQ-4096.yaml with LoRA, latent pos
      embeds, the conv head and the siren head, and of the CNN tokenizer
      (its train step at B=16), each trainable parameter moved and each
-     frozen one unchanged;
+     frozen one unchanged; the 256 px ``VARTrainer.train_step`` under a
+     (1, 1) data x fsdp mesh and under a (1, 1) data x model mesh
+     (``sharded train_step ...``, the unwrapped step's launches each, set
+     beside its time), and the flagship GAN step with the tokenizer under
+     data x fsdp;
   6. the tokenizer's CLIs from their ``main(argv)`` in a temporary
      directory of 128 train and 32 val PNGs (256 px, seed 0) with a seeded
      Inception: ``train_tokenizer`` on configs/RobustTok.yaml at B=64 for 4
-     steps (2 epochs, the discriminator on from epoch 1, a checkpoint, the
-     best by val rFID over one batch and a recon grid every 2 steps), each
+     steps (2 epochs, the discriminator on from epoch 1, its checkpoint and
+     val rFID over one batch at the end with the best by it, a recon grid
+     every 2 steps), each
      step's launches (#1 84, #2 48) and time; then, with the ViTs at 2 of
      12 blocks (``check_depth_cut``: a depth cut for time), its exact
      resume at B=8 (2 steps, stop, ``--resume`` to 4, against 4 straight,
@@ -160,7 +178,7 @@ exit; no failure is caught):
      ``export_weights`` of the trained checkpoint's EMA (``.safetensors``,
      read by the later CLIs), ``pretokenize`` of the 128 PNGs from it
      (center + flip, B=64, fp32; #1 a block a batch); ``train_rar`` RAR-B
-     on that JSONL at B=64 for 4 steps (checkpoints at 2 and 4, an EMA
+     on that JSONL at B=64 for 4 steps (its checkpoint at 4, an EMA
      preview at 4; #3 24, #6 24 a step) and its exact resume at RAR-B's
      width over CHECK_RAR_DEPTH blocks; ``train_rar --model maskgit``
      (MaskGIT-B, 2 steps, a preview); ``sample_rar`` of 64 from each; then
@@ -205,6 +223,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -239,6 +258,9 @@ from imagefolder_tpu_torch.ops.cuda import _build
 from imagefolder_tpu_torch.ops.cuda import attention as attn
 from imagefolder_tpu_torch.ops.cuda import block
 from imagefolder_tpu_torch.ops.cuda import codebook
+from imagefolder_tpu_torch.parallel import dist as dist_mod
+from imagefolder_tpu_torch.parallel.mesh import (fsdp_shard_params, full_tensor, make_mesh,
+                                                 tp_shard_params)
 from imagefolder_tpu_torch.train import var_train
 from imagefolder_tpu_torch.train.rar_train import (MaskGITTrainer, RARTrainConfig, RARTrainer,
                                                    get_rar_random_ratio)
@@ -1929,6 +1951,20 @@ CHECK_TOK_DEPTH = 2
 CHECK_DINO_DEPTH = 6
 CUT_PRESETS = ("vit_small_patch14_dinov2.lvd142m", "vit_base_patch14_dinov2.lvd142m",
                "vit_base_patch16_clip_224.openai")
+
+
+@contextlib.contextmanager
+def var_depth_cut():
+    """While in use, a VAR that ``build_vae_var`` builds keeps the width its
+    depth gives (VAR-d16: 1024, 16 heads) on ``CHECK_VAR_DEPTH`` blocks."""
+    import imagefolder_tpu_torch.models as models_mod
+
+    var_config = models_mod.VARConfig
+    models_mod.VARConfig = lambda **kw: var_config(**{**kw, "depth": CHECK_VAR_DEPTH})
+    try:
+        yield
+    finally:
+        models_mod.VARConfig = var_config
 
 
 def vit_depth() -> int:
@@ -3764,6 +3800,250 @@ def main_gan_paths(dev) -> dict:
     return {"GAN train_step": r}
 
 
+# ------------------------------ sharded steps ------------------------------ #
+# parallel/mesh.py on this card: FSDP2 by the JAX rule and head-aligned tensor
+# parallelism under the VAR and tokenizer trainers, at a world of one (NCCL)
+# and on two processes sharing the card over gloo
+
+SHARD_TOL = 1e-6  # of a tensor's max abs (absolute under a max of 1): sharded vs unwrapped
+GLOO_TIMEOUT_S = 180  # a rank that waits longer on the other fails instead of hanging
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _meshes(deterministic: bool):
+    """The block's meshes (``make_mesh`` makes a world of one over NCCL
+    where no process group exists), with the process group and the data
+    group taken down after it; with ``deterministic``, under deterministic
+    algorithms (warn only), so that two steps of the same work give the
+    same numbers (not in a timed block: they are slower)."""
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(det)
+        gc.collect()  # FSDP2's modules and their states refer to each other
+        torch.cuda.empty_cache()
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        dist_mod.set_data_group(None)
+
+
+def _whole(prefix: str, module: torch.nn.Module, opt, ema=None) -> dict:
+    """Every parameter of ``module``, its gradient and Adam moments, and the
+    EMA tensors (in parameter order), whole (``mesh.full_tensor``), by name."""
+    named = list(module.named_parameters())
+    out = {f"{prefix}.{n}": full_tensor(p.detach(), p) for n, p in named}
+    names = {p: n for n, p in named}
+    for p in opt.params:
+        if p.grad is not None:
+            out[f"grad.{prefix}.{names[p]}"] = full_tensor(p.grad, p)
+        for k in ("exp_avg", "exp_avg_sq"):
+            if k in opt.opt.state.get(p, {}):
+                out[f"{k}.{prefix}.{names[p]}"] = full_tensor(opt.opt.state[p][k], p)
+    if ema is not None:
+        out.update({f"ema.{prefix}.{n}": full_tensor(e, p) for (n, p), e in zip(named, ema)})
+    return out
+
+
+def _held_to(what: str, got: dict, want: dict) -> str:
+    """Every tensor of ``got`` within SHARD_TOL of ``want``'s max abs."""
+    if set(got) != set(want):
+        raise AssertionError(f"[sharded] {what}: tensors {sorted(set(got) ^ set(want))[:10]}")
+    errs = {}
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape:
+            raise AssertionError(f"[sharded] {what} {k}: {tuple(g.shape)}, want {tuple(w.shape)}")
+        if not torch.equal(g, w):
+            errs[k] = (g.float() - w.float()).abs().max().item() / max(
+                w.float().abs().max().item(), 1.0)
+    worst = max(errs, key=errs.get) if errs else None
+    if worst is not None:
+        _check(f"[sharded] {what} {worst}", errs[worst], SHARD_TOL)
+    return (f"{len(want) - len(errs)} of {len(want)} tensors bit-equal"
+            + (f", the rest within {errs[worst]:.3e} of their max abs (worst {worst})"
+               if errs else ""))
+
+
+def sharded_var_check(dev, width: int) -> dict:
+    """One fp32 ``VARTrainer`` step (EMA on, B=2) of MSVR10P2-4096 with
+    VAR-d16's width (1024, 16 heads; the ViTs at CHECK_TOK_DEPTH blocks, VAR
+    at CHECK_VAR_DEPTH: ``var_depth_cut``), unwrapped and under a (1,
+    ``width``) data x fsdp mesh (``fsdp_shard_params``) and a (1, ``width``)
+    data x model mesh (``tp_shard_params``), from the same weights and
+    draws: every parameter, gradient, Adam moment, EMA and metric of each
+    sharded step within SHARD_TOL of the unwrapped one's. The data axis is 1, so every
+    rank holds the whole batch; the meshes are made first, so that the
+    unwrapped step too reduces over that data group of one."""
+    gen = torch.Generator().manual_seed(SEED + 11)
+    with check_depth_cut(), var_depth_cut():
+        vae, var0 = build_vae_var(msvr_margs("float32"), VAR_DEPTH,
+                                  generator=torch.Generator().manual_seed(SEED), device=dev)
+    px = vae.config.image_size
+    x = (torch.rand((2, px, px, 3), generator=gen) * 2 - 1).to(dev)
+    label = torch.tensor([207, 980], device=dev)
+    meshes = {axis: make_mesh(("data", axis), (1, width), device=dev) for axis in ("fsdp", "model")}
+
+    def step(shard):
+        tr = VARTrainer(vae, copy.deepcopy(var0), VARTrainConfig(ema=True),
+                        generator=torch.Generator(device=dev).manual_seed(SEED), shard=shard)
+        m = tr.train_step(x, label)
+        return tr, {**_whole("var", tr.var, tr.opt, list(tr.ema_var.parameters())),
+                    **{f"metric.{k}": v for k, v in m.items()}}
+
+    _, want = step(None)
+    out = {}
+    for axis, rule in (("fsdp", fsdp_shard_params), ("model", tp_shard_params)):
+        tr, got = step(lambda m, axis=axis, rule=rule: rule(m, meshes[axis], axis))
+        split = sum(pl.is_shard() for pl in tr.placements.values())
+        shown = _held_to(f"VAR (1, {width}) data x {axis}", got, want)
+        print(f"[sharded] VARTrainer step fp32 B=2, MSVR10P2-4096 ({CHECK_TOK_DEPTH} ViT "
+              f"blocks) + VAR-d16 width ({CHECK_VAR_DEPTH} blocks), EMA on, on a (1, {width}) "
+              f"data x {axis} mesh (rank {torch.distributed.get_rank()} of "
+              f"{torch.distributed.get_world_size()}, {torch.distributed.get_backend()}) against "
+              f"the unwrapped step: {split} of {len(tr.placements)} parameters split; {shown} "
+              f"(tol {SHARD_TOL:g}); loss {want['metric.loss'].item():.6f}; {CARD}")
+        out[axis] = {"split": split, "tensors": len(want)}
+        del tr, got
+    return out
+
+
+def sharded_gan_check(dev):
+    """One fp32 flagship GAN ``TokenizerTrainer`` step at B=2 (the ViTs at
+    CHECK_TOK_DEPTH blocks, DinoDisc at CHECK_DINO_DEPTH; the adaptive
+    weight on), unwrapped and with the tokenizer under a (1, 1) data x fsdp
+    mesh (``fsdp_shard_params`` at its 2^18 threshold), the same weights
+    and draws: the tokenizer's and the disc's parameters, gradients and
+    Adam moments, the EMA and every metric within SHARD_TOL."""
+    mcfg, tcfg = flagship_gan_recipe(2, margs_overrides={"dtype_str": "float32"},
+                                     tcfg_overrides={"loss_dtype": "float32",
+                                                     "dino_depth": CHECK_DINO_DEPTH})
+    gen = torch.Generator().manual_seed(SEED + 12)
+    px = mcfg.image_size
+    x = (torch.rand((2, px, px, 3), generator=gen) * 2 - 1).to(dev)
+    draws = _to(gan_draws(2, px, gen), dev)
+    mesh = make_mesh(("data", "fsdp"), (1, 1), device=dev)
+
+    def step(shard):
+        with check_depth_cut():
+            tr = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED),
+                                  device=dev, shard=shard)
+        m = tr.train_step(x, draws=draws)
+        return tr, {**_whole("model", tr.model, tr.gen_opt, tr.ema_params),
+                    **_whole("disc", tr.disc, tr.disc_opt),
+                    **{f"metric.{k}": v for k, v in m.items()}}
+
+    _, want = step(None)
+    tr, got = step(lambda m: fsdp_shard_params(m, mesh))
+    split = sum(pl.is_shard() for pl in tr.placements.values())
+    print(f"[sharded] GAN step (flagship recipe) fp32 B=2 ({CHECK_TOK_DEPTH} ViT blocks, "
+          f"DinoDisc {CHECK_DINO_DEPTH}) with the tokenizer on a (1, 1) data x fsdp mesh "
+          f"against the unwrapped step: {split} of {len(tr.placements)} tokenizer parameters "
+          f"split; {_held_to('GAN (1, 1) data x fsdp', got, want)} (tol {SHARD_TOL:g}); "
+          f"gen_loss {want['metric.gen_loss'].item():.6f}, adaptive weight "
+          f"{want['metric.disc_adaptive_weight'].item():.6f}; {CARD}")
+
+
+def phase_sharded_checks(dev):
+    """The world-of-one checks: ``sharded_var_check`` and
+    ``sharded_gan_check``."""
+    with _meshes(deterministic=True):
+        sharded_var_check(dev, 1)
+        sharded_gan_check(dev)
+
+
+def _sharded_rank(dev, root: Path, port: Path, rank: int) -> dict:
+    """One of two processes on this card over gloo (which carries CUDA
+    tensors through every collective of these steps): ``sharded_var_check``
+    at width 2. They run beside the parent's CPU-bound model checks, on one
+    thread each at the lowest CPU priority, so that they take what the
+    checks leave."""
+    import datetime
+
+    os.nice(19)
+    torch.set_num_threads(1)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port.name}", world_size=2, rank=rank,
+        timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
+    with _meshes(deterministic=True):
+        return {f"sharded gloo rank {rank}": sharded_var_check(dev, 2)}
+
+
+def _start_gloo_ranks(stack: contextlib.ExitStack, root: Path) -> list:
+    """The two ``_sharded_rank`` processes, started (their logs in ``root``)
+    and stopped when ``stack`` closes."""
+    port = Path(str(_free_port()))
+    return [stack.enter_context(_Child(f"sharded_rank{r}", root, port)) for r in (0, 1)]
+
+
+def main_sharded_paths(dev, unwrapped: dict) -> dict:
+    """``VARTrainer.train_step`` of MSVR10P2-4096 with VAR-d16 at full
+    depth, bf16, B=64 (``main_train_paths``' configuration,
+    ``VARTrainConfig()``, whose ``unwrapped`` record of this run it is set
+    beside) under a (1, 1) data x fsdp mesh and a (1, 1) data x model mesh,
+    each from a copy of the same weights and with the same draws, timed in
+    turn, each with the unwrapped step's exact launches (#1 12, #9 20, #3
+    16, #6 16); then the flagship GAN ``train_step`` (bf16, B=64) with the
+    tokenizer under a (1, 1) data x fsdp mesh (#1, #2, #9 as
+    ``gan_launches`` counts)."""
+    out = {}
+    with _meshes(deterministic=False):
+        vae, var0 = build_vae_var(msvr_margs("bfloat16"), VAR_DEPTH, dtype_str="bfloat16",
+                                  generator=torch.Generator().manual_seed(SEED), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+        px = vae.config.image_size
+        x = torch.rand((BATCH, px, px, 3), generator=gen, device=dev) * 2 - 1
+        labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+        meshes = {axis: make_mesh(("data", axis), (1, 1), device=dev)
+                  for axis in ("fsdp", "model")}
+        for axis, rule in (("fsdp", fsdp_shard_params), ("model", tp_shard_params)):
+            tr = VARTrainer(vae, copy.deepcopy(var0), VARTrainConfig(),
+                            generator=torch.Generator(device=dev).manual_seed(SEED),
+                            shard=lambda m, axis=axis, rule=rule: rule(m, meshes[axis], axis))
+            path = f"sharded train_step {axis}"
+            out[path] = r = time_calls(path, lambda: tr.train_step(x, labels), 10,
+                                       LAUNCHES_256["train_step"], dev)
+            m = {k: v.item() for k, v in r.pop("out").items()}
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"[main] {path} metrics {m}")
+            _report(f"VARTrainer.train_step (VARTrainConfig()) on a (1, 1) data x {axis} mesh",
+                    r, BATCH, ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+                    + f"; {r['ms'] / unwrapped['ms']:.3f}x the unwrapped step's median "
+                    f"{unwrapped['ms']:.3f} ms ({unwrapped['peak'] / 2**30:.2f} GiB) of this run; "
+                    f"{CARD}")
+            del tr
+            gc.collect()  # FSDP2's modules and their states refer to each other
+            torch.cuda.empty_cache()
+        del vae, var0
+        mcfg, tcfg = flagship_gan_recipe(BATCH, tcfg_overrides={"loss_dtype": "bfloat16"})
+        tr = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED),
+                              device=dev, shard=lambda m: fsdp_shard_params(m, meshes["fsdp"]))
+        px = mcfg.image_size
+        x = torch.rand((BATCH, px, px, 3),
+                       generator=torch.Generator(device=dev).manual_seed(SEED), device=dev) * 2 - 1
+        path = "sharded GAN train_step fsdp"
+        out[path] = r = time_calls(path, lambda: tr.train_step(x), 3, gan_launches(tr), dev)
+        m = {k: v.float().mean().item() for k, v in r.pop("out").items()}
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"[main] {path} metrics {m}")
+        split = sum(pl.is_shard() for pl in tr.placements.values())
+        _report("TokenizerTrainer.train_step (flagship GAN recipe), the tokenizer on a (1, 1) "
+                f"data x fsdp mesh ({split} of {len(tr.placements)} parameters split)", r, BATCH,
+                ", ".join(f"{k} {v:.4f}" for k, v in m.items()) + f"; {CARD}")
+        del tr
+    torch.cuda.empty_cache()
+    return out
+
+
 def main_robusttok_paths(dev) -> dict:
     """``RobustTok train_step``: ``TokenizerTrainer.train_step`` on
     ``configs/RobustTok.yaml`` as the port's loader gives it (full width,
@@ -4575,10 +4855,13 @@ CLI_FID_IMAGES = 64                       # each evaluate_fid npz batch
 MSVR_YAML = ROOT / "configs" / "MSVR10P2-4096.yaml"
 RESUME_TOL = 1e-5                         # of a tensor's max abs, where not bit-equal
 # the CLI runs' shared settings: 2 epochs of 2 steps, the discriminator on
-# from epoch 1, a checkpoint (and the best by rFID over one val batch) and a
-# recon grid every 2 steps
+# from epoch 1, a checkpoint every 2 steps (the resume stops after the
+# first; the full-depth run, whose step-2 checkpoint nothing reads, writes
+# its last only, CLI_TRAIN_CKPT, and so validates once: a host sqrtm fewer),
+# the best by rFID over one val batch and a recon grid every 2 steps
 CLI_TRAIN_OVERRIDES = ["epochs=2", "disc_epoch_start=1", "ckpt_every=2", "vis_every=2",
                        "log_every=2"]
+CLI_TRAIN_CKPT = "ckpt_every=4"
 
 
 def _write_pngs(root: Path, n: int, seed: int, px: int = 256):
@@ -4634,16 +4917,17 @@ class _Stop(Exception):
 def _cli_train(dev, root: Path, inception: Path) -> dict:
     """``train_tokenizer.main`` on configs/RobustTok.yaml at B=64 for 4
     steps from the PNG folder, at full depth: each step's launches exactly
-    RobustTok's (#1 84, #2 48), its time; checkpoints at steps 2 and 4, the
-    best by the val rFID (one val batch of 32, the seeded Inception), the
-    recon grids."""
+    RobustTok's (#1 84, #2 48), its time; the checkpoint at step 4 with the
+    val rFID (the CLI validates at each checkpoint: one val batch of 32, the
+    seeded Inception) and the best by it, the recon grids."""
     from imagefolder_tpu_torch.scripts import train_tokenizer
 
     out = root / "train_out"
     argv = ["--config", str(ROBUSTTOK_YAML), "--inception_ckpt", str(inception),
             "--val_batch_size", str(CLI_VAL_PNGS), "--val_batches", "1",
             f"data_path={root / 'train'}", f"val_data_path={root / 'val'}",
-            f"cloud_save_path={out}", f"global_batch_size={BATCH}", *CLI_TRAIN_OVERRIDES]
+            f"cloud_save_path={out}", f"global_batch_size={BATCH}",
+            *(o for o in CLI_TRAIN_OVERRIDES if not o.startswith("ckpt_every=")), CLI_TRAIN_CKPT]
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     with StepRecorder() as rec:
@@ -4656,9 +4940,9 @@ def _cli_train(dev, root: Path, inception: Path) -> dict:
             raise AssertionError(f"[cli] train_tokenizer step {i}: launches {got}, want {full}")
     grids = sorted(p.name for p in (out / "vis").iterdir())
     vals = r["val"]
-    if not (r["step"] == 4 and r["ckpt"].steps() == [2, 4] and (out / "best.pt").exists()
+    if not (r["step"] == 4 and r["ckpt"].steps() == [4] and (out / "best.pt").exists()
             and grids == ["recon_0000002.png", "recon_0000004.png"]
-            and [v[:2] for v in vals] == [(2, "val_rfid"), (4, "val_rfid")]
+            and [v[:2] for v in vals] == [(4, "val_rfid")]
             and all(math.isfinite(v[2]) for v in vals)):
         raise AssertionError(f"[cli] train_tokenizer wrote steps {r['ckpt'].steps()}, grids "
                              f"{grids}, validations {vals}")
@@ -4670,8 +4954,8 @@ def _cli_train(dev, root: Path, inception: Path) -> dict:
     per_step = {k: v for k, v in rec.steps[0][0].items() if v}
     print(f"[cli] train_tokenizer RobustTok.yaml (ViTs at {vit_depth()} of 12 blocks) B={BATCH}, "
           f"{len(ms)} steps: {secs:.1f} s in "
-          f"main (the trainer built, {CLI_TRAIN_PNGS} PNGs decoded by 8 workers, 2 val rFIDs, "
-          f"2 grids, 3 checkpoints); steps {', '.join(f'{t:.1f}' for t in ms)} ms (median "
+          f"main (the trainer built, {CLI_TRAIN_PNGS} PNGs decoded by 8 workers, 1 val rFID, "
+          f"2 grids, 2 checkpoints); steps {', '.join(f'{t:.1f}' for t in ms)} ms (median "
           f"after the first {warm:.1f} ms, {BATCH / warm * 1e3:.1f} img/s); "
           f"peak {peak / 2**30:.2f} GiB allocated; launches per step {per_step}; val rFID "
           f"{', '.join(f'{v[2]:.3f}' for v in vals)} (seeded Inception: plumbing, not a number "
@@ -5083,8 +5367,7 @@ def main_cli_paths(dev, loader_target: float) -> dict:
         paths = _cli_train(dev, root, inception)
         lap("train_tokenizer")
         # checkpoints are gigabytes: keep only the one evaluated below
-        for old in ("best.pt", "ckpts/step_00000002.pt"):
-            (root / "train_out" / old).unlink()
+        (root / "train_out" / "best.pt").unlink()
         ckpt = root / "train_out" / "ckpts" / "step_00000004.pt"
         # evaluate_fid (two host sqrtm) in a process of its own, beside the checks
         with _Child("evaluate_fid", root, inception) as fid, check_depth_cut():
@@ -5435,7 +5718,7 @@ def _stop_after(owner, count):
 
 def _gen_rar(dev, root: Path, tok_weights: Path, jsonl: Path) -> dict:
     """``train_rar`` RAR-B (768 wide, 24 blocks, 16 heads of 48) at B=64 for 4
-    steps on the JSONL, checkpoints at 2 and 4, an EMA preview at 4 (#3 24
+    steps on the JSONL, its checkpoint at 4, an EMA preview at 4 (#3 24
     with lse and #6 24 a step); its exact resume at RAR-B's width over
     CHECK_RAR_DEPTH blocks without previews; ``train_rar --model maskgit``
     (MaskGIT-B, bert) for 2 steps with a preview at 2; then ``sample_rar``
@@ -5447,16 +5730,15 @@ def _gen_rar(dev, root: Path, tok_weights: Path, jsonl: Path) -> dict:
     common = ["--jsonl", str(jsonl), "--batch_size", str(BATCH), "--log_every", "2"]
     out = root / "gen" / "rar"
     r, rec = _gen_main("train_rar RAR-B", lambda: train_rar.main(
-        [*common, *tok, "--total_steps", str(GEN_STEPS), "--ckpt_every", "2",
+        [*common, *tok, "--total_steps", str(GEN_STEPS), "--ckpt_every", str(GEN_STEPS),
          "--generate_every", str(GEN_STEPS), "--output", str(out)]), RAR_STEP, RARTrainer)
-    if not (r["ckpt"].steps() == [2, GEN_STEPS] and len(r["previews"]) == 1
+    if not (r["ckpt"].steps() == [GEN_STEPS] and len(r["previews"]) == 1
             and r["previews"][0].exists()
             and all(math.isfinite(float(v)) for v in r["metrics"].values())):
         raise AssertionError(f"[gen-cli] train_rar: checkpoints {r['ckpt'].steps()}, previews "
                              f"{r['previews']}, metrics {r['metrics']}")
     paths = {"cli train_rar": rec}
     rar_ckpt = out / "ckpts" / f"step_{GEN_STEPS:08d}.pt"
-    (out / "ckpts" / "step_00000002.pt").unlink()
     del r
 
     def rar_run(o):
@@ -5544,20 +5826,13 @@ def _gen_var(dev, root: Path, inception: Path, weights: Path) -> dict:
         # the resume at full width on fewer blocks: the tokenizer at
         # CHECK_TOK_DEPTH blocks (a seeded weight file of that depth), VAR-d16's
         # 1024-wide blocks at CHECK_VAR_DEPTH of 16
-        import imagefolder_tpu_torch.models as models_mod
-
         with check_depth_cut():
             cut = _seeded_weights(root / "gen" / "msvr_cut.safetensors", MSVR_YAML)
-        var_config = models_mod.VARConfig
 
         def var_run(o):
-            models_mod.VARConfig = lambda **kw: var_config(**{**kw, "depth": CHECK_VAR_DEPTH})
-            try:
-                with check_depth_cut():
-                    return train_var.main([*common, "--vq_ckpt", str(cut), "--ckpt_every", "2",
-                                           "--val_data_path", "", "--output", str(o)])
-            finally:
-                models_mod.VARConfig = var_config
+            with var_depth_cut(), check_depth_cut():
+                return train_var.main([*common, "--vq_ckpt", str(cut), "--ckpt_every", "2",
+                                       "--val_data_path", "", "--output", str(o)])
 
         _resume_check(f"train_var VAR-d16 width, {CHECK_VAR_DEPTH} of 16 blocks (tokenizer "
                       f"{CHECK_TOK_DEPTH} of 12)", var_run,
@@ -5721,7 +5996,9 @@ def _round_trip_img_s(paths: dict) -> float:
 
 
 CHILD_TASKS = {"evaluate_fid": _cli_fid, "sample_var_ref": _sample_var_ref,
-               "e2e_pipeline": _e2e}
+               "e2e_pipeline": _e2e,
+               **{f"sharded_rank{r}": lambda dev, root, port, r=r: _sharded_rank(dev, root, port, r)
+                  for r in (0, 1)}}
 
 
 def _gen_export(root: Path, rar_ckpt: Path, var_ckpt: Path) -> None:
@@ -5810,8 +6087,8 @@ def main(argv: list[str]) -> int:
         raise SystemExit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False")
     if argv and not ((argv[0] == "times" and set(argv[1:]) <= set(TIMES))
                      or (argv[0] == "outputs" and len(argv) == 2)
-                     or (argv[0] == "same" and len(argv) == 3) or argv == ["cli"]):
-        raise SystemExit("usage: chip_smoke.py [outputs FILE | same FILE FILE | cli | "
+                     or (argv[0] == "same" and len(argv) == 3) or argv in (["cli"], ["sharded"])):
+        raise SystemExit("usage: chip_smoke.py [outputs FILE | same FILE FILE | cli | sharded | "
                          f"times [{' '.join(TIMES)} ...]]")
     if argv[:1] == ["same"]:
         return phase_same(*argv[1:])
@@ -5836,6 +6113,20 @@ def main(argv: list[str]) -> int:
         main_cli_paths(dev, _round_trip_img_s(main_round_trip(dev)))
         lap("CLI paths")
         return 0
+    if argv == ["sharded"]:  # the sharded steps alone: their checks, then their times
+        root = Path(tempfile.mkdtemp(prefix="imagefolder_sharded_"))
+        with contextlib.ExitStack() as children:
+            gloo = _start_gloo_ranks(children, root)
+            phase_sharded_checks(dev)
+            lap("sharded steps at a world of one")
+            for rank in gloo:
+                rank.finish()
+            lap("sharded steps on two gloo processes")
+        main_sharded_paths(dev, main_train_paths(dev, msvr_margs("bfloat16"), "",
+                                                 LAUNCHES_256)["train_step"])
+        lap("sharded train steps")
+        shutil.rmtree(root, ignore_errors=True)
+        return 0
     if argv:  # the times phase alone, for the kernels named (all by default)
         times = phase_times(dev, argv[1:] or tuple(TIMES))
         print(json.dumps({"times": times}))
@@ -5845,7 +6136,7 @@ def main(argv: list[str]) -> int:
     # the port; ``_e2e`` holds the others until the library is built) and
     # the kernel and fp32 model checks, joined before the first timed path
     e2e_root = Path(tempfile.mkdtemp(prefix="imagefolder_e2e_"))
-    with _Child("e2e_pipeline", e2e_root) as e2e:
+    with _Child("e2e_pipeline", e2e_root) as e2e, contextlib.ExitStack() as children:
         phase_build()
         lap("build")
         errs = {"attention_qkv_fwd": kernels_qkv(dev), "attention_qkv_bwd": kernels_qkv_bwd(dev),
@@ -5863,6 +6154,7 @@ def main(argv: list[str]) -> int:
         kernels_widest_heads(dev)
         kernels_codebook_widths(dev)
         lap("kernels")
+        gloo = _start_gloo_ranks(children, e2e_root)  # beside the model checks
         with check_depth_cut():
             vq_models = phase_model_vq(dev)
         lap(f"model VQ-4096 ({CHECK_TOK_DEPTH} ViT blocks)")
@@ -5898,6 +6190,12 @@ def main(argv: list[str]) -> int:
         with check_depth_cut():
             phase_model_rope(dev)
         lap(f"model RoPE and cond_latent decoders ({CHECK_TOK_DEPTH} ViT blocks)")
+        phase_sharded_checks(dev)
+        lap(f"sharded VAR and GAN steps at a world of one ({CHECK_TOK_DEPTH} ViT blocks, VAR "
+            f"{CHECK_VAR_DEPTH}, DinoDisc {CHECK_DINO_DEPTH})")
+        for rank in gloo:
+            rank.finish()
+        lap("sharded VAR steps on two gloo processes (joined)")
         _report_e2e(e2e.finish())
     shutil.rmtree(e2e_root, ignore_errors=True)
     lap("e2e_pipeline (its process joined)")
@@ -5913,6 +6211,8 @@ def main(argv: list[str]) -> int:
                   **main_train_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256),
                   **main_gan_paths(dev)})
     lap("main paths at 256 px")
+    paths.update(main_sharded_paths(dev, paths["train_step"]))
+    lap("sharded VAR-d16 and GAN train steps")
     paths.update(main_robusttok_paths(dev))
     lap("RobustTok train step")
     paths.update(main_msbr_paths(dev))

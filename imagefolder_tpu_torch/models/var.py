@@ -136,7 +136,16 @@ class KVCache:
 
 class VARSelfAttention(nn.Module):
     """basic_var.py:58-134: fused qkv with a zero k bias, optional L2-normed
-    q and k with a learned per-head temperature, optional KV cache."""
+    q and k with a learned per-head temperature, optional KV cache.
+
+    ``tp``: under tensor parallelism (``parallel/mesh.py::tp_shard_params``)
+    this rank's share of the heads: ``mat_qkv`` holds the q, k and v rows of
+    its heads, ``proj`` the matching input columns, and ``tp`` enters the
+    input (Megatron's f), picks its heads' slices of the replicated
+    ``q_bias``, ``v_bias`` and ``scale_mul_1H11``, and sums the partial
+    products of ``proj`` over the model group (g) before its bias."""
+
+    tp = None
 
     def __init__(self, embed_dim: int, num_heads: int, attn_l2_norm: bool = False,
                  dtype: torch.dtype = torch.float32, *,
@@ -154,16 +163,20 @@ class VARSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None) -> torch.Tensor:
-        b, l, c = x.shape
-        dt = self.dtype
-        bias_full = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
-        qkv = dense(x, self.mat_qkv.weight, bias_full).view(b, l, 3, self.num_heads,
-                                                            self.head_dim)
+        b, l, _ = x.shape
+        dt, tp = self.dtype, self.tp
+        q_bias, v_bias, scale_mul = self.q_bias, self.v_bias, getattr(self, "scale_mul_1H11", None)
+        if tp is not None:
+            x, q_bias, v_bias = tp.enter(x), tp.heads(q_bias, 0), tp.heads(v_bias, 0)
+            scale_mul = None if scale_mul is None else tp.heads(scale_mul, 1)
+        heads = q_bias.shape[0] // self.head_dim
+        bias_full = torch.cat([q_bias, torch.zeros_like(q_bias), v_bias])
+        qkv = dense(x, self.mat_qkv.weight, bias_full).view(b, l, 3, heads, self.head_dim)
         q, k, v = qkv.unbind(2)  # (B, L, H, hd) strided views
         if self.attn_l2_norm:
             scale = 1.0
             # (1, H, 1, 1) in the params, (1, 1, H, 1) for the BLHc layout
-            mul = self.scale_mul_1H11.clamp(max=math.log(100.0)).exp().transpose(1, 2)
+            mul = scale_mul.clamp(max=math.log(100.0)).exp().transpose(1, 2)
             q = (q.float() / (torch.linalg.vector_norm(q.float(), dim=-1, keepdim=True)
                               + 1e-12) * mul).to(dt)
             k = (k.float() / (torch.linalg.vector_norm(k.float(), dim=-1, keepdim=True)
@@ -172,11 +185,19 @@ class VARSelfAttention(nn.Module):
             scale = 0.25 / math.sqrt(self.head_dim)
         if cache is not None:
             k, v = cache.append(k, v)
-        out = dot_product_attention(q, k, v, bias=attn_bias, scale=scale)
-        return dense(out.view(b, l, c), self.proj.weight, self.proj.bias)
+        out = dot_product_attention(q, k, v, bias=attn_bias, scale=scale).view(b, l, -1)
+        if tp is None:
+            return dense(out, self.proj.weight, self.proj.bias)
+        return tp.leave(F.linear(out, self.proj.weight.to(dt))) + self.proj.bias.to(dt)
 
 
 class FFN(nn.Module):
+    """``tp``: under tensor parallelism this rank's share of the hidden
+    units (``fc1``'s rows and bias, ``fc2``'s columns), as in
+    ``VARSelfAttention``."""
+
+    tp = None
+
     def __init__(self, embed_dim: int, hidden: int, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -184,9 +205,14 @@ class FFN(nn.Module):
         self.fc2 = linear(hidden, embed_dim, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp = self.tp
+        if tp is not None:
+            x = tp.enter(x)
         # reference GELU(approximate='tanh')
         h = F.gelu(dense(x, self.fc1.weight, self.fc1.bias), approximate="tanh")
-        return dense(h, self.fc2.weight, self.fc2.bias)
+        if tp is None:
+            return dense(h, self.fc2.weight, self.fc2.bias)
+        return tp.leave(F.linear(h, self.fc2.weight.to(h.dtype))) + self.fc2.bias.to(h.dtype)
 
 
 class AdaLNSelfAttn(nn.Module):
@@ -385,8 +411,11 @@ class VAR(nn.Module):
         """Empty KV caches for a decode of ``batch`` rows (2B under CFG)."""
         cfg = self.config
         hd = cfg.embed_dim // cfg.num_heads
-        return [KVCache(batch, cfg.L, cfg.num_heads, hd, cfg.dtype, self.pos_1LC.device)
-                for _ in range(cfg.depth)]
+        # each block's heads (a share of them under tensor parallelism)
+        return [KVCache(batch, cfg.L, cfg.num_heads // (1 if blk.attn.tp is None
+                                                        else blk.attn.tp.size),
+                        hd, cfg.dtype, self.pos_1LC.device)
+                for blk in self.blocks]
 
     def begin_tokens(self, label_B: torch.Tensor):
         """CFG start (var.py:170-173): the (2B, first_l, C) token map and the

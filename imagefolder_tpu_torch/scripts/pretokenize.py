@@ -77,7 +77,7 @@ def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
 
     args = _parser().parse_args(argv)
     dev = resolve_device(device or args.device)
-    init_from_args(args)
+    init_from_args(args, dev)
     model, margs, run = load_tokenizer(args.config, args.vq_ckpt, dev, "float32")
     data_path = args.data_path or run.data_path
 

@@ -89,7 +89,7 @@ def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
 
     args = _parser().parse_args(argv)
     dev = resolve_device(device or args.device)
-    init_from_args(args)
+    init_from_args(args, dev)
     vae, margs, _ = load_tokenizer(args.config, args.vq_ckpt, dev)
     weights = checkpoint_weights(args.rar_ckpt)
     kw = dict(hidden=args.hidden, depth=args.depth, heads=args.heads,

@@ -77,7 +77,7 @@ def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
 
     args = _parser().parse_args(argv)
     dev = resolve_device(device or args.device)
-    init_from_args(args)
+    init_from_args(args, dev)
     margs, _, _ = load_tokenizer_config(args.config)
     vae, var = build_vae_var(margs, depth=args.depth, num_classes=args.num_classes,
                              dtype_str="bfloat16", device=dev)

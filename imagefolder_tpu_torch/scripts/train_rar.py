@@ -206,7 +206,7 @@ def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
 
     args = _parser().parse_args(argv)
     dev = resolve_device(device or args.device)
-    init_from_args(args)
+    init_from_args(args, dev)
     if args.batch_size % process_count():
         raise ValueError(f"--batch_size {args.batch_size} is not a multiple of the "
                          f"{process_count()} processes")

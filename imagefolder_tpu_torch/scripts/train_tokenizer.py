@@ -117,7 +117,7 @@ def validate(trainer: TokenizerTrainer, run, margs, logger, device, feat_fn=None
 def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
     args = _parser().parse_args(argv)
     dev = resolve_device(device or args.device)
-    init_from_args(args)
+    init_from_args(args, dev)
 
     margs, tcfg, run = load_tokenizer_config(args.config, parse_overrides(args.overrides))
     logger = create_logger(run.cloud_save_path)

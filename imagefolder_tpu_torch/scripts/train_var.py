@@ -122,7 +122,7 @@ def main(argv: Optional[list] = None, device: Optional[str] = None) -> dict:
 
     args = _parser().parse_args(argv)
     dev = resolve_device(device or args.device)
-    init_from_args(args)
+    init_from_args(args, dev)
     logger = create_logger(args.output)
     margs, _, run = load_tokenizer_config(args.config)
     vae, var = build_vae_var(margs, depth=args.depth, num_classes=args.num_classes,

@@ -32,7 +32,9 @@ import re
 from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from imagefolder_tpu_torch.models.var import VAR
 from imagefolder_tpu_torch.parallel.dist import all_reduce_mean_
@@ -184,11 +186,41 @@ def var_flax_paths(var: VAR) -> Dict[str, str]:
     return {name: path for name, (path, _) in var_key_map(var.config).items()}
 
 
-def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (FSDP2's parameters and gradients);
+    any other tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _shard_groups(p: torch.Tensor, g: torch.Tensor) -> tuple:
+    """The process groups over which ``g``, the gradient of ``p``, is split:
+    an FSDP2 gradient's sharded mesh dimensions, a tensor-parallel shard's
+    ``shard_group`` (``parallel/mesh.py``), none for a whole tensor."""
+    if isinstance(g, DTensor):
+        return tuple(g.device_mesh.get_group(i) for i, pl in enumerate(g.placements)
+                     if pl.is_shard())
+    group = getattr(p, "shard_group", None)
+    return () if group is None else (group,)
+
+
+def _global_norm(grads: List[torch.Tensor], groups: List[tuple]) -> torch.Tensor:
+    """The global norm of ``grads``: a whole tensor's norm counted once, and
+    the square norms of the shards of split tensors summed over their
+    ``groups`` (``_shard_groups``), each group's total counted once."""
     # summed in fp64: PyTorch's fp32 norm on the CPU drifts by 1e-4 to 1e-3
     # relative over a tensor of millions of entries (VAR-d16's head)
-    return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g, dtype=torch.float64) for g in grads])).float()
+    norms, split = [], {}
+    for g, gr in zip(grads, groups):
+        n = torch.linalg.vector_norm(_local(g), dtype=torch.float64)
+        if gr:
+            split[gr] = split[gr] + n.square() if gr in split else n.square()
+        else:
+            norms.append(n)
+    for gr, sq in split.items():
+        for group in gr:
+            dist.all_reduce(sq, group=group)
+        norms.append(sq.sqrt())
+    return torch.linalg.vector_norm(torch.stack(norms)).float()
 
 
 class ScheduledAdamW:
@@ -210,10 +242,15 @@ class ScheduledAdamW:
     updates, ``mini_step`` the micro-steps since the last one.
 
     In a multi-process run (``parallel/dist.py``) the gradients are averaged
-    over the processes before the norm and the clip, so that every process
+    over the data group before the norm and the clip, so that every process
     clips the same norm and takes the same step; with accumulation the
     running mean is averaged once, at the update, and a micro-step between
-    updates returns the norm of this process's own gradients.
+    updates returns the norm of this process's own gradients. Under a mesh
+    (``parallel/mesh.py``) the parameters may be split: FSDP2's (DTensors)
+    come with gradients it has already reduced over the mesh and are not
+    averaged again, a tensor-parallel shard's gradient is averaged over the
+    data group like a whole tensor's, and the norm sums each split tensor's
+    shards over its groups (``_global_norm``); AdamW steps each shard.
 
     ``step()`` returns the global norm of this micro-step's gradients before
     the clip, a 0-d tensor on their device, and makes no host sync: the clip
@@ -239,10 +276,19 @@ class ScheduledAdamW:
         self.params = [p for ps in buckets.values() for p in ps]
         self.lr_schedule, self.grad_clip = lr_schedule, grad_clip
         self.wd_schedule = wd_schedule or (lambda step: weight_decay)
-        self.opt = torch.optim.AdamW(
-            [{"params": ps, "weight_decay": weight_decay * self.scales[label][1],
-              "lr": lr_schedule(0) * self.scales[label][0]} for label, ps in buckets.items()],
-            lr=lr_schedule(0), betas=(b1, b2), eps=eps)
+        # one AdamW group a label; a label holding both FSDP2's DTensors and
+        # whole tensors is two (the multi-tensor kernels take one kind a list)
+        self.group_labels, groups = [], []
+        for label, ps in buckets.items():
+            kinds = {isinstance(p, DTensor) for p in ps}
+            for part in ([ps] if len(kinds) < 2 else
+                         [[p for p in ps if isinstance(p, DTensor) == k] for k in (False, True)]):
+                self.group_labels.append(label)
+                groups.append({"params": part, "weight_decay": weight_decay * self.scales[label][1],
+                               "lr": lr_schedule(0) * self.scales[label][0]})
+        self.opt = torch.optim.AdamW(groups, lr=lr_schedule(0), betas=(b1, b2), eps=eps)
+        if accum_steps > 1 and any(isinstance(p, DTensor) for p in self.params):
+            raise NotImplementedError("gradient accumulation over FSDP2's parameters")
         self.accum_steps = accum_steps
         self.acc: Optional[List[torch.Tensor]] = None
         self.count = self.mini_step = 0
@@ -250,11 +296,16 @@ class ScheduledAdamW:
     def zero_grad(self):
         self.opt.zero_grad(set_to_none=True)
 
+    def _reduce(self, grads: List[torch.Tensor]) -> None:
+        """Average over the data group what FSDP2 has not reduced."""
+        all_reduce_mean_([g for g in grads if not isinstance(g, DTensor)])
+
     def step(self) -> torch.Tensor:
-        grads = [p.grad for p in self.params if p.grad is not None]
+        with_grad = [p for p in self.params if p.grad is not None]
+        grads = [p.grad for p in with_grad]
         if self.accum_steps == 1:
-            all_reduce_mean_(grads)
-        norm = _global_norm(grads)
+            self._reduce(grads)
+        norm = _global_norm(grads, [_shard_groups(p, p.grad) for p in with_grad])
         if self.accum_steps > 1:
             # optax gives a parameter without a gradient a zero one
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
@@ -270,16 +321,18 @@ class ScheduledAdamW:
                 p.grad = a.clone()
             torch._foreach_zero_(self.acc)
             grads = [p.grad for p in self.params]
-            all_reduce_mean_(grads)
+            self._reduce(grads)
         if self.grad_clip > 0:
             # optax clip_by_global_norm: g * max / |g| only where |g| >= max,
             # with no epsilon (clip_grad_norm_ divides by |g| + 1e-6)
-            clip_norm = norm if self.accum_steps == 1 else _global_norm(grads)
+            clip_norm = norm if self.accum_steps == 1 else _global_norm(
+                grads, [_shard_groups(p, p.grad) for p in self.params])
             factor = torch.where(clip_norm < self.grad_clip, torch.ones_like(clip_norm),
                                  self.grad_clip / clip_norm)
-            torch._foreach_mul_(grads, factor)
+            torch._foreach_mul_([_local(g) for g in grads], factor)
         lr, wd = self.lr_schedule(self.count), self.wd_schedule(self.count)
-        for group, (lr_sc, wd_sc) in zip(self.opt.param_groups, self.scales.values()):
+        for group, label in zip(self.opt.param_groups, self.group_labels):
+            lr_sc, wd_sc = self.scales[label]
             group["lr"], group["weight_decay"] = lr * lr_sc, wd * wd_sc
         self.opt.step()
         self.count += 1
@@ -349,6 +402,7 @@ def ema_decay_schedule(optimization_step: int, *, decay: float = 0.9999,
 def ema_update(ema_params: List[torch.Tensor], params: List[torch.Tensor],
                decay: float = 0.9999):
     """Reference update_ema (utils/ema.py:5-14), in place: e = e * decay +
-    p * (1 - decay)."""
+    p * (1 - decay); shard by shard where the two are split alike."""
+    ema_params, params = [_local(e) for e in ema_params], [_local(p) for p in params]
     torch._foreach_mul_(ema_params, decay)
     torch._foreach_add_(ema_params, params, alpha=1.0 - decay)

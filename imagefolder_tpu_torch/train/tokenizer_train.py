@@ -46,8 +46,9 @@ annealing of alpha and the top-k budget over epochs (the CLI's).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -157,6 +158,18 @@ def _make_disc(tcfg: TokenizerTrainConfig, loss_dtype: torch.dtype,
     raise ValueError(f"unknown disc_type {tcfg.disc_type!r}")
 
 
+@contextlib.contextmanager
+def _frozen(params):
+    """``params`` with ``requires_grad`` off for the block."""
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
 def _freeze(module: nn.Module, paths: Dict[str, str], frozen) -> None:
     for name, p in module.named_parameters():
         if frozen(paths[name]):
@@ -174,11 +187,18 @@ class TokenizerTrainer:
     from a generator on ``device`` (the card unless the caller asks for the
     CPU). Frozen parameters (the semantic and detail teachers, the VGG,
     DinoDisc's trunk, and a Phi that no scale applies) have
-    ``requires_grad`` False and stay out of the optimizers."""
+    ``requires_grad`` False and stay out of the optimizers.
+
+    ``shard`` (``parallel/mesh.py``: e.g. ``lambda m: fsdp_shard_params(m,
+    mesh)``) splits the tokenizer's parameters before its optimizer and EMA
+    copy are made (the EMA takes the same placement); ``placements`` is what
+    it returns. The LPIPS net, the discriminator, their optimizer, the LeCam
+    and usage EMAs and ``record_hit`` stay whole on every process."""
 
     def __init__(self, model_cfg: ModelArgs, tcfg: TokenizerTrainConfig, *,
                  generator: Optional[torch.Generator] = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 shard: Optional[Callable[[VQModel], dict]] = None):
         self.model_cfg, self.tcfg = model_cfg, tcfg
         self.device = torch.device(device)
         loss_dtype = _DTYPES[tcfg.loss_dtype]
@@ -195,6 +215,16 @@ class TokenizerTrainer:
                 if i not in qz.phis_used():
                     phi.requires_grad_(False)
         _freeze(self.disc, module_flax_paths(self.disc), disc_frozen_predicate)
+        # the adaptive weight's anchor, the decoder's last-layer weight as the
+        # latest forward used it: read as that forward ends (before FSDP2's
+        # post-forward hook, so the gathered copy and not the sharded
+        # parameter); the identity head has none and raises there. The hook
+        # holds this dict, not the trainer (no model -> trainer reference)
+        self._used = used = {}
+        if tcfg.disc_adaptive_weight and tcfg.disc_weight:
+            self.model.register_forward_hook(
+                lambda m, args, out: used.__setitem__("w_last", m.last_layer), prepend=True)
+        self.placements = None if shard is None else shard(self.model)
 
         total = tcfg.epochs * tcfg.steps_per_epoch
         if tcfg.lr_scheduler == "cosine":
@@ -369,32 +399,37 @@ class TokenizerTrainer:
         zero = torch.zeros((), device=dev)
 
         # ---------------- generator ---------------- #
-        out = self.model(imgs, train=True, epoch=epoch, alpha=alpha, beta=beta,
-                         delta_ratio=delta_ratio, generator=self.rng,
-                         dropout_n=draws.get("dropout_n"), perturb=draws.get("perturb"))
-        dec = out.dec.float()
-        rec = ((imgs - dec).square() if tcfg.rec_loss == "l2" else (imgs - dec).abs()).mean()
-        perc = self.lpips(imgs, dec).mean() if use_lpips else zero
-        g_adv = zero
-        if use_disc:
-            logits_fake = self._disc_apply(self._aug(dec, fade_blur, draws.get("aug_g")), crop,
-                                           update_stats=False)
-            g_adv = self.g_loss(logits_fake)
-        nll = tcfg.rec_weight * rec + tcfg.perceptual_weight * perc
-        d_weight = torch.ones((), device=dev)
-        if tcfg.disc_adaptive_weight and use_disc:
-            # the decoder's last layer (reference get_last_layer); the
-            # identity head has none and raises, as in the JAX trainer
-            w_last = self.model.last_layer
-            g_nll, = torch.autograd.grad(nll, w_last, retain_graph=True)
-            g_g, = torch.autograd.grad(g_adv, w_last, retain_graph=True)
-            all_reduce_mean_([g_nll, g_g])  # the global batch's gradients
-            d_weight = adaptive_disc_weight(g_nll, g_g)
-        loss = (nll + d_weight * disc_w * g_adv
-                + tcfg.codebook_weight * (out.vq_loss + out.commit_loss + out.entropy_loss)
-                + out.sem_loss + out.detail_loss + out.dependency_loss)
-        self.gen_opt.zero_grad()
-        torch.autograd.backward(loss, inputs=self.gen_opt.params)  # never the disc's
+        # the disc frozen (the reference's frozen-disc generator pass): the
+        # backward reaches the tokenizer's parameters only, as under FSDP2
+        # the gathered ones that the forward used
+        with _frozen(self.disc_opt.params):
+            out = self.model(imgs, train=True, epoch=epoch, alpha=alpha, beta=beta,
+                             delta_ratio=delta_ratio, generator=self.rng,
+                             dropout_n=draws.get("dropout_n"), perturb=draws.get("perturb"))
+            dec = out.dec.float()
+            rec = ((imgs - dec).square() if tcfg.rec_loss == "l2" else (imgs - dec).abs()).mean()
+            perc = self.lpips(imgs, dec).mean() if use_lpips else zero
+            g_adv = zero
+            if use_disc:
+                logits_fake = self._disc_apply(self._aug(dec, fade_blur, draws.get("aug_g")), crop,
+                                               update_stats=False)
+                g_adv = self.g_loss(logits_fake)
+            nll = tcfg.rec_weight * rec + tcfg.perceptual_weight * perc
+            d_weight = torch.ones((), device=dev)
+            if tcfg.disc_adaptive_weight and use_disc:
+                # the decoder's last layer (reference get_last_layer), as
+                # this forward used it; the identity head has none and
+                # raises, as in the JAX trainer
+                w_last = self._used["w_last"]
+                g_nll, = torch.autograd.grad(nll, w_last, retain_graph=True)
+                g_g, = torch.autograd.grad(g_adv, w_last, retain_graph=True)
+                all_reduce_mean_([g_nll, g_g])  # the global batch's gradients
+                d_weight = adaptive_disc_weight(g_nll, g_g)
+            loss = (nll + d_weight * disc_w * g_adv
+                    + tcfg.codebook_weight * (out.vq_loss + out.commit_loss + out.entropy_loss)
+                    + out.sem_loss + out.detail_loss + out.dependency_loss)
+            self.gen_opt.zero_grad()
+            loss.backward()
         grad_norm = self.gen_opt.step()
         if self.ema_params is not None:
             ema_update(self.ema_params, list(self.model.parameters()), tcfg.ema_decay)

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -136,19 +136,31 @@ class VARTrainer:
     optimizer covers VAR's parameters only, with the JAX package's decay
     labels. ``generator`` drives every training draw (on the models'
     device; the device's default generator when None). With ``tcfg.ema``,
-    ``ema_var`` is a frozen copy of ``var`` updated after every step."""
+    ``ema_var`` is a frozen copy of ``var`` updated after every step.
+
+    ``shard`` (``parallel/mesh.py``: e.g. ``lambda m: fsdp_shard_params(m,
+    mesh)`` or ``tp_shard_params``) splits ``var``'s parameters, and the EMA
+    copy's the same way, before the optimizer is built; ``placements`` is
+    what it returns for ``var``. The frozen tokenizer stays whole on every
+    process."""
 
     def __init__(self, vae: VQModel, var: VAR, tcfg: VARTrainConfig, *,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 shard: Optional[Callable[[VAR], dict]] = None):
         self.vae = vae.requires_grad_(False).eval()
         self.var, self.tcfg, self.generator = var, tcfg, generator
+        self.ema_var = copy.deepcopy(var).requires_grad_(False) if tcfg.ema else None
+        self.placements = None
+        if shard is not None:
+            self.placements = shard(var)
+            if self.ema_var is not None:
+                shard(self.ema_var)
         sched = lr_wd_annealing(tcfg.sched, tcfg.lr, tcfg.warmup_steps, tcfg.total_steps,
                                 tcfg.final_lr_ratio)
         self.opt = adamw_with_freezing(
             var, sched, weight_decay=tcfg.weight_decay, b1=tcfg.beta1, b2=tcfg.beta2,
             grad_clip=tcfg.grad_clip, weight_decay_end=(tcfg.weight_decay_end or None),
             total_steps=tcfg.total_steps, paths=var_flax_paths(var))
-        self.ema_var = copy.deepcopy(var).requires_grad_(False) if tcfg.ema else None
         pns = var.config.patch_nums
         self.L = sum(p * p for p in pns)
         self.last_l = pns[-1] ** 2

@@ -18,7 +18,7 @@ def main():
     from imagefolder_tpu_torch.eval.validation import _gather_rows
     from imagefolder_tpu_torch.parallel import dist
 
-    assert dist.init_distributed(coordinator, nproc, rank)  # gloo without a card
+    assert dist.init_distributed(coordinator, nproc, rank, device="cpu")  # gloo
     assert dist.process_count() == nproc and dist.process_index() == rank
     assert dist.is_primary() == (rank == 0)
 

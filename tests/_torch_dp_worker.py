@@ -162,7 +162,7 @@ def main():
 
     vit.VIT_PRESETS[TINY] = TINY_PRESET
     if nproc > 1:
-        assert dist.init_distributed(coordinator, nproc, rank)
+        assert dist.init_distributed(coordinator, nproc, rank, device="cpu")
     for name, case in CASES.items():
         state = {k: v.detach().clone() for k, v in case(nproc, rank).items()}
         torch.save(state, Path(out) / f"{name}_{nproc}_{rank}.pt")
