@@ -19,7 +19,8 @@ parent, change, change, parent: each imports the package beside it.
 CLIs, after the VQ-4096 round trip, whose rate ``bench_loader`` targets).
 ``sharded`` runs phases 1 and 2 and then the sharded steps alone (phase
 4's sharded checks, the two gloo processes among them, and phase 5's
-sharded train steps).
+sharded train steps beside the unwrapped VAR, GAN, RAR and MaskGIT steps
+they are set against).
 
 Phases, each printing what it found (any failure ends the run with a non-zero
 exit; no failure is caught):
@@ -123,7 +124,11 @@ exit; no failure is caught):
      tensor parallelism) at a world of one over NCCL, and at (1, 2) on two
      processes sharing the card over gloo (``_Child``, started after the
      kernels phase and joined here); one flagship GAN step with the
-     tokenizer under a (1, 1) data x fsdp mesh;
+     tokenizer under a (1, 1) data x fsdp mesh, and under data x model
+     composed and with the fused sublayers, at a world of one and at (1, 2)
+     over gloo (6 of ViT-B's 12 heads a rank); two steps each of RAR-B's
+     and MaskGIT-B's trainers under data x fsdp and data x model, likewise
+     (8 of their 16 heads a rank at (1, 2));
   5. main paths in bf16, timed with CUDA events (a warm-up call, then
      median, min and max), each with every launch counter set to 0 just
      before its timed calls and read just after: at B=64 the VQ-4096 round
@@ -152,11 +157,12 @@ exit; no failure is caught):
      the train step and round trip of VQ-4096.yaml with LoRA, latent pos
      embeds, the conv head and the siren head, and of the CNN tokenizer
      (its train step at B=16), each trainable parameter moved and each
-     frozen one unchanged; the 256 px ``VARTrainer.train_step`` under a
-     (1, 1) data x fsdp mesh and under a (1, 1) data x model mesh
-     (``sharded train_step ...``, the unwrapped step's launches each, set
-     beside its time), and the flagship GAN step with the tokenizer under
-     data x fsdp;
+     frozen one unchanged; under a (1, 1) data x fsdp mesh and a (1, 1)
+     data x model mesh, each with the unwrapped step's launches and set
+     beside its time: the 256 px ``VARTrainer.train_step`` (``sharded
+     train_step ...``), the flagship GAN step (``sharded GAN train_step
+     ...``), and RAR-B's and MaskGIT-B's train steps (``sharded rar train
+     step ...``, ``sharded maskgit train step ...``);
   6. the tokenizer's CLIs from their ``main(argv)`` in a temporary
      directory of 128 train and 32 val PNGs (256 px, seed 0) with a seeded
      Inception: ``train_tokenizer`` on configs/RobustTok.yaml at B=64 for 4
@@ -1637,14 +1643,15 @@ def kernels_codebook_widths(dev):
     del cpu, card
 
 
-def _sublayer_operands(gen, b, n, c, hidden, dtype, dev, res=torch.float32):
+def _sublayer_operands(gen, b, n, c, hidden, dtype, dev, res=torch.float32, c2=None):
     """xn (B, N, C) in ``dtype``, the residual stream in ``res`` (or zeros
     when ``res`` is None), and one sublayer's parameters in the (out, in)
-    layout: W1 (hidden, C), b1, W2 (C, hidden or C for the attention's
-    proj), b2, with the layers' init bounds, biases of 0.1, and LayerScale
-    of order 1 (at DINOv2's 1e-5, ls * y would vanish under res and hide
-    any error in y)."""
-    c2 = c if hidden == 3 * c else hidden
+    layout: W1 (hidden, C), b1, W2 (C, c2: by default hidden, or C for the
+    attention's proj; one rank's heads' width under tensor parallelism), b2,
+    with the layers' init bounds, biases of 0.1, and LayerScale of order 1
+    (at DINOv2's 1e-5, ls * y would vanish under res and hide any error in
+    y)."""
+    c2 = c2 or (c if hidden == 3 * c else hidden)
     xn = torch.randn((b, n, c), generator=gen, device=dev).to(dtype)
     r = (torch.zeros((b, n, c), device=dev) if res is None else
          torch.randn((b, n, c), generator=gen, device=dev).to(res))
@@ -1727,9 +1734,15 @@ def kernels_sublayers(dev) -> dict:
         ("res = 0", (8, 514, 768), HEADS, bf16, None, False),
         ("decoder fp32", (2, 514, 768), HEADS, f32, f32, False),
         ("ragged ViT-S fp32", (3, 37, 384), 6, f32, f32, False),
+        # one rank's heads under tensor parallelism: wq (3 * 384, 768), wp (768, 384)
+        ("decoder, 6 of 12 heads (TP)", (BATCH, 514, 768), 6, bf16, f32, False),
+        ("TP rank > 0: res = 0", (8, 514, 768), 6, bf16, None, False),
+        ("ragged fp32, 6 of 12 heads", (3, 37, 768), 6, f32, f32, False),
     ]
     for name, (b, n, c), h, dtype, res, main in attn_cases:
-        xn, r, wq, bq, wp, bp, ls = _sublayer_operands(gen, b, n, c, 3 * c, dtype, dev, res)
+        ci = h * 64  # the width of the heads the call computes
+        xn, r, wq, bq, wp, bp, ls = _sublayer_operands(gen, b, n, c, 3 * ci, dtype, dev, res,
+                                                       c2=ci)
         got = block.attn_sublayer_fused(xn, r, wq, bq, wp, bp, ls, h)
         want = block.attn_sublayer_fused_reference(xn, r, wq, bq, wp, bp, ls, h)
         torch.cuda.synchronize()
@@ -1937,8 +1950,9 @@ RAR_SAMPLING = dict(guidance_scale=16.0, guidance_scale_pow=2.75, randomize_temp
 
 # depth cuts of card-vs-CPU checks whose CPU side set the script's time,
 # widths kept (the timed main paths and CLIs run every block): RAR-B's
-# 256-step CFG sampling, the RARTrainer steps, MaskGIT-B's checks (both
-# trunks, the trainer step) and train_rar's resume at 4 of their 24 blocks;
+# 256-step CFG sampling, its training forward and backward, the RARTrainer
+# steps, MaskGIT-B's checks (both trunks, the trainer step), the sharded RAR
+# and MaskGIT steps and train_rar's resume at 4 of their 24 blocks;
 # VAR-d16 at 2 of its 16 blocks in every fp32 VAR check (256 and 512 px,
 # MSVR and MSBR) and in train_var's resume;
 CHECK_RAR_DEPTH = 4
@@ -2067,8 +2081,8 @@ def _rar_batch(cfg, batch: int, gen: torch.Generator):
 
 
 def phase_model_rar_train(dev):
-    """RAR-B at full width (768 wide, 24 deep, 16 heads of 48, 256 tokens,
-    4096 codes) in fp32, B=2: the teacher-forcing forward over per-sample
+    """RAR-B at full width (768 wide, 16 heads of 48, 256 tokens, 4096 codes;
+    CHECK_RAR_DEPTH of its 24 blocks) in fp32, B=2: the teacher-forcing forward over per-sample
     orders under the causal mask, ``ar_loss`` and its backward, card against
     the same weights on the CPU: logits, loss and every parameter's
     gradient (max abs error over the CPU's max abs) within MODEL_TOL, the
@@ -2076,7 +2090,8 @@ def phase_model_rar_train(dev):
     gradients. On the card one #3 and one #6 launch per block (fp32: the
     FMA forward, the two-kernel backward)."""
     gen = torch.Generator().manual_seed(SEED + 12)
-    rar_cpu = build_rar(bench_margs("float32"), generator=gen, device="cpu")
+    rar_cpu = build_rar(bench_margs("float32"), depth=CHECK_RAR_DEPTH, generator=gen,
+                        device="cpu")
     _excite_adaln(rar_cpu, gen)
     rar_card = copy.deepcopy(rar_cpu).to(dev)
     cfg = rar_cpu.config
@@ -2385,15 +2400,20 @@ def _code_lockstep():
     return Lockstep(quantize, "_codebook_lookup", _code_gap, NEAR_TIE)
 
 
-def phase_model_var(dev, margs: ModelArgs, name: str, lockstep=_code_lockstep,
-                    var_depth: int = CHECK_VAR_DEPTH):
-    """A multi-scale tokenizer with VAR (d16's width, ``var_depth`` blocks) in fp32 at B=2,
+def phase_model_var(dev, margs: ModelArgs, name: str, lockstep=_code_lockstep):
+    """A multi-scale tokenizer with VAR (VAR-d16's width, 1024 with 16
+    heads, on CHECK_VAR_DEPTH blocks: ``var_depth_cut``) in fp32 at B=2,
     card against the same weights on the CPU: the encoder's latents,
     ``img_to_idxBl``'s codes per scale, the round trip image, the VAR input,
     ``VAR.forward`` logits and greedy ``var_sample`` tokens and images. The
     codes go in ``lockstep()`` (VQ's lookups, or LFQ's sign bits)."""
     gen = torch.Generator().manual_seed(SEED)
-    vae_cpu, var_cpu = build_vae_var(margs, var_depth, generator=gen, device="cpu")
+    with var_depth_cut():
+        vae_cpu, var_cpu = build_vae_var(margs, VAR_DEPTH, generator=gen, device="cpu")
+    vc = var_cpu.config
+    if (vc.depth, vc.embed_dim, vc.num_heads) != (CHECK_VAR_DEPTH, 64 * VAR_DEPTH, VAR_HEADS):
+        raise AssertionError(f"[model] {name}: VAR of depth {vc.depth}, width {vc.embed_dim}, "
+                             f"{vc.num_heads} heads")
     _excite_layerscale(vae_cpu, gen)
     vae_cpu.eval()
     var_cpu.eval()
@@ -2427,7 +2447,8 @@ def phase_model_var(dev, margs: ModelArgs, name: str, lockstep=_code_lockstep,
         raise AssertionError(f"[model] var_sample images {tuple(img_card.shape)}")
     shown = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
     distinct = torch.unique(torch.cat([i.reshape(-1) for b in idx_cpu for i in b])).numel()
-    print(f"[model] {name} fp32 B=2 card vs CPU: {shown} (tol {MODEL_TOL:g}); img_to_idxBl "
+    print(f"[model] {name} fp32 B=2 card vs CPU (VAR {vc.embed_dim} wide, {vc.num_heads} heads, "
+          f"{vc.depth} blocks): {shown} (tol {MODEL_TOL:g}); img_to_idxBl "
           f"codes {codes.compared - codes.flips}/{codes.compared} equal over "
           f"{len(codes.calls)} lookups ({distinct} distinct), max near-tie gap "
           f"{codes.max_gap:.3e}, round trip codes {rec.compared - rec.flips}/{rec.compared} "
@@ -3917,13 +3938,19 @@ def sharded_var_check(dev, width: int) -> dict:
     return out
 
 
-def sharded_gan_check(dev):
+def sharded_gan_check(dev, width: int = 1) -> dict:
     """One fp32 flagship GAN ``TokenizerTrainer`` step at B=2 (the ViTs at
     CHECK_TOK_DEPTH blocks, DinoDisc at CHECK_DINO_DEPTH; the adaptive
-    weight on), unwrapped and with the tokenizer under a (1, 1) data x fsdp
-    mesh (``fsdp_shard_params`` at its 2^18 threshold), the same weights
-    and draws: the tokenizer's and the disc's parameters, gradients and
-    Adam moments, the EMA and every metric within SHARD_TOL."""
+    weight on), unwrapped and with the tokenizer split, the same weights and
+    draws: at a world of one (``width`` 1) under a (1, 1) data x fsdp mesh
+    (``fsdp_shard_params`` at its 2^18 threshold), and at every width under
+    a (1, ``width``) data x model mesh (``tp_shard_params``: at width 2 each
+    rank computes 6 of each ViT block's 12 heads, its teacher's too, and half
+    of ToPixel's input), and at width 2 also with the fused sublayers on (#7
+    over the rank's heads, rank 0 carrying the residual and proj's bias)
+    against the unwrapped fused step: the tokenizer's and the disc's parameters,
+    gradients and Adam moments, the EMA and every metric (the adaptive
+    weight among them) within SHARD_TOL."""
     mcfg, tcfg = flagship_gan_recipe(2, margs_overrides={"dtype_str": "float32"},
                                      tcfg_overrides={"loss_dtype": "float32",
                                                      "dino_depth": CHECK_DINO_DEPTH})
@@ -3931,42 +3958,136 @@ def sharded_gan_check(dev):
     px = mcfg.image_size
     x = (torch.rand((2, px, px, 3), generator=gen) * 2 - 1).to(dev)
     draws = _to(gan_draws(2, px, gen), dev)
-    mesh = make_mesh(("data", "fsdp"), (1, 1), device=dev)
+    meshes = {axis: make_mesh(("data", axis), (1, width), device=dev)
+              for axis in (("fsdp", "model") if width == 1 else ("model",))}
 
-    def step(shard):
+    def step(shard, fused=False):
         with check_depth_cut():
             tr = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED),
                                   device=dev, shard=shard)
+        if fused:
+            set_fused_sublayers(tr.model, True, True)
         m = tr.train_step(x, draws=draws)
         return tr, {**_whole("model", tr.model, tr.gen_opt, tr.ema_params),
                     **_whole("disc", tr.disc, tr.disc_opt),
                     **{f"metric.{k}": v for k, v in m.items()}}
 
-    _, want = step(None)
-    tr, got = step(lambda m: fsdp_shard_params(m, mesh))
-    split = sum(pl.is_shard() for pl in tr.placements.values())
-    print(f"[sharded] GAN step (flagship recipe) fp32 B=2 ({CHECK_TOK_DEPTH} ViT blocks, "
-          f"DinoDisc {CHECK_DINO_DEPTH}) with the tokenizer on a (1, 1) data x fsdp mesh "
-          f"against the unwrapped step: {split} of {len(tr.placements)} tokenizer parameters "
-          f"split; {_held_to('GAN (1, 1) data x fsdp', got, want)} (tol {SHARD_TOL:g}); "
-          f"gen_loss {want['metric.gen_loss'].item():.6f}, adaptive weight "
-          f"{want['metric.disc_adaptive_weight'].item():.6f}; {CARD}")
+    out, wants = {}, {False: step(None)[1]}
+    rules = {"fsdp": fsdp_shard_params, "model": tp_shard_params}
+    # the fused sublayers under TP where a rank holds some heads: at width 2
+    for axis, fused in [(a, False) for a in meshes] + [("model", True)] * (width > 1):
+        if fused not in wants:
+            wants[fused] = step(None, fused=True)[1]
+        want = wants[fused]
+        tr, got = step(lambda m, axis=axis: rules[axis](m, meshes[axis], axis), fused)
+        split = sum(pl.is_shard() for pl in tr.placements.values())
+        what = f"GAN (1, {width}) data x {axis}" + (" fused" if fused else "")
+        heads = (f"{HEADS // width} of {HEADS} heads a rank, " if axis == "model" else "")
+        print(f"[sharded] GAN step (flagship recipe) fp32 B=2 ({CHECK_TOK_DEPTH} ViT blocks, "
+              f"DinoDisc {CHECK_DINO_DEPTH}) with the tokenizer on a (1, {width}) data x {axis} "
+              f"mesh{', fused sublayers on' if fused else ''} (rank "
+              f"{torch.distributed.get_rank()} of {torch.distributed.get_world_size()}, "
+              f"{torch.distributed.get_backend()}) against the unwrapped step: {heads}{split} "
+              f"of {len(tr.placements)} tokenizer parameters split; {_held_to(what, got, want)} "
+              f"(tol {SHARD_TOL:g}); gen_loss {want['metric.gen_loss'].item():.6f}, adaptive "
+              f"weight {want['metric.disc_adaptive_weight'].item():.6f} (sharded "
+              f"{got['metric.disc_adaptive_weight'].item():.6f}); {CARD}")
+        out[what] = {"split": split, "tensors": len(want)}
+        del tr, got
+    return out
+
+
+def _gen_model(kind: str, depth: int, dtype_str: str, dev):
+    """RAR-B (its AdaLN drawn at random, as ``main_rar_train_step``'s) or
+    MaskGIT-B (bert) over VQ-4096's tokens at ``depth`` blocks, from the
+    seeds the unwrapped timed steps use."""
+    if kind == "rar":
+        gen = torch.Generator().manual_seed(SEED + 25)
+        model = build_rar(bench_margs(dtype_str), depth=depth, dtype_str=dtype_str,
+                          generator=gen, device="cpu")
+        _excite_adaln(model, gen)
+        return model.to(dev)
+    return build_maskgit(bench_margs(dtype_str), depth=depth, dtype_str=dtype_str,
+                         generator=torch.Generator().manual_seed(SEED + 24), device=dev)
+
+
+def _gen_trainer(kind: str, model, shard):
+    """``RARTrainer`` at ``RARTrainConfig()`` or ``MaskGITTrainer`` over
+    250k steps (the timed steps' settings), with ``shard``."""
+    if kind == "rar":
+        return RARTrainer(model, RARTrainConfig(), shard=shard)
+    return MaskGITTrainer(model, 250_000, shard=shard)
+
+
+def _gen_step(kind: str, tr, tokens, labels, gen):
+    if kind == "rar":
+        return tr.train_step(tokens, labels, 1.0, gen)  # random orders: the annealing's start
+    return tr.train_step(tokens, labels, gen)
+
+
+def sharded_gen_check(dev, width: int) -> dict:
+    """Two fp32 steps at B=2 of RAR-B's ``RARTrainer`` (with its EMA) and
+    MaskGIT-B's ``MaskGITTrainer`` (bert), at CHECK_RAR_DEPTH of their 24
+    blocks, unwrapped and under a (1, ``width``) data x fsdp mesh
+    (``fsdp_shard_params``) and a (1, ``width``) data x model mesh
+    (``tp_shard_params``: at width 2 each rank computes 8 of the 16 heads of
+    48 and half of the MLP's hidden units), the same weights and draws:
+    every parameter, gradient, Adam moment, EMA and metric within SHARD_TOL
+    (the first lr of both schedules is 0, the second tiny: warmups of 62.5k
+    and 12.5k steps)."""
+    meshes = {axis: make_mesh(("data", axis), (1, width), device=dev) for axis in ("fsdp", "model")}
+    out = {}
+    for kind in ("rar", "maskgit"):
+        model0 = _gen_model(kind, CHECK_RAR_DEPTH, "float32", dev)
+        cfg = model0.config
+        gen = torch.Generator().manual_seed(SEED + 13)
+        tokens = torch.randint(0, cfg.codebook_size, (2, cfg.image_seq_len), generator=gen).to(dev)
+        labels = torch.tensor([207, 980], device=dev)
+
+        def step(shard):
+            model = copy.deepcopy(model0)
+            tr = _gen_trainer(kind, model, shard)
+            draws = torch.Generator(device=dev).manual_seed(SEED)
+            for _ in range(2):
+                m = _gen_step(kind, tr, tokens, labels, draws)
+            return tr, {**_whole("model", model, tr.opt, tr.ema if kind == "rar" else None),
+                        **{f"metric.{k}": v for k, v in m.items()}}
+
+        want = step(None)[1]
+        name = "RAR-B RARTrainer" if kind == "rar" else "MaskGIT-B MaskGITTrainer"
+        for axis, rule in (("fsdp", fsdp_shard_params), ("model", tp_shard_params)):
+            tr, got = step(lambda m, axis=axis, rule=rule: rule(m, meshes[axis], axis))
+            split = sum(pl.is_shard() for pl in tr.placements.values())
+            what = f"{kind} (1, {width}) data x {axis}"
+            heads = (f"{cfg.num_heads // width} of {cfg.num_heads} heads a rank, "
+                     if axis == "model" else "")
+            print(f"[sharded] {name} 2 steps fp32 B=2 ({CHECK_RAR_DEPTH} of 24 blocks) on a "
+                  f"(1, {width}) data x {axis} mesh (rank {torch.distributed.get_rank()} of "
+                  f"{torch.distributed.get_world_size()}, {torch.distributed.get_backend()}) "
+                  f"against the unwrapped steps: {heads}{split} of {len(tr.placements)} "
+                  f"parameters split; {_held_to(what, got, want)} (tol {SHARD_TOL:g}); loss "
+                  f"{want['metric.loss'].item():.6f}; {CARD}")
+            out[what] = {"split": split, "tensors": len(want)}
+            del tr, got
+        del model0
+    return out
 
 
 def phase_sharded_checks(dev):
-    """The world-of-one checks: ``sharded_var_check`` and
-    ``sharded_gan_check``."""
+    """The world-of-one checks: ``sharded_var_check``, ``sharded_gan_check``
+    and ``sharded_gen_check``."""
     with _meshes(deterministic=True):
         sharded_var_check(dev, 1)
         sharded_gan_check(dev)
+        sharded_gen_check(dev, 1)
 
 
 def _sharded_rank(dev, root: Path, port: Path, rank: int) -> dict:
     """One of two processes on this card over gloo (which carries CUDA
-    tensors through every collective of these steps): ``sharded_var_check``
-    at width 2. They run beside the parent's CPU-bound model checks, on one
-    thread each at the lowest CPU priority, so that they take what the
-    checks leave."""
+    tensors through every collective of these steps): ``sharded_var_check``,
+    ``sharded_gan_check`` and ``sharded_gen_check`` at width 2. They run
+    beside the parent's CPU-bound model checks, on one thread each at the
+    lowest CPU priority, so that they take what the checks leave."""
     import datetime
 
     os.nice(19)
@@ -3975,7 +4096,9 @@ def _sharded_rank(dev, root: Path, port: Path, rank: int) -> dict:
         "gloo", init_method=f"tcp://localhost:{port.name}", world_size=2, rank=rank,
         timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
     with _meshes(deterministic=True):
-        return {f"sharded gloo rank {rank}": sharded_var_check(dev, 2)}
+        return {f"sharded gloo rank {rank}": {"var": sharded_var_check(dev, 2),
+                                              "gan": sharded_gan_check(dev, 2),
+                                              "gen": sharded_gen_check(dev, 2)}}
 
 
 def _start_gloo_ranks(stack: contextlib.ExitStack, root: Path) -> list:
@@ -3985,17 +4108,30 @@ def _start_gloo_ranks(stack: contextlib.ExitStack, root: Path) -> list:
     return [stack.enter_context(_Child(f"sharded_rank{r}", root, port)) for r in (0, 1)]
 
 
+def _versus(r: dict, unwrapped: dict, key: str) -> str:
+    """The sharded step's median against the unwrapped one of this run."""
+    u = unwrapped[key]
+    return (f"{r['ms'] / u['ms']:.3f}x the unwrapped {key}'s median {u['ms']:.3f} ms "
+            f"({u['peak'] / 2**30:.2f} GiB) of this run")
+
+
 def main_sharded_paths(dev, unwrapped: dict) -> dict:
-    """``VARTrainer.train_step`` of MSVR10P2-4096 with VAR-d16 at full
-    depth, bf16, B=64 (``main_train_paths``' configuration,
-    ``VARTrainConfig()``, whose ``unwrapped`` record of this run it is set
-    beside) under a (1, 1) data x fsdp mesh and a (1, 1) data x model mesh,
-    each from a copy of the same weights and with the same draws, timed in
-    turn, each with the unwrapped step's exact launches (#1 12, #9 20, #3
-    16, #6 16); then the flagship GAN ``train_step`` (bf16, B=64) with the
-    tokenizer under a (1, 1) data x fsdp mesh (#1, #2, #9 as
-    ``gan_launches`` counts)."""
+    """The main train steps under a (1, 1) data x fsdp mesh and a (1, 1)
+    data x model mesh, each from a copy of the unwrapped step's weights and
+    with its draws, timed in turn beside the unwrapped step's record of this
+    run (``unwrapped``, by path), each with the unwrapped step's exact
+    launches:
+
+    - ``VARTrainer.train_step`` of MSVR10P2-4096 with VAR-d16 at full depth,
+      bf16, B=64 (``main_train_paths``' configuration, ``VARTrainConfig()``;
+      #1 12, #9 20, #3 16, #6 16);
+    - the flagship GAN ``train_step`` (bf16, B=64) with the tokenizer under
+      each mesh (#1, #2, #9 as ``gan_launches`` counts);
+    - RAR-B's and MaskGIT-B's train steps at full depth (bf16, B=64,
+      ``main_rar_train_step``'s and ``main_maskgit_paths``' settings; #3 24
+      with lse and #6 24)."""
     out = {}
+    rules = {"fsdp": fsdp_shard_params, "model": tp_shard_params}
     with _meshes(deterministic=False):
         vae, var0 = build_vae_var(msvr_margs("bfloat16"), VAR_DEPTH, dtype_str="bfloat16",
                                   generator=torch.Generator().manual_seed(SEED), device=dev)
@@ -4003,12 +4139,15 @@ def main_sharded_paths(dev, unwrapped: dict) -> dict:
         px = vae.config.image_size
         x = torch.rand((BATCH, px, px, 3), generator=gen, device=dev) * 2 - 1
         labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
-        meshes = {axis: make_mesh(("data", axis), (1, 1), device=dev)
-                  for axis in ("fsdp", "model")}
-        for axis, rule in (("fsdp", fsdp_shard_params), ("model", tp_shard_params)):
+        meshes = {axis: make_mesh(("data", axis), (1, 1), device=dev) for axis in rules}
+
+        def shard(axis):
+            return lambda m: rules[axis](m, meshes[axis], axis)
+
+        for axis in rules:
             tr = VARTrainer(vae, copy.deepcopy(var0), VARTrainConfig(),
                             generator=torch.Generator(device=dev).manual_seed(SEED),
-                            shard=lambda m, axis=axis, rule=rule: rule(m, meshes[axis], axis))
+                            shard=shard(axis))
             path = f"sharded train_step {axis}"
             out[path] = r = time_calls(path, lambda: tr.train_step(x, labels), 10,
                                        LAUNCHES_256["train_step"], dev)
@@ -4017,29 +4156,57 @@ def main_sharded_paths(dev, unwrapped: dict) -> dict:
                 raise AssertionError(f"[main] {path} metrics {m}")
             _report(f"VARTrainer.train_step (VARTrainConfig()) on a (1, 1) data x {axis} mesh",
                     r, BATCH, ", ".join(f"{k} {v:.4f}" for k, v in m.items())
-                    + f"; {r['ms'] / unwrapped['ms']:.3f}x the unwrapped step's median "
-                    f"{unwrapped['ms']:.3f} ms ({unwrapped['peak'] / 2**30:.2f} GiB) of this run; "
-                    f"{CARD}")
+                    + f"; {_versus(r, unwrapped, 'train_step')}; {CARD}")
             del tr
             gc.collect()  # FSDP2's modules and their states refer to each other
             torch.cuda.empty_cache()
         del vae, var0
         mcfg, tcfg = flagship_gan_recipe(BATCH, tcfg_overrides={"loss_dtype": "bfloat16"})
-        tr = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED),
-                              device=dev, shard=lambda m: fsdp_shard_params(m, meshes["fsdp"]))
         px = mcfg.image_size
         x = torch.rand((BATCH, px, px, 3),
                        generator=torch.Generator(device=dev).manual_seed(SEED), device=dev) * 2 - 1
-        path = "sharded GAN train_step fsdp"
-        out[path] = r = time_calls(path, lambda: tr.train_step(x), 3, gan_launches(tr), dev)
-        m = {k: v.float().mean().item() for k, v in r.pop("out").items()}
-        if not all(math.isfinite(v) for v in m.values()):
-            raise AssertionError(f"[main] {path} metrics {m}")
-        split = sum(pl.is_shard() for pl in tr.placements.values())
-        _report("TokenizerTrainer.train_step (flagship GAN recipe), the tokenizer on a (1, 1) "
-                f"data x fsdp mesh ({split} of {len(tr.placements)} parameters split)", r, BATCH,
-                ", ".join(f"{k} {v:.4f}" for k, v in m.items()) + f"; {CARD}")
-        del tr
+        for axis in rules:
+            tr = TokenizerTrainer(mcfg, tcfg, generator=torch.Generator().manual_seed(SEED),
+                                  device=dev, shard=shard(axis))
+            path = f"sharded GAN train_step {axis}"
+            out[path] = r = time_calls(path, lambda: tr.train_step(x), 3, gan_launches(tr), dev)
+            m = {k: v.float().mean().item() for k, v in r.pop("out").items()}
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"[main] {path} metrics {m}")
+            split = sum(pl.is_shard() for pl in tr.placements.values())
+            _report(f"TokenizerTrainer.train_step (flagship GAN recipe), the tokenizer on a "
+                    f"(1, 1) data x {axis} mesh ({split} of {len(tr.placements)} parameters "
+                    "split)", r, BATCH, ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+                    + f"; {_versus(r, unwrapped, 'GAN train_step')}; {CARD}")
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        for kind in ("rar", "maskgit"):
+            model0 = _gen_model(kind, 24, "bfloat16", dev)
+            cfg = model0.config
+            # the unwrapped steps' draws (main_rar_train_step, main_maskgit_paths)
+            tgen = torch.Generator(device=dev).manual_seed(SEED + (2 if kind == "rar" else 1))
+            tokens = torch.randint(0, cfg.codebook_size, (BATCH, cfg.image_seq_len),
+                                   generator=tgen, device=dev)
+            labels = torch.arange(BATCH, device=dev) % 1000
+            for axis in rules:
+                model = copy.deepcopy(model0)
+                tr = _gen_trainer(kind, model, shard(axis))
+                path = f"sharded {kind} train step {axis}"
+                out[path] = r = time_calls(
+                    path, lambda: _gen_step(kind, tr, tokens, labels, tgen), 5,
+                    {"fused_attention_fwd": cfg.depth, "fused_attention_bwd": cfg.depth}, dev)
+                _check_metrics(path, r.pop("out"), model)
+                split = sum(pl.is_shard() for pl in tr.placements.values())
+                _report(f"{'RAR-B RARTrainer' if kind == 'rar' else 'MaskGIT-B MaskGITTrainer'}"
+                        f".train_step on a (1, 1) data x {axis} mesh ({split} of "
+                        f"{len(tr.placements)} parameters split)", r, BATCH,
+                        "loss and grad norm finite, every parameter finite; "
+                        f"{_versus(r, unwrapped, f'{kind} train step')}; {CARD}")
+                del tr, model
+                gc.collect()
+                torch.cuda.empty_cache()
+            del model0
     torch.cuda.empty_cache()
     return out
 
@@ -5397,11 +5564,14 @@ def main_cli_paths(dev, loader_target: float) -> dict:
         rar_paths, rar_ckpt = _gen_rar(dev, root, tok, root / "gen" / "toks.jsonl")
         paths.update(rar_paths)
         lap("train_rar, its resume, MaskGIT, sample_rar")
-        var_paths, var_ckpt = _gen_var(dev, root, inception, msvr)
-        paths.update(var_paths)
-        lap("train_var, its resume, sample_var")
-        _gen_export(root, rar_ckpt, var_ckpt)
-        lap("export_weights rar, var")
+        with contextlib.ExitStack() as later:
+            var_paths, var_ckpt, ref = _gen_var(dev, root, inception, msvr, later)
+            paths.update(var_paths)
+            lap("train_var, its resume, sample_var")
+            _gen_export(root, rar_ckpt, var_ckpt)
+            lap("export_weights rar, var")
+            paths.update(ref.finish())
+            lap("sample_var --ref_npz (its process joined)")
     return paths
 
 
@@ -5787,7 +5957,8 @@ def _msvr_yaml(root: Path) -> Path:
     return path
 
 
-def _gen_var(dev, root: Path, inception: Path, weights: Path) -> dict:
+def _gen_var(dev, root: Path, inception: Path, weights: Path,
+             later: contextlib.ExitStack) -> tuple:
     """``train_var`` on MSVR10P2-4096 (``weights``: a weight file of a seeded
     full-depth tokenizer, written through ``hub``) with VAR-d16 at B=64 for 4 steps (2
     epochs), ``--eval_every 2`` over the 32 val PNGs (``var_eval_ep``, the
@@ -5795,8 +5966,10 @@ def _gen_var(dev, root: Path, inception: Path, weights: Path) -> dict:
     16, #6 16 a step); its exact resume at VAR-d16's width over
     CHECK_VAR_DEPTH blocks with a seeded tokenizer file at CHECK_TOK_DEPTH
     (``check_depth_cut``), without evals; ``sample_var`` of 64 samples
-    at B=64 (#3 160, #1 12), then again with ``--ref_npz`` (the
-    evaluate_fid reference batch) through the seeded Inception."""
+    at B=64 (#3 160, #1 12), and again with ``--ref_npz`` (the
+    evaluate_fid reference batch) through the seeded Inception in a
+    process of its own, returned unjoined (the paths, the checkpoint, the
+    ``_Child``)."""
     from imagefolder_tpu_torch.scripts import sample_var, train_var
 
     cfg = _msvr_yaml(root)
@@ -5821,35 +5994,35 @@ def _gen_var(dev, root: Path, inception: Path, weights: Path) -> dict:
     (out / "best.pt").unlink()
     del r
     # sample_var --ref_npz (its FID: two host sqrtm) in a process of its own,
-    # beside the resume and sample_var
-    with _Child("sample_var_ref", root, inception, weights, var_ckpt) as ref:
-        # the resume at full width on fewer blocks: the tokenizer at
-        # CHECK_TOK_DEPTH blocks (a seeded weight file of that depth), VAR-d16's
-        # 1024-wide blocks at CHECK_VAR_DEPTH of 16
-        with check_depth_cut():
-            cut = _seeded_weights(root / "gen" / "msvr_cut.safetensors", MSVR_YAML)
+    # beside the resume, sample_var and the caller's export_weights; the
+    # caller joins it (``later`` stops it if the caller fails first)
+    ref = later.enter_context(_Child("sample_var_ref", root, inception, weights, var_ckpt))
+    # the resume at full width on fewer blocks: the tokenizer at
+    # CHECK_TOK_DEPTH blocks (a seeded weight file of that depth), VAR-d16's
+    # 1024-wide blocks at CHECK_VAR_DEPTH of 16
+    with check_depth_cut():
+        cut = _seeded_weights(root / "gen" / "msvr_cut.safetensors", MSVR_YAML)
 
-        def var_run(o):
-            with var_depth_cut(), check_depth_cut():
-                return train_var.main([*common, "--vq_ckpt", str(cut), "--ckpt_every", "2",
-                                       "--val_data_path", "", "--output", str(o)])
+    def var_run(o):
+        with var_depth_cut(), check_depth_cut():
+            return train_var.main([*common, "--vq_ckpt", str(cut), "--ckpt_every", "2",
+                                   "--val_data_path", "", "--output", str(o)])
 
-        _resume_check(f"train_var VAR-d16 width, {CHECK_VAR_DEPTH} of 16 blocks (tokenizer "
-                      f"{CHECK_TOK_DEPTH} of 12)", var_run,
-                      lambda: _stop_after(VARTrainer, lambda tr: tr.opt.count), _var_tensors,
-                      lambda tr: tr.opt.count, root / "gen")
-        base = ["--config", str(cfg), "--vq_ckpt", str(weights), "--var_ckpt", str(var_ckpt),
-                "--num_samples", str(GEN_SAMPLES), "--batch_size", str(BATCH)]
-        per = LAUNCHES_256["var_sample"]
-        npz = root / "gen" / "var.npz"
-        s, paths["cli sample_var"] = _gen_main("sample_var", lambda: sample_var.main(
-            [*base, "--output", str(npz)]), per, batch=GEN_SAMPLES)
-        arr = np.load(npz)["arr_0"]
-        if not (arr.shape == (GEN_SAMPLES, 256, 256, 3) and arr.dtype == np.uint8
-                and arr.std() > 0):
-            raise AssertionError(f"[gen-cli] sample_var: {arr.shape} {arr.dtype}")
-        paths.update(ref.finish())
-    return paths, var_ckpt
+    _resume_check(f"train_var VAR-d16 width, {CHECK_VAR_DEPTH} of 16 blocks (tokenizer "
+                  f"{CHECK_TOK_DEPTH} of 12)", var_run,
+                  lambda: _stop_after(VARTrainer, lambda tr: tr.opt.count), _var_tensors,
+                  lambda tr: tr.opt.count, root / "gen")
+    base = ["--config", str(cfg), "--vq_ckpt", str(weights), "--var_ckpt", str(var_ckpt),
+            "--num_samples", str(GEN_SAMPLES), "--batch_size", str(BATCH)]
+    per = LAUNCHES_256["var_sample"]
+    npz = root / "gen" / "var.npz"
+    s, paths["cli sample_var"] = _gen_main("sample_var", lambda: sample_var.main(
+        [*base, "--output", str(npz)]), per, batch=GEN_SAMPLES)
+    arr = np.load(npz)["arr_0"]
+    if not (arr.shape == (GEN_SAMPLES, 256, 256, 3) and arr.dtype == np.uint8
+            and arr.std() > 0):
+        raise AssertionError(f"[gen-cli] sample_var: {arr.shape} {arr.dtype}")
+    return paths, var_ckpt, ref
 
 
 def _sample_var_ref(dev, root: Path, inception: Path, weights: Path, var_ckpt: Path) -> dict:
@@ -6122,8 +6295,11 @@ def main(argv: list[str]) -> int:
             for rank in gloo:
                 rank.finish()
             lap("sharded steps on two gloo processes")
-        main_sharded_paths(dev, main_train_paths(dev, msvr_margs("bfloat16"), "",
-                                                 LAUNCHES_256)["train_step"])
+        unwrapped = {**main_train_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256),
+                     **main_gan_paths(dev), **main_rar_train_step(dev),
+                     **main_maskgit_paths(dev)}
+        lap("unwrapped train steps")
+        main_sharded_paths(dev, unwrapped)
         lap("sharded train steps")
         shutil.rmtree(root, ignore_errors=True)
         return 0
@@ -6191,11 +6367,12 @@ def main(argv: list[str]) -> int:
             phase_model_rope(dev)
         lap(f"model RoPE and cond_latent decoders ({CHECK_TOK_DEPTH} ViT blocks)")
         phase_sharded_checks(dev)
-        lap(f"sharded VAR and GAN steps at a world of one ({CHECK_TOK_DEPTH} ViT blocks, VAR "
-            f"{CHECK_VAR_DEPTH}, DinoDisc {CHECK_DINO_DEPTH})")
+        lap(f"sharded VAR, GAN, RAR and MaskGIT steps at a world of one ({CHECK_TOK_DEPTH} ViT "
+            f"blocks, VAR {CHECK_VAR_DEPTH}, DinoDisc {CHECK_DINO_DEPTH}, RAR and MaskGIT "
+            f"{CHECK_RAR_DEPTH})")
         for rank in gloo:
             rank.finish()
-        lap("sharded VAR steps on two gloo processes (joined)")
+        lap("sharded VAR, GAN, RAR and MaskGIT steps on two gloo processes (joined)")
         _report_e2e(e2e.finish())
     shutil.rmtree(e2e_root, ignore_errors=True)
     lap("e2e_pipeline (its process joined)")
@@ -6211,8 +6388,8 @@ def main(argv: list[str]) -> int:
                   **main_train_paths(dev, msvr_margs("bfloat16"), "", LAUNCHES_256),
                   **main_gan_paths(dev)})
     lap("main paths at 256 px")
-    paths.update(main_sharded_paths(dev, paths["train_step"]))
-    lap("sharded VAR-d16 and GAN train steps")
+    paths.update(main_sharded_paths(dev, paths))
+    lap("sharded VAR-d16, GAN, RAR-B and MaskGIT-B train steps")
     paths.update(main_robusttok_paths(dev))
     lap("RobustTok train step")
     paths.update(main_msbr_paths(dev))

@@ -48,31 +48,35 @@
 #include "gemm_epilogue.cuh"
 
 // xn (B*N, C) in the act type (bf16 if is_bf16, else fp32); res (B*N, C) bf16
-// (res_bf16) or fp32; wq (3C, C) and wp (C, C) in the act type, PyTorch's
-// (out, in) layout; bq (3C,) and bp (C,) in the act type; ls (C,) fp32; qkv
-// (B*N, 3C) and attn (B*N, C) act-type scratch; out (B*N, C) fp32. All
-// contiguous and 16-byte aligned. C must be heads * 64 and a multiple of 64.
+// (res_bf16) or fp32; wq (3Ci, C) and wp (C, Ci) in the act type, PyTorch's
+// (out, in) layout; bq (3Ci,) and bp (C,) in the act type; ls (C,) fp32; qkv
+// (B*N, 3Ci) and attn (B*N, Ci) act-type scratch; out (B*N, C) fp32. All
+// contiguous and 16-byte aligned. Ci, the width of the heads this call
+// computes, must be heads * 64; C and Ci multiples of 64. Ci is C but under
+// tensor parallelism, where a call computes one rank's heads (the q, k and v
+// rows of those heads in wq, their columns of wp) and its partial products
+// are summed over the ranks after it (rank 0 alone passing res and bp).
 // Launches three kernels on `stream` and returns the first nonzero
 // cudaGetLastError() as an int (0 = launched).
 extern "C" int attn_sublayer_fwd(const void* xn, const void* res, const void* wq,
                                  const void* bq, const void* wp, const void* bp, const void* ls,
                                  void* qkv, void* attn, void* out, int batch, int n, int c,
-                                 int heads, float scale, int is_bf16, int res_bf16,
+                                 int ci, int heads, float scale, int is_bf16, int res_bf16,
                                  void* stream) {
-  if (c != heads * kHd || batch <= 0 || n <= 0) return cudaErrorInvalidValue;
+  if (ci != heads * kHd || batch <= 0 || n <= 0) return cudaErrorInvalidValue;
   cudaStream_t stm = static_cast<cudaStream_t>(stream);
   const int m = batch * n;
   const EpiArgs e_qkv{bq, nullptr, nullptr, qkv, 0};
-  int err = launch_gemm<7, kDense>(xn, wq, m, 3 * c, c, e_qkv, is_bf16, stm);
+  int err = launch_gemm<7, kDense>(xn, wq, m, 3 * ci, c, e_qkv, is_bf16, stm);
   if (err) return err;
-  const int64_t row = 3 * static_cast<int64_t>(c);
+  const int64_t row = 3 * static_cast<int64_t>(ci);
   const int64_t bat = n * row;
   const FwdStrides st{bat, row, kHd, bat, row, kHd, bat, row, kHd, 0, 0, 0};
   const size_t esz = is_bf16 ? sizeof(bf16) : sizeof(float);
   const char* in = static_cast<const char*>(qkv);
-  err = launch_attention_fwd<7>(in, in + c * esz, in + 2 * c * esz, nullptr, nullptr, attn,
+  err = launch_attention_fwd<7>(in, in + ci * esz, in + 2 * ci * esz, nullptr, nullptr, attn,
                                 batch, n, n, heads, st, scale, is_bf16, stm);
   if (err) return err;
   const EpiArgs e_proj{bp, res, static_cast<const float*>(ls), out, res_bf16};
-  return launch_gemm<7, kDenseLsRes>(attn, wp, m, c, c, e_proj, is_bf16, stm);
+  return launch_gemm<7, kDenseLsRes>(attn, wp, m, c, ci, e_proj, is_bf16, stm);
 }

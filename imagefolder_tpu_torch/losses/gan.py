@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from imagefolder_tpu_torch.parallel.dist import global_mean
@@ -81,8 +82,16 @@ def lecam_reg(logits_real, logits_fake, state: LeCamState):
             + F.relu(state.logits_real_ema - logits_fake).square().mean())
 
 
-def adaptive_disc_weight(nll_grad, g_grad, eps: float = 1e-4):
+def adaptive_disc_weight(nll_grad, g_grad, eps: float = 1e-4, group=None):
     """Reference calculate_adaptive_weight (vq_loss.py:153-159):
-    ||d nll/dW|| / (||d g/dW|| + eps) clamped to [0, 1e4], without gradient."""
-    w = torch.linalg.vector_norm(nll_grad) / (torch.linalg.vector_norm(g_grad) + eps)
+    ||d nll/dW|| / (||d g/dW|| + eps) clamped to [0, 1e4], without gradient.
+    With ``group`` the two gradients are this rank's shards of W's (W split
+    by tensor parallelism over that process group), and each norm is the
+    whole gradient's: the shards' square norms summed over the group."""
+    norms = torch.stack([torch.linalg.vector_norm(nll_grad), torch.linalg.vector_norm(g_grad)])
+    if group is not None:
+        norms = norms.square()
+        dist.all_reduce(norms, group=group)
+        norms = norms.sqrt()
+    w = norms[0] / (norms[1] + eps)
     return w.clamp(0.0, 1e4).detach()

@@ -36,7 +36,14 @@ __all__ = ["Encoder", "Decoder", "ResnetBlock", "AttnBlock", "Downsample", "Upsa
 class Conv(nn.Module):
     """A Conv2d's parameters (weight (out, in, k, k): torch's default
     kaiming-uniform, as the JAX package's ``conv_kaiming_uniform``; a zero
-    bias, flax's default), applied to NHWC input in the activation dtype."""
+    bias, flax's default), applied to NHWC input in the activation dtype.
+
+    ``tp``: under tensor parallelism (``parallel/mesh.py::tp_shard_params``)
+    the bias is this rank's share of the output channels (the JAX rule splits
+    the biases of the attention's q, k and v, whose kernels it leaves whole),
+    gathered whole before the conv."""
+
+    tp = None
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  padding: int = 1, generator: Optional[torch.Generator] = None):
@@ -48,7 +55,8 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         act = x.dtype
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(act), self.bias.to(act),
+        bias = self.bias if self.tp is None else self.tp.whole(self.bias)
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(act), bias.to(act),
                      self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
 

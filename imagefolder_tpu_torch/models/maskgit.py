@@ -53,7 +53,7 @@ from torch.nn.utils import skip_init
 
 from imagefolder_tpu_torch.ops.activations import gelu_exact
 from imagefolder_tpu_torch.ops.cuda.attention import dot_product_attention
-from imagefolder_tpu_torch.ops.cuda.block import dense
+from imagefolder_tpu_torch.ops.cuda.block import dense, row_dense
 from imagefolder_tpu_torch.parallel.dist import global_sum
 from imagefolder_tpu_torch.utils.init import linear, trunc_normal_
 
@@ -100,7 +100,15 @@ class MaskGITBlock(nn.Module):
     (``maskgit.py:63-93``: eps 1e-12, qkv with a bias, torch-default Linear
     init) or U-ViT's ``_UViTBlock`` (``maskgit.py:96-134``: eps 1e-5, qkv
     without a bias, trunc_normal(0.02) init, and with ``skip`` a
-    ``skip_linear`` on concat(x, skip) first)."""
+    ``skip_linear`` on concat(x, skip) first).
+
+    Under tensor parallelism (``parallel/mesh.py::tp_shard_params``)
+    ``attn.tp`` and ``mlp.tp`` are this rank's share: ``attn.qkv`` holds the
+    q, k and v rows of its heads, ``attn.proj`` their columns, ``mlp.fc1``
+    its hidden rows and ``mlp.fc2`` their columns; each sublayer's input
+    enters through f, and the partial products of ``proj`` and ``fc2`` are
+    summed over the model group (g) before their bias. ``skip_linear``
+    stays whole."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, dtype: torch.dtype, *,
                  uvit: bool = False, skip: bool = False,
@@ -135,16 +143,22 @@ class MaskGITBlock(nn.Module):
             s = self.skip_linear
             x = dense(torch.cat([x, skip], dim=-1), s.weight, s.bias)
         b, n, d = x.shape
-        a = self.attn
+        a, m = self.attn, self.mlp
+        ta, tm = getattr(a, "tp", None), getattr(m, "tp", None)
         h = self._norm(x, self.norm1)
+        if ta is not None:
+            h = ta.enter(h)
         qkv = F.linear(h, a.qkv.weight.to(h.dtype)) if a.qkv.bias is None \
             else dense(h, a.qkv.weight, a.qkv.bias)
-        q, k, v = qkv.view(b, n, 3, self.num_heads, d // self.num_heads).unbind(2)
+        hd = d // self.num_heads
+        q, k, v = qkv.view(b, n, 3, qkv.shape[-1] // (3 * hd), hd).unbind(2)
         o = dot_product_attention(q, k, v)
-        x = x + dense(o.reshape(b, n, d), a.proj.weight, a.proj.bias)
-        m = self.mlp
-        h = gelu_exact(dense(self._norm(x, self.norm2), m.fc1.weight, m.fc1.bias))
-        return x + dense(h, m.fc2.weight, m.fc2.bias)
+        x = x + row_dense(o.reshape(b, n, -1), a.proj.weight, a.proj.bias, ta)
+        h = self._norm(x, self.norm2)
+        if tm is not None:
+            h = tm.enter(h)
+        h = gelu_exact(dense(h, m.fc1.weight, m.fc1.bias))
+        return x + row_dense(h, m.fc2.weight, m.fc2.bias, tm)
 
 
 class MaskGIT(nn.Module):

@@ -45,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from imagefolder_tpu_torch.ops.activations import gelu_exact
 from imagefolder_tpu_torch.ops.cuda.attention import dot_product_attention
-from imagefolder_tpu_torch.ops.cuda.block import dense
+from imagefolder_tpu_torch.ops.cuda.block import dense, row_dense
 from imagefolder_tpu_torch.utils.init import linear, trunc_normal_
 
 __all__ = ["RARConfig", "RARAttention", "RARBlock", "RAR", "RARKVCache", "ar_loss",
@@ -119,9 +119,13 @@ class RARKVCache:
         return self.k[:, :end], self.v[:, :end]
 
 
-def _layer_norm(x: torch.Tensor, norm: Optional[nn.LayerNorm] = None) -> torch.Tensor:
-    """fp32 LayerNorm with eps 1e-6, affine when ``norm`` is given."""
+def _layer_norm(x: torch.Tensor, norm: Optional[nn.LayerNorm] = None, tp=None) -> torch.Tensor:
+    """fp32 LayerNorm with eps 1e-6, affine when ``norm`` is given; under
+    tensor parallelism (``tp``) its parameters enter through f (a head-dim
+    norm that every rank applies to its own heads)."""
     w, b = (None, None) if norm is None else (norm.weight, norm.bias)
+    if tp is not None and norm is not None:
+        w, b = tp.enter(w), tp.enter(b)
     return F.layer_norm(x.float(), x.shape[-1:], w, b, _EPS)
 
 
@@ -136,7 +140,16 @@ def _cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
 
 
 class RARAttention(nn.Module):
-    """rar.py:56-118: fused qkv, qk-norm (LayerNorm on the head dim), KV cache."""
+    """rar.py:56-118: fused qkv, qk-norm (LayerNorm on the head dim), KV cache.
+
+    ``tp``: under tensor parallelism (``parallel/mesh.py::tp_shard_params``)
+    this rank's share of the heads: ``qkv`` holds the q, k and v rows of its
+    heads and their bias entries, ``proj`` the matching input columns; the
+    input and the whole ``q_norm`` and ``k_norm`` enter through f, the
+    partial products of ``proj`` are summed over the model group (g) before
+    its bias, and the KV cache holds this rank's heads."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32, *,
                  generator: Optional[torch.Generator] = None):
@@ -147,24 +160,36 @@ class RARAttention(nn.Module):
         self.k_norm = nn.LayerNorm(self.head_dim, eps=_EPS)
         self.proj = linear(dim, dim, generator)
 
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank computes (all but under tensor parallelism)."""
+        return self.num_heads if self.tp is None else self.num_heads // self.tp.size
+
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 cache: Optional[RARKVCache] = None) -> torch.Tensor:
         b, n, c = x.shape
-        dt = self.dtype
-        qkv = dense(x, self.qkv.weight, self.qkv.bias).view(b, n, 3, self.num_heads,
+        dt, tp = self.dtype, self.tp
+        if tp is not None:
+            x = tp.enter(x)
+        qkv = dense(x, self.qkv.weight, self.qkv.bias).view(b, n, 3, self.local_heads,
                                                            self.head_dim)
         q, k, v = qkv.unbind(2)
-        q = _layer_norm(q, self.q_norm).to(dt)
-        k = _layer_norm(k, self.k_norm).to(dt)
+        q = _layer_norm(q, self.q_norm, tp).to(dt)
+        k = _layer_norm(k, self.k_norm, tp).to(dt)
         if cache is not None:
             k, v = cache.append(k, v)
             out = _cached_attention(q, k.to(dt), v.to(dt))
         else:
             out = dot_product_attention(q, k, v, bias=mask)
-        return dense(out.reshape(b, n, c), self.proj.weight, self.proj.bias)
+        return row_dense(out.reshape(b, n, -1), self.proj.weight, self.proj.bias, tp)
 
 
 class RARMlp(nn.Module):
+    """``tp``: under tensor parallelism this rank's share of the hidden
+    units (``fc1``'s rows and bias, ``fc2``'s columns)."""
+
+    tp = None
+
     def __init__(self, dim: int, hidden: int, *, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.fc1 = linear(dim, hidden, generator)
@@ -202,8 +227,9 @@ class RARBlock(nn.Module):
         x = x.float() + g1 * self.attn(h.to(dt), mask, cache).float()
         h = _layer_norm(x, self.norm2) * (1 + sc2) + sh2
         m = self.mlp
-        h = dense(gelu_exact(dense(h.to(dt), m.fc1.weight, m.fc1.bias)), m.fc2.weight,
-                  m.fc2.bias)
+        h = h.to(dt) if m.tp is None else m.tp.enter(h.to(dt))
+        h = row_dense(gelu_exact(dense(h, m.fc1.weight, m.fc1.bias)), m.fc2.weight, m.fc2.bias,
+                      m.tp)
         return (x + g2 * h.float()).to(dt)
 
 
@@ -329,11 +355,12 @@ class RAR(nn.Module):
 
     def init_caches(self, batch: int, dtype: torch.dtype = torch.float32,
                     chunk: Optional[int] = None) -> List[RARKVCache]:
-        """Empty KV caches of the [cls, cond, tokens] sequence, one per block."""
+        """Empty KV caches of the [cls, cond, tokens] sequence, one per block
+        (of the heads this rank computes)."""
         cfg = self.config
-        return [RARKVCache(batch, cfg.num_heads, cfg.embed_dim // cfg.num_heads,
+        return [RARKVCache(batch, blk.attn.local_heads, cfg.embed_dim // cfg.num_heads,
                            cfg.image_seq_len + 2, dtype, self.device, chunk)
-                for _ in range(cfg.depth)]
+                for blk in self.blocks]
 
     def decode_step(self, x_tokens: torch.Tensor, cond_token: torch.Tensor,
                     caches: List[RARKVCache]) -> torch.Tensor:

@@ -46,7 +46,7 @@ from torch.nn.utils import skip_init
 from torch.utils.checkpoint import checkpoint
 
 from imagefolder_tpu_torch.ops.cuda.attention import dot_product_attention
-from imagefolder_tpu_torch.ops.cuda.block import dense
+from imagefolder_tpu_torch.ops.cuda.block import dense, row_dense
 from imagefolder_tpu_torch.utils.init import linear, normal_, trunc_normal_
 
 __all__ = ["VARConfig", "VAR", "KVCache", "build_attn_bias"]
@@ -186,9 +186,7 @@ class VARSelfAttention(nn.Module):
         if cache is not None:
             k, v = cache.append(k, v)
         out = dot_product_attention(q, k, v, bias=attn_bias, scale=scale).view(b, l, -1)
-        if tp is None:
-            return dense(out, self.proj.weight, self.proj.bias)
-        return tp.leave(F.linear(out, self.proj.weight.to(dt))) + self.proj.bias.to(dt)
+        return row_dense(out, self.proj.weight, self.proj.bias, tp)
 
 
 class FFN(nn.Module):
@@ -210,9 +208,7 @@ class FFN(nn.Module):
             x = tp.enter(x)
         # reference GELU(approximate='tanh')
         h = F.gelu(dense(x, self.fc1.weight, self.fc1.bias), approximate="tanh")
-        if tp is None:
-            return dense(h, self.fc2.weight, self.fc2.bias)
-        return tp.leave(F.linear(h, self.fc2.weight.to(h.dtype))) + self.fc2.bias.to(h.dtype)
+        return row_dense(h, self.fc2.weight, self.fc2.bias, tp)
 
 
 class AdaLNSelfAttn(nn.Module):

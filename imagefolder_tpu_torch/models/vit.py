@@ -46,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from imagefolder_tpu_torch.ops import rope
 from imagefolder_tpu_torch.ops.activations import gelu_exact
 from imagefolder_tpu_torch.ops.cuda.attention import attention_qkv, dot_product_attention
-from imagefolder_tpu_torch.ops.cuda.block import attn_sublayer, dense, mlp_sublayer
+from imagefolder_tpu_torch.ops.cuda.block import attn_sublayer, dense, mlp_sublayer, row_dense
 from imagefolder_tpu_torch.ops.resize import resize
 from imagefolder_tpu_torch.utils.init import (lecun_normal_, linear, normal_, trunc_normal_,
                                               uniform_)
@@ -125,7 +125,13 @@ class LoRALinear(nn.Module):
 class Attention(nn.Module):
     """Parameters of the fused-qkv attention; the math is ``attn_sublayer``
     (or, with adapters or no LayerScale, ``Block._composed``). ``rank`` > 0 puts LoRA
-    adapters on qkv and proj (``lat_lora``)."""
+    adapters on qkv and proj (``lat_lora``).
+
+    ``tp``: under tensor parallelism (``parallel/mesh.py::tp_shard_params``)
+    this rank's share of the heads: ``qkv`` holds the q, k and v rows of its
+    heads (and their bias entries), ``proj`` the matching input columns."""
+
+    tp = None
 
     def __init__(self, dim: int, generator: Optional[torch.Generator] = None,
                  rank: int = 0, latent_tokens: int = 0):
@@ -146,7 +152,13 @@ class RoPEAttention(nn.Module):
     image tokens and a learnable 1D rotary (``freqs_1d``, (nl, hd/2, 2)) on
     the trailing ``num_latent_tokens`` latents, the one prefix token (cls)
     left as it is, then ``dot_product_attention`` (#3, or #4 past the
-    single-block budget) and proj."""
+    single-block budget) and proj.
+
+    ``tp``: under tensor parallelism this rank's share of the heads, as in
+    ``Attention``; it reads its heads' slice of ``freqs`` and the whole
+    ``freqs_1d`` through f, so that their gradients sum every rank's."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, num_latent_tokens: int,
                  num_image_tokens: int, generator: Optional[torch.Generator] = None):
@@ -166,16 +178,20 @@ class RoPEAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, n, c = x.shape
-        q, k, v = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads).unbind(2)
-        cis2d = rope.compute_mixed_cis(self.freqs, self.t_x, self.t_y)
+        tp, freqs, freqs_1d = self.tp, self.freqs, self.freqs_1d
+        if tp is not None:
+            x, freqs, freqs_1d = tp.enter(x), tp.heads(freqs, 1), tp.enter(freqs_1d)
+        heads = freqs.shape[1]
+        q, k, v = self.qkv(x).reshape(b, n, 3, heads, c // self.num_heads).unbind(2)
+        cis2d = rope.compute_mixed_cis(freqs, self.t_x, self.t_y)
         nl = self.num_latent_tokens
 
         def rot(t):
             return torch.cat([t[:, :1], rope.apply_rotary(t[:, 1:n - nl], cis2d),
-                              rope.apply_rotary(t[:, n - nl:], self.freqs_1d)], dim=1)
+                              rope.apply_rotary(t[:, n - nl:], freqs_1d)], dim=1)
 
         out = dot_product_attention(rot(q), rot(k), v, bias=mask)
-        return self.proj(out.reshape(b, n, c))
+        return row_dense(out.reshape(b, n, -1), self.proj.weight, self.proj.bias, tp)
 
 
 class Mlp(nn.Module):
@@ -239,16 +255,28 @@ class Block(nn.Module):
             self.ls1 = LayerScale(dim, init_values)
             self.ls2 = LayerScale(dim, init_values)
 
+    def _heads(self) -> int:
+        """The heads this rank computes: all of them, or under tensor
+        parallelism its share."""
+        tp = self.attn.tp
+        return self.num_heads if tp is None else self.num_heads // tp.size
+
     def _composed(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         """The JAX package's composed module path (``Attention``, ``Mlp`` of
         ``LoRADense``s): each sublayer's output, times its LayerScale when
         the block has one (fp32), added to the residual stream; under rope
-        the attention is ``RoPEAttention``."""
+        the attention is ``RoPEAttention``. Under tensor parallelism the
+        attention runs this rank's heads (``attn.tp``: f before qkv, g after
+        proj's partial products); the MLP, which the rule leaves whole, runs
+        whole."""
+        a, tp = self.attn, self.attn.tp
         if self.use_rope:
-            h = self.attn(self.norm1(x), mask)
+            h = a(self.norm1(x), mask)
+        elif tp is None:
+            h = a.proj(attention_qkv(a.qkv(self.norm1(x)), self.num_heads, bias=mask))
         else:
-            h = self.attn.proj(attention_qkv(self.attn.qkv(self.norm1(x)), self.num_heads,
-                                             bias=mask))
+            o = attention_qkv(a.qkv(tp.enter(self.norm1(x))), self._heads(), bias=mask)
+            h = row_dense(o, a.proj.weight, a.proj.bias, tp)
         x = x + (h if self.ls1 is None else h * self.ls1.gamma)
         h = self.mlp.fc2(gelu_exact(self.mlp.fc1(self.norm2(x))))
         return x + (h if self.ls2 is None else h * self.ls2.gamma)
@@ -260,7 +288,7 @@ class Block(nn.Module):
         a, m = self.attn, self.mlp
         x = attn_sublayer(self.norm1(x), x, a.qkv.weight, a.qkv.bias,
                           a.proj.weight, a.proj.bias, self.ls1.gamma,
-                          self.num_heads, mask=mask, fused=self.fuse_attn)
+                          self._heads(), mask=mask, fused=self.fuse_attn, tp=a.tp)
         return mlp_sublayer(self.norm2(x), x, m.fc1.weight, m.fc1.bias,
                             m.fc2.weight, m.fc2.bias, self.ls2.gamma, fused=self.fuse_mlp)
 
@@ -490,7 +518,15 @@ class ToPixel(nn.Module):
       ``view(B, C, S, S)`` of the output, not a patchwise one;
     - ``identity``: the tokens unchanged.
     ``last_layer`` is the weight that anchors the adaptive GAN weight
-    (reference ``get_last_layer``); ``identity`` has none."""
+    (reference ``get_last_layer``); ``identity`` has none.
+
+    ``tp``: under tensor parallelism (``parallel/mesh.py::tp_shard_params``)
+    the linear head's weight holds this rank's input columns (the JAX rule
+    splits ``proj`` as a row layer): the whole input enters through f and is
+    narrowed to them, and the partial products are summed over the model
+    group (g) before the bias."""
+
+    tp = None
 
     def __init__(self, embed_dim: int, img_size: int = 256, patch_size: int = 16,
                  channels: int = 3, mode: str = "linear", *,
@@ -540,7 +576,11 @@ class ToPixel(nn.Module):
             y = torch.sin(30.0 * F.linear(h, self.sine2.weight, self.sine2.bias))
             s = p * math.isqrt(l)
             return y.reshape(b, self.channels, s, s).permute(0, 2, 3, 1)
-        x = F.linear(x.float(), self.model.weight, self.model.bias)
+        tp = self.tp
+        if tp is None:
+            x = F.linear(x.float(), self.model.weight, self.model.bias)
+        else:
+            x = row_dense(tp.heads(x.float(), -1), self.model.weight, self.model.bias, tp)
         x = x.reshape(b, hw, hw, p, p, self.channels).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(b, hw * p, hw * p, self.channels)
 

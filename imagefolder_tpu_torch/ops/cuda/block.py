@@ -41,6 +41,7 @@ from imagefolder_tpu_torch.ops.cuda import attention as _attn
 from imagefolder_tpu_torch.ops.cuda.attention import attention_qkv, attention_qkv_reference
 
 __all__ = ["attn_sublayer", "attn_sublayer_fused", "attn_sublayer_fused_reference", "dense",
+           "row_dense",
            "fused_mlp", "fused_mlp_reference", "mlp_sublayer", "mlp_sublayer_fused",
            "mlp_sublayer_fused_reference", "SUBLAYER_ATTN_LAUNCHES", "SUBLAYER_MLP_LAUNCHES",
            "FUSED_MLP_LAUNCHES"]
@@ -57,6 +58,18 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """flax Dense(dtype=x.dtype) on fp32 params: x @ W and + b in x's dtype."""
     act = x.dtype
     return F.linear(x, w.to(act)) + b.to(act)
+
+
+def row_dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], tp=None):
+    """``dense`` of a row layer; under tensor parallelism (``tp``, a
+    ``parallel/mesh.py::ModelShard``) ``x`` and ``w`` hold this rank's input
+    columns, and the partial products are summed over the model group (g)
+    before the bias is added."""
+    if tp is None:
+        return dense(x, w, b)
+    act = x.dtype
+    y = tp.leave(F.linear(x, w.to(act)))
+    return y if b is None else y + b.to(act)
 
 
 # ------------------------------ plain versions ----------------------------- #
@@ -100,7 +113,7 @@ def _entry(symbol: str):
     fn = getattr(_build.load_library(), symbol)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = {
-        "attn_sublayer_fwd": [p] * 10 + [i] * 4 + [ctypes.c_float, i, i, p],
+        "attn_sublayer_fwd": [p] * 10 + [i] * 5 + [ctypes.c_float, i, i, p],
         "mlp_sublayer_fwd": [p] * 9 + [i] * 5 + [p],
         "fused_mlp_fwd": [p] * 7 + [i] * 4 + [p],
     }[symbol]
@@ -151,24 +164,25 @@ def _attn_sublayer_cuda(xn, res, wq, bq, wp, bp, ls, heads):
     if xn.dim() != 3:
         raise ValueError(f"{what}: xn must be (B, N, C); got {tuple(xn.shape)}")
     b, n, c = xn.shape
-    _check_operands(what, xn, {"res": (res, xn.shape), "wq": (wq, (3 * c, c)),
-                               "bq": (bq, (3 * c,)), "wp": (wp, (c, c)), "bp": (bp, (c,)),
+    ci = wq.shape[0] // 3  # the heads' width: C, or one rank's heads under TP
+    _check_operands(what, xn, {"res": (res, xn.shape), "wq": (wq, (3 * ci, c)),
+                               "bq": (bq, (3 * ci,)), "wp": (wp, (c, ci)), "bp": (bp, (c,)),
                                "ls": (ls, (c,))})
-    _check_widths(what, C=c)
-    if heads <= 0 or c % heads or c // heads != _attn._HEAD_DIM:
+    _check_widths(what, C=c, heads_width=ci)
+    if heads <= 0 or ci % heads or ci // heads != _attn._HEAD_DIM:
         raise NotImplementedError(f"{what} kernel is built for head dim {_attn._HEAD_DIM} "
-                                  f"(every ViT preset), got C={c} over {heads} heads")
+                                  f"(every ViT preset), got {ci} wide over {heads} heads")
     act = xn.dtype
     if 0 in (b, n):
         raise ValueError(f"{what} needs a non-empty input; got {tuple(xn.shape)}")
     ops = [_operand(xn, act), _operand(res, res.dtype)]
     ops += [_operand(t, act) for t in (wq, bq, wp, bp)] + [_operand(ls, torch.float32)]
-    qkv = torch.empty((b * n, 3 * c), dtype=act, device=xn.device)
-    o = torch.empty((b * n, c), dtype=act, device=xn.device)
+    qkv = torch.empty((b * n, 3 * ci), dtype=act, device=xn.device)
+    o = torch.empty((b * n, ci), dtype=act, device=xn.device)
     out = torch.empty((b, n, c), dtype=torch.float32, device=xn.device)
     _launch("attn_sublayer_fwd", what, xn.device, *(t.data_ptr() for t in ops),
-            qkv.data_ptr(), o.data_ptr(), out.data_ptr(), b, n, c, heads,
-            1.0 / math.sqrt(c // heads), int(act == torch.bfloat16),
+            qkv.data_ptr(), o.data_ptr(), out.data_ptr(), b, n, c, ci, heads,
+            1.0 / math.sqrt(_attn._HEAD_DIM), int(act == torch.bfloat16),
             int(res.dtype == torch.bfloat16))
     SUBLAYER_ATTN_LAUNCHES += 1
     return out
@@ -229,16 +243,18 @@ def _on(x: torch.Tensor, what: str) -> str:
 def _recompute_grads(ctx, composed, g):
     """Gradients of the saved inputs through ``composed`` (the composed
     path), under autograd; None where no gradient is needed."""
-    need = ctx.needs_input_grad[:len(ctx.saved_tensors)]
+    saved = ctx.saved_tensors  # once: under activation checkpointing a second read raises
+    need = ctx.needs_input_grad[:len(saved)]
     with torch.enable_grad():
-        args = [t.detach().requires_grad_(nd) for t, nd in zip(ctx.saved_tensors, need)]
+        args = [t.detach().requires_grad_(nd) for t, nd in zip(saved, need)]
         out = composed(*args)
         grads = iter(torch.autograd.grad(out, [a for a, nd in zip(args, need) if nd], g))
     return [next(grads) if nd else None for nd in need]
 
 
-def _attn_composed(xn, res, wq, bq, wp, bp, ls, heads, mask=None):
-    return res.float() + ls * dense(attention_qkv(dense(xn, wq, bq), heads, bias=mask), wp, bp)
+def _attn_composed(xn, res, wq, bq, wp, bp, ls, heads, mask=None, tp=None):
+    o = attention_qkv(dense(xn, wq, bq), heads, bias=mask)
+    return res.float() + ls * row_dense(o, wp, bp, tp)
 
 
 class _AttnSublayerFused(torch.autograd.Function):
@@ -309,16 +325,30 @@ def fused_mlp(x: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
 
 def attn_sublayer(xn: torch.Tensor, res: torch.Tensor, wq, bq, wp, bp, ls,
                   heads: int, mask: Optional[torch.Tensor] = None,
-                  fused: bool = False) -> torch.Tensor:
+                  fused: bool = False, tp=None) -> torch.Tensor:
     """res + ls * proj(attn(qkv(xn))). xn: LayerNorm output in the activation
     dtype; res: residual stream. Returns fp32. With ``fused``, no mask and
     N * N within ``_SINGLE_MAX_ELEMS``, kernel #7 (``attn_sublayer_fused``);
     otherwise the composed path, as the JAX router decides (so the 512 px
-    decoder, N = 2050, stays on the q-blocked attention)."""
+    decoder, N = 2050, stays on the q-blocked attention).
+
+    Under tensor parallelism (``tp``, a ``parallel/mesh.py::ModelShard``)
+    ``wq`` and ``bq`` hold the q, k and v rows of this rank's ``heads``
+    heads and ``wp`` their columns; xn enters through f, and the partial
+    products of proj are summed over the model group (g). The composed path
+    adds ``bp`` after the sum. #7 adds res + ls * (proj + bp) in its
+    epilogue, so there rank 0 alone passes res and bp (the others zeros,
+    ``ModelShard.first``) and ls enters through f: g then sums ls times every
+    rank's partial product, plus res and ls * bp once."""
     n = xn.shape[1]
+    if tp is not None:
+        xn = tp.enter(xn)
     if fused and mask is None and n * n <= _attn._SINGLE_MAX_ELEMS:
-        return attn_sublayer_fused(xn, res, wq, bq, wp, bp, ls, heads)
-    return _attn_composed(xn, res, wq, bq, wp, bp, ls, heads, mask)
+        if tp is None:
+            return attn_sublayer_fused(xn, res, wq, bq, wp, bp, ls, heads)
+        return tp.leave(attn_sublayer_fused(xn, tp.first(res), wq, bq, wp, tp.first(bp),
+                                            tp.enter(ls), heads))
+    return _attn_composed(xn, res, wq, bq, wp, bp, ls, heads, mask, tp)
 
 
 def mlp_sublayer(xn: torch.Tensor, res: torch.Tensor, w1, b1, w2, b2, ls,

@@ -18,10 +18,12 @@ explicit, so a sharded step is held to the unsharded one by construction:
   averaged by the optimizer). On a data x fsdp mesh the data axis is FSDP2's
   replicate dimension (HSDP). FSDP2 reduce-scatters and averages the
   gradients it manages over both axes.
-- ``tp_shard_params`` is Megatron's tensor parallelism on VAR, by the JAX
-  rule's layer names: ``mat_qkv`` and ``fc1`` split by output rows, ``proj``
-  and ``fc2`` by input columns. The split of ``mat_qkv`` is head-aligned
-  (each rank holds the q, k and v rows of its own heads), so its attention
+- ``tp_shard_params`` is Megatron's tensor parallelism by the JAX rule's
+  layer names, on every model the rule reaches (VAR, the tokenizer's ViTs
+  and linear ``ToPixel``, the RoPE decoder, RAR, MaskGIT): column layers
+  (``mat_qkv``, ``qkv``, ``fc1``) split by output rows, row layers
+  (``proj``, ``fc2``) by input columns. A packed qkv splits by heads (each
+  rank holds the q, k and v rows of its own heads), so its attention
   kernel runs over those heads alone; the f and g functions below carry the
   model group's all-reduces.
 
@@ -114,21 +116,36 @@ def replicate(tree, mesh: DeviceMesh):
     return _tree_map(lambda x: torch.as_tensor(x).to(mesh.device_type), tree)
 
 
-def _is_var(model: nn.Module) -> bool:
+def _flax_paths(model: nn.Module) -> Dict[str, str]:
+    """Each parameter's flax path, through the converter's key maps (VAR,
+    RAR, MaskGIT) or its path rules (``flax_path``; the tokenizer, its
+    decoders and the discriminators). A LoRA layer's base Dense sits under
+    ``base`` in flax: the rules put it there for the MLP's ``fc1`` and
+    ``fc2``, and here it is put there for ``qkv`` and ``proj`` with adapters
+    (``lat_lora``)."""
     # the models import parallel/dist.py (through this package): imported
     # when first needed, not with this module
+    from imagefolder_tpu_torch.models.maskgit import MaskGIT
+    from imagefolder_tpu_torch.models.rar import RAR
     from imagefolder_tpu_torch.models.var import VAR
+    from imagefolder_tpu_torch.models.vit import LoRALinear
+    from imagefolder_tpu_torch.utils.convert import (flax_path, maskgit_key_map, rar_key_map,
+                                                     var_key_map)
 
-    return isinstance(model, VAR)
-
-
-def _flax_paths(model: nn.Module) -> Dict[str, str]:
-    """Each parameter's flax path, through the converter's key map."""
-    from imagefolder_tpu_torch.utils.convert import flax_path, var_key_map
-
-    if _is_var(model):
-        return {name: path for name, (path, _) in var_key_map(model.config).items()}
-    return {name: flax_path(name) for name, _ in model.named_parameters()}
+    key_map = (var_key_map(model.config) if isinstance(model, VAR)
+               else rar_key_map(model.config.depth) if isinstance(model, RAR)
+               else maskgit_key_map(model.config) if isinstance(model, MaskGIT) else None)
+    if key_map is not None:
+        return {name: path for name, (path, _) in key_map.items()}
+    paths = {name: flax_path(name) for name, _ in model.named_parameters()}
+    for prefix, m in model.named_modules():
+        if isinstance(m, LoRALinear) and m.rank > 0:
+            for leaf in ("weight", "bias"):
+                name = f"{prefix}.{leaf}" if prefix else leaf
+                if "/base/" not in paths[name]:
+                    head, tail = paths[name].rsplit("/", 1)
+                    paths[name] = f"{head}/base/{tail}"
+    return paths
 
 
 def _flax_dims(path: str, ndim: int) -> tuple:
@@ -200,19 +217,16 @@ def fsdp_shard_params(model: nn.Module, mesh: DeviceMesh, axis: str = "fsdp",
     return placements
 
 
-def _tp_model(model: nn.Module) -> None:
-    if not _is_var(model):
-        raise NotImplementedError(f"tp_shard_params runs VAR only, not {type(model).__name__} "
-                                  "(the ViT and RAR layer names are not split yet)")
-
-
 def tp_placements(model: nn.Module, n: int) -> dict:
-    """The JAX rule (``tp_shard_params``) on a model axis of size ``n``, for
-    VAR: {parameter name: ``Shard(d)`` or ``Replicate()``}. The kernels of
-    column layers split by output (torch dim 0) and their biases with them,
-    those of row layers by input (torch dim 1); every other parameter is
-    replicated. Other models raise ``NotImplementedError``."""
-    _tp_model(model)
+    """The JAX rule (``tp_shard_params``) on a model axis of size ``n``, on
+    any model: {parameter name: ``Shard(d)`` or ``Replicate()``}. The 2-D
+    kernels of column layers (``mat_qkv``, ``qkv``, ``fc1``, ``q``, ``k``,
+    ``v``) split by output (torch dim 0) and their biases with them, those
+    of row layers (``proj``, ``fc2``, ``proj_out``) by input (torch dim 1),
+    each where ``n`` divides that dimension; every other parameter is
+    replicated. The names are the flax paths' (``_flax_paths``), so a LoRA
+    layer's base kernel (``.../fc1/base/kernel``) and a conv's 4-D kernel
+    never split, as in JAX."""
     paths = _flax_paths(model)
     out = {}
     for name, p in model.named_parameters():
@@ -262,12 +276,44 @@ class _SumOverModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherOverModel(torch.autograd.Function):
+    """A parameter's shards gathered whole over the model group forward
+    (every rank then computes the same thing with it), this rank's slice of
+    the whole gradient backward."""
+
+    @staticmethod
+    def forward(ctx, t, group, rank, dim):
+        ctx.rank, ctx.dim, ctx.size = rank, dim, tdist.get_world_size(group)
+        return _gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.size, ctx.dim)[ctx.rank].contiguous(), None, None, None
+
+
+class _OnFirstRank(torch.autograd.Function):
+    """The tensor on the model group's first rank and zeros on the others
+    forward, the gradient passed to every rank backward: a term that a row
+    layer's partial products carry into g once (``ModelShard.first``)."""
+
+    @staticmethod
+    def forward(ctx, x, rank):
+        return x.view_as(x) if rank == 0 else torch.zeros_like(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class ModelShard:
-    """This rank's share of a model axis (``VARSelfAttention.tp``,
-    ``FFN.tp``): ``enter`` and ``leave`` are f and g, ``heads`` this rank's
-    slice of a replicated per-head parameter (through f, so that its
-    gradient is the sum of every rank's slices). Shared, not copied, by a
-    deep copy of the model (an EMA copy keeps the group)."""
+    """This rank's share of a model axis (the ``tp`` of the split modules):
+    ``enter`` and ``leave`` are f and g, ``heads`` this rank's slice of a
+    whole tensor along ``dim`` (a replicated per-head parameter, a row
+    layer's input) through f, so that its gradient is the sum of every
+    rank's slices, ``first`` a term that rank 0 alone adds to
+    a partial product before g, ``whole`` a split parameter gathered for a
+    layer that computes it whole. Shared, not copied, by a deep copy of the
+    model (an EMA copy keeps the group)."""
 
     def __init__(self, group, rank: int, size: int):
         self.group, self.rank, self.size = group, rank, size
@@ -285,6 +331,12 @@ class ModelShard:
         k = t.shape[dim] // self.size
         return self.enter(t).narrow(dim, self.rank * k, k)
 
+    def first(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.size == 1 else _OnFirstRank.apply(t, self.rank)
+
+    def whole(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return t if self.size == 1 else _GatherOverModel.apply(t, self.group, self.rank, dim)
+
 
 def _keep(module: nn.Module, name: str, local: torch.Tensor, group, dim: int,
           chunks: int = 1) -> None:
@@ -292,41 +344,127 @@ def _keep(module: nn.Module, name: str, local: torch.Tensor, group, dim: int,
     the group it is split over (``ScheduledAdamW`` reads ``shard_group``),
     the dimension and the number of runs of it each rank holds
     (``full_tensor`` reads ``shard_dim`` and ``shard_chunks``: 3 for the q,
-    k and v rows of ``mat_qkv``)."""
+    k and v rows of a packed qkv)."""
     old = getattr(module, name)
     new = nn.Parameter(local.detach().clone(), requires_grad=old.requires_grad)
     new.shard_group, new.shard_dim, new.shard_chunks = group, dim, chunks
     setattr(module, name, new)
 
 
+class _Splitter:
+    """Splits the layers the rule names, module by module, over one model
+    group; ``split`` holds the parameters the rule splits."""
+
+    def __init__(self, model: nn.Module, placements: dict, shard: ModelShard):
+        self.shard, self.group = shard, shard.group
+        self.split = {id(p) for name, p in model.named_parameters() if placements[name].is_shard()}
+
+    def _cut(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        k = t.shape[dim] // self.shard.size
+        return t.narrow(dim, self.shard.rank * k, k)
+
+    def qkv(self, layer: nn.Module, heads: int) -> bool:
+        """A packed qkv split by heads: the q, k and v rows of this rank's
+        heads (and their bias entries). False where the rule leaves it."""
+        if id(layer.weight) not in self.split:
+            return False
+        n, r = self.shard.size, self.shard.rank
+        if heads % n:
+            raise ValueError(f"{heads} heads do not split over {n} model ranks")
+        h, hd = heads // n, layer.weight.shape[0] // (3 * heads)
+        w = layer.weight.view(3, heads, hd, -1)[:, r * h:(r + 1) * h]
+        _keep(layer, "weight", w.reshape(3 * h * hd, -1), self.group, 0, 3)
+        if getattr(layer, "bias", None) is not None:
+            b = layer.bias.view(3, heads, hd)[:, r * h:(r + 1) * h]
+            _keep(layer, "bias", b.reshape(-1), self.group, 0, 3)
+        return True
+
+    def column(self, layer: nn.Module) -> bool:
+        """A column layer: this rank's output rows and bias entries."""
+        if id(layer.weight) not in self.split:
+            return False
+        _keep(layer, "weight", self._cut(layer.weight, 0), self.group, 0)
+        if getattr(layer, "bias", None) is not None:
+            _keep(layer, "bias", self._cut(layer.bias, 0), self.group, 0)
+        return True
+
+    def row(self, layer: nn.Module) -> bool:
+        """A row layer: this rank's input columns; the bias stays whole."""
+        if id(layer.weight) not in self.split:
+            return False
+        _keep(layer, "weight", self._cut(layer.weight, 1), self.group, 1)
+        return True
+
+    def bias_only(self, layer: nn.Module) -> None:
+        """A layer whose kernel the rule leaves whole but whose bias it
+        splits (a conv named q, k or v: its kernel is 4-D): this rank keeps
+        its bias entries, and ``layer.tp`` gathers them for the whole
+        output."""
+        if id(layer.bias) in self.split and id(layer.weight) not in self.split:
+            _keep(layer, "bias", self._cut(layer.bias, 0), self.group, 0)
+            layer.tp = self.shard
+
+    def attention(self, attn: nn.Module, heads: int, qkv: str = "qkv") -> None:
+        """A head-split attention: its packed qkv and ``proj`` split
+        together, ``attn.tp`` set."""
+        split = self.qkv(getattr(attn, qkv), heads), self.row(attn.proj)
+        if split[0] != split[1]:
+            raise ValueError(f"the rule splits one of {qkv} and proj: {split}")
+        if split[0]:
+            attn.tp = self.shard
+
+    def mlp(self, mlp: nn.Module) -> None:
+        """An MLP split by hidden units (``fc1`` by rows, ``fc2`` by
+        columns), ``mlp.tp`` set."""
+        split = self.column(mlp.fc1), self.row(mlp.fc2)
+        if split[0] != split[1]:
+            raise ValueError(f"the rule splits one of fc1 and fc2: {split}")
+        if split[0]:
+            mlp.tp = self.shard
+
+
 def tp_shard_params(model: nn.Module, mesh: DeviceMesh, axis: str = "model") -> dict:
-    """Split VAR's column and row layers over ``axis`` (``tp_placements``):
-    each rank keeps the q, k and v rows of its H / n heads in ``mat_qkv``,
-    the matching input columns of ``proj``, its 4C / n rows of ``fc1`` (and
-    bias) and the columns of ``fc2``; every other parameter stays whole.
-    Returns the placement of each parameter, by name. Build the optimizer
-    after this: the split parameters are new."""
-    _tp_model(model)
+    """Split ``model``'s column and row layers over ``axis`` by the JAX rule
+    (``tp_placements``), on every model it reaches: VAR (``mat_qkv``,
+    ``proj``, ``fc1``, ``fc2``), the ViTs of the tokenizer and its teachers
+    (each block's ``qkv`` and ``proj``; the MLP's ``fc1`` and ``fc2`` are
+    LoRA base kernels the rule leaves whole, and under ``lat_lora`` so are
+    ``qkv`` and ``proj``), the RoPE decoder, ``ToPixel``'s linear ``proj``
+    (a row layer alone), RAR and MaskGIT (``qkv``, ``proj``, ``fc1``,
+    ``fc2``); the CNN tokenizer's q, k, v and proj_out kernels are 4-D and
+    never split, but the rule splits the biases of q, k and v, which each
+    rank keeps its share of and gathers whole in the forward
+    (``ModelShard.whole``). Each packed qkv keeps the q, k and v rows of
+    this rank's H / n heads, a column layer its rows and bias entries, a row
+    layer its input columns (its bias is added after the sum over the
+    group); every other parameter stays whole, and
+    the modules that read per-head ones take their heads' slices through
+    ``ModelShard.heads``. Raises ``ValueError`` where the heads do not
+    divide over the axis. Returns the placement of each parameter, by name.
+    Build the optimizer and any EMA copy after this: the split parameters
+    are new."""
+    from imagefolder_tpu_torch.models import cnn, maskgit, rar, var, vit
+
     group, rank, n = _axis(mesh, axis)
     placements = tp_placements(model, n)
-    cfg = model.config
-    hidden = model.blocks[0].ffn.fc1.weight.shape[0] if cfg.depth else 0
-    if cfg.num_heads % n or hidden % n:
-        raise ValueError(f"{cfg.num_heads} heads and {hidden} hidden units do not split over "
-                         f"{n} model ranks")
-    shard = ModelShard(group, rank, n)
-    for blk in model.blocks:
-        attn, ffn = blk.attn, blk.ffn
-        hd, h = attn.head_dim, cfg.num_heads // n
-        qkv = attn.mat_qkv.weight.view(3, cfg.num_heads, hd, -1)[:, rank * h:(rank + 1) * h]
-        _keep(attn.mat_qkv, "weight", qkv.reshape(3 * h * hd, -1), group, 0, 3)
-        _keep(attn.proj, "weight", attn.proj.weight[:, rank * h * hd:(rank + 1) * h * hd],
-              group, 1)
-        k = ffn.fc1.weight.shape[0] // n
-        _keep(ffn.fc1, "weight", ffn.fc1.weight[rank * k:(rank + 1) * k], group, 0)
-        _keep(ffn.fc1, "bias", ffn.fc1.bias[rank * k:(rank + 1) * k], group, 0)
-        _keep(ffn.fc2, "weight", ffn.fc2.weight[:, rank * k:(rank + 1) * k], group, 1)
-        attn.tp = ffn.tp = shard
+    cut = _Splitter(model, placements, ModelShard(group, rank, n))
+    for m in model.modules():
+        if isinstance(m, var.VARSelfAttention):
+            cut.attention(m, m.num_heads, "mat_qkv")
+        elif isinstance(m, (var.FFN, rar.RARMlp)):
+            cut.mlp(m)
+        elif isinstance(m, vit.Block):
+            cut.attention(m.attn, m.num_heads)
+        elif isinstance(m, vit.ToPixel) and m.mode == "linear":
+            if cut.row(m.model):
+                m.tp = cut.shard
+        elif isinstance(m, rar.RARAttention):
+            cut.attention(m, m.num_heads)
+        elif isinstance(m, maskgit.MaskGITBlock):
+            cut.attention(m.attn, m.num_heads)
+            cut.mlp(m.mlp)
+        elif isinstance(m, cnn.Conv):
+            cut.bias_only(m)
     split = {name for name, p in model.named_parameters() if hasattr(p, "shard_group")}
     if split != {name for name, pl in placements.items() if pl.is_shard()}:
         raise AssertionError(f"split {sorted(split)} is not the rule's {placements}")

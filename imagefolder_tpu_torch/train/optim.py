@@ -250,7 +250,13 @@ class ScheduledAdamW:
     come with gradients it has already reduced over the mesh and are not
     averaged again, a tensor-parallel shard's gradient is averaged over the
     data group like a whole tensor's, and the norm sums each split tensor's
-    shards over its groups (``_global_norm``); AdamW steps each shard.
+    shards over its groups (``_global_norm``); AdamW steps each shard. With
+    accumulation ``acc`` holds each gradient's local shard (an FSDP2
+    gradient's ``to_local()``): FSDP2 has reduced each micro-step's
+    gradient, so their running mean is the mean of the reduced ones and
+    becomes a DTensor gradient of the same placement at the update, not
+    averaged again; the micro-step's norm counts FSDP2's gradients
+    reduced and the others as this process has them.
 
     ``step()`` returns the global norm of this micro-step's gradients before
     the clip, a 0-d tensor on their device, and makes no host sync: the clip
@@ -287,8 +293,6 @@ class ScheduledAdamW:
                 groups.append({"params": part, "weight_decay": weight_decay * self.scales[label][1],
                                "lr": lr_schedule(0) * self.scales[label][0]})
         self.opt = torch.optim.AdamW(groups, lr=lr_schedule(0), betas=(b1, b2), eps=eps)
-        if accum_steps > 1 and any(isinstance(p, DTensor) for p in self.params):
-            raise NotImplementedError("gradient accumulation over FSDP2's parameters")
         self.accum_steps = accum_steps
         self.acc: Optional[List[torch.Tensor]] = None
         self.count = self.mini_step = 0
@@ -309,16 +313,18 @@ class ScheduledAdamW:
         if self.accum_steps > 1:
             # optax gives a parameter without a gradient a zero one
             grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+            local = [_local(g) for g in grads]  # an FSDP2 gradient's shard on this rank
             if self.acc is None:
-                self.acc = [torch.zeros_like(p) for p in self.params]
+                self.acc = [torch.zeros_like(g) for g in local]
             n = self.mini_step
             torch._foreach_add_(self.acc, torch._foreach_div(
-                torch._foreach_sub(grads, self.acc), float(n + 1)))
+                torch._foreach_sub(local, self.acc), float(n + 1)))
             self.mini_step = (n + 1) % self.accum_steps
             if self.mini_step:
                 return norm
-            for p, a in zip(self.params, self.acc):
-                p.grad = a.clone()
+            for p, g, a in zip(self.params, grads, self.acc):
+                p.grad = torch.empty_like(g)  # a DTensor like FSDP2's, or a whole tensor
+                _local(p.grad).copy_(a)
             torch._foreach_zero_(self.acc)
             grads = [p.grad for p in self.params]
             self._reduce(grads)

@@ -20,13 +20,15 @@ a test replays another trainer's draws, from the arguments that name it.
 In a multi-process run (``parallel/dist.py``) each draw is made for the
 global batch and sliced to this process's rows, the gradients are averaged
 over the processes before the clip, MaskGIT's loss weights are summed over
-the global batch, and the metrics are the global batch's.
+the global batch, and the metrics are the global batch's. Under a mesh
+(``parallel/mesh.py``) both trainers take ``shard=``, which splits the model
+(FSDP2 or tensor parallelism) before the optimizer and RAR's EMA are made.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -79,10 +81,17 @@ class RARTrainConfig:
 class RARTrainer:
     """Trains ``rar`` in place: its parameters, the optimizer (``opt``), the
     EMA copies (``ema``, one per parameter, on its device) and ``step``, the
-    number of updates done."""
+    number of updates done.
 
-    def __init__(self, rar: RAR, tcfg: RARTrainConfig):
+    ``shard`` (``parallel/mesh.py``: e.g. ``lambda m: fsdp_shard_params(m,
+    mesh)`` or ``tp_shard_params``) splits ``rar``'s parameters before the
+    optimizer and the EMA copies are made, so that each copy is split like
+    its parameter; ``placements`` is what it returns."""
+
+    def __init__(self, rar: RAR, tcfg: RARTrainConfig, *,
+                 shard: Optional[Callable[[RAR], dict]] = None):
         self.rar, self.tcfg = rar, tcfg
+        self.placements = None if shard is None else shard(rar)
         sched = warmup_cosine_decay_schedule(0.0, tcfg.lr, tcfg.warmup_steps,
                                              tcfg.total_steps, end_value=tcfg.end_lr)
         paths = {name: path for name, (path, _) in rar_key_map(rar.config.depth).items()}
@@ -165,10 +174,13 @@ class MaskGITTrainer:
     holds the optimizer and its step count: ``optax.adamw`` (b1 0.9, b2
     0.999, eps 1e-8) with weight decay on every parameter, lr
     ``warmup_cosine_decay_schedule(0, MASKGIT_LR, total_steps // 20,
-    total_steps)``."""
+    total_steps)``. ``shard`` splits the model's parameters before the
+    optimizer is made, as in ``RARTrainer``."""
 
-    def __init__(self, model: MaskGIT, total_steps: int):
+    def __init__(self, model: MaskGIT, total_steps: int, *,
+                 shard: Optional[Callable[[MaskGIT], dict]] = None):
         self.model = model
+        self.placements = None if shard is None else shard(model)
         sched = warmup_cosine_decay_schedule(0.0, MASKGIT_LR, total_steps // 20, total_steps)
         self.opt = ScheduledAdamW(model.named_parameters(), sched, no_decay=lambda _: False,
                                   weight_decay=MASKGIT_WEIGHT_DECAY)

@@ -190,9 +190,9 @@ class TokenizerTrainer:
     ``requires_grad`` False and stay out of the optimizers.
 
     ``shard`` (``parallel/mesh.py``: e.g. ``lambda m: fsdp_shard_params(m,
-    mesh)``) splits the tokenizer's parameters before its optimizer and EMA
-    copy are made (the EMA takes the same placement); ``placements`` is what
-    it returns. The LPIPS net, the discriminator, their optimizer, the LeCam
+    mesh)`` or ``tp_shard_params``) splits the tokenizer's parameters before
+    its optimizer and EMA copy are made (the EMA takes the same placement);
+    ``placements`` is what it returns. The LPIPS net, the discriminator, their optimizer, the LeCam
     and usage EMAs and ``record_hit`` stay whole on every process."""
 
     def __init__(self, model_cfg: ModelArgs, tcfg: TokenizerTrainConfig, *,
@@ -424,7 +424,10 @@ class TokenizerTrainer:
                 g_nll, = torch.autograd.grad(nll, w_last, retain_graph=True)
                 g_g, = torch.autograd.grad(g_adv, w_last, retain_graph=True)
                 all_reduce_mean_([g_nll, g_g])  # the global batch's gradients
-                d_weight = adaptive_disc_weight(g_nll, g_g)
+                # under tensor parallelism the linear head's weight is split
+                # by columns: the norms sum its shards over the model group
+                d_weight = adaptive_disc_weight(g_nll, g_g,
+                                                group=getattr(w_last, "shard_group", None))
             loss = (nll + d_weight * disc_w * g_adv
                     + tcfg.codebook_weight * (out.vq_loss + out.commit_loss + out.entropy_loss)
                     + out.sem_loss + out.detail_loss + out.dependency_loss)

@@ -226,6 +226,28 @@ def test_block_fused_equals_composed(fuse):
         assert torch.equal(a, b)
 
 
+def test_fused_sublayers_backward_under_activation_checkpointing():
+    """A ViT with ``remat`` (each block recomputed in the backward, as the
+    flagship GAN recipe trains) and both fused sublayers on: the backward
+    reads each fused sublayer's saved inputs once (activation checkpointing
+    refuses a second read), and forward and gradients equal the composed
+    path's without remat, bit for bit."""
+    img = torch.rand(B, 32, 32, 3, generator=torch.Generator().manual_seed(9)) * 2 - 1
+    results = []
+    for remat, fused in ((False, False), (True, True)):
+        vit = pt_vit.ViTBackbone(img_size=32, patch_size=8, embed_dim=C, depth=2,
+                                 num_heads=HEADS, remat=remat,
+                                 generator=torch.Generator().manual_seed(10))
+        assert pt_vit.set_fused_sublayers(vit, fused, fused) == 2
+        out = vit(img)
+        out.square().sum().backward()
+        results.append((out.detach(), [p.grad for p in vit.parameters()]))
+    (o0, g0), (o1, g1) = results
+    assert torch.equal(o0, o1)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+
+
 def test_router_keeps_masked_and_long_attention_composed(monkeypatch):
     """The fused attention is taken only with no mask and N * N within
     ``_SINGLE_MAX_ELEMS`` (the JAX router's contract); the fused MLP at any N."""
