@@ -38,14 +38,14 @@
 //     two kernels read no bias (most of VAR's allowed tiles: a block-causal
 //     mask is 0 or -inf).
 //   main, one warpgroup (128 threads) per (b, h, 64 keys): k and v are
-//     loaded once and held as register A operands; the q tiles that the map
-//     leaves, with their g, lse and delta, stream through a two-stage
+//     loaded once and held as register A operands (kD <= 64); the q tiles
+//     that the map leaves, with their g, lse and delta, stream through a two-stage
 //     cp.async ring. Four wgmma products (m64n64k16) per tile: S^T = K Q^T
 //     and dP^T = V G^T (Q and G read K-major), dV += bf16(P^T) G and dK +=
 //     bf16(dS^T) Q (P^T and dS^T as register A operands, G and Q read
 //     MN-major). dk and dv are written once, at the end.
 //   dq, one warpgroup per (b, h, 64 q rows): the mirror image, q and g held
-//     as A operands and the key tiles that the map leaves streaming past:
+//     as A operands (kD <= 64) and the key tiles that the map leaves streaming past:
 //     S = Q K^T, dP = G V^T, P and dS as in main, dQ += bf16(dS) K (three
 //     products, K read MN-major); dq is written once, into dq's layout (the
 //     q columns of the packed dqkv for #2).
@@ -71,12 +71,27 @@
 // dv, bf16(ds) for dq and dk, fp32 sums, one cast of each output). p comes
 // from lse, not from exp(s - max) / sum (fp32 rounding), and delta from the
 // bf16 o, not from rowsum(p dp).
-// Head dim kD: 64, or 48 for #5 and #6 (RAR-B's training backward), and at
-// run time st.hd, any multiple of 8 up to kD (#5 and #6 run hd <= 48 under
-// kD = 48 and 56 under 64). A narrower head keeps the 64-wide tiles with
-// zero columns past hd (wgmma_tile.cuh): S^T, dP^T, S and dP run kD / 16
+// Head dim kD: 64, or 48 and 128 for #5 and #6 (RAR-B's training backward
+// at 48, RAR-XL's 80 and RAR-XXL's 88 at 128), and at run time st.hd, any
+// multiple of 8 up to kD (#5 and #6 run hd <= 48 under kD = 48, 56 under 64
+// and 72-128 under 128). A narrower head keeps the 64-wide tiles with zero
+// columns past hd (wgmma_tile.cuh): S^T, dP^T, S and dP run kD / 16
 // K-steps, dV, dK and dQ compute zero columns past hd, which are never
-// stored, and the prep pass reads hd / 8 of a row's 8 chunks.
+// stored, and the prep pass reads hd / 8 of a row's chunks.
+// kD = 128 (attn_bwd_wide_kernel, attn_bwd_dq_wide_kernel): each q, k, v
+// and g row block is two 64-wide tiles side by side, as in the forward.
+// Held as register A operands beside the dK and dV accumulators and S^T
+// and dP^T, k and v would take about 256 registers a thread, past the 255
+// a thread may have; so both operands of the score products are read from
+// shared memory (wgmma with two descriptors), which leaves the
+// accumulators and the P^T and dS^T fragments in registers. The score
+// products run ceil(hd / 16) K-steps; the gradient products run n64 over
+// the first half and n(hd - 64) over the second (one instantiation for
+// each second-half width, 8 to 64), so 80 pays for 80 columns, not 128.
+// Per tile both score products are waited for, then P^T and dS^T come
+// (the bias read there, while no wgmma owns a register) and both gradient
+// products are issued together; two blocks of 98 KB share an SM, so one
+// block's exponentials overlap the other's products.
 
 #pragma once
 
@@ -119,22 +134,24 @@ __global__ void __launch_bounds__(256)
   if (static_cast<int>(blockIdx.x) < row_blocks) {
     const int64_t idx = static_cast<int64_t>(blockIdx.x) * 32 + (threadIdx.x >> 3);
     const bool valid = idx < static_cast<int64_t>(batch) * heads * lpad;
-    const int part = threadIdx.x & 7;  // this thread's 8 of the row's kD values, if any
+    const int part = threadIdx.x & 7;  // this thread's chunks of 8 values: part, part + 8
     const int r = static_cast<int>(idx % lpad);
     const int64_t bh = idx / lpad;
     const int h = static_cast<int>(bh % heads), b = static_cast<int>(bh / heads);
     float d = 0.f;
-    if (valid && r < n && part < st.hd / 8) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(
-          o + b * os.b + static_cast<int64_t>(r) * os.l + h * os.h + part * 8);
-      const uint4 gv = *reinterpret_cast<const uint4*>(
-          g + b * st.gb + static_cast<int64_t>(r) * st.gl + h * st.gh + part * 8);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+    if (valid && r < n) {
+      for (int c = part; c < st.hd / 8; c += 8) {  // past 64, two chunks a thread
+        const uint4 ov = *reinterpret_cast<const uint4*>(
+            o + b * os.b + static_cast<int64_t>(r) * os.l + h * os.h + c * 8);
+        const uint4 gv = *reinterpret_cast<const uint4*>(
+            g + b * st.gb + static_cast<int64_t>(r) * st.gl + h * st.gh + c * 8);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 of = __bfloat1622float2(o2[j]), gf = __bfloat1622float2(g2[j]);
-        d = fmaf(of.x, gf.x, fmaf(of.y, gf.y, d));
+        for (int j = 0; j < 4; ++j) {
+          const float2 of = __bfloat1622float2(o2[j]), gf = __bfloat1622float2(g2[j]);
+          d = fmaf(of.x, gf.x, fmaf(of.y, gf.y, d));
+        }
       }
     }
 #pragma unroll
@@ -168,6 +185,21 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// The tiles that the blank-tile map leaves to one block, in order, into
+// `list`: with over_q, the q tiles of key tile `fixed` (the main kernels),
+// else the key tiles of q tile `fixed` (the dq kernels); each + kZeroTile
+// where its bias is all 0. Returns their count. (map[q tile * nt + key tile])
+template <bool kBias>
+__device__ __forceinline__ int tile_list(int* list, const uint8_t* blank, int nt, int fixed,
+                                         bool over_q) {
+  int c = 0;
+  for (int t = 0; t < nt; ++t) {
+    const int i = over_q ? t * nt + fixed : fixed * nt + t;
+    if (!kBias || !blank[i]) list[c++] = t | (kBias && blank[nt * nt + i] ? kZeroTile : 0);
+  }
+  return c;
+}
+
 // main: one warpgroup per (b, h, 64 keys), dk and dv; see the header comment.
 template <int kId, int kD, bool kBias>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -195,13 +227,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int gr = lane >> 2, t4 = lane & 3;
   const int64_t bh = static_cast<int64_t>(b) * heads + h;
 
-  if (threadIdx.x == 0) {  // the q tiles that the map leaves, in order; + kZeroTile
-    int c = 0;  // where the tile's bias is all 0
-    for (int qt = 0; qt < ntq; ++qt)
-      if (!kBias || !blank[qt * ntq + kt])
-        qlist[c++] = qt | (kBias && blank[(ntq + qt) * ntq + kt] ? kZeroTile : 0);
-    qcount = c;
-  }
+  if (threadIdx.x == 0) qcount = tile_list<kBias>(qlist, blank, ntq, kt, true);
   __syncthreads();
   const int cnt = qcount;
 
@@ -376,13 +402,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int gr = lane >> 2, t4 = lane & 3;
   const int64_t bh = static_cast<int64_t>(b) * heads + h;
 
-  if (threadIdx.x == 0) {  // the key tiles that the map leaves, in order; + kZeroTile
-    int c = 0;  // where the tile's bias is all 0
-    for (int kt = 0; kt < ntk; ++kt)
-      if (!kBias || !blank[qt * ntk + kt])
-        klist[c++] = kt | (kBias && blank[(ntk + qt) * ntk + kt] ? kZeroTile : 0);
-    kcount = c;
-  }
+  if (threadIdx.x == 0) kcount = tile_list<kBias>(klist, blank, ntk, qt, false);
   __syncthreads();
   const int cnt = kcount;
 
@@ -497,24 +517,368 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// the main kernel, then the dq kernel, with the dynamic shared memory they take
-template <int kId, int kD, bool kBias>
-void launch_main_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* g,
-                    const float* bias, const uint8_t* blank, const float* lse2,
-                    const float* delta, bf16* dq, bf16* dk, bf16* dv, int n, int lpad,
-                    int batch, int heads, float scale, const BwdStrides& st, cudaStream_t stm) {
-  const int nt = lpad / kTile;
-  const int smem = kSmemFixed + nt * static_cast<int>(sizeof(int));
-  const dim3 grid(nt, heads, batch);
-  cudaFuncSetAttribute(attn_bwd_sm90_kernel<kId, kD, kBias>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  attn_bwd_sm90_kernel<kId, kD, kBias><<<grid, kThreads, smem, stm>>>(
-      q, k, v, g, bias, blank, lse2, delta, dk, dv, n, lpad, heads, scale, st);
+// ----------------------- head dims 72-128 (kD = 128) ----------------------- //
+
+// Each q, k, v and g row block is two 64-wide tiles side by side (the
+// forward's layout, load_head_async): columns 0-63, then 64 to hd. The
+// main kernel's dynamic shared memory holds k, v and the ring's q and g
+// tiles, its lse and delta rows and the list of q tiles; the dq kernel's
+// q, g, the ring's k and v and its list, in less. +1024 to align.
+constexpr int kWideBytes = 2 * kTileBytes;
+constexpr int kSmemWide = (2 + 2 * kStages) * kWideBytes + kStages * 2 * kTile * 4 + 1024;
+
+// K-steps of a product over a head of 64 + kN2 columns: ceil(hd / 16)
+__host__ __device__ constexpr int wide_ksteps(int kN2) { return (kHd + kN2 + 15) / 16; }
+
+// d = X Y^T over the head dim, X and Y 64-row blocks at sx and sy, both read
+// from shared memory K-major (issued, not committed)
+template <int kN2>
+__device__ __forceinline__ void wide_scores(float (&d)[32], uint32_t sx, uint32_t sy) {
+#pragma unroll
+  for (int kk = 0; kk < wide_ksteps(kN2); ++kk) {
+    const uint32_t off = (kk >> 2) * kTileBytes + (kk & 3) * 32;
+    wgmma_ss(d, tile_desc(sx + off), tile_desc(sy + off), kk);
+  }
+}
+
+// (d0 | d1) += A B, A the bf16 fragments of a 64 x 64 accumulator, B the 64
+// rows at sb read MN-major: its first half's 64 columns into d0, the
+// second half's kN2 into d1 (issued, not committed)
+template <int kN2>
+__device__ __forceinline__ void wide_grad(float (&d0)[32], float (&d1)[kN2 / 2],
+                                          const uint32_t (&a)[4][4], uint32_t sb) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs<1>(d0, a[kk], tile_desc(sb + kk * 2048), 1);
+    wgmma_rs_mn<kN2>(d1, a[kk], tile_desc(sb + kTileBytes + kk * 2048));
+  }
+}
+
+// this thread's rows row0 (+ 8) of (d0 | d1) times mul, cast once into dst
+// (row stride ld; 2 t4 already added), rows < n and columns < hd only
+template <int kN2>
+__device__ __forceinline__ void wide_store(bf16* dst, int64_t ld, const float (&d0)[32],
+                                           const float (&d1)[kN2 / 2], float mul, int row0,
+                                           int n, int hd, int t4) {
+  // element j of (d0 | d1): row row0 + 8 ((j >> 1) & 1), column 8 (j >> 2) + 2 t4 (+ 1)
+  auto put = [&](int j, float x, float y) {
+    const int r = row0 + 8 * ((j >> 1) & 1);
+    if (r < n && 8 * (j >> 2) + 2 * t4 < hd)
+      *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<int64_t>(r) * ld + 8 * (j >> 2)) =
+          __floats2bfloat162_rn(x * mul, y * mul);
+  };
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) put(i, d0[i], d0[i + 1]);
+#pragma unroll
+  for (int i = 0; i < kN2 / 2; i += 2) put(32 + i, d1[i], d1[i + 1]);
+}
+
+// main at head dims 72-128: one warpgroup per (b, h, 64 keys), dk and dv
+// over 64 + kN2 columns. K and V stay in shared memory and are read there
+// by wgmma, as are the ring's Q and G: S^T = K Q^T and dP^T = V G^T run
+// wide_ksteps(kN2) K-steps, both waited for; then P^T, dS^T and their bf16
+// fragments, and dV += bf16(P^T) G, dK += bf16(dS^T) Q over 64 + kN2
+// columns. See the header comment.
+template <int kId, int kN2, bool kBias>
+__global__ void __launch_bounds__(kThreads, 2)
+    attn_bwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ g,
+                         const float* __restrict__ bias, const uint8_t* __restrict__ blank,
+                         const float* __restrict__ lse2, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int n, int lpad,
+                         int heads, float scale, BwdStrides st) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  uint8_t* base = smem_raw + pad;
+  const uint32_t sk = raw + pad, sv = sk + kWideBytes;
+  const uint32_t sq0 = sv + kWideBytes, sg0 = sq0 + kStages * kWideBytes;
+  // [stage][lse2, delta][64]
+  float* sstat = reinterpret_cast<float*>(base + (2 + 2 * kStages) * kWideBytes);
+  int* qlist = reinterpret_cast<int*>(sstat + kStages * 2 * kTile);
+  __shared__ int qcount;
+
+  const int ntq = lpad / kTile;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t4 = lane & 3;
+  const int64_t bh = static_cast<int64_t>(b) * heads + h;
+
+  if (threadIdx.x == 0) qcount = tile_list<kBias>(qlist, blank, ntq, kt, true);
+  __syncthreads();
+  const int cnt = qcount;
+
+  const bf16* qp = q + b * st.qb + h * st.qh;
+  const bf16* gp = g + b * st.gb + h * st.gh;
+  auto load_stage = [&](int s, int qt) {
+    load_head_async<kThreads, 2 * kHd>(sq0 + s * kWideBytes, qp, qt * kTile, n, st.ql,
+                                       threadIdx.x, st.hd);
+    load_head_async<kThreads, 2 * kHd>(sg0 + s * kWideBytes, gp, qt * kTile, n, st.gl,
+                                       threadIdx.x, st.hd);
+    if (threadIdx.x < 32) {  // lse2 and delta: 16 chunks each, padded rows
+      const float* src = (threadIdx.x < 16 ? lse2 : delta) + bh * lpad + qt * kTile +
+                         (threadIdx.x & 15) * 4;
+      cp_async16(smem_addr(sstat + s * 2 * kTile) + threadIdx.x * 16, src, true);
+    }
+  };
+  load_head_async<kThreads, 2 * kHd>(sk, k + b * st.kb + h * st.kh, k0, n, st.kl, threadIdx.x,
+                                     st.hd);
+  load_head_async<kThreads, 2 * kHd>(sv, v + b * st.vb + h * st.vh, k0, n, st.vl, threadIdx.x,
+                                     st.hd);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < cnt) load_stage(s, qlist[s] & (kZeroTile - 1));
+    cp_async_commit();
+  }
+
+  float dk0[32], dk1[kN2 / 2], dv0[32], dv1[kN2 / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk0[i] = dv0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kN2 / 2; ++i) dk1[i] = dv1[i] = 0.f;
+  const int row_lo = warp * 16 + gr;  // this thread's accumulator rows: keys k0 + row_lo (+ 8)
+  const float scale2 = scale * kLog2e;
+
+  for (int it = 0; it < cnt; ++it) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();  // stage `it` has landed; every thread is done with stage it - 1
+    {
+      const int nx = it + kStages - 1;
+      if (nx < cnt) load_stage(nx % kStages, qlist[nx] & (kZeroTile - 1));
+      cp_async_commit();
+    }
+    const int s = it % kStages;
+    const int q0 = (qlist[it] & (kZeroTile - 1)) * kTile;
+    const bool tile_bias = kBias && !(qlist[it] & kZeroTile);
+    const uint32_t sq = sq0 + s * kWideBytes, sg = sg0 + s * kWideBytes;
+    const float* slse = sstat + s * 2 * kTile;
+    const float* sdel = slse + kTile;
+
+    float sacc[32], dpacc[32];
+    fence_acc(sacc);
+    fence_acc(dpacc);
+    wgmma_fence();
+    wide_scores<kN2>(sacc, sk, sq);   // S^T = K Q^T
+    wide_scores<kN2>(dpacc, sv, sg);  // dP^T = V G^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sacc);
+    fence_acc(dpacc);
+    // P^T = exp(S^T * scale + bias^T - lse) in base 2, and dS^T = P^T (dP^T -
+    // delta) in dpacc. No wgmma owns a register here, so the bias is read
+    // under a branch, only on the tiles whose bias is not all 0.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      float x = fmaf(sacc[i], scale2, -slse[c]);
+      if (tile_bias) {
+        const int kr = k0 + row_lo + 8 * ((i >> 1) & 1), qc = q0 + c;
+        if (kr < n && qc < n) x += bias[static_cast<int64_t>(qc) * st.bq + kr] * kLog2e;
+      }
+      sacc[i] = fast_exp2(x);
+      dpacc[i] = sacc[i] * (dpacc[i] - sdel[c]);
+    }
+    uint32_t pf[4][4], dsf[4][4];
+    acc_to_a(pf, sacc);
+    acc_to_a(dsf, dpacc);
+    fence_frag(pf);
+    fence_frag(dsf);
+    fence_acc(dv0);
+    fence_acc(dv1);
+    fence_acc(dk0);
+    fence_acc(dk1);
+    wgmma_fence();
+    wide_grad<kN2>(dv0, dv1, pf, sg);   // dV += bf16(P^T) G over the q rows
+    wide_grad<kN2>(dk0, dk1, dsf, sq);  // dK += bf16(dS^T) Q
+    wgmma_commit();
+    fence_frag(pf);
+    fence_frag(dsf);
+    wgmma_wait<0>();
+    fence_acc(dv0);
+    fence_acc(dv1);
+    fence_acc(dk0);
+    fence_acc(dk1);
+    fence_frag(pf);
+    fence_frag(dsf);
+  }
+  cp_async_wait<0>();
+
+  // dk and dv rows of this block, cast once
+  const int64_t out = b * st.ob + h * st.oh + 2 * t4;
+  wide_store<kN2>(dk + out, st.ol, dk0, dk1, scale, k0 + row_lo, n, st.hd, t4);
+  wide_store<kN2>(dv + out, st.ol, dv0, dv1, 1.f, k0 + row_lo, n, st.hd, t4);
+}
+
+// dq at head dims 72-128: one warpgroup per (b, h, 64 q rows); q and g stay
+// in shared memory, the key tiles that the map leaves stream through the
+// ring with their k and v. Per tile: S = Q K^T and dP = G V^T (shared
+// memory, K-major), P and dS as in the main kernel, dQ += bf16(dS) K over
+// 64 + kN2 columns (K read MN-major).
+template <int kId, int kN2, bool kBias>
+__global__ void __launch_bounds__(kThreads, 2)
+    attn_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const bf16* __restrict__ g,
+                            const float* __restrict__ bias, const uint8_t* __restrict__ blank,
+                            const float* __restrict__ lse2, const float* __restrict__ delta,
+                            bf16* __restrict__ dq, int n, int lpad, int heads, float scale,
+                            BwdStrides st) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  const uint32_t sq = raw + pad, sg = sq + kWideBytes;
+  const uint32_t sk0 = sg + kWideBytes, sv0 = sk0 + kStages * kWideBytes;
+  int* klist = reinterpret_cast<int*>(smem_raw + pad + (2 + 2 * kStages) * kWideBytes);
+  __shared__ int kcount;
+
+  const int ntk = lpad / kTile;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t4 = lane & 3;
+  const int64_t bh = static_cast<int64_t>(b) * heads + h;
+
+  if (threadIdx.x == 0) kcount = tile_list<kBias>(klist, blank, ntk, qt, false);
+  __syncthreads();
+  const int cnt = kcount;
+
+  const bf16* kp = k + b * st.kb + h * st.kh;
+  const bf16* vp = v + b * st.vb + h * st.vh;
+  auto load_stage = [&](int s, int kt) {
+    load_head_async<kThreads, 2 * kHd>(sk0 + s * kWideBytes, kp, kt * kTile, n, st.kl,
+                                       threadIdx.x, st.hd);
+    load_head_async<kThreads, 2 * kHd>(sv0 + s * kWideBytes, vp, kt * kTile, n, st.vl,
+                                       threadIdx.x, st.hd);
+  };
+  load_head_async<kThreads, 2 * kHd>(sq, q + b * st.qb + h * st.qh, q0, n, st.ql, threadIdx.x,
+                                     st.hd);
+  load_head_async<kThreads, 2 * kHd>(sg, g + b * st.gb + h * st.gh, q0, n, st.gl, threadIdx.x,
+                                     st.hd);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < cnt) load_stage(s, klist[s] & (kZeroTile - 1));
+    cp_async_commit();
+  }
+
+  const int row_lo = warp * 16 + gr;  // this thread's accumulator rows: q0 + row_lo (+ 8)
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse_r[r] = lse2[bh * lpad + q0 + row_lo + 8 * r];
+    del_r[r] = delta[bh * lpad + q0 + row_lo + 8 * r];
+  }
+  float dq0[32], dq1[kN2 / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq0[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kN2 / 2; ++i) dq1[i] = 0.f;
+  const float scale2 = scale * kLog2e;
+
+  for (int it = 0; it < cnt; ++it) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();  // stage `it` (and q, g) landed; every thread is done with stage it - 1
+    {
+      const int nx = it + kStages - 1;
+      if (nx < cnt) load_stage(nx % kStages, klist[nx] & (kZeroTile - 1));
+      cp_async_commit();
+    }
+    const int s = it % kStages;
+    const int k0 = (klist[it] & (kZeroTile - 1)) * kTile;
+    const bool tile_bias = kBias && !(klist[it] & kZeroTile);
+    const uint32_t sk = sk0 + s * kWideBytes, sv = sv0 + s * kWideBytes;
+
+    float sacc[32], dpacc[32];
+    fence_acc(sacc);
+    fence_acc(dpacc);
+    wgmma_fence();
+    wide_scores<kN2>(sacc, sq, sk);   // S = Q K^T
+    wide_scores<kN2>(dpacc, sg, sv);  // dP = G V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(sacc);
+    fence_acc(dpacc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {  // P in base 2, then dS = P (dP - delta) in dpacc
+      float x = fmaf(sacc[i], scale2, -lse_r[(i >> 1) & 1]);
+      if (tile_bias) {
+        const int qr = q0 + row_lo + 8 * ((i >> 1) & 1);
+        const int kc = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        if (qr < n && kc < n) x += bias[static_cast<int64_t>(qr) * st.bq + kc] * kLog2e;
+      }
+      dpacc[i] = fast_exp2(x) * (dpacc[i] - del_r[(i >> 1) & 1]);
+    }
+    uint32_t dsf[4][4];
+    acc_to_a(dsf, dpacc);
+    fence_frag(dsf);
+    fence_acc(dq0);
+    fence_acc(dq1);
+    wgmma_fence();
+    wide_grad<kN2>(dq0, dq1, dsf, sk);  // dQ += bf16(dS) K over the keys
+    wgmma_commit();
+    fence_frag(dsf);
+    wgmma_wait<0>();
+    fence_acc(dq0);
+    fence_acc(dq1);
+    fence_frag(dsf);
+  }
+  cp_async_wait<0>();
+
+  wide_store<kN2>(dq + b * st.ob + h * st.oh + 2 * t4, st.ol, dq0, dq1, scale, q0 + row_lo, n,
+                  st.hd, t4);
+}
+
+// ------------------------------- launches ------------------------------- //
+
+// What the main and dq kernels read and write, for their launches.
+struct PairArgs {
+  const bf16 *q, *k, *v, *g;
+  const float* bias;
+  const uint8_t* blank;
+  const float *lse2, *delta;
+  bf16 *dq, *dk, *dv;
+  int n, lpad, batch, heads;
+  float scale;
+  BwdStrides st;
+};
+using MainKernel = void (*)(const bf16*, const bf16*, const bf16*, const bf16*, const float*,
+                            const uint8_t*, const float*, const float*, bf16*, bf16*, int, int,
+                            int, float, BwdStrides);
+using DqKernel = void (*)(const bf16*, const bf16*, const bf16*, const bf16*, const float*,
+                          const uint8_t*, const float*, const float*, bf16*, int, int, int,
+                          float, BwdStrides);
+
+// a main kernel, then its dq kernel, with smem_fixed bytes of dynamic shared
+// memory and one int per tile for the list
+inline void launch_main_dq(MainKernel mk, DqKernel dqk, int smem_fixed, const PairArgs& a,
+                           cudaStream_t stm) {
+  const int nt = a.lpad / kTile;
+  const int smem = smem_fixed + nt * static_cast<int>(sizeof(int));
+  const dim3 grid(nt, a.heads, a.batch);
+  cudaFuncSetAttribute(mk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  mk<<<grid, kThreads, smem, stm>>>(a.q, a.k, a.v, a.g, a.bias, a.blank, a.lse2, a.delta,
+                                    a.dk, a.dv, a.n, a.lpad, a.heads, a.scale, a.st);
   if (cudaPeekAtLastError() != cudaSuccess) return;
-  cudaFuncSetAttribute(attn_bwd_dq_kernel<kId, kD, kBias>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  attn_bwd_dq_kernel<kId, kD, kBias><<<grid, kThreads, smem, stm>>>(
-      q, k, v, g, bias, blank, lse2, delta, dq, n, lpad, heads, scale, st);
+  cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  dqk<<<grid, kThreads, smem, stm>>>(a.q, a.k, a.v, a.g, a.bias, a.blank, a.lse2, a.delta,
+                                     a.dq, a.n, a.lpad, a.heads, a.scale, a.st);
+}
+
+// the kD <= 64 pair, or the kD = 128 pair at the second half's width kN2
+template <int kId, int kD, bool kBias>
+void launch_pair(const PairArgs& a, cudaStream_t stm) {
+  launch_main_dq(attn_bwd_sm90_kernel<kId, kD, kBias>, attn_bwd_dq_kernel<kId, kD, kBias>,
+                 kSmemFixed, a, stm);
+}
+template <int kId, int kN2>
+void launch_wide_pair(const PairArgs& a, cudaStream_t stm) {
+  if (a.bias)
+    launch_main_dq(attn_bwd_wide_kernel<kId, kN2, true>, attn_bwd_dq_wide_kernel<kId, kN2, true>,
+                   kSmemWide, a, stm);
+  else
+    launch_main_dq(attn_bwd_wide_kernel<kId, kN2, false>,
+                   attn_bwd_dq_wide_kernel<kId, kN2, false>, kSmemWide, a, stm);
 }
 
 // The fp32 workspace the wrapper allocates for one call: lse * log2(e) and
@@ -524,20 +888,22 @@ inline int64_t work_floats(int batch, int n, int heads) {
   return static_cast<int64_t>(batch) * heads * lpad * 2;
 }
 
-// prep, main and dq on `stm` for bf16 q, k, v, g (B, n, H, kD at the
-// strides st.q*, st.k*, ...), the forward's o (strides os) and lse (fp32
-// (B, H, n)); bias null or an fp32 (n, n), row stride st.bq; dq, dk, dv at
-// the output strides st.o*; work fp32 of work_floats(); blank two bytes per
-// tile pair (2 * ceil(n/64)^2: the blank map, then the map of all-zero
-// tiles) when a bias is given. Every base pointer and stride of q, k, v, g
-// and o must be on a 16-byte boundary. Returns cudaGetLastError() as an int.
+// prep, main and dq on `stm` for bf16 q, k, v, g (B, n, H, hd at the
+// strides st.q*, st.k*, ...; hd = st.hd, a multiple of 8 up to kD = 48, 64
+// or 128), the forward's o (strides os) and lse (fp32 (B, H, n)); bias null
+// or an fp32 (n, n), row stride st.bq; dq, dk, dv at the output strides
+// st.o*; work fp32 of work_floats(); blank two bytes per tile pair
+// (2 * ceil(n/64)^2: the blank map, then the map of all-zero tiles) when a
+// bias is given. Every base pointer and stride of q, k, v, g and o must be
+// on a 16-byte boundary. Returns cudaGetLastError() as an int.
 template <int kId, int kD = kHd>
 int launch_attention_bwd_sm90(const bf16* q, const bf16* k, const bf16* v, const bf16* g,
                               const bf16* o, const OStrides& os, const float* lse,
                               const float* bias, bf16* dq, bf16* dk, bf16* dv, float* work,
                               uint8_t* blank, int batch, int n, int heads, const BwdStrides& st,
                               float scale, cudaStream_t stm) {
-  if (batch <= 0 || n <= 0 || heads <= 0 || (bias && !blank) || !o || !lse || !work)
+  if (batch <= 0 || n <= 0 || heads <= 0 || (bias && !blank) || !o || !lse || !work ||
+      st.hd % 8 || st.hd > kD || (kD > kHd && st.hd <= kHd))
     return cudaErrorInvalidValue;
   const int64_t al[15] = {st.qb, st.ql, st.qh, st.kb, st.kl, st.kh, st.vb, st.vl,
                           st.vh, st.gb, st.gl, st.gh, os.b,  os.l,  os.h};
@@ -557,12 +923,24 @@ int launch_attention_bwd_sm90(const bf16* q, const bf16* k, const bf16* v, const
       o, g, lse, bias, lse2, delta, blank, batch, n, lpad, heads, row_blocks, st, os);
   if (cudaPeekAtLastError() != cudaSuccess) return static_cast<int>(cudaGetLastError());
 
-  if (bias)
-    launch_main_dq<kId, kD, true>(q, k, v, g, bias, blank, lse2, delta, dq, dk, dv, n, lpad,
-                                  batch, heads, scale, st, stm);
-  else
-    launch_main_dq<kId, kD, false>(q, k, v, g, bias, blank, lse2, delta, dq, dk, dv, n, lpad,
-                                   batch, heads, scale, st, stm);
+  const PairArgs a{q, k, v, g, bias, blank, lse2, delta, dq, dk, dv,
+                  n, lpad, batch, heads, scale, st};
+  if constexpr (kD > kHd) {
+    switch (st.hd - kHd) {  // the second half's width
+      case 8: launch_wide_pair<kId, 8>(a, stm); break;
+      case 16: launch_wide_pair<kId, 16>(a, stm); break;
+      case 24: launch_wide_pair<kId, 24>(a, stm); break;
+      case 32: launch_wide_pair<kId, 32>(a, stm); break;
+      case 40: launch_wide_pair<kId, 40>(a, stm); break;
+      case 48: launch_wide_pair<kId, 48>(a, stm); break;
+      case 56: launch_wide_pair<kId, 56>(a, stm); break;
+      default: launch_wide_pair<kId, 64>(a, stm); break;
+    }
+  } else if (bias) {
+    launch_pair<kId, kD, true>(a, stm);
+  } else {
+    launch_pair<kId, kD, false>(a, stm);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -583,4 +961,26 @@ int launch_blank_tile_map(const float* bias, uint8_t* blank, int n, int64_t bq,
 }
 
 }  // namespace sm90
+
+// The BNHD backwards' launch (#5, #6) after their C entries' checks, with
+// their arguments: kernels A and B of attention_bwd_tile.cuh when `tile`
+// (fp32, dbias asked for, #6 at L = 1; o, lse and blank unused, work their
+// 3 * B * H * L scratch), else prep, main and dq above.
+template <int kId, int kD>
+int launch_bnhd_bwd(bool tile, const void* q, const void* k, const void* v, const void* g,
+                    const void* o, const int64_t* os, const void* lse, const void* bias,
+                    void* dq, void* dk, void* dv, void* dbias, void* work, void* blank,
+                    int batch, int n, int heads, const BwdStrides& st, float scale,
+                    int is_bf16, cudaStream_t stm) {
+  if (tile)
+    return launch_attention_bwd<kId, kD>(q, k, v, g, bias, dq, dk, dv, dbias, work, batch, n,
+                                         heads, st, scale, is_bf16, stm);
+  return sm90::launch_attention_bwd_sm90<kId, kD>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<const bf16*>(o), sm90::OStrides{os[0], os[1], os[2]},
+      static_cast<const float*>(lse), static_cast<const float*>(bias), static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(work),
+      static_cast<uint8_t*>(blank), batch, n, heads, st, scale, stm);
+}
+
 }  // namespace

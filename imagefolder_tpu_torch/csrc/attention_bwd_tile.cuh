@@ -35,7 +35,9 @@
 // split. Masked tiles are not skipped, and nothing is pipelined.
 // Head dim kD: 64, or 48 and 128 for #5 and #6, and at run time st.hd, any
 // multiple of 8 up to kD (#5 and #6 run hd <= 48 under kD = 48, 56 under 64
-// and 72-128 under 128). The bf16 kernels run a narrower head on
+// and 72-128 under 128: there in bf16 only for a call that asks for dbias,
+// and #6 at L = 1; every other bf16 call at 72-128 runs
+// attention_bwd_sm90.cuh). The bf16 kernels run a narrower head on
 // zero-padded 64-wide tiles, and a head of 72-128 on 128-wide ones
 // (mma_tile.cuh: tile_width), and store its hd columns; the fp32 kernels
 // hold kD columns, zero past hd, and store hd. At kD = 128 kernel A stages

@@ -139,29 +139,10 @@ constexpr int kFwdSlots = 4;       // streamed: k/v slots of the ring
 constexpr int kResidentTiles = 5;  // resident: up to five key tiles (Lk <= 320)
 constexpr float kLn2 = 0.6931471805599453f;
 
-// 64-wide tiles side by side that hold one row block of a head of kD: 1,
-// or 2 past 64
-__host__ __device__ constexpr int head_tiles(int kD) { return kD > kHd ? 2 : 1; }
-
 // dynamic shared memory for the q tiles and `slots` k/v pairs at head dim
 // kD; +1024 to align
 constexpr int fwd_smem_bytes(int slots, int kD = kHd) {
   return (kFwdWG + 2 * slots) * head_tiles(kD) * kTileBytes + 1024;
-}
-
-// rows [row0, row0 + 64) x hd values of one head's slice into the
-// head_tiles(kD) 64-wide tiles at `dst` (the second at dst + kTileBytes
-// holds columns 64 to hd); zero past n and hd. kN threads share the copy.
-template <int kN, int kD>
-__device__ __forceinline__ void load_head_async(uint32_t dst, const bf16* src, int row0, int n,
-                                                int64_t ld, int tid, int hd) {
-  if constexpr (kD <= kHd) {
-    load_tile_async<kN, kD>(dst, src, row0, n, ld, tid, hd);
-  } else {
-    load_tile_async<kN, kHd>(dst, src, row0, n, ld, tid, hd < kHd ? hd : kHd);
-    load_tile_async<kN, kHd>(dst + kTileBytes, src + kHd, row0, n, ld, tid,
-                             hd > kHd ? hd - kHd : 0);
-  }
 }
 
 // the A fragments of a q tile of head dim kD (one set per 64-wide half)

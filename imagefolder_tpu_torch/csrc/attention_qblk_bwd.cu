@@ -44,11 +44,13 @@
 #include "attention_widths.cuh"
 
 // hd 72-128: the kD = 128 instantiations, compiled apart (attention_qblk_bwd_hd128.cu)
-int attention_qblk_bwd_hd128(const void* q, const void* k, const void* v, const void* g,
-                             const void* bias, void* dq, void* dk, void* dv, void* dbias, void* stats,
-                             int batch, int n, int heads, const int64_t* qs, const int64_t* ks,
-                             const int64_t* vs, const int64_t* gs, int64_t bias_row_stride,
-                             float scale, int is_bf16, int hd, cudaStream_t stm);
+int attention_qblk_bwd_hd128(bool tile, const void* q, const void* k, const void* v,
+                             const void* g, const void* o, const int64_t* os, const void* lse,
+                             const void* bias, void* dq, void* dk, void* dv, void* dbias,
+                             void* work, void* blank, int batch, int n, int heads,
+                             const int64_t* qs, const int64_t* ks, const int64_t* vs,
+                             const int64_t* gs, int64_t bias_row_stride, float scale,
+                             int is_bf16, int hd, cudaStream_t stm);
 // hd 136-256: the kD = 256 kernels of attention_wide.cuh (attention_qblk_bwd_hd256.cu)
 int attention_qblk_bwd_hd256(const void* q, const void* k, const void* v, const void* g,
                              const void* bias, void* dq, void* dk, void* dv, void* dbias, void* stats,
@@ -68,35 +70,14 @@ int attention_qblk_bwd_hd1024(const void* q, const void* k, const void* v, const
                               const int64_t* vs, const int64_t* gs, int64_t bias_row_stride,
                               float scale, int is_bf16, int hd, cudaStream_t stm);
 
-namespace {
-
-template <int kD>
-int launch_bwd(const void* q, const void* k, const void* v, const void* g, const void* o,
-               const int64_t* os, const void* lse, const void* bias, void* dq, void* dk,
-               void* dv, void* dbias, void* work, void* blank, int batch, int n, int heads,
-               const BwdStrides& st, float scale, int is_bf16, cudaStream_t stm) {
-  if (!is_bf16 || dbias)
-    return launch_attention_bwd<5, kD>(q, k, v, g, bias, dq, dk, dv, dbias, work, batch, n,
-                                       heads, st, scale, is_bf16, stm);
-  return sm90::launch_attention_bwd_sm90<5, kD>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const bf16*>(o), sm90::OStrides{os[0], os[1], os[2]},
-      static_cast<const float*>(lse), static_cast<const float*>(bias), static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(work),
-      static_cast<uint8_t*>(blank), batch, n, heads, st, scale, stm);
-}
-
-}  // namespace
-
-// q, k, v and g (B, L, H, hd), hd a multiple of 8 (run under the
-// kD = 48 kernels up to 48, 64 at 56 and 64, 128 at 72-128 and 256 at 136-256, 512 at
-// 264-512, 1024 at 520-1024 and its segmented kernels past 1024: past 64
-// every call, bf16 too, takes a two-kernel design, that of
-// attention_bwd_tile.cuh up to 128 and that of attention_wide.cuh past it,
-// and o, lse and blank go unused, work being its 3 * B * H * L scratch), each
-// with its own batch, row and
-// head strides in elements (qs, ks, vs, gs = {batch, row, head}; the head-dim
-// stride is 1), all fp32 or all bf16 (is_bf16); bias null or an fp32 (L, L)
+// q, k, v and g (B, L, H, hd), hd a multiple of 8 (run under the kD = 48
+// kernels up to 48, 64 at 56 and 64, 128 at 72-128, 256 at 136-256, 512 at
+// 264-512, 1024 at 520-1024 and its segmented kernels past 1024: past 128
+// every call, bf16 too, takes the two-kernel design of attention_wide.cuh,
+// and o, lse and blank go unused, work being its 3 * B * H * L scratch),
+// each with its own batch, row and head strides in elements (qs, ks, vs,
+// gs = {batch, row, head}; the head-dim stride is 1), all fp32 or all bf16
+// (is_bf16); bias null or an fp32 (L, L)
 // shared by every batch and head, row stride bias_row_stride (column stride
 // 1); dq, dk and dv contiguous (B, L, H, hd) of the inputs' type; dbias null
 // (not wanted) or a zeroed fp32 (L, L) that receives the sum of ds. bf16
@@ -125,18 +106,19 @@ extern "C" int attention_qblk_bwd(const void* q, const void* k, const void* v,
         q, k, v, g, bias, dq, dk, dv, dbias, work, batch, n, heads,
                                     qs, ks, vs, gs, bias_row_stride, scale, is_bf16, hd,
                                     static_cast<cudaStream_t>(stream));
+  // fp32 and dbias take the two-kernel design, other bf16 calls the wgmma one
+  const bool tile = !is_bf16 || dbias;
   if (kd == 128)
-    return attention_qblk_bwd_hd128(q, k, v, g, bias, dq, dk, dv, dbias, work, batch, n, heads,
-                                    qs, ks, vs, gs, bias_row_stride, scale, is_bf16, hd,
-                                    static_cast<cudaStream_t>(stream));
+    return attention_qblk_bwd_hd128(tile, q, k, v, g, o, os, lse, bias, dq, dk, dv, dbias, work,
+                                    blank, batch, n, heads, qs, ks, vs, gs, bias_row_stride, scale,
+                                    is_bf16, hd, static_cast<cudaStream_t>(stream));
   const int64_t ol = static_cast<int64_t>(heads) * hd;
   const BwdStrides st{qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
                       gs[0], gs[1], gs[2], n * ol, ol, hd, bias ? bias_row_stride : 0, hd};
   const cudaStream_t stm = static_cast<cudaStream_t>(stream);
-  return kd == 48 ? launch_bwd<48>(q, k, v, g, o, os, lse, bias, dq, dk, dv, dbias, work, blank,
-                                   batch, n, heads, st, scale, is_bf16, stm)
-                  : launch_bwd<64>(q, k, v, g, o, os, lse, bias, dq, dk, dv, dbias, work, blank,
-                                   batch, n, heads, st, scale, is_bf16, stm);
+  const auto launch = kd == 48 ? &launch_bnhd_bwd<5, 48> : &launch_bnhd_bwd<5, 64>;
+  return launch(tile, q, k, v, g, o, os, lse, bias, dq, dk, dv, dbias, work, blank, batch, n,
+                heads, st, scale, is_bf16, stm);
 }
 
 // The blank-tile map of an fp32 (n, n) bias of row stride bias_row_stride

@@ -51,8 +51,9 @@ of 8 is zero-padded to the next one before the launch (the scale stays the
 true width's; zero columns of q and k change no score, those of v give
 output columns that are cut away, and the gradients are cut back to the true
 width). Widths of 72-128 run the kD = 128 instantiations (in bf16 the
-forwards on 128-wide wgmma tiles, every backward on the two-kernel design
-of ``csrc/attention_bwd_tile.cuh``), widths of 136-1024 the kD = 256, 512
+forwards and the wgmma backwards on two 64-wide tiles side by side, the
+backward's gradient products over the second only as wide as the head is
+past 64), widths of 136-1024 the kD = 256, 512
 and 1024 FMA kernels of ``csrc/attention_wide.cuh`` (fp32 and bf16, kD / 32
 threads a row; the wrapper picks which with ``bnhd_kernel_width`` and
 passes it to the C entry, which checks it), and wider heads its segmented
@@ -110,7 +111,7 @@ QBLK_BWD_LAUNCHES = 0
 _HEAD_DIM = 64
 _BNHD_WIDTHS = (48, 64, 128, 256, 512, 1024)
 _BNHD_SEGMENT = _BNHD_WIDTHS[-1]
-_SM90_BWD_MAX_HEAD_DIM = 64  # the wgmma backward's widest; past it the two-kernel design
+_SM90_BWD_MAX_HEAD_DIM = 128  # the wgmma backward's widest; past it the two-kernel design
 _TILE = 64  # q rows and keys per tile of the bf16 backward (#2, #5, #6) and its blank map
 
 # Score elements Lq * Lk per (batch, head) up to which the JAX package runs

@@ -44,16 +44,22 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def tile_width(hd: int) -> int:
+    """The width of the kernels' shared tiles for a head of ``hd``: 64, or
+    two 64-wide halves side by side for 72-128."""
+    return HD_PADDED if hd <= HD_PADDED else 2 * HD_PADDED
+
+
 def pad_head(x: torch.Tensor) -> torch.Tensor:
-    """(..., hd) zero-padded to the kernels' (..., 64) tile width, as the
-    card's tile loads fill the columns past hd with zeros."""
-    return F.pad(x, (0, HD_PADDED - x.shape[-1]))
+    """(..., hd) zero-padded to the kernels' tile width (``tile_width``),
+    as the card's tile loads fill the columns past hd with zeros."""
+    return F.pad(x, (0, tile_width(x.shape[-1]) - x.shape[-1]))
 
 
 def sm90_model(q, k, v, g, bias, scale, o, lse, skip=()):
-    """The card kernel's algorithm on (B, L, H, hd) bf16 q, k, v, g (hd 48
-    or 64, zero-padded to 64 as the kernel's tiles are, and the padding
-    columns dropped from the results), with the forward's bf16 o and fp32
+    """The card kernel's algorithm on (B, L, H, hd) bf16 q, k, v, g (hd up
+    to 128, zero-padded to ``tile_width`` as the kernel's tiles are, and the
+    padding columns dropped from the results), with the forward's bf16 o and fp32
     (B, H, L) lse: for every (64 keys, 64 q rows)
     tile that the blank-tile map leaves, p^T = exp(k q^T * scale + bias^T -
     lse), dv += bf16(p^T) g, dp^T = v g^T, ds^T = p^T (dp^T - delta), dk +=
@@ -62,13 +68,13 @@ def sm90_model(q, k, v, g, bias, scale, o, lse, skip=()):
     (a planted fault)."""
     b, l, h, hd = q.shape
     t = -(-l // TILE)
-    qf, kf, vf, gf = (pad_head(x.float()).transpose(1, 2) for x in (q, k, v, g))  # (B, H, L, 64)
+    qf, kf, vf, gf = (pad_head(x.float()).transpose(1, 2) for x in (q, k, v, g))  # (B, H, L, w)
     delta = (pad_head(o.float()) * pad_head(g.float())).sum(-1).transpose(1, 2)  # (B, H, L)
     blank = (pt_attn.blank_tile_map_reference(bias).clone() if bias is not None
              else torch.zeros((t, t), dtype=torch.uint8))
     for qt, kt in skip:
         blank[qt, kt] = 1
-    dq, dk, dv = (torch.zeros((b, h, l, HD_PADDED)) for _ in range(3))
+    dq, dk, dv = (torch.zeros((b, h, l, tile_width(hd))) for _ in range(3))
     for kt in range(t):
         ks = slice(kt * TILE, min(l, kt * TILE + TILE))
         for qt in range(t):

@@ -49,7 +49,7 @@ PYRAMID = (1, 3, 5, 7, 9)  # block-causal, L = 165: three tiles a side, one blan
 
 def fwd_sm90_model(q, k, v, bias, scale, drop=None):
     """The card kernel's algorithm on bf16 q (B, Lq, H, hd) and k, v
-    (B, Lk, H, hd), hd 48 or 64 zero-padded to the kernel's 64-wide tiles,
+    (B, Lk, H, hd), hd up to 128 zero-padded to the kernel's tiles (``pad_head``),
     bias None or (1|B, 1|H, Lq, Lk): pass 1 keeps a running
     max m and row sum l over 64-key tiles (a row whose tiles so far are all
     -inf exponentiates against 0); pass 2 sums bf16(exp(s - m) / l) v in
@@ -57,7 +57,7 @@ def fwd_sm90_model(q, k, v, bias, scale, drop=None):
     m + log(l). ``drop`` names a key tile both passes leave out (a planted
     fault)."""
     hd = q.shape[-1]
-    qf, kf, vf = (pad_head(x.float()).transpose(1, 2) for x in (q, k, v))  # (B, H, L, 64)
+    qf, kf, vf = (pad_head(x.float()).transpose(1, 2) for x in (q, k, v))  # (B, H, L, w)
     starts = [k0 for k0 in range(0, kf.shape[2], TILE) if k0 // TILE != drop]
 
     def scores(k0):
